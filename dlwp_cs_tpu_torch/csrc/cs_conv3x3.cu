@@ -1,0 +1,284 @@
+// Fused halo-pad + 3x3 cubed-sphere convolution for Hopper (sm_90a).
+//
+// Replaces the TPU kernel dlwp_cs_tpu/ops/pallas_conv.py::_kernel in both of
+// its launch shapes: the whole-face launch (_forward, grid (B, 6)) and the
+// row-banded launch (_forward_blocked, h < n), whose band ghost rows are
+// the face's own neighbouring rows and whose band corners are the W/E ghost
+// columns at those rows (_blocked_ext).  Here a row tile of h < n rows is the
+// normal case, so one kernel body covers both.
+//
+// What it computes, per face f of batch item b, with P the (n+2) x (n+2)
+// padded face  P[0,:] = ext S, P[n+1,:] = ext N, P[1..n,0] = ext W[1..n],
+// P[1..n,n+1] = ext E[1..n], P[1..n,1..n] = x:
+//     out[i,j,:] = sum_{dy,dx} P[i+dy, j+dx, :] . K_g[dy,dx] + b_g
+// with g the equatorial group for faces 0-3 and the polar group for 4-5, f32
+// accumulation and one rounding to x's dtype at the end.  Weights and biases
+// arrive already rounded to x's dtype (the wrapper checks).
+//
+// What bounds it on this card: at the serving shapes (C48 U-Net, batch 1)
+// the work per conv is 0.05-0.4 GFLOP and under 1 MB of traffic, well under
+// a microsecond at the H100's peak rates, so latency bounds it: the staging
+// of each Cin chunk into shared memory (dependent global loads) and each
+// thread's serial chain of 9*Cin*32 FMAs.  At batch 8 and above the FMA
+// rate of the CUDA cores bounds it (this version uses no tensor cores).  The
+// design answers with small row tiles, so that a batch-1 face set still
+// spreads over the 132 SMs; with all 256 threads of a block staging, four
+// independent loads in flight each; and with register tiles of 4 pixels x
+// 8 output channels per thread, reading each staged input value once per
+// 3 taps.  The padded tile never exists in device memory: the W/E ghost
+// columns and the ghost rows go straight into shared memory.  mma/wgmma,
+// TMA and CUDA graphs are left for later work.
+//
+// Layouts (channels last, all contiguous):
+//   x    (B, 6, n, n, Cin)        ext (B, 6, 4, n+2, Cin)   edges S, N, W, E
+//   k_*  (3, 3, Cin, Cout) HWIO   b_* (Cout,)               out (B, 6, n, n, Cout)
+// Grid: (row tiles * Cout slices, 6, B); one block per (row tile, face,
+// batch item, Cout slice).  Each block loops over Cin in chunks of CC,
+// staging the (h+2) x (n+2) padded tile and that chunk's taps of the face's
+// weight group in shared memory as f32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <atomic>
+
+namespace {
+
+constexpr int PX = 4;   // output pixels per thread, consecutive along a row
+constexpr int CO = 8;   // output channels per thread
+constexpr int CC = 16;  // input channels staged per chunk
+constexpr int MAX_THREADS = 256;  // threads per block, all staging
+constexpr int STAGE = 4;          // staging loads in flight per thread
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+struct Geom {
+  int n, cin, cout;
+  int h;        // output rows per tile
+  int cs;       // output channels per block (a power of two >= CO)
+  int cs_log2;
+  int nslices;  // Cout slices
+  int ncg;      // column groups of PX pixels per row
+  int nog;      // channel groups of CO per slice
+  int wp;       // staged tile width: ncg * PX + 2 >= n + 2 (extra columns zero)
+  int plane;    // shared-memory pitch of one staged channel (odd: no bank conflicts)
+};
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
+    const T* __restrict__ x, const T* __restrict__ ext,
+    const T* __restrict__ keq, const T* __restrict__ kpo,
+    const T* __restrict__ beq, const T* __restrict__ bpo,
+    T* __restrict__ out, Geom g) {
+  extern __shared__ __align__(16) float smem[];
+  float* tile = smem;                  // [CC][plane], row-major (h+2) x wp
+  float* wts = smem + CC * g.plane;    // [9][CC][cs]
+
+  const int n = g.n, cin = g.cin, cout = g.cout;
+  const int r0 = (blockIdx.x / g.nslices) * g.h;
+  const int co0 = (blockIdx.x % g.nslices) * g.cs;
+  const int f = blockIdx.y;
+  const long long face = (long long)blockIdx.z * 6 + f;
+  const T* __restrict__ k = f < 4 ? keq : kpo;
+  const T* __restrict__ bias = f < 4 ? beq : bpo;
+  const T* __restrict__ xf = x + face * n * n * cin;
+  const T* __restrict__ ef = ext + face * 4 * (n + 2) * cin;
+
+  // this thread's register tile: row rr, pixels j0..j0+PX-1, channels c_lo..c_lo+CO-1
+  const int per_row = g.ncg * g.nog;
+  const bool active = threadIdx.x < g.h * per_row;
+  const int rr = threadIdx.x / per_row;
+  const int cg = (threadIdx.x % per_row) / g.nog;
+  const int c_lo = (threadIdx.x % g.nog) * CO;
+  const int j0 = cg * PX;
+
+  float acc[PX][CO];
+#pragma unroll
+  for (int p = 0; p < PX; ++p)
+#pragma unroll
+    for (int o = 0; o < CO; ++o) acc[p][o] = 0.f;
+
+  const int ntile = (g.h + 2) * g.wp * CC;  // staged cells x CC channels
+  const int nw = 9 * CC * g.cs;               // staged taps x CC x cs
+  for (int c0 = 0; c0 < cin; c0 += CC) {
+    __syncthreads();  // the previous chunk has been consumed
+    // Every thread of the block stages, STAGE loads in flight at a time:
+    // the loads are issued before any of their shared-memory stores.
+    // ---- padded tile: staged row pr is face row r0 - 1 + pr; element
+    // idx = cell * CC + cl, consecutive threads on consecutive channels ----
+    for (int base = threadIdx.x; base < ntile; base += STAGE * MAX_THREADS) {
+      float v[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int idx = base + u * MAX_THREADS;
+        const int cell = idx / CC;
+        const int pc = cell % g.wp;
+        const int fr = r0 - 1 + cell / g.wp;
+        const int ci = c0 + idx % CC;
+        v[u] = 0.f;
+        if (idx < ntile && ci < cin && pc <= n + 1 && fr <= n) {
+          long long off;
+          if (fr == -1) off = (0LL * (n + 2) + pc) * cin;              // S ghost row, corners included
+          else if (fr == n) off = (1LL * (n + 2) + pc) * cin;          // N ghost row, corners included
+          else if (pc == 0) off = (2LL * (n + 2) + fr + 1) * cin;      // W ghost column
+          else if (pc == n + 1) off = (3LL * (n + 2) + fr + 1) * cin;  // E ghost column
+          else off = -1;
+          v[u] = off >= 0 ? to_f32(ef[off + ci])
+                          : to_f32(xf[((long long)fr * n + pc - 1) * cin + ci]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int idx = base + u * MAX_THREADS;
+        if (idx < ntile) tile[(idx % CC) * g.plane + idx / CC] = v[u];
+      }
+    }
+    // ---- this chunk's taps of the face's weight group, zero past Cin/Cout;
+    // element idx = (tap * CC + cl) * cs + co ----------------------------
+    for (int base = threadIdx.x; base < nw; base += STAGE * MAX_THREADS) {
+      float v[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int idx = base + u * MAX_THREADS;
+        const int co = co0 + (idx & (g.cs - 1));
+        const int t = idx >> g.cs_log2;
+        const int ci = c0 + t % CC;
+        const int tap = t / CC;
+        v[u] = (idx < nw && ci < cin && co < cout)
+                   ? to_f32(k[((long long)tap * cin + ci) * cout + co])
+                   : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int idx = base + u * MAX_THREADS;
+        if (idx < nw) wts[idx] = v[u];
+      }
+    }
+    __syncthreads();
+    if (active) {
+      const int cmax = min(CC, cin - c0);
+      for (int cl = 0; cl < cmax; ++cl) {
+        const float* tp = tile + cl * g.plane + rr * g.wp + j0;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          float in[PX + 2];
+#pragma unroll
+          for (int q = 0; q < PX + 2; ++q) in[q] = tp[dy * g.wp + q];
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float4* w4 = reinterpret_cast<const float4*>(
+                wts + ((dy * 3 + dx) * CC + cl) * g.cs + c_lo);
+            const float4 wa = w4[0], wb = w4[1];
+            const float w[CO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int p = 0; p < PX; ++p)
+#pragma unroll
+              for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(in[p + dx], w[o], acc[p][o]);
+          }
+        }
+      }
+    }
+  }
+  const int r = r0 + rr;
+  if (!active || r >= n) return;
+  T* orow = out + (face * n + r) * n * cout;
+#pragma unroll
+  for (int o = 0; o < CO; ++o) {
+    const int co = co0 + c_lo + o;
+    if (co >= cout) break;
+    const float bv = to_f32(bias[co]);
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const int j = j0 + p;
+      if (j < n) orow[(long long)j * cout + co] = from_f32<T>(acc[p][o] + bv);
+    }
+  }
+}
+
+// Lets the kernel take up to the card's opt-in shared memory per block (the
+// largest flagship tile needs ~80 KB, past the default 48 KB).  Set once per
+// element type and device, not at every launch.
+template <typename T>
+cudaError_t allow_large_smem(int device) {
+  static std::atomic<unsigned long long> done{0};  // bit d: done on device d
+  const unsigned long long bit = 1ull << device;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cs_conv3x3_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* ext, const void* keq, const void* kpo,
+                   const void* beq, const void* bpo, void* out, int batch, const Geom& g,
+                   size_t smem, int device, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = allow_large_smem<T>(device);
+    if (err != cudaSuccess) return err;
+  }
+  const int ntiles = (g.n + g.h - 1) / g.h;
+  dim3 grid(ntiles * g.nslices, 6, batch);
+  cs_conv3x3_kernel<T><<<grid, MAX_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(ext), static_cast<const T*>(keq),
+      static_cast<const T*>(kpo), static_cast<const T*>(beq), static_cast<const T*>(bpo),
+      static_cast<T*>(out), g);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
+// stream belongs to.  h: output rows per block; cs: output channels per block
+// (a power of two >= 8).  Returns a cudaError_t (0 = success).
+int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
+                      const void* keq, const void* kpo, const void* beq,
+                      const void* bpo, void* out, int batch, int n, int cin,
+                      int cout, int h, int cs, void* stream) {
+  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || n < 1 || cin < 1 ||
+      cout < 1 || h < 1 || h > n || cs < CO || (cs & (cs - 1)) != 0)
+    return cudaErrorInvalidValue;
+  Geom g;
+  g.n = n;
+  g.cin = cin;
+  g.cout = cout;
+  g.h = h;
+  g.cs = cs;
+  for (g.cs_log2 = 0; (1 << g.cs_log2) < cs; ++g.cs_log2) {
+  }
+  g.nslices = (cout + cs - 1) / cs;
+  g.ncg = (n + PX - 1) / PX;
+  g.nog = cs / CO;
+  g.wp = g.ncg * PX + 2;
+  g.plane = (h + 2) * g.wp;
+  g.plane += 1 - g.plane % 2;
+  const int items = h * g.ncg * g.nog;
+  if (items > MAX_THREADS) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)CC * g.plane + (size_t)9 * CC * cs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device,
+                                 s);
+  return cudaErrorInvalidValue;
+}
+
+const char* cs_conv3x3_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

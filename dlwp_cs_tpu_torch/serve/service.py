@@ -1,0 +1,460 @@
+"""Forecast serving: batched autoregressive inference on the device.
+
+The counterpart of ``dlwp_cs_tpu.serve.service``: one resident model, a
+direct ``forecast`` call, and a ``submit`` future API whose micro-batcher
+coalesces concurrent single-member requests into one device dispatch
+(padded to a power-of-two bucket), with a bounded queue and request
+timeouts.
+
+Request contract: a RAW (physical-units) input window ``(T_in, 6, n, n,
+C_var)`` plus its init time; the service normalizes, rolls out and returns
+denormalized numpy fields.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dlwp_cs_tpu_torch.rollout.estimator import Forecast, TimeSeriesEstimator
+
+__all__ = [
+    "ForecastService",
+    "MicroBatcher",
+    "RequestTimeout",
+    "ServiceOverloaded",
+    "ServiceStats",
+]
+
+
+class ServiceOverloaded(RuntimeError):
+    """The batcher queue is full: shed load."""
+
+
+class RequestTimeout(RuntimeError):
+    """A queued request expired before dispatch."""
+
+
+@dataclass
+class ServiceStats:
+    """Counters for observability (``ForecastService.stats``)."""
+
+    requests: int = 0
+    batches: int = 0
+    # bucket padding: requests repeated to fill the power-of-two micro-batch
+    padded_members: int = 0
+    # mesh data-axis padding; always 0 until sharded serving is ported
+    padded_mesh: int = 0
+    device_seconds: float = 0.0
+
+    @property
+    def mean_batch(self) -> float:
+        return self.requests / self.batches if self.batches else 0.0
+
+
+def _resolve(fut: Future, *, result=None, error=None):
+    """Resolve a waiter's future, tolerating caller-side cancellation (a
+    cancelled Future raises on set_result, which must not kill the worker)."""
+    try:
+        if error is not None:
+            fut.set_exception(error)
+        else:
+            fut.set_result(result)
+    except Exception:  # noqa: BLE001 — cancelled/already-resolved future
+        pass
+
+
+def _bucket(n: int, max_batch: int) -> int:
+    """Smallest power of two >= n, capped at max_batch."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, max_batch)
+
+
+@dataclass
+class _Request:
+    """One queued single-window request."""
+
+    kind: str            # "fc"
+    window: np.ndarray   # (1, T_in, 6, n, n, C)
+    t0: float
+    key: tuple           # coalescing key, kind included
+    params: dict         # dispatch kwargs shared by the coalesced batch
+    fut: Future
+    deadline: float | None  # monotonic expiry, None = never
+
+
+class MicroBatcher:
+    """Micro-batching front end: coalesces concurrent single-member
+    ``submit`` requests into one dispatch (padded to the next power-of-two
+    bucket, padding members discarded).
+
+    The queue is bounded (``max_queue``): a full queue makes ``submit`` raise
+    :class:`ServiceOverloaded` at once, and requests older than
+    ``request_timeout_s`` at dispatch fail with :class:`RequestTimeout`.
+
+    Subclasses provide ``_forecast_batch(window, t0_days, *, steps,
+    normalized)``, ``_check_window(window)`` and ``_worker_context()``, and
+    call :meth:`_init_batcher` in their constructor.
+    """
+
+    def _init_batcher(self, max_batch: int, max_wait_ms: float,
+                      max_queue: int = 64,
+                      request_timeout_s: float | None = 120.0):
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self.max_queue = int(max_queue)
+        self.request_timeout_s = request_timeout_s
+        self.stats = ServiceStats()
+        self._queue: queue.Queue = queue.Queue(maxsize=self.max_queue)
+        self._lock = threading.Lock()
+        self._worker: threading.Thread | None = None
+        self._closed = False
+
+    def _enqueue(self, req: _Request) -> Future:
+        with self._lock:
+            # closed-check + enqueue are atomic against close(): an item
+            # enqueued after the close sentinel would never be served
+            if self._closed:
+                raise RuntimeError("service is closed")
+            try:
+                self._queue.put_nowait(req)
+            except queue.Full:
+                raise ServiceOverloaded(
+                    f"request queue full ({self.max_queue} pending)"
+                ) from None
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._run_worker, name="forecast-batcher",
+                    daemon=True,
+                )
+                self._worker.start()
+        return req.fut
+
+    def _deadline(self) -> float | None:
+        if self.request_timeout_s is None:
+            return None
+        return time.monotonic() + float(self.request_timeout_s)
+
+    def submit(self, window, t0_days, *, steps: int,
+               normalized: bool = False) -> Future:
+        """Enqueue a single-member request; returns a Future[Forecast].
+
+        Concurrent submissions with the same ``steps`` coalesce into one
+        device dispatch.  The worker thread starts lazily on first use.
+        Raises :class:`ServiceOverloaded` when the queue is full.
+        """
+        window = self._check_window(window)
+        if window.shape[0] != 1:
+            raise ValueError(
+                "submit takes one member per request; use forecast() for "
+                "explicit batches"
+            )
+        self._validate_request(int(steps))
+        return self._enqueue(_Request(
+            kind="fc",
+            window=window,
+            t0=float(np.asarray(t0_days).reshape(())),
+            key=("fc", int(steps), bool(normalized)),
+            params={"steps": int(steps), "normalized": bool(normalized)},
+            fut=Future(),
+            deadline=self._deadline(),
+        ))
+
+    def submit_ensemble(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ensembles are not ported yet: ROADMAP.md queue 1, item 12 "
+            "(rollout/ensemble.py)"
+        )
+
+    def _validate_request(self, steps: int, members: int | None = None):
+        """Cap hook (overridden by ForecastService); default: no caps."""
+
+    def _run_worker(self):
+        with self._worker_context():
+            self._serve_queue()
+
+    def _serve_queue(self):
+        # Mismatched-key requests wait in a worker-local deque, never
+        # re-enqueued into the bounded queue (which could deadlock the
+        # worker against a full queue only it drains).
+        pending: deque = deque()
+        closing = False
+        while True:
+            if pending:
+                item = pending.popleft()
+            else:
+                if closing:
+                    return
+                item = self._queue.get()
+                if item is None:
+                    return
+            batch = [item]
+            key = item.key
+            # earlier-stashed peers with the same key join first
+            i = 0
+            while i < len(pending) and len(batch) < self.max_batch:
+                if pending[i].key == key:
+                    batch.append(pending[i])
+                    del pending[i]
+                else:
+                    i += 1
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.max_batch and not closing:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=left)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    # sentinel mid-collection: flush this batch and any
+                    # pending batches, then exit
+                    closing = True
+                    break
+                if nxt.key == key:
+                    batch.append(nxt)
+                else:
+                    pending.append(nxt)
+            self._flush(batch)
+
+    def _flush(self, batch):
+        # shed requests whose client deadline passed while queued
+        now = time.monotonic()
+        alive = []
+        for it in batch:
+            if it.deadline is not None and now > it.deadline:
+                _resolve(it.fut, error=RequestTimeout(
+                    f"request expired after {self.request_timeout_s}s in "
+                    "queue"
+                ))
+            else:
+                alive.append(it)
+        if not alive:
+            return
+        batch = alive
+        windows = np.concatenate([b.window for b in batch], axis=0)
+        t0 = np.asarray([b.t0 for b in batch], np.float64)
+        bucket = _bucket(len(batch), self.max_batch)
+        pad = bucket - len(batch)
+        if pad:
+            windows = np.concatenate(
+                [windows, np.repeat(windows[-1:], pad, axis=0)], axis=0
+            )
+            t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
+        try:
+            fc = self._forecast_batch(windows, t0, **batch[0].params)
+        except Exception as e:  # noqa: BLE001 — propagate to every waiter
+            for b in batch:
+                _resolve(b.fut, error=e)
+            return
+        with self._lock:
+            self.stats.requests += len(batch)
+            self.stats.batches += 1
+            self.stats.padded_members += pad
+        for i, b in enumerate(batch):
+            _resolve(b.fut, result=fc._replace(
+                fields=fc.fields[i : i + 1],
+                init_times=np.asarray([b.t0]),
+            ))
+
+    def close(self):
+        """Stop the batching worker (pending requests are flushed first)."""
+        with self._lock:
+            already = self._closed
+            self._closed = True
+            worker = self._worker
+            self._worker = None
+        if worker is not None and not already:
+            # put(None) can block on a full queue, so the lock is not held:
+            # the worker needs it in _flush.  _closed was set under the lock,
+            # so _enqueue adds nothing after the sentinel.
+            self._queue.put(None)
+            worker.join(timeout=30)
+
+
+def _select_constants(store, names):
+    """Constant channels ``names`` (in order) of a store as a
+    ``(6, n, n, len(names))`` array, or None when ``names`` is empty."""
+    names = list(names)
+    if not names:
+        return None
+    if store.constants is None:
+        raise ValueError(f"store has no constants; need {names}")
+    have = list(store.constant_names)
+    missing = [c for c in names if c not in have]
+    if missing:
+        raise ValueError(f"constants {missing} not in store {have}")
+    return np.asarray(store.constants)[..., [have.index(c) for c in names]]
+
+
+class ForecastService(MicroBatcher):
+    """Batched rollout serving on top of a loaded
+    :class:`~dlwp_cs_tpu_torch.estimator.DLWPEstimator`, on the estimator's
+    device (the batcher's worker thread launches there too).
+
+    ``constants`` / ``constants_store``: the normalized static channels in
+    ``DataConfig.constants`` order (required when the model uses them).
+    ``max_batch``, ``max_wait_ms``, ``max_queue``, ``request_timeout_s``:
+    the micro-batcher (see :class:`MicroBatcher`).  ``max_steps`` /
+    ``max_members``: server-side caps on client-supplied rollout length and
+    ensemble size (``ValueError``).  ``quantize`` and ``mesh`` are not
+    ported yet and raise ``NotImplementedError``.
+    """
+
+    def __init__(self, estimator, *, constants=None, constants_store=None,
+                 max_batch: int = 8, max_wait_ms: float = 5.0,
+                 max_queue: int = 64, request_timeout_s: float | None = 120.0,
+                 max_steps: int = 1464, max_members: int = 64,
+                 quantize: bool = False, mesh=None):
+        if quantize:
+            raise NotImplementedError(
+                "quantize=True is not ported yet: ROADMAP.md queue 1, item 15 "
+                "(ops/quant.py)"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= is not ported yet: ROADMAP.md queue 1, item 17 "
+                "(parallel/)"
+            )
+        if estimator.state is None or estimator.stats is None:
+            raise RuntimeError("estimator has no state: load it first")
+        self.config = estimator.config
+        dcfg = self.config.data
+        if constants is None and constants_store is not None:
+            constants = _select_constants(constants_store, dcfg.constants)
+        if len(dcfg.constants) and constants is None:
+            raise ValueError(
+                f"model uses constant channels {dcfg.constants} — pass "
+                "constants= or constants_store="
+            )
+        self.device = estimator.device
+        lat, lon = estimator.cs.cell_latlon
+        stats = estimator.stats
+        self._mean = np.asarray(stats["mean"], np.float32)
+        self._std = np.asarray(stats["std"], np.float32)
+        self.quantized = False
+        self._est = TimeSeriesEstimator(
+            model=estimator.model,
+            data_cfg=dcfg,
+            lat=lat,
+            lon=lon,
+            constants=constants,
+            insol_mean=stats["insol_mean"],
+            insol_std=stats["insol_std"],
+            device=self.device,
+        )
+        self._init_batcher(max_batch, max_wait_ms, max_queue=max_queue,
+                           request_timeout_s=request_timeout_s)
+        self.max_steps = int(max_steps)
+        self.max_members = int(max_members)
+
+    def _worker_context(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _validate_request(self, steps: int, members: int | None = None):
+        if not 1 <= steps <= self.max_steps:
+            raise ValueError(
+                f"steps={steps} outside [1, {self.max_steps}] "
+                "(server-side cap)"
+            )
+        if members is not None and not 1 <= members <= self.max_members:
+            raise ValueError(
+                f"members={members} outside [1, {self.max_members}] "
+                "(server-side cap)"
+            )
+
+    def info(self) -> dict:
+        """Model/grid metadata."""
+        dcfg = self.config.data
+        return {
+            "grid_n": dcfg.grid_n,
+            "variables": list(dcfg.variables),
+            "constants": list(dcfg.constants),
+            "input_time_steps": dcfg.input_time_steps,
+            "output_time_steps": dcfg.output_time_steps,
+            "step_hours": dcfg.step_hours,
+            "add_insolation": dcfg.add_insolation,
+            "quantized": self.quantized,
+        }
+
+    def _window_shape(self):
+        dcfg = self.config.data
+        n = dcfg.grid_n
+        return (dcfg.input_time_steps, 6, n, n, dcfg.n_variables)
+
+    def _check_window(self, window) -> np.ndarray:
+        window = np.asarray(window, np.float32)
+        want = self._window_shape()
+        if window.shape == want:
+            window = window[None]
+        elif window.ndim != 6 or window.shape[1:] != want:
+            raise ValueError(
+                f"window must be {want} or (B,) + that shape, got "
+                f"{window.shape}"
+            )
+        return window
+
+    def forecast(self, window, t0_days, *, steps: int,
+                 normalized: bool = False) -> Forecast:
+        """Synchronous forecast of one window batch.
+
+        ``window``: raw ``(T_in, 6, n, n, C_var)`` (or with a leading batch
+        dim); ``t0_days``: scalar / (B,) init times in days since
+        2000-01-01.  Returns a denormalized :class:`Forecast` with numpy
+        fields unless ``normalized=True`` (then input and output stay in
+        training-normalized units).
+        """
+        self._validate_request(int(steps))
+        fc = self._forecast_batch(window, t0_days, steps=steps,
+                                  normalized=normalized)
+        with self._lock:
+            # direct calls count in the batcher's units: requests = client
+            # windows, batches = device dispatches
+            self.stats.requests += fc.fields.shape[0]
+            self.stats.batches += 1
+        return fc
+
+    def forecast_ensemble(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ensembles are not ported yet: ROADMAP.md queue 1, item 12 "
+            "(rollout/ensemble.py)"
+        )
+
+    def _forecast_batch(self, window, t0_days, *, steps: int,
+                        normalized: bool = False) -> Forecast:
+        window = self._check_window(window)
+        if not normalized:
+            window = (window - self._mean) / self._std
+        t0 = np.atleast_1d(np.asarray(t0_days, np.float64))
+        if t0.shape[0] == 1 and window.shape[0] > 1:
+            t0 = np.repeat(t0, window.shape[0])
+        if t0.shape[0] != window.shape[0]:
+            raise ValueError(
+                f"t0_days batch {t0.shape[0]} != window batch "
+                f"{window.shape[0]}"
+            )
+        t0_wall = time.perf_counter()
+        fc = self._est.predict(window, t0, steps=steps)
+        fields = fc.fields.cpu().numpy()  # waits for the device
+        with self._lock:
+            self.stats.device_seconds += time.perf_counter() - t0_wall
+        if not normalized:
+            fields = fields * self._std + self._mean
+        return fc._replace(
+            fields=fields,
+            lead_hours=fc.lead_hours.cpu().numpy(),
+            init_times=np.asarray(fc.init_times),
+        )

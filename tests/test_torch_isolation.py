@@ -1,0 +1,87 @@
+"""The port stands alone: no JAX, no flax, nothing of ``dlwp_cs_tpu``.
+
+Also: with no GPU, entry points called without ``device=`` raise instead
+of running on the CPU.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import dlwp_cs_tpu_torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "dlwp_cs_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dlwp_cs_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], prefix="dlwp_cs_tpu_torch.")
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "dlwp_cs_tpu_torch.ops.hopper_conv" in mods and len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') "
+        f"for f in {FORBIDDEN!r}))\n"
+        "print(repr(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]
+))
+def test_sources_import_no_jax(path):
+    tree = ast.parse((REPO / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert not [n for n in names if _forbidden(n)], names
+
+
+def test_entry_points_need_a_device_without_gpu(monkeypatch):
+    from dlwp_cs_tpu_torch.estimator import DLWPEstimator
+    from dlwp_cs_tpu_torch.models import (
+        CubeSphereUNet,
+        DataConfig,
+        ExperimentConfig,
+        UNetConfig,
+    )
+    from dlwp_cs_tpu_torch.rollout import make_rollout_fn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig(data=DataConfig(grid_n=8, variables=("a",), constants=()),
+                           model=UNetConfig(filters=(4,)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DLWPEstimator(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CubeSphereUNet(UNetConfig(filters=(4,)), 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_rollout_fn(lambda x: x, cfg.data, lat=[0.0], lon=[0.0], steps=1)
+    est = DLWPEstimator(cfg, device="cpu")  # an explicit device is honoured
+    assert est.device.type == "cpu"
+    assert dlwp_cs_tpu_torch.DLWPEstimator is DLWPEstimator
