@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and serve the flagship model on one GPU.
+"""Build the PyTorch/CUDA port's kernels, serve and train the flagship model
+on one GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -7,20 +8,34 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 (sm_90a), ``nvcc`` and PyTorch built for CUDA.  Phases:
 
 1. print the card's name and power limit (``nvidia-smi``), torch and CUDA;
-2. build the fused cubed-sphere conv kernel from ``dlwp_cs_tpu_torch/csrc``;
+2. build the kernels from ``dlwp_cs_tpu_torch/csrc``, one ``nvcc`` per
+   source, all at once: the fused cubed-sphere conv and its backward (the
+   dx and dw kernels);
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
    many row tiles), at batch 1 and 8, in float32 and bfloat16: hold the
-   kernel against its plain torch version, and time the kernel, the plain
-   version and ``F.conv2d`` (one face-grouped cuDNN call on the padded faces)
-   with CUDA events over CUDA-graph replays, beside the least time the card
-   could take;
-4. serve 14-day forecasts (28 calls of 6 h x 2) of the flagship C48 U-Net
+   forward kernel against its plain torch version, and time the kernel, the
+   plain version and ``F.conv2d`` (one face-grouped cuDNN call on the padded
+   faces) with CUDA events over CUDA-graph replays, beside the least time
+   the card could take;
+4. the same for the dx and dw kernels at each conv shape at the training
+   batch 16, against ``torch.ops.aten.convolution_backward`` of that cuDNN
+   conv (its dgrad is the padded-input cotangent, its wgrad summed over each
+   face group the kernel gradient);
+5. serve 14-day forecasts (28 calls of 6 h x 2) of the flagship C48 U-Net
    (filters 32/64/128, 12 -> 8 channels, seeded weights) through
    ``ForecastService`` in bfloat16 and float32: 280 kernel launches per
    forecast, finite fields, the first two model calls equal to the plain
    path on the card, 8 concurrent submits coalesced into at most 2
    dispatches and equal to direct forecasts;
-5. print the kernel line (JSON), the card line, and last
+6. train the same model in bfloat16 and float32 at batch 16 with Adam
+   (lr 1e-3) on MSE: a ``MemoryStore`` of seeded fields ->
+   ``SeriesDataset`` -> ``prefetch_to_device`` -> ``Trainer.fit`` for 20
+   optimizer steps, 10 forward, 10 dw and 9 dx launches a step; step 1's
+   gradients finite and non-zero for every parameter, equal to the plain
+   path's on the card and bitwise repeatable; 20 finite losses; a loss that
+   falls when the trainer fits one fixed batch; the step time and the
+   device's busy and idle time in one profiled step;
+7. print the kernel line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -33,6 +48,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+from concurrent.futures import ThreadPoolExecutor
 import os
 import statistics
 import subprocess
@@ -61,6 +77,9 @@ FLAGSHIP_CONVS = [
 ]
 EXTRA_SHAPES = [(96, 64, 64)]  # several row tiles per face
 STEPS = 28  # 14 days of 2 x 6 h per call
+TRAIN_BATCH = 16
+TRAIN_STEPS = 20
+KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
 
 
 def check(cond, msg):
@@ -152,26 +171,105 @@ def conv_case(n, cin, cout, b, dtype, gen):
     }
 
 
+def bwd_case(n, cin, cout, b, dtype, gen):
+    """The dx and dw kernels at one conv shape: ``(dx_case, dw_case)``."""
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.hopper_conv import (
+        cs_conv3x3_dw,
+        cs_conv3x3_dw_plain,
+        cs_conv3x3_dx,
+        cs_conv3x3_dx_plain,
+    )
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
+
+    dev = torch.device("cuda")
+    x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
+    g = torch.randn((b, 6, n, n, cout), generator=gen, device=dev).to(dtype)
+    scale = (9 * cin) ** -0.5
+    ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale).to(dtype)
+          for _ in range(2)]
+    ext = ext_strips(x)
+    launches = (cs_conv3x3_dx.launches, cs_conv3x3_dw.launches)
+    dx, d_ext = cs_conv3x3_dx(g, *ks)
+    dw = cs_conv3x3_dw(x, ext, g)
+    ref_dx, ref_ext = cs_conv3x3_dx_plain(g, *ks)
+    ref_dw = cs_conv3x3_dw_plain(x, ext, g)
+    torch.cuda.synchronize()
+    dx_err = max(float((a.float() - r.float()).abs().max())
+                 for a, r in ((dx, ref_dx), (d_ext, ref_ext)))
+    if dtype == torch.float32:
+        dx_tol, dx_ok = "1e-4 abs", dx_err <= 1e-4
+    else:
+        dx_tol = "2**-7*|ref| + 1e-4"
+        dx_ok = max(bf16_excess(dx, ref_dx), bf16_excess(d_ext, ref_ext)) <= 1e-4
+    # f32 sums over every pixel of a face group, in another order
+    dw_err = max(float((a - r).abs().max()) for a, r in zip(dw, ref_dw))
+    dw_scale = max(float(r.abs().max()) for r in ref_dw)
+    dw_ok = dw_err <= 1e-5 * dw_scale
+    # one cuDNN call each: convolution_backward of the face-grouped conv on
+    # the padded faces (dgrad = the padded-input cotangent; wgrad per face)
+    p = cs_pad(x, 1).permute(0, 2, 3, 1, 4).reshape(b, n + 2, n + 2, 6 * cin).permute(0, 3, 1, 2)
+    w = torch.cat([ks[0].permute(3, 2, 0, 1)] * 4 + [ks[1].permute(3, 2, 0, 1)] * 2)
+    w = w.contiguous(memory_format=torch.channels_last)
+    go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    def lib(mask):
+        return conv_bwd(go, p, w, [6 * cout], [1, 1], [0, 0], [1, 1], False, [0, 0], 6, mask)
+
+    lib_dk = lib([False, True, True])[1].reshape(6, cout, cin, 3, 3).permute(0, 3, 4, 2, 1)
+    lib_dw_err = float((lib_dk[:4].float().sum(0) - ref_dw[0]).abs().max())
+    ms_dx = graph_ms(lambda: cs_conv3x3_dx(g, *ks), 10)
+    ms_dw = graph_ms(lambda: cs_conv3x3_dw(x, ext, g), 10)
+    cs_conv3x3_dx.launches, cs_conv3x3_dw.launches = launches  # not the main path's
+    plain_dx = graph_ms(lambda: cs_conv3x3_dx_plain(g, *ks), 2)
+    plain_dw = graph_ms(lambda: cs_conv3x3_dw_plain(x, ext, g), 2)
+    lib_dx = graph_ms(lambda: lib([True, False, False]), 10)
+    lib_dw = graph_ms(lambda: lib([False, True, True]), 10)
+    item = x.element_size()
+    ops = 2 * b * 6 * n * n * 9 * cin * cout
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    common = {"n": n, "cin": cin, "cout": cout, "batch": b,
+              "dtype": str(dtype).split(".")[-1], "ops": ops}
+    out = []
+    for kind, err, tol, ok, ms, plain_ms, lib_ms, nbytes, extra in (
+        ("dx", dx_err, dx_tol, dx_ok, ms_dx, plain_dx, lib_dx,
+         item * (g.numel() + 2 * ks[0].numel() + dx.numel() + d_ext.numel()), {}),
+        ("dw", dw_err, "1e-5 * max|ref|", dw_ok, ms_dw, plain_dw, lib_dw,
+         item * (x.numel() + ext.numel() + g.numel()) + 4 * (2 * ks[0].numel() + 2 * cout),
+         {"ref_abs_max": dw_scale, "library_dk_eq_max_abs_err": lib_dw_err}),
+    ):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append(dict(common, kernel=kind, max_abs_err=err, tolerance=tol, ok=ok, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations", **extra))
+    return out
+
+
 @contextlib.contextmanager
 def plain_convs():
-    """Route the model's 3x3 convs through the kernel's plain version."""
+    """Route the model's 3x3 convs through the kernel's plain version
+    (differentiable by autograd, so the backward is plain too)."""
     from dlwp_cs_tpu_torch.ops import conv as conv_mod
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain
 
-    saved = conv_mod.cs_conv3x3
-    conv_mod.cs_conv3x3 = cs_conv3x3_plain
+    saved = conv_mod.cs_conv3x3_fused
+    conv_mod.cs_conv3x3_fused = cs_conv3x3_plain
     try:
         yield
     finally:
-        conv_mod.cs_conv3x3 = saved
+        conv_mod.cs_conv3x3_fused = saved
 
 
 def profiled_run_ms(fn):
-    """One run of ``fn`` under ``torch.profiler``: ``(wall, busy, conv)`` in
-    ms, the run's own host wall clock, the device time of all its kernels
-    and that of the conv kernel; ``busy`` and ``conv`` are None where the
-    profiler records no device time.  Only device activity is traced, which
-    keeps the profiler's host overhead (in ``wall``) small."""
+    """One run of ``fn`` under ``torch.profiler``: ``(wall, busy, kernels,
+    n_kernels)``, the run's own host wall clock in ms, the device time of
+    all its kernels and that of each of the port's kernels by name
+    (``KERNEL_NAMES``) in ms, and the number of kernels the device ran
+    (memory copies and sets not counted); all but ``wall`` are None where
+    the profiler records no device time.  Only device activity is traced,
+    which keeps the profiler's host overhead (in ``wall``) small."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -180,7 +278,9 @@ def profiled_run_ms(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    total = conv = 0.0
+    total = 0.0
+    count = 0
+    ours = dict.fromkeys(KERNEL_NAMES, 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
             continue
@@ -188,9 +288,12 @@ def profiled_run_ms(fn):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         total += us
-        if "cs_conv3x3_kernel" in e.key:
-            conv += us
-    return (wall, total / 1e3, conv / 1e3) if total > 0 else (wall, None, None)
+        if not e.key.startswith(("Memcpy", "Memset")):
+            count += e.count
+        for name in KERNEL_NAMES:
+            if name in e.key:
+                ours[name] += us / 1e3
+    return (wall, total / 1e3, ours, count) if total > 0 else (wall, None, None, None)
 
 
 def serve_phase(dtype_name, rng):
@@ -224,9 +327,10 @@ def serve_phase(dtype_name, rng):
         svc.forecast(windows[0], t0[0], steps=STEPS)
         times.append((time.perf_counter() - t) * 1e3)
     profiled_run_ms(lambda: svc.forecast(windows[0], t0[0], steps=2))  # tracer warm-up
-    prof_ms, busy_ms, conv_ms = profiled_run_ms(
+    prof_ms, busy_ms, kernel_ms, _ = profiled_run_ms(
         lambda: svc.forecast(windows[0], t0[0], steps=STEPS))
     idle = None if busy_ms is None else 1.0 - busy_ms / prof_ms
+    conv_ms = None if kernel_ms is None else kernel_ms["cs_conv3x3_kernel"]
 
     # the first two model calls against the plain path on the card
     normed = (windows[:1] - mean) / std
@@ -265,6 +369,111 @@ def serve_phase(dtype_name, rng):
     }
 
 
+def train_phase(dtype_name, rng):
+    """Train the flagship U-Net on the card through the port's entry points."""
+    from dlwp_cs_tpu_torch.data import MemoryStore, SeriesDataset, prefetch_to_device
+    from dlwp_cs_tpu_torch.geometry.cubed_sphere import CubedSphere
+    from dlwp_cs_tpu_torch.models import CubeSphereUNet, DataConfig, ExperimentConfig, UNetConfig
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_dw, cs_conv3x3_dx
+    from dlwp_cs_tpu_torch.train import Trainer, value_and_grad
+
+    kernels = (cs_conv3x3, cs_conv3x3_dw, cs_conv3x3_dx)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, optimizer="adam", learning_rate=1e-3,
+                       loss="mse", max_epochs=1, metrics_every=TRAIN_STEPS)
+    cfg = ExperimentConfig(data=DataConfig(), model=UNetConfig(compute_dtype=dtype_name),
+                           train=tcfg)
+    d = cfg.data
+    # seeded synthetic fields, 6-hourly, enough windows for 20 batches
+    n_times = TRAIN_BATCH * TRAIN_STEPS + d.input_time_steps + d.output_time_steps - 1
+    mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
+    std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
+    fields = (rng.standard_normal((n_times, 6, 48, 48, 4), dtype=np.float32) * std + mean)
+    store = MemoryStore.from_raw(
+        fields, 9000.0 + 0.25 * np.arange(n_times), d.variables,
+        constants=rng.standard_normal((6, 48, 48, 2), dtype=np.float32),
+        constant_names=d.constants)
+    lat, lon = CubedSphere(d.grid_n).cell_latlon
+    ds = SeriesDataset(store, d, lat=lat, lon=lon, batch_size=TRAIN_BATCH, shuffle=True)
+    check(len(ds) == TRAIN_STEPS, f"{len(ds)} batches, want {TRAIN_STEPS}")
+    model = CubeSphereUNet(cfg.resolved_model(), d.input_channels, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, tcfg)
+    x0, y0 = ds.make_batch(ds._starts[:TRAIN_BATCH])
+    xb, yb = torch.from_numpy(x0).cuda(), torch.from_numpy(y0).cuda()
+    state0 = trainer.init(x0)
+
+    # step 1's gradients: finite and non-zero everywhere, bitwise repeatable,
+    # equal to the plain path's on the card
+    vg = value_and_grad(trainer.apply_fn, trainer.loss_fn)
+    loss_k, grads = vg(state0.params, xb, yb)
+    _, again = vg(state0.params, xb, yb)
+    with plain_convs():
+        loss_p, plain = vg(state0.params, xb, yb)
+    torch.cuda.synchronize()
+    for name, gr in grads.items():
+        check(bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0,
+              f"gradient of {name} is not finite and non-zero")
+    repeat = all(torch.equal(grads[k], again[k]) for k in grads)
+    check(repeat, "two identical steps gave different gradients")
+    # per tensor, relative to its largest entry: f32 sums in another order
+    # (f32); bf16 activations whose roundings may flip and carry through
+    # the layers (bf16)
+    grad_tol = 1e-3 if dtype_name == "float32" else 2.0**-4
+    grad_err = max(float((grads[k] - plain[k]).abs().max() / plain[k].abs().max())
+                   for k in grads)
+    check(grad_err <= grad_tol, f"kernel vs plain gradients {grad_err} > {grad_tol}")
+
+    # the main path: 20 optimizer steps from the store through the trainer
+    for k in kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    state = trainer.fit(state0, lambda: prefetch_to_device(iter(ds)), verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels}
+    want = {"cs_conv3x3": 10 * TRAIN_STEPS, "cs_conv3x3_dw": 10 * TRAIN_STEPS,
+            "cs_conv3x3_dx": 9 * TRAIN_STEPS}
+    check(launches == want, f"launches {launches}, want {want}")
+    check(state.step == TRAIN_STEPS, f"{state.step} steps")
+    losses = [r["loss"] for r in trainer.history.steps]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+
+    # the trainer fits one fixed batch: the loss falls
+    fixed = Trainer(model, tcfg)
+    fixed.fit(fixed.init(x0), [(xb, yb)] * TRAIN_STEPS, verbose=False)
+    fit_losses = [r["loss"] for r in fixed.history.steps]
+    check(all(np.isfinite(fit_losses)) and np.mean(fit_losses[-5:]) < fit_losses[0],
+          f"fixed-batch losses do not fall: {fit_losses}")
+
+    # step time (host clock, synchronised), then one profiled step
+    times = []
+    for i in range(10):
+        t = time.perf_counter()
+        state, _ = trainer.train_step(state, xb, yb)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t) * 1e3)
+    profiled_run_ms(lambda: trainer.train_step(state, xb, yb))  # tracer warm-up
+    prof_ms, busy_ms, kernel_ms, n_step = profiled_run_ms(
+        lambda: trainer.train_step(state, xb, yb))
+    # the step less its forward and backward: the gradient norm and Adam
+    n_grad = profiled_run_ms(lambda: vg(state.params, xb, yb))[3]
+    n_opt = None if n_step is None or n_grad is None else n_step - n_grad
+    return {
+        "dtype": dtype_name, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        "launches": launches, "fit_seconds": fit_s, "losses": losses,
+        "fixed_batch_losses": fit_losses, "step1_loss": float(loss_k),
+        "step1_plain_loss": float(loss_p), "grad_vs_plain_rel_err": grad_err,
+        "grad_tolerance": grad_tol, "grads_bitwise_repeatable": repeat,
+        "step_ms": times, "step_ms_median": statistics.median(times),
+        "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+        "kernel_device_ms": kernel_ms, "device_kernels_per_step": n_step,
+        "device_kernels_forward_backward": n_grad, "device_kernels_optimizer": n_opt,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -276,7 +485,7 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_dx
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -286,9 +495,16 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    cs_conv3x3.build()
-    regs = [ln.strip() for ln in cs_conv3x3.build_log.splitlines() if "registers" in ln]
-    print(f"build: {cs_conv3x3.build_seconds:.2f} s; {regs}", flush=True)
+    libraries = (cs_conv3x3.library, cs_conv3x3_dx.library)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, at once
+        for fut in [pool.submit(lib.build) for lib in libraries]:
+            fut.result()
+    build_s = time.perf_counter() - t
+    regs = {lib.source.name: [ln.strip() for ln in lib.build_log.splitlines()
+                              if "registers" in ln or "Function properties" in ln]
+            for lib in libraries}
+    print(f"build: {build_s:.2f} s; {regs}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -306,6 +522,20 @@ def main(argv=None) -> int:
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
 
+    bwd = []
+    print("backward: kernel n Cin Cout B dtype | max_abs_err (tol) | "
+          "kernel_ms plain_ms library_ms bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, cin, cout in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index):
+            for c in bwd_case(n, cin, cout, TRAIN_BATCH, dtype, gen):
+                bwd.append(c)
+                print(f"{c['kernel']} {n} {cin} {cout} {TRAIN_BATCH} {c['dtype']} | "
+                      f"{c['max_abs_err']:.3g} ({c['tolerance']}) | {c['ms']:.4f} "
+                      f"{c['plain_ms']:.4f} {c['library_ms']:.4f} {c['bound_ms']:.5f} "
+                      f"{c['bound_by']}", flush=True)
+    bad = [c for c in bwd if not c["ok"]]
+    check(not bad, f"backward kernel disagrees with its plain version: {bad}")
+
     rng = np.random.default_rng(0)
     serve = []
     for dtype_name in ("bfloat16", "float32"):
@@ -321,31 +551,67 @@ def main(argv=None) -> int:
               f"8 submits in {s['submit_dispatches']} dispatches, vs direct "
               f"{s['submit_vs_direct_max_err_in_std']:.3g} std", flush=True)
 
-    # the kernel line: one flagship model call's worth (its 10 convs) at the
-    # serving batch 1 in bfloat16; launches are the bfloat16 forecast's
-    main = {(c["n"], c["cin"], c["cout"]): c for c in cases
-            if c["batch"] == 1 and c["dtype"] == "bfloat16"}
-    per_call = [main[s] for s in FLAGSHIP_CONVS]
-    kernel = {
-        "name": "cs_conv3x3",
-        "route": "cuda",
-        "source": "dlwp_cs_tpu_torch/csrc/cs_conv3x3.cu",
-        "replaces": "dlwp_cs_tpu/ops/pallas_conv.py:131",
-        "launches": serve[0]["launches_per_forecast"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": sum(c["ms"] for c in per_call),
-        "plain_ms": sum(c["plain_ms"] for c in per_call),
-        "bound_ms": sum(c["bound_ms"] for c in per_call),
-        "bound_by": "bytes" if sum(c["bytes"] / HBM_BYTES_PER_S for c in per_call)
-        >= sum(c["ops"] / PEAK_OPS[torch.bfloat16] for c in per_call) else "operations",
-        "library_ms": sum(c["library_ms"] for c in per_call),
-    }
+    train = []
+    for dtype_name in ("bfloat16", "float32"):
+        r = train_phase(dtype_name, rng)
+        train.append(r)
+        print(f"train {dtype_name}: batch {r['batch']}, {r['steps']} steps in "
+              f"{r['fit_seconds']:.2f} s; step {r['step_ms_median']:.2f} ms median "
+              f"(runs {['%.2f' % t for t in r['step_ms']]}); profiled step "
+              f"{r['profiled_step_ms']:.2f} ms: device busy {r['device_busy_ms']} ms "
+              f"(idle share {r['device_idle_share']}), kernels {r['kernel_device_ms']} ms; "
+              f"device kernels per step {r['device_kernels_per_step']} (forward+backward "
+              f"{r['device_kernels_forward_backward']}, norm+optimizer "
+              f"{r['device_kernels_optimizer']}); "
+              f"launches {r['launches']}; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+              f"fixed batch {r['fixed_batch_losses'][0]:.4f} -> "
+              f"{np.mean(r['fixed_batch_losses'][-5:]):.4f}; step-1 grads vs plain "
+              f"{r['grad_vs_plain_rel_err']:.3g} of max (tol {r['grad_tolerance']:.3g}), "
+              f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
+
+    def line(name, source, replaces, launches, per_path, errs):
+        """One kernel's entry: times summed over the convs of one model call
+        (forward) or one train step (backward) in bfloat16."""
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max(errs),
+            "ms": sum(c["ms"] for c in per_path),
+            "plain_ms": sum(c["plain_ms"] for c in per_path),
+            "bound_ms": sum(c["bound_ms"] for c in per_path),
+            "bound_by": "bytes" if sum(c["bytes"] / HBM_BYTES_PER_S for c in per_path)
+            >= sum(c["ops"] / PEAK_OPS[torch.bfloat16] for c in per_path) else "operations",
+            "library_ms": sum(c["library_ms"] for c in per_path),
+        }
+
+    # forward: one model call (its 10 convs) at the serving batch 1;
+    # launches are the bfloat16 forecast's
+    fwd = {(c["n"], c["cin"], c["cout"]): c for c in cases
+           if c["batch"] == 1 and c["dtype"] == "bfloat16"}
+    # backward: one train step at batch 16 (dw on all 10 convs, dx on the 9
+    # whose input is not data); launches are the bfloat16 training run's
+    back = {(c["kernel"], c["n"], c["cin"], c["cout"]): c for c in bwd
+            if c["dtype"] == "bfloat16"}
+    src_bwd = "dlwp_cs_tpu_torch/csrc/cs_conv3x3_bwd.cu"
+    kernels = [
+        line("cs_conv3x3", "dlwp_cs_tpu_torch/csrc/cs_conv3x3.cu",
+             "dlwp_cs_tpu/ops/pallas_conv.py:131", serve[0]["launches_per_forecast"],
+             [fwd[s] for s in FLAGSHIP_CONVS], [c["max_abs_err"] for c in cases]),
+        line("cs_conv3x3_dx", src_bwd, "dlwp_cs_tpu/ops/pallas_conv.py:628",
+             train[0]["launches"]["cs_conv3x3_dx"],
+             [back[("dx",) + s] for s in FLAGSHIP_CONVS[1:]],
+             [c["max_abs_err"] for c in bwd if c["kernel"] == "dx"]),
+        line("cs_conv3x3_dw", src_bwd, "dlwp_cs_tpu/ops/pallas_conv.py:656",
+             train[0]["launches"]["cs_conv3x3_dw"],
+             [back[("dw",) + s] for s in FLAGSHIP_CONVS],
+             [c["max_abs_err"] for c in bwd if c["kernel"] == "dw"]),
+    ]
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "build_seconds": cs_conv3x3.build_seconds, "registers": regs,
-                   "conv_cases": cases, "serve": serve, "kernel": kernel}, f, indent=1)
-    print(json.dumps({"kernels": [kernel]}))
+                   "build_seconds": build_s, "registers": regs, "conv_cases": cases,
+                   "bwd_cases": bwd, "serve": serve, "train": train, "kernels": kernels},
+                  f, indent=1)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,24 @@
 """PyTorch/CUDA port of ``dlwp_cs_tpu`` for NVIDIA Hopper (H100).
 
-Serving slice: cubed-sphere geometry and insolation, halo padding, the
-fused 3x3 cubed-sphere conv (a hand-written CUDA kernel, ``csrc/``), the
-U-Net, the autoregressive rollout and the micro-batching forecast service.
-Entry points run on the GPU unless the caller passes ``device="cpu"``.
-This package imports neither JAX nor ``dlwp_cs_tpu``.
+Serving and training slices: cubed-sphere geometry and insolation, halo
+padding, the fused 3x3 cubed-sphere conv and its backward (hand-written
+CUDA kernels, ``csrc/``), the U-Net, losses, the optimizer and trainer, the
+data feed (``SeriesDataset``, prefetching), checkpoints, the
+autoregressive rollout and the micro-batching forecast service.  Entry
+points run on the GPU unless the caller passes ``device="cpu"``.  This
+package imports neither JAX nor ``dlwp_cs_tpu``.
 """
 
 from dlwp_cs_tpu_torch.estimator import DLWPEstimator
-from dlwp_cs_tpu_torch.models.config import DataConfig, ExperimentConfig, UNetConfig
+from dlwp_cs_tpu_torch.models.config import (
+    DataConfig,
+    ExperimentConfig,
+    TrainConfig,
+    UNetConfig,
+)
 from dlwp_cs_tpu_torch.rollout.estimator import Forecast, TimeSeriesEstimator
 from dlwp_cs_tpu_torch.serve.service import ForecastService
+from dlwp_cs_tpu_torch.train.trainer import Trainer
 
 __all__ = [
     "DLWPEstimator",
@@ -19,5 +27,7 @@ __all__ = [
     "Forecast",
     "ForecastService",
     "TimeSeriesEstimator",
+    "TrainConfig",
+    "Trainer",
     "UNetConfig",
 ]

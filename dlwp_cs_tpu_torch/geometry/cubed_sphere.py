@@ -1,8 +1,9 @@
 """Equiangular cubed-sphere geometry (numpy): the topology contract.
 
 A copy of the numpy-only part of ``dlwp_cs_tpu.geometry.cubed_sphere``
-that the serving path needs: the edge identifiers, the numerically derived
-neighbor table and the :class:`CubedSphere` cell centers.  The port keeps
+that the port needs: the edge identifiers, the numerically derived
+neighbor table and the :class:`CubedSphere` cell centers, areas and area
+weights.  The port keeps
 its own copy because importing anything of ``dlwp_cs_tpu`` pulls in JAX;
 ``tests/test_torch_geometry.py`` holds the two copies equal.
 
@@ -158,6 +159,11 @@ def verify_edge_table(n: int) -> None:
                 )
 
 
+def _solid_angle_antiderivative(xi: np.ndarray, eta: np.ndarray) -> np.ndarray:
+    """F with  integral dxi deta / (1+xi^2+eta^2)^(3/2) = F(xi2,eta2)-F(xi1,eta2)-F(xi2,eta1)+F(xi1,eta1)."""
+    return np.arctan(xi * eta / np.sqrt(1.0 + xi * xi + eta * eta))
+
+
 class CubedSphere:
     """Concrete C{n} equiangular cubed-sphere grid (cell-centered); numpy
     float64 arrays laid out ``(6, n, n[, ...])``."""
@@ -189,6 +195,32 @@ class CubedSphere:
         lat = np.arcsin(np.clip(p[..., 2], -1.0, 1.0))
         lon = np.mod(np.arctan2(p[..., 1], p[..., 0]), 2.0 * np.pi)
         return lat, lon
+
+    @functools.cached_property
+    def cell_areas(self) -> np.ndarray:
+        """(6, n, n) exact spherical cell solid angles; sums to 4*pi.
+
+        Closed form for the solid angle of a gnomonic rectangle; identical on
+        all faces, so computed once and broadcast.
+        """
+        edges = np.tan(
+            -_QUARTER_PI + np.arange(self.n + 1) * (np.pi / 2.0) / self.n
+        )
+        xi1, eta1 = np.meshgrid(edges[:-1], edges[:-1], indexing="xy")
+        xi2, eta2 = np.meshgrid(edges[1:], edges[1:], indexing="xy")
+        area = (
+            _solid_angle_antiderivative(xi2, eta2)
+            - _solid_angle_antiderivative(xi1, eta2)
+            - _solid_angle_antiderivative(xi2, eta1)
+            + _solid_angle_antiderivative(xi1, eta1)
+        )
+        return np.broadcast_to(area, (6, self.n, self.n)).copy()
+
+    @functools.cached_property
+    def area_weights(self) -> np.ndarray:
+        """(6, n, n) cell areas normalized to mean 1 (for weighted losses)."""
+        a = self.cell_areas
+        return a / a.mean()
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"CubedSphere(n={self.n})"

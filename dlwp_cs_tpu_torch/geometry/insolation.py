@@ -2,18 +2,27 @@
 
 The counterpart of ``dlwp_cs_tpu.geometry.insolation``: the Spencer (1971)
 Fourier series for declination, equation of time and Sun-Earth distance,
-then the zenith-angle formula.  It runs on the device inside the rollout
-loop, in the dtype of its inputs (float32 on the serving path, as the
-reference computes it).
+then the zenith-angle formula.  :func:`insolation` runs on the device
+inside the rollout loop, in the dtype of its inputs (float32 on the serving
+path, as the reference computes it); with ``xp=numpy`` (or
+:func:`insolation_np`) it runs on the host for the data pipeline, as the
+reference's ``xp=numpy`` path does, float64 for float64 inputs.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["insolation", "INSOLATION_PERIOD_DAYS", "J2000_EPOCH", "SOLAR_CONSTANT"]
+__all__ = [
+    "insolation",
+    "insolation_np",
+    "INSOLATION_PERIOD_DAYS",
+    "J2000_EPOCH",
+    "SOLAR_CONSTANT",
+]
 
 # Mean total solar irradiance, W/m^2.
 SOLAR_CONSTANT = 1361.0
@@ -31,11 +40,12 @@ _DAYS_PER_YEAR = 365.25
 INSOLATION_PERIOD_DAYS = 1461.0
 
 
-def _spencer_terms(g):
-    """Declination (rad), equation of time (rad), distance factor (a/r)^2."""
-    c1, s1 = torch.cos(g), torch.sin(g)
-    c2, s2 = torch.cos(2 * g), torch.sin(2 * g)
-    c3, s3 = torch.cos(3 * g), torch.sin(3 * g)
+def _spencer_terms(g, xp=torch):
+    """Declination (rad), equation of time (rad), distance factor (a/r)^2;
+    ``xp`` is ``torch`` or ``numpy``."""
+    c1, s1 = xp.cos(g), xp.sin(g)
+    c2, s2 = xp.cos(2 * g), xp.sin(2 * g)
+    c3, s3 = xp.cos(3 * g), xp.sin(3 * g)
     decl = (
         0.006918
         - 0.399912 * c1
@@ -56,23 +66,29 @@ def _spencer_terms(g):
     return decl, eot, dist
 
 
-def insolation(days_since_epoch, lat, lon, *, s0: float = SOLAR_CONSTANT):
+def insolation(days_since_epoch, lat, lon, *, s0: float = SOLAR_CONSTANT, xp=torch):
     """TOA downward solar irradiance in W/m^2.
 
-    ``days_since_epoch``: tensor of days since 2000-01-01 00:00 UTC (the
-    fraction encodes UTC time of day), broadcasting against ``lat``/``lon``
-    (radians, lon east-positive) from the left: ``(T, 1, 1, 1)`` with lat
-    ``(6, n, n)`` gives ``(T, 6, n, n)``.  Returns
-    ``s0 * (a/r)^2 * max(cos(zenith), 0)``.
+    ``days_since_epoch``: days since 2000-01-01 00:00 UTC (the fraction
+    encodes UTC time of day), broadcasting against ``lat``/``lon`` (radians,
+    lon east-positive) from the left: ``(T, 1, 1, 1)`` with lat ``(6, n, n)``
+    gives ``(T, 6, n, n)``.  ``xp`` is ``torch`` (tensors) or ``numpy``
+    (array-likes).  Returns ``s0 * (a/r)^2 * max(cos(zenith), 0)``.
     """
+    if xp is np:
+        days_since_epoch, lat, lon = map(np.asarray, (days_since_epoch, lat, lon))
     d = days_since_epoch
-    doy = torch.remainder(d, _DAYS_PER_YEAR)
-    frac = torch.remainder(d, 1.0)
+    doy = xp.remainder(d, _DAYS_PER_YEAR)
+    frac = xp.remainder(d, 1.0)
     day_angle = 2.0 * math.pi * doy / _DAYS_PER_YEAR
-    decl, eot, dist = _spencer_terms(day_angle)
+    decl, eot, dist = _spencer_terms(day_angle, xp)
     # solar noon at lon 0 is 12 UTC; eot shifts apparent time
     hour_angle = 2.0 * math.pi * (frac - 0.5) + lon + eot
-    cos_zen = torch.sin(lat) * torch.sin(decl) + torch.cos(lat) * torch.cos(
-        decl
-    ) * torch.cos(hour_angle)
-    return s0 * dist * torch.clamp_min(cos_zen, 0.0)
+    cos_zen = xp.sin(lat) * xp.sin(decl) + xp.cos(lat) * xp.cos(decl) * xp.cos(hour_angle)
+    lit = np.maximum(cos_zen, 0.0) if xp is np else torch.clamp_min(cos_zen, 0.0)
+    return s0 * dist * lit
+
+
+def insolation_np(days_since_epoch, lat, lon, *, s0: float = SOLAR_CONSTANT):
+    """:func:`insolation` in numpy, for the host data pipeline."""
+    return insolation(days_since_epoch, lat, lon, s0=s0, xp=np)

@@ -49,6 +49,7 @@ class CubeSphereUNet(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
+        self.in_channels = in_channels
         self.act = _activation(config)
         self.dtype = getattr(torch, config.compute_dtype)
         self.convs = nn.ModuleDict()

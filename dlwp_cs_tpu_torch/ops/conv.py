@@ -9,10 +9,13 @@ kernels for the 4 equatorial and the 2 polar faces and no south-pole flip
 Backends:
 
 * ``'auto'`` (and the reference's ``'pallas'`` / ``'pallas_interpret'``
-  names): a 3x3 stride-1 conv runs the fused kernel
-  :data:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3` on a CUDA tensor
-  and its plain version on a CPU tensor.  Other kernel sizes (the 1x1 head)
-  take the generic path with the dual-base face select.
+  names): a 3x3 stride-1 conv runs
+  :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3_fused`, forward and
+  backward on the hand-written kernels on a CUDA tensor and on their plain
+  versions on a CPU tensor (the reference's ``"fused"`` backward; its other
+  backward modes are TPU ablations of the same map and are not ported).
+  Other kernel sizes (the 1x1 head) take the generic path with the
+  dual-base face select.
 * ``'xla'``: the reference-style path, ``cs_pad`` then one VALID conv per
   weight group (the name the configurations use).
 """
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
-from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
+from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_fused
 from dlwp_cs_tpu_torch.ops.padding import cs_pad
 from dlwp_cs_tpu_torch.ops.ringfix import add_group_bias, face_select
 
@@ -99,7 +102,7 @@ def cs_conv(
     is_3x3s1 = (kh, kw) == (3, 3) and stride == 1 and dilation == 1
     if backend in _KERNEL_BACKENDS and is_3x3s1:
         zb = x.new_zeros(kernel_eq.shape[-1])
-        return cs_conv3x3(
+        return cs_conv3x3_fused(
             x.contiguous(),
             ext_strips(x),
             kernel_eq.to(x.dtype).contiguous(),

@@ -1,22 +1,36 @@
-"""Fused halo-pad + 3x3 cubed-sphere conv: the Hopper kernel, its plain
-version and its wrapper.
+"""Fused halo-pad + 3x3 cubed-sphere conv and its backward: the Hopper
+kernels, their plain versions, their wrappers and the autograd function.
 
-The counterpart of ``dlwp_cs_tpu.ops.pallas_conv`` (forward only).  The
-CUDA kernel ``csrc/cs_conv3x3.cu`` replaces the Pallas kernel ``_kernel``
-in both of its launch shapes (whole face and row bands); its header says
-what bounds it and how.
+The counterpart of ``dlwp_cs_tpu.ops.pallas_conv`` with its ``"fused"``
+backward.  Three CUDA kernels replace the Pallas kernels; each source's
+header says what bounds it and how:
 
-* :func:`cs_conv3x3_plain` computes the same function in plain torch: the
-  padded face built with ``torch.cat``, 9 tap einsums in f32, the face's
-  weight group, the bias, one cast.  CPU tensors take it; on the card it is
-  only the comparison in ``chip_smoke.py``.
-* :data:`cs_conv3x3` is the wrapper.  On a CPU tensor it returns the plain
-  version; on a CUDA tensor it launches the kernel or raises, and counts
-  the launch in ``cs_conv3x3.launches``.
+* ``csrc/cs_conv3x3.cu``: the forward ``_kernel`` in both of its launch
+  shapes (whole face and row bands);
+* ``csrc/cs_conv3x3_bwd.cu``: ``_bwd_dx_kernel`` (the input cotangent: dx's
+  interior and the ghost-strip cotangent ``d_ext``) and ``_bwd_dw_kernel``
+  (the weight and bias gradients, as per-block partial sums that a fixed-order
+  ``torch.sum`` reduces).
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first CUDA use,
-from the repository's source, into ``dlwp_cs_tpu_torch/_build/<hash>/``,
-and bound with ``ctypes`` (a plain C entry point; no PyTorch headers).
+Beside each kernel:
+
+* a plain-torch version of the same function (:func:`cs_conv3x3_plain`,
+  :func:`cs_conv3x3_dx_plain`, :func:`cs_conv3x3_dw_plain`), which CPU
+  tensors take; on the card it is only the comparison in ``chip_smoke.py``;
+* a wrapper (:data:`cs_conv3x3`, :data:`cs_conv3x3_dx`,
+  :data:`cs_conv3x3_dw`).  On a CPU tensor it returns the plain version; on
+  a CUDA tensor it launches the kernel or raises, and counts the launch in
+  its ``launches``.
+
+:func:`cs_conv3x3_fused` is the differentiable conv: a
+``torch.autograd.Function`` whose forward is the forward kernel and whose
+backward is the two backward kernels.  Its ``ext`` input is
+:func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``, whose own backward
+(the scatter-free Eᵀ) folds ``d_ext`` into ``x``'s gradient.
+
+Each kernel source is compiled with ``nvcc`` for ``sm_90a`` at its first
+CUDA use into ``dlwp_cs_tpu_torch/_build/<hash of source and flags>/`` and
+bound with ``ctypes`` (plain C entry points; no PyTorch headers).
 """
 
 from __future__ import annotations
@@ -28,15 +42,25 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-__all__ = ["cs_conv3x3", "cs_conv3x3_plain", "tile_plan"]
+__all__ = [
+    "cs_conv3x3",
+    "cs_conv3x3_dw",
+    "cs_conv3x3_dw_plain",
+    "cs_conv3x3_dx",
+    "cs_conv3x3_dx_plain",
+    "cs_conv3x3_fused",
+    "cs_conv3x3_plain",
+    "dw_plan",
+    "tile_plan",
+]
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "cs_conv3x3.cu"
 _BUILD_ROOT = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,8 +68,19 @@ _NVCC_FLAGS = (
 )
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Register tile of one thread and the block-size cap (csrc/cs_conv3x3.cu).
+# Register tile of one thread and the block-size cap (csrc/cs_conv3x3.cu;
+# the dx kernel of csrc/cs_conv3x3_bwd.cu uses the same).
 _PX, _CO, _MAX_THREADS = 4, 8, 256
+# The dx kernel's widest channel slice: a block stages 9 x 16 x cs weights
+# per chunk, so a wider slice (up to 256 at Cin = 192) fills shared memory
+# with weights, leaves one block per SM and spends the block's time
+# staging them for a single frame row.
+_DX_MAX_CS = 64
+# The dw kernel's block tile: input and output channels per block
+# (csrc/cs_conv3x3_bwd.cu); the face rows it stages at a time (4: 44 KB of
+# shared memory at n=48, five blocks per SM) and the blocks per SM its grid
+# aims at, so that other blocks compute while one waits on its staging.
+_DW_CI, _DW_CO, _DW_ROWS, _DW_BLOCKS_PER_SM = 16, 32, 4, 8
 
 
 def _padded_faces(x, ext):
@@ -55,6 +90,9 @@ def _padded_faces(x, ext):
         [ext[:, :, 2, 1 : n + 1, None], x, ext[:, :, 3, 1 : n + 1, None]], dim=3
     )
     return torch.cat([ext[:, :, 0, None], mid, ext[:, :, 1, None]], dim=2)
+
+
+_GROUPS = (slice(0, 4), slice(4, 6))  # equatorial, polar faces
 
 
 def cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole):
@@ -68,7 +106,7 @@ def cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole):
     dt = x.dtype
     p = _padded_faces(x, ext).float()
     parts = []
-    for k, bias, faces in ((k_eq, b_eq, slice(0, 4)), (k_pole, b_pole, slice(4, 6))):
+    for k, bias, faces in ((k_eq, b_eq, _GROUPS[0]), (k_pole, b_pole, _GROUPS[1])):
         kf = k.to(dt).float()
         acc = sum(
             torch.einsum("bfijc,cd->bfijd", p[:, faces, dy : dy + n, dx : dx + n], kf[dy, dx])
@@ -79,18 +117,81 @@ def cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole):
     return torch.cat(parts, dim=1).to(dt)
 
 
-def tile_plan(b: int, n: int, cout: int, sm_count: int):
+def cs_conv3x3_dx_plain(dout, k_eq, k_pole):
+    """Plain-torch input cotangent of the fused conv.
+
+    ``dout`` ``(B, 6, n, n, Cout)``, kernels ``(3, 3, Cin, Cout)`` of its
+    dtype.  The padded-input cotangent ``dxp[a, b] = sum_{dy,dx}
+    K_g[dy,dx] dout[a-dy, b-dx]`` over the ``(n+2)^2`` frame, summed in f32
+    and rounded once to ``dout``'s dtype, is returned split as
+    ``(dx, d_ext)``: dx ``(B, 6, n, n, Cin)`` is its interior, ``d_ext``
+    ``(B, 6, 4, n+2, Cin)`` its ring as ghost-strip cotangents: rows S and N
+    whole (corners included), columns W and E at rows 1..n with both ends
+    zero, since the forward reads W/E only there.
+    """
+    n = dout.shape[2]
+    dt = dout.dtype
+    q = F.pad(dout.float(), (0, 0, 2, 2, 2, 2))  # (B, 6, n+4, n+4, Cout)
+    parts = []
+    for k, faces in ((k_eq, _GROUPS[0]), (k_pole, _GROUPS[1])):
+        kf = k.to(dt).float()
+        parts.append(sum(
+            torch.einsum(
+                "bfijd,cd->bfijc",
+                q[:, faces, 2 - dy : n + 4 - dy, 2 - dx : n + 4 - dx], kf[dy, dx],
+            )
+            for dy in range(3)
+            for dx in range(3)
+        ))
+    dxp = torch.cat(parts, dim=1).to(dt)  # (B, 6, n+2, n+2, Cin)
+    w_col, e_col = dxp[:, :, :, 0].clone(), dxp[:, :, :, n + 1].clone()
+    for col in (w_col, e_col):
+        col[:, :, 0] = 0
+        col[:, :, n + 1] = 0
+    d_ext = torch.stack([dxp[:, :, 0], dxp[:, :, n + 1], w_col, e_col], dim=2)
+    return dxp[:, :, 1 : n + 1, 1 : n + 1].contiguous(), d_ext
+
+
+def cs_conv3x3_dw_plain(x, ext, dout):
+    """Plain-torch weight and bias gradients of the fused conv, in f32.
+
+    ``dK_g[dy, dx] = sum_{b, f in g, i, j} P[i+dy, j+dx] (x) dout[i, j]``
+    over the padded faces ``P`` (as the forward reads them) and
+    ``db_g = sum dout``; returns ``(dk_eq, dk_pole, db_eq, db_pole)``.
+    """
+    n = x.shape[2]
+    p = _padded_faces(x, ext).float()
+    d = dout.to(x.dtype).float()
+    out = []
+    for faces in _GROUPS:
+        out.append(torch.stack([
+            torch.stack([
+                torch.einsum("bfijc,bfijd->cd", p[:, faces, dy : dy + n, dx : dx + n],
+                             d[:, faces])
+                for dx in range(3)
+            ])
+            for dy in range(3)
+        ]))
+    db = [d[:, faces].sum(dim=(0, 1, 2, 3)) for faces in _GROUPS]
+    return out[0], out[1], db[0], db[1]
+
+
+def tile_plan(b: int, n: int, cout: int, sm_count: int, max_cs: int | None = None):
     """``(h, cs)``: output rows and output channels per block.
 
     A block holds at most 256 threads of ``4 x 8`` (pixels x channels)
-    register tiles.  ``cs`` is the widest power-of-two channel slice that
-    lets one row fit a block; ``h`` the most rows that fit, lowered until the
-    grid holds two blocks per SM where the batch is small (batch-1 serving).
+    register tiles.  ``cs`` is the widest power-of-two channel slice (at
+    most ``max_cs``) that lets one row fit a block; ``h`` the most rows that
+    fit, lowered until the grid holds two blocks per SM where the batch is
+    small (batch-1 serving).  The dx kernel plans its ``(n+2)^2`` frame with
+    the same function, its slices capped at ``_DX_MAX_CS``.
     """
     ncg = -(-n // _PX)
     if ncg > _MAX_THREADS:
         raise ValueError(f"face size {n} is too large for the conv kernel")
     widest = 1 << ((_CO * (_MAX_THREADS // ncg)).bit_length() - 1)
+    if max_cs is not None:
+        widest = min(widest, max_cs)
     cs = min(1 << (max(cout, _CO) - 1).bit_length(), widest)
     per_row = ncg * (cs // _CO)
     nslices = -(-cout // cs)
@@ -98,6 +199,23 @@ def tile_plan(b: int, n: int, cout: int, sm_count: int):
     while h > 1 and math.ceil(n / h) * nslices * 6 * b < 2 * sm_count:
         h -= 1
     return h, cs
+
+
+def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
+    """``(rows, nsplit)`` of the dw kernel: face rows staged at a time, and
+    reduction slices per face group.
+
+    The grid has ``ceil(Cin/16) * ceil(Cout/32)`` channel tiles per group,
+    each summing over ``nsplit`` contiguous slices of the group's (batch,
+    face, row chunk) items; ``nsplit`` is raised until the grid holds
+    ``_DW_BLOCKS_PER_SM`` blocks per SM, and never past the polar group's
+    item count.  The partial sums take ``nsplit * 2 * 9 * Cin * Cout``
+    floats (at most 20 MB at the flagship's batch-16 shapes).
+    """
+    rows = min(n, _DW_ROWS)
+    tiles = 2 * -(-cin // _DW_CI) * -(-cout // _DW_CO)
+    polar_items = b * 2 * -(-n // rows)
+    return rows, max(1, min(polar_items, -(-_DW_BLOCKS_PER_SM * sm_count // tiles)))
 
 
 def _find_nvcc() -> str:
@@ -110,102 +228,252 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-class _Conv3x3Kernel:
-    """Wrapper of the CUDA kernel; ``launches`` counts kernel launches."""
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
 
-    def __init__(self):
-        self.launches = 0
-        self.build_seconds = None
+
+class _CudaLibrary:
+    """A shared library compiled by ``nvcc`` from one source under
+    ``csrc/``, cached under ``_build/`` by the hash of the source and the
+    flags, and loaded with ``ctypes``.  ``functions`` maps each C entry point
+    to its argument types; every entry point returns a ``cudaError_t``, which
+    ``error_string`` names."""
+
+    def __init__(self, source: str, functions: dict, error_string: str):
+        self.source = _PKG / "csrc" / source
+        self.functions = functions
+        self.error_string = error_string
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
-        self._sm_count: dict[int, int] = {}
 
     def build(self):
-        """Compile (once per source hash) and load the shared library."""
+        """Compile (once per source hash) and load the library."""
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            t0 = time.perf_counter()
-            src = _SOURCE.read_bytes()
+            src = self.source.read_bytes()
             tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-            lib_path = _BUILD_ROOT / tag / "libcs_conv3x3.so"
+            lib_path = _BUILD_ROOT / tag / f"lib{self.source.stem}.so"
             if not lib_path.exists():
                 lib_path.parent.mkdir(parents=True, exist_ok=True)
                 tmp = lib_path.with_name(f".tmp{os.getpid()}.so")
                 proc = subprocess.run(
-                    [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+                    [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(self.source)],
                     capture_output=True, text=True,
                 )
                 self.build_log = proc.stdout + proc.stderr
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{self.build_log}"
+                        f"nvcc failed on {self.source.name} ({proc.returncode}):\n"
+                        f"{self.build_log}"
                     )
                 os.replace(tmp, lib_path)
             lib = ctypes.CDLL(str(lib_path))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.cs_conv3x3_launch.argtypes = [i32, i32] + [vp] * 7 + [i32] * 6 + [vp]
-            lib.cs_conv3x3_launch.restype = i32
-            lib.cs_conv3x3_error_string.argtypes = [i32]
-            lib.cs_conv3x3_error_string.restype = ctypes.c_char_p
-            self.build_seconds = time.perf_counter() - t0
+            for name, argtypes in self.functions.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I32
+            err = getattr(lib, self.error_string)
+            err.argtypes = [_I32]
+            err.restype = ctypes.c_char_p
             self._lib = lib
             return lib
 
+
+_FWD_LIB = _CudaLibrary("cs_conv3x3.cu", {
+    "cs_conv3x3_launch": [_I32, _I32] + [_VP] * 7 + [_I32] * 6 + [_VP],
+}, "cs_conv3x3_error_string")
+_BWD_LIB = _CudaLibrary("cs_conv3x3_bwd.cu", {
+    "cs_conv3x3_dx_launch": [_I32, _I32] + [_VP] * 5 + [_I32] * 6 + [_VP],
+    "cs_conv3x3_dw_launch": [_I32, _I32] + [_VP] * 5 + [_I32] * 6 + [_VP],
+}, "cs_conv3x3_bwd_error_string")
+
+
+def _check_cuda_args(name, ref, tensors):
+    """Raise unless every tensor of ``tensors`` (``{name: (t, shape)}``) has
+    its shape and ``ref``'s device and dtype, and all are contiguous."""
+    if ref.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16, not {ref.dtype}")
+    for arg, (t, want) in tensors.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{arg} must be {want}, got {tuple(t.shape)}")
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(
+                f"{arg} is {t.dtype} on {t.device}; expected {ref.dtype} on {ref.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors ({arg} is not)")
+
+
+def _check_faces(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    if t.ndim != 5 or t.shape[1] != 6 or t.shape[2] != t.shape[3]:
+        raise ValueError(f"{name}: expected (B, 6, n, n, C), got {tuple(t.shape)}")
+
+
+class _KernelWrapper:
+    """Launch bookkeeping shared by the three wrappers: the library, the
+    launch count (``launches``, one per kernel launch and nowhere else) and
+    the SM count per device."""
+
+    def __init__(self, name: str, library: _CudaLibrary):
+        self.name = name
+        self.library = library
+        self.launches = 0
+        self._lock = threading.Lock()
+        self._sm_count: dict[int, int] = {}
+
+    def _device(self, t) -> int:
+        """The tensor's device index; the launch goes to the current device."""
+        dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+        if dev not in self._sm_count:
+            self._sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        return dev
+
+    def _launch(self, fn_name, dev, *args):
+        """Call the C entry point ``fn_name`` on the current stream of device
+        ``dev``; ``args`` end with six sizes, which an error message names."""
+        lib = self.library.build()
+        if torch.cuda.current_device() != dev:  # the launch goes to the current device
+            with torch.cuda.device(dev):
+                return self._launch(fn_name, dev, *args)
+        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            msg = getattr(lib, self.library.error_string)(err).decode()
+            raise RuntimeError(f"{self.name} launch failed: {msg} (sizes {args[-6:]})")
+        with self._lock:
+            self.launches += 1
+
+
+class _Conv3x3Kernel(_KernelWrapper):
     def __call__(self, x, ext, k_eq, k_pole, b_eq, b_pole):
         """Fused CS conv of ``x`` (B, 6, n, n, Cin) with ghost strips ``ext``
         (B, 6, 4, n+2, Cin), HWIO kernels (3, 3, Cin, Cout) and biases
         (Cout,), all of ``x``'s dtype; returns (B, 6, n, n, Cout)."""
         if x.device.type == "cpu":
             return cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole)
-        if x.device.type != "cuda":
-            raise ValueError(f"cs_conv3x3 runs on cuda or cpu, not {x.device}")
-        if x.dtype not in _DTYPES:
-            raise ValueError(f"cs_conv3x3 takes float32 or bfloat16, not {x.dtype}")
-        if x.ndim != 5 or x.shape[1] != 6 or x.shape[2] != x.shape[3]:
-            raise ValueError(f"expected x (B, 6, n, n, C), got {tuple(x.shape)}")
+        _check_faces("cs_conv3x3", x)
         b, _, n, _, cin = x.shape
         cout = k_eq.shape[-1]
-        shapes = {
+        _check_cuda_args("cs_conv3x3", x, {
+            "x": (x, (b, 6, n, n, cin)),
             "ext": (ext, (b, 6, 4, n + 2, cin)),
             "k_eq": (k_eq, (3, 3, cin, cout)),
             "k_pole": (k_pole, (3, 3, cin, cout)),
             "b_eq": (b_eq, (cout,)),
             "b_pole": (b_pole, (cout,)),
-        }
-        for name, (t, want) in shapes.items():
-            if tuple(t.shape) != want:
-                raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
-            if t.device != x.device or t.dtype != x.dtype:
-                raise ValueError(
-                    f"{name} is {t.dtype} on {t.device}; x is {x.dtype} on {x.device}"
-                )
-        args = [x, ext, k_eq, k_pole, b_eq, b_pole]
-        if not all(t.is_contiguous() for t in args):
-            raise ValueError("cs_conv3x3 takes contiguous tensors")
-        lib = self.build()
-        dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        if torch.cuda.current_device() != dev:  # the launch goes to the current device
-            with torch.cuda.device(dev):
-                return self(x, ext, k_eq, k_pole, b_eq, b_pole)
-        if dev not in self._sm_count:
-            self._sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        })
+        dev = self._device(x)
         h, cs = tile_plan(b, n, cout, self._sm_count[dev])
         out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.cs_conv3x3_launch(
-            _DTYPES[x.dtype], dev, *(t.data_ptr() for t in args), out.data_ptr(),
-            b, n, cin, cout, h, cs, stream,
+        self._launch(
+            "cs_conv3x3_launch", dev, _DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
+            b, n, cin, cout, h, cs,
         )
-        if err != 0:
-            raise RuntimeError(
-                f"cs_conv3x3 launch failed: {lib.cs_conv3x3_error_string(err).decode()}"
-                f" (B={b}, n={n}, Cin={cin}, Cout={cout}, h={h}, cs={cs})"
-            )
-        with self._lock:
-            self.launches += 1
         return out
 
 
-cs_conv3x3 = _Conv3x3Kernel()
+class _Conv3x3DxKernel(_KernelWrapper):
+    def __call__(self, dout, k_eq, k_pole):
+        """Input cotangent of the fused conv: ``dout`` (B, 6, n, n, Cout) and
+        HWIO kernels (3, 3, Cin, Cout) of its dtype -> ``(dx, d_ext)``, see
+        :func:`cs_conv3x3_dx_plain`."""
+        if dout.device.type == "cpu":
+            return cs_conv3x3_dx_plain(dout, k_eq, k_pole)
+        _check_faces("cs_conv3x3_dx", dout)
+        b, _, n, _, cout = dout.shape
+        cin = k_eq.shape[2]
+        _check_cuda_args("cs_conv3x3_dx", dout, {
+            "dout": (dout, (b, 6, n, n, cout)),
+            "k_eq": (k_eq, (3, 3, cin, cout)),
+            "k_pole": (k_pole, (3, 3, cin, cout)),
+        })
+        dev = self._device(dout)
+        h, cs = tile_plan(b, n + 2, cin, self._sm_count[dev], max_cs=_DX_MAX_CS)
+        dx = torch.empty((b, 6, n, n, cin), dtype=dout.dtype, device=dout.device)
+        d_ext = torch.empty((b, 6, 4, n + 2, cin), dtype=dout.dtype, device=dout.device)
+        self._launch(
+            "cs_conv3x3_dx_launch", dev, _DTYPES[dout.dtype], dev,
+            *(t.data_ptr() for t in (dout, k_eq, k_pole, dx, d_ext)),
+            b, n, cin, cout, h, cs,
+        )
+        return dx, d_ext
+
+
+class _Conv3x3DwKernel(_KernelWrapper):
+    def __call__(self, x, ext, dout):
+        """Weight and bias gradients of the fused conv, f32: ``x`` (B, 6, n,
+        n, Cin), its ghost strips ``ext`` and ``dout`` (B, 6, n, n, Cout), all
+        of one dtype -> ``(dk_eq, dk_pole, db_eq, db_pole)``, see
+        :func:`cs_conv3x3_dw_plain`.  The kernel writes per-block partial
+        sums; ``torch.sum`` reduces them in a fixed order, so the result does
+        not change from run to run."""
+        if x.device.type == "cpu":
+            return cs_conv3x3_dw_plain(x, ext, dout)
+        _check_faces("cs_conv3x3_dw", x)
+        b, _, n, _, cin = x.shape
+        cout = dout.shape[-1]
+        _check_cuda_args("cs_conv3x3_dw", x, {
+            "x": (x, (b, 6, n, n, cin)),
+            "ext": (ext, (b, 6, 4, n + 2, cin)),
+            "dout": (dout, (b, 6, n, n, cout)),
+        })
+        dev = self._device(x)
+        rows, nsplit = dw_plan(b, n, cin, cout, self._sm_count[dev])
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dk_part = torch.empty((nsplit, 2, 3, 3, cin, cout), **f32)
+        db_part = torch.empty((nsplit, 2, cout), **f32)
+        self._launch(
+            "cs_conv3x3_dw_launch", dev, _DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, ext, dout, dk_part, db_part)),
+            b, n, cin, cout, rows, nsplit,
+        )
+        dk, db = dk_part.sum(dim=0), db_part.sum(dim=0)
+        return dk[0], dk[1], db[0], db[1]
+
+
+cs_conv3x3 = _Conv3x3Kernel("cs_conv3x3", _FWD_LIB)
+cs_conv3x3_dx = _Conv3x3DxKernel("cs_conv3x3_dx", _BWD_LIB)
+cs_conv3x3_dw = _Conv3x3DwKernel("cs_conv3x3_dw", _BWD_LIB)
+
+
+class _FusedConv3x3(torch.autograd.Function):
+    """Forward on :data:`cs_conv3x3`, backward on :data:`cs_conv3x3_dx` and
+    :data:`cs_conv3x3_dw` (or their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, ext, k_eq, k_pole, b_eq, b_pole):
+        ctx.save_for_backward(x, ext, k_eq, k_pole)
+        ctx.bias_dtypes = (b_eq.dtype, b_pole.dtype)
+        return cs_conv3x3(x, ext, k_eq, k_pole, b_eq, b_pole)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, ext, k_eq, k_pole = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        # the reference casts the cotangent to x's dtype; the backward of a
+        # skip concat hands it over as a non-contiguous view
+        g = g.to(x.dtype).contiguous()
+        dx = d_ext = dk_eq = dk_pole = db_eq = db_pole = None
+        if need[0] or need[1]:
+            dx, d_ext = cs_conv3x3_dx(g, k_eq, k_pole)
+        if any(need[2:]):
+            dk_eq, dk_pole, db_eq, db_pole = cs_conv3x3_dw(x, ext, g)
+            # f32 sums rounded once to the parameters' (compute) dtype
+            dk_eq, dk_pole = dk_eq.to(k_eq.dtype), dk_pole.to(k_pole.dtype)
+            db_eq, db_pole = db_eq.to(ctx.bias_dtypes[0]), db_pole.to(ctx.bias_dtypes[1])
+        grads = (dx, d_ext, dk_eq, dk_pole, db_eq, db_pole)
+        return tuple(gr if nd else None for gr, nd in zip(grads, need))
+
+
+def cs_conv3x3_fused(x, ext, k_eq, k_pole, b_eq, b_pole):
+    """Differentiable fused CS conv; arguments as :data:`cs_conv3x3`.
+
+    Pass ``ext = ext_strips(x)`` so that the ghost-strip cotangent reaches
+    ``x`` through Eᵀ.  The backward launches the dx kernel only when ``x``
+    or ``ext`` needs a gradient (not for a model's input data).
+    """
+    return _FusedConv3x3.apply(x, ext, k_eq, k_pole, b_eq, b_pole)

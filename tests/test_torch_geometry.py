@@ -20,6 +20,7 @@ from dlwp_cs_tpu_torch.geometry import cubed_sphere as tgeo
 from dlwp_cs_tpu_torch.geometry.insolation import (
     INSOLATION_PERIOD_DAYS,
     insolation,
+    insolation_np,
 )
 
 
@@ -45,6 +46,15 @@ def test_cell_latlon_matches_reference(n):
     )
 
 
+@pytest.mark.parametrize("n", [4, 48])
+def test_cell_areas_match_reference(n):
+    """Same numpy formula: equal; the areas cover the sphere."""
+    ours, ref = tgeo.CubedSphere(n), jgeo.CubedSphere(n)
+    np.testing.assert_array_equal(ours.cell_areas, ref.cell_areas)
+    np.testing.assert_array_equal(ours.area_weights, ref.area_weights)
+    assert abs(ours.cell_areas.sum() - 4 * np.pi) < 1e-12
+
+
 def test_bad_resolution_and_face():
     with pytest.raises(ValueError):
         tgeo.CubedSphere(1)
@@ -65,3 +75,14 @@ def test_insolation_matches_reference():
     assert ours.dtype == np.float32 and ours.shape == (16, 6, 8, 8)
     np.testing.assert_allclose(ours, ref, rtol=0, atol=2e-3)
     assert ours.max() > 1000.0 and ours.min() == 0.0  # day and night present
+
+
+def test_numpy_insolation_matches_reference_numpy_path():
+    """The host pipeline's float64 numpy formula: the same numpy code as the
+    reference's ``xp=np`` path, so equal."""
+    lat, lon = tgeo.CubedSphere(6).cell_latlon
+    days = np.linspace(9000.0, 9400.0, 7)[:, None, None, None]
+    ours = insolation_np(days, lat, lon)
+    ref = jinsolation(days, lat, lon, xp=np)
+    assert ours.dtype == np.float64
+    np.testing.assert_array_equal(ours, ref)

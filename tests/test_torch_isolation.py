@@ -82,6 +82,10 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         CubeSphereUNet(UNetConfig(filters=(4,)), 3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_rollout_fn(lambda x: x, cfg.data, lat=[0.0], lon=[0.0], steps=1)
+    from dlwp_cs_tpu_torch.data import prefetch_to_device
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prefetch_to_device(iter([]))
     est = DLWPEstimator(cfg, device="cpu")  # an explicit device is honoured
     assert est.device.type == "cpu"
     assert dlwp_cs_tpu_torch.DLWPEstimator is DLWPEstimator
