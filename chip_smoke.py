@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels, serve and train the flagship model
-on one GPU.
+"""Build the PyTorch/CUDA port's kernels, serve and train the flagship U-Net
+and the ConvLSTM on one GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -9,8 +9,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 
 1. print the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build the kernels from ``dlwp_cs_tpu_torch/csrc``, one ``nvcc`` per
-   source, all at once: the fused cubed-sphere conv and its backward (the
-   dx and dw kernels);
+   source, all at once: the fused cubed-sphere conv, its backward (the dx
+   and dw kernels) and the xring conv's ring-fix kernels (the fixes and the
+   fused select + apply);
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
    many row tiles), at batch 1 and 8, in float32 and bfloat16: hold the
    forward kernel against its plain torch version, and time the kernel, the
@@ -21,26 +22,36 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    batch 16, against ``torch.ops.aten.convolution_backward`` of that cuDNN
    conv (its dgrad is the padded-input cotangent, its wgrad summed over each
    face group the kernel gradient);
-5. serve 14-day forecasts (28 calls of 6 h x 2) of the flagship C48 U-Net
-   (filters 32/64/128, 12 -> 8 channels, seeded weights) through
-   ``ForecastService`` in bfloat16 and float32: 280 kernel launches per
-   forecast, finite fields, the first two model calls equal to the plain
-   path on the card, 8 concurrent submits coalesced into at most 2
-   dispatches and equal to direct forecasts;
-6. train the same model in bfloat16 and float32 at batch 16 with Adam
-   (lr 1e-3) on MSE: a ``MemoryStore`` of seeded fields ->
-   ``SeriesDataset`` -> ``prefetch_to_device`` -> ``Trainer.fit`` for 20
-   optimizer steps, 10 forward, 10 dw and 9 dx launches a step; step 1's
-   gradients finite and non-zero for every parameter, equal to the plain
-   path's on the card and bitwise repeatable; 20 finite losses; a loss that
-   falls when the trainer fits one fixed batch; the step time and the
-   device's busy and idle time in one profiled step;
-7. print the kernel line (JSON), the card line, and last
+5. the ring-fix kernels at each distinct conv shape of the flagship U-Net
+   and the ConvLSTM's two gate-conv shapes, at batch 1 and 16, in float32
+   and bfloat16: both held against their plain versions and timed beside
+   their plain versions and bounds; beside them the whole xring conv (two
+   cuDNN SAME convs, the ghost strips, the fused kernel, the bias), the
+   fused conv kernel and one face-grouped cuDNN call on the same shape;
+6. serve 14-day forecasts (28 calls of 6 h x 2) through ``ForecastService``
+   in bfloat16 and float32 of the flagship C48 U-Net (filters 32/64/128,
+   12 -> 8 channels, seeded weights; 280 conv kernel launches per
+   forecast) and of the full-width ConvLSTM (filters 32/32, 3x3 gates, 1x1
+   head, backend ``xring``; 112 launches of the fused ring kernel): finite
+   fields, the first two model calls equal to the plain path on the card, 8
+   concurrent submits coalesced into at most 2 dispatches and equal to
+   direct forecasts;
+7. train both models in bfloat16 and float32 at batch 16 with Adam (lr
+   1e-3) on MSE: a ``MemoryStore`` of seeded fields -> ``SeriesDataset`` ->
+   ``prefetch_to_device`` -> ``Trainer.fit`` for 20 optimizer steps (U-Net:
+   10 forward, 10 dw and 9 dx launches a step; ConvLSTM: 4 fused ring
+   kernel launches a step and no backward kernel); step 1's gradients
+   finite and non-zero for every parameter, equal to the plain path's on
+   the card and bitwise repeatable; 20 finite losses; a loss that falls
+   when the trainer fits one fixed batch; the step time and the device's
+   busy and idle time in one profiled step;
+8. print the kernel line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Details go to ``DIR/chip_smoke.json`` (default ``chip_smoke_out``).  TF32 is
-off for cuDNN and matmuls throughout: every float32 result here is compared.
+off for cuDNN and matmuls throughout: every float32 result here is compared
+(the xring conv's SAME convs run in full float32 whatever the flags say).
 """
 
 from __future__ import annotations
@@ -76,10 +87,16 @@ FLAGSHIP_CONVS = [
     (48, 96, 32), (48, 32, 32),      # dec0
 ]
 EXTRA_SHAPES = [(96, 64, 64)]  # several row tiles per face
+# (n, Cin, Cout) of the ConvLSTM's gate convs: [x_t (4 variables +
+# insolation + 2 constants), h (32)] -> 4 x 32 gates, then [h1, h2]; one
+# model call runs each twice (2 input times)
+CONVLSTM_GATES = [(48, 39, 128), (48, 64, 128)]
+CONVLSTM_CALL = [CONVLSTM_GATES[0]] * 2 + [CONVLSTM_GATES[1]] * 2
 STEPS = 28  # 14 days of 2 x 6 h per call
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
-KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
+KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel",
+                "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
 
 
 def check(cond, msg):
@@ -119,10 +136,21 @@ def graph_ms(fn, reps):
     return statistics.median(times)
 
 
+def face_grouped(x, ks):
+    """The padded faces ``(B, 6*Cin, n+2, n+2)`` (channels-last in memory)
+    and kernels ``(6*Cout, Cin, 3, 3)`` of one face-grouped cuDNN conv that
+    computes the CS conv of ``x`` with ``ks = (k_eq, k_pole)``."""
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
+
+    b, _, n, _, cin = x.shape
+    p = cs_pad(x, 1).permute(0, 2, 3, 1, 4).reshape(b, n + 2, n + 2, 6 * cin).permute(0, 3, 1, 2)
+    w = torch.cat([ks[0].permute(3, 2, 0, 1)] * 4 + [ks[1].permute(3, 2, 0, 1)] * 2)
+    return p, w.contiguous(memory_format=torch.channels_last)
+
+
 def conv_case(n, cin, cout, b, dtype, gen):
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain
-    from dlwp_cs_tpu_torch.ops.padding import cs_pad
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -144,10 +172,7 @@ def conv_case(n, cin, cout, b, dtype, gen):
         ok = bf16_excess(ours, ref) <= 1e-4
     # one cuDNN call computing the same function: the padded faces (built
     # outside the timed region) through a conv grouped by face
-    p = cs_pad(x, 1).permute(0, 2, 3, 1, 4).reshape(b, n + 2, n + 2, 6 * cin)
-    p = p.permute(0, 3, 1, 2)  # (B, 6*Cin, n+2, n+2), channels-last in memory
-    w = torch.cat([ks[0].permute(3, 2, 0, 1)] * 4 + [ks[1].permute(3, 2, 0, 1)] * 2)
-    w = w.contiguous(memory_format=torch.channels_last)
+    p, w = face_grouped(x, ks)
     bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
     lib = F.conv2d(p, w, bias, groups=6)
     lib = lib.reshape(b, 6, cout, n, n).permute(0, 1, 3, 4, 2)
@@ -180,7 +205,6 @@ def bwd_case(n, cin, cout, b, dtype, gen):
         cs_conv3x3_dx,
         cs_conv3x3_dx_plain,
     )
-    from dlwp_cs_tpu_torch.ops.padding import cs_pad
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -208,9 +232,7 @@ def bwd_case(n, cin, cout, b, dtype, gen):
     dw_ok = dw_err <= 1e-5 * dw_scale
     # one cuDNN call each: convolution_backward of the face-grouped conv on
     # the padded faces (dgrad = the padded-input cotangent; wgrad per face)
-    p = cs_pad(x, 1).permute(0, 2, 3, 1, 4).reshape(b, n + 2, n + 2, 6 * cin).permute(0, 3, 1, 2)
-    w = torch.cat([ks[0].permute(3, 2, 0, 1)] * 4 + [ks[1].permute(3, 2, 0, 1)] * 2)
-    w = w.contiguous(memory_format=torch.channels_last)
+    p, w = face_grouped(x, ks)
     go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
     conv_bwd = torch.ops.aten.convolution_backward
 
@@ -247,19 +269,126 @@ def bwd_case(n, cin, cout, b, dtype, gen):
     return out
 
 
+def ring_case(n, cin, d, b, dtype, gen):
+    """The ring-fix kernels (#6 fixes, #7 fused apply) at one gate-conv
+    shape, against their plain versions; the whole xring conv beside the
+    fused conv kernel and one face-grouped cuDNN call on the same shape."""
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
+    from dlwp_cs_tpu_torch.ops.ring_kernel import (
+        cs_conv3x3_xring,
+        ring_fixes,
+        ring_fixes_plain,
+        xring_fused_apply,
+        xring_fused_apply_plain,
+    )
+    from dlwp_cs_tpu_torch.ops.ringfix import _same_conv
+
+    dev = torch.device("cuda")
+    x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
+    scale = (9 * cin) ** -0.5
+    ks = [(torch.randn((3, 3, cin, d), generator=gen, device=dev) * scale).to(dtype)
+          for _ in range(2)]
+    bs = [(torch.randn((d,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
+    ext = ext_strips(x)
+    bases = [_same_conv(x, k) for k in ks]
+    launches = (ring_fixes.launches, xring_fused_apply.launches, cs_conv3x3.launches)
+    fixes, corners = ring_fixes(ext, *ks)
+    out = xring_fused_apply(*bases, ext, *ks)
+    ref_fixes, ref_corners = ring_fixes_plain(ext, *ks)
+    ref_out = xring_fused_apply_plain(*bases, ext, *ks)
+    torch.cuda.synchronize()
+    pairs6 = ((fixes, ref_fixes), (corners, ref_corners))
+    err6 = max(float((a.float() - r.float()).abs().max()) for a, r in pairs6)
+    err7 = float((out.float() - ref_out.float()).abs().max())
+    if dtype == torch.float32:
+        tol, ok6, ok7 = "1e-4 abs", err6 <= 1e-4, err7 <= 1e-4
+    else:
+        tol = "2**-7*|ref| + 1e-4"
+        ok6 = max(bf16_excess(a, r) for a, r in pairs6) <= 1e-4
+        ok7 = bf16_excess(out, ref_out) <= 1e-4
+    ms6 = graph_ms(lambda: ring_fixes(ext, *ks), 20)
+    ms7 = graph_ms(lambda: xring_fused_apply(*bases, ext, *ks), 20)
+    plain6 = graph_ms(lambda: ring_fixes_plain(ext, *ks), 3)
+    plain7 = graph_ms(lambda: xring_fused_apply_plain(*bases, ext, *ks), 3)
+    # the whole xring conv (forward) beside kernel #1 and cuDNN on this shape
+    with torch.no_grad():
+        xring_ms = graph_ms(lambda: cs_conv3x3_xring(x, *ks, *bs), 10)
+    fused_ms = graph_ms(lambda: cs_conv3x3(x, ext, *ks, *bs), 10)
+    p, w = face_grouped(x, ks)
+    bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
+    cudnn_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
+    # timing launches are not the main path's
+    ring_fixes.launches, xring_fused_apply.launches, cs_conv3x3.launches = launches
+    item = x.element_size()
+    ops = 2 * b * 6 * (12 * n + 4) * cin * d
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    taps = 2 * 8 * cin * d  # the 8 outer taps of each weight group
+    common = {"n": n, "cin": cin, "cout": d, "batch": b,
+              "dtype": str(dtype).split(".")[-1], "ops": ops, "tolerance": tol}
+    cases = []
+    for kind, err, ok, ms, plain_ms, nbytes in (
+        ("fixes", err6, ok6, ms6, plain6,
+         item * (ext.numel() + taps + fixes.numel() + corners.numel())),
+        # one base read (the face's own), the output written
+        ("apply", err7, ok7, ms7, plain7,
+         item * (2 * out.numel() + ext.numel() + taps)),
+    ):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        cases.append(dict(common, kernel=kind, max_abs_err=err, ok=ok, ms=ms,
+                          plain_ms=plain_ms, library_ms=None, bytes=nbytes,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          xring_conv_ms=xring_ms, fused_conv_ms=fused_ms,
+                          cudnn_conv_ms=cudnn_ms))
+    return cases
+
+
 @contextlib.contextmanager
 def plain_convs():
-    """Route the model's 3x3 convs through the kernel's plain version
-    (differentiable by autograd, so the backward is plain too)."""
+    """Route the models' 3x3 convs through the kernels' plain versions: the
+    fused conv (differentiable by autograd, so the U-Net's backward is plain
+    too) and the xring conv's fused ring kernel (its backward is torch)."""
     from dlwp_cs_tpu_torch.ops import conv as conv_mod
+    from dlwp_cs_tpu_torch.ops import ring_kernel as ring_mod
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain
 
-    saved = conv_mod.cs_conv3x3_fused
+    saved = conv_mod.cs_conv3x3_fused, ring_mod.xring_fused_apply
     conv_mod.cs_conv3x3_fused = cs_conv3x3_plain
+    ring_mod.xring_fused_apply = ring_mod.xring_fused_apply_plain
     try:
         yield
     finally:
-        conv_mod.cs_conv3x3_fused = saved
+        conv_mod.cs_conv3x3_fused, ring_mod.xring_fused_apply = saved
+
+
+def all_kernels():
+    """The five kernel wrappers, by name."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_dw, cs_conv3x3_dx
+    from dlwp_cs_tpu_torch.ops.ring_kernel import ring_fixes, xring_fused_apply
+
+    return {k.name: k for k in (cs_conv3x3, cs_conv3x3_dx, cs_conv3x3_dw, ring_fixes,
+                                xring_fused_apply)}
+
+
+def model_config(kind, dtype_name):
+    """The full-width model of ``kind``: the flagship U-Net (its kernel
+    path) or the ConvLSTM (``ConvLSTMConfig()`` defaults, backend xring)."""
+    from dlwp_cs_tpu_torch.models import ConvLSTMConfig, UNetConfig
+
+    if kind == "unet":
+        return UNetConfig(compute_dtype=dtype_name)
+    return ConvLSTMConfig(compute_dtype=dtype_name, conv_backend="xring")
+
+
+# launches of each kernel per model call (forecast) and per train step
+PER_CALL = {"unet": {"cs_conv3x3": 10}, "convlstm": {"xring_fused_apply": 4}}
+PER_STEP = {"unet": {"cs_conv3x3": 10, "cs_conv3x3_dw": 10, "cs_conv3x3_dx": 9},
+            "convlstm": {"xring_fused_apply": 4}}
+
+
+def want_launches(per, count):
+    return {name: per.get(name, 0) * count for name in all_kernels()}
 
 
 def profiled_run_ms(fn):
@@ -296,13 +425,13 @@ def profiled_run_ms(fn):
     return (wall, total / 1e3, ours, count) if total > 0 else (wall, None, None, None)
 
 
-def serve_phase(dtype_name, rng):
-    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig, UNetConfig
+def serve_phase(kind, dtype_name, rng):
+    """Serve 14-day forecasts of the full-width model of ``kind``."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
     from dlwp_cs_tpu_torch import ForecastService
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
 
-    cfg = ExperimentConfig(data=DataConfig(),
-                           model=UNetConfig(compute_dtype=dtype_name))
+    kernels = all_kernels()
+    cfg = ExperimentConfig(data=DataConfig(), model=model_config(kind, dtype_name))
     d = cfg.data
     check((d.grid_n, d.input_channels, d.output_channels) == (48, 12, 8), "flagship shape")
     mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)  # z500, z1000, tau, t2m
@@ -315,10 +444,12 @@ def serve_phase(dtype_name, rng):
     svc = ForecastService(est, constants=const, max_batch=8, max_wait_ms=200.0)
 
     svc.forecast(windows[0], t0[0], steps=STEPS)  # warm-up
-    cs_conv3x3.launches = 0
+    for k in kernels.values():
+        k.launches = 0
     fc = svc.forecast(windows[0], t0[0], steps=STEPS)
-    launches = cs_conv3x3.launches
-    check(launches == 10 * STEPS, f"{launches} kernel launches, want {10 * STEPS}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = want_launches(PER_CALL[kind], STEPS)
+    check(launches == want, f"launches {launches}, want {want}")
     check(fc.fields.shape == (1, 2 * STEPS, 6, 48, 48, 4), f"shape {fc.fields.shape}")
     check(bool(np.isfinite(fc.fields).all()), "non-finite forecast fields")
     times = []
@@ -327,10 +458,9 @@ def serve_phase(dtype_name, rng):
         svc.forecast(windows[0], t0[0], steps=STEPS)
         times.append((time.perf_counter() - t) * 1e3)
     profiled_run_ms(lambda: svc.forecast(windows[0], t0[0], steps=2))  # tracer warm-up
-    prof_ms, busy_ms, kernel_ms, _ = profiled_run_ms(
+    prof_ms, busy_ms, kernel_ms, n_kernels = profiled_run_ms(
         lambda: svc.forecast(windows[0], t0[0], steps=STEPS))
     idle = None if busy_ms is None else 1.0 - busy_ms / prof_ms
-    conv_ms = None if kernel_ms is None else kernel_ms["cs_conv3x3_kernel"]
 
     # the first two model calls against the plain path on the card
     normed = (windows[:1] - mean) / std
@@ -352,36 +482,37 @@ def serve_phase(dtype_name, rng):
     for i, r in enumerate(results):
         direct = svc.forecast(windows[i], t0[i], steps=STEPS).fields
         sub_err = max(sub_err, float((np.abs(r.fields - direct) / std).max()))
-    # the kernel's sums do not depend on the batch or the tile plan; only
-    # library calls (the head's matmul) may pick another algorithm per batch
+    # the kernels' sums do not depend on the batch or the tile plan; only
+    # library calls (the head's matmul, the xring conv's cuDNN SAME convs)
+    # may pick another algorithm per batch
     sub_tol = 1e-4 if dtype_name == "float32" else 1e-2
     check(sub_err <= sub_tol, f"coalesced vs direct: {sub_err} std > {sub_tol}")
     svc.close()
     return {
-        "dtype": dtype_name, "launches_per_forecast": launches,
+        "model": kind, "dtype": dtype_name, "launches_per_forecast": launches,
         "rollout_ms": times, "rollout_ms_median": statistics.median(times),
         "profiled_rollout_ms": prof_ms, "device_busy_ms": busy_ms,
-        "conv_kernel_device_ms": conv_ms, "device_idle_share": idle,
-        "first_two_calls_max_abs_err": err2, "first_two_calls_tolerance": tol2,
+        "kernel_device_ms": kernel_ms, "device_kernels": n_kernels,
+        "device_idle_share": idle, "first_two_calls_max_abs_err": err2, "first_two_calls_tolerance": tol2,
         "submit_dispatches": dispatches, "submit_vs_direct_max_err_in_std": sub_err,
         "submit_tolerance_in_std": sub_tol,
         "field_abs_max": float(np.abs(fc.fields).max()),
     }
 
 
-def train_phase(dtype_name, rng):
-    """Train the flagship U-Net on the card through the port's entry points."""
+def train_phase(kind, dtype_name, rng):
+    """Train the full-width model of ``kind`` on the card through the port's
+    entry points."""
     from dlwp_cs_tpu_torch.data import MemoryStore, SeriesDataset, prefetch_to_device
     from dlwp_cs_tpu_torch.geometry.cubed_sphere import CubedSphere
-    from dlwp_cs_tpu_torch.models import CubeSphereUNet, DataConfig, ExperimentConfig, UNetConfig
+    from dlwp_cs_tpu_torch.models import DataConfig, ExperimentConfig, build_model
     from dlwp_cs_tpu_torch.models.config import TrainConfig
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_dw, cs_conv3x3_dx
     from dlwp_cs_tpu_torch.train import Trainer, value_and_grad
 
-    kernels = (cs_conv3x3, cs_conv3x3_dw, cs_conv3x3_dx)
+    kernels = all_kernels()
     tcfg = TrainConfig(batch_size=TRAIN_BATCH, optimizer="adam", learning_rate=1e-3,
                        loss="mse", max_epochs=1, metrics_every=TRAIN_STEPS)
-    cfg = ExperimentConfig(data=DataConfig(), model=UNetConfig(compute_dtype=dtype_name),
+    cfg = ExperimentConfig(data=DataConfig(), model=model_config(kind, dtype_name),
                            train=tcfg)
     d = cfg.data
     # seeded synthetic fields, 6-hourly, enough windows for 20 batches
@@ -396,8 +527,8 @@ def train_phase(dtype_name, rng):
     lat, lon = CubedSphere(d.grid_n).cell_latlon
     ds = SeriesDataset(store, d, lat=lat, lon=lon, batch_size=TRAIN_BATCH, shuffle=True)
     check(len(ds) == TRAIN_STEPS, f"{len(ds)} batches, want {TRAIN_STEPS}")
-    model = CubeSphereUNet(cfg.resolved_model(), d.input_channels, device="cuda",
-                           generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg.resolved_model(), d.input_channels, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, tcfg)
     x0, y0 = ds.make_batch(ds._starts[:TRAIN_BATCH])
     xb, yb = torch.from_numpy(x0).cuda(), torch.from_numpy(y0).cuda()
@@ -420,20 +551,19 @@ def train_phase(dtype_name, rng):
     # (f32); bf16 activations whose roundings may flip and carry through
     # the layers (bf16)
     grad_tol = 1e-3 if dtype_name == "float32" else 2.0**-4
-    grad_err = max(float((grads[k] - plain[k]).abs().max() / plain[k].abs().max())
-                   for k in grads)
-    check(grad_err <= grad_tol, f"kernel vs plain gradients {grad_err} > {grad_tol}")
+    grad_err, worst = max((float((grads[k] - plain[k]).abs().max() / plain[k].abs().max()), k)
+                          for k in grads)
+    check(grad_err <= grad_tol, f"kernel vs plain gradients {grad_err} > {grad_tol} ({worst})")
 
     # the main path: 20 optimizer steps from the store through the trainer
-    for k in kernels:
+    for k in kernels.values():
         k.launches = 0
     t = time.perf_counter()
     state = trainer.fit(state0, lambda: prefetch_to_device(iter(ds)), verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t
-    launches = {k.name: k.launches for k in kernels}
-    want = {"cs_conv3x3": 10 * TRAIN_STEPS, "cs_conv3x3_dw": 10 * TRAIN_STEPS,
-            "cs_conv3x3_dx": 9 * TRAIN_STEPS}
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = want_launches(PER_STEP[kind], TRAIN_STEPS)
     check(launches == want, f"launches {launches}, want {want}")
     check(state.step == TRAIN_STEPS, f"{state.step} steps")
     losses = [r["loss"] for r in trainer.history.steps]
@@ -461,10 +591,11 @@ def train_phase(dtype_name, rng):
     n_grad = profiled_run_ms(lambda: vg(state.params, xb, yb))[3]
     n_opt = None if n_step is None or n_grad is None else n_step - n_grad
     return {
-        "dtype": dtype_name, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        "model": kind, "dtype": dtype_name, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
         "launches": launches, "fit_seconds": fit_s, "losses": losses,
         "fixed_batch_losses": fit_losses, "step1_loss": float(loss_k),
         "step1_plain_loss": float(loss_p), "grad_vs_plain_rel_err": grad_err,
+        "grad_worst_tensor": worst,
         "grad_tolerance": grad_tol, "grads_bitwise_repeatable": repeat,
         "step_ms": times, "step_ms_median": statistics.median(times),
         "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
@@ -485,8 +616,6 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_dx
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -495,7 +624,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    libraries = (cs_conv3x3.library, cs_conv3x3_dx.library)
+    libraries = list({id(k.library): k.library for k in all_kernels().values()}.values())
     t = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, at once
         for fut in [pool.submit(lib.build) for lib in libraries]:
@@ -536,38 +665,58 @@ def main(argv=None) -> int:
     bad = [c for c in bwd if not c["ok"]]
     check(not bad, f"backward kernel disagrees with its plain version: {bad}")
 
-    rng = np.random.default_rng(0)
-    serve = []
-    for dtype_name in ("bfloat16", "float32"):
-        s = serve_phase(dtype_name, rng)
-        serve.append(s)
-        print(f"serve {dtype_name}: 14-day rollout {s['rollout_ms_median']:.2f} ms "
-              f"(runs {['%.2f' % t for t in s['rollout_ms']]}); profiled rollout "
-              f"{s['profiled_rollout_ms']:.2f} ms: device busy {s['device_busy_ms']} ms "
-              f"(idle share {s['device_idle_share']}) of which conv kernel "
-              f"{s['conv_kernel_device_ms']} ms; "
-              f"{s['launches_per_forecast']} launches, first two calls vs plain "
-              f"{s['first_two_calls_max_abs_err']:.3g} (tol {s['first_two_calls_tolerance']:.3g}), "
-              f"8 submits in {s['submit_dispatches']} dispatches, vs direct "
-              f"{s['submit_vs_direct_max_err_in_std']:.3g} std", flush=True)
+    ring = []
+    print("ring: kernel n Cin D B dtype | max_abs_err (tol) | kernel_ms plain_ms bound_ms | "
+          "xring conv, fused conv kernel, cuDNN ms")
+    ring_shapes = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index) + CONVLSTM_GATES
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, TRAIN_BATCH):
+            for n, cin, d in ring_shapes:
+                for c in ring_case(n, cin, d, b, dtype, gen):
+                    ring.append(c)
+                    print(f"{c['kernel']} {n} {cin} {d} {b} {c['dtype']} | "
+                          f"{c['max_abs_err']:.3g} ({c['tolerance']}) | {c['ms']:.4f} "
+                          f"{c['plain_ms']:.4f} {c['bound_ms']:.5f} {c['bound_by']} | "
+                          f"{c['xring_conv_ms']:.4f} {c['fused_conv_ms']:.4f} "
+                          f"{c['cudnn_conv_ms']:.4f}", flush=True)
+    bad = [c for c in ring if not c["ok"]]
+    check(not bad, f"ring kernel disagrees with its plain version: {bad}")
 
-    train = []
-    for dtype_name in ("bfloat16", "float32"):
-        r = train_phase(dtype_name, rng)
-        train.append(r)
-        print(f"train {dtype_name}: batch {r['batch']}, {r['steps']} steps in "
-              f"{r['fit_seconds']:.2f} s; step {r['step_ms_median']:.2f} ms median "
-              f"(runs {['%.2f' % t for t in r['step_ms']]}); profiled step "
-              f"{r['profiled_step_ms']:.2f} ms: device busy {r['device_busy_ms']} ms "
-              f"(idle share {r['device_idle_share']}), kernels {r['kernel_device_ms']} ms; "
-              f"device kernels per step {r['device_kernels_per_step']} (forward+backward "
-              f"{r['device_kernels_forward_backward']}, norm+optimizer "
-              f"{r['device_kernels_optimizer']}); "
-              f"launches {r['launches']}; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
-              f"fixed batch {r['fixed_batch_losses'][0]:.4f} -> "
-              f"{np.mean(r['fixed_batch_losses'][-5:]):.4f}; step-1 grads vs plain "
-              f"{r['grad_vs_plain_rel_err']:.3g} of max (tol {r['grad_tolerance']:.3g}), "
-              f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
+    # one generator per model, drawn in the same order for each: serve
+    # bf16, f32, then train bf16, f32 (the U-Net's draws are PR 2's)
+    serve, train = {}, {}
+    for kind, seed in (("unet", 0), ("convlstm", 1)):
+        rng = np.random.default_rng(seed)
+        for dtype_name in ("bfloat16", "float32"):
+            s = serve_phase(kind, dtype_name, rng)
+            serve[kind, dtype_name] = s
+            print(f"serve {kind} {dtype_name}: 14-day rollout {s['rollout_ms_median']:.2f} ms "
+                  f"(runs {['%.2f' % t for t in s['rollout_ms']]}); profiled rollout "
+                  f"{s['profiled_rollout_ms']:.2f} ms: device busy {s['device_busy_ms']} ms "
+                  f"(idle share {s['device_idle_share']}), kernels "
+                  f"{s['kernel_device_ms']} ms; device kernels {s['device_kernels']}; "
+                  f"{s['launches_per_forecast']} launches, first two calls vs plain "
+                  f"{s['first_two_calls_max_abs_err']:.3g} "
+                  f"(tol {s['first_two_calls_tolerance']:.3g}), "
+                  f"8 submits in {s['submit_dispatches']} dispatches, vs direct "
+                  f"{s['submit_vs_direct_max_err_in_std']:.3g} std", flush=True)
+        for dtype_name in ("bfloat16", "float32"):
+            r = train_phase(kind, dtype_name, rng)
+            train[kind, dtype_name] = r
+            print(f"train {kind} {dtype_name}: batch {r['batch']}, {r['steps']} steps in "
+                  f"{r['fit_seconds']:.2f} s; step {r['step_ms_median']:.2f} ms median "
+                  f"(runs {['%.2f' % t for t in r['step_ms']]}); profiled step "
+                  f"{r['profiled_step_ms']:.2f} ms: device busy {r['device_busy_ms']} ms "
+                  f"(idle share {r['device_idle_share']}), kernels {r['kernel_device_ms']} ms; "
+                  f"device kernels per step {r['device_kernels_per_step']} (forward+backward "
+                  f"{r['device_kernels_forward_backward']}, norm+optimizer "
+                  f"{r['device_kernels_optimizer']}); "
+                  f"launches {r['launches']}; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+                  f"fixed batch {r['fixed_batch_losses'][0]:.4f} -> "
+                  f"{np.mean(r['fixed_batch_losses'][-5:]):.4f}; step-1 grads vs plain "
+                  f"{r['grad_vs_plain_rel_err']:.3g} of max in {r['grad_worst_tensor']} "
+                  f"(tol {r['grad_tolerance']:.3g}), "
+                  f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
 
     def line(name, source, replaces, launches, per_path, errs):
         """One kernel's entry: times summed over the convs of one model call
@@ -580,7 +729,8 @@ def main(argv=None) -> int:
             "bound_ms": sum(c["bound_ms"] for c in per_path),
             "bound_by": "bytes" if sum(c["bytes"] / HBM_BYTES_PER_S for c in per_path)
             >= sum(c["ops"] / PEAK_OPS[torch.bfloat16] for c in per_path) else "operations",
-            "library_ms": sum(c["library_ms"] for c in per_path),
+            "library_ms": None if any(c["library_ms"] is None for c in per_path)
+            else sum(c["library_ms"] for c in per_path),
         }
 
     # forward: one model call (its 10 convs) at the serving batch 1;
@@ -591,25 +741,40 @@ def main(argv=None) -> int:
     # whose input is not data); launches are the bfloat16 training run's
     back = {(c["kernel"], c["n"], c["cin"], c["cout"]): c for c in bwd
             if c["dtype"] == "bfloat16"}
+    # ring kernels: the 4 gate convs of one ConvLSTM model call at batch 1;
+    # launches are the bfloat16 ConvLSTM forecast's (#6 is not on its path)
+    gates = {(c["kernel"], c["n"], c["cin"], c["cout"]): c for c in ring
+             if c["batch"] == 1 and c["dtype"] == "bfloat16"}
+    unet_fc = serve["unet", "bfloat16"]["launches_per_forecast"]
+    lstm_fc = serve["convlstm", "bfloat16"]["launches_per_forecast"]
+    unet_tr = train["unet", "bfloat16"]["launches"]
     src_bwd = "dlwp_cs_tpu_torch/csrc/cs_conv3x3_bwd.cu"
+    src_ring = "dlwp_cs_tpu_torch/csrc/cs_ring.cu"
     kernels = [
         line("cs_conv3x3", "dlwp_cs_tpu_torch/csrc/cs_conv3x3.cu",
-             "dlwp_cs_tpu/ops/pallas_conv.py:131", serve[0]["launches_per_forecast"],
+             "dlwp_cs_tpu/ops/pallas_conv.py:131", unet_fc["cs_conv3x3"],
              [fwd[s] for s in FLAGSHIP_CONVS], [c["max_abs_err"] for c in cases]),
         line("cs_conv3x3_dx", src_bwd, "dlwp_cs_tpu/ops/pallas_conv.py:628",
-             train[0]["launches"]["cs_conv3x3_dx"],
+             unet_tr["cs_conv3x3_dx"],
              [back[("dx",) + s] for s in FLAGSHIP_CONVS[1:]],
              [c["max_abs_err"] for c in bwd if c["kernel"] == "dx"]),
         line("cs_conv3x3_dw", src_bwd, "dlwp_cs_tpu/ops/pallas_conv.py:656",
-             train[0]["launches"]["cs_conv3x3_dw"],
+             unet_tr["cs_conv3x3_dw"],
              [back[("dw",) + s] for s in FLAGSHIP_CONVS],
              [c["max_abs_err"] for c in bwd if c["kernel"] == "dw"]),
+        line("ring_fixes", src_ring, "dlwp_cs_tpu/ops/ring_kernel.py:54",
+             lstm_fc["ring_fixes"], [gates[("fixes",) + s] for s in CONVLSTM_CALL],
+             [c["max_abs_err"] for c in ring if c["kernel"] == "fixes"]),
+        line("xring_fused_apply", src_ring, "dlwp_cs_tpu/ops/ring_kernel.py:187",
+             lstm_fc["xring_fused_apply"], [gates[("apply",) + s] for s in CONVLSTM_CALL],
+             [c["max_abs_err"] for c in ring if c["kernel"] == "apply"]),
     ]
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_seconds": build_s, "registers": regs, "conv_cases": cases,
-                   "bwd_cases": bwd, "serve": serve, "train": train, "kernels": kernels},
+                   "bwd_cases": bwd, "ring_cases": ring, "serve": list(serve.values()),
+                   "train": list(train.values()), "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

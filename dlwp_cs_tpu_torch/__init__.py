@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of ``dlwp_cs_tpu`` for NVIDIA Hopper (H100).
 
 Serving and training slices: cubed-sphere geometry and insolation, halo
-padding, the fused 3x3 cubed-sphere conv and its backward (hand-written
-CUDA kernels, ``csrc/``), the U-Net, losses, the optimizer and trainer, the
-data feed (``SeriesDataset``, prefetching), checkpoints, the
+padding, the fused 3x3 cubed-sphere conv and its backward and the xring
+conv's ring-fix kernels (hand-written CUDA kernels, ``csrc/``), the
+ring-fix conv, the U-Net and the ConvLSTM, losses, the optimizer and
+trainer, the data feed (``SeriesDataset``, prefetching), checkpoints, the
 autoregressive rollout and the micro-batching forecast service.  Entry
 points run on the GPU unless the caller passes ``device="cpu"``.  This
 package imports neither JAX nor ``dlwp_cs_tpu``.
@@ -11,6 +12,7 @@ package imports neither JAX nor ``dlwp_cs_tpu``.
 
 from dlwp_cs_tpu_torch.estimator import DLWPEstimator
 from dlwp_cs_tpu_torch.models.config import (
+    ConvLSTMConfig,
     DataConfig,
     ExperimentConfig,
     TrainConfig,
@@ -21,6 +23,7 @@ from dlwp_cs_tpu_torch.serve.service import ForecastService
 from dlwp_cs_tpu_torch.train.trainer import Trainer
 
 __all__ = [
+    "ConvLSTMConfig",
     "DLWPEstimator",
     "DataConfig",
     "ExperimentConfig",

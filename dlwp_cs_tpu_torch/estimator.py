@@ -21,8 +21,8 @@ import torch
 from dlwp_cs_tpu_torch.data.prefetch import prefetch_to_device
 from dlwp_cs_tpu_torch.data.series import SeriesDataset
 from dlwp_cs_tpu_torch.geometry.cubed_sphere import CubedSphere
-from dlwp_cs_tpu_torch.models.config import ExperimentConfig, UNetConfig
-from dlwp_cs_tpu_torch.models.unet import CubeSphereUNet
+from dlwp_cs_tpu_torch.models import build_model
+from dlwp_cs_tpu_torch.models.config import ExperimentConfig
 from dlwp_cs_tpu_torch.models.weights import load_jax_params
 from dlwp_cs_tpu_torch.train.train_step import (
     TrainState,
@@ -53,9 +53,10 @@ class ServingState:
 class DLWPEstimator:
     """Config-driven train/save/load and the model that serving reads.
 
-    ``DLWPEstimator(config, device=None, seed=0)`` builds the U-Net on
-    ``device`` (``None``: the GPU, which must exist) with parameters drawn
-    from ``torch.Generator().manual_seed(seed)``.  :meth:`fit` trains it;
+    ``DLWPEstimator(config, device=None, seed=0)`` builds the configured
+    model (a U-Net or a ConvLSTM, ``build_model``) on ``device`` (``None``:
+    the GPU, which must exist) with parameters drawn from
+    ``torch.Generator().manual_seed(seed)``.  :meth:`fit` trains it;
     :meth:`load_state` instead sets the normalization stats and, optionally,
     the reference's trained parameters.  ``state`` is a ``TrainState``
     after ``fit`` / ``load`` and a :class:`ServingState` after
@@ -63,15 +64,9 @@ class DLWPEstimator:
     """
 
     def __init__(self, config: ExperimentConfig, *, device=None, seed: int = 0):
-        model_cfg = config.resolved_model()
-        if not isinstance(model_cfg, UNetConfig):
-            raise NotImplementedError(
-                f"model kind {model_cfg.kind!r} is not ported yet: ROADMAP.md "
-                "queue 1, item 15"
-            )
         self.config = config
-        self.model = CubeSphereUNet(
-            model_cfg,
+        self.model = build_model(
+            config.resolved_model(),
             config.data.input_channels,
             device=device,
             generator=torch.Generator().manual_seed(int(seed)),

@@ -82,6 +82,10 @@ class CubeSphereUNet(nn.Module):
         add("head", filters[0], config.output_channels, config.final_kernel_size)
         self.to(dev)
 
+    def jax_scopes(self) -> dict:
+        """The reference's flax scope of each conv layer."""
+        return dict(self.convs.items())
+
     def _block(self, x, name):
         for i in range(self.config.convs_per_block):
             x = self.act(self.convs[f"{name}_conv{i}"](x))

@@ -1,5 +1,4 @@
-"""Cubed-sphere convolution: dispatch between the fused kernel and the
-pad-then-VALID path.
+"""Cubed-sphere convolution: dispatch between the conv formulations.
 
 The counterpart of ``dlwp_cs_tpu.ops.conv.cs_conv``: full conv semantics
 (stride, dilation, bias) per face on the halo-padded field, with separate
@@ -14,10 +13,19 @@ Backends:
   backward on the hand-written kernels on a CUDA tensor and on their plain
   versions on a CPU tensor (the reference's ``"fused"`` backward; its other
   backward modes are TPU ablations of the same map and are not ported).
-  Other kernel sizes (the 1x1 head) take the generic path with the
-  dual-base face select.
+* ``'xring'`` (and the reference's ``'xring_interpret'``): a 3x3 stride-1
+  conv runs :func:`~dlwp_cs_tpu_torch.ops.ring_kernel.cs_conv3x3_xring`,
+  two cuDNN SAME convs and the hand-written ring-fix kernel (zero biases
+  when none are given).
+* ``'ringfix'``: a 3x3 stride-1 conv runs
+  :func:`~dlwp_cs_tpu_torch.ops.ringfix.cs_conv3x3_ringfix` (plain torch).
+* ``'same'``: per-face zero-padded SAME convs with no halo at all, wrong at
+  the face edges; the reference's lower bound for the halo's cost.
 * ``'xla'``: the reference-style path, ``cs_pad`` then one VALID conv per
   weight group (the name the configurations use).
+
+Under every backend but ``'xla'``, other kernel sizes (the 1x1 head) take
+the generic path with the dual-base face select.  ``'int8'`` is not ported.
 """
 
 from __future__ import annotations
@@ -28,19 +36,21 @@ import torch.nn.functional as F
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_fused
 from dlwp_cs_tpu_torch.ops.padding import cs_pad
-from dlwp_cs_tpu_torch.ops.ringfix import add_group_bias, face_select
+from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring
+from dlwp_cs_tpu_torch.ops.ringfix import (
+    _same_conv,
+    add_group_bias,
+    cs_conv3x3_ringfix,
+    face_select,
+)
 
 __all__ = ["cs_conv", "conv_halo_width"]
 
 _KERNEL_BACKENDS = ("auto", "pallas", "pallas_interpret")
+_XRING_BACKENDS = ("xring", "xring_interpret")
+_BACKENDS = _KERNEL_BACKENDS + _XRING_BACKENDS + ("ringfix", "same", "xla")
 # Formulations of the reference that the port has not taken over yet.
-_NOT_PORTED = {
-    "ringfix": "queue 1, item 4 (ring-fix formulation)",
-    "same": "queue 1, item 4 (ring-fix formulation)",
-    "int8": "queue 1, item 15 (ops/quant.py)",
-    "xring": "queue 1, item 15 (xring backend)",
-    "xring_interpret": "queue 1, item 15 (xring backend)",
-}
+_NOT_PORTED = {"int8": "queue 1, item 15 (ops/quant.py)"}
 
 
 def conv_halo_width(kernel_size: tuple[int, int], dilation: int = 1) -> int:
@@ -96,20 +106,27 @@ def cs_conv(
             f"conv backend {backend!r} is not ported yet: ROADMAP.md "
             f"{_NOT_PORTED[backend]}"
         )
-    if backend not in _KERNEL_BACKENDS + ("xla",):
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown conv backend {backend!r}")
     kh, kw = kernel_eq.shape[0], kernel_eq.shape[1]
     is_3x3s1 = (kh, kw) == (3, 3) and stride == 1 and dilation == 1
-    if backend in _KERNEL_BACKENDS and is_3x3s1:
-        zb = x.new_zeros(kernel_eq.shape[-1])
-        return cs_conv3x3_fused(
-            x.contiguous(),
-            ext_strips(x),
-            kernel_eq.to(x.dtype).contiguous(),
-            kernel_pole.to(x.dtype).contiguous(),
-            (zb if bias_eq is None else bias_eq).to(x.dtype).contiguous(),
-            (zb if bias_pole is None else bias_pole).to(x.dtype).contiguous(),
+    if is_3x3s1 and backend in _KERNEL_BACKENDS + _XRING_BACKENDS:
+        kernels = (kernel_eq.to(x.dtype).contiguous(), kernel_pole.to(x.dtype).contiguous())
+        biases = tuple(
+            (x.new_zeros(kernel_eq.shape[-1]) if b is None else b).to(x.dtype).contiguous()
+            for b in (bias_eq, bias_pole)
         )
+        if backend in _XRING_BACKENDS:
+            return cs_conv3x3_xring(x, *kernels, *biases)
+        return cs_conv3x3_fused(x.contiguous(), ext_strips(x), *kernels, *biases)
+    if is_3x3s1 and backend == "ringfix":
+        return cs_conv3x3_ringfix(x, kernel_eq, kernel_pole, bias_eq=bias_eq,
+                                  bias_pole=bias_pole)
+    if is_3x3s1 and backend == "same":
+        out = torch.cat(
+            [_same_conv(x[:, :4], kernel_eq), _same_conv(x[:, 4:], kernel_pole)], dim=1
+        )
+        return add_group_bias(out, bias_eq, bias_pole)
     w = conv_halo_width((kh, kw), dilation)
     if w == 0:
         xp = x  # 1x1 conv: no halo needed
@@ -124,7 +141,8 @@ def cs_conv(
         if wx < w:
             xp = xp[:, :, :, w - wx : xp.shape[3] - (w - wx)]
     if backend != "xla":
-        # the 1x1 head under 'auto': two full 6-face convs + face select
+        # the 1x1 head under every backend but 'xla': two full 6-face convs
+        # + face select
         out = face_select(
             _group_conv(xp, kernel_eq, stride, dilation),
             _group_conv(xp, kernel_pole, stride, dilation),

@@ -28,25 +28,27 @@ backward is the two backward kernels.  Its ``ext`` input is
 :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``, whose own backward
 (the scatter-free Eᵀ) folds ``d_ext`` into ``x``'s gradient.
 
-Each kernel source is compiled with ``nvcc`` for ``sm_90a`` at its first
-CUDA use into ``dlwp_cs_tpu_torch/_build/<hash of source and flags>/`` and
-bound with ``ctypes`` (plain C entry points; no PyTorch headers).
+Each kernel source is built and bound by
+:mod:`~dlwp_cs_tpu_torch.ops.cuda_build` at its first CUDA use.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from dlwp_cs_tpu_torch.ops.cuda_build import (
+    DTYPES,
+    I32,
+    VP,
+    CudaLibrary,
+    KernelWrapper,
+    check_cuda_args,
+    check_faces,
+)
 
 __all__ = [
     "cs_conv3x3",
@@ -59,14 +61,6 @@ __all__ = [
     "dw_plan",
     "tile_plan",
 ]
-
-_PKG = Path(__file__).resolve().parents[1]
-_BUILD_ROOT = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Register tile of one thread and the block-size cap (csrc/cs_conv3x3.cu;
 # the dx kernel of csrc/cs_conv3x3_bwd.cu uses the same).
@@ -218,145 +212,26 @@ def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
     return rows, max(1, min(polar_items, -(-_DW_BLOCKS_PER_SM * sm_count // tiles)))
 
 
-def _find_nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-_VP, _I32 = ctypes.c_void_p, ctypes.c_int
-
-
-class _CudaLibrary:
-    """A shared library compiled by ``nvcc`` from one source under
-    ``csrc/``, cached under ``_build/`` by the hash of the source and the
-    flags, and loaded with ``ctypes``.  ``functions`` maps each C entry point
-    to its argument types; every entry point returns a ``cudaError_t``, which
-    ``error_string`` names."""
-
-    def __init__(self, source: str, functions: dict, error_string: str):
-        self.source = _PKG / "csrc" / source
-        self.functions = functions
-        self.error_string = error_string
-        self.build_log = ""
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def build(self):
-        """Compile (once per source hash) and load the library."""
-        with self._lock:
-            if self._lib is not None:
-                return self._lib
-            src = self.source.read_bytes()
-            tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-            lib_path = _BUILD_ROOT / tag / f"lib{self.source.stem}.so"
-            if not lib_path.exists():
-                lib_path.parent.mkdir(parents=True, exist_ok=True)
-                tmp = lib_path.with_name(f".tmp{os.getpid()}.so")
-                proc = subprocess.run(
-                    [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                    capture_output=True, text=True,
-                )
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {self.source.name} ({proc.returncode}):\n"
-                        f"{self.build_log}"
-                    )
-                os.replace(tmp, lib_path)
-            lib = ctypes.CDLL(str(lib_path))
-            for name, argtypes in self.functions.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = _I32
-            err = getattr(lib, self.error_string)
-            err.argtypes = [_I32]
-            err.restype = ctypes.c_char_p
-            self._lib = lib
-            return lib
-
-
-_FWD_LIB = _CudaLibrary("cs_conv3x3.cu", {
-    "cs_conv3x3_launch": [_I32, _I32] + [_VP] * 7 + [_I32] * 6 + [_VP],
+_FWD_LIB = CudaLibrary("cs_conv3x3.cu", {
+    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 6 + [VP],
 }, "cs_conv3x3_error_string")
-_BWD_LIB = _CudaLibrary("cs_conv3x3_bwd.cu", {
-    "cs_conv3x3_dx_launch": [_I32, _I32] + [_VP] * 5 + [_I32] * 6 + [_VP],
-    "cs_conv3x3_dw_launch": [_I32, _I32] + [_VP] * 5 + [_I32] * 6 + [_VP],
+_BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
+    "cs_conv3x3_dx_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
+    "cs_conv3x3_dw_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
 }, "cs_conv3x3_bwd_error_string")
 
 
-def _check_cuda_args(name, ref, tensors):
-    """Raise unless every tensor of ``tensors`` (``{name: (t, shape)}``) has
-    its shape and ``ref``'s device and dtype, and all are contiguous."""
-    if ref.dtype not in _DTYPES:
-        raise ValueError(f"{name} takes float32 or bfloat16, not {ref.dtype}")
-    for arg, (t, want) in tensors.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"{arg} must be {want}, got {tuple(t.shape)}")
-        if t.device != ref.device or t.dtype != ref.dtype:
-            raise ValueError(
-                f"{arg} is {t.dtype} on {t.device}; expected {ref.dtype} on {ref.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous tensors ({arg} is not)")
-
-
-def _check_faces(name, t):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
-    if t.ndim != 5 or t.shape[1] != 6 or t.shape[2] != t.shape[3]:
-        raise ValueError(f"{name}: expected (B, 6, n, n, C), got {tuple(t.shape)}")
-
-
-class _KernelWrapper:
-    """Launch bookkeeping shared by the three wrappers: the library, the
-    launch count (``launches``, one per kernel launch and nowhere else) and
-    the SM count per device."""
-
-    def __init__(self, name: str, library: _CudaLibrary):
-        self.name = name
-        self.library = library
-        self.launches = 0
-        self._lock = threading.Lock()
-        self._sm_count: dict[int, int] = {}
-
-    def _device(self, t) -> int:
-        """The tensor's device index; the launch goes to the current device."""
-        dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-        if dev not in self._sm_count:
-            self._sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-        return dev
-
-    def _launch(self, fn_name, dev, *args):
-        """Call the C entry point ``fn_name`` on the current stream of device
-        ``dev``; ``args`` end with six sizes, which an error message names."""
-        lib = self.library.build()
-        if torch.cuda.current_device() != dev:  # the launch goes to the current device
-            with torch.cuda.device(dev):
-                return self._launch(fn_name, dev, *args)
-        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            msg = getattr(lib, self.library.error_string)(err).decode()
-            raise RuntimeError(f"{self.name} launch failed: {msg} (sizes {args[-6:]})")
-        with self._lock:
-            self.launches += 1
-
-
-class _Conv3x3Kernel(_KernelWrapper):
+class _Conv3x3Kernel(KernelWrapper):
     def __call__(self, x, ext, k_eq, k_pole, b_eq, b_pole):
         """Fused CS conv of ``x`` (B, 6, n, n, Cin) with ghost strips ``ext``
         (B, 6, 4, n+2, Cin), HWIO kernels (3, 3, Cin, Cout) and biases
         (Cout,), all of ``x``'s dtype; returns (B, 6, n, n, Cout)."""
         if x.device.type == "cpu":
             return cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole)
-        _check_faces("cs_conv3x3", x)
+        check_faces("cs_conv3x3", x)
         b, _, n, _, cin = x.shape
         cout = k_eq.shape[-1]
-        _check_cuda_args("cs_conv3x3", x, {
+        check_cuda_args("cs_conv3x3", x, {
             "x": (x, (b, 6, n, n, cin)),
             "ext": (ext, (b, 6, 4, n + 2, cin)),
             "k_eq": (k_eq, (3, 3, cin, cout)),
@@ -368,24 +243,24 @@ class _Conv3x3Kernel(_KernelWrapper):
         h, cs = tile_plan(b, n, cout, self._sm_count[dev])
         out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
         self._launch(
-            "cs_conv3x3_launch", dev, _DTYPES[x.dtype], dev,
+            "cs_conv3x3_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
             b, n, cin, cout, h, cs,
         )
         return out
 
 
-class _Conv3x3DxKernel(_KernelWrapper):
+class _Conv3x3DxKernel(KernelWrapper):
     def __call__(self, dout, k_eq, k_pole):
         """Input cotangent of the fused conv: ``dout`` (B, 6, n, n, Cout) and
         HWIO kernels (3, 3, Cin, Cout) of its dtype -> ``(dx, d_ext)``, see
         :func:`cs_conv3x3_dx_plain`."""
         if dout.device.type == "cpu":
             return cs_conv3x3_dx_plain(dout, k_eq, k_pole)
-        _check_faces("cs_conv3x3_dx", dout)
+        check_faces("cs_conv3x3_dx", dout)
         b, _, n, _, cout = dout.shape
         cin = k_eq.shape[2]
-        _check_cuda_args("cs_conv3x3_dx", dout, {
+        check_cuda_args("cs_conv3x3_dx", dout, {
             "dout": (dout, (b, 6, n, n, cout)),
             "k_eq": (k_eq, (3, 3, cin, cout)),
             "k_pole": (k_pole, (3, 3, cin, cout)),
@@ -395,14 +270,14 @@ class _Conv3x3DxKernel(_KernelWrapper):
         dx = torch.empty((b, 6, n, n, cin), dtype=dout.dtype, device=dout.device)
         d_ext = torch.empty((b, 6, 4, n + 2, cin), dtype=dout.dtype, device=dout.device)
         self._launch(
-            "cs_conv3x3_dx_launch", dev, _DTYPES[dout.dtype], dev,
+            "cs_conv3x3_dx_launch", dev, DTYPES[dout.dtype], dev,
             *(t.data_ptr() for t in (dout, k_eq, k_pole, dx, d_ext)),
             b, n, cin, cout, h, cs,
         )
         return dx, d_ext
 
 
-class _Conv3x3DwKernel(_KernelWrapper):
+class _Conv3x3DwKernel(KernelWrapper):
     def __call__(self, x, ext, dout):
         """Weight and bias gradients of the fused conv, f32: ``x`` (B, 6, n,
         n, Cin), its ghost strips ``ext`` and ``dout`` (B, 6, n, n, Cout), all
@@ -412,10 +287,10 @@ class _Conv3x3DwKernel(_KernelWrapper):
         not change from run to run."""
         if x.device.type == "cpu":
             return cs_conv3x3_dw_plain(x, ext, dout)
-        _check_faces("cs_conv3x3_dw", x)
+        check_faces("cs_conv3x3_dw", x)
         b, _, n, _, cin = x.shape
         cout = dout.shape[-1]
-        _check_cuda_args("cs_conv3x3_dw", x, {
+        check_cuda_args("cs_conv3x3_dw", x, {
             "x": (x, (b, 6, n, n, cin)),
             "ext": (ext, (b, 6, 4, n + 2, cin)),
             "dout": (dout, (b, 6, n, n, cout)),
@@ -426,7 +301,7 @@ class _Conv3x3DwKernel(_KernelWrapper):
         dk_part = torch.empty((nsplit, 2, 3, 3, cin, cout), **f32)
         db_part = torch.empty((nsplit, 2, cout), **f32)
         self._launch(
-            "cs_conv3x3_dw_launch", dev, _DTYPES[x.dtype], dev,
+            "cs_conv3x3_dw_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, dout, dk_part, db_part)),
             b, n, cin, cout, rows, nsplit,
         )

@@ -86,7 +86,8 @@ class Trainer:
     """Drives training of a model over an iterable data source.
 
     Args:
-      model: a port model (``CubeSphereUNet``); it runs on the state's
+      model: a port model (``CubeSphereUNet`` or ``CubeSphereConvLSTMNet``,
+        built with ``in_channels``); it runs on the state's
         parameters (``torch.func.functional_call``), its own are the
         template.
       cfg: TrainConfig.

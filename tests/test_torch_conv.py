@@ -116,9 +116,17 @@ def test_head_1x1_auto_matches_reference():
 
 @pytest.mark.parametrize("backend", ["int8", "xring", "ringfix"])
 def test_unported_backends_raise(backend):
+    """``int8`` is not ported and raises; ``xring`` and ``ringfix`` are
+    (``tests/test_torch_ring.py`` holds them against the reference) and
+    give the pad path's result."""
     x, *w = _case(b=1, n=4, cin=2, cout=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend=backend)
+    if backend == "int8":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend=backend)
+    else:
+        ours = cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend=backend)
+        ref = cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend="xla")
+        torch.testing.assert_close(ours, ref, rtol=0, atol=F32_ATOL)
     with pytest.raises(ValueError, match="unknown"):
         cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend="nope")
 

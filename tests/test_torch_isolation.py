@@ -33,7 +33,10 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "dlwp_cs_tpu_torch.ops.hopper_conv" in mods and len(mods) >= 20
+    for m in ("ops.hopper_conv", "ops.ring_kernel", "ops.ringfix", "ops.cuda_build",
+              "models.convlstm"):
+        assert f"dlwp_cs_tpu_torch.{m}" in mods
+    assert len(mods) >= 23
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
