@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels, serve and train the flagship U-Net
-and the ConvLSTM on one GPU.
+and the ConvLSTM on one GPU, and serve the U-Net spatially sharded over 4
+ranks that share the GPU.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -36,7 +37,13 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    fields, the first two model calls equal to the plain path on the card, 8
    concurrent submits coalesced into at most 2 dispatches and equal to
    direct forecasts;
-7. train both models in bfloat16 and float32 at batch 16 with Adam (lr
+7. at each 3x3 shape of the flagship U-Net cut into 4 row bands (h = 12,
+   6, 3 at n = 48, 24, 12) and into 2x2 tiles (24^2, 12^2, 6^2), at batch 1
+   and 8, in float32 and bfloat16: hold the band and tile launches of the
+   forward kernel (#8, #9) against its plain version on the same block and
+   ghost strips, and time them beside the plain version, one face-grouped
+   cuDNN call on the padded block and the bound;
+8. train both models in bfloat16 and float32 at batch 16 with Adam (lr
    1e-3) on MSE: a ``MemoryStore`` of seeded fields -> ``SeriesDataset`` ->
    ``prefetch_to_device`` -> ``Trainer.fit`` for 20 optimizer steps (U-Net:
    10 forward, 10 dw and 9 dx launches a step; ConvLSTM: 4 fused ring
@@ -45,10 +52,25 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    the card and bitwise repeatable; 20 finite losses; a loss that falls
    when the trainer fits one fixed batch; the step time and the device's
    busy and idle time in one profiled step;
-8. print the kernel line (JSON), the card line, and last
+9. spawn 4 ranks in a gloo group on the card (kernel libraries built
+   before) and, in bfloat16 and float32, serve 14-day forecasts of the
+   flagship U-Net (the same seeded weights on every rank): at batch 1
+   through ``make_spatial_apply(band_conv="pallas")`` driven by
+   ``TimeSeriesEstimator`` on a (1, 4) mesh (280 launches of #8 per rank)
+   and a (1, 2, 2) mesh (280 of #9), and at batch 3 through
+   ``ForecastService(mesh=create_mesh(data=2, spatial=2))`` (the band
+   ring-fix conv, data-axis padding, no kernel); each held, on every rank,
+   against the one-card forecast in units of the field's std (the
+   kernel paths to 1e-6 in float32 and 2**-6 of the value in bfloat16,
+   the service to 1e-3 and 2**-3), with the
+   wall time of 4 ranks sharing one card, and before them the host time of
+   one ghost-strip ``all_gather`` and of one band and one tile conv with
+   its exchange;
+10. print the kernel line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the script exits non-zero and prints no result.
+Any failed check raises, in any rank, so the script exits non-zero and
+prints no result.
 Details go to ``DIR/chip_smoke.json`` (default ``chip_smoke_out``).  TF32 is
 off for cuDNN and matmuls throughout: every float32 result here is compared
 (the xring conv's SAME convs run in full float32 whatever the flags say).
@@ -64,6 +86,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -97,6 +120,15 @@ TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel",
                 "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
+SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
+# the sharded forecasts against the one-card one over 14 days, per point
+# |diff| <= rel * |ref| + abs in units of the field's std.  The service's
+# band ring-fix conv sums float32 in another order and rounds bfloat16 at
+# other points, carried through 28 calls.  Kernels #8 and #9 sum each output
+# as #1 does: 1e-6 in float32, and in bfloat16 2**-6 of the value (two to
+# four bfloat16 ulps).  (rel, abs) by (path, dtype):
+SHARDED_TOL = {("service", "float32"): (0.0, 1e-3), ("service", "bfloat16"): (0.0, 2.0**-3),
+               ("kernel", "float32"): (0.0, 1e-6), ("kernel", "bfloat16"): (2.0**-6, 1e-6)}
 
 
 def check(cond, msg):
@@ -136,14 +168,13 @@ def graph_ms(fn, reps):
     return statistics.median(times)
 
 
-def face_grouped(x, ks):
-    """The padded faces ``(B, 6*Cin, n+2, n+2)`` (channels-last in memory)
-    and kernels ``(6*Cout, Cin, 3, 3)`` of one face-grouped cuDNN conv that
-    computes the CS conv of ``x`` with ``ks = (k_eq, k_pole)``."""
-    from dlwp_cs_tpu_torch.ops.padding import cs_pad
-
-    b, _, n, _, cin = x.shape
-    p = cs_pad(x, 1).permute(0, 2, 3, 1, 4).reshape(b, n + 2, n + 2, 6 * cin).permute(0, 3, 1, 2)
+def face_grouped(padded, ks):
+    """The padded faces or blocks ``(B, 6*Cin, H+2, W+2)`` (channels-last
+    in memory) and kernels ``(6*Cout, Cin, 3, 3)`` of one face-grouped cuDNN
+    conv that computes the CS conv whose halo-padded input is ``padded``
+    ``(B, 6, H+2, W+2, Cin)``, with ``ks = (k_eq, k_pole)``."""
+    b, _, hp, wp, cin = padded.shape
+    p = padded.permute(0, 2, 3, 1, 4).reshape(b, hp, wp, 6 * cin).permute(0, 3, 1, 2)
     w = torch.cat([ks[0].permute(3, 2, 0, 1)] * 4 + [ks[1].permute(3, 2, 0, 1)] * 2)
     return p, w.contiguous(memory_format=torch.channels_last)
 
@@ -151,6 +182,7 @@ def face_grouped(x, ks):
 def conv_case(n, cin, cout, b, dtype, gen):
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -172,7 +204,7 @@ def conv_case(n, cin, cout, b, dtype, gen):
         ok = bf16_excess(ours, ref) <= 1e-4
     # one cuDNN call computing the same function: the padded faces (built
     # outside the timed region) through a conv grouped by face
-    p, w = face_grouped(x, ks)
+    p, w = face_grouped(cs_pad(x, 1), ks)
     bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
     lib = F.conv2d(p, w, bias, groups=6)
     lib = lib.reshape(b, 6, cout, n, n).permute(0, 1, 3, 4, 2)
@@ -205,6 +237,7 @@ def bwd_case(n, cin, cout, b, dtype, gen):
         cs_conv3x3_dx,
         cs_conv3x3_dx_plain,
     )
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -232,7 +265,7 @@ def bwd_case(n, cin, cout, b, dtype, gen):
     dw_ok = dw_err <= 1e-5 * dw_scale
     # one cuDNN call each: convolution_backward of the face-grouped conv on
     # the padded faces (dgrad = the padded-input cotangent; wgrad per face)
-    p, w = face_grouped(x, ks)
+    p, w = face_grouped(cs_pad(x, 1), ks)
     go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
     conv_bwd = torch.ops.aten.convolution_backward
 
@@ -282,6 +315,7 @@ def ring_case(n, cin, d, b, dtype, gen):
         xring_fused_apply,
         xring_fused_apply_plain,
     )
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
     from dlwp_cs_tpu_torch.ops.ringfix import _same_conv
 
     dev = torch.device("cuda")
@@ -315,7 +349,7 @@ def ring_case(n, cin, d, b, dtype, gen):
     with torch.no_grad():
         xring_ms = graph_ms(lambda: cs_conv3x3_xring(x, *ks, *bs), 10)
     fused_ms = graph_ms(lambda: cs_conv3x3(x, ext, *ks, *bs), 10)
-    p, w = face_grouped(x, ks)
+    p, w = face_grouped(cs_pad(x, 1), ks)
     bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
     cudnn_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
     # timing launches are not the main path's
@@ -344,6 +378,61 @@ def ring_case(n, cin, d, b, dtype, gen):
     return cases
 
 
+def block_case(kind, n, cin, cout, b, dtype, gen):
+    """Kernel #8 (``kind`` band: n/4 rows x n columns) or #9 (tile: n/2 x
+    n/2) at one conv shape of the flagship U-Net, against its plain version
+    on the same block and ghost strips; beside it one face-grouped cuDNN
+    call on the padded block."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import (
+        _padded_faces,
+        cs_conv3x3_band,
+        cs_conv3x3_plain,
+        cs_conv3x3_tile,
+    )
+
+    wrapper = cs_conv3x3_band if kind == "band" else cs_conv3x3_tile
+    rows, cols = (n // SHARDS, n) if kind == "band" else (n // 2, n // 2)
+    dev = torch.device("cuda")
+    x = torch.randn((b, 6, rows, cols, cin), generator=gen, device=dev).to(dtype)
+    # exchanged ghost strips: S/N rows whole, W/E at positions 1..rows
+    ext = torch.randn((b, 6, 4, cols + 2, cin), generator=gen, device=dev)
+    ext[:, :, 2:, 0] = 0
+    ext[:, :, 2:, rows + 1 :] = 0
+    ext = ext.to(dtype)
+    scale = (9 * cin) ** -0.5
+    ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale).to(dtype)
+          for _ in range(2)]
+    bs = [(torch.randn((cout,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
+    args = (x, ext, *ks, *bs)
+    before = wrapper.launches
+    ours = wrapper(*args)
+    ref = cs_conv3x3_plain(*args)
+    torch.cuda.synchronize()
+    err = float((ours.float() - ref.float()).abs().max())
+    if dtype == torch.float32:
+        tol, ok = "1e-4 abs", err <= 1e-4
+    else:
+        tol, ok = "2**-7*|ref| + 1e-4", bf16_excess(ours, ref) <= 1e-4
+    p, w = face_grouped(_padded_faces(x, ext), ks)
+    bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
+    ms = graph_ms(lambda: wrapper(*args), 20)
+    wrapper.launches = before  # timing launches are not the main path's
+    plain_ms = graph_ms(lambda: cs_conv3x3_plain(*args), 3)
+    library_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
+    item = x.element_size()
+    nbytes = item * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
+                     + b * 6 * rows * cols * cout)
+    ops = 2 * b * 6 * rows * cols * 9 * cin * cout
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return {
+        "kernel": kind, "n": n, "rows": rows, "cols": cols, "cin": cin, "cout": cout,
+        "batch": b, "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": tol,
+        "ok": ok, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops,
+    }
+
+
 @contextlib.contextmanager
 def plain_convs():
     """Route the models' 3x3 convs through the kernels' plain versions: the
@@ -363,12 +452,18 @@ def plain_convs():
 
 
 def all_kernels():
-    """The five kernel wrappers, by name."""
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_dw, cs_conv3x3_dx
+    """The seven kernel wrappers, by name."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import (
+        cs_conv3x3,
+        cs_conv3x3_band,
+        cs_conv3x3_dw,
+        cs_conv3x3_dx,
+        cs_conv3x3_tile,
+    )
     from dlwp_cs_tpu_torch.ops.ring_kernel import ring_fixes, xring_fused_apply
 
     return {k.name: k for k in (cs_conv3x3, cs_conv3x3_dx, cs_conv3x3_dw, ring_fixes,
-                                xring_fused_apply)}
+                                xring_fused_apply, cs_conv3x3_band, cs_conv3x3_tile)}
 
 
 def model_config(kind, dtype_name):
@@ -605,6 +700,163 @@ def train_phase(kind, dtype_name, rng):
     }
 
 
+def flagship_estimator(dtype_name):
+    """The flagship C48 U-Net's estimator on the card, seeded weights, with
+    the serve phases' normalization stats."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
+
+    cfg = ExperimentConfig(data=DataConfig(), model=model_config("unet", dtype_name))
+    mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
+    std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
+    stats = {"mean": mean, "std": std, "insol_mean": 340.0, "insol_std": 420.0}
+    return DLWPEstimator(cfg, device="cuda", seed=0).load_state(stats)
+
+
+def exchange_ms(meshes):
+    """Host ms per call, 20 calls after one warm-up, on this rank: one
+    ``all_gather`` of a ghost-row strip (1, 6, 1, 48, 32) over the 4 bands,
+    and one band and one tile conv (n=48, 32 -> 32, batch 1, bf16) with
+    their halo exchanges; launches here are not the main path's."""
+    from dlwp_cs_tpu_torch.parallel.collectives import all_gather
+    from dlwp_cs_tpu_torch.parallel.hopper_band import make_sharded_pallas_conv3x3
+    from dlwp_cs_tpu_torch.parallel.hopper_tile import make_tile_pallas_conv3x3
+    from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS, local_block
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, 6, 48, 48, 32), generator=gen, device=dev).to(torch.bfloat16)
+    w = [(torch.randn((3, 3, 32, 32), generator=gen, device=dev) * 0.06).to(torch.bfloat16)
+         for _ in range(2)] + [torch.zeros(32, device=dev, dtype=torch.bfloat16)] * 2
+
+    def per_call(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    strip = x[:, :, :1].contiguous()
+    out = {"all_gather_ms": per_call(lambda: all_gather(strip, meshes["band"], SPATIAL_AXIS))}
+    for kind, make in (("band", make_sharded_pallas_conv3x3), ("tile", make_tile_pallas_conv3x3)):
+        conv, block = make(meshes[kind]), local_block(x, meshes[kind])
+        out[f"{kind}_conv_ms"] = per_call(lambda: conv(block, *w))
+    return out
+
+
+def sharded_rank(dtype_names, windows, t0, const):
+    """One rank of the sharded serve phase (a spawned process of a gloo
+    group of ``SHARDS`` ranks sharing the card): per dtype, a 14-day forecast
+    at batch 1 through kernel #8 on row bands and through #9 on 2 x 2
+    tiles, then the mesh service at batch 3.  Returns the fields, the
+    launches of every kernel per forecast and the wall times."""
+    from dlwp_cs_tpu_torch import ForecastService, TimeSeriesEstimator
+    from dlwp_cs_tpu_torch.parallel import create_mesh, make_spatial_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = all_kernels()
+    meshes = {"band": create_mesh(data=1, spatial=SHARDS),
+              "tile": create_mesh(data=1, spatial=2, spatial_x=2),
+              "service": create_mesh(data=2, spatial=2)}
+    out = {"exchange": exchange_ms(meshes)}
+    for dtype_name in dtype_names:
+        est = flagship_estimator(dtype_name)
+        lat, lon = est.cs.cell_latlon
+        mean, std = est.stats["mean"], est.stats["std"]
+        for kind in ("band", "tile"):
+            ts = TimeSeriesEstimator(
+                model=make_spatial_apply(est.model, meshes[kind], band_conv="pallas"),
+                data_cfg=est.config.data, lat=lat, lon=lon, constants=const,
+                insol_mean=est.stats["insol_mean"], insol_std=est.stats["insol_std"],
+                device=est.device)
+            normed = (windows[:1] - mean) / std
+            ts.predict(normed, t0[:1], steps=2)  # warm-up
+            for k in kernels.values():
+                k.launches = 0
+            t = time.perf_counter()
+            fields = ts.predict(normed, t0[:1], steps=STEPS).fields.cpu().numpy()
+            wall = (time.perf_counter() - t) * 1e3
+            out[kind, dtype_name] = {
+                "fields": fields, "wall_ms": wall,
+                "launches": {name: k.launches for name, k in kernels.items()}}
+        svc = ForecastService(est, constants=const, mesh=meshes["service"])
+        svc.forecast(windows[:3], t0[:3], steps=1)  # warm-up
+        padded = svc.stats.padded_mesh
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        fc = svc.forecast(windows[:3], t0[:3], steps=STEPS)
+        wall = (time.perf_counter() - t) * 1e3
+        out["service", dtype_name] = {
+            "fields": fc.fields, "wall_ms": wall,
+            "padded_mesh": svc.stats.padded_mesh - padded,
+            "launches": {name: k.launches for name, k in kernels.items()}}
+    return out
+
+
+def sharded_phase(rng, workdir):
+    """Serve the flagship U-Net over ``SHARDS`` ranks sharing the card and
+    hold every rank's forecasts against the one-card forecasts."""
+    from dlwp_cs_tpu_torch import ForecastService
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    dtype_names = ("bfloat16", "float32")
+    const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
+    mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
+    std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
+    windows = (rng.normal(size=(3, 2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
+    t0 = 9668.5 + 0.25 * np.arange(3)
+    one_card = {}
+    for dtype_name in dtype_names:
+        svc = ForecastService(flagship_estimator(dtype_name), constants=const)
+        normed = (windows[:1] - mean) / std
+        one_card["kernel", dtype_name] = svc.forecast(
+            normed, t0[0], steps=STEPS, normalized=True).fields
+        one_card["service", dtype_name] = svc.forecast(windows, t0, steps=STEPS).fields
+    t = time.perf_counter()
+    ranks = spawn_group(sharded_rank, SHARDS, dtype_names, windows, t0, const,
+                        workdir=workdir)
+    group_s = time.perf_counter() - t
+    exchange = [r["exchange"] for r in ranks]
+    kernels = all_kernels()
+    want = {"band": "cs_conv3x3_band", "tile": "cs_conv3x3_tile", "service": None}
+    results = []
+    for dtype_name in dtype_names:
+        for kind, kernel in want.items():
+            path = "kernel" if kernel else "service"
+            ref = one_card[path, dtype_name]
+            rel, tol = SHARDED_TOL[path, dtype_name]
+            errs, excess, walls = [], [], []
+            for rank, r in enumerate(ranks):
+                got = r[kind, dtype_name]
+                launches = {name: 0 for name in kernels}
+                if kernel:
+                    launches[kernel] = 10 * STEPS
+                check(got["launches"] == launches,
+                      f"rank {rank} {kind} {dtype_name}: launches {got['launches']}, "
+                      f"want {launches}")
+                check(got["fields"].shape == ref.shape and np.isfinite(got["fields"]).all(),
+                      f"rank {rank} {kind} {dtype_name}: fields {got['fields'].shape}")
+                scale = 1.0 if kernel else std  # normalized fields have std 1
+                diff = np.abs(got["fields"] - ref) / scale
+                errs.append(float(diff.max()))
+                excess.append(float((diff - rel * np.abs(ref) / scale).max()))
+                walls.append(got["wall_ms"])
+                if not kernel:
+                    check(got["padded_mesh"] == 1, f"padded_mesh {got['padded_mesh']}")
+            check(max(excess) <= tol, f"{kind} {dtype_name}: sharded vs one-card "
+                  f"|diff| exceeds {rel}*|ref| by {max(excess)} std > {tol}")
+            results.append({
+                "path": kind, "dtype": dtype_name, "batch": 1 if kernel else 3,
+                "launches_per_rank": ranks[0][kind, dtype_name]["launches"],
+                "max_err_in_std": max(errs), "tolerance_in_std": f"{rel:.3g}*|ref| + {tol:.3g}",
+                "wall_ms_per_rank": walls,
+            })
+    return results, exchange, group_s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -682,6 +934,22 @@ def main(argv=None) -> int:
     bad = [c for c in ring if not c["ok"]]
     check(not bad, f"ring kernel disagrees with its plain version: {bad}")
 
+    blocks = []
+    print("block: kernel n rows x cols Cin Cout B dtype | max_abs_err (tol) | kernel_ms "
+          "plain_ms library_ms bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 8):
+            for kind in ("band", "tile"):
+                for n, cin, cout in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index):
+                    c = block_case(kind, n, cin, cout, b, dtype, gen)
+                    blocks.append(c)
+                    print(f"{kind} {n} {c['rows']}x{c['cols']} {cin} {cout} {b} {c['dtype']} | "
+                          f"{c['max_abs_err']:.3g} ({c['tolerance']}) | {c['ms']:.4f} "
+                          f"{c['plain_ms']:.4f} {c['library_ms']:.4f} {c['bound_ms']:.5f} "
+                          f"{c['bound_by']}", flush=True)
+    bad = [c for c in blocks if not c["ok"]]
+    check(not bad, f"band or tile kernel disagrees with its plain version: {bad}")
+
     # one generator per model, drawn in the same order for each: serve
     # bf16, f32, then train bf16, f32 (the U-Net's draws are PR 2's)
     serve, train = {}, {}
@@ -717,6 +985,17 @@ def main(argv=None) -> int:
                   f"{r['grad_vs_plain_rel_err']:.3g} of max in {r['grad_worst_tensor']} "
                   f"(tol {r['grad_tolerance']:.3g}), "
                   f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as workdir:  # the group's FileStore
+        sharded, exchange, group_s = sharded_phase(np.random.default_rng(2), workdir)
+    for r in sharded:
+        print(f"sharded {r['path']} {r['dtype']} batch {r['batch']}: vs one card "
+              f"{r['max_err_in_std']:.3g} std (tol {r['tolerance_in_std']}); 14-day "
+              f"forecast {max(r['wall_ms_per_rank']):.1f} ms wall, 4 ranks sharing one card "
+              f"over gloo; launches per rank {r['launches_per_rank']}", flush=True)
+    print(f"sharded group: {group_s:.1f} s from spawn to the last rank's exit; per rank, "
+          f"ms per all_gather of one ghost strip, per band and per tile conv with its "
+          f"exchange (4 ranks sharing one card over gloo): {exchange}", flush=True)
 
     def line(name, source, replaces, launches, per_path, errs):
         """One kernel's entry: times summed over the convs of one model call
@@ -769,12 +1048,27 @@ def main(argv=None) -> int:
              lstm_fc["xring_fused_apply"], [gates[("apply",) + s] for s in CONVLSTM_CALL],
              [c["max_abs_err"] for c in ring if c["kernel"] == "apply"]),
     ]
+    # bands and tiles: one model call's 10 convs on one rank's block at the
+    # serving batch 1 in bfloat16; launches per rank of the bf16 forecasts
+    blk = {(c["kernel"], c["n"], c["cin"], c["cout"]): c for c in blocks
+           if c["batch"] == 1 and c["dtype"] == "bfloat16"}
+    per_rank = {(r["path"], r["dtype"]): r["launches_per_rank"] for r in sharded}
+    for kind, name, replaces in (
+        ("band", "cs_conv3x3_band", "dlwp_cs_tpu/parallel/pallas_band.py:111"),
+        ("tile", "cs_conv3x3_tile", "dlwp_cs_tpu/parallel/pallas_tile.py:92"),
+    ):
+        kernels.append(line(name, "dlwp_cs_tpu_torch/csrc/cs_conv3x3.cu", replaces,
+                            per_rank[kind, "bfloat16"][name],
+                            [blk[(kind,) + s] for s in FLAGSHIP_CONVS],
+                            [c["max_abs_err"] for c in blocks if c["kernel"] == kind]))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_seconds": build_s, "registers": regs, "conv_cases": cases,
-                   "bwd_cases": bwd, "ring_cases": ring, "serve": list(serve.values()),
-                   "train": list(train.values()), "kernels": kernels},
+                   "bwd_cases": bwd, "ring_cases": ring, "block_cases": blocks,
+                   "serve": list(serve.values()), "train": list(train.values()),
+                   "sharded": sharded, "sharded_exchange_ms": exchange,
+                   "sharded_group_seconds": group_s, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

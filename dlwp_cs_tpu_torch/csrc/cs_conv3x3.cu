@@ -1,15 +1,21 @@
 // Fused halo-pad + 3x3 cubed-sphere convolution for Hopper (sm_90a).
 //
-// Replaces the TPU kernel dlwp_cs_tpu/ops/pallas_conv.py::_kernel in both of
-// its launch shapes: the whole-face launch (_forward, grid (B, 6)) and the
-// row-banded launch (_forward_blocked, h < n), whose band ghost rows are
-// the face's own neighbouring rows and whose band corners are the W/E ghost
-// columns at those rows (_blocked_ext).  Here a row tile of h < n rows is the
-// normal case, so one kernel body covers both.
+// Replaces the TPU kernel dlwp_cs_tpu/ops/pallas_conv.py::_kernel in all four
+// of its launch shapes: the whole-face launch (_forward, grid (B, 6)); the
+// row-banded launch (_forward_blocked, h < n), whose band ghost rows are the
+// face's own neighbouring rows and whose band corners are the W/E ghost
+// columns at those rows (_blocked_ext); and the two shard-local launches of
+// the spatially decomposed path, on a shard's row band
+// (dlwp_cs_tpu/parallel/pallas_band.py::_forward, #8) and on its tile
+// (dlwp_cs_tpu/parallel/pallas_tile.py::_forward, #9).  The kernel works on a
+// local block of H rows and W columns of every face (H = W = n for a whole
+// face, H = n / S for a band, H <= W for a tile) whose ghost rows -1 and H
+// and ghost columns -1 and W arrive in ext; a row tile of h < H rows inside
+// the block is the normal case, so one kernel body covers all four.
 //
-// What it computes, per face f of batch item b, with P the (n+2) x (n+2)
-// padded face  P[0,:] = ext S, P[n+1,:] = ext N, P[1..n,0] = ext W[1..n],
-// P[1..n,n+1] = ext E[1..n], P[1..n,1..n] = x:
+// What it computes, per face f of batch item b, with P the (H+2) x (W+2)
+// padded block  P[0,:] = ext S, P[H+1,:] = ext N, P[1..H,0] = ext W[1..H],
+// P[1..H,W+1] = ext E[1..H], P[1..H,1..W] = x:
 //     out[i,j,:] = sum_{dy,dx} P[i+dy, j+dx, :] . K_g[dy,dx] + b_g
 // with g the equatorial group for faces 0-3 and the polar group for 4-5, f32
 // accumulation and one rounding to x's dtype at the end.  Weights and biases
@@ -26,15 +32,19 @@
 // independent loads in flight each; and with register tiles of 4 pixels x
 // 8 output channels per thread, reading each staged input value once per
 // 3 taps.  The padded tile never exists in device memory: the W/E ghost
-// columns and the ghost rows go straight into shared memory.  mma/wgmma,
-// TMA and CUDA graphs are left for later work.
+// columns and the ghost rows go straight into shared memory.  A shard's band
+// or tile is a quarter of a face or less, so the same latency bound holds
+// there with fewer blocks per launch; the halo exchange that fills ext runs
+// before the launch, outside the kernel.  mma/wgmma, TMA and CUDA graphs are
+// left for later work.
 //
 // Layouts (channels last, all contiguous):
-//   x    (B, 6, n, n, Cin)        ext (B, 6, 4, n+2, Cin)   edges S, N, W, E
-//   k_*  (3, 3, Cin, Cout) HWIO   b_* (Cout,)               out (B, 6, n, n, Cout)
+//   x    (B, 6, H, W, Cin)        ext (B, 6, 4, W+2, Cin)   edges S, N, W, E
+//   k_*  (3, 3, Cin, Cout) HWIO   b_* (Cout,)               out (B, 6, H, W, Cout)
+// The W/E ghost columns sit at positions 1..H of their W+2 strips, so H <= W.
 // Grid: (row tiles * Cout slices, 6, B); one block per (row tile, face,
 // batch item, Cout slice).  Each block loops over Cin in chunks of CC,
-// staging the (h+2) x (n+2) padded tile and that chunk's taps of the face's
+// staging the (h+2) x (W+2) padded tile and that chunk's taps of the face's
 // weight group in shared memory as f32.
 
 #include <cuda_bf16.h>
@@ -60,14 +70,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 struct Geom {
-  int n, cin, cout;
+  int rows, cols;  // the local block: H rows, W columns of every face
+  int cin, cout;
   int h;        // output rows per tile
   int cs;       // output channels per block (a power of two >= CO)
   int cs_log2;
   int nslices;  // Cout slices
   int ncg;      // column groups of PX pixels per row
   int nog;      // channel groups of CO per slice
-  int wp;       // staged tile width: ncg * PX + 2 >= n + 2 (extra columns zero)
+  int wp;       // staged tile width: ncg * PX + 2 >= W + 2 (extra columns zero)
   int plane;    // shared-memory pitch of one staged channel (odd: no bank conflicts)
 };
 
@@ -81,15 +92,15 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
   float* tile = smem;                  // [CC][plane], row-major (h+2) x wp
   float* wts = smem + CC * g.plane;    // [9][CC][cs]
 
-  const int n = g.n, cin = g.cin, cout = g.cout;
+  const int rows = g.rows, cols = g.cols, cin = g.cin, cout = g.cout;
   const int r0 = (blockIdx.x / g.nslices) * g.h;
   const int co0 = (blockIdx.x % g.nslices) * g.cs;
   const int f = blockIdx.y;
   const long long face = (long long)blockIdx.z * 6 + f;
   const T* __restrict__ k = f < 4 ? keq : kpo;
   const T* __restrict__ bias = f < 4 ? beq : bpo;
-  const T* __restrict__ xf = x + face * n * n * cin;
-  const T* __restrict__ ef = ext + face * 4 * (n + 2) * cin;
+  const T* __restrict__ xf = x + face * rows * cols * cin;
+  const T* __restrict__ ef = ext + face * 4 * (cols + 2) * cin;
 
   // this thread's register tile: row rr, pixels j0..j0+PX-1, channels c_lo..c_lo+CO-1
   const int per_row = g.ncg * g.nog;
@@ -111,7 +122,7 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
     __syncthreads();  // the previous chunk has been consumed
     // Every thread of the block stages, STAGE loads in flight at a time:
     // the loads are issued before any of their shared-memory stores.
-    // ---- padded tile: staged row pr is face row r0 - 1 + pr; element
+    // ---- padded tile: staged row pr is block row r0 - 1 + pr; element
     // idx = cell * CC + cl, consecutive threads on consecutive channels ----
     for (int base = threadIdx.x; base < ntile; base += STAGE * MAX_THREADS) {
       float v[STAGE];
@@ -123,15 +134,15 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
         const int fr = r0 - 1 + cell / g.wp;
         const int ci = c0 + idx % CC;
         v[u] = 0.f;
-        if (idx < ntile && ci < cin && pc <= n + 1 && fr <= n) {
+        if (idx < ntile && ci < cin && pc <= cols + 1 && fr <= rows) {
           long long off;
-          if (fr == -1) off = (0LL * (n + 2) + pc) * cin;              // S ghost row, corners included
-          else if (fr == n) off = (1LL * (n + 2) + pc) * cin;          // N ghost row, corners included
-          else if (pc == 0) off = (2LL * (n + 2) + fr + 1) * cin;      // W ghost column
-          else if (pc == n + 1) off = (3LL * (n + 2) + fr + 1) * cin;  // E ghost column
+          if (fr == -1) off = (0LL * (cols + 2) + pc) * cin;                 // S ghost row, corners included
+          else if (fr == rows) off = (1LL * (cols + 2) + pc) * cin;          // N ghost row, corners included
+          else if (pc == 0) off = (2LL * (cols + 2) + fr + 1) * cin;         // W ghost column
+          else if (pc == cols + 1) off = (3LL * (cols + 2) + fr + 1) * cin;  // E ghost column
           else off = -1;
           v[u] = off >= 0 ? to_f32(ef[off + ci])
-                          : to_f32(xf[((long long)fr * n + pc - 1) * cin + ci]);
+                          : to_f32(xf[((long long)fr * cols + pc - 1) * cin + ci]);
         }
       }
 #pragma unroll
@@ -187,8 +198,8 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
     }
   }
   const int r = r0 + rr;
-  if (!active || r >= n) return;
-  T* orow = out + (face * n + r) * n * cout;
+  if (!active || r >= rows) return;
+  T* orow = out + (face * rows + r) * cols * cout;
 #pragma unroll
   for (int o = 0; o < CO; ++o) {
     const int co = co0 + c_lo + o;
@@ -197,7 +208,7 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int j = j0 + p;
-      if (j < n) orow[(long long)j * cout + co] = from_f32<T>(acc[p][o] + bv);
+      if (j < cols) orow[(long long)j * cout + co] = from_f32<T>(acc[p][o] + bv);
     }
   }
 }
@@ -228,7 +239,7 @@ cudaError_t launch(const void* x, const void* ext, const void* keq, const void* 
     cudaError_t err = allow_large_smem<T>(device);
     if (err != cudaSuccess) return err;
   }
-  const int ntiles = (g.n + g.h - 1) / g.h;
+  const int ntiles = (g.rows + g.h - 1) / g.h;
   dim3 grid(ntiles * g.nslices, 6, batch);
   cs_conv3x3_kernel<T><<<grid, MAX_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ext), static_cast<const T*>(keq),
@@ -242,17 +253,22 @@ cudaError_t launch(const void* x, const void* ext, const void* keq, const void* 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
-// stream belongs to.  h: output rows per block; cs: output channels per block
-// (a power of two >= 8).  Returns a cudaError_t (0 = success).
+// stream belongs to.  x (B, 6, rows, cols, Cin), ext (B, 6, 4, cols+2, Cin)
+// with the W/E ghosts at positions 1..rows, so rows <= cols: whole faces
+// (rows = cols = n, #1) or a shard's band or tile (#8, #9).  h: output rows
+// per block; cs: output channels per block (a power of two >= 8).  Returns a
+// cudaError_t (0 = success).
 int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
                       const void* keq, const void* kpo, const void* beq,
-                      const void* bpo, void* out, int batch, int n, int cin,
-                      int cout, int h, int cs, void* stream) {
-  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || n < 1 || cin < 1 ||
-      cout < 1 || h < 1 || h > n || cs < CO || (cs & (cs - 1)) != 0)
+                      const void* bpo, void* out, int batch, int rows, int cols,
+                      int cin, int cout, int h, int cs, void* stream) {
+  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || rows < 1 ||
+      rows > cols || cin < 1 || cout < 1 || h < 1 || h > rows || cs < CO ||
+      (cs & (cs - 1)) != 0)
     return cudaErrorInvalidValue;
   Geom g;
-  g.n = n;
+  g.rows = rows;
+  g.cols = cols;
   g.cin = cin;
   g.cout = cout;
   g.h = h;
@@ -260,7 +276,7 @@ int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
   for (g.cs_log2 = 0; (1 << g.cs_log2) < cs; ++g.cs_log2) {
   }
   g.nslices = (cout + cs - 1) / cs;
-  g.ncg = (n + PX - 1) / PX;
+  g.ncg = (cols + PX - 1) / PX;
   g.nog = cs / CO;
   g.wp = g.ncg * PX + 2;
   g.plane = (h + 2) * g.wp;

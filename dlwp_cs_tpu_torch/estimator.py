@@ -132,7 +132,9 @@ class DLWPEstimator:
 
         Starts from the seeded initialisation of ``config.train.seed`` (or
         from the parameters :meth:`load_state` set, or the state of an
-        earlier ``fit`` / :meth:`load`).  ``mesh`` is not ported.
+        earlier ``fit`` / :meth:`load`).  ``mesh`` (data-parallel or
+        sharded training) is the next slice of ``parallel/`` and raises in
+        ``Trainer``; serving under a mesh is ``ForecastService(mesh=...)``.
         """
         train_ds = self._dataset(store, shuffle=True)
         self._set_stats({

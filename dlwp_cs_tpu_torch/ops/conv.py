@@ -26,16 +26,30 @@ Backends:
 
 Under every backend but ``'xla'``, other kernel sizes (the 1x1 head) take
 the generic path with the dual-base face select.  ``'int8'`` is not ported.
+
+The spatially decomposed path (:mod:`dlwp_cs_tpu_torch.parallel`) installs
+two hooks around the model: a halo-exchange pad
+(:func:`~dlwp_cs_tpu_torch.ops.padding.use_pad_impl`) and, optionally, a
+shard-local 3x3 conv (:func:`use_conv3x3_impl`), which then runs every 3x3
+stride-1 conv before any backend is consulted.  Under an installed pad with
+no installed 3x3 conv, every 3x3 conv goes pad-then-VALID through the
+installed pad: the single-device formulations (the fused kernel, ``xring``,
+``ringfix``) read neighbour faces directly, which a shard's block does not
+hold.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_fused
-from dlwp_cs_tpu_torch.ops.padding import cs_pad
+from dlwp_cs_tpu_torch.ops import padding as _padding
+from dlwp_cs_tpu_torch.ops.padding import cs_pad, use_pad_impl
 from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring
 from dlwp_cs_tpu_torch.ops.ringfix import (
     _same_conv,
@@ -44,13 +58,43 @@ from dlwp_cs_tpu_torch.ops.ringfix import (
     face_select,
 )
 
-__all__ = ["cs_conv", "conv_halo_width"]
+__all__ = ["cs_conv", "conv_halo_width", "shard_local_region", "use_conv3x3_impl"]
 
 _KERNEL_BACKENDS = ("auto", "pallas", "pallas_interpret")
 _XRING_BACKENDS = ("xring", "xring_interpret")
 _BACKENDS = _KERNEL_BACKENDS + _XRING_BACKENDS + ("ringfix", "same", "xla")
 # Formulations of the reference that the port has not taken over yet.
 _NOT_PORTED = {"int8": "queue 1, item 15 (ops/quant.py)"}
+
+_CONV3_IMPL: contextvars.ContextVar = contextvars.ContextVar("cs_conv3x3_impl", default=None)
+
+
+@contextlib.contextmanager
+def use_conv3x3_impl(fn):
+    """Within this context, 3x3 stride-1 ``cs_conv`` calls delegate to
+    ``fn(x, kernel_eq, kernel_pole, bias_eq, bias_pole)`` whatever their
+    backend (``None`` clears it); other convs keep their dispatch."""
+    token = _CONV3_IMPL.set(fn)
+    try:
+        yield
+    finally:
+        _CONV3_IMPL.reset(token)
+
+
+def _pad_impl_installed() -> bool:
+    """True under an installed pad (a shard's local block): the
+    single-device 3x3 formulations would read neighbour faces that the block
+    does not hold."""
+    return _padding._PAD_IMPL.get() is not None
+
+
+@contextlib.contextmanager
+def shard_local_region():
+    """The enclosed code holds complete faces on every shard (data
+    parallelism only): any installed pad and 3x3 conv are cleared, so the
+    single-device dispatch, the fused kernel included, applies again."""
+    with use_pad_impl(None), use_conv3x3_impl(None):
+        yield
 
 
 def conv_halo_width(kernel_size: tuple[int, int], dilation: int = 1) -> int:
@@ -90,12 +134,14 @@ def cs_conv(
 ):
     """Cubed-sphere convolution with equatorial/polar weight groups.
 
-    ``x`` ``(B, 6, n, n, Cin)``; ``kernel_eq`` / ``kernel_pole`` HWIO
-    ``(kh, kw, Cin, Cout)`` of ``x``'s dtype; optional ``(Cout,)`` biases.
-    Returns ``(B, 6, n // stride, n // stride, Cout)``.
+    ``x`` ``(B, 6, n, n, Cin)``, whole faces; under an installed pad
+    (:func:`~dlwp_cs_tpu_torch.ops.padding.use_pad_impl`) a shard's local
+    block ``(B, 6, H, W, Cin)`` of every face.  ``kernel_eq`` /
+    ``kernel_pole`` HWIO ``(kh, kw, Cin, Cout)`` of ``x``'s dtype; optional
+    ``(Cout,)`` biases.  Returns ``(B, 6, H // stride, W // stride, Cout)``.
     """
     if x.ndim != 5 or x.shape[1] != 6:
-        raise ValueError(f"expected (B, 6, n, n, C), got {tuple(x.shape)}")
+        raise ValueError(f"expected (B, 6, H, W, C), got {tuple(x.shape)}")
     if kernel_eq.shape != kernel_pole.shape:
         raise ValueError(
             f"kernel group shapes differ: {tuple(kernel_eq.shape)} vs "
@@ -110,7 +156,11 @@ def cs_conv(
         raise ValueError(f"unknown conv backend {backend!r}")
     kh, kw = kernel_eq.shape[0], kernel_eq.shape[1]
     is_3x3s1 = (kh, kw) == (3, 3) and stride == 1 and dilation == 1
-    if is_3x3s1 and backend in _KERNEL_BACKENDS + _XRING_BACKENDS:
+    impl = _CONV3_IMPL.get()
+    if impl is not None and is_3x3s1:
+        return impl(x, kernel_eq, kernel_pole, bias_eq, bias_pole)
+    whole_faces = not _pad_impl_installed()
+    if is_3x3s1 and whole_faces and backend in _KERNEL_BACKENDS + _XRING_BACKENDS:
         kernels = (kernel_eq.to(x.dtype).contiguous(), kernel_pole.to(x.dtype).contiguous())
         biases = tuple(
             (x.new_zeros(kernel_eq.shape[-1]) if b is None else b).to(x.dtype).contiguous()
@@ -119,7 +169,7 @@ def cs_conv(
         if backend in _XRING_BACKENDS:
             return cs_conv3x3_xring(x, *kernels, *biases)
         return cs_conv3x3_fused(x.contiguous(), ext_strips(x), *kernels, *biases)
-    if is_3x3s1 and backend == "ringfix":
+    if is_3x3s1 and whole_faces and backend == "ringfix":
         return cs_conv3x3_ringfix(x, kernel_eq, kernel_pole, bias_eq=bias_eq,
                                   bias_pole=bias_pole)
     if is_3x3s1 and backend == "same":
@@ -141,8 +191,8 @@ def cs_conv(
         if wx < w:
             xp = xp[:, :, :, w - wx : xp.shape[3] - (w - wx)]
     if backend != "xla":
-        # the 1x1 head under every backend but 'xla': two full 6-face convs
-        # + face select
+        # the 1x1 head, and 3x3 convs under an installed pad, under every
+        # backend but 'xla': two full 6-face convs + face select
         out = face_select(
             _group_conv(xp, kernel_eq, stride, dilation),
             _group_conv(xp, kernel_pole, stride, dilation),

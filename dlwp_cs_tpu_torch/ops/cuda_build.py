@@ -118,15 +118,16 @@ def check_cuda_args(name, ref, tensors):
 
 
 def check_faces(name, t, strips: bool = False):
-    """Raise unless ``t`` is a CUDA tensor shaped ``(B, 6, n, n, C)`` (or,
-    with ``strips``, ghost strips ``(B, 6, 4, n+2, C)``)."""
+    """Raise unless ``t`` is a CUDA tensor shaped ``(B, 6, H, W, C)``: whole
+    faces or a shard's local block (or, with ``strips``, ghost strips ``(B,
+    6, 4, W+2, C)``).  Each wrapper then checks the exact shapes it takes."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
     if strips:
         if t.ndim != 5 or tuple(t.shape[1:3]) != (6, 4) or t.shape[3] < 3:
-            raise ValueError(f"{name}: expected (B, 6, 4, n+2, C), got {tuple(t.shape)}")
-    elif t.ndim != 5 or t.shape[1] != 6 or t.shape[2] != t.shape[3]:
-        raise ValueError(f"{name}: expected (B, 6, n, n, C), got {tuple(t.shape)}")
+            raise ValueError(f"{name}: expected (B, 6, 4, W+2, C), got {tuple(t.shape)}")
+    elif t.ndim != 5 or t.shape[1] != 6:
+        raise ValueError(f"{name}: expected (B, 6, H, W, C), got {tuple(t.shape)}")
 
 
 class KernelWrapper:
@@ -148,16 +149,17 @@ class KernelWrapper:
             self._sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
         return dev
 
-    def _launch(self, fn_name, dev, *args):
+    def _launch(self, fn_name, dev, *args, sizes: int = 6):
         """Call the C entry point ``fn_name`` on the current stream of device
-        ``dev``; ``args`` end with six sizes, which an error message names."""
+        ``dev``; ``args`` end with ``sizes`` sizes, which an error message
+        names."""
         lib = self.library.build()
         if torch.cuda.current_device() != dev:  # the launch goes to the current device
             with torch.cuda.device(dev):
-                return self._launch(fn_name, dev, *args)
+                return self._launch(fn_name, dev, *args, sizes=sizes)
         err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             msg = getattr(lib, self.library.error_string)(err).decode()
-            raise RuntimeError(f"{self.name} launch failed: {msg} (sizes {args[-6:]})")
+            raise RuntimeError(f"{self.name} launch failed: {msg} (sizes {args[-sizes:]})")
         with self._lock:
             self.launches += 1

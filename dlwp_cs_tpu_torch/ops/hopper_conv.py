@@ -5,8 +5,10 @@ The counterpart of ``dlwp_cs_tpu.ops.pallas_conv`` with its ``"fused"``
 backward.  Three CUDA kernels replace the Pallas kernels; each source's
 header says what bounds it and how:
 
-* ``csrc/cs_conv3x3.cu``: the forward ``_kernel`` in both of its launch
-  shapes (whole face and row bands);
+* ``csrc/cs_conv3x3.cu``: the forward ``_kernel`` in all of its launch
+  shapes: whole faces and row bands (#1, #2), and a shard's local row band
+  (#8) or tile (#9) of the spatially decomposed path, whose ghost strips
+  :mod:`dlwp_cs_tpu_torch.parallel` exchanges before the launch;
 * ``csrc/cs_conv3x3_bwd.cu``: ``_bwd_dx_kernel`` (the input cotangent: dx's
   interior and the ghost-strip cotangent ``d_ext``) and ``_bwd_dw_kernel``
   (the weight and bias gradients, as per-block partial sums that a fixed-order
@@ -18,9 +20,10 @@ Beside each kernel:
   :func:`cs_conv3x3_dx_plain`, :func:`cs_conv3x3_dw_plain`), which CPU
   tensors take; on the card it is only the comparison in ``chip_smoke.py``;
 * a wrapper (:data:`cs_conv3x3`, :data:`cs_conv3x3_dx`,
-  :data:`cs_conv3x3_dw`).  On a CPU tensor it returns the plain version; on
-  a CUDA tensor it launches the kernel or raises, and counts the launch in
-  its ``launches``.
+  :data:`cs_conv3x3_dw`; :data:`cs_conv3x3_band` and :data:`cs_conv3x3_tile`
+  launch the forward kernel on a shard's block and count apart).  On a CPU
+  tensor it returns the plain version; on a CUDA tensor it launches the
+  kernel or raises, and counts the launch in its ``launches``.
 
 :func:`cs_conv3x3_fused` is the differentiable conv: a
 ``torch.autograd.Function`` whose forward is the forward kernel and whose
@@ -52,12 +55,14 @@ from dlwp_cs_tpu_torch.ops.cuda_build import (
 
 __all__ = [
     "cs_conv3x3",
+    "cs_conv3x3_band",
     "cs_conv3x3_dw",
     "cs_conv3x3_dw_plain",
     "cs_conv3x3_dx",
     "cs_conv3x3_dx_plain",
     "cs_conv3x3_fused",
     "cs_conv3x3_plain",
+    "cs_conv3x3_tile",
     "dw_plan",
     "tile_plan",
 ]
@@ -78,10 +83,11 @@ _DW_CI, _DW_CO, _DW_ROWS, _DW_BLOCKS_PER_SM = 16, 32, 4, 8
 
 
 def _padded_faces(x, ext):
-    """``(B, 6, n+2, n+2, C)``: x framed by its ghost rows and columns."""
-    n = x.shape[2]
+    """``(B, 6, H+2, W+2, C)``: the block x ``(B, 6, H, W, C)`` framed by
+    its ghost rows and columns (ext ``(B, 6, 4, W+2, C)``, W/E at 1..H)."""
+    rows = x.shape[2]
     mid = torch.cat(
-        [ext[:, :, 2, 1 : n + 1, None], x, ext[:, :, 3, 1 : n + 1, None]], dim=3
+        [ext[:, :, 2, 1 : rows + 1, None], x, ext[:, :, 3, 1 : rows + 1, None]], dim=3
     )
     return torch.cat([ext[:, :, 0, None], mid, ext[:, :, 1, None]], dim=2)
 
@@ -90,20 +96,24 @@ _GROUPS = (slice(0, 4), slice(4, 6))  # equatorial, polar faces
 
 
 def cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole):
-    """Plain-torch fused CS conv: ``(B, 6, n, n, Cin) -> (B, 6, n, n, Cout)``.
+    """Plain-torch fused CS conv: ``(B, 6, H, W, Cin) -> (B, 6, H, W, Cout)``.
 
-    ``ext`` is :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``.
+    ``x`` is whole faces (H = W = n, ``ext`` is
+    :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``) or a shard's
+    local block (H <= W) with its exchanged ghost strips ``ext`` ``(B, 6, 4,
+    W+2, Cin)``: S/N rows corner-extended, W/E columns at positions 1..H.
     Kernels and biases are rounded to ``x``'s dtype, the taps summed in f32
     and the result cast once to ``x``'s dtype.
     """
-    n = x.shape[2]
+    rows, cols = x.shape[2], x.shape[3]
     dt = x.dtype
     p = _padded_faces(x, ext).float()
     parts = []
     for k, bias, faces in ((k_eq, b_eq, _GROUPS[0]), (k_pole, b_pole, _GROUPS[1])):
         kf = k.to(dt).float()
         acc = sum(
-            torch.einsum("bfijc,cd->bfijd", p[:, faces, dy : dy + n, dx : dx + n], kf[dy, dx])
+            torch.einsum("bfijc,cd->bfijd", p[:, faces, dy : dy + rows, dx : dx + cols],
+                         kf[dy, dx])
             for dy in range(3)
             for dx in range(3)
         )
@@ -170,8 +180,10 @@ def cs_conv3x3_dw_plain(x, ext, dout):
     return out[0], out[1], db[0], db[1]
 
 
-def tile_plan(b: int, n: int, cout: int, sm_count: int, max_cs: int | None = None):
-    """``(h, cs)``: output rows and output channels per block.
+def tile_plan(b: int, rows: int, cols: int, cout: int, sm_count: int,
+              max_cs: int | None = None):
+    """``(h, cs)``: output rows and output channels per block, for a block
+    of ``rows x cols`` cells of each of ``b * 6`` faces.
 
     A block holds at most 256 threads of ``4 x 8`` (pixels x channels)
     register tiles.  ``cs`` is the widest power-of-two channel slice (at
@@ -180,17 +192,17 @@ def tile_plan(b: int, n: int, cout: int, sm_count: int, max_cs: int | None = Non
     small (batch-1 serving).  The dx kernel plans its ``(n+2)^2`` frame with
     the same function, its slices capped at ``_DX_MAX_CS``.
     """
-    ncg = -(-n // _PX)
+    ncg = -(-cols // _PX)
     if ncg > _MAX_THREADS:
-        raise ValueError(f"face size {n} is too large for the conv kernel")
+        raise ValueError(f"a block {cols} columns wide is too large for the conv kernel")
     widest = 1 << ((_CO * (_MAX_THREADS // ncg)).bit_length() - 1)
     if max_cs is not None:
         widest = min(widest, max_cs)
     cs = min(1 << (max(cout, _CO) - 1).bit_length(), widest)
     per_row = ncg * (cs // _CO)
     nslices = -(-cout // cs)
-    h = min(n, _MAX_THREADS // per_row)
-    while h > 1 and math.ceil(n / h) * nslices * 6 * b < 2 * sm_count:
+    h = min(rows, _MAX_THREADS // per_row)
+    while h > 1 and math.ceil(rows / h) * nslices * 6 * b < 2 * sm_count:
         h -= 1
     return h, cs
 
@@ -213,7 +225,7 @@ def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
 
 
 _FWD_LIB = CudaLibrary("cs_conv3x3.cu", {
-    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 6 + [VP],
+    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
 }, "cs_conv3x3_error_string")
 _BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
     "cs_conv3x3_dx_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
@@ -223,29 +235,37 @@ _BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
 
 class _Conv3x3Kernel(KernelWrapper):
     def __call__(self, x, ext, k_eq, k_pole, b_eq, b_pole):
-        """Fused CS conv of ``x`` (B, 6, n, n, Cin) with ghost strips ``ext``
-        (B, 6, 4, n+2, Cin), HWIO kernels (3, 3, Cin, Cout) and biases
-        (Cout,), all of ``x``'s dtype; returns (B, 6, n, n, Cout)."""
+        """Fused CS conv of ``x`` (B, 6, H, W, Cin), whole faces (H = W = n,
+        ``ext`` :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``) or a
+        shard's block (H <= W) with its exchanged ghost strips ``ext`` (B, 6,
+        4, W+2, Cin); HWIO kernels (3, 3, Cin, Cout) and biases (Cout,), all
+        of ``x``'s dtype.  Returns (B, 6, H, W, Cout); see
+        :func:`cs_conv3x3_plain`."""
         if x.device.type == "cpu":
             return cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole)
-        check_faces("cs_conv3x3", x)
-        b, _, n, _, cin = x.shape
+        check_faces(self.name, x)
+        b, _, rows, cols, cin = x.shape
+        if rows > cols:
+            raise ValueError(
+                f"{self.name}: a block of {rows} rows x {cols} columns; the W/E "
+                "ghost columns ride in the (W+2) ext strips, so H <= W"
+            )
         cout = k_eq.shape[-1]
-        check_cuda_args("cs_conv3x3", x, {
-            "x": (x, (b, 6, n, n, cin)),
-            "ext": (ext, (b, 6, 4, n + 2, cin)),
+        check_cuda_args(self.name, x, {
+            "x": (x, (b, 6, rows, cols, cin)),
+            "ext": (ext, (b, 6, 4, cols + 2, cin)),
             "k_eq": (k_eq, (3, 3, cin, cout)),
             "k_pole": (k_pole, (3, 3, cin, cout)),
             "b_eq": (b_eq, (cout,)),
             "b_pole": (b_pole, (cout,)),
         })
         dev = self._device(x)
-        h, cs = tile_plan(b, n, cout, self._sm_count[dev])
-        out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
+        h, cs = tile_plan(b, rows, cols, cout, self._sm_count[dev])
+        out = torch.empty((b, 6, rows, cols, cout), dtype=x.dtype, device=x.device)
         self._launch(
             "cs_conv3x3_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
-            b, n, cin, cout, h, cs,
+            b, rows, cols, cin, cout, h, cs, sizes=7,
         )
         return out
 
@@ -266,7 +286,7 @@ class _Conv3x3DxKernel(KernelWrapper):
             "k_pole": (k_pole, (3, 3, cin, cout)),
         })
         dev = self._device(dout)
-        h, cs = tile_plan(b, n + 2, cin, self._sm_count[dev], max_cs=_DX_MAX_CS)
+        h, cs = tile_plan(b, n + 2, n + 2, cin, self._sm_count[dev], max_cs=_DX_MAX_CS)
         dx = torch.empty((b, 6, n, n, cin), dtype=dout.dtype, device=dout.device)
         d_ext = torch.empty((b, 6, 4, n + 2, cin), dtype=dout.dtype, device=dout.device)
         self._launch(
@@ -310,6 +330,9 @@ class _Conv3x3DwKernel(KernelWrapper):
 
 
 cs_conv3x3 = _Conv3x3Kernel("cs_conv3x3", _FWD_LIB)
+# kernels #8 (a row band) and #9 (a tile): the same kernel, counted apart
+cs_conv3x3_band = _Conv3x3Kernel("cs_conv3x3_band", _FWD_LIB)
+cs_conv3x3_tile = _Conv3x3Kernel("cs_conv3x3_tile", _FWD_LIB)
 cs_conv3x3_dx = _Conv3x3DxKernel("cs_conv3x3_dx", _BWD_LIB)
 cs_conv3x3_dw = _Conv3x3DwKernel("cs_conv3x3_dw", _BWD_LIB)
 

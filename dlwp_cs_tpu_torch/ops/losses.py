@@ -88,13 +88,14 @@ class AreaWeightedLoss:
     def local_terms(self, pred, target, *, spatial_axis=None, spatial_x_axis=None):
         """``(sum(w * err), sum(w))`` over the whole field.
 
-        The reference slices the weights to a shard's tile by its mesh axes;
-        spatial sharding is not ported (``ROADMAP.md`` queue 1, item 17).
+        The reference slices the weights to a shard's tile by its mesh axes
+        for sharded training, the next slice of ``parallel/`` (``ROADMAP.md``
+        queue 1, item 17).
         """
         if spatial_axis is not None or spatial_x_axis is not None:
             raise NotImplementedError(
                 "spatially sharded losses are not ported yet: ROADMAP.md "
-                "queue 1, item 17 (parallel/)"
+                "queue 1, item 17 (the training slice of parallel/)"
             )
         w = self.weights
         if tuple(pred.shape[2:4]) != tuple(w.shape[1:3]):

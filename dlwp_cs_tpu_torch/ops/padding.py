@@ -4,10 +4,17 @@ The counterpart of ``dlwp_cs_tpu.ops.padding``: each face's edges are padded
 with the adjacent faces' edge rows/columns under the per-edge index
 transform of the cube topology, and the corner blocks are the mean of the
 two flanking edge ghosts.  Layout ``(B, 6, n, n, C)`` channels-last.
+
+:func:`use_pad_impl` installs another pad for a block of code: the spatially
+decomposed path (:mod:`dlwp_cs_tpu_torch.parallel`) installs its halo
+exchange, so model code, which only calls :func:`cs_pad`, runs unchanged on
+one device or on a shard's local block.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import torch
@@ -22,7 +29,20 @@ from dlwp_cs_tpu_torch.geometry.cubed_sphere import (
     verify_edge_table,
 )
 
-__all__ = ["cs_pad", "padding_plan", "PaddingPlan"]
+__all__ = ["cs_pad", "padding_plan", "PaddingPlan", "use_pad_impl"]
+
+_PAD_IMPL: contextvars.ContextVar = contextvars.ContextVar("cs_pad_impl", default=None)
+
+
+@contextlib.contextmanager
+def use_pad_impl(fn):
+    """Within this context, ``cs_pad(x, w)`` delegates to ``fn(x, w)``
+    (``None`` restores the single-device pad)."""
+    token = _PAD_IMPL.set(fn)
+    try:
+        yield
+    finally:
+        _PAD_IMPL.reset(token)
 
 
 class PaddingPlan:
@@ -68,8 +88,12 @@ def cs_pad(x, width: int):
 
     Edge ghosts are copies of the neighbor faces' cells; each ``w x w``
     corner block is the mean of the two flanking edge-ghost cells, computed
-    in ``x``'s dtype.
+    in ``x``'s dtype.  Under :func:`use_pad_impl` the installed pad runs
+    instead.
     """
+    impl = _PAD_IMPL.get()
+    if impl is not None:
+        return impl(x, width)
     if x.ndim != 5 or x.shape[1] != 6 or x.shape[2] != x.shape[3]:
         raise ValueError(f"expected (B, 6, n, n, C), got {tuple(x.shape)}")
     b, _, n, _, c = x.shape

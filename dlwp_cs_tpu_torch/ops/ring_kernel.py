@@ -12,7 +12,8 @@ replace the Pallas kernels:
 
 * :data:`ring_fixes` (``_ring_kernel``): the per-edge fixes and the corner
   corrections from the ghost strips, each rounded to the input dtype;
-  :func:`ring_apply` adds them onto a base in that dtype;
+  :func:`ring_apply` adds them (the [S, N] and [W, E] pairs) onto a base
+  in that dtype;
 * :data:`xring_fused_apply` (``_fused_kernel``): the face select of the two
   SAME-conv bases, the fixes on the boundary ring and the corners
   subtracted, one f32 sum rounded once.
@@ -57,6 +58,7 @@ from dlwp_cs_tpu_torch.ops.ringfix import (
     cs_conv3x3_ringfix,
     face_select,
     ring_apply,
+    ring_contract,
 )
 
 __all__ = [
@@ -79,16 +81,10 @@ _GROUPS = (slice(0, 4), slice(4, 6))  # equatorial, polar faces
 def _fix_terms(ext, k_eq, k_pole):
     """f32 ``(fixes (B, 6, 4, n, D), corners (B, 6, 4, D))`` from the ghost
     strips and the kernels rounded to ``ext``'s dtype."""
-    cin = ext.shape[-1]
     e32 = ext.float()
-    win, ghosts = _windows(e32), _corner_ghosts(e32)
-    fixes, corners = [], []
-    for k, faces in ((k_eq, _GROUPS[0]), (k_pole, _GROUPS[1])):
-        kf = k.to(ext.dtype).float()
-        taps = _edge_taps(kf).reshape(4, 3 * cin, -1)
-        fixes.append(torch.einsum("bfenk,ekd->bfend", win[:, faces], taps))
-        corners.append(torch.einsum("bfec,ecd->bfed", ghosts[:, faces], _corner_taps(kf)))
-    return torch.cat(fixes, dim=1), torch.cat(corners, dim=1)
+    fix_sn, fix_we, corners = ring_contract(e32[:, :, :2], e32[:, :, 2:],
+                                            k_eq.to(ext.dtype), k_pole.to(ext.dtype))
+    return torch.cat([fix_sn, fix_we], dim=2), corners
 
 
 def ring_fixes_plain(ext, k_eq, k_pole):

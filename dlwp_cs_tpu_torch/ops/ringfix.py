@@ -37,6 +37,7 @@ __all__ = [
     "cs_conv3x3_ringfix",
     "face_select",
     "ring_apply",
+    "ring_contract",
     "ring_term",
 ]
 
@@ -166,8 +167,8 @@ def _windows(ext):
 
 
 def _corner_ghosts(ext):
-    """``(B, F, 4, n+2, C) -> (B, F, 4, C)``: the ends of the S and N strips,
-    the corner ghosts, in [sw, se, nw, ne] order."""
+    """``(B, F, 2 or 4, n+2, C) -> (B, F, 4, C)``: the ends of the S and N
+    strips, the corner ghosts, in [sw, se, nw, ne] order."""
     last = ext.shape[3] - 1
     return torch.stack(
         [ext[:, :, EDGE_S, 0], ext[:, :, EDGE_S, last],
@@ -176,29 +177,50 @@ def _corner_ghosts(ext):
     )
 
 
-def ring_apply(base, fixes, corners):
-    """Masked perimeter add in the fixes' dtype: ``fixes`` (B, 6, 4, n, D)
-    in [S, N, W, E] order on the boundary ring of ``base`` (B, 6, n, n, D)
-    (or a scalar), the ``corners`` (B, 6, 4, D) in [sw, se, nw, ne] order
-    subtracted."""
-    n = fixes.shape[3]
-    ar = torch.arange(n, device=fixes.device)
-    row = ar[None, None, :, None, None]
-    col = ar[None, None, None, :, None]
-    zero = torch.zeros((), dtype=fixes.dtype, device=fixes.device)
-    fix_s, fix_n, fix_w, fix_e = fixes.unbind(2)
+def ring_contract(sn, we, k_eq, k_pole):
+    """The ring fixes of an ``(H, W)`` block's ghost strips, in the strips'
+    dtype: ``sn`` (B, 6, 2, W+2, C) the corner-extended [S, N] strips and
+    ``we`` (B, 6, 2, H+2, C) the [W, E] strips (each at positions 1..H),
+    contracted per weight group with the outside tap rows of the HWIO
+    kernels (3, 3, C, D), cast to the strips' dtype, and the corner ghosts
+    (the ends of ``sn``) with the corner taps.  Returns ``fix_sn`` (B, 6, 2,
+    W, D), ``fix_we`` (B, 6, 2, H, D) and ``corners`` (B, 6, 4, D) in [sw,
+    se, nw, ne] order."""
+    cin = sn.shape[-1]
+    win_sn, win_we, ghosts = _windows(sn), _windows(we), _corner_ghosts(sn)
+    fix_sn, fix_we, corners = [], [], []
+    for faces, k in ((slice(0, 4), k_eq), (slice(4, 6), k_pole)):
+        k = k.to(sn.dtype)
+        taps = _edge_taps(k).reshape(4, 3 * cin, -1)
+        fix_sn.append(torch.einsum("bfenk,ekd->bfend", win_sn[:, faces], taps[:2]))
+        fix_we.append(torch.einsum("bfenk,ekd->bfend", win_we[:, faces], taps[2:]))
+        corners.append(torch.einsum("bfec,ecd->bfed", ghosts[:, faces], _corner_taps(k)))
+    return torch.cat(fix_sn, dim=1), torch.cat(fix_we, dim=1), torch.cat(corners, dim=1)
+
+
+def ring_apply(base, fix_sn, fix_we, corners):
+    """Masked perimeter add in the fixes' dtype on an ``(H, W)`` block
+    ``base`` (B, 6, H, W, D) (or a scalar): ``fix_sn`` (B, 6, 2, W, D) on
+    rows 0 and H-1, ``fix_we`` (B, 6, 2, H, D) on columns 0 and W-1, the
+    ``corners`` (B, 6, 4, D) in [sw, se, nw, ne] order subtracted."""
+    h, w = fix_we.shape[3], fix_sn.shape[3]
+    row = torch.arange(h, device=fix_sn.device)[None, None, :, None, None]
+    col = torch.arange(w, device=fix_sn.device)[None, None, None, :, None]
+    zero = torch.zeros((), dtype=fix_sn.dtype, device=fix_sn.device)
+    fix_s, fix_n = fix_sn.unbind(2)
+    fix_w, fix_e = fix_we.unbind(2)
     c_sw, c_se, c_nw, c_ne = corners.unbind(2)
     assert (EDGE_S, EDGE_N, EDGE_W, EDGE_E) == (0, 1, 2, 3)
     return (
         base
         + torch.where(row == 0, fix_s[:, :, None, :, :], zero)
-        + torch.where(row == n - 1, fix_n[:, :, None, :, :], zero)
+        + torch.where(row == h - 1, fix_n[:, :, None, :, :], zero)
         + torch.where(col == 0, fix_w[:, :, :, None, :], zero)
-        + torch.where(col == n - 1, fix_e[:, :, :, None, :], zero)
+        + torch.where(col == w - 1, fix_e[:, :, :, None, :], zero)
         - torch.where((row == 0) & (col == 0), c_sw[:, :, None, None, :], zero)
-        - torch.where((row == 0) & (col == n - 1), c_se[:, :, None, None, :], zero)
-        - torch.where((row == n - 1) & (col == 0), c_nw[:, :, None, None, :], zero)
-        - torch.where((row == n - 1) & (col == n - 1), c_ne[:, :, None, None, :], zero)
+        - torch.where((row == 0) & (col == w - 1), c_se[:, :, None, None, :], zero)
+        - torch.where((row == h - 1) & (col == 0), c_nw[:, :, None, None, :], zero)
+        - torch.where((row == h - 1) & (col == w - 1), c_ne[:, :, None, None, :], zero)
     )
 
 
@@ -206,14 +228,6 @@ def ring_term(x, k_eq, k_pole):
     """The halo correction: everything of the CS conv except the per-face
     zero-padded SAME convs and the bias, in ``x``'s dtype
     (``cs_conv3x3_ringfix == same convs + ring_term + bias``)."""
-    cin = x.shape[-1]
     ext = ext_strips(x)  # (B, 6, 4, n+2, C); ends are the corner ghosts
-    win, ghosts = _windows(ext), _corner_ghosts(ext)
-    fixes, corners = [], []
-    for faces, k in ((slice(0, 4), k_eq), (slice(4, 6), k_pole)):
-        k = k.to(x.dtype)
-        taps = _edge_taps(k).reshape(4, 3 * cin, -1)
-        fixes.append(torch.einsum("bfenk,ekd->bfend", win[:, faces], taps))
-        corners.append(torch.einsum("bfec,ecd->bfed", ghosts[:, faces], _corner_taps(k)))
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    return ring_apply(zero, torch.cat(fixes, dim=1), torch.cat(corners, dim=1))
+    return ring_apply(zero, *ring_contract(ext[:, :, :2], ext[:, :, 2:], k_eq, k_pole))

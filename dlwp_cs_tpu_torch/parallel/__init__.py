@@ -1,0 +1,73 @@
+"""Distributed execution: meshes, halo exchange, the sharded forward.
+
+The counterpart of ``dlwp_cs_tpu.parallel`` over ``torch.distributed``: one
+process per shard, a ``DeviceMesh`` with the reference's axis names, and
+the seam-routed halo exchange installed under every convolution.  Serving
+is ported (``make_spatial_apply``, ``ForecastService(mesh=...)``, the band
+and tile conv kernels #8 and #9).  The training steps, the GSPMD shardings
+(the port slices blocks explicitly: ``shard_batch``) and ``scaling.py`` are
+not: those names raise ``NotImplementedError`` naming ``ROADMAP.md``.
+"""
+
+from dlwp_cs_tpu_torch.parallel.halo import make_sharded_pad, sharded_cs_pad
+from dlwp_cs_tpu_torch.parallel.halo2d import make_sharded_pad_2d, sharded_cs_pad_2d
+from dlwp_cs_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    SPATIAL_X_AXIS,
+    create_mesh,
+)
+from dlwp_cs_tpu_torch.parallel.multihost import (
+    global_mesh,
+    host_batch_slice,
+    initialize_distributed,
+)
+from dlwp_cs_tpu_torch.parallel.sharding import (
+    make_dp_eval_step,
+    make_dp_shardmap_train_step,
+    make_dp_train_step,
+    make_spatial_apply,
+    make_spatial_train_step,
+    shard_batch,
+)
+
+
+def _not_ported(name: str, where: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md {where}")
+
+    fn.__name__ = fn.__qualname__ = name
+    return fn
+
+
+_SHARDINGS = "queue 1, item 17 (GSPMD shardings; the port slices blocks: shard_batch)"
+batch_sharding = _not_ported("batch_sharding", _SHARDINGS)
+batch_spatial_sharding = _not_ported("batch_spatial_sharding", _SHARDINGS)
+replicated = _not_ported("replicated", _SHARDINGS)
+ScalingResult = _not_ported("ScalingResult", "queue 1, item 17 (parallel/scaling.py)")
+measure_scaling = _not_ported("measure_scaling", "queue 1, item 17 (parallel/scaling.py)")
+
+__all__ = [
+    "make_sharded_pad",
+    "sharded_cs_pad",
+    "make_sharded_pad_2d",
+    "sharded_cs_pad_2d",
+    "DATA_AXIS",
+    "SPATIAL_AXIS",
+    "SPATIAL_X_AXIS",
+    "batch_sharding",
+    "batch_spatial_sharding",
+    "create_mesh",
+    "replicated",
+    "global_mesh",
+    "host_batch_slice",
+    "initialize_distributed",
+    "ScalingResult",
+    "measure_scaling",
+    "make_dp_eval_step",
+    "make_dp_shardmap_train_step",
+    "make_dp_train_step",
+    "make_spatial_apply",
+    "make_spatial_train_step",
+    "shard_batch",
+]

@@ -6,7 +6,9 @@ channels at each new valid time, hold the constant fields fixed.  The
 reference's ``lax.scan`` becomes a Python loop of device work with no host
 synchronisation inside it: the window and the clock stay on the device.
 The model's parameters live in the module, so the rollout takes no
-``params`` argument.
+``params`` argument.  The model is any callable with the module's contract:
+the sharded forward of :func:`~dlwp_cs_tpu_torch.parallel.make_spatial_apply`
+takes its place as the reference's ``apply_fn`` does.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ def make_rollout_fn(
     """Build ``rollout(window, t0_days) -> Forecast``.
 
     ``model`` maps inputs ``(B, 6, n, n, C_in)`` to outputs ``(B, 6, n, n,
-    T_out*C_var)``; ``lat``/``lon`` ``(6, n, n)`` radians and ``constants``
+    T_out*C_var)``: the module, or a sharded apply of it (every rank of its
+    mesh then runs the rollout with the same arguments); ``lat``/``lon`` ``(6, n, n)`` radians and ``constants``
     ``(6, n, n, K)`` (normalized) are copied to ``device`` once.  The
     initial ``window`` ``(B, T_in, 6, n, n, C_var)`` holds normalized fields
     at valid times ``t0 - (T_in-1)*dt .. t0``.

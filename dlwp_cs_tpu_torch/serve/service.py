@@ -9,6 +9,11 @@ timeouts.
 Request contract: a RAW (physical-units) input window ``(T_in, 6, n, n,
 C_var)`` plus its init time; the service normalizes, rolls out and returns
 denormalized numpy fields.
+
+Under a device mesh (``mesh=``) the model runs spatially decomposed
+(:func:`~dlwp_cs_tpu_torch.parallel.make_spatial_apply`) and ``forecast``
+is a collective call: every rank of the mesh calls it with the same
+arguments and gets the same forecast.
 """
 
 from __future__ import annotations
@@ -23,7 +28,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
+from dlwp_cs_tpu_torch.parallel.collectives import axis_size
+from dlwp_cs_tpu_torch.parallel.mesh import DATA_AXIS
+from dlwp_cs_tpu_torch.parallel.sharding import make_spatial_apply
 from dlwp_cs_tpu_torch.rollout.estimator import Forecast, TimeSeriesEstimator
 
 __all__ = [
@@ -51,7 +60,7 @@ class ServiceStats:
     batches: int = 0
     # bucket padding: requests repeated to fill the power-of-two micro-batch
     padded_members: int = 0
-    # mesh data-axis padding; always 0 until sharded serving is ported
+    # mesh data-axis padding: members repeated to fill the data dimension
     padded_mesh: int = 0
     device_seconds: float = 0.0
 
@@ -308,8 +317,18 @@ class ForecastService(MicroBatcher):
     ``max_batch``, ``max_wait_ms``, ``max_queue``, ``request_timeout_s``:
     the micro-batcher (see :class:`MicroBatcher`).  ``max_steps`` /
     ``max_members``: server-side caps on client-supplied rollout length and
-    ensemble size (``ValueError``).  ``quantize`` and ``mesh`` are not
-    ported yet and raise ``NotImplementedError``.
+    ensemble size (``ValueError``).  ``quantize`` is not ported yet and
+    raises ``NotImplementedError``.
+
+    ``mesh``: an optional ``DeviceMesh``
+    (:func:`~dlwp_cs_tpu_torch.parallel.create_mesh`) on the estimator's
+    device type.  The model forward then runs domain-decomposed (batch over
+    ``data``, face rows over ``spatial``, columns over ``spatial_x``) with
+    the band ring-fix conv, batches padded to a multiple of the ``data``
+    size (``stats.padded_mesh``).  ``forecast`` is then a collective call
+    (every rank, the same arguments); ``submit`` raises
+    ``NotImplementedError``, since each rank's batcher would coalesce
+    differently.
     """
 
     def __init__(self, estimator, *, constants=None, constants_store=None,
@@ -321,11 +340,6 @@ class ForecastService(MicroBatcher):
             raise NotImplementedError(
                 "quantize=True is not ported yet: ROADMAP.md queue 1, item 15 "
                 "(ops/quant.py)"
-            )
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet: ROADMAP.md queue 1, item 17 "
-                "(parallel/)"
             )
         if estimator.state is None or estimator.stats is None:
             raise RuntimeError("estimator has no state: load it first")
@@ -344,8 +358,20 @@ class ForecastService(MicroBatcher):
         self._mean = np.asarray(stats["mean"], np.float32)
         self._std = np.asarray(stats["std"], np.float32)
         self.quantized = False
+        model = estimator.model
+        self.mesh = mesh
+        self._data_div = 1
+        if mesh is not None:
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh (create_mesh), got {type(mesh)}")
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"mesh is on {mesh.device_type}, the estimator on {self.device}"
+                )
+            model = make_spatial_apply(model, mesh, band_conv="ringfix")
+            self._data_div = axis_size(mesh, DATA_AXIS)
         self._est = TimeSeriesEstimator(
-            model=estimator.model,
+            model=model,
             data_cfg=dcfg,
             lat=lat,
             lon=lon,
@@ -375,6 +401,16 @@ class ForecastService(MicroBatcher):
                 f"members={members} outside [1, {self.max_members}] "
                 "(server-side cap)"
             )
+
+    def submit(self, window, t0_days, *, steps: int, normalized: bool = False) -> Future:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "submit under mesh= is not ported yet: each rank's batcher would "
+                "coalesce differently; a rank-0 front end that broadcasts its "
+                "batches is ROADMAP.md queue 1, item 17.  Call forecast() on "
+                "every rank"
+            )
+        return super().submit(window, t0_days, steps=steps, normalized=normalized)
 
     def info(self) -> dict:
         """Model/grid metadata."""
@@ -446,15 +482,21 @@ class ForecastService(MicroBatcher):
                 f"t0_days batch {t0.shape[0]} != window batch "
                 f"{window.shape[0]}"
             )
+        b = window.shape[0]
+        pad = (-b) % self._data_div  # mesh data-axis divisibility
+        if pad:
+            window = np.concatenate([window, np.repeat(window[-1:], pad, axis=0)], axis=0)
+            t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
         t0_wall = time.perf_counter()
         fc = self._est.predict(window, t0, steps=steps)
-        fields = fc.fields.cpu().numpy()  # waits for the device
+        fields = fc.fields[:b].cpu().numpy()  # waits for the device
         with self._lock:
             self.stats.device_seconds += time.perf_counter() - t0_wall
+            self.stats.padded_mesh += pad
         if not normalized:
             fields = fields * self._std + self._mean
         return fc._replace(
             fields=fields,
             lead_hours=fc.lead_hours.cpu().numpy(),
-            init_times=np.asarray(fc.init_times),
+            init_times=np.asarray(fc.init_times)[:b],
         )

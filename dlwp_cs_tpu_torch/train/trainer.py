@@ -95,8 +95,10 @@ class Trainer:
       workdir: if set, ``metrics.jsonl`` and periodic checkpoints go under it.
       profile_steps: ``(start, stop)``: a ``torch.profiler`` trace of those
         global steps is written to ``workdir/profile``.
-      mesh: data-parallel training is not ported (``ROADMAP.md`` queue 1,
-        item 17); anything but ``None`` raises.
+      mesh: data-parallel and sharded training are the next slice of
+        ``parallel/`` (``ROADMAP.md`` queue 1, item 17); anything but
+        ``None`` raises.  Serving under a mesh is ported
+        (``ForecastService(mesh=...)``).
     """
 
     def __init__(self, model, cfg: TrainConfig, *, area_weights=None,
@@ -104,8 +106,8 @@ class Trainer:
                  profile_steps: tuple[int, int] | None = None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (data-parallel training) is not ported yet: ROADMAP.md "
-                "queue 1, item 17"
+                "mesh= (data-parallel and sharded training) is not ported yet: "
+                "ROADMAP.md queue 1, item 17 (the training slice of parallel/)"
             )
         self.model = model
         self.cfg = cfg

@@ -136,7 +136,7 @@ def test_unported_backends_raise(backend):
 def test_tile_plan_fits_a_block(b, n, cout):
     """Every block holds at most 256 threads of 4x8 register tiles and the
     tiles cover the face."""
-    h, cs = tile_plan(b, n, cout, sm_count=132)
+    h, cs = tile_plan(b, n, n, cout, sm_count=132)
     assert 1 <= h <= n and cs >= 8 and cs & (cs - 1) == 0
     assert h * -(-n // 4) * (cs // 8) <= 256
     assert cs >= min(-(-cout // 8) * 8, 8)
@@ -150,12 +150,12 @@ def test_tile_plan_row_tiles(b, n, cout, rows):
     batch of 8 at n=48 ragged 5-row tiles (48 = 9*5 + 3), a large batch of
     small faces whole faces: the kernel's row-band, ragged and whole-face
     launches all occur on their own."""
-    assert tile_plan(b, n, cout, sm_count=132)[0] == rows
+    assert tile_plan(b, n, n, cout, sm_count=132)[0] == rows
 
 
 def test_tile_plan_rejects_oversized_face():
     with pytest.raises(ValueError, match="too large"):
-        tile_plan(1, 4 * 256 + 1, 8, sm_count=132)
+        tile_plan(1, 4 * 256 + 1, 4 * 256 + 1, 8, sm_count=132)
 
 
 def test_wrapper_runs_on_cuda_or_cpu_only():

@@ -17,7 +17,9 @@ kernels (#6, #7) as the conv kernel; the whole float32 xring conv, under
 PyTorch's default TF32 flags, within 1e-5 of its plain version (outputs of
 order 1); its gradients within 1e-4 (f32: cuDNN may pick Winograd or FFT
 algorithms for the SAME convs' VJP) and 2**-6 (bf16) of each gradient's
-largest entry.
+largest entry.  The band and tile launches of the forward kernel (#8,
+#9) as the forward kernel; a band conv of 2 ranks sharing the card (a gloo
+group) against the one-card conv likewise.
 """
 
 import numpy as np
@@ -34,11 +36,13 @@ from dlwp_cs_tpu_torch.ops.conv import cs_conv
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import (
     cs_conv3x3,
+    cs_conv3x3_band,
     cs_conv3x3_dw,
     cs_conv3x3_dw_plain,
     cs_conv3x3_dx,
     cs_conv3x3_dx_plain,
     cs_conv3x3_plain,
+    cs_conv3x3_tile,
 )
 from dlwp_cs_tpu_torch.ops.ring_kernel import (
     cs_conv3x3_xring,
@@ -280,3 +284,78 @@ def test_ring_kernels_reject_bad_arguments(cuda_device):
     base = torch.zeros((1, 6, 8, 8, 8), device=cuda_device)
     with pytest.raises(ValueError, match="base_po"):
         xring_fused_apply(base, base.bfloat16(), e, k_eq, k_po)
+
+
+# local blocks (B, rows, cols, Cin, Cout): the flagship's 4-band shapes
+# (h = 12, 3) and 2x2 tiles (h = W = 24, 6), a ragged band, a one-row tile
+BLOCK_SHAPES = [
+    (1, 12, 48, 12, 32), (8, 3, 12, 128, 128), (1, 24, 24, 96, 32), (8, 6, 6, 128, 128),
+    (2, 5, 13, 5, 7), (1, 1, 3, 3, 9),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,rows,cols,cin,cout", BLOCK_SHAPES)
+def test_block_kernels_match_plain_on_card(cuda_device, dtype, b, rows, cols, cin, cout):
+    """Kernels #8 (band) and #9 (tile): the forward kernel on a shard's
+    block with exchanged ghost strips (W/E at positions 1..rows)."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((b, 6, rows, cols, cin), generator=gen).to(cuda_device, tdt)
+    ext = torch.randn((b, 6, 4, cols + 2, cin), generator=gen)
+    ext[:, :, 2:, 0] = 0
+    ext[:, :, 2:, rows + 1 :] = 0
+    ext = ext.to(cuda_device, tdt)
+    w = [torch.from_numpy(a).to(cuda_device) for a in _case(1, 1, cin, cout)[1:]]
+    w[0], w[1] = w[0] / cin**0.5, w[1] / cin**0.5
+    w = [t.to(tdt) for t in w]
+    for wrapper in (cs_conv3x3_band, cs_conv3x3_tile):
+        before = wrapper.launches
+        ours = wrapper(x, ext, *w)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _close(ours, cs_conv3x3_plain(x, ext, *w), dtype)
+
+
+@pytest.mark.cuda
+def test_block_kernel_rejects_tall_blocks(cuda_device):
+    x = torch.zeros((1, 6, 8, 4, 3), device=cuda_device)
+    ext = torch.zeros((1, 6, 4, 6, 3), device=cuda_device)
+    w = [torch.from_numpy(a).to(cuda_device) for a in _case(1, 1, 3, 5)[1:]]
+    with pytest.raises(ValueError, match="H <= W"):
+        cs_conv3x3_band(x, ext, *w)
+
+
+def _band_conv_on_two_ranks(x, w):
+    """One rank of a 2-rank group sharing the card: the band conv of kernel
+    #8 on its half of the faces, gathered."""
+    from dlwp_cs_tpu_torch.parallel import create_mesh
+    from dlwp_cs_tpu_torch.parallel.hopper_band import make_sharded_pallas_conv3x3
+    from dlwp_cs_tpu_torch.parallel.mesh import gather_blocks, local_block
+
+    mesh = create_mesh(data=1, spatial=2)
+    conv = make_sharded_pallas_conv3x3(mesh)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        band = local_block(x.cuda().to(dtype), mesh)
+        y = conv(band, *(t.cuda().to(dtype) for t in w))
+        out[dtype] = gather_blocks(y, mesh).cpu()
+    out["launches"] = cs_conv3x3_band.launches
+    return out
+
+
+@pytest.mark.cuda
+def test_band_conv_of_two_ranks_sharing_the_card(cuda_device, tmp_path):
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    x, *w = (torch.from_numpy(a) for a in _case(1, 48, 32, 32))
+    w[0], w[1] = w[0] / 32**0.5, w[1] / 32**0.5
+    results = spawn_group(_band_conv_on_two_ranks, 2, x, w, workdir=tmp_path)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        xd, *wd = (t.to(cuda_device, tdt) for t in (x, *w))
+        ref = cs_conv3x3(xd, ext_strips(xd), *wd).cpu()
+        for r in results:
+            assert r["launches"] == 2
+            _close(r[tdt], ref, dtype)

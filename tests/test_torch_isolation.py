@@ -34,9 +34,10 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for m in ("ops.hopper_conv", "ops.ring_kernel", "ops.ringfix", "ops.cuda_build",
-              "models.convlstm"):
+              "models.convlstm", "parallel.halo", "parallel.halo2d", "parallel.hopper_band",
+              "parallel.hopper_tile", "parallel.sharding", "parallel.launch"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
-    assert len(mods) >= 23
+    assert len(mods) >= 35
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,6 +90,12 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prefetch_to_device(iter([]))
+    from dlwp_cs_tpu_torch.parallel import create_mesh, global_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_mesh(data=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        global_mesh()
     est = DLWPEstimator(cfg, device="cpu")  # an explicit device is honoured
     assert est.device.type == "cpu"
     assert dlwp_cs_tpu_torch.DLWPEstimator is DLWPEstimator

@@ -1,0 +1,527 @@
+"""The port's spatially decomposed serving path against the JAX package.
+
+One group of 4 CPU ranks (gloo, meeting through a ``FileStore``) runs every
+sharded case of this file once (:func:`_rank_cases`, spawned by the
+``group`` fixture); the tests hold each rank's results against the JAX
+package's ``shard_map`` code on the conftest's 8 virtual CPU devices, run as
+its own tests run it (``interpret=True``, ``band_conv="pallas_interpret"``).
+The spawned ranks import this module, so JAX is imported only inside the
+fixtures and tests that the pytest process runs.
+
+Inputs are seeded numpy at n = 8.  Tolerances:
+
+* pads: exact copies and the same two-term corner means: 1e-6;
+* float32 convs, pads-then-convs and the U-Net: sums in another order,
+  3e-5 absolute on outputs of order 1 (the JAX tests' own 2e-5 to 3e-5);
+* bfloat16 convs: one rounding of a f32 sum on each side, which may
+  straddle a bf16 boundary, within 2**-6 of the largest output;
+* the forecast service: 1e-4 of the largest std on denormalized fields, as
+  ``tests/test_torch_serve.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+N = 8
+F32_TOL = 3e-5
+BF16_REL = 2.0**-6
+DATA = dict(grid_n=N, variables=("z500", "t2m"), constants=("topography",))
+STATS = {"mean": [5400.0, 280.0], "std": [300.0, 20.0],
+         "insol_mean": 300.0, "insol_std": 400.0}
+
+# the port's meshes span the group's 4 ranks: the data dimension takes what
+# the tiling leaves (a pad on 2 bands runs on a (2, 2) mesh)
+PADS_1D = [(2, 1), (2, 2), (4, 1), (4, 2)]  # (S, width)
+PADS_2D = [((2, 2), 1), ((2, 2), 2), ((1, 2), 1), ((1, 2), 2), ((2, 1), 1), ((2, 1), 2)]
+MODELS = [  # (mesh (data, spatial, spatial_x), overlap, band_conv)
+    ((1, 4, 1), True, "ringfix"), ((1, 4, 1), True, "pallas"), ((2, 2, 1), True, "pallas"),
+    ((1, 4, 1), False, "ringfix"), ((1, 2, 2), True, "ringfix"), ((1, 2, 2), True, "pallas"),
+]
+CTX_ERRORS = [  # (mesh, kwargs, exception, match)
+    ((1, 2, 2), dict(band_impl="rdma"), "ValueError", "band_impl"),
+    ((1, 2, 2), dict(band_conv="overlap"), "ValueError", "not available on the 2-D"),
+    ((1, 2, 2), dict(band_conv="palas"), "ValueError", "not available on the 2-D"),
+    ((1, 4, 1), dict(overlap=False, band_conv="pallas"), "ValueError", "overlap=True"),
+    ((1, 4, 1), dict(band_conv="overlap"), "NotImplementedError", "kernel #11"),
+    ((1, 4, 1), dict(band_conv="overlap_interpret"), "NotImplementedError", "ROADMAP"),
+    ((1, 4, 1), dict(band_conv="nope"), "ValueError", "unknown band_conv"),
+    ((1, 4, 1), dict(band_impl="rdma"), "NotImplementedError", "kernel #10"),
+    ((1, 4, 1), dict(band_impl="rdma_interpret"), "NotImplementedError", "ROADMAP"),
+    ((1, 4, 1), dict(band_impl="bogus"), "ValueError", "unknown band exchange"),
+    ((1, 4, 1), dict(band_impl="zero"), "ValueError", "moves no band rows"),
+    ((1, 4, 1), dict(band_impl="zero", overlap=False), "ValueError", "moves no band rows"),
+    ((1, 4, 1), dict(band_impl="zero", band_conv="pallas"), "ValueError", "moves no band rows"),
+]
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
+
+
+def _conv_inputs():
+    x = _rand((2, 6, N, N, 3), 11)
+    ks = [_rand((3, 3, 3, 5), s, 0.2) for s in (12, 13)]
+    bs = [_rand((5,), s) for s in (14, 15)]
+    return x, ks, bs
+
+
+def _service_inputs():
+    rng = np.random.default_rng(0)
+    const = rng.normal(size=(6, N, N, 1)).astype(np.float32)
+    mean, std = np.asarray(STATS["mean"], np.float32), np.asarray(STATS["std"], np.float32)
+    windows = (rng.normal(size=(3, 2, 6, N, N, 2)) * std + mean).astype(np.float32)
+    return const, windows, np.asarray([9668.5, 9700.25, 9701.0])
+
+
+def _caught(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the test reads type and message
+        return type(e).__name__, str(e)
+    return None
+
+
+# ---- what each rank runs ---------------------------------------------------
+
+def _rank_cases(params):
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.estimator import DLWPEstimator
+    from dlwp_cs_tpu_torch.models import DataConfig, ExperimentConfig, UNetConfig
+    from dlwp_cs_tpu_torch.parallel import create_mesh, make_spatial_apply
+    from dlwp_cs_tpu_torch.parallel.collectives import all_gather, axis_index, ppermute, psum
+    from dlwp_cs_tpu_torch.parallel.halo import halo_pieces, sharded_cs_pad, use_band_exchange
+    from dlwp_cs_tpu_torch.parallel.halo2d import sharded_cs_pad_2d
+    from dlwp_cs_tpu_torch.parallel.hopper_band import band_conv3x3
+    from dlwp_cs_tpu_torch.parallel.hopper_tile import make_tile_pallas_conv3x3, tile_conv3x3
+    from dlwp_cs_tpu_torch.parallel.mesh import gather_blocks, local_block
+    from dlwp_cs_tpu_torch.parallel.overlap import sharded_ringfix_conv3x3
+    from dlwp_cs_tpu_torch.parallel.sharding import sharded_model_ctx
+    from dlwp_cs_tpu_torch.serve import ForecastService
+
+    meshes = {}
+
+    def mesh(shape):  # every rank creates the meshes in the same order
+        if shape not in meshes:
+            d, sy, sx = shape
+            meshes[shape] = create_mesh(data=d, spatial=sy, spatial_x=sx, device="cpu")
+        return meshes[shape]
+
+    def coords(m):
+        return tuple(axis_index(m, a) for a in ("data", "spatial", "spatial_x"))
+
+    out = {"rank": dist.get_rank()}
+    x = torch.from_numpy(_rand((2, 6, N, N, 3), 1))
+    for s, w in PADS_1D:
+        m = mesh((4 // s, s, 1))
+        band = local_block(x, m)
+        out["pad1d", s, w] = (coords(m), sharded_cs_pad(band, w, mesh=m).numpy())
+    m = mesh((1, 4, 1))
+    out["pieces"] = (coords(m), [p.numpy() for p in halo_pieces(local_block(x, m), 1, mesh=m)])
+    with use_band_exchange("zero"):
+        out["pad1d_zero"] = sharded_cs_pad(local_block(x, m), 1, mesh=m).numpy()
+    for (sy, sx), w in PADS_2D:
+        m = mesh((4 // (sy * sx), sy, sx))
+        out["pad2d", sy, sx, w] = (coords(m), sharded_cs_pad_2d(local_block(x, m), w, mesh=m).numpy())
+
+    xc, ks, bs = _conv_inputs()
+    for dt in (torch.float32, torch.bfloat16):
+        args = [torch.from_numpy(a).to(dt) for a in (*ks, *bs)]
+        m = mesh((1, 4, 1))
+        band = local_block(torch.from_numpy(xc).to(dt), m)
+        out["ringfix", dt] = gather_blocks(
+            sharded_ringfix_conv3x3(band, *args, mesh=m), m).float().numpy()
+        out["band", dt] = gather_blocks(band_conv3x3(band, *args, mesh=m), m).float().numpy()
+        m = mesh((1, 2, 2))
+        tile = local_block(torch.from_numpy(xc).to(dt), m)
+        out["tile", dt] = gather_blocks(tile_conv3x3(tile, *args, mesh=m), m).float().numpy()
+    # tiles of 8 rows x 4 columns (h > wl) leave the kernel for pad-then-VALID
+    m = mesh((2, 1, 2))
+    tall = local_block(torch.from_numpy(xc), m)
+    conv = make_tile_pallas_conv3x3(m)
+    out["tile_tall"] = gather_blocks(conv(tall, *map(torch.from_numpy, (*ks, *bs))), m).numpy()
+
+    cfg = ExperimentConfig(data=DataConfig(**DATA), model=UNetConfig(filters=(4, 8)))
+    est = DLWPEstimator(cfg, device="cpu").load_state(STATS, params)
+    xu = torch.from_numpy(_rand((4, 6, N, N, cfg.data.input_channels), 61))
+    for shape, overlap, band_conv in MODELS:
+        fn = make_spatial_apply(est.model, mesh(shape), overlap=overlap, band_conv=band_conv)
+        out["unet", shape, overlap, band_conv] = fn(xu).numpy()
+
+    const, windows, t0 = _service_inputs()
+    svc = ForecastService(est, constants=const, mesh=mesh((2, 2, 1)))
+    fc = svc.forecast(windows, t0, steps=2)
+    out["service"] = (fc.fields, np.asarray(fc.init_times), svc.stats.padded_mesh,
+                      svc.stats.requests)
+    out["service_submit"] = _caught(lambda: svc.submit(windows[0], t0[0], steps=1))
+
+    for i, (shape, kwargs, _, _) in enumerate(CTX_ERRORS):
+        out["ctx_error", i] = _caught(lambda: sharded_model_ctx(mesh(shape), **kwargs))
+    m = mesh((1, 4, 1))
+    band = local_block(x, m)
+    out["bad_width"] = _caught(lambda: sharded_cs_pad(band, 3, mesh=m))
+    out["bad_batch"] = _caught(lambda: local_block(x[:1], mesh((2, 2, 1))))
+    grad = band.clone().requires_grad_(True)
+    out["grad"] = _caught(lambda: sharded_cs_pad(grad, 1, mesh=m))
+    me = float(dist.get_rank())
+    t = torch.full((2,), me)
+    out["collectives"] = (
+        all_gather(t, m, "spatial").numpy(),
+        psum(t, mesh((1, 2, 2)), ("spatial", "spatial_x")).numpy(),
+        ppermute(t, m, "spatial", [(0, 3), (3, 0)]).numpy(),
+    )
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    """The reference estimator (filters (4, 8)) with seeded parameters; its
+    U-Net serves both the model and the service tests."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from dlwp_cs_tpu.estimator import DLWPEstimator as JEstimator
+    from dlwp_cs_tpu.models import DataConfig as JDataConfig
+    from dlwp_cs_tpu.models import ExperimentConfig as JExperimentConfig
+    from dlwp_cs_tpu.models import UNetConfig as JUNetConfig
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual JAX devices")
+    jcfg = JExperimentConfig(data=JDataConfig(**DATA), model=JUNetConfig(filters=(4, 8)))
+    jest = JEstimator(jcfg)
+    x0 = jnp.zeros((1, 6, N, N, jcfg.data.input_channels))
+    jest.state = types.SimpleNamespace(
+        params=jax.jit(jest.model.init)(jax.random.PRNGKey(1), x0))
+    jest.stats = STATS
+    return jest
+
+
+@pytest.fixture(scope="module")
+def group(jax_model, tmp_path_factory):
+    import jax
+
+    params = jax.tree_util.tree_map(np.asarray, jax_model.state.params)
+    results = spawn_group(_rank_cases, 4, params, workdir=tmp_path_factory.mktemp("ranks"))
+    assert [r["rank"] for r in results] == [0, 1, 2, 3]
+    return results
+
+
+def _jax_sharded(fn, x, sy, sx, data=1):
+    """JAX ``shard_map`` of ``fn`` over rows (and columns) of ``x``."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from dlwp_cs_tpu.parallel import create_mesh
+
+    spec = P(None, None, "spatial", "spatial_x" if sx > 1 else None, None)
+    jmesh = create_mesh(data=data, spatial=sy, spatial_x=sx)
+    return np.asarray(jax.jit(jax.shard_map(fn, mesh=jmesh, in_specs=spec, out_specs=spec,
+                                            check_vma=False))(x))
+
+
+def _block(stacked, coords, bh, bw):
+    """The block at ``coords`` (data, iy, jx) of a shard_map output whose
+    local blocks are ``bh x bw`` (the caller picks the batch half of a data
+    coordinate)."""
+    _, iy, jx = coords
+    return stacked[:, :, iy * bh : (iy + 1) * bh, jx * bw : (jx + 1) * bw]
+
+
+@pytest.mark.parametrize("s,width", PADS_1D)
+def test_sharded_pad_matches_reference(group, s, width):
+    from dlwp_cs_tpu.ops import cs_pad
+    from dlwp_cs_tpu.parallel.halo import sharded_cs_pad as jpad
+
+    x = _rand((2, 6, N, N, 3), 1)
+    ref = _jax_sharded(lambda xl: jpad(xl, width, n_shards=s), x, s, 1)
+    full = np.asarray(cs_pad(x, width))
+    h = N // s
+    for r in group:
+        coords, ours = r["pad1d", s, width]
+        d = slice(None) if s == 4 else slice(coords[0], coords[0] + 1)
+        want = _block(ref, coords, h + 2 * width, N + 2 * width)[d]
+        np.testing.assert_allclose(ours, want, rtol=0, atol=1e-6)
+        iy = coords[1]
+        np.testing.assert_allclose(ours, full[d, :, iy * h : iy * h + h + 2 * width],
+                                   rtol=0, atol=1e-6)
+
+
+def test_zero_band_exchange_moves_no_band_rows(group):
+    """``use_band_exchange("zero")``: the ghost rows between bands come back
+    as zeros (a conv that moves them itself fills them); the rest of the
+    halo is the full exchange's."""
+    for r in group:
+        coords, full = r["pad1d", 4, 1]
+        zero = r["pad1d_zero"]
+        iy = coords[1]
+        inner = [row for row, interior in ((0, iy > 0), (-1, iy < 3)) if interior]
+        for row in inner:
+            assert not zero[:, :, row, 1:-1].any()
+        keep = np.ones(zero.shape[2], bool)
+        keep[inner] = False
+        np.testing.assert_array_equal(zero[:, :, keep], full[:, :, keep])
+
+
+def test_halo_pieces_match_reference(group):
+    from dlwp_cs_tpu.parallel.halo import halo_pieces as jpieces
+
+    x = _rand((2, 6, N, N, 3), 1)
+    for i, (bh, bw) in enumerate([(1, N + 2), (1, N + 2), (2, 1), (2, 1)]):
+        ref = _jax_sharded(lambda xl: jpieces(xl, 1, n_shards=4)[i], x, 4, 1)
+        for r in group:
+            coords, pieces = r["pieces"]
+            np.testing.assert_allclose(pieces[i], _block(ref, coords, bh, bw),
+                                       rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("tiling,width", PADS_2D)
+def test_sharded_pad_2d_matches_reference(group, tiling, width):
+    from dlwp_cs_tpu.ops import cs_pad
+    from dlwp_cs_tpu.parallel.halo2d import sharded_cs_pad_2d as jpad2d
+
+    sy, sx = tiling
+    x = _rand((2, 6, N, N, 3), 1)
+    ref = _jax_sharded(lambda xl: jpad2d(xl, width, sy=sy, sx=sx), x, sy, sx)
+    full = np.asarray(cs_pad(x, width))
+    h, wl = N // sy, N // sx
+    for r in group:
+        coords, ours = r["pad2d", sy, sx, width]
+        d = slice(None) if sy * sx == 4 else slice(coords[0], coords[0] + 1)
+        want = _block(ref, coords, h + 2 * width, wl + 2 * width)[d]
+        np.testing.assert_allclose(ours, want, rtol=0, atol=1e-6)
+        iy, jx = coords[1:]
+        np.testing.assert_allclose(
+            ours, full[d, :, iy * h : iy * h + h + 2 * width, jx * wl : jx * wl + wl + 2 * width],
+            rtol=0, atol=1e-6)
+
+
+def _close(ours, ref, dtype):
+    if dtype == torch.float32:
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=F32_TOL)
+    else:
+        err = np.abs(ours - ref).max()
+        assert err <= BF16_REL * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("conv", ["ringfix", "band", "tile"])
+def test_band_and_tile_convs_match_reference(group, conv, dtype):
+    """The band ring-fix conv, and the band and tile kernels' plain
+    versions (the CPU path of kernels #8, #9), against the reference's
+    ``sharded_ringfix_conv3x3`` and its Pallas band and tile kernels."""
+    import jax.numpy as jnp
+
+    from dlwp_cs_tpu.parallel.overlap import sharded_ringfix_conv3x3
+    from dlwp_cs_tpu.parallel.pallas_band import band_conv3x3_pallas
+    from dlwp_cs_tpu.parallel.pallas_tile import tile_conv3x3_pallas
+
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    x, ks, bs = _conv_inputs()
+    x, *w = (jnp.asarray(a, jdt) for a in (x, *ks, *bs))
+    fns = {
+        "ringfix": (lambda xl: sharded_ringfix_conv3x3(xl, *w, n_shards=4), 4, 1),
+        "band": (lambda xl: band_conv3x3_pallas(xl, *w, "spatial", 4, True), 4, 1),
+        "tile": (lambda xl: tile_conv3x3_pallas(xl, *w, "spatial", "spatial_x", 2, 2, True),
+                 2, 2),
+    }
+    fn, sy, sx = fns[conv]
+    ref = _jax_sharded(fn, x, sy, sx).astype(np.float32)
+    for r in group:
+        _close(r[conv, dtype], ref, dtype)
+
+
+def test_tall_tiles_go_pad_then_valid(group):
+    """h > wl: the tile conv closure leaves the kernel for pad-then-VALID
+    (with its own 3x3 conv cleared, or it would recurse)."""
+    from dlwp_cs_tpu.ops import cs_conv
+
+    x, ks, bs = _conv_inputs()
+    ref = np.asarray(cs_conv(x, *ks, bias_eq=bs[0], bias_pole=bs[1], backend="xla"))
+    for r in group:
+        np.testing.assert_allclose(r["tile_tall"], ref, rtol=0, atol=F32_TOL)
+
+
+@pytest.fixture(scope="module")
+def jax_unet_outputs(jax_model):
+    import jax
+
+    jm = jax_model
+    x = _rand((4, 6, N, N, jm.config.data.input_channels), 61)
+    return x, np.asarray(jax.jit(jm.model.apply)(jm.state.params, x))
+
+
+@pytest.mark.parametrize("shape,overlap,band_conv", MODELS)
+def test_unet_spatial_apply_matches_reference(group, jax_unet_outputs, shape, overlap,
+                                              band_conv):
+    """A small U-Net (filters (4, 8)) through ``make_spatial_apply`` against
+    the reference's forward (whose own tests pin its sharded applies, the
+    Pallas band and tile kernels' included, to it); the band and tile convs
+    are held against the reference's kernels above."""
+    _, single = jax_unet_outputs
+    for r in group:
+        np.testing.assert_allclose(r["unet", shape, overlap, band_conv], single,
+                                   rtol=0, atol=F32_TOL)
+
+
+def test_forecast_service_on_mesh_matches_reference(group, jax_model):
+    """``ForecastService(mesh=create_mesh(data=2, spatial=2))`` at batch 3
+    (padded to 4 over the data dimension), 2 steps, against the reference's
+    service on the same mesh; every rank gets the same forecast, and
+    ``submit`` raises under a mesh."""
+    from dlwp_cs_tpu.parallel import create_mesh
+    from dlwp_cs_tpu.serve import ForecastService as JForecastService
+
+    const, windows, t0 = _service_inputs()
+    ref = JForecastService(jax_model, constants=const, mesh=create_mesh(data=2, spatial=2))
+    want = np.asarray(ref.forecast(windows, t0, steps=2).fields)
+    std = np.asarray(STATS["std"], np.float32)
+    for r in group:
+        fields, init_times, padded, requests = r["service"]
+        assert fields.shape == want.shape == (3, 4, 6, N, N, 2)
+        np.testing.assert_allclose(fields, want, rtol=0, atol=1e-4 * float(std.max()))
+        np.testing.assert_array_equal(fields, group[0]["service"][0])
+        np.testing.assert_array_equal(init_times, t0)
+        assert (padded, requests) == (1, 3)
+        kind, msg = r["service_submit"]
+        assert kind == "NotImplementedError" and "ROADMAP" in msg
+
+
+@pytest.mark.parametrize("i", range(len(CTX_ERRORS)),
+                         ids=[f"{k}" for _, k, _, _ in CTX_ERRORS])
+def test_sharded_model_ctx_rejections(group, i):
+    _, _, kind, match = CTX_ERRORS[i]
+    for r in group:
+        got = r["ctx_error", i]
+        assert got is not None and got[0] == kind and match in got[1], got
+
+
+@pytest.mark.parametrize("case,kind,match", [
+    ("bad_width", "ValueError", "halo width"),
+    ("bad_batch", "ValueError", "does not split"),
+    ("grad", "NotImplementedError", "training slice"),
+])
+def test_sharded_path_rejects_bad_inputs(group, case, kind, match):
+    for r in group:
+        got = r[case]
+        assert got is not None and got[0] == kind and match in got[1], got
+
+
+def test_collectives_follow_jax_semantics(group):
+    """all_gather in coordinate order; psum over two dimensions (the 2x2
+    mesh's four ranks); ppermute on the end pair {0 <-> 3}, zeros in
+    between."""
+    for r in group:
+        gathered, summed, swapped = r["collectives"]
+        np.testing.assert_array_equal(gathered, np.repeat([0.0, 1.0, 2.0, 3.0], 2))
+        np.testing.assert_array_equal(summed, [6.0, 6.0])
+        want = {0: 3.0, 3: 0.0}.get(r["rank"], 0.0)
+        np.testing.assert_array_equal(swapped, [want, want])
+
+
+# ---- in one process, no group ----------------------------------------------
+
+def _conv_case():
+    x, ks, bs = _conv_inputs()
+    return torch.from_numpy(x), [torch.from_numpy(a) for a in (*ks, *bs)]
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "xring", "ringfix", "xla"])
+def test_cs_conv_honours_an_installed_pad(backend):
+    """Under an installed pad every 3x3 conv goes pad-then-VALID through it,
+    whatever the backend: the single-device formulations would read
+    neighbour faces a shard's block does not hold."""
+    from dlwp_cs_tpu_torch.ops.conv import cs_conv
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad, use_pad_impl
+
+    x, (k_eq, k_po, b_eq, b_po) = _conv_case()
+    calls = []
+
+    def pad(xb, width):
+        calls.append(width)
+        with use_pad_impl(None):
+            return cs_pad(xb, width)
+
+    with use_pad_impl(pad):
+        ours = cs_conv(x, k_eq, k_po, bias_eq=b_eq, bias_pole=b_po, backend=backend)
+    assert calls == [1]
+    ref = cs_conv(x, k_eq, k_po, bias_eq=b_eq, bias_pole=b_po, backend="xla")
+    torch.testing.assert_close(ours, ref, rtol=0, atol=1e-5)
+
+
+def test_conv3x3_impl_precedes_the_backend_and_shard_local_region_clears_it():
+    from dlwp_cs_tpu_torch.ops.conv import cs_conv, shard_local_region, use_conv3x3_impl
+    from dlwp_cs_tpu_torch.ops.padding import use_pad_impl
+
+    x, (k_eq, k_po, b_eq, b_po) = _conv_case()
+    seen = []
+
+    def conv(*args):
+        seen.append(len(args))
+        return torch.zeros(())
+
+    head = torch.zeros((1, 1, 3, 4))
+    with use_conv3x3_impl(conv):
+        assert cs_conv(x, k_eq, k_po, backend="xring").ndim == 0
+        assert cs_conv(x, head, head).shape == (2, 6, N, N, 4)  # a 1x1 conv keeps its path
+        with use_pad_impl(lambda *a: None), shard_local_region():
+            local = cs_conv(x, k_eq, k_po, bias_eq=b_eq, bias_pole=b_po)
+    assert seen == [5]
+    ref = cs_conv(x, k_eq, k_po, bias_eq=b_eq, bias_pole=b_po, backend="xla")
+    torch.testing.assert_close(local, ref, rtol=0, atol=1e-5)
+
+
+def test_block_kernel_wrappers_run_their_plain_version_on_cpu():
+    """Kernels #8 and #9 on a CPU tensor: the plain version, no launch; on
+    whole faces it is the single-device conv."""
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.hopper_conv import (
+        cs_conv3x3_band,
+        cs_conv3x3_plain,
+        cs_conv3x3_tile,
+    )
+
+    x, w = _conv_case()
+    ext = ext_strips(x)
+    for wrapper in (cs_conv3x3_band, cs_conv3x3_tile):
+        before = wrapper.launches
+        torch.testing.assert_close(wrapper(x, ext, *w), cs_conv3x3_plain(x, ext, *w),
+                                   rtol=0, atol=0)
+        assert wrapper.launches == before
+
+
+def test_unported_parallel_names_raise():
+    import dlwp_cs_tpu_torch.parallel as par
+    from dlwp_cs_tpu_torch.parallel.halo import use_band_exchange
+
+    for name in ("make_spatial_train_step", "make_dp_train_step", "make_dp_shardmap_train_step",
+                 "make_dp_eval_step", "batch_sharding", "batch_spatial_sharding", "replicated",
+                 "ScalingResult", "measure_scaling"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(par, name)()
+    with pytest.raises(NotImplementedError, match="kernel #10"):
+        with use_band_exchange("rdma"):
+            pass
+    with pytest.raises(ValueError, match="unknown band exchange"):
+        with use_band_exchange("nope"):
+            pass
+
+
+def test_single_process_needs_no_group(monkeypatch):
+    """Without a process group: create_mesh raises, initialize_distributed
+    reports a single process and initializes nothing, and one process owns
+    the whole batch."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import create_mesh, host_batch_slice, initialize_distributed
+
+    assert not dist.is_initialized()
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert initialize_distributed() is False and not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        create_mesh(data=1, device="cpu")
+    assert host_batch_slice(8) == slice(0, 8)

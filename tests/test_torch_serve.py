@@ -134,7 +134,7 @@ def test_unported_options_raise(served):
     _, est, const, windows = served
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ForecastService(est, constants=const, quantize=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is tests/test_torch_parallel.py's
         ForecastService(est, constants=const, mesh=object())
     svc = ForecastService(est, constants=const)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
