@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels, serve and train the flagship U-Net
 and the ConvLSTM on one GPU, and serve the U-Net spatially sharded over 4
-ranks that share the GPU.
+ranks that share the GPU, through gloo and through CUDA IPC.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -11,8 +11,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 1. print the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build the kernels from ``dlwp_cs_tpu_torch/csrc``, one ``nvcc`` per
    source, all at once: the fused cubed-sphere conv, its backward (the dx
-   and dw kernels) and the xring conv's ring-fix kernels (the fixes and the
-   fused select + apply);
+   and dw kernels), the xring conv's ring-fix kernels (the fixes and the
+   fused select + apply), the band-row exchange and the band conv fused
+   with it;
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
    many row tiles), at batch 1 and 8, in float32 and bfloat16: hold the
    forward kernel against its plain torch version, and time the kernel, the
@@ -55,17 +56,28 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
-   through ``make_spatial_apply(band_conv="pallas")`` driven by
-   ``TimeSeriesEstimator`` on a (1, 4) mesh (280 launches of #8 per rank)
-   and a (1, 2, 2) mesh (280 of #9), and at batch 3 through
+   through ``make_spatial_apply`` driven by ``TimeSeriesEstimator`` on a
+   (1, 4) mesh with ``band_conv="pallas"`` (280 launches of #8 per rank),
+   with ``band_impl="rdma", band_conv="pallas"`` (280 of #10 and 280 of
+   #8: the band rows by remote copies into the neighbours' buffers, mapped
+   by CUDA IPC) and with ``band_conv="overlap"`` (280 of #11: the band conv
+   with the band-row exchange in the launch, nothing else), and on a (1,
+   2, 2) mesh (280 of #9), and at batch 3 through
    ``ForecastService(mesh=create_mesh(data=2, spatial=2))`` (the band
    ring-fix conv, data-axis padding, no kernel); each held, on every rank,
-   against the one-card forecast in units of the field's std (the
-   kernel paths to 1e-6 in float32 and 2**-6 of the value in bfloat16,
-   the service to 1e-3 and 2**-3), with the
-   wall time of 4 ranks sharing one card, and before them the host time of
-   one ghost-strip ``all_gather`` and of one band and one tile conv with
-   its exchange;
+   against the one-card forecast in units of the field's std (the kernel
+   paths, #11's included, which sums every output in #8's order, to 1e-6
+   in float32 and 2**-6 of the value in bfloat16, the service to 1e-3 and
+   2**-3), with the wall time of 4 ranks sharing one card and the gloo
+   collectives each rank issued; before them, on every rank, #10 and #11
+   at each flagship conv shape on 4 bands, batch 1 and 8, both dtypes:
+   #10 bitwise against the ``ppermute`` pair, #11 against its plain version
+   (and beside #8 on the exchanged strips), their device times per call
+   (time slices of the other ranks included), the plain versions' and
+   cuDNN's times and the bounds; and the host time of one ghost-strip
+   ``all_gather``, of one band and one tile conv with its exchange, of the
+   band rows by the ``ppermute`` pair and by #10, of a band conv with #10
+   and of a #11 conv; then a group of 2 ranks: #10 at the same rows;
 10. print the kernel line (JSON), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -116,6 +128,13 @@ EXTRA_SHAPES = [(96, 64, 64)]  # several row tiles per face
 CONVLSTM_GATES = [(48, 39, 128), (48, 64, 128)]
 CONVLSTM_CALL = [CONVLSTM_GATES[0]] * 2 + [CONVLSTM_GATES[1]] * 2
 STEPS = 28  # 14 days of 2 x 6 h per call
+# sharded forecasts at batch 1: (name, mesh, make_spatial_apply options)
+SHARDED_PATHS = [
+    ("band", "band", dict(band_conv="pallas")),  # #8, the ppermute pair
+    ("tile", "tile", dict(band_conv="pallas")),  # #9
+    ("band_rdma", "band", dict(band_impl="rdma", band_conv="pallas")),  # #10 + #8
+    ("band_overlap", "band", dict(band_conv="overlap")),  # #11
+]
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel",
@@ -124,9 +143,9 @@ SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
 # band ring-fix conv sums float32 in another order and rounds bfloat16 at
-# other points, carried through 28 calls.  Kernels #8 and #9 sum each output
-# as #1 does: 1e-6 in float32, and in bfloat16 2**-6 of the value (two to
-# four bfloat16 ulps).  (rel, abs) by (path, dtype):
+# other points, carried through 28 calls.  Kernels #8, #9 and #11 sum each
+# output as #1 does: 1e-6 in float32, and in bfloat16 2**-6 of the value (two
+# to four bfloat16 ulps).  (rel, abs) by (path, dtype):
 SHARDED_TOL = {("service", "float32"): (0.0, 1e-3), ("service", "bfloat16"): (0.0, 2.0**-3),
                ("kernel", "float32"): (0.0, 1e-6), ("kernel", "bfloat16"): (2.0**-6, 1e-6)}
 
@@ -452,7 +471,7 @@ def plain_convs():
 
 
 def all_kernels():
-    """The seven kernel wrappers, by name."""
+    """The nine kernel wrappers, by name."""
     from dlwp_cs_tpu_torch.ops.hopper_conv import (
         cs_conv3x3,
         cs_conv3x3_band,
@@ -461,9 +480,12 @@ def all_kernels():
         cs_conv3x3_tile,
     )
     from dlwp_cs_tpu_torch.ops.ring_kernel import ring_fixes, xring_fused_apply
+    from dlwp_cs_tpu_torch.parallel.overlap_band import band_conv3x3_overlap
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_rdma
 
     return {k.name: k for k in (cs_conv3x3, cs_conv3x3_dx, cs_conv3x3_dw, ring_fixes,
-                                xring_fused_apply, cs_conv3x3_band, cs_conv3x3_tile)}
+                                xring_fused_apply, cs_conv3x3_band, cs_conv3x3_tile,
+                                band_exchange_rdma, band_conv3x3_overlap)}
 
 
 def model_config(kind, dtype_name):
@@ -716,11 +738,17 @@ def exchange_ms(meshes):
     """Host ms per call, 20 calls after one warm-up, on this rank: one
     ``all_gather`` of a ghost-row strip (1, 6, 1, 48, 32) over the 4 bands,
     and one band and one tile conv (n=48, 32 -> 32, batch 1, bf16) with
-    their halo exchanges; launches here are not the main path's."""
+    their halo exchanges; the band rows of that band conv by the
+    ``ppermute`` pair and by kernel #10; the band conv with #10 as its
+    band-row transport; kernel #11 with its seam exchange.  Launches here
+    are not the main path's."""
     from dlwp_cs_tpu_torch.parallel.collectives import all_gather
+    from dlwp_cs_tpu_torch.parallel.halo import use_band_exchange
     from dlwp_cs_tpu_torch.parallel.hopper_band import make_sharded_pallas_conv3x3
     from dlwp_cs_tpu_torch.parallel.hopper_tile import make_tile_pallas_conv3x3
     from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS, local_block
+    from dlwp_cs_tpu_torch.parallel.overlap_band import make_overlap_conv3x3
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -742,17 +770,147 @@ def exchange_ms(meshes):
     for kind, make in (("band", make_sharded_pallas_conv3x3), ("tile", make_tile_pallas_conv3x3)):
         conv, block = make(meshes[kind]), local_block(x, meshes[kind])
         out[f"{kind}_conv_ms"] = per_call(lambda: conv(block, *w))
+    # the band rows of one conv: the ppermute pair, kernel #10; the band conv
+    # with #10 as its band-row transport, and kernel #11 with its seam exchange
+    band = local_block(x, meshes["band"])
+    out["ppermute_pair_ms"] = per_call(lambda: band_exchange_plain(band, 1, mesh=meshes["band"]))
+    out["rdma_exchange_ms"] = per_call(lambda: band_exchange_rdma(band, 1, mesh=meshes["band"]))
+    conv = make_sharded_pallas_conv3x3(meshes["band"])
+    with use_band_exchange("rdma"):
+        out["rdma_band_conv_ms"] = per_call(lambda: conv(band, *w))
+    conv = make_overlap_conv3x3(meshes["band"])
+    out["overlap_conv_ms"] = per_call(lambda: conv(band, *w))
     return out
+
+
+def rank_ms(fn, reps):
+    """Device ms per call of ``fn`` on this rank: ``reps`` calls enqueued
+    back to back between CUDA events, after one call.  For the kernels that
+    wait on the other ranks, whose launches a CUDA graph would freeze (each
+    call takes the next epoch)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """Host ms per call of ``fn`` ending in a device synchronise, after one
+    call (for the paths that stage collectives through the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def remote_cases(mesh, b, dtype, convs: bool = True):
+    """Kernels #10 and (with ``convs``) #11 on this rank's band at each
+    flagship conv shape (batch ``b``): #10 on the conv's input against the
+    ``ppermute`` pair
+    (equal), #11 against its plain version on the same seam strips and
+    received rows (f32 1e-4; bf16 one ulp + 1e-4) and against #8 on the
+    exchanged strips; each kernel's device time per call (the 4 ranks
+    sharing the card wait out each other's time slices inside it), the
+    plain versions' times, one face-grouped cuDNN call on the padded band
+    and the bounds.  A collective call; launches here are not the main
+    path's."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import _padded_faces
+    from dlwp_cs_tpu_torch.parallel.collectives import axis_index, axis_size
+    from dlwp_cs_tpu_torch.parallel.halo import halo_pieces
+    from dlwp_cs_tpu_torch.parallel.hopper_band import band_conv3x3, band_ext
+    from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS, local_block
+    from dlwp_cs_tpu_torch.parallel.overlap_band import (
+        _seam_ext,
+        band_conv3x3_overlap,
+        band_conv3x3_overlap_plain,
+    )
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
+
+    dev = torch.device("cuda")
+    s = axis_index(mesh, SPATIAL_AXIS)
+    xchg, conv = [], []
+    for n, cin, cout in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index):
+        gen = torch.Generator(device=dev).manual_seed(n * 1000 + cin * 7 + cout)
+        x = local_block(torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype),
+                        mesh)
+        ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+               * (9 * cin) ** -0.5).to(dtype) for _ in range(2)]
+        bs = [(torch.randn((cout,), generator=gen, device=dev) * 0.1).to(dtype)
+              for _ in range(2)]
+        h, item = x.shape[2], x.element_size()
+        slab = b * 6 * n * cin * item
+        # #10 on this conv's input (width 1)
+        ours = band_exchange_rdma(x, 1, mesh=mesh)
+        ref = band_exchange_plain(x, 1, mesh=mesh)
+        torch.cuda.synchronize()
+        err10 = max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref))
+        equal10 = all(torch.equal(a, r) for a, r in zip(ours, ref))
+        ms10 = rank_ms(lambda: band_exchange_rdma(x, 1, mesh=mesh), 20)
+        plain10 = host_ms(lambda: band_exchange_plain(x, 1, mesh=mesh), 5)
+        t_bytes = 4 * slab / HBM_BYTES_PER_S * 1e3  # 2 boundary slabs read, 2 written
+        xchg.append({
+            "n": n, "cin": cin, "cout": cout, "batch": b, "rows": h,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err10, "equal": equal10,
+            "ok": equal10, "ms": ms10, "plain_ms": plain10, "library_ms": None,
+            "bound_ms": t_bytes, "bound_by": "bytes", "bytes": 4 * slab, "ops": 0})
+        if not convs:
+            continue
+        # #11 on the same band, and #8 on the exchanged strips
+        seam, wecols = _seam_ext(x, mesh=mesh)
+        below, above = band_exchange_plain(x, 1, mesh=mesh)
+        first, last = s == 0, s == axis_size(mesh, SPATIAL_AXIS) - 1
+        ref = band_conv3x3_overlap_plain(x, seam, wecols, below, above, *ks, *bs,
+                                         first=first, last=last)
+        ours = band_conv3x3_overlap.fused(x, seam, wecols, *ks, *bs, mesh=mesh)
+        k8 = band_conv3x3(x, *ks, *bs, mesh=mesh)
+        torch.cuda.synchronize()
+        err = float((ours.float() - ref.float()).abs().max())
+        if dtype == torch.float32:
+            tol, ok = "1e-4 abs", err <= 1e-4
+        else:
+            tol, ok = "2**-7*|ref| + 1e-4", bf16_excess(ours, ref) <= 1e-4
+        ext = band_ext(*halo_pieces(x, 1, mesh=mesh))
+        p, w = face_grouped(_padded_faces(x, ext), ks)
+        bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
+        ms11 = rank_ms(lambda: band_conv3x3_overlap.fused(x, seam, wecols, *ks, *bs,
+                                                           mesh=mesh), 20)
+        plain11 = graph_ms(lambda: band_conv3x3_overlap_plain(
+            x, seam, wecols, below, above, *ks, *bs, first=first, last=last), 3)
+        library_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
+        # the band, the seam strips, the two rows received, weights; the output
+        nbytes = item * (x.numel() + seam.numel() + wecols.numel() + 2 * ks[0].numel()
+                         + 2 * cout + b * 6 * h * n * cout) + 2 * slab
+        ops = 2 * b * 6 * h * n * 9 * cin * cout
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+        conv.append({
+            "n": n, "cin": cin, "cout": cout, "batch": b, "rows": h,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": tol,
+            "ok": ok, "vs_band_kernel_max_abs_err": float((ours.float() - k8.float()).abs().max()),
+            "equal_to_band_kernel": bool(torch.equal(ours, k8)),
+            "ms": ms11, "plain_ms": plain11, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops})
+    return xchg, conv
 
 
 def sharded_rank(dtype_names, windows, t0, const):
     """One rank of the sharded serve phase (a spawned process of a gloo
     group of ``SHARDS`` ranks sharing the card): per dtype, a 14-day forecast
-    at batch 1 through kernel #8 on row bands and through #9 on 2 x 2
-    tiles, then the mesh service at batch 3.  Returns the fields, the
-    launches of every kernel per forecast and the wall times."""
+    at batch 1 through kernel #8 on row bands, through #9 on 2 x 2 tiles,
+    through #8 with #10 moving the band rows, and through #11, then the mesh
+    service at batch 3; before them kernels #10 and #11 at every flagship
+    band shape.  Returns the fields, the launches of every kernel and the
+    collectives per forecast, the wall times and the kernel cases."""
     from dlwp_cs_tpu_torch import ForecastService, TimeSeriesEstimator
-    from dlwp_cs_tpu_torch.parallel import create_mesh, make_spatial_apply
+    from dlwp_cs_tpu_torch.parallel import collectives, create_mesh, make_spatial_apply
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -760,14 +918,19 @@ def sharded_rank(dtype_names, windows, t0, const):
     meshes = {"band": create_mesh(data=1, spatial=SHARDS),
               "tile": create_mesh(data=1, spatial=2, spatial_x=2),
               "service": create_mesh(data=2, spatial=2)}
-    out = {"exchange": exchange_ms(meshes)}
+    out = {"exchange": exchange_ms(meshes), "xchg": [], "overlap": []}
+    for b in (1, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            xchg, conv = remote_cases(meshes["band"], b, dtype)
+            out["xchg"] += xchg
+            out["overlap"] += conv
     for dtype_name in dtype_names:
         est = flagship_estimator(dtype_name)
         lat, lon = est.cs.cell_latlon
         mean, std = est.stats["mean"], est.stats["std"]
-        for kind in ("band", "tile"):
+        for kind, mesh_kind, opts in SHARDED_PATHS:
             ts = TimeSeriesEstimator(
-                model=make_spatial_apply(est.model, meshes[kind], band_conv="pallas"),
+                model=make_spatial_apply(est.model, meshes[mesh_kind], **opts),
                 data_cfg=est.config.data, lat=lat, lon=lon, constants=const,
                 insol_mean=est.stats["insol_mean"], insol_std=est.stats["insol_std"],
                 device=est.device)
@@ -775,24 +938,40 @@ def sharded_rank(dtype_names, windows, t0, const):
             ts.predict(normed, t0[:1], steps=2)  # warm-up
             for k in kernels.values():
                 k.launches = 0
+            calls = collectives.calls
             t = time.perf_counter()
             fields = ts.predict(normed, t0[:1], steps=STEPS).fields.cpu().numpy()
             wall = (time.perf_counter() - t) * 1e3
             out[kind, dtype_name] = {
-                "fields": fields, "wall_ms": wall,
+                "fields": fields, "wall_ms": wall, "collectives": collectives.calls - calls,
                 "launches": {name: k.launches for name, k in kernels.items()}}
         svc = ForecastService(est, constants=const, mesh=meshes["service"])
         svc.forecast(windows[:3], t0[:3], steps=1)  # warm-up
         padded = svc.stats.padded_mesh
         for k in kernels.values():
             k.launches = 0
+        calls = collectives.calls
         t = time.perf_counter()
         fc = svc.forecast(windows[:3], t0[:3], steps=STEPS)
         wall = (time.perf_counter() - t) * 1e3
         out["service", dtype_name] = {
-            "fields": fc.fields, "wall_ms": wall,
+            "fields": fc.fields, "wall_ms": wall, "collectives": collectives.calls - calls,
             "padded_mesh": svc.stats.padded_mesh - padded,
             "launches": {name: k.launches for name, k in kernels.items()}}
+    return out
+
+
+def pair_rank():
+    """One rank of a group of 2 sharing the card: kernel #10 at every
+    flagship conv input cut into 2 bands (the same rows as on 4), batch 1
+    and 8, both dtypes, against the ``ppermute`` pair, with its time."""
+    from dlwp_cs_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(data=1, spatial=2)
+    out = []
+    for b in (1, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            out += remote_cases(mesh, b, dtype, convs=False)[0]
     return out
 
 
@@ -817,44 +996,54 @@ def sharded_phase(rng, workdir):
         one_card["service", dtype_name] = svc.forecast(windows, t0, steps=STEPS).fields
     t = time.perf_counter()
     ranks = spawn_group(sharded_rank, SHARDS, dtype_names, windows, t0, const,
-                        workdir=workdir)
+                        workdir=os.path.join(workdir, "four"))
     group_s = time.perf_counter() - t
+    pair = spawn_group(pair_rank, 2, workdir=os.path.join(workdir, "two"))
     exchange = [r["exchange"] for r in ranks]
     kernels = all_kernels()
-    want = {"band": "cs_conv3x3_band", "tile": "cs_conv3x3_tile", "service": None}
+    # kernel launches per model call of each path
+    want = {"band": {"cs_conv3x3_band": 10}, "tile": {"cs_conv3x3_tile": 10}, "service": {},
+            "band_rdma": {"cs_conv3x3_band": 10, "band_exchange_rdma": 10},
+            "band_overlap": {"band_conv3x3_overlap": 10}}
     results = []
     for dtype_name in dtype_names:
-        for kind, kernel in want.items():
-            path = "kernel" if kernel else "service"
+        for kind, per_call in want.items():
+            path = "kernel" if per_call else "service"
             ref = one_card[path, dtype_name]
             rel, tol = SHARDED_TOL[path, dtype_name]
             errs, excess, walls = [], [], []
             for rank, r in enumerate(ranks):
                 got = r[kind, dtype_name]
-                launches = {name: 0 for name in kernels}
-                if kernel:
-                    launches[kernel] = 10 * STEPS
+                launches = {name: per_call.get(name, 0) * STEPS for name in kernels}
                 check(got["launches"] == launches,
                       f"rank {rank} {kind} {dtype_name}: launches {got['launches']}, "
                       f"want {launches}")
                 check(got["fields"].shape == ref.shape and np.isfinite(got["fields"]).all(),
                       f"rank {rank} {kind} {dtype_name}: fields {got['fields'].shape}")
-                scale = 1.0 if kernel else std  # normalized fields have std 1
+                scale = 1.0 if per_call else std  # normalized fields have std 1
                 diff = np.abs(got["fields"] - ref) / scale
                 errs.append(float(diff.max()))
                 excess.append(float((diff - rel * np.abs(ref) / scale).max()))
                 walls.append(got["wall_ms"])
-                if not kernel:
+                if not per_call:
                     check(got["padded_mesh"] == 1, f"padded_mesh {got['padded_mesh']}")
             check(max(excess) <= tol, f"{kind} {dtype_name}: sharded vs one-card "
                   f"|diff| exceeds {rel}*|ref| by {max(excess)} std > {tol}")
             results.append({
-                "path": kind, "dtype": dtype_name, "batch": 1 if kernel else 3,
+                "path": kind, "dtype": dtype_name, "batch": 1 if per_call else 3,
                 "launches_per_rank": ranks[0][kind, dtype_name]["launches"],
+                "collectives_per_rank": [r[kind, dtype_name]["collectives"] for r in ranks],
                 "max_err_in_std": max(errs), "tolerance_in_std": f"{rel:.3g}*|ref| + {tol:.3g}",
                 "wall_ms_per_rank": walls,
             })
-    return results, exchange, group_s
+    remote = {"xchg4": [c for r in ranks for c in r["xchg"]],
+              "overlap4": [c for r in ranks for c in r["overlap"]],
+              "xchg2": [c for r in pair for c in r]}
+    bad = [c for cases in remote.values() for c in cases if not c["ok"]]
+    check(not bad, f"kernel #10 or #11 disagrees with its plain version: {bad}")
+    # per rank, per shape: #10's case (input rows) and #11's, rank 0 first
+    remote["per_rank"] = [{"xchg": r["xchg"], "overlap": r["overlap"]} for r in ranks]
+    return results, exchange, group_s, remote
 
 
 def main(argv=None) -> int:
@@ -986,16 +1175,29 @@ def main(argv=None) -> int:
                   f"(tol {r['grad_tolerance']:.3g}), "
                   f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
 
-    with tempfile.TemporaryDirectory() as workdir:  # the group's FileStore
-        sharded, exchange, group_s = sharded_phase(np.random.default_rng(2), workdir)
+    with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
+        sharded, exchange, group_s, remote = sharded_phase(np.random.default_rng(2), workdir)
+    print("remote: kernel ranks n rows Cin Cout B dtype | max_abs_err | kernel_ms plain_ms "
+          "library_ms bound_ms (rank 0; #11: max |#11 - #8|)")
+    for key, name, ranks_n in (("xchg2", "#10", 2), ("xchg4", "#10", 4), ("overlap4", "#11", 4)):
+        for c in remote[key][: len(remote[key]) // ranks_n]:  # rank 0's
+            extra = (f" | vs #8 {c['vs_band_kernel_max_abs_err']:.3g}"
+                     if "vs_band_kernel_max_abs_err" in c else "")
+            lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+            print(f"{name} {ranks_n} {c['n']} {c['rows']} {c['cin']} {c['cout']} {c['batch']} "
+                  f"{c['dtype']} | {c['max_abs_err']:.3g} | {c['ms']:.4f} {c['plain_ms']:.4f} "
+                  f"{lib} {c['bound_ms']:.5f}{extra}", flush=True)
     for r in sharded:
         print(f"sharded {r['path']} {r['dtype']} batch {r['batch']}: vs one card "
               f"{r['max_err_in_std']:.3g} std (tol {r['tolerance_in_std']}); 14-day "
               f"forecast {max(r['wall_ms_per_rank']):.1f} ms wall, 4 ranks sharing one card "
-              f"over gloo; launches per rank {r['launches_per_rank']}", flush=True)
+              f"over gloo + CUDA IPC; launches per rank {r['launches_per_rank']}; gloo "
+              f"collectives per rank {r['collectives_per_rank']}", flush=True)
     print(f"sharded group: {group_s:.1f} s from spawn to the last rank's exit; per rank, "
           f"ms per all_gather of one ghost strip, per band and per tile conv with its "
-          f"exchange (4 ranks sharing one card over gloo): {exchange}", flush=True)
+          f"exchange, per band-row exchange (ppermute pair, #10), per band conv with #10 "
+          f"and per #11 conv (4 ranks sharing one card over gloo + CUDA IPC): {exchange}",
+          flush=True)
 
     def line(name, source, replaces, launches, per_path, errs):
         """One kernel's entry: times summed over the convs of one model call
@@ -1061,6 +1263,22 @@ def main(argv=None) -> int:
                             per_rank[kind, "bfloat16"][name],
                             [blk[(kind,) + s] for s in FLAGSHIP_CONVS],
                             [c["max_abs_err"] for c in blocks if c["kernel"] == kind]))
+    # #10 and #11: one model call's 10 convs on rank 0's band of 4, batch 1,
+    # bfloat16 (#10 moves each conv's input rows); times include the other
+    # ranks' time slices; launches per rank of the bf16 forecasts
+    rank0 = remote["per_rank"][0]
+    for key, name, src, replaces, path in (
+        ("xchg", "band_exchange_rdma", "dlwp_cs_tpu_torch/csrc/cs_band_xchg.cu",
+         "dlwp_cs_tpu/parallel/rdma_halo.py:49", "band_rdma"),
+        ("overlap", "band_conv3x3_overlap", "dlwp_cs_tpu_torch/csrc/cs_band_overlap.cu",
+         "dlwp_cs_tpu/parallel/overlap_band.py:110", "band_overlap"),
+    ):
+        per_shape = {(c["n"], c["cin"], c["cout"]): c for c in rank0[key]
+                     if c["batch"] == 1 and c["dtype"] == "bfloat16"}
+        errs = [c["max_abs_err"] for k in (("xchg2", "xchg4") if key == "xchg" else ("overlap4",))
+                for c in remote[k]]
+        kernels.append(line(name, src, replaces, per_rank[path, "bfloat16"][name],
+                            [per_shape[s] for s in FLAGSHIP_CONVS], errs))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1068,7 +1286,8 @@ def main(argv=None) -> int:
                    "bwd_cases": bwd, "ring_cases": ring, "block_cases": blocks,
                    "serve": list(serve.values()), "train": list(train.values()),
                    "sharded": sharded, "sharded_exchange_ms": exchange,
-                   "sharded_group_seconds": group_s, "kernels": kernels},
+                   "sharded_group_seconds": group_s, "remote_cases": remote,
+                   "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -45,41 +45,36 @@
 // Grid: (row tiles * Cout slices, 6, B); one block per (row tile, face,
 // batch item, Cout slice).  Each block loops over Cin in chunks of CC,
 // staging the (h+2) x (W+2) padded tile and that chunk's taps of the face's
-// weight group in shared memory as f32.
+// weight group in shared memory as f32.  That tap loop lives in
+// cs_conv3x3_tile.cuh, shared with the band conv fused with the band-row
+// exchange (cs_band_overlap.cu, #11); this file adds its ghost cells (ext).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 
+#include "cs_conv3x3_tile.cuh"
+
 namespace {
 
-constexpr int PX = 4;   // output pixels per thread, consecutive along a row
-constexpr int CO = 8;   // output channels per thread
-constexpr int CC = 16;  // input channels staged per chunk
-constexpr int MAX_THREADS = 256;  // threads per block, all staging
-constexpr int STAGE = 4;          // staging loads in flight per thread
+using namespace cs3x3;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-struct Geom {
-  int rows, cols;  // the local block: H rows, W columns of every face
-  int cin, cout;
-  int h;        // output rows per tile
-  int cs;       // output channels per block (a power of two >= CO)
-  int cs_log2;
-  int nslices;  // Cout slices
-  int ncg;      // column groups of PX pixels per row
-  int nog;      // channel groups of CO per slice
-  int wp;       // staged tile width: ncg * PX + 2 >= W + 2 (extra columns zero)
-  int plane;    // shared-memory pitch of one staged channel (odd: no bank conflicts)
+// Ghost cells from the strips ext (B, 6, 4, W+2, Cin) [S, N, W, E]: the S/N
+// rows whole (corners included), the W/E columns at positions 1..H.
+template <typename T>
+struct ExtGhost {
+  const T* __restrict__ ext;
+  int rows, cols, cin;
+  __device__ __forceinline__ float operator()(long long face, int fr, int pc, int ci) const {
+    const T* ef = ext + face * 4 * (cols + 2) * cin;
+    long long off;
+    if (fr == -1) off = (0LL * (cols + 2) + pc) * cin;         // S ghost row
+    else if (fr == rows) off = (1LL * (cols + 2) + pc) * cin;  // N ghost row
+    else if (pc == 0) off = (2LL * (cols + 2) + fr + 1) * cin; // W ghost column
+    else off = (3LL * (cols + 2) + fr + 1) * cin;              // E ghost column
+    return to_f32(ef[off + ci]);
+  }
 };
 
 template <typename T>
@@ -89,128 +84,12 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
     const T* __restrict__ beq, const T* __restrict__ bpo,
     T* __restrict__ out, Geom g) {
   extern __shared__ __align__(16) float smem[];
-  float* tile = smem;                  // [CC][plane], row-major (h+2) x wp
-  float* wts = smem + CC * g.plane;    // [9][CC][cs]
-
-  const int rows = g.rows, cols = g.cols, cin = g.cin, cout = g.cout;
   const int r0 = (blockIdx.x / g.nslices) * g.h;
   const int co0 = (blockIdx.x % g.nslices) * g.cs;
   const int f = blockIdx.y;
   const long long face = (long long)blockIdx.z * 6 + f;
-  const T* __restrict__ k = f < 4 ? keq : kpo;
-  const T* __restrict__ bias = f < 4 ? beq : bpo;
-  const T* __restrict__ xf = x + face * rows * cols * cin;
-  const T* __restrict__ ef = ext + face * 4 * (cols + 2) * cin;
-
-  // this thread's register tile: row rr, pixels j0..j0+PX-1, channels c_lo..c_lo+CO-1
-  const int per_row = g.ncg * g.nog;
-  const bool active = threadIdx.x < g.h * per_row;
-  const int rr = threadIdx.x / per_row;
-  const int cg = (threadIdx.x % per_row) / g.nog;
-  const int c_lo = (threadIdx.x % g.nog) * CO;
-  const int j0 = cg * PX;
-
-  float acc[PX][CO];
-#pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int o = 0; o < CO; ++o) acc[p][o] = 0.f;
-
-  const int ntile = (g.h + 2) * g.wp * CC;  // staged cells x CC channels
-  const int nw = 9 * CC * g.cs;               // staged taps x CC x cs
-  for (int c0 = 0; c0 < cin; c0 += CC) {
-    __syncthreads();  // the previous chunk has been consumed
-    // Every thread of the block stages, STAGE loads in flight at a time:
-    // the loads are issued before any of their shared-memory stores.
-    // ---- padded tile: staged row pr is block row r0 - 1 + pr; element
-    // idx = cell * CC + cl, consecutive threads on consecutive channels ----
-    for (int base = threadIdx.x; base < ntile; base += STAGE * MAX_THREADS) {
-      float v[STAGE];
-#pragma unroll
-      for (int u = 0; u < STAGE; ++u) {
-        const int idx = base + u * MAX_THREADS;
-        const int cell = idx / CC;
-        const int pc = cell % g.wp;
-        const int fr = r0 - 1 + cell / g.wp;
-        const int ci = c0 + idx % CC;
-        v[u] = 0.f;
-        if (idx < ntile && ci < cin && pc <= cols + 1 && fr <= rows) {
-          long long off;
-          if (fr == -1) off = (0LL * (cols + 2) + pc) * cin;                 // S ghost row, corners included
-          else if (fr == rows) off = (1LL * (cols + 2) + pc) * cin;          // N ghost row, corners included
-          else if (pc == 0) off = (2LL * (cols + 2) + fr + 1) * cin;         // W ghost column
-          else if (pc == cols + 1) off = (3LL * (cols + 2) + fr + 1) * cin;  // E ghost column
-          else off = -1;
-          v[u] = off >= 0 ? to_f32(ef[off + ci])
-                          : to_f32(xf[((long long)fr * cols + pc - 1) * cin + ci]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < STAGE; ++u) {
-        const int idx = base + u * MAX_THREADS;
-        if (idx < ntile) tile[(idx % CC) * g.plane + idx / CC] = v[u];
-      }
-    }
-    // ---- this chunk's taps of the face's weight group, zero past Cin/Cout;
-    // element idx = (tap * CC + cl) * cs + co ----------------------------
-    for (int base = threadIdx.x; base < nw; base += STAGE * MAX_THREADS) {
-      float v[STAGE];
-#pragma unroll
-      for (int u = 0; u < STAGE; ++u) {
-        const int idx = base + u * MAX_THREADS;
-        const int co = co0 + (idx & (g.cs - 1));
-        const int t = idx >> g.cs_log2;
-        const int ci = c0 + t % CC;
-        const int tap = t / CC;
-        v[u] = (idx < nw && ci < cin && co < cout)
-                   ? to_f32(k[((long long)tap * cin + ci) * cout + co])
-                   : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < STAGE; ++u) {
-        const int idx = base + u * MAX_THREADS;
-        if (idx < nw) wts[idx] = v[u];
-      }
-    }
-    __syncthreads();
-    if (active) {
-      const int cmax = min(CC, cin - c0);
-      for (int cl = 0; cl < cmax; ++cl) {
-        const float* tp = tile + cl * g.plane + rr * g.wp + j0;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          float in[PX + 2];
-#pragma unroll
-          for (int q = 0; q < PX + 2; ++q) in[q] = tp[dy * g.wp + q];
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float4* w4 = reinterpret_cast<const float4*>(
-                wts + ((dy * 3 + dx) * CC + cl) * g.cs + c_lo);
-            const float4 wa = w4[0], wb = w4[1];
-            const float w[CO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-            for (int p = 0; p < PX; ++p)
-#pragma unroll
-              for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(in[p + dx], w[o], acc[p][o]);
-          }
-        }
-      }
-    }
-  }
-  const int r = r0 + rr;
-  if (!active || r >= rows) return;
-  T* orow = out + (face * rows + r) * cols * cout;
-#pragma unroll
-  for (int o = 0; o < CO; ++o) {
-    const int co = co0 + c_lo + o;
-    if (co >= cout) break;
-    const float bv = to_f32(bias[co]);
-#pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int j = j0 + p;
-      if (j < cols) orow[(long long)j * cout + co] = from_f32<T>(acc[p][o] + bv);
-    }
-  }
+  conv_tile(x, ExtGhost<T>{ext, g.rows, g.cols, g.cin}, keq, kpo, beq, bpo, out, g, r0, co0,
+            f, face, smem);
 }
 
 // Lets the kernel take up to the card's opt-in shared memory per block (the
@@ -262,28 +141,11 @@ int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
                       const void* keq, const void* kpo, const void* beq,
                       const void* bpo, void* out, int batch, int rows, int cols,
                       int cin, int cout, int h, int cs, void* stream) {
-  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || rows < 1 ||
-      rows > cols || cin < 1 || cout < 1 || h < 1 || h > rows || cs < CO ||
-      (cs & (cs - 1)) != 0)
-    return cudaErrorInvalidValue;
   Geom g;
-  g.rows = rows;
-  g.cols = cols;
-  g.cin = cin;
-  g.cout = cout;
-  g.h = h;
-  g.cs = cs;
-  for (g.cs_log2 = 0; (1 << g.cs_log2) < cs; ++g.cs_log2) {
-  }
-  g.nslices = (cout + cs - 1) / cs;
-  g.ncg = (cols + PX - 1) / PX;
-  g.nog = cs / CO;
-  g.wp = g.ncg * PX + 2;
-  g.plane = (h + 2) * g.wp;
-  g.plane += 1 - g.plane % 2;
-  const int items = h * g.ncg * g.nog;
-  if (items > MAX_THREADS) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)CC * g.plane + (size_t)9 * CC * cs);
+  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 ||
+      !make_geom(g, rows, cols, cin, cout, h, cs))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device, s);

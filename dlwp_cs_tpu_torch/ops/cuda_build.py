@@ -1,7 +1,8 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
 Each kernel source is compiled with ``nvcc`` for ``sm_90a`` at its first
-CUDA use into ``dlwp_cs_tpu_torch/_build/<hash of source and flags>/`` and
+CUDA use into ``dlwp_cs_tpu_torch/_build/<hash of source, headers and
+flags>/`` and
 bound with ``ctypes`` (plain C entry points; no PyTorch headers).  Every
 entry point takes ``(dtype, device, pointers..., six sizes, stream)`` and
 returns a ``cudaError_t``.  :class:`KernelWrapper` is the launch
@@ -72,7 +73,9 @@ class CudaLibrary:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            src = self.source.read_bytes()
+            # the source and every header of csrc/ it may include
+            src = self.source.read_bytes() + b"".join(
+                p.read_bytes() for p in sorted(self.source.parent.glob("*.cuh")))
             tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
             lib_path = _BUILD_ROOT / tag / f"lib{self.source.stem}.so"
             if not lib_path.exists():

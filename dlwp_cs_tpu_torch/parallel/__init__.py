@@ -4,7 +4,11 @@ The counterpart of ``dlwp_cs_tpu.parallel`` over ``torch.distributed``: one
 process per shard, a ``DeviceMesh`` with the reference's axis names, and
 the seam-routed halo exchange installed under every convolution.  Serving
 is ported (``make_spatial_apply``, ``ForecastService(mesh=...)``, the band
-and tile conv kernels #8 and #9).  The training steps, the GSPMD shardings
+and tile conv kernels #8 and #9, and on row bands the band-row exchange
+kernel #10, ``band_impl="rdma"``, and the band conv with the exchange in
+the launch #11, ``band_conv="overlap"``, which move the band rows between
+the ranks of one host through buffers mapped by CUDA IPC:
+``parallel.symmetric``).  The training steps, the GSPMD shardings
 (the port slices blocks explicitly: ``shard_batch``) and ``scaling.py`` are
 not: those names raise ``NotImplementedError`` naming ``ROADMAP.md``.
 """

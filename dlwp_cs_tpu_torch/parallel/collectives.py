@@ -27,7 +27,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "axis_index", "axis_size", "ppermute", "psum"]
+__all__ = ["all_gather", "axis_index", "axis_size", "calls", "ppermute", "psum"]
+
+# collectives of the process group issued by this process (all_gather and
+# psum; a ppermute is an all_gather): a plain count for measurements
+calls = 0
 
 
 def axis_size(mesh, name: str) -> int:
@@ -53,10 +57,12 @@ def all_gather(x, mesh, name: str, *, axis: int = 0, tiled: bool = True):
     """``lax.all_gather(x, name, axis=axis, tiled=tiled)``: the shards' ``x``
     in coordinate order, concatenated along ``axis`` (``tiled``) or stacked
     as a new ``axis``."""
+    global calls
     size = axis_size(mesh, name)
     if size == 1:
         return x if tiled else x.unsqueeze(axis)
     _no_grad(x, "all_gather")
+    calls += 1
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x, group=mesh.get_group(name))
@@ -66,11 +72,13 @@ def all_gather(x, mesh, name: str, *, axis: int = 0, tiled: bool = True):
 def psum(x, mesh, names):
     """``lax.psum(x, names)``: the sum of ``x`` over the shards of one
     dimension name or of several (a sum over each in turn)."""
+    global calls
     if isinstance(names, str):
         names = (names,)
     for name in names:
         if axis_size(mesh, name) > 1:
             _no_grad(x, "psum")
+            calls += 1
             x = x.clone()
             dist.all_reduce(x, group=mesh.get_group(name))
     return x

@@ -6,7 +6,8 @@ W, C)`` are decomposed by splitting the face rows over the mesh's
 seam-shaped collectives (:mod:`~dlwp_cs_tpu_torch.parallel.collectives`):
 
 * **band rows**: the ``w`` rows flanking a band, from its two neighbours
-  (two ``ppermute`` s);
+  (two ``ppermute`` s, or kernel #10's remote copies:
+  :func:`use_band_exchange`);
 * **equatorial W/E ghosts**: the equatorial ring seams are unreversed
   col<->col, so the partner columns of the local (and band-halo) rows are
   local after the band exchange;
@@ -36,6 +37,7 @@ from dlwp_cs_tpu_torch.geometry.cubed_sphere import EDGE_E, EDGE_N, EDGE_S, EDGE
 from dlwp_cs_tpu_torch.ops.padding import padding_plan
 from dlwp_cs_tpu_torch.parallel.collectives import all_gather, axis_index, axis_size, ppermute, psum
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
+from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
 
 __all__ = [
     "halo_pieces",
@@ -44,27 +46,20 @@ __all__ = [
     "use_band_exchange",
 ]
 
-# The band-row transport: "ppermute" (the collectives) or "zero" (no
-# transport: the band rows come back as zeros, for a conv that moves them
-# itself).  The reference's in-kernel remote copies ("rdma",
-# "rdma_interpret") are kernel #10, not ported.
+# The band-row transport: "ppermute" (the collectives), "rdma" (kernel #10's
+# remote copies, parallel/rdma_halo.py; "rdma_interpret" is the reference's
+# name for the same) or "zero" (no transport: the band rows come back as
+# zeros, for a conv that moves them itself).
 _BAND_IMPL: contextvars.ContextVar = contextvars.ContextVar(
     "cs_band_exchange", default="ppermute"
 )
-_BAND_IMPLS = ("ppermute", "zero")
-_RDMA = ("rdma", "rdma_interpret")
+_BAND_IMPLS = ("ppermute", "rdma", "rdma_interpret", "zero")
 
 
 def check_band_impl(impl: str):
-    """Raise unless ``impl`` is a band-row transport the port has."""
-    if impl in _RDMA:
-        raise NotImplementedError(
-            f"band exchange {impl!r} (in-kernel remote copies, kernel #10 of "
-            "dlwp_cs_tpu/parallel/rdma_halo.py) is not ported yet: ROADMAP.md "
-            "queue 2, row 10"
-        )
+    """Raise unless ``impl`` is a band-row transport."""
     if impl not in _BAND_IMPLS:
-        raise ValueError(f"unknown band exchange {impl!r}; want {_BAND_IMPLS + _RDMA}")
+        raise ValueError(f"unknown band exchange {impl!r}; want {_BAND_IMPLS}")
 
 
 @contextlib.contextmanager
@@ -150,12 +145,14 @@ def halo_pieces(x, width: int, *, mesh, axis_name: str = SPATIAL_AXIS):
         return torch.flip(x[:, f, :, n - w :], dims=(2,)).transpose(1, 2)
 
     # ---- 1+2: band rows from the neighbour shards
-    if _BAND_IMPL.get() == "ppermute" or S == 1:
-        below = ppermute(x[:, :, h - w :], mesh, axis_name, [(i, (i + 1) % S) for i in range(S)])
-        above = ppermute(x[:, :, :w], mesh, axis_name, [(i, (i - 1) % S) for i in range(S)])
-    else:  # "zero"
+    impl = _BAND_IMPL.get()
+    if impl == "ppermute" or S == 1:
+        below, above = band_exchange_plain(x, w, mesh=mesh, axis_name=axis_name)
+    elif impl == "zero":
         below = torch.zeros_like(x[:, :, h - w :])
         above = torch.zeros_like(x[:, :, :w])
+    else:  # kernel #10 (its plain version on a CPU tensor)
+        below, above = band_exchange_rdma(x, w, mesh=mesh, axis_name=axis_name)
 
     # ---- 3: psum of the 4 polar-seam boundary rows [1S, 3S, 1N, 3N], each
     # contributed by one end shard

@@ -10,6 +10,9 @@ module-level function).  Its return value comes back to the caller, one per
 rank; an exception or a non-zero exit in any rank stops the others and
 raises in the caller, and a collective that waits longer than 5 minutes
 raises in its rank, so a rank that stops answering cannot hang the group.
+A rank whose ``fn`` returns frees its ring buffers
+(:func:`~dlwp_cs_tpu_torch.parallel.symmetric.release_all`, a collective
+call) before the group ends.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from dlwp_cs_tpu_torch.parallel import symmetric
 
 __all__ = ["spawn_group"]
 
@@ -39,6 +44,7 @@ def _rank_main(rank, fn, args, world_size, workdir):
     try:
         result = fn(*args)
         torch.save(result, Path(workdir) / f"rank{rank}.pt")
+        symmetric.release_all()  # the ring buffers of the band-row exchange kernels
     finally:
         dist.destroy_process_group()
 

@@ -1,0 +1,241 @@
+"""The band 3x3 conv fused with the band-row exchange: kernel #11.
+
+The counterpart of ``dlwp_cs_tpu.parallel.overlap_band``.  One launch of
+``csrc/cs_band_overlap.cu`` per conv: the band conv of kernel #8 whose two
+ghost rows come from the ring neighbours by remote copies during the
+launch (the protocol of kernel #10, over the same
+:mod:`~dlwp_cs_tpu_torch.parallel.symmetric` buffers), not from an
+exchange before it.  Tiles that touch no ghost row compute while the rows
+are in flight; the tiles of rows 0 and h-1 wait for them.
+
+The seam material still comes from the host-side exchange
+(:func:`_seam_ext`: :func:`~dlwp_cs_tpu_torch.parallel.halo.halo_pieces`
+under the ``"zero"`` band transport): the S/N ghost rows of the end shards,
+the polar faces' ghost-row corners and the W/E ghost columns.  Every value
+that depends on the band rows comes back zero there; the kernel fills it
+from the received rows, the equatorial corners through
+:func:`_eq_corner_table`.
+
+:func:`band_conv3x3_overlap_plain` is the plain version: it consumes what
+the kernel consumes (the seam strips, the two rows the ``ppermute`` pair
+brings, the corner table), assembles the ghost rows as the kernel does and
+runs the conv's plain version.  CPU tensors take it.
+
+Forward only: the reference's backward is the VJP of the band ring-fix
+composition through the collectives, the training slice's work; a tensor
+that requires a gradient raises in the exchange.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from dlwp_cs_tpu_torch.geometry.cubed_sphere import EDGE_E, EDGE_W
+from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES, I32, VP, CudaLibrary, check_cuda_args
+from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, tile_plan
+from dlwp_cs_tpu_torch.ops.padding import padding_plan
+from dlwp_cs_tpu_torch.parallel import symmetric
+from dlwp_cs_tpu_torch.parallel.collectives import _no_grad, axis_index, axis_size
+from dlwp_cs_tpu_torch.parallel.halo import halo_pieces, use_band_exchange
+from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
+from dlwp_cs_tpu_torch.parallel.overlap import sharded_ringfix_conv3x3
+from dlwp_cs_tpu_torch.parallel.rdma_halo import RemoteCopyKernel, band_exchange_plain
+
+__all__ = [
+    "band_conv3x3_overlap",
+    "band_conv3x3_overlap_plain",
+    "make_overlap_conv3x3",
+    "overlap_supported",
+]
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _eq_corner_table(n: int):
+    """Per face ``(partner_face, partner_col_is_east)`` for the W/E
+    ghost-row corner cells of the 4 equatorial faces, as four 6-tuples
+    ``(pf_w, pe_w, pf_e, pe_e)`` (zeros for the polar faces 4, 5).
+
+    The equatorial ring seams are col<->col and unreversed (asserted by
+    ``halo._check_topology``), so the ghost corner beyond edge W/E of face f
+    at a band-halo row is the W/E partner face's column 0 or n-1 at that
+    same row: an entry of the partner face's received band row.  Polar
+    faces' corners come from the seam rows instead.
+    """
+    table = padding_plan(n, 1).table
+    pf_w, pe_w, pf_e, pe_e = [], [], [], []
+    for f in range(4):
+        lw, le = table[f][EDGE_W], table[f][EDGE_E]
+        pf_w.append(lw.face)
+        pe_w.append(1 if lw.edge == EDGE_E else 0)
+        pf_e.append(le.face)
+        pe_e.append(1 if le.edge == EDGE_E else 0)
+    return (tuple(pf_w + [0, 0]), tuple(pe_w + [0, 0]),
+            tuple(pf_e + [0, 0]), tuple(pe_e + [0, 0]))
+
+
+def _packed_corners(n: int) -> int:
+    """The corner table as the kernel takes it: 6 bits per equatorial face
+    f at bit 6f, [W partner (2 bits), W column n-1, E partner, E column
+    n-1]."""
+    pf_w, pe_w, pf_e, pe_e = _eq_corner_table(n)
+    return sum((pf_w[f] | pe_w[f] << 2 | pf_e[f] << 3 | pe_e[f] << 5) << (6 * f)
+               for f in range(4))
+
+
+def _seam_ext(x, *, mesh, axis_name: str = SPATIAL_AXIS):
+    """The seam material of the band ``x`` ``(B, 6, h, n, C)``,
+    independent of the band rows: ``(seam, wecols)``, each ``(B, 6, 2, n+2,
+    C)``.  ``seam`` holds the [S, N] ghost rows with their corners as
+    :func:`halo_pieces` gives them under the ``"zero"`` transport (whole on
+    the end shards; zero wherever a value depends on the band rows);
+    ``wecols`` the [W, E] ghost columns of the band's rows at positions
+    1..h, zero elsewhere."""
+    n, h = x.shape[3], x.shape[2]
+    with use_band_exchange("zero"):
+        bottom, top, west, east = halo_pieces(x, 1, mesh=mesh, axis_name=axis_name)
+    seam = torch.stack([bottom[:, :, 0], top[:, :, 0]], dim=2)
+
+    def we(col):  # (B, 6, h, 1, C) -> (B, 6, n+2, C) at positions 1..h
+        return F.pad(col[:, :, :, 0], (0, 0, 1, n + 1 - h))
+
+    return seam, torch.stack([we(west), we(east)], dim=2)
+
+
+def band_conv3x3_overlap_plain(x, seam, wecols, below, above, k_eq, k_pole, b_eq, b_pole, *,
+                               first: bool, last: bool):
+    """Plain version of kernel #11 on its own inputs: the band ``x`` ``(B,
+    6, h, n, Cin)``, its seam strips (:func:`_seam_ext`), the rows received
+    from the ring neighbours ``below``/``above`` ``(B, 6, 1, n, Cin)`` and
+    whether this shard is the ``first``/``last`` of the ring.  The S/N ghost
+    rows are the seam rows on the end shards; elsewhere the received rows,
+    with their corner cells from the seam row (polar faces) or from the W/E
+    partner face's received row (equatorial faces, :func:`_eq_corner_table`).
+    Returns :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3_plain` on
+    the assembled ghost strips."""
+    n = x.shape[3]
+    pf_w, pe_w, pf_e, pe_e = _eq_corner_table(n)
+
+    def ghost_row(topo, ring, is_end):  # (B, 6, n+2, C)
+        if is_end:
+            return topo
+        ring = ring[:, :, 0]
+        rows = []
+        for f in range(6):
+            if f < 4:
+                cw = ring[:, pf_w[f], n - 1 if pe_w[f] else 0]
+                ce = ring[:, pf_e[f], n - 1 if pe_e[f] else 0]
+            else:
+                cw, ce = topo[:, f, 0], topo[:, f, n + 1]
+            rows.append(torch.cat([cw[:, None], ring[:, f], ce[:, None]], dim=1))
+        return torch.stack(rows, dim=1)
+
+    ext = torch.stack([ghost_row(seam[:, :, 0], below, first), ghost_row(seam[:, :, 1], above, last),
+                       wecols[:, :, 0], wecols[:, :, 1]], dim=2)
+    return cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole)
+
+
+_LIB = CudaLibrary("cs_band_overlap.cu", {
+    "cs_band_overlap_launch": [I32, I32] + [VP] * 11 + [symmetric.I64] + [I32] * 10
+    + [symmetric.U64, ctypes.POINTER(symmetric.U64), symmetric.I64, VP, I32, VP],
+}, "cs_band_overlap_error_string")
+
+
+class _BandOverlapKernel(RemoteCopyKernel):
+    def __call__(self, x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_name: str = SPATIAL_AXIS):
+        """Fused CS band conv, 3x3/stride-1, with the band-row exchange in
+        the launch: this rank's band ``x`` ``(B, 6, h, n, Cin)`` -> ``(B,
+        6, h, n, Cout)``, the same rows of the single-device ``cs_conv``.  A
+        collective call of every rank of ``axis_name`` (at least 2).
+        Kernels and biases are cast to ``x``'s dtype.  On a CPU tensor
+        :func:`band_conv3x3_overlap_plain` on the ``ppermute`` pair's
+        rows."""
+        b, nf, h, n, cin = x.shape
+        S = axis_size(mesh, axis_name)
+        if nf != 6 or h * S != n or S < 2:
+            raise ValueError(
+                f"band_conv3x3_overlap: expected a local band (B, 6, n/{S}, n, C) of "
+                f"at least 2 shards, got {tuple(x.shape)}")
+        _no_grad(x, "band_conv3x3_overlap")
+        cout = k_eq.shape[-1]
+        k_eq, k_pole, b_eq, b_pole = (t.to(x.dtype).contiguous()
+                                      for t in (k_eq, k_pole, b_eq, b_pole))
+        x = x.contiguous()
+        seam, wecols = _seam_ext(x, mesh=mesh, axis_name=axis_name)
+        s = axis_index(mesh, axis_name)
+        first, last = s == 0, s == S - 1
+        if x.device.type == "cpu":
+            below, above = band_exchange_plain(x, 1, mesh=mesh, axis_name=axis_name)
+            return band_conv3x3_overlap_plain(x, seam, wecols, below, above, k_eq, k_pole,
+                                              b_eq, b_pole, first=first, last=last)
+        if x.device.type != "cuda":
+            raise ValueError(f"band_conv3x3_overlap runs on cuda or cpu, not {x.device}")
+        return self.fused(x, seam, wecols, k_eq, k_pole, b_eq, b_pole, mesh=mesh,
+                          axis_name=axis_name)
+
+    def fused(self, x, seam, wecols, k_eq, k_pole, b_eq, b_pole, *, mesh,
+              axis_name: str = SPATIAL_AXIS):
+        """The launch alone, on CUDA tensors: the band ``x``, its seam
+        strips (:func:`_seam_ext`), HWIO kernels and biases, all of ``x``'s
+        dtype and contiguous.  A collective call of every rank of
+        ``axis_name``, as the wrapper."""
+        b, _, h, n, cin = x.shape
+        cout = k_eq.shape[-1]
+        S = axis_size(mesh, axis_name)
+        s = axis_index(mesh, axis_name)
+        first, last = s == 0, s == S - 1
+        check_cuda_args(self.name, x, {
+            "x": (x, (b, 6, h, n, cin)),
+            "seam": (seam, (b, 6, 2, n + 2, cin)),
+            "wecols": (wecols, (b, 6, 2, n + 2, cin)),
+            "k_eq": (k_eq, (3, 3, cin, cout)),
+            "k_pole": (k_pole, (3, 3, cin, cout)),
+            "b_eq": (b_eq, (cout,)),
+            "b_pole": (b_pole, (cout,)),
+        })
+        dev = self._device(x)
+        ring = symmetric.ring_buffer(mesh, axis_name, x.device)
+        ring.reserve(b * 6 * n * cin * x.element_size(), self.library)
+        th, cs = tile_plan(b, h, n, cout, self._sm_count[dev])
+        out = torch.empty((b, 6, h, n, cout), dtype=x.dtype, device=x.device)
+        me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
+        self._launch(
+            "cs_band_overlap_launch", dev, DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, seam, wecols, k_eq, k_pole, b_eq, b_pole, out)),
+            me, right, left, cap, b, h, n, cin, cout, th, cs, int(first), int(last),
+            _packed_corners(n), epoch, sent, timeout_ns, diag, coord, sizes=11,
+        )
+        return out
+
+
+# kernel #11: ``band_conv3x3_overlap(x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_name)``
+band_conv3x3_overlap = _BandOverlapKernel("band_conv3x3_overlap", _LIB)
+
+
+def overlap_supported(x_shape, n_shards: int, dtype) -> bool:
+    """Does kernel #11 take local bands of this shape and dtype?  It needs
+    a ring (2 shards or more), a band (``h * n_shards == n``) and float32
+    or bfloat16; its shared memory is the band kernel's, so no size gate."""
+    _, nf, h, n, _ = x_shape
+    return n_shards >= 2 and nf == 6 and h >= 1 and h * n_shards == n and dtype in _KERNEL_DTYPES
+
+
+def make_overlap_conv3x3(mesh, axis_name: str = SPATIAL_AXIS):
+    """Conv for :func:`~dlwp_cs_tpu_torch.ops.conv.use_conv3x3_impl`: every
+    3x3 conv of a band through kernel #11; what it does not take (one shard,
+    float64) through the band ring-fix conv."""
+    n_shards = axis_size(mesh, axis_name)
+
+    def conv(x, k_eq, k_pole, bias_eq, bias_pole):
+        if not overlap_supported(x.shape, n_shards, x.dtype):
+            return sharded_ringfix_conv3x3(x, k_eq, k_pole, bias_eq, bias_pole,
+                                           mesh=mesh, axis_name=axis_name)
+        zb = x.new_zeros(k_eq.shape[-1])
+        return band_conv3x3_overlap(x, k_eq, k_pole, zb if bias_eq is None else bias_eq,
+                                    zb if bias_pole is None else bias_pole,
+                                    mesh=mesh, axis_name=axis_name)
+
+    return conv

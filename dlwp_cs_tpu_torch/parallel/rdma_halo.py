@@ -1,0 +1,87 @@
+"""The band-row halo exchange as one kernel of remote copies: kernel #10.
+
+The counterpart of ``dlwp_cs_tpu.parallel.rdma_halo``: the two
+nearest-neighbour ``ppermute`` s of
+:func:`~dlwp_cs_tpu_torch.parallel.halo.halo_pieces` (``below``, the -1
+neighbour's top rows; ``above``, the +1 neighbour's bottom rows) as one
+launch of ``csrc/cs_band_xchg.cu``, which stores each rank's rows straight
+into its neighbours' buffers (:mod:`~dlwp_cs_tpu_torch.parallel.symmetric`,
+mapped by CUDA IPC) behind a neighbour barrier: no host staging, no
+collective of the process group.  Selected with
+``use_band_exchange("rdma")`` (or ``sharded_model_ctx(band_impl="rdma")``).
+
+:func:`band_exchange_plain` is the plain version, the two ``ppermute`` s,
+which CPU tensors take.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dlwp_cs_tpu_torch.ops.cuda_build import KernelWrapper
+from dlwp_cs_tpu_torch.parallel import symmetric
+from dlwp_cs_tpu_torch.parallel.collectives import _no_grad, axis_size, ppermute
+from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
+
+__all__ = ["band_exchange_plain", "band_exchange_rdma"]
+
+
+def band_exchange_plain(x, width: int, *, mesh, axis_name: str = SPATIAL_AXIS):
+    """``(below, above)`` of the band ``x`` ``(B, 6, h, n, C)``, each ``(B,
+    6, width, n, C)``, by two ``ppermute`` s over ``axis_name``."""
+    h, w = x.shape[2], int(width)
+    S = axis_size(mesh, axis_name)
+    below = ppermute(x[:, :, h - w :], mesh, axis_name, [(i, (i + 1) % S) for i in range(S)])
+    above = ppermute(x[:, :, :w], mesh, axis_name, [(i, (i - 1) % S) for i in range(S)])
+    return below, above
+
+
+class RemoteCopyKernel(KernelWrapper):
+    """A kernel wrapper whose launch joins the ring of the band-row
+    exchange: after a wait of an earlier call ran out, it raises that
+    timeout in place of launching."""
+
+    def _launch(self, fn_name, dev, *args, sizes: int = 6):
+        err = symmetric.timeout_error()
+        if err is not None:
+            raise err
+        super()._launch(fn_name, dev, *args, sizes=sizes)
+
+
+class _BandExchangeKernel(RemoteCopyKernel):
+    def __call__(self, x, width: int, *, mesh, axis_name: str = SPATIAL_AXIS):
+        """``(below, above)`` of this rank's band ``x`` ``(B, 6, h, n, C)``:
+        ``below`` the -1 neighbour's top ``width`` rows, ``above`` the +1
+        neighbour's bottom ``width`` rows, each ``(B, 6, width, n, C)``.  A
+        collective call of every rank of ``axis_name``.  With one shard
+        ``(top, bottom)`` of ``x`` itself, no launch; on a CPU tensor
+        :func:`band_exchange_plain`."""
+        b, nf, h, n, c = x.shape
+        w = int(width)
+        if nf != 6 or not 1 <= w <= h:
+            raise ValueError(f"band_exchange_rdma: bad band {tuple(x.shape)} or width {w}")
+        S = axis_size(mesh, axis_name)
+        if S == 1:
+            return x[:, :, h - w :], x[:, :, :w]
+        _no_grad(x, "band_exchange_rdma")
+        if x.device.type == "cpu":
+            return band_exchange_plain(x, w, mesh=mesh, axis_name=axis_name)
+        if x.device.type != "cuda":
+            raise ValueError(f"band_exchange_rdma runs on cuda or cpu, not {x.device}")
+        x = x.contiguous()
+        dev = self._device(x)
+        ring = symmetric.ring_buffer(mesh, axis_name, x.device)
+        ring.reserve(b * 6 * w * n * c * x.element_size(), self.library)
+        below = torch.empty((b, 6, w, n, c), dtype=x.dtype, device=x.device)
+        above = torch.empty_like(below)
+        me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
+        self._launch(
+            "cs_band_xchg_launch", dev, dev, x.data_ptr(), below.data_ptr(), above.data_ptr(),
+            me, right, left, cap, b, h, n, c, w, x.element_size(), epoch, sent, timeout_ns,
+            diag, coord, sizes=10,
+        )
+        return below, above
+
+
+# kernel #10: ``band_exchange_rdma(x, width, *, mesh, axis_name)``
+band_exchange_rdma = _BandExchangeKernel("band_exchange_rdma", symmetric.LIB)

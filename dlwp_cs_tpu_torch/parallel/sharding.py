@@ -33,6 +33,8 @@ from dlwp_cs_tpu_torch.parallel.hopper_band import make_sharded_pallas_conv3x3
 from dlwp_cs_tpu_torch.parallel.hopper_tile import make_tile_pallas_conv3x3
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_X_AXIS, gather_blocks, local_block
 from dlwp_cs_tpu_torch.parallel.overlap import make_sharded_conv3x3
+from dlwp_cs_tpu_torch.parallel.overlap_band import make_overlap_conv3x3
+from dlwp_cs_tpu_torch.parallel.symmetric import check_timeouts
 
 __all__ = [
     "make_dp_eval_step",
@@ -65,16 +67,22 @@ def sharded_model_ctx(mesh, *, overlap: bool = True, band_impl: str = "ppermute"
     Row bands (no ``spatial_x`` dimension): the seam-routed 1-D pad, and
     with ``overlap`` (the default) a 3x3 conv for every 3x3/stride-1 conv:
     ``band_conv='ringfix'`` the band ring-fix conv, ``'pallas'`` (or
-    ``'pallas_interpret'``) the band kernel #8.  ``band_impl``: the band-row
-    transport, ``'ppermute'`` (the only one whose consumers are ported).
+    ``'pallas_interpret'``) the band kernel #8 on the exchanged ghost
+    strips, ``'overlap'`` (or ``'overlap_interpret'``) kernel #11, the band
+    conv with the band-row exchange in the launch.  ``band_impl``: the
+    band-row transport of every exchange that moves band rows,
+    ``'ppermute'`` (two collectives) or ``'rdma'`` (or ``'rdma_interpret'``;
+    kernel #10's remote copies).  Kernels #10 and #11 map the ring
+    neighbours' buffers by CUDA IPC (:mod:`parallel.symmetric`): the ranks
+    of a dimension share one host.
 
     2-D tiles (``spatial_x > 1``): the 2-D exchange, every conv
     pad-then-VALID (``'ringfix'``) or every 3x3 through the tile kernel #9
     (``'pallas'``).
 
-    Raises ``ValueError`` on an option that would be accepted and ignored,
-    and ``NotImplementedError`` on the reference's in-kernel remote copies
-    (kernels #10, #11).
+    Raises ``ValueError`` on an option that would be accepted and ignored:
+    a ``band_impl`` other than ``'ppermute'`` or ``band_conv='overlap'`` on
+    tiles, a ``band_conv`` without ``overlap``, and ``band_impl='zero'``.
     """
     n_spatial_x = axis_size(mesh, SPATIAL_X_AXIS)
     if n_spatial_x > 1:
@@ -104,10 +112,9 @@ def sharded_model_ctx(mesh, *, overlap: bool = True, band_impl: str = "ppermute"
     check_band_impl(band_impl)
     if band_impl == "zero":
         raise ValueError(
-            "band_impl 'zero' moves no band rows; only the band conv fused with "
-            "in-kernel remote copies (kernel #11, not ported: ROADMAP.md queue 2, "
-            "row 11) fetches them itself, and every conv the port installs would "
-            "read the zeros"
+            "band_impl 'zero' moves no band rows: every pad, and every conv but "
+            "band_conv='overlap' (kernel #11, which moves them itself), would read "
+            "the zeros"
         )
     pad_impl = make_sharded_pad(mesh)
     if not overlap:
@@ -126,11 +133,7 @@ def sharded_model_ctx(mesh, *, overlap: bool = True, band_impl: str = "ppermute"
     if band_conv in _KERNEL_CONVS:
         conv_impl = make_sharded_pallas_conv3x3(mesh)
     elif band_conv in ("overlap", "overlap_interpret"):
-        raise NotImplementedError(
-            f"band_conv {band_conv!r} (the band conv fused with in-kernel remote "
-            "copies, kernel #11 of dlwp_cs_tpu/parallel/overlap_band.py) is not "
-            "ported yet: ROADMAP.md queue 2, row 11"
-        )
+        conv_impl = make_overlap_conv3x3(mesh)
     elif band_conv == "ringfix":
         conv_impl = make_sharded_conv3x3(mesh)
     else:
@@ -156,7 +159,9 @@ def make_spatial_apply(model, mesh, *, overlap: bool = True, band_impl: str = "p
     global ``inputs``; each runs ``model`` on its block (the batch split
     over ``data``, which must divide it, face rows over ``spatial``,
     columns over ``spatial_x``) under :func:`sharded_model_ctx` and returns
-    the global output.  No gradients (the training slice).
+    the global output.  No gradients (the training slice).  A wait of
+    kernel #10 or #11 that runs out raises an error naming the rank, the
+    call and what it waited for.
     """
     model_ctx = sharded_model_ctx(mesh, overlap=overlap, band_impl=band_impl,
                                   band_conv=band_conv)
@@ -166,7 +171,9 @@ def make_spatial_apply(model, mesh, *, overlap: bool = True, band_impl: str = "p
         local = shard_batch(inputs, mesh, spatial=True)
         with model_ctx():
             out = model(local)
-        return gather_blocks(out, mesh, spatial=True)
+        out = gather_blocks(out, mesh, spatial=True)
+        check_timeouts()
+        return out
 
     return apply
 

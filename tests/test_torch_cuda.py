@@ -359,3 +359,146 @@ def test_band_conv_of_two_ranks_sharing_the_card(cuda_device, tmp_path):
         for r in results:
             assert r["launches"] == 2
             _close(r[tdt], ref, dtype)
+
+
+# ---- the band-row exchange kernels (#10, #11) on ranks sharing the card ----
+
+# (n, Cin, Cout) of the flagship U-Net's 10 3x3 convs; on 4 row bands h = n/4
+FLAGSHIP_CONVS = [(48, 12, 32), (48, 32, 32), (24, 32, 64), (24, 64, 64), (12, 64, 128),
+                  (12, 128, 128), (24, 192, 64), (24, 64, 64), (48, 96, 32), (48, 32, 32)]
+XCHG_CALLS = 200
+
+
+def _exchanges_and_overlap_convs(calls):
+    """One rank: ``calls`` back-to-back launches of kernel #10 at the
+    flagship's band shapes (batch 1 and 8, widths 1 and 2, both dtypes; a
+    random host sleep of 0-2 ms before each), then each output against the
+    ``ppermute`` pair on the same input; on 4 ranks also kernel #11 at every
+    flagship conv shape against its plain version and against kernel #8;
+    the ring buffers before and after ``release_all``."""
+    import time
+
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import create_mesh, symmetric
+    from dlwp_cs_tpu_torch.parallel.hopper_band import band_conv3x3
+    from dlwp_cs_tpu_torch.parallel.mesh import local_block
+    from dlwp_cs_tpu_torch.parallel.overlap_band import (
+        _seam_ext,
+        band_conv3x3_overlap,
+        band_conv3x3_overlap_plain,
+    )
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = create_mesh(data=1, spatial=world)
+    rng = np.random.default_rng(rank)
+    cases = [(b, n, c, w, dt) for b in (1, 8) for n, c, _ in FLAGSHIP_CONVS[::2]
+             for w in (1, 2) if w <= n // world for dt in (torch.float32, torch.bfloat16)]
+    inputs, outputs = [], []
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    for i in range(calls):
+        b, n, c, w, dt = cases[i % len(cases)]
+        x = torch.randn((b, 6, n // world, n, c), generator=gen, device="cuda").to(dt)
+        time.sleep(rng.uniform(0.0, 0.002))
+        inputs.append((x, w))
+        outputs.append(band_exchange_rdma(x, w, mesh=mesh))
+    torch.cuda.synchronize()
+    out = {"launches": band_exchange_rdma.launches, "mismatches": 0}
+    for (x, w), got in zip(inputs, outputs):
+        want = band_exchange_plain(x, w, mesh=mesh)
+        out["mismatches"] += not all(torch.equal(a, r) for a, r in zip(got, want))
+    out["overlap"] = []
+    if world == 4:
+        for b in (1, 8):
+            for n, cin, cout in FLAGSHIP_CONVS:
+                for dt in (torch.float32, torch.bfloat16):
+                    g = torch.Generator().manual_seed(n * 1000 + cin)
+                    xg = torch.randn((b, 6, n, n, cin), generator=g)
+                    w = [torch.randn((3, 3, cin, cout), generator=g) / (9 * cin) ** 0.5
+                         for _ in range(2)] + [torch.randn((cout,), generator=g) * 0.1
+                                               for _ in range(2)]
+                    band = local_block(xg.cuda().to(dt), mesh)
+                    w = [t.cuda().to(dt) for t in w]
+                    before = band_conv3x3_overlap.launches
+                    ours = band_conv3x3_overlap(band, *w, mesh=mesh)
+                    torch.cuda.synchronize()
+                    launched = band_conv3x3_overlap.launches - before
+                    seam, wecols = _seam_ext(band, mesh=mesh)
+                    below, above = band_exchange_plain(band, 1, mesh=mesh)
+                    s = rank
+                    plain = band_conv3x3_overlap_plain(band, seam, wecols, below, above, *w,
+                                                       first=s == 0, last=s == world - 1)
+                    k8 = band_conv3x3(band, *w, mesh=mesh)
+                    out["overlap"].append(((b, n, cin, cout, str(dt)), launched, ours.cpu(),
+                                           plain.cpu(), k8.cpu()))
+    out["live_before"] = symmetric.live_buffers()
+    symmetric.release_all()
+    out["live_after"] = symmetric.live_buffers()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_band_exchange_kernels_on_ranks_sharing_the_card(cuda_device, tmp_path, world):
+    """Kernel #10 bitwise equal to the ``ppermute`` pair over 200
+    back-to-back exchanges with random host delays (2 and 4 ranks); kernel
+    #11 against its plain version (f32 1e-4, bf16 one ulp + 1e-4) and equal
+    to kernel #8 at every flagship 4-band shape; every ring buffer freed at
+    the end."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    results = spawn_group(_exchanges_and_overlap_convs, world, XCHG_CALLS, workdir=tmp_path)
+    for r in results:
+        assert r["launches"] == XCHG_CALLS and r["mismatches"] == 0, r["mismatches"]
+        assert r["live_before"] == (1, 1 if world == 2 else 2), r["live_before"]
+        assert r["live_after"] == (0, 0), r["live_after"]
+        assert len(r["overlap"]) == (40 if world == 4 else 0)
+        for case, launched, ours, plain, k8 in r["overlap"]:
+            assert launched == 1, case
+            _close(ours, plain, "float32" if "float32" in case[-1] else "bfloat16")
+            assert torch.equal(ours, k8), (case, (ours.float() - k8.float()).abs().max())
+
+
+def _one_rank_stays_away():
+    """Every rank exchanges once; then all but the last exchange again, with
+    a 2 s bound on each wait: the others' error messages, from the end of
+    the call's block of work and from the next launch."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import create_mesh, symmetric
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_rdma
+
+    symmetric.SPIN_TIMEOUT_S = 2.0
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = create_mesh(data=1, spatial=world)
+    x = torch.ones((1, 6, 12 // world, 12, 8), device="cuda")
+    band_exchange_rdma(x, 1, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank == world - 1:
+        return None
+    msgs = []
+    for _ in range(2):
+        try:
+            band_exchange_rdma(x, 1, mesh=mesh)
+            symmetric.check_timeouts()
+            msgs.append("no error")
+        except RuntimeError as e:
+            msgs.append(str(e))
+    return msgs
+
+
+@pytest.mark.cuda
+def test_band_exchange_times_out_when_a_rank_stays_away(cuda_device, tmp_path):
+    """Three of 4 ranks call kernel #10 without the fourth: each raises an
+    error naming itself, the call and the counter it waited on, and raises
+    it again at its next launch; the group then ends (its buffers freed)."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    results = spawn_group(_one_rank_stays_away, 4, workdir=tmp_path)
+    assert results[-1] is None
+    for rank, msgs in enumerate(results[:-1]):
+        for msg in msgs:
+            assert "timed out in kernel #10" in msg and f"coordinate {rank}" in msg, msg
+            assert "epoch 2" in msg, msg

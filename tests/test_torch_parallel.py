@@ -15,6 +15,8 @@ Inputs are seeded numpy at n = 8.  Tolerances:
   3e-5 absolute on outputs of order 1 (the JAX tests' own 2e-5 to 3e-5);
 * bfloat16 convs: one rounding of a f32 sum on each side, which may
   straddle a bf16 boundary, within 2**-6 of the largest output;
+* the band-row exchange (kernel #10's plain version): equal, since it moves
+  values;
 * the forecast service: 1e-4 of the largest std on denormalized fields, as
   ``tests/test_torch_serve.py``.
 """
@@ -40,21 +42,39 @@ MODELS = [  # (mesh (data, spatial, spatial_x), overlap, band_conv)
     ((1, 4, 1), True, "ringfix"), ((1, 4, 1), True, "pallas"), ((2, 2, 1), True, "pallas"),
     ((1, 4, 1), False, "ringfix"), ((1, 2, 2), True, "ringfix"), ((1, 2, 2), True, "pallas"),
 ]
-CTX_ERRORS = [  # (mesh, kwargs, exception, match)
+# U-Net paths through the remote-copy kernels' plain versions: (mesh,
+# band_impl, band_conv); (2, 2, 1) is 2 row bands on each data half
+MODELS_REMOTE = [
+    ((1, 4, 1), "rdma", "pallas"), ((2, 2, 1), "rdma", "pallas"),
+    ((1, 4, 1), "ppermute", "overlap"), ((2, 2, 1), "ppermute", "overlap"),
+    ((1, 4, 1), "rdma_interpret", "overlap_interpret"), ((1, 4, 1), "rdma", "ringfix"),
+]
+CTX_ERRORS = [  # (mesh, kwargs, exception, match); exception None: accepted
     ((1, 2, 2), dict(band_impl="rdma"), "ValueError", "band_impl"),
     ((1, 2, 2), dict(band_conv="overlap"), "ValueError", "not available on the 2-D"),
     ((1, 2, 2), dict(band_conv="palas"), "ValueError", "not available on the 2-D"),
     ((1, 4, 1), dict(overlap=False, band_conv="pallas"), "ValueError", "overlap=True"),
-    ((1, 4, 1), dict(band_conv="overlap"), "NotImplementedError", "kernel #11"),
-    ((1, 4, 1), dict(band_conv="overlap_interpret"), "NotImplementedError", "ROADMAP"),
+    # kernels #10 and #11, once rejected as not ported
+    ((1, 4, 1), dict(band_conv="overlap"), None, None),
+    ((1, 4, 1), dict(band_conv="overlap_interpret"), None, None),
     ((1, 4, 1), dict(band_conv="nope"), "ValueError", "unknown band_conv"),
-    ((1, 4, 1), dict(band_impl="rdma"), "NotImplementedError", "kernel #10"),
-    ((1, 4, 1), dict(band_impl="rdma_interpret"), "NotImplementedError", "ROADMAP"),
+    ((1, 4, 1), dict(band_impl="rdma"), None, None),
+    ((1, 4, 1), dict(band_impl="rdma_interpret"), None, None),
     ((1, 4, 1), dict(band_impl="bogus"), "ValueError", "unknown band exchange"),
     ((1, 4, 1), dict(band_impl="zero"), "ValueError", "moves no band rows"),
     ((1, 4, 1), dict(band_impl="zero", overlap=False), "ValueError", "moves no band rows"),
     ((1, 4, 1), dict(band_impl="zero", band_conv="pallas"), "ValueError", "moves no band rows"),
+    ((1, 2, 2), dict(band_impl="rdma_interpret", band_conv="pallas"), "ValueError", "band_impl"),
+    ((1, 2, 2), dict(band_impl="rdma", band_conv="overlap"), "ValueError", "band_impl"),
+    ((1, 2, 2), dict(band_conv="overlap_interpret", overlap=True), "ValueError",
+     "not available on the 2-D"),
+    ((1, 4, 1), dict(overlap=False, band_conv="overlap"), "ValueError", "overlap=True"),
+    ((1, 4, 1), dict(overlap=False, band_conv="overlap_interpret", band_impl="rdma"),
+     "ValueError", "overlap=True"),
+    ((1, 4, 1), dict(band_impl="zero", band_conv="overlap"), "ValueError", "moves no band rows"),
+    ((1, 4, 1), dict(band_impl="rdma", band_conv="overlap"), None, None),
 ]
+XCHG_CASES = [(2, 1), (2, 2), (4, 1), (4, 2)]  # (S, width) of the band exchange, n = 16
 
 
 def _rand(shape, seed, scale=1.0):
@@ -99,6 +119,8 @@ def _rank_cases(params):
     from dlwp_cs_tpu_torch.parallel.hopper_tile import make_tile_pallas_conv3x3, tile_conv3x3
     from dlwp_cs_tpu_torch.parallel.mesh import gather_blocks, local_block
     from dlwp_cs_tpu_torch.parallel.overlap import sharded_ringfix_conv3x3
+    from dlwp_cs_tpu_torch.parallel.overlap_band import band_conv3x3_overlap
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_rdma
     from dlwp_cs_tpu_torch.parallel.sharding import sharded_model_ctx
     from dlwp_cs_tpu_torch.serve import ForecastService
 
@@ -138,6 +160,18 @@ def _rank_cases(params):
         m = mesh((1, 2, 2))
         tile = local_block(torch.from_numpy(xc).to(dt), m)
         out["tile", dt] = gather_blocks(tile_conv3x3(tile, *args, mesh=m), m).float().numpy()
+    for s in (2, 4):  # kernel #11's plain version on 2 and 4 bands
+        m = mesh((4 // s, s, 1))
+        for dt in (torch.float32, torch.bfloat16):
+            args = [torch.from_numpy(a).to(dt) for a in (*ks, *bs)]
+            band = local_block(torch.from_numpy(xc).to(dt), m)
+            out["overlap", s, dt] = gather_blocks(
+                band_conv3x3_overlap(band, *args, mesh=m), m).float().numpy()
+    x16 = torch.from_numpy(_rand((2, 6, 16, 16, 3), 21))
+    for s, w in XCHG_CASES:  # kernel #10's plain version
+        m = mesh((4 // s, s, 1))
+        out["rdma", s, w] = (coords(m), [t.numpy() for t in band_exchange_rdma(
+            local_block(x16, m), w, mesh=m)])
     # tiles of 8 rows x 4 columns (h > wl) leave the kernel for pad-then-VALID
     m = mesh((2, 1, 2))
     tall = local_block(torch.from_numpy(xc), m)
@@ -150,6 +184,9 @@ def _rank_cases(params):
     for shape, overlap, band_conv in MODELS:
         fn = make_spatial_apply(est.model, mesh(shape), overlap=overlap, band_conv=band_conv)
         out["unet", shape, overlap, band_conv] = fn(xu).numpy()
+    for shape, band_impl, band_conv in MODELS_REMOTE:
+        fn = make_spatial_apply(est.model, mesh(shape), band_impl=band_impl, band_conv=band_conv)
+        out["unet_remote", shape, band_impl, band_conv] = fn(xu).numpy()
 
     const, windows, t0 = _service_inputs()
     svc = ForecastService(est, constants=const, mesh=mesh((2, 2, 1)))
@@ -159,7 +196,7 @@ def _rank_cases(params):
     out["service_submit"] = _caught(lambda: svc.submit(windows[0], t0[0], steps=1))
 
     for i, (shape, kwargs, _, _) in enumerate(CTX_ERRORS):
-        out["ctx_error", i] = _caught(lambda: sharded_model_ctx(mesh(shape), **kwargs))
+        out["ctx_error", i] = _caught(lambda: sharded_model_ctx(mesh(shape), **kwargs)())
     m = mesh((1, 4, 1))
     band = local_block(x, m)
     out["bad_width"] = _caught(lambda: sharded_cs_pad(band, 3, mesh=m))
@@ -230,6 +267,74 @@ def _block(stacked, coords, bh, bw):
     coordinate)."""
     _, iy, jx = coords
     return stacked[:, :, iy * bh : (iy + 1) * bh, jx * bw : (jx + 1) * bw]
+
+
+@pytest.mark.parametrize("s,width", XCHG_CASES)
+def test_band_exchange_matches_reference(group, s, width):
+    """Kernel #10's plain version (the ``ppermute`` pair) against the
+    reference's Pallas remote-copy kernel in interpret mode, on a data=1
+    mesh of S CPU devices: equal."""
+    import os
+
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from dlwp_cs_tpu.parallel import create_mesh
+    from dlwp_cs_tpu.parallel.rdma_halo import band_exchange_rdma
+
+    if (os.cpu_count() or 1) < 4:
+        pytest.skip("interpret-mode RDMA needs >= ~1 core per device")
+    x = _rand((2, 6, 16, 16, 3), 21)
+    spec = P(None, None, "spatial", None, None)
+    fn = jax.jit(jax.shard_map(
+        lambda xl: band_exchange_rdma(xl, width, n_shards=s, interpret=True),
+        mesh=create_mesh(data=1, spatial=s), in_specs=spec, out_specs=(spec, spec),
+        check_vma=False))
+    ref = [np.asarray(t) for t in fn(x)]
+    for r in group:
+        coords, ours = r["rdma", s, width]
+        d = slice(None) if s == 4 else slice(coords[0], coords[0] + 1)
+        for got, want in zip(ours, ref):
+            np.testing.assert_array_equal(got, _block(want, coords, width, 16)[d])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [2, 4])
+def test_overlap_conv_matches_reference(group, s, dtype):
+    """Kernel #11's plain version (the ghost rows assembled from the seam
+    strips, the ``ppermute`` pair's rows and the corner table) against the
+    reference's Pallas kernel in interpret mode, on a data=1 mesh of S CPU
+    devices: float32 within 2e-5 (the reference's own tolerance), bfloat16
+    within 2**-6 of the largest output."""
+    import os
+
+    import jax
+    import jax.numpy as jnp
+
+    from dlwp_cs_tpu.parallel.overlap_band import band_conv3x3_overlap
+
+    if (os.cpu_count() or 1) < 4:
+        pytest.skip("interpret-mode RDMA needs >= ~1 core per device")
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    x, ks, bs = _conv_inputs()
+    x, *w = (jnp.asarray(a, jdt) for a in (x, *ks, *bs))
+    ref = _jax_sharded(lambda xl: band_conv3x3_overlap(xl, *w, "spatial", s, True),
+                       x, s, 1).astype(np.float32)
+    for r in group:
+        ours = r["overlap", s, dtype]
+        if dtype == torch.float32:
+            np.testing.assert_allclose(ours, ref, rtol=0, atol=2e-5)
+        else:
+            _close(ours, ref, dtype)
+
+
+def test_eq_corner_table_matches_reference():
+    from dlwp_cs_tpu.parallel.overlap_band import _eq_corner_table as jtable
+
+    from dlwp_cs_tpu_torch.parallel.overlap_band import _eq_corner_table
+
+    for n in (8, 16, 48):
+        assert _eq_corner_table(n) == jtable(n)
 
 
 @pytest.mark.parametrize("s,width", PADS_1D)
@@ -368,6 +473,19 @@ def test_unet_spatial_apply_matches_reference(group, jax_unet_outputs, shape, ov
                                    rtol=0, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("shape,band_impl,band_conv", MODELS_REMOTE)
+def test_unet_remote_copy_paths_match_reference(group, jax_unet_outputs, shape, band_impl,
+                                                band_conv):
+    """The small U-Net through ``make_spatial_apply`` with the band-row
+    exchange of kernel #10 (``band_impl='rdma'``) and the band conv of
+    kernel #11 (``band_conv='overlap'``), their plain versions on the CPU,
+    on 4 and 2 row bands, against the reference's single-device forward."""
+    _, single = jax_unet_outputs
+    for r in group:
+        np.testing.assert_allclose(r["unet_remote", shape, band_impl, band_conv], single,
+                                   rtol=0, atol=F32_TOL)
+
+
 def test_forecast_service_on_mesh_matches_reference(group, jax_model):
     """``ForecastService(mesh=create_mesh(data=2, spatial=2))`` at batch 3
     (padded to 4 over the data dimension), 2 steps, against the reference's
@@ -394,10 +512,17 @@ def test_forecast_service_on_mesh_matches_reference(group, jax_model):
 @pytest.mark.parametrize("i", range(len(CTX_ERRORS)),
                          ids=[f"{k}" for _, k, _, _ in CTX_ERRORS])
 def test_sharded_model_ctx_rejections(group, i):
+    """Options that would be accepted and ignored raise; the remote-copy
+    kernels' spellings (#10: ``band_impl='rdma'``, #11:
+    ``band_conv='overlap'``, and their ``_interpret`` names) are accepted
+    on row bands, as in the reference."""
     _, _, kind, match = CTX_ERRORS[i]
     for r in group:
         got = r["ctx_error", i]
-        assert got is not None and got[0] == kind and match in got[1], got
+        if kind is None:
+            assert got is None, got
+        else:
+            assert got is not None and got[0] == kind and match in got[1], got
 
 
 @pytest.mark.parametrize("case,kind,match", [
@@ -494,6 +619,38 @@ def test_block_kernel_wrappers_run_their_plain_version_on_cpu():
         assert wrapper.launches == before
 
 
+def test_remote_copy_kernels_on_one_shard_and_cpu():
+    """Kernel #10 on one shard returns the band's own (top, bottom) rows, as
+    the reference does, with no launch; #10 and #11 refuse a tensor that
+    requires a gradient; neither counts a launch for a CPU tensor."""
+    import types
+
+    from dlwp_cs_tpu_torch.parallel.overlap_band import band_conv3x3_overlap, overlap_supported
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_rdma
+
+    one = types.SimpleNamespace(mesh_dim_names=("data", "spatial"), shape=(1, 1))
+    x = torch.from_numpy(_rand((1, 6, N, N, 3), 3))
+    before = (band_exchange_rdma.launches, band_conv3x3_overlap.launches)
+    below, above = band_exchange_rdma(x, 2, mesh=one)
+    torch.testing.assert_close(below, x[:, :, -2:], rtol=0, atol=0)
+    torch.testing.assert_close(above, x[:, :, :2], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="at least 2 shards"):
+        band_conv3x3_overlap(x, *_conv_case()[1], mesh=one)
+    assert (band_exchange_rdma.launches, band_conv3x3_overlap.launches) == before
+    two = types.SimpleNamespace(mesh_dim_names=("data", "spatial"), shape=(1, 2))
+    grad = x[:, :, : N // 2].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        band_exchange_rdma(grad, 1, mesh=two)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        band_conv3x3_overlap(grad, *_conv_case()[1], mesh=two)
+    # the gate refuses what the math refuses, as the reference's
+    assert overlap_supported((2, 6, N // 4, N, 3), 4, torch.float32)
+    assert overlap_supported((2, 6, N // 4, N, 3), 4, torch.bfloat16)
+    assert not overlap_supported((2, 6, N, N, 3), 1, torch.float32)  # 1 shard
+    assert not overlap_supported((2, 6, 3, N, 3), 4, torch.float32)  # not a band
+    assert not overlap_supported((2, 6, N // 4, N, 3), 4, torch.float64)
+
+
 def test_unported_parallel_names_raise():
     import dlwp_cs_tpu_torch.parallel as par
     from dlwp_cs_tpu_torch.parallel.halo import use_band_exchange
@@ -503,8 +660,8 @@ def test_unported_parallel_names_raise():
                  "ScalingResult", "measure_scaling"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(par, name)()
-    with pytest.raises(NotImplementedError, match="kernel #10"):
-        with use_band_exchange("rdma"):
+    for impl in ("ppermute", "rdma", "rdma_interpret", "zero"):  # #10 is ported
+        with use_band_exchange(impl):
             pass
     with pytest.raises(ValueError, match="unknown band exchange"):
         with use_band_exchange("nope"):
