@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels, serve and train the flagship U-Net
-and the ConvLSTM on one GPU, and serve the U-Net spatially sharded over 4
-ranks that share the GPU, through gloo and through CUDA IPC.
+"""Build the PyTorch/CUDA port's kernels, run its kernel tools, serve and
+train the flagship U-Net and the ConvLSTM on one GPU, and serve the U-Net
+spatially sharded over 4 ranks that share the GPU, through gloo and through
+CUDA IPC.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -13,7 +14,7 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    source, all at once: the fused cubed-sphere conv, its backward (the dx
    and dw kernels), the xring conv's ring-fix kernels (the fixes and the
    fused select + apply), the band-row exchange and the band conv fused
-   with it;
+   with it, the conv on the tensor cores (kn2row, im2col) and the probes;
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
    many row tiles), at batch 1 and 8, in float32 and bfloat16: hold the
    forward kernel against its plain torch version, and time the kernel, the
@@ -30,6 +31,21 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    their plain versions and bounds; beside them the whole xring conv (two
    cuDNN SAME convs, the ghost strips, the fused kernel, the bias), the
    fused conv kernel and one face-grouped cuDNN call on the same shape;
+5b. run the kernel tools' entry points once each (``dlwp_cs_tpu_torch.tools``:
+   ``conv_micro``, ``kernel_variants`` and its ``--chain``, ``mosaic_bisect``
+   in bfloat16 and float32), the path of kernels #3 and #12-#16, with every
+   launch count set to 0 before and read after.  The tools hold each
+   kernel's output on their own inputs against its plain version (#12 also
+   bitwise against #1, every probe of #16 at the reference scripts' shapes
+   with its plain and library times); #12's and #16's lines come from
+   these rows.  Then: #3 (kn2row) and #13 (im2col) on the tensor cores,
+   bfloat16, at each conv shape of the flagship U-Net at batch 1 and at
+   conv_micro's levels and the decoder's shape at batch 16, against their
+   plain versions and #1 on the same strips, timed beside #1, the
+   face-grouped cuDNN call and the bound; #14 (dx with the raw ring) at
+   conv_micro's levels in float32 and bfloat16, its interior and ring
+   bitwise equal to #4's, timed beside ``F.conv_transpose2d``; #15 in both
+   types bitwise equal to 3·x, timed beside ``x * 3``;
 6. serve 14-day forecasts (28 calls of 6 h x 2) through ``ForecastService``
    in bfloat16 and float32 of the flagship C48 U-Net (filters 32/64/128,
    12 -> 8 channels, seeded weights; 280 conv kernel launches per
@@ -52,7 +68,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    finite and non-zero for every parameter, equal to the plain path's on
    the card and bitwise repeatable; 20 finite losses; a loss that falls
    when the trainer fits one fixed batch; the step time and the device's
-   busy and idle time in one profiled step;
+   busy and idle time in one profiled step; for the float32 U-Net, step 1's
+   gradients also through the plain path in float64, each float32 path's
+   error against them per tensor, and the leaky-ReLU pre-activations whose
+   sign differs between the runs;
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -107,12 +126,6 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
-# and the operation rate for the kernel's input type (bf16 tensor-core rate,
-# float32 outside the tensor cores).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
 # (n, Cin, Cout) of the 10 3x3 convs of one flagship C48 U-Net call, in order
 FLAGSHIP_CONVS = [
     (48, 12, 32), (48, 32, 32),      # enc0
@@ -155,53 +168,11 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def bf16_excess(ours, ref):
-    """How far |ours - ref| exceeds one bf16 ulp of |ref| (2**-7 relative)."""
-    d = (ours.float() - ref.float()).abs() - ref.float().abs() * 2.0**-7
-    return float(d.max())
-
-
-def graph_ms(fn, reps):
-    """Device milliseconds per call of ``fn``: ``reps`` calls captured in a
-    CUDA graph (so host launch overhead is not counted), replayed 5 times
-    between CUDA events; the median replay over ``reps``."""
-    s = torch.cuda.Stream()
-    s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(s):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(s)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    times = []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        g.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del g
-    return statistics.median(times)
-
-
-def face_grouped(padded, ks):
-    """The padded faces or blocks ``(B, 6*Cin, H+2, W+2)`` (channels-last
-    in memory) and kernels ``(6*Cout, Cin, 3, 3)`` of one face-grouped cuDNN
-    conv that computes the CS conv whose halo-padded input is ``padded``
-    ``(B, 6, H+2, W+2, Cin)``, with ``ks = (k_eq, k_pole)``."""
-    b, _, hp, wp, cin = padded.shape
-    p = padded.permute(0, 2, 3, 1, 4).reshape(b, hp, wp, 6 * cin).permute(0, 3, 1, 2)
-    w = torch.cat([ks[0].permute(3, 2, 0, 1)] * 4 + [ks[1].permute(3, 2, 0, 1)] * 2)
-    return p, w.contiguous(memory_format=torch.channels_last)
-
-
 def conv_case(n, cin, cout, b, dtype, gen):
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain
     from dlwp_cs_tpu_torch.ops.padding import cs_pad
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -237,13 +208,10 @@ def conv_case(n, cin, cout, b, dtype, gen):
     nbytes = item * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
                      + b * 6 * n * n * cout)
     ops = 2 * b * 6 * n * n * 9 * cin * cout
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return {
         "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": str(dtype).split(".")[-1],
         "max_abs_err": err, "tolerance": tol, "ok": ok, "library_max_abs_err": lib_err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "ops": ops,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, ops, dtype),
     }
 
 
@@ -257,6 +225,8 @@ def bwd_case(n, cin, cout, b, dtype, gen):
         cs_conv3x3_dx_plain,
     )
     from dlwp_cs_tpu_torch.ops.padding import cs_pad
+    from dlwp_cs_tpu_torch.tools.timing import (
+        HBM_BYTES_PER_S, PEAK_OPS, bf16_excess, face_grouped, graph_ms)
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -336,6 +306,8 @@ def ring_case(n, cin, d, b, dtype, gen):
     )
     from dlwp_cs_tpu_torch.ops.padding import cs_pad
     from dlwp_cs_tpu_torch.ops.ringfix import _same_conv
+    from dlwp_cs_tpu_torch.tools.timing import (
+        HBM_BYTES_PER_S, PEAK_OPS, bf16_excess, face_grouped, graph_ms)
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -408,6 +380,7 @@ def block_case(kind, n, cin, cout, b, dtype, gen):
         cs_conv3x3_plain,
         cs_conv3x3_tile,
     )
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     wrapper = cs_conv3x3_band if kind == "band" else cs_conv3x3_tile
     rows, cols = (n // SHARDS, n) if kind == "band" else (n // 2, n // 2)
@@ -442,14 +415,277 @@ def block_case(kind, n, cin, cout, b, dtype, gen):
     nbytes = item * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
                      + b * 6 * rows * cols * cout)
     ops = 2 * b * 6 * rows * cols * 9 * cin * cout
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return {
         "kernel": kind, "n": n, "rows": rows, "cols": cols, "cin": cin, "cout": cout,
         "batch": b, "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": tol,
         "ok": ok, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "ops": ops,
+        **bound(nbytes, ops, dtype),
     }
+
+
+def mma_cases(n, cin, cout, b, gen):
+    """Kernels #3 (kn2row) and #13 (im2col) at one conv shape in bfloat16
+    (the only type they take): each against its plain version and against
+    kernel #1 on the same strips, one bf16 ulp of |ref| + 1e-4; each timed
+    beside #1, the face-grouped cuDNN call and the bound, which is #1's (the
+    same function)."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import (
+        cs_conv3x3_im2col,
+        cs_conv3x3_im2col_plain,
+        cs_conv3x3_npack,
+        cs_conv3x3_npack_plain,
+        im2col_taps,
+        npack_taps,
+    )
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
+
+    dev, dtype = torch.device("cuda"), torch.bfloat16
+    x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
+    scale = (9 * cin) ** -0.5
+    ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale).to(dtype)
+          for _ in range(2)]
+    bs = [(torch.randn((cout,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
+    ext = ext_strips(x)
+    wrappers = (cs_conv3x3, cs_conv3x3_npack, cs_conv3x3_im2col)
+    launches = [w.launches for w in wrappers]
+    conv1 = cs_conv3x3(x, ext, *ks, *bs)
+    conv1_ms = graph_ms(lambda: cs_conv3x3(x, ext, *ks, *bs), 20)
+    p, w = face_grouped(cs_pad(x, 1), ks)
+    bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
+    library_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
+    nbytes = x.element_size() * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
+                                 + b * 6 * n * n * cout)
+    ops = 2 * b * 6 * n * n * 9 * cin * cout
+    cases = []
+    for kind, wrapper, plain, taps in (
+        ("npack", cs_conv3x3_npack, cs_conv3x3_npack_plain, npack_taps),
+        ("im2col", cs_conv3x3_im2col, cs_conv3x3_im2col_plain, im2col_taps),
+    ):
+        tw = [taps(k) for k in ks]
+        ours = wrapper(x, ext, *tw, *bs)
+        ref = plain(x, ext, *tw, *bs)
+        torch.cuda.synchronize()
+        ok = bf16_excess(ours, ref) <= 1e-4 and bf16_excess(ours, conv1) <= 1e-4
+        cases.append({
+            "kernel": kind, "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": "bfloat16",
+            "max_abs_err": float((ours.float() - ref.float()).abs().max()),
+            "vs_conv_kernel_max_abs_err": float((ours.float() - conv1.float()).abs().max()),
+            "tolerance": "2**-7*|ref| + 1e-4 (plain and #1)", "ok": ok,
+            "ms": graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20),
+            "plain_ms": graph_ms(lambda: plain(x, ext, *tw, *bs), 3),
+            "library_ms": library_ms, "conv_kernel_ms": conv1_ms,
+            **bound(nbytes, ops, dtype),
+        })
+    for wr, count in zip(wrappers, launches):  # timing launches are not the main path's
+        wr.launches = count
+    return cases
+
+
+def dx_ring_cases(gen):
+    """Kernel #14 at conv_micro's levels, float32 and bfloat16: against its
+    plain version (f32 1e-4; bf16 one ulp + 1e-4), its interior bitwise
+    equal to #4's dx, its S/N rows and its W/E columns at rows 1..n bitwise
+    equal to #4's d_ext; timed beside #4, the plain version, the bound and
+    one ``F.conv_transpose2d`` of dout on the face-grouped layout, which
+    gives the whole (n+2)^2 cotangent."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dx_ring, cs_conv3x3_dx_ring_plain
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_dx
+    from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
+    from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS, bound
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
+
+    dev = torch.device("cuda")
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, cin, cout, b in LEVELS:
+            g = torch.randn((b, 6, n, n, cout), generator=gen, device=dev).to(dtype)
+            ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+                   * (9 * cout) ** -0.5).to(dtype) for _ in range(2)]
+            launches = (cs_conv3x3_dx_ring.launches, cs_conv3x3_dx.launches)
+            dx, dring = cs_conv3x3_dx_ring(g, *ks)
+            dx4, d_ext = cs_conv3x3_dx(g, *ks)
+            ref_dx, ref_ring = cs_conv3x3_dx_ring_plain(g, *ks)
+            torch.cuda.synchronize()
+            err = max(float((a.float() - r.float()).abs().max())
+                      for a, r in ((dx, ref_dx), (dring, ref_ring)))
+            if dtype == torch.float32:
+                tol, close = "1e-4 abs", err <= 1e-4
+            else:
+                tol = "2**-7*|ref| + 1e-4"
+                close = max(bf16_excess(dx, ref_dx), bf16_excess(dring, ref_ring)) <= 1e-4
+            same = (torch.equal(dx, dx4) and torch.equal(dring[:, :, :2], d_ext[:, :, :2])
+                    and torch.equal(dring[:, :, 2:, 1 : n + 1], d_ext[:, :, 2:, 1 : n + 1]))
+            # one cuDNN call: the transposed conv of dout (B, 6*Cout, n, n) by
+            # the face-grouped kernels gives the padded cotangent (B, 6*Cin, n+2, n+2)
+            go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
+            go = go.contiguous(memory_format=torch.channels_last)
+            _, w = face_grouped(g.new_zeros((b, 6, 1, 1, cin)), ks)
+            frame = F.conv_transpose2d(go, w, groups=6)
+            frame = frame.reshape(b, 6, cin, n + 2, n + 2).permute(0, 1, 3, 4, 2)
+            lib_err = float((frame[:, :, 1 : n + 1, 1 : n + 1].float() - ref_dx.float())
+                            .abs().max())
+            nbytes = g.element_size() * (g.numel() + 2 * ks[0].numel() + dx.numel()
+                                         + dring.numel())
+            ops = 2 * b * 6 * n * n * 9 * cin * cout
+            cases.append({
+                "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": err, "tolerance": tol, "equal_to_dx_kernel": same,
+                "library_max_abs_err": lib_err, "ok": close and same,
+                "ms": graph_ms(lambda: cs_conv3x3_dx_ring(g, *ks), 10),
+                "dx_kernel_ms": graph_ms(lambda: cs_conv3x3_dx(g, *ks), 10),
+                "plain_ms": graph_ms(lambda: cs_conv3x3_dx_ring_plain(g, *ks), 2),
+                "library_ms": graph_ms(lambda: F.conv_transpose2d(go, w, groups=6), 10),
+                **bound(nbytes, ops, dtype),
+            })
+            cs_conv3x3_dx_ring.launches, cs_conv3x3_dx.launches = launches
+    return cases
+
+
+def lane_store_cases(gen):
+    """Kernel #15 at the kernel_variants tool's shape (16, 6, 48, 48, 32), in
+    float32 and bfloat16: bitwise equal to 3·x; timed beside its plain
+    version, ``x * 3`` and the bound (x read once, the output written once)."""
+    from dlwp_cs_tpu_torch.tools.probes import lane_store, lane_store_plain
+    from dlwp_cs_tpu_torch.tools.timing import bound, graph_ms
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((16, 6, 48, 48, 32), generator=gen, device="cuda").to(dtype)
+        launches = lane_store.launches
+        out = lane_store(x)
+        ref = lane_store_plain(x)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, 3 * x)) and bool(torch.equal(out, ref))
+        nbytes, ops = 2 * x.numel() * x.element_size(), 2 * x.numel()
+        cases.append({
+            "shape": list(x.shape), "dtype": str(dtype).split(".")[-1], "equal_to_3x": equal,
+            "ok": equal, "max_abs_err": float((out.float() - 3 * x.float()).abs().max()),
+            "ms": graph_ms(lambda: lane_store(x), 20),
+            "plain_ms": graph_ms(lambda: lane_store_plain(x), 5),
+            "library_ms": graph_ms(lambda: x * 3, 20),
+            **bound(nbytes, ops, dtype),
+        })
+        lane_store.launches = launches
+    return cases
+
+
+# the kernels of this slice's path (the kernel tools), by wrapper name
+TOOL_KERNELS = ("cs_conv3x3_npack", "cs_conv3x3_im2col", "cs_conv3x3_kernel_only",
+                "cs_conv3x3_dx_ring", "lane_store", "probe_assemble", "probe_rows_int",
+                "probe_rows_slice", "probe_col_int", "probe_col_newaxis", "probe_select",
+                "probe_dot", "probe_shifted_dots", "probe_bias", "probe_dw_reshape",
+                "probe_dw_batched")
+TOOL_RUNS = (("conv_micro", []), ("kernel_variants", []), ("kernel_variants", ["--chain"]),
+             ("mosaic_bisect", []), ("mosaic_bisect", ["--dtype", "float32"]))
+
+
+def tools_main_path():
+    """This slice's main path: each kernel tool's entry point run once on
+    the card, as ``python -m dlwp_cs_tpu_torch.tools.<name>`` runs it (the
+    tools print their rows and raise on a failed check: each kernel's row
+    against its plain version on the same inputs, #12 bitwise against #1,
+    each probe against its plain version); every count set to 0 before and
+    read after.  Counts are wrapper calls, the calls captured into each
+    timing CUDA graph included and its replays not.  Returns the launches
+    of every kernel, the wall seconds and each run's rows."""
+    import importlib
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    results = {}
+    for name, argv in TOOL_RUNS:
+        print(f"$ python -m dlwp_cs_tpu_torch.tools.{name} {' '.join(argv)}".rstrip(), flush=True)
+        mod = importlib.import_module(f"dlwp_cs_tpu_torch.tools.{name}")
+        results[" ".join([name, *argv])] = rows = []
+        check(mod.main(argv, rows) == 0, f"tools.{name} {argv} returned non-zero")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {name: k.launches for name, k in kernels.items()}
+    idle = [name for name in TOOL_KERNELS if launches[name] == 0]
+    check(not idle, f"the kernel tools launched no {idle}")
+    return launches, seconds, results
+
+
+def f64_gradients(cfg, model, trainer, params, xb, yb, grads, plain):
+    """Step 1's gradients once more through the plain path in float64, from
+    the same parameters and batch cast to float64 (the model's output is
+    still cast to float32 at its end, a 6e-8 relative rounding).  The
+    leaky ReLU has a kink at 0: a pre-activation within rounding of 0 may
+    take the other slope (0.1 or 1) in a float32 run than in float64, which
+    moves the gradients of every layer upstream of it by far more than
+    rounding.  So three float64 references: with its own kinks, and with
+    the kinks (the signs of the pre-activations, by forward hooks on the
+    convs) of the float32 kernel run and of the float32 plain run, forced.
+    Returns per tensor each float32 path's largest error against each,
+    relative to the tensor's largest entry, and per layer the
+    pre-activations of another sign between the runs."""
+    import dataclasses
+
+    from dlwp_cs_tpu_torch.models import build_model
+    from dlwp_cs_tpu_torch.train import model_apply, value_and_grad
+
+    model64 = build_model(dataclasses.replace(cfg.resolved_model(), compute_dtype="float64"),
+                          cfg.data.input_channels, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+    layers = [name for name in model.convs if name != "head"]
+    slope = cfg.resolved_model().activation_slope
+
+    def run(net, vg, *args, kinks=None):
+        """(gradients, {layer: pre-activation}) of one step; ``kinks``:
+        ``{layer: pre > 0}`` of another run, whose slopes the leaky ReLU
+        takes here."""
+        pre, order = {}, []
+
+        def record(name, out):  # a forward hook that returns None keeps the output
+            pre[name] = out.detach()
+            order.append(name)
+
+        hooks = [net.convs[name].register_forward_hook(
+            lambda mod, inp, out, name=name: record(name, out)) for name in layers]
+        act = net.act
+        if kinks is not None:
+            net.act = lambda z: z * torch.where(kinks[order[-1]], 1.0, slope).to(z.dtype)
+        try:
+            out = vg(*args)[1]
+        finally:
+            for h in hooks:
+                h.remove()
+            net.act = act
+        return out, pre
+
+    vg = value_and_grad(trainer.apply_fn, trainer.loss_fn)
+    vg64 = value_and_grad(model_apply(model64), trainer.loss_fn)
+    params64 = {k: v.detach().double().requires_grad_(True) for k, v in params.items()}
+    args64 = (params64, xb.double(), yb.double())
+    _, pre_k = run(model, vg, params, xb, yb)
+    with plain_convs():
+        _, pre_p = run(model, vg, params, xb, yb)
+        g64, pre_64 = run(model64, vg64, *args64)
+        g64_k, _ = run(model64, vg64, *args64, kinks={n: v > 0 for n, v in pre_k.items()})
+        g64_p, _ = run(model64, vg64, *args64, kinks={n: v > 0 for n, v in pre_p.items()})
+    torch.cuda.synchronize()
+
+    def rel(a, ref):
+        return float((a.double() - ref).abs().max()) / float(ref.abs().max())
+
+    per_tensor = {k: {
+        "kernel_vs_f64": rel(grads[k], g64[k]), "plain_vs_f64": rel(plain[k], g64[k]),
+        "kernel_vs_f64_same_kinks": rel(grads[k], g64_k[k]),
+        "plain_vs_f64_same_kinks": rel(plain[k], g64_p[k]),
+        "kernel_vs_plain": float((grads[k] - plain[k]).abs().max() / plain[k].abs().max()),
+    } for k in grads}
+    flips = {name: {
+        "kernel_vs_f64": int(((pre_k[name] > 0) != (pre_64[name] > 0)).sum()),
+        "plain_vs_f64": int(((pre_p[name] > 0) != (pre_64[name] > 0)).sum()),
+        "kernel_vs_plain": int(((pre_k[name] > 0) != (pre_p[name] > 0)).sum()),
+        "values": pre_64[name].numel(),
+    } for name in layers}
+    return {"per_tensor": per_tensor, "sign_flips": flips}
 
 
 @contextlib.contextmanager
@@ -471,7 +707,9 @@ def plain_convs():
 
 
 def all_kernels():
-    """The nine kernel wrappers, by name."""
+    """Every kernel wrapper, by name: the nine of the serving, training and
+    sharded paths, then the kernel tools' (``TOOL_KERNELS``)."""
+    from dlwp_cs_tpu_torch.ops import conv_variants
     from dlwp_cs_tpu_torch.ops.hopper_conv import (
         cs_conv3x3,
         cs_conv3x3_band,
@@ -482,10 +720,13 @@ def all_kernels():
     from dlwp_cs_tpu_torch.ops.ring_kernel import ring_fixes, xring_fused_apply
     from dlwp_cs_tpu_torch.parallel.overlap_band import band_conv3x3_overlap
     from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_rdma
+    from dlwp_cs_tpu_torch.tools import probes
 
+    tools = [getattr(conv_variants, name, None) or getattr(probes, name)
+             for name in TOOL_KERNELS]
     return {k.name: k for k in (cs_conv3x3, cs_conv3x3_dx, cs_conv3x3_dw, ring_fixes,
                                 xring_fused_apply, cs_conv3x3_band, cs_conv3x3_tile,
-                                band_exchange_rdma, band_conv3x3_overlap)}
+                                band_exchange_rdma, band_conv3x3_overlap, *tools)}
 
 
 def model_config(kind, dtype_name):
@@ -670,7 +911,32 @@ def train_phase(kind, dtype_name, rng):
     grad_tol = 1e-3 if dtype_name == "float32" else 2.0**-4
     grad_err, worst = max((float((grads[k] - plain[k]).abs().max() / plain[k].abs().max()), k)
                           for k in grads)
-    check(grad_err <= grad_tol, f"kernel vs plain gradients {grad_err} > {grad_tol} ({worst})")
+    f64 = None
+    if kind == "unet" and dtype_name == "float32":
+        # A leaky-ReLU pre-activation within rounding of 0 takes the other
+        # slope in one float32 run than in the other and moves every
+        # gradient upstream of it far past rounding (1.37e-3 of a tensor's
+        # largest entry once).  So each float32 path is held against the
+        # float64 step with its own kinks forced: rounding, 1e-5 per tensor.
+        f64 = f64_gradients(cfg, model, trainer, state0.params, xb, yb, grads, plain)
+        flips = {name: (f["kernel_vs_f64"], f["plain_vs_f64"], f["kernel_vs_plain"])
+                 for name, f in f64["sign_flips"].items()}
+        print("train unet float32 step-1 gradients, max |err| / max |f64 ref| per tensor "
+              "(kernel path, plain path; against f64 with the path's own kinks: kernel, "
+              "plain): " + ", ".join(
+                  f"{k} {v['kernel_vs_f64']:.3g} {v['plain_vs_f64']:.3g} "
+                  f"{v['kernel_vs_f64_same_kinks']:.3g} {v['plain_vs_f64_same_kinks']:.3g}"
+                  for k, v in f64["per_tensor"].items()), flush=True)
+        print("train unet float32 leaky-ReLU pre-activations of another sign per layer "
+              f"(kernel vs f64, plain vs f64, kernel vs plain): {flips}", flush=True)
+        against, check_tol = "the float64 step with the same kinks", 1e-5
+        check_err, check_worst = max(
+            (max(v["kernel_vs_f64_same_kinks"], v["plain_vs_f64_same_kinks"]), k)
+            for k, v in f64["per_tensor"].items())
+    else:
+        against, check_tol, check_err, check_worst = "the plain path", grad_tol, grad_err, worst
+    check(check_err <= check_tol,
+          f"step-1 gradients vs {against}: {check_err} > {check_tol} ({check_worst})")
 
     # the main path: 20 optimizer steps from the store through the trainer
     for k in kernels.values():
@@ -713,7 +979,9 @@ def train_phase(kind, dtype_name, rng):
         "fixed_batch_losses": fit_losses, "step1_loss": float(loss_k),
         "step1_plain_loss": float(loss_p), "grad_vs_plain_rel_err": grad_err,
         "grad_worst_tensor": worst,
-        "grad_tolerance": grad_tol, "grads_bitwise_repeatable": repeat,
+        "grad_check": {"against": against, "rel_err": check_err, "tensor": check_worst,
+                       "tolerance": check_tol},
+        "grads_bitwise_repeatable": repeat, "f64_reference": f64,
         "step_ms": times, "step_ms_median": statistics.median(times),
         "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
@@ -833,6 +1101,8 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         band_conv3x3_overlap_plain,
     )
     from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
+    from dlwp_cs_tpu_torch.tools.timing import (
+        HBM_BYTES_PER_S, bf16_excess, bound, face_grouped, graph_ms)
 
     dev = torch.device("cuda")
     s = axis_index(mesh, SPATIAL_AXIS)
@@ -889,15 +1159,13 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         nbytes = item * (x.numel() + seam.numel() + wecols.numel() + 2 * ks[0].numel()
                          + 2 * cout + b * 6 * h * n * cout) + 2 * slab
         ops = 2 * b * 6 * h * n * 9 * cin * cout
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
         conv.append({
             "n": n, "cin": cin, "cout": cout, "batch": b, "rows": h,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": tol,
             "ok": ok, "vs_band_kernel_max_abs_err": float((ours.float() - k8.float()).abs().max()),
             "equal_to_band_kernel": bool(torch.equal(ours, k8)),
             "ms": ms11, "plain_ms": plain11, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops})
+            **bound(nbytes, ops, dtype)})
     return xchg, conv
 
 
@@ -1123,6 +1391,53 @@ def main(argv=None) -> int:
     bad = [c for c in ring if not c["ok"]]
     check(not bad, f"ring kernel disagrees with its plain version: {bad}")
 
+    # the kernel tools: their entry points (this slice's main path), then
+    # each of their kernels against its plain version, timed
+    tool_launches, tools_s, tool_rows = tools_main_path()
+    print(f"tools: {len(TOOL_RUNS)} runs in {tools_s:.1f} s; launches "
+          f"{ {k: tool_launches[k] for k in TOOL_KERNELS} }", flush=True)
+    mma = []
+    print("tools: kernel n Cin Cout B | max_abs_err (vs #1) | kernel_ms plain_ms #1_ms "
+          "library_ms bound_ms")
+    from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
+    from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS, bound
+    mma_shapes = ([s + (1,) for s in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)]
+                  + LEVELS + [(48, 96, 32, TRAIN_BATCH)])
+    for n, cin, cout, b in mma_shapes:
+        for c in mma_cases(n, cin, cout, b, gen):
+            mma.append(c)
+            print(f"{c['kernel']} {n} {cin} {cout} {b} | {c['max_abs_err']:.3g} "
+                  f"({c['vs_conv_kernel_max_abs_err']:.3g}) | {c['ms']:.4f} {c['plain_ms']:.4f} "
+                  f"{c['conv_kernel_ms']:.4f} {c['library_ms']:.4f} {c['bound_ms']:.5f}",
+                  flush=True)
+    # #12 at conv_micro's levels, as the tool's run measured it
+    only = [{"ms": r["kernel"], "plain_ms": r["kernel_plain_ms"],
+             "library_ms": r["kernel_library_ms"], "max_abs_err": r["kernel_max_abs_err"],
+             **bound(r["bytes"], r["ops"], torch.bfloat16)} for r in tool_rows["conv_micro"]]
+    for r, c in zip(tool_rows["conv_micro"], only):
+        print(f"kernel_only {r['n']} {r['cin']} {r['cout']} {r['batch']} | equal to #1 "
+              f"{r['kernel_equals_fused']}, vs plain {c['max_abs_err']:.3g} | ext "
+              f"{r['ext']:.4f} kernel {c['ms']:.4f} pallas {r['pallas']:.4f} plain "
+              f"{c['plain_ms']:.4f} cuDNN {c['library_ms']:.4f} bound {c['bound_ms']:.5f}",
+              flush=True)
+    ring_dx = dx_ring_cases(gen)
+    for c in ring_dx:
+        print(f"dx_ring {c['n']} {c['cin']} {c['cout']} {c['batch']} {c['dtype']} | "
+              f"{c['max_abs_err']:.3g} ({c['tolerance']}), equal to #4 {c['equal_to_dx_kernel']} "
+              f"| {c['ms']:.4f} (#4 {c['dx_kernel_ms']:.4f}) {c['plain_ms']:.4f} "
+              f"{c['library_ms']:.4f} {c['bound_ms']:.5f}", flush=True)
+    stores = lane_store_cases(gen)
+    # #16 at the reference scripts' shapes in bfloat16, as the probe tool's
+    # run measured and checked them
+    probe_rows = [dict(r, **bound(r["bytes"], r["ops"], torch.bfloat16))
+                  for r in tool_rows["mosaic_bisect"]]
+    for c in stores + probe_rows:
+        print(f"{c.get('name', 'lane_store')} {c.get('shapes', c.get('shape'))} {c['dtype']} | "
+              f"{c['max_abs_err']:.3g} | {c['ms']:.4f} {c['plain_ms']:.4f} "
+              f"{c['library_ms']:.4f} {c['bound_ms']:.5f}", flush=True)
+    bad = [c for c in mma + ring_dx + stores if not c["ok"]]
+    check(not bad, f"a kernel of the tools disagrees with its plain version: {bad}")
+
     blocks = []
     print("block: kernel n rows x cols Cin Cout B dtype | max_abs_err (tol) | kernel_ms "
           "plain_ms library_ms bound_ms")
@@ -1171,8 +1486,10 @@ def main(argv=None) -> int:
                   f"launches {r['launches']}; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
                   f"fixed batch {r['fixed_batch_losses'][0]:.4f} -> "
                   f"{np.mean(r['fixed_batch_losses'][-5:]):.4f}; step-1 grads vs plain "
-                  f"{r['grad_vs_plain_rel_err']:.3g} of max in {r['grad_worst_tensor']} "
-                  f"(tol {r['grad_tolerance']:.3g}), "
+                  f"{r['grad_vs_plain_rel_err']:.3g} of max in {r['grad_worst_tensor']}; "
+                  f"checked against {r['grad_check']['against']}: "
+                  f"{r['grad_check']['rel_err']:.3g} in {r['grad_check']['tensor']} (tol "
+                  f"{r['grad_check']['tolerance']:.3g}), "
                   f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
 
     with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
@@ -1279,6 +1596,49 @@ def main(argv=None) -> int:
                 for c in remote[k]]
         kernels.append(line(name, src, replaces, per_rank[path, "bfloat16"][name],
                             [per_shape[s] for s in FLAGSHIP_CONVS], errs))
+    # the kernel tools' kernels; launches per run of the tools (TOOL_RUNS):
+    # wrapper calls, those captured into a timing CUDA graph included, its
+    # replays not.
+    # #3 and #13: one model call's 10 convs at batch 1, as #1's line
+    per_conv = {(c["kernel"], c["n"], c["cin"], c["cout"]): c for c in mma if c["batch"] == 1}
+    for kind, name, replaces in (
+        ("npack", "cs_conv3x3_npack", "dlwp_cs_tpu/ops/pallas_conv.py:213"),
+        ("im2col", "cs_conv3x3_im2col", "tools/kernel_variants.py:194"),
+    ):
+        kernels.append(line(name, "dlwp_cs_tpu_torch/csrc/cs_conv3x3_mma.cu", replaces,
+                            tool_launches[name], [per_conv[(kind,) + s] for s in FLAGSHIP_CONVS],
+                            [c["max_abs_err"] for c in mma if c["kernel"] == kind]))
+    # #12 and #14: conv_micro's three levels at batch 16 (bf16); #15: one call
+    kernels.append(line("cs_conv3x3_kernel_only", "dlwp_cs_tpu_torch/csrc/cs_conv3x3.cu",
+                        "tools/conv_micro.py:143", tool_launches["cs_conv3x3_kernel_only"], only,
+                        [c["max_abs_err"] for c in only]))
+    kernels.append(line("cs_conv3x3_dx_ring", src_bwd, "tools/kernel_variants.py:345",
+                        tool_launches["cs_conv3x3_dx_ring"],
+                        [c for c in ring_dx if c["dtype"] == "bfloat16"],
+                        [c["max_abs_err"] for c in ring_dx]))
+    src_probes = "dlwp_cs_tpu_torch/csrc/cs_probes.cu"
+    kernels.append(line("lane_store", src_probes, "tools/kernel_variants.py:427",
+                        tool_launches["lane_store"],
+                        [c for c in stores if c["dtype"] == "bfloat16"],
+                        [c["max_abs_err"] for c in stores]))
+    # #16: each probe at the reference scripts' shapes (bisect3's three dw
+    # shapes summed)
+    for name, replaces in (
+        ("probe_assemble", "tools/mosaic_bisect.py:27"),
+        ("probe_select", "tools/mosaic_bisect.py:43"),
+        ("probe_dot", "tools/mosaic_bisect.py:54"),
+        ("probe_shifted_dots", "tools/mosaic_bisect.py:66"),
+        ("probe_bias", "tools/mosaic_bisect.py:85"),
+        ("probe_rows_int", "tools/mosaic_bisect2.py:24"),
+        ("probe_rows_slice", "tools/mosaic_bisect2.py:24"),
+        ("probe_col_int", "tools/mosaic_bisect2.py:24"),
+        ("probe_col_newaxis", "tools/mosaic_bisect2.py:24"),
+        ("probe_dw_reshape", "tools/mosaic_bisect3.py:23"),
+        ("probe_dw_batched", "tools/mosaic_bisect3.py:35"),
+    ):
+        rows = [c for c in probe_rows if c["probe"] == name]
+        kernels.append(line(name, src_probes, replaces, tool_launches[name], rows,
+                            [c["max_abs_err"] for c in rows]))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1287,6 +1647,10 @@ def main(argv=None) -> int:
                    "serve": list(serve.values()), "train": list(train.values()),
                    "sharded": sharded, "sharded_exchange_ms": exchange,
                    "sharded_group_seconds": group_s, "remote_cases": remote,
+                   "tool_launches": tool_launches, "tools_seconds": tools_s,
+                   "tool_rows": tool_rows, "mma_cases": mma,
+                   "kernel_only_cases": only, "dx_ring_cases": ring_dx,
+                   "lane_store_cases": stores, "probe_cases": probe_rows,
                    "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))

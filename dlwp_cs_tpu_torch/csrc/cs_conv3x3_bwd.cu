@@ -20,6 +20,12 @@
 //   and E at rows 1..n with both ends zero (the forward reads W/E only at
 //   rows 1..n).  No padded frame goes through device memory.  f32 sums, one
 //   rounding to dout's dtype, as the reference stores dxp in x's dtype.
+//   Its second entry point (cs_conv3x3_dx_ring_launch, the RAW instance of
+//   the same kernel) replaces tools/kernel_variants.py::_dx_aligned_kernel
+//   (launched by dx_aligned): the same sums, with the ring written raw,
+//   [row 0, row n+1, column 0, column n+1] of dxp, corners included at both
+//   ends of the W/E columns.  Every other value it writes is the default
+//   instance's, bit for bit.
 //
 // dw kernel:
 //     dK_g[dy,dx] = sum_{b, f in g, i, j} P[i+dy, j+dx, :] (x) dout[i, j, :]
@@ -97,7 +103,7 @@ struct DxGeom {
 // is dout[a0 + pr - 2, pc - 2] (zero outside the face), so frame pixel
 // (a, b) reads staged rows a - a0 .. +2 and columns b .. b + 2, each with the
 // flipped tap K[2 - ey, 2 - ex].
-template <typename T>
+template <typename T, bool RAW>
 __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_dx_kernel(
     const T* __restrict__ dout, const T* __restrict__ keq, const T* __restrict__ kpo,
     T* __restrict__ dx, T* __restrict__ dext, DxGeom g) {
@@ -213,10 +219,11 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_dx_kernel(
         dx[((face * n + a - 1) * n + b - 1) * cin + ci] = val;
       } else if (a == 0 || a == n + 1) {
         // S / N ghost row, corners included; a corner also zeroes the end
-        // of its W / E strip, which the forward never reads
+        // of its W / E strip, which the forward never reads (RAW: the
+        // corner itself, as the raw ring holds it)
         ef[((long long)(a == 0 ? 0 : 1) * m + b) * cin + ci] = val;
-        if (b == 0) ef[(2LL * m + a) * cin + ci] = zero;
-        if (b == m - 1) ef[(3LL * m + a) * cin + ci] = zero;
+        if (b == 0) ef[(2LL * m + a) * cin + ci] = RAW ? val : zero;
+        if (b == m - 1) ef[(3LL * m + a) * cin + ci] = RAW ? val : zero;
       } else {
         ef[((long long)(b == 0 ? 2 : 3) * m + a) * cin + ci] = val;  // W / E column
       }
@@ -387,17 +394,18 @@ cudaError_t allow_large_smem(const void* fn, int device) {
   return err;
 }
 
-template <typename T>
+template <typename T, bool RAW>
 cudaError_t launch_dx(const void* dout, const void* keq, const void* kpo, void* dx,
                       void* dext, int batch, const DxGeom& g, size_t smem, int device,
                       cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<0, T>((const void*)cs_conv3x3_dx_kernel<T>, device);
+    cudaError_t err = allow_large_smem<RAW ? 2 : 0, T>(
+        (const void*)cs_conv3x3_dx_kernel<T, RAW>, device);
     if (err != cudaSuccess) return err;
   }
   const int ntiles = (g.m + g.h - 1) / g.h;
   dim3 grid(ntiles * g.nslices, 6, batch);
-  cs_conv3x3_dx_kernel<T><<<grid, MAX_THREADS, smem, stream>>>(
+  cs_conv3x3_dx_kernel<T, RAW><<<grid, MAX_THREADS, smem, stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(keq), static_cast<const T*>(kpo),
       static_cast<T*>(dx), static_cast<T*>(dext), g);
   return cudaGetLastError();
@@ -418,16 +426,11 @@ cudaError_t launch_dw(const void* x, const void* ext, const void* dout, void* dk
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
-// stream belongs to.  h: frame rows per block; cs: Cin channels per block
-// (a power of two >= 8).  Returns a cudaError_t (0 = success).
-int cs_conv3x3_dx_launch(int dtype, int device, const void* dout, const void* keq,
-                         const void* kpo, void* dx, void* dext, int batch, int n, int cin,
-                         int cout, int h, int cs, void* stream) {
+// The dx kernel (RAW: the raw ring in place of d_ext).
+template <bool RAW>
+int dx_entry(int dtype, int device, const void* dout, const void* keq, const void* kpo,
+             void* dx, void* dext, int batch, int n, int cin, int cout, int h, int cs,
+             void* stream) {
   const int m = n + 2;
   if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || n < 1 || cin < 1 ||
       cout < 1 || h < 1 || h > m || cs < CO || (cs & (cs - 1)) != 0)
@@ -450,10 +453,34 @@ int cs_conv3x3_dx_launch(int dtype, int device, const void* dout, const void* ke
   if (h * g.ncg * g.nog > MAX_THREADS) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)CC * g.plane + (size_t)9 * CC * cs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dx<float>(dout, keq, kpo, dx, dext, batch, g, smem, device, s);
+  if (dtype == 0)
+    return launch_dx<float, RAW>(dout, keq, kpo, dx, dext, batch, g, smem, device, s);
   if (dtype == 1)
-    return launch_dx<__nv_bfloat16>(dout, keq, kpo, dx, dext, batch, g, smem, device, s);
+    return launch_dx<__nv_bfloat16, RAW>(dout, keq, kpo, dx, dext, batch, g, smem, device, s);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
+// stream belongs to.  h: frame rows per block; cs: Cin channels per block
+// (a power of two >= 8).  Returns a cudaError_t (0 = success).
+int cs_conv3x3_dx_launch(int dtype, int device, const void* dout, const void* keq,
+                         const void* kpo, void* dx, void* dext, int batch, int n, int cin,
+                         int cout, int h, int cs, void* stream) {
+  return dx_entry<false>(dtype, device, dout, keq, kpo, dx, dext, batch, n, cin, cout, h, cs,
+                         stream);
+}
+
+// As cs_conv3x3_dx_launch, writing the raw ring [row 0, row n+1, column 0,
+// column n+1] of the (n+2)^2 cotangent into dring (B, 6, 4, n+2, Cin).
+int cs_conv3x3_dx_ring_launch(int dtype, int device, const void* dout, const void* keq,
+                              const void* kpo, void* dx, void* dring, int batch, int n,
+                              int cin, int cout, int h, int cs, void* stream) {
+  return dx_entry<true>(dtype, device, dout, keq, kpo, dx, dring, batch, n, cin, cout, h, cs,
+                        stream);
 }
 
 // rows: face rows staged per item (<= n); nsplit: reduction slices per face

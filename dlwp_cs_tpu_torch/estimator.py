@@ -7,7 +7,10 @@ JSON config and stats, and serving reads ``config``, ``model``, ``cs``,
 ``state`` and ``stats``.  :meth:`DLWPEstimator.load_state` fills it for
 serving from the reference's parameter tree (or the model's own seeded
 initialisation) plus the normalization statistics.  The reference's
-``forecast`` / ``forecast_lagged`` are served by ``ForecastService`` here.
+``forecast``, ``forecast_lagged``, ``denormalize`` and ``replace_config``
+are not ported yet (ROADMAP.md queue 1, item 12): ``ForecastService``
+serves a forecast from a window, not from a store and init indices, and
+nothing rolls a lagged ensemble.
 """
 
 from __future__ import annotations

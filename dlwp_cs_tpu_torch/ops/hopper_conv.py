@@ -102,43 +102,40 @@ def cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole):
     :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``) or a shard's
     local block (H <= W) with its exchanged ghost strips ``ext`` ``(B, 6, 4,
     W+2, Cin)``: S/N rows corner-extended, W/E columns at positions 1..H.
-    Kernels and biases are rounded to ``x``'s dtype, the taps summed in f32
-    and the result cast once to ``x``'s dtype.
+    Kernels and biases are rounded to ``x``'s dtype, the taps summed in
+    ``promote_types(x.dtype, float32)`` (float32 for float32 and bfloat16
+    inputs, float64 for a float64 reference) and the result cast once to
+    ``x``'s dtype.
     """
     rows, cols = x.shape[2], x.shape[3]
     dt = x.dtype
-    p = _padded_faces(x, ext).float()
+    acc_dt = torch.promote_types(dt, torch.float32)
+    p = _padded_faces(x, ext).to(acc_dt)
     parts = []
     for k, bias, faces in ((k_eq, b_eq, _GROUPS[0]), (k_pole, b_pole, _GROUPS[1])):
-        kf = k.to(dt).float()
+        kf = k.to(dt).to(acc_dt)
         acc = sum(
             torch.einsum("bfijc,cd->bfijd", p[:, faces, dy : dy + rows, dx : dx + cols],
                          kf[dy, dx])
             for dy in range(3)
             for dx in range(3)
         )
-        parts.append(acc + bias.to(dt).float())
+        parts.append(acc + bias.to(dt).to(acc_dt))
     return torch.cat(parts, dim=1).to(dt)
 
 
-def cs_conv3x3_dx_plain(dout, k_eq, k_pole):
-    """Plain-torch input cotangent of the fused conv.
-
-    ``dout`` ``(B, 6, n, n, Cout)``, kernels ``(3, 3, Cin, Cout)`` of its
-    dtype.  The padded-input cotangent ``dxp[a, b] = sum_{dy,dx}
-    K_g[dy,dx] dout[a-dy, b-dx]`` over the ``(n+2)^2`` frame, summed in f32
-    and rounded once to ``dout``'s dtype, is returned split as
-    ``(dx, d_ext)``: dx ``(B, 6, n, n, Cin)`` is its interior, ``d_ext``
-    ``(B, 6, 4, n+2, Cin)`` its ring as ghost-strip cotangents: rows S and N
-    whole (corners included), columns W and E at rows 1..n with both ends
-    zero, since the forward reads W/E only there.
-    """
+def _dx_frame_plain(dout, k_eq, k_pole):
+    """``(B, 6, n+2, n+2, Cin)``: the padded-input cotangent ``dxp[a, b] =
+    sum_{dy,dx} K_g[dy,dx] dout[a-dy, b-dx]`` of ``dout`` ``(B, 6, n, n,
+    Cout)``, summed in ``promote_types(dout.dtype, float32)`` and rounded
+    once to ``dout``'s dtype."""
     n = dout.shape[2]
     dt = dout.dtype
-    q = F.pad(dout.float(), (0, 0, 2, 2, 2, 2))  # (B, 6, n+4, n+4, Cout)
+    acc_dt = torch.promote_types(dt, torch.float32)
+    q = F.pad(dout.to(acc_dt), (0, 0, 2, 2, 2, 2))  # (B, 6, n+4, n+4, Cout)
     parts = []
     for k, faces in ((k_eq, _GROUPS[0]), (k_pole, _GROUPS[1])):
-        kf = k.to(dt).float()
+        kf = k.to(dt).to(acc_dt)
         parts.append(sum(
             torch.einsum(
                 "bfijd,cd->bfijc",
@@ -147,7 +144,22 @@ def cs_conv3x3_dx_plain(dout, k_eq, k_pole):
             for dy in range(3)
             for dx in range(3)
         ))
-    dxp = torch.cat(parts, dim=1).to(dt)  # (B, 6, n+2, n+2, Cin)
+    return torch.cat(parts, dim=1).to(dt)
+
+
+def cs_conv3x3_dx_plain(dout, k_eq, k_pole):
+    """Plain-torch input cotangent of the fused conv.
+
+    ``dout`` ``(B, 6, n, n, Cout)``, kernels ``(3, 3, Cin, Cout)`` of its
+    dtype.  The padded-input cotangent ``dxp`` (:func:`_dx_frame_plain`)
+    over the ``(n+2)^2`` frame is returned split as ``(dx, d_ext)``: dx
+    ``(B, 6, n, n, Cin)`` is its interior, ``d_ext`` ``(B, 6, 4, n+2, Cin)``
+    its ring as ghost-strip cotangents: rows S and N whole (corners
+    included), columns W and E at rows 1..n with both ends zero, since the
+    forward reads W/E only there.
+    """
+    n = dout.shape[2]
+    dxp = _dx_frame_plain(dout, k_eq, k_pole)  # (B, 6, n+2, n+2, Cin)
     w_col, e_col = dxp[:, :, :, 0].clone(), dxp[:, :, :, n + 1].clone()
     for col in (w_col, e_col):
         col[:, :, 0] = 0
@@ -157,15 +169,17 @@ def cs_conv3x3_dx_plain(dout, k_eq, k_pole):
 
 
 def cs_conv3x3_dw_plain(x, ext, dout):
-    """Plain-torch weight and bias gradients of the fused conv, in f32.
+    """Plain-torch weight and bias gradients of the fused conv, in
+    ``promote_types(x.dtype, float32)`` (f32 for f32 and bf16 inputs).
 
     ``dK_g[dy, dx] = sum_{b, f in g, i, j} P[i+dy, j+dx] (x) dout[i, j]``
     over the padded faces ``P`` (as the forward reads them) and
     ``db_g = sum dout``; returns ``(dk_eq, dk_pole, db_eq, db_pole)``.
     """
     n = x.shape[2]
-    p = _padded_faces(x, ext).float()
-    d = dout.to(x.dtype).float()
+    acc_dt = torch.promote_types(x.dtype, torch.float32)
+    p = _padded_faces(x, ext).to(acc_dt)
+    d = dout.to(x.dtype).to(acc_dt)
     out = []
     for faces in _GROUPS:
         out.append(torch.stack([
@@ -229,6 +243,8 @@ _FWD_LIB = CudaLibrary("cs_conv3x3.cu", {
 }, "cs_conv3x3_error_string")
 _BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
     "cs_conv3x3_dx_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
+    # kernel #14, the raw-ring instance (ops/conv_variants.py)
+    "cs_conv3x3_dx_ring_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
     "cs_conv3x3_dw_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
 }, "cs_conv3x3_bwd_error_string")
 

@@ -502,3 +502,192 @@ def test_band_exchange_times_out_when_a_rank_stays_away(cuda_device, tmp_path):
         for msg in msgs:
             assert "timed out in kernel #10" in msg and f"coordinate {rank}" in msg, msg
             assert "epoch 2" in msg, msg
+
+
+# ---- the kernel tools' kernels: #3, #13 (tensor cores), #12, #14, #15, #16 ----
+
+# small faces (Cin not a multiple of 8: the scalar staging path; Cout not a
+# multiple of 8), the flagship U-Net's 10 conv shapes at batch 1, its first
+# level at the training batch, n = 96, and the packed layout's 128 channels
+MMA_SHAPES = [
+    (1, 10, 5, 7), (2, 8, 12, 16), (1, 8, 8, 8),
+    (1, 48, 12, 32), (1, 48, 32, 32), (1, 24, 32, 64), (1, 24, 64, 64), (1, 12, 64, 128),
+    (1, 12, 128, 128), (1, 24, 192, 64), (1, 48, 96, 32), (16, 48, 32, 32), (1, 96, 64, 64),
+]
+
+
+def _mma_kernels():
+    from dlwp_cs_tpu_torch.ops import conv_variants as cv
+
+    return {"npack": (cv.cs_conv3x3_npack, cv.cs_conv3x3_npack_plain, cv.npack_taps),
+            "im2col": (cv.cs_conv3x3_im2col, cv.cs_conv3x3_im2col_plain, cv.im2col_taps)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["npack", "im2col"])
+@pytest.mark.parametrize("b,n,cin,cout", MMA_SHAPES)
+def test_mma_conv_kernels_match_plain_and_conv_kernel_on_card(cuda_device, kind, b, n, cin,
+                                                              cout):
+    """Kernels #3 (kn2row) and #13 (im2col) in bfloat16 against their plain
+    versions and against kernel #1 on the same strips, each within one bf16
+    ulp of |ref| + 1e-4 (all three round an f32 sum once)."""
+    wrapper, plain, taps = _mma_kernels()[kind]
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                                 for a in _case(b, n, cin, cout))
+    k_eq, k_po = k_eq / cin**0.5, k_po / cin**0.5
+    e = ext_strips(x)
+    w = (taps(k_eq), taps(k_po))
+    before = wrapper.launches
+    ours = wrapper(x, e, *w, b_eq, b_po)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert ours.shape == (b, 6, n, n, cout) and ours.dtype == torch.bfloat16
+    _close(ours, plain(x, e, *w, b_eq, b_po), "bfloat16")
+    _close(ours, cs_conv3x3(x, e, k_eq, k_po, b_eq, b_po), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_im2col_kernel_on_the_packed_layout_on_card(cuda_device):
+    """Kernel #13 at the packed layout's 128 channels (n = 48, batch 4):
+    the kernel_variants tool's ``im2colonly`` row."""
+    wrapper, plain, taps = _mma_kernels()["im2col"]
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                                 for a in _case(4, 48, 128, 128))
+    k_eq, k_po = k_eq / 128**0.5, k_po / 128**0.5
+    e = ext_strips(x)
+    ours = wrapper(x, e, taps(k_eq), taps(k_po), b_eq, b_po)
+    _close(ours, plain(x, e, taps(k_eq), taps(k_po), b_eq, b_po), "bfloat16")
+    _close(ours, cs_conv3x3(x, e, k_eq, k_po, b_eq, b_po), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["npack", "im2col"])
+def test_mma_conv_kernels_reject_float32(cuda_device, kind):
+    wrapper, _, taps = _mma_kernels()[kind]
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device) for a in _case(1, 8, 4, 8))
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        wrapper(x, ext_strips(x), taps(k_eq), taps(k_po), b_eq, b_po)
+    assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,cout", [(2, 8, 5, 7), (16, 48, 32, 32), (16, 12, 128, 128)])
+def test_kernel_only_is_the_conv_kernel_on_card(cuda_device, dtype, b, n, cin, cout):
+    """Kernel #12, the conv kernel on strips computed before the call,
+    equals kernel #1 bitwise and counts its launches apart."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_kernel_only
+
+    x, *w = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+             for a in _case(b, n, cin, cout))
+    e = ext_strips(x)
+    before = (cs_conv3x3_kernel_only.launches, cs_conv3x3.launches)
+    ours = cs_conv3x3_kernel_only(x, e, *w)
+    torch.cuda.synchronize()
+    assert (cs_conv3x3_kernel_only.launches, cs_conv3x3.launches) == (before[0] + 1, before[1])
+    assert torch.equal(ours, cs_conv3x3(x, e, *w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 10, 3, 9), (2, 8, 12, 16), (16, 48, 32, 32),
+                                          (16, 24, 64, 64), (16, 12, 128, 128),
+                                          (16, 24, 192, 64)])
+def test_dx_ring_kernel_matches_plain_and_dx_kernel_on_card(cuda_device, dtype, b, n, cin,
+                                                            cout):
+    """Kernel #14 against its plain version; its interior bitwise equal to
+    kernel #4's dx, its S/N rows and its W/E columns at rows 1..n bitwise
+    equal to #4's d_ext, whose W/E ends stay zero (#4 as before)."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dx_ring, cs_conv3x3_dx_ring_plain
+
+    tdt = getattr(torch, dtype)
+    _, k_eq, k_po, _, _ = (torch.from_numpy(a).to(cuda_device, tdt)
+                           for a in _case(1, 1, cin, cout))
+    g = torch.randn((b, 6, n, n, cout), generator=torch.Generator().manual_seed(9))
+    g = g.to(cuda_device, tdt)
+    before = (cs_conv3x3_dx_ring.launches, cs_conv3x3_dx.launches)
+    dx, dring = cs_conv3x3_dx_ring(g, k_eq, k_po)
+    dx4, d_ext = cs_conv3x3_dx(g, k_eq, k_po)
+    torch.cuda.synchronize()
+    assert (cs_conv3x3_dx_ring.launches, cs_conv3x3_dx.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    ref_dx, ref_ring = cs_conv3x3_dx_ring_plain(g, k_eq, k_po)
+    _close(dx, ref_dx, dtype)
+    _close(dring, ref_ring, dtype)
+    assert torch.equal(dx, dx4)
+    assert torch.equal(dring[:, :, :2], d_ext[:, :, :2])
+    assert torch.equal(dring[:, :, 2:, 1 : n + 1], d_ext[:, :, 2:, 1 : n + 1])
+    assert not bool(d_ext[:, :, 2:, [0, n + 1]].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 6, 8, 8, 5), (16, 6, 48, 48, 32), (1, 6, 12, 12, 128)])
+def test_lane_store_is_three_x_on_card(cuda_device, dtype, shape):
+    """Kernel #15 returns 3 x bitwise (x + x is exact, so one rounding)."""
+    from dlwp_cs_tpu_torch.tools.probes import lane_store
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(10))
+    x = x.to(cuda_device, getattr(torch, dtype))
+    before = lane_store.launches
+    out = lane_store(x)
+    torch.cuda.synchronize()
+    assert lane_store.launches == before + 1
+    assert torch.equal(out, 3 * x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("small", [True, False])
+def test_probes_match_plain_on_card(cuda_device, dtype, small):
+    """Every probe of #16 (and its launch count) through the probe tool's
+    own check: equal where no sum is reordered, within 1e-5 of the largest
+    entry (+ one bf16 ulp for bf16 outputs) for the products."""
+    from dlwp_cs_tpu_torch.tools import mosaic_bisect, probes
+
+    before = {k.name: k.launches for k in probes.PROBES.values()}
+    rows = mosaic_bisect.run(cuda_device, getattr(torch, dtype), small, reps=1)
+    torch.cuda.synchronize()
+    assert len(rows) == 9 + 2 * (2 if small else len(mosaic_bisect.DW_SHAPES))
+    for k in probes.PROBES.values():  # one checked launch, 3 timed per row
+        n_rows = sum(r["probe"] == k.name for r in rows)
+        assert k.launches - before[k.name] == 4 * n_rows, k.name
+
+
+@pytest.mark.cuda
+def test_probes_reject_bad_arguments(cuda_device):
+    """Shapes, dtypes and devices are checked before any pointer reaches
+    the kernels; nothing launches."""
+    from dlwp_cs_tpu_torch.tools import probes
+
+    x = torch.zeros((8, 8, 4), device=cuda_device)
+    before = {k.name: k.launches for k in probes.PROBES.values()}
+    with pytest.raises(ValueError, match="shape"):
+        probes.probe_dot(x, torch.zeros((5, 3), device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        probes.probe_assemble(x, torch.zeros((4, 9, 4), device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        probes.probe_bias(x, torch.zeros(3, device=cuda_device))
+    with pytest.raises(ValueError, match="one dtype"):
+        probes.probe_dw_reshape(x, torch.zeros((8, 8, 4), device=cuda_device).bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        probes.probe_select(*(torch.zeros((3, 3, 4, 4), device=cuda_device).half(),) * 2)
+    assert {k.name: k.launches for k in probes.PROBES.values()} == before
+
+
+@pytest.mark.cuda
+def test_tools_hold_their_kernel_rows_against_plain_on_card(cuda_device):
+    """conv_micro and kernel_variants at their small sizes on the card:
+    every row that launches a kernel of the port is held against its plain
+    version inside the tool (a failure raises), #12 bitwise against #1,
+    each kernel row timed."""
+    from dlwp_cs_tpu_torch.tools import conv_micro, kernel_variants
+
+    for r in conv_micro.run(conv_micro.LEVELS_SMALL, torch.bfloat16, cuda_device, reps=1):
+        assert r["kernel_equals_fused"] and r["kernel_max_abs_err"] < 0.1
+        assert r["kernel"] > 0 and r["kernel_plain_ms"] > 0 and r["kernel_library_ms"] > 0
+    rows = kernel_variants.run(cuda_device, small=True, reps=1)
+    checked = [k for k, r in rows.items() if isinstance(r, dict) and r.get("plain_max_abs_err")
+               is not None]
+    assert len(checked) == 12 and all(rows[k]["ms"] > 0 for k in checked)

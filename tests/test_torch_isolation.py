@@ -35,7 +35,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for m in ("ops.hopper_conv", "ops.ring_kernel", "ops.ringfix", "ops.cuda_build",
               "models.convlstm", "parallel.halo", "parallel.halo2d", "parallel.hopper_band",
-              "parallel.hopper_tile", "parallel.sharding", "parallel.launch"):
+              "parallel.hopper_tile", "parallel.sharding", "parallel.launch",
+              "ops.conv_variants", "tools.timing", "tools.probes", "tools.conv_micro",
+              "tools.kernel_variants", "tools.mosaic_bisect"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
     assert len(mods) >= 35
     code = (

@@ -18,7 +18,9 @@ Inputs are seeded numpy at n = 8.  Tolerances:
 * the band-row exchange (kernel #10's plain version): equal, since it moves
   values;
 * the forecast service: 1e-4 of the largest std on denormalized fields, as
-  ``tests/test_torch_serve.py``.
+  ``tests/test_torch_serve.py``;
+* the sharded ConvLSTM (n = 16, as the reference's ``TestShardedConvLSTM``):
+  5e-5 against the reference's single-device forward, its own tolerance.
 """
 
 import numpy as np
@@ -75,6 +77,14 @@ CTX_ERRORS = [  # (mesh, kwargs, exception, match); exception None: accepted
     ((1, 4, 1), dict(band_impl="rdma", band_conv="overlap"), None, None),
 ]
 XCHG_CASES = [(2, 1), (2, 2), (4, 1), (4, 2)]  # (S, width) of the band exchange, n = 16
+# the sharded ConvLSTM: (conv backend, mesh, band_conv); kernel #11's plain
+# version ("overlap") runs on row bands only
+LSTM_N = 16
+LSTM_CASES = [(backend, shape, band_conv) for backend in ("xring", "ringfix")
+              for shape, convs in (((1, 4, 1), ("ringfix", "pallas", "overlap")),
+                                   ((2, 2, 1), ("ringfix", "pallas", "overlap")),
+                                   ((1, 2, 2), ("ringfix", "pallas")))
+              for band_conv in convs]
 
 
 def _rand(shape, seed, scale=1.0):
@@ -86,6 +96,14 @@ def _conv_inputs():
     ks = [_rand((3, 3, 3, 5), s, 0.2) for s in (12, 13)]
     bs = [_rand((5,), s) for s in (14, 15)]
     return x, ks, bs
+
+
+def _lstm_config(module, backend=None):
+    """The reference test's ConvLSTM (``tests/test_convlstm.py``,
+    ``TestShardedConvLSTM``) from ``module``'s ``ConvLSTMConfig``."""
+    kw = {} if backend is None else {"conv_backend": backend}
+    return module.ConvLSTMConfig(output_channels=4, filters=(4, 4), input_time_steps=2,
+                                 variable_channels=2, add_insolation=True, **kw)
 
 
 def _service_inputs():
@@ -106,9 +124,10 @@ def _caught(fn):
 
 # ---- what each rank runs ---------------------------------------------------
 
-def _rank_cases(params):
+def _rank_cases(params, lstm_params):
     import torch.distributed as dist
 
+    from dlwp_cs_tpu_torch import models
     from dlwp_cs_tpu_torch.estimator import DLWPEstimator
     from dlwp_cs_tpu_torch.models import DataConfig, ExperimentConfig, UNetConfig
     from dlwp_cs_tpu_torch.parallel import create_mesh, make_spatial_apply
@@ -188,6 +207,15 @@ def _rank_cases(params):
         fn = make_spatial_apply(est.model, mesh(shape), band_impl=band_impl, band_conv=band_conv)
         out["unet_remote", shape, band_impl, band_conv] = fn(xu).numpy()
 
+    xl = torch.from_numpy(_rand((2, 6, LSTM_N, LSTM_N, 7), 71))
+    nets = {}
+    for backend, shape, band_conv in LSTM_CASES:
+        if backend not in nets:
+            nets[backend] = models.load_jax_params(models.CubeSphereConvLSTMNet(
+                _lstm_config(models, backend), 7, device="cpu"), lstm_params)
+        fn = make_spatial_apply(nets[backend], mesh(shape), band_conv=band_conv)
+        out["lstm", backend, shape, band_conv] = fn(xl).numpy()
+
     const, windows, t0 = _service_inputs()
     svc = ForecastService(est, constants=const, mesh=mesh((2, 2, 1)))
     fc = svc.forecast(windows, t0, steps=2)
@@ -239,11 +267,27 @@ def jax_model():
 
 
 @pytest.fixture(scope="module")
-def group(jax_model, tmp_path_factory):
+def jax_convlstm():
+    """The reference ConvLSTM's seeded parameters (numpy) and its
+    single-device forward on the sharded cases' input."""
+    import jax
+    import jax.numpy as jnp
+
+    from dlwp_cs_tpu import models as jmodels
+
+    net = jmodels.CubeSphereConvLSTMNet(_lstm_config(jmodels))
+    x = jnp.asarray(_rand((2, 6, LSTM_N, LSTM_N, 7), 71))
+    params = jax.jit(net.init)(jax.random.PRNGKey(2), x)
+    return jax.tree_util.tree_map(np.asarray, params), np.asarray(jax.jit(net.apply)(params, x))
+
+
+@pytest.fixture(scope="module")
+def group(jax_model, jax_convlstm, tmp_path_factory):
     import jax
 
     params = jax.tree_util.tree_map(np.asarray, jax_model.state.params)
-    results = spawn_group(_rank_cases, 4, params, workdir=tmp_path_factory.mktemp("ranks"))
+    results = spawn_group(_rank_cases, 4, params, jax_convlstm[0],
+                          workdir=tmp_path_factory.mktemp("ranks"))
     assert [r["rank"] for r in results] == [0, 1, 2, 3]
     return results
 
@@ -484,6 +528,19 @@ def test_unet_remote_copy_paths_match_reference(group, jax_unet_outputs, shape, 
     for r in group:
         np.testing.assert_allclose(r["unet_remote", shape, band_impl, band_conv], single,
                                    rtol=0, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("backend,shape,band_conv", LSTM_CASES)
+def test_sharded_convlstm_matches_reference(group, jax_convlstm, backend, shape, band_conv):
+    """The ConvLSTM (filters (4, 4), 2 input times, insolation, n = 16)
+    through ``make_spatial_apply`` on row bands and 2x2 tiles, from the
+    reference's parameter tree, against the reference's single-device
+    forward: 5e-5, as ``tests/test_convlstm.py::TestShardedConvLSTM``."""
+    _, single = jax_convlstm
+    for r in group:
+        ours = r["lstm", backend, shape, band_conv]
+        assert ours.shape == single.shape == (2, 6, LSTM_N, LSTM_N, 4)
+        np.testing.assert_allclose(ours, single, rtol=0, atol=5e-5)
 
 
 def test_forecast_service_on_mesh_matches_reference(group, jax_model):
