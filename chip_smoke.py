@@ -16,15 +16,20 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    fused select + apply), the band-row exchange and the band conv fused
    with it, the conv on the tensor cores (kn2row, im2col) and the probes;
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
-   many row tiles), at batch 1 and 8, in float32 and bfloat16: hold the
-   forward kernel against its plain torch version, and time the kernel, the
-   plain version and ``F.conv2d`` (one face-grouped cuDNN call on the padded
-   faces) with CUDA events over CUDA-graph replays, beside the least time
-   the card could take;
+   many row tiles), at batch 1, 8 and 16, in float32 (CUDA cores) and
+   bfloat16 (tensor cores): hold the forward kernel against its plain torch
+   version, and time the kernel, the plain version and ``F.conv2d`` (one
+   face-grouped cuDNN call on the padded faces) with CUDA events over
+   CUDA-graph replays, beside the least time the card could take;
 4. the same for the dx and dw kernels at each conv shape at the training
    batch 16, against ``torch.ops.aten.convolution_backward`` of that cuDNN
    conv (its dgrad is the padded-input cotangent, its wgrad summed over each
-   face group the kernel gradient);
+   face group the kernel gradient); then the bfloat16 tensor-core forward
+   and dx kernels against the CUDA-core bfloat16 instances they replaced
+   (``ops/conv_variants.py``), both held against the plain version and
+   timed in turns (old, new, new, old), beside cuDNN and the bound: #1 at
+   batch 1, 8, 16 and n=96, #4 at the step's shapes, #8 and #9 on a rank's
+   block, #12 and #14 at conv_micro's levels;
 5. the ring-fix kernels at each distinct conv shape of the flagship U-Net
    and the ConvLSTM's two gate-conv shapes, at batch 1 and 16, in float32
    and bfloat16: both held against their plain versions and timed beside
@@ -150,8 +155,11 @@ SHARDED_PATHS = [
 ]
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
-KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel",
-                "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
+# the device names of the port's kernels on the serving and training paths
+# (the conv and dx kernels: CUDA cores in float32, tensor cores in bfloat16)
+KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kernel",
+                "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_kernel", "cs_ring_fixes_kernel",
+                "cs_xring_apply_kernel")
 SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
@@ -570,6 +578,147 @@ def lane_store_cases(gen):
         })
         lane_store.launches = launches
     return cases
+
+
+def _turns(new, old, reps):
+    """``(new_ms, old_ms, runs)``: the two kernels timed in turns, old, new,
+    new, old (CUDA-graph replays, ``reps`` calls each), each the mean of
+    its two runs."""
+    from dlwp_cs_tpu_torch.tools.timing import graph_ms
+
+    o1 = graph_ms(old, reps)
+    n1 = graph_ms(new, reps)
+    n2 = graph_ms(new, reps)
+    o2 = graph_ms(old, reps)
+    return (n1 + n2) / 2, (o1 + o2) / 2, [o1, n1, n2, o2]
+
+
+def tc_cases(gen):
+    """The bfloat16 tensor-core kernels against the CUDA-core instances they
+    replaced (``ops/conv_variants.py``: ``cs_conv3x3_cudacore``,
+    ``cs_conv3x3_dx_cudacore``), timed in turns in this call, each beside
+    one cuDNN call and the bound: #1 at each flagship conv shape at batch 1,
+    8 and 16 and at n = 96; #4 at the training step's shapes at batch 16;
+    #8 and #9 on a rank's block (4 row bands, 2 x 2 tiles) at batch 1; #12
+    (#1 on strips computed before the call) and #14 (the dx kernel's raw
+    ring) at conv_micro's levels.  Both instances are held against the
+    plain version (one bf16 ulp of |ref| + 1e-4).  Launches here are not
+    the main path's: every count is put back."""
+    from dlwp_cs_tpu_torch.ops import conv_variants as cv
+    from dlwp_cs_tpu_torch.ops import hopper_conv as hc
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
+
+    wrappers = [hc.cs_conv3x3, hc.cs_conv3x3_band, hc.cs_conv3x3_tile, hc.cs_conv3x3_dx,
+                cv.cs_conv3x3_kernel_only, cv.cs_conv3x3_dx_ring, cv.cs_conv3x3_cudacore,
+                cv.cs_conv3x3_dx_cudacore]
+    counts = [w.launches for w in wrappers]
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    cases = []
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def forward(kind, new, n, cin, cout, b, rows, cols, reps):
+        x = rand(b, 6, rows, cols, cin)
+        ks = [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5) for _ in range(2)]
+        bs = [rand(cout, scale=0.1) for _ in range(2)]
+        if rows == cols == n:
+            ext = ext_strips(x)
+        else:  # exchanged strips: S/N rows whole, W/E at positions 1..rows
+            ext = torch.randn((b, 6, 4, cols + 2, cin), generator=gen, device=dev)
+            ext[:, :, 2:, 0] = 0
+            ext[:, :, 2:, rows + 1 :] = 0
+            ext = ext.to(bf)
+        args = (x, ext, *ks, *bs)
+        ours, theirs = new(*args), cv.cs_conv3x3_cudacore(*args)
+        ref = hc.cs_conv3x3_plain(*args)
+        torch.cuda.synchronize()
+        new_ms, old_ms, runs = _turns(lambda: new(*args),
+                                      lambda: cv.cs_conv3x3_cudacore(*args), reps)
+        p, w = face_grouped(hc._padded_faces(x, ext), ks)
+        bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
+        nbytes = 2 * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
+                      + b * 6 * rows * cols * cout)
+        cases.append({
+            "kernel": kind, "n": n, "rows": rows, "cols": cols, "cin": cin, "cout": cout,
+            "batch": b, "ms": new_ms, "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
+            "library_ms": graph_ms(lambda: F.conv2d(p, w, bias, groups=6), reps),
+            "max_abs_err": float((ours.float() - ref.float()).abs().max()),
+            "cudacore_max_abs_err": float((theirs.float() - ref.float()).abs().max()),
+            "ok": bf16_excess(ours, ref) <= 1e-4 and bf16_excess(theirs, ref) <= 1e-4,
+            **bound(nbytes, 2 * b * 6 * rows * cols * 9 * cin * cout, bf),
+        })
+
+    def backward(kind, n, cin, cout, b, reps):
+        raw = kind == "#14"
+        g = rand(b, 6, n, n, cout)
+        ks = [rand(3, 3, cin, cout, scale=(9 * cout) ** -0.5) for _ in range(2)]
+        new = cv.cs_conv3x3_dx_ring if raw else hc.cs_conv3x3_dx
+        plain = cv.cs_conv3x3_dx_ring_plain if raw else hc.cs_conv3x3_dx_plain
+        ours, theirs, ref = new(g, *ks), cv.cs_conv3x3_dx_cudacore(g, *ks, raw=raw), plain(g, *ks)
+        torch.cuda.synchronize()
+        new_ms, old_ms, runs = _turns(lambda: new(g, *ks),
+                                      lambda: cv.cs_conv3x3_dx_cudacore(g, *ks, raw=raw), reps)
+        # one cuDNN call: the transposed conv of dout by the face-grouped
+        # kernels, the whole (n+2)^2 padded-input cotangent
+        go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
+        go = go.contiguous(memory_format=torch.channels_last)
+        _, w = face_grouped(g.new_zeros((b, 6, 1, 1, cin)), ks)
+        nbytes = 2 * (g.numel() + 2 * ks[0].numel() + b * 6 * n * n * cin
+                      + b * 6 * 4 * (n + 2) * cin)
+        cases.append({
+            "kernel": kind, "n": n, "cin": cin, "cout": cout, "batch": b, "ms": new_ms,
+            "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
+            "library_ms": graph_ms(lambda: F.conv_transpose2d(go, w, groups=6), reps),
+            "max_abs_err": max(float((a.float() - r.float()).abs().max())
+                               for a, r in zip(ours, ref)),
+            "cudacore_max_abs_err": max(float((a.float() - r.float()).abs().max())
+                                        for a, r in zip(theirs, ref)),
+            "ok": all(bf16_excess(a, r) <= 1e-4 for pair in (ours, theirs)
+                      for a, r in zip(pair, ref)),
+            **bound(nbytes, 2 * b * 6 * n * n * 9 * cin * cout, bf),
+        })
+
+    shapes = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)
+    for b in (1, 8, TRAIN_BATCH):
+        for n, cin, cout in shapes + EXTRA_SHAPES:
+            forward("#1", hc.cs_conv3x3, n, cin, cout, b, n, n, 20)
+    for n, cin, cout in shapes[1:]:
+        backward("#4", n, cin, cout, TRAIN_BATCH, 10)
+    for n, cin, cout in shapes:
+        forward("#8", hc.cs_conv3x3_band, n, cin, cout, 1, n // SHARDS, n, 20)
+        forward("#9", hc.cs_conv3x3_tile, n, cin, cout, 1, n // 2, n // 2, 20)
+    for n, cin, cout, b in LEVELS:
+        forward("#12", cv.cs_conv3x3_kernel_only, n, cin, cout, b, n, n, 20)
+        backward("#14", n, cin, cout, b, 10)
+    for w, count in zip(wrappers, counts):
+        w.launches = count
+    return cases
+
+
+def tc_summary(cases):
+    """Per row of PERF.md: the new (tensor-core) and the old (CUDA-core)
+    bfloat16 times, cuDNN's and the bound, summed over one model call's 10
+    convs (#1 at batch 1 and a training step's 10 at batch 16, #8, #9), a
+    step's 9 (#4) or conv_micro's three levels (#12, #14)."""
+    def pick(kind, b=None, dx=False):
+        by = {(c["n"], c["cin"], c["cout"]): c for c in cases
+              if c["kernel"] == kind and (b is None or c["batch"] == b)}
+        if kind in ("#12", "#14"):
+            return list(by.values())
+        return [by[s] for s in (FLAGSHIP_CONVS[1:] if dx else FLAGSHIP_CONVS)]
+
+    rows = {"#1 call, batch 1": pick("#1", 1), "#1 call, batch 8": pick("#1", 8),
+            "#1 step, batch 16": pick("#1", TRAIN_BATCH), "#4 step, batch 16": pick("#4", dx=True),
+            "#8 call, batch 1": pick("#8"), "#9 call, batch 1": pick("#9"),
+            "#12, conv_micro's levels": pick("#12"), "#14, conv_micro's levels": pick("#14")}
+    for b in (1, 8, TRAIN_BATCH):
+        rows[f"#1 at n=96, batch {b}"] = [c for c in cases if c["kernel"] == "#1"
+                                          and c["n"] == 96 and c["batch"] == b]
+    return {name: {key: sum(c[key] for c in cs) for key in
+                   ("ms", "cudacore_ms", "library_ms", "bound_ms")} for name, cs in rows.items()}
 
 
 # the kernels of this slice's path (the kernel tools), by wrapper name
@@ -1349,7 +1498,7 @@ def main(argv=None) -> int:
     print("n Cin Cout B dtype | max_abs_err (tol) | kernel_ms plain_ms library_ms bound_ms")
     shapes = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index) + EXTRA_SHAPES
     for dtype in (torch.float32, torch.bfloat16):
-        for b in (1, 8):
+        for b in (1, 8, TRAIN_BATCH):
             for n, cin, cout in shapes:
                 c = conv_case(n, cin, cout, b, dtype, gen)
                 cases.append(c)
@@ -1373,6 +1522,16 @@ def main(argv=None) -> int:
                       f"{c['bound_by']}", flush=True)
     bad = [c for c in bwd if not c["ok"]]
     check(not bad, f"backward kernel disagrees with its plain version: {bad}")
+
+    tc = tc_cases(gen)
+    bad = [c for c in tc if not c["ok"]]
+    check(not bad, f"a bfloat16 conv or dx kernel disagrees with its plain version: {bad}")
+    tc_sum = tc_summary(tc)
+    print("bfloat16, tensor cores vs the CUDA-core instance (timed in turns, old new new old):"
+          " ms new / old / cuDNN / bound", flush=True)
+    for name, r in tc_sum.items():
+        print(f"{name}: {r['ms']:.4f} / {r['cudacore_ms']:.4f} / {r['library_ms']:.4f} / "
+              f"{r['bound_ms']:.5f}", flush=True)
 
     ring = []
     print("ring: kernel n Cin D B dtype | max_abs_err (tol) | kernel_ms plain_ms bound_ms | "
@@ -1651,7 +1810,7 @@ def main(argv=None) -> int:
                    "tool_rows": tool_rows, "mma_cases": mma,
                    "kernel_only_cases": only, "dx_ring_cases": ring_dx,
                    "lane_store_cases": stores, "probe_cases": probe_rows,
-                   "kernels": kernels},
+                   "tc_cases": tc, "tc_summary": tc_sum, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,8 +23,10 @@
 // overlap is between blocks: every block first sends its share of the two
 // slabs, then computes the tiles that touch no ghost row, and only then
 // waits for the arrivals and computes the tiles of rows 0 and h-1.  Every
-// tile runs the 9-tap loop of cs_conv3x3_tile.cuh in #8's order, so the
-// output equals #8's bitwise for the same inputs.
+// tile runs #8's tap loop of cs_conv3x3_tile.cuh (float32: conv_tile;
+// bfloat16: tc_conv, with #8's K order, its weights staged again where the
+// walk moves to another face group or slice), so the output equals #8's
+// bitwise for the same inputs.
 //
 // The launch is cooperative: a grid of at most the blocks that fit on the
 // card at once, each walking over tiles, so that no block waits on a block
@@ -37,6 +39,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "cs_band_proto.cuh"
 #include "cs_conv3x3_tile.cuh"
@@ -62,24 +65,40 @@ struct OverlapGhost {
   int corners;  // per equatorial face f, 6 bits: W partner (2), its column is
                 // n-1 (1), E partner (2), its column is n-1 (1)
 
-  __device__ __forceinline__ float operator()(long long face, int fr, int pc, int ci) const {
+  // the ghost cell's first channel; slot: it lies in a received slot,
+  // written by a peer during the launch (read through L2 only)
+  __device__ __forceinline__ const T* cell(long long face, int fr, int pc, bool& slot) const {
     const long long strip = (long long)(cols + 2) * cin;
+    slot = false;
     if (fr == -1 || fr == rows) {
       const bool south = fr == -1;
       const T* row = seam + (face * 2 + (south ? 0 : 1)) * strip;
       const int f = (int)(face % 6);
-      if (south ? first : last) return to_f32(row[(long long)pc * cin + ci]);
-      const T* slot = south ? below : above;
-      if (pc >= 1 && pc <= cols)
-        return ld_cg_f32(slot + (face * cols + pc - 1) * cin + ci);
-      if (f >= 4) return to_f32(row[(long long)pc * cin + ci]);
+      if (south ? first : last) return row + (long long)pc * cin;
+      const T* slot_rows = south ? below : above;
+      slot = true;
+      if (pc >= 1 && pc <= cols) return slot_rows + (face * cols + pc - 1) * cin;
+      if (f >= 4) {
+        slot = false;
+        return row + (long long)pc * cin;
+      }
       const int bits = (corners >> (6 * f)) >> (pc == 0 ? 0 : 3);
       const long long partner = face - f + (bits & 3);
       const int col = (bits & 4) ? cols - 1 : 0;
-      return ld_cg_f32(slot + (partner * cols + col) * cin + ci);
+      return slot_rows + (partner * cols + col) * cin;
     }
     const T* strip_we = wecols + (face * 2 + (pc == 0 ? 0 : 1)) * strip;
-    return to_f32(strip_we[(long long)(fr + 1) * cin + ci]);
+    return strip_we + (long long)(fr + 1) * cin;
+  }
+  // for tc_conv's 16-byte copies, which read through L2 only
+  __device__ __forceinline__ const T* cell(long long face, int fr, int pc) const {
+    bool slot;
+    return cell(face, fr, pc, slot);
+  }
+  __device__ __forceinline__ float operator()(long long face, int fr, int pc, int ci) const {
+    bool slot;
+    const T* p = cell(face, fr, pc, slot) + ci;
+    return slot ? ld_cg_f32(p) : to_f32(*p);
   }
 };
 
@@ -94,9 +113,63 @@ struct Args {
   const T* beq;
   const T* bpo;
   T* out;
-  Geom g;
+  Geom g;      // float32
+  TcGeom tg;   // bfloat16
   int batch;
   int first, last, corners;
+};
+
+// #11's walk of the tensor-core loop: the block's items (it = blockIdx.x,
+// + gridDim.x, ...) of pass 0 (tiles that touch no ghost row), then those of
+// pass 1, after the arrivals they read (the end shards' seam rows need
+// none).
+struct OverlapWalk {
+  const Ring* ring;
+  int it, pass, items, per_face, rows;
+  const TcGeom* g;
+  bool first, last, waited;
+  __device__ bool next(TcTile& t) {
+    while (pass < 2) {
+      for (; it < items; it += gridDim.x) {
+        const int tt = it % per_face;
+        const int r0 = (tt / g->nslices) * g->h;
+        const bool edge = r0 == 0 || r0 + g->h >= rows;
+        if (edge != (pass == 1)) continue;
+        t.f = (it / per_face) % 6;
+        t.face = (long long)(it / (per_face * 6)) * 6 + t.f;
+        t.r0 = r0;
+        t.n0 = (tt % g->nslices) * g->cs;
+        t.key = (t.f < 4 ? 0 : g->nslices) + tt % g->nslices;
+        it += gridDim.x;
+        return true;
+      }
+      ++pass;
+      it = blockIdx.x;
+    }
+    return false;
+  }
+  __device__ void before(const TcTile& t) {
+    const bool edge = t.r0 == 0 || t.r0 + g->h >= rows;
+    if (edge && !waited) {
+      wait_arrivals(*ring, !first, !last);
+      waited = true;
+    }
+  }
+};
+
+struct BandEpi {
+  bf16* __restrict__ out;
+  const bf16* __restrict__ beq;
+  const bf16* __restrict__ bpo;
+  int rows, cols, cout;
+  __device__ __forceinline__ void store(const TcTile& t, int i, int j, int n, float v0,
+                                        float v1) const {
+    if (n >= cout) return;
+    const bf16* __restrict__ bias = t.f < 4 ? beq : bpo;
+    bf16* o = out + ((t.face * rows + t.r0 + i) * cols + j) * cout + n;
+    o[0] = __float2bfloat16_rn(v0 + __bfloat162float(bias[n]));
+    if (n + 1 < cout) o[1] = __float2bfloat16_rn(v1 + __bfloat162float(bias[n + 1]));
+  }
 };
 
 template <typename T>
@@ -133,10 +206,29 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_band_overlap_kernel(Args<T> a)
   }
 }
 
-template <typename T>
-cudaError_t launch(Args<T>& a, unsigned long long* sent, int device, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.g);
-  const void* fn = reinterpret_cast<const void*>(cs_band_overlap_kernel<T>);
+template <int NW, int KC>
+__global__ void __launch_bounds__(TC_MAX_THREADS) cs_band_overlap_tc_kernel(Args<bf16> a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const TcGeom& g = a.tg;
+  barrier_and_send(a.ring, reinterpret_cast<const char*>(a.x), 6LL * a.batch, g.rows,
+                   (long long)g.cols * g.kch * sizeof(bf16), 1);
+  const OverlapGhost<bf16> ghost{
+      a.seam, a.wecols,
+      reinterpret_cast<const bf16*>(a.ring.me + HEADER),
+      reinterpret_cast<const bf16*>(a.ring.me + HEADER + a.ring.cap),
+      g.rows, g.cols, g.kch, a.first != 0, a.last != 0, a.corners};
+  const FwdSrc<OverlapGhost<bf16>> src{a.x, ghost, g.rows, g.cols, g.kch};
+  const BandEpi epi{a.out, a.beq, a.bpo, g.rows, g.cols, g.nch};
+  OverlapWalk walk{&a.ring, (int)blockIdx.x, 0, g.ntr * g.nslices * 6 * a.batch,
+                   g.ntr * g.nslices, g.rows, &g, a.first != 0, a.last != 0, false};
+  tc_conv<NW, KC, false>(g, src, walk, epi, a.keq, a.kpo, tc_smem);
+}
+
+template <typename Fn>
+cudaError_t launch_coop(Fn kernel, Ring& ring, void* args, int threads, size_t smem,
+                        long long items, unsigned long long* sent, int device,
+                        cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
   int sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -146,16 +238,14 @@ cudaError_t launch(Args<T>& a, unsigned long long* sent, int device, cudaStream_
   if (err == cudaSuccess && smem > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, MAX_THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (err != cudaSuccess) return err;
   if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long long items =
-      6LL * a.batch * ((a.g.rows + a.g.h - 1) / a.g.h) * a.g.nslices;
   const int grid = (int)(items < (long long)per_sm * sms ? items : (long long)per_sm * sms);
-  a.ring.sent = *sent + grid;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(MAX_THREADS), args, smem, stream);
-  if (err == cudaSuccess) *sent = a.ring.sent;
+  ring.sent = *sent + grid;
+  void* kargs[] = {args};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(threads), kargs, smem, stream);
+  if (err == cudaSuccess) *sent = ring.sent;
   return err;
 }
 
@@ -166,7 +256,9 @@ extern "C" {
 // Kernel #11 on the current stream.  dtype: 0 = float32, 1 = bfloat16.
 // x (B, 6, rows, cols, Cin) with rows * S = cols; seam, wecols (B, 6, 2,
 // cols+2, Cin); HWIO kernels and biases of x's dtype; out (B, 6, rows, cols,
-// Cout).  h, cs: the tile plan (as cs_conv3x3_launch).  first, last: this
+// Cout).  h, cs, nw, smem: the tile plan (as cs_conv3x3_launch: float32
+// tile_plan's h and cs, bfloat16 tc_plan's h, cs, nw and its shared memory;
+// tc_plan's tpb is not used, the grid is sized by occupancy).  first, last: this
 // shard is the first or the last of the ring; corners: the packed corner
 // table.  me, right, left, cap, epoch, *sent, timeout_ns, diag, rank: the
 // ring, as cs_band_xchg_launch.  Returns a cudaError_t (0 = success).
@@ -174,11 +266,16 @@ int cs_band_overlap_launch(int dtype, int device, const void* x, const void* sea
                            const void* wecols, const void* keq, const void* kpo,
                            const void* beq, const void* bpo, void* out, void* me,
                            void* right, void* left, long long cap, int batch, int rows,
-                           int cols, int cin, int cout, int h, int cs, int first, int last,
-                           int corners, unsigned long long epoch, unsigned long long* sent,
-                           long long timeout_ns, void* diag, int rank, void* stream) {
-  Geom g;
-  if (device < 0 || batch < 1 || timeout_ns < 1 || !make_geom(g, rows, cols, cin, cout, h, cs))
+                           int cols, int cin, int cout, int h, int cs, int nw, int smem,
+                           int first, int last, int corners, unsigned long long epoch,
+                           unsigned long long* sent, long long timeout_ns, void* diag, int rank,
+                           void* stream) {
+  Geom g{};
+  TcGeom tg{};
+  if (device < 0 || batch < 1 || timeout_ns < 1) return cudaErrorInvalidValue;
+  if (dtype == 0 && !make_geom(g, rows, cols, cin, cout, h, cs)) return cudaErrorInvalidValue;
+  if (dtype == 1 && (!make_tc_geom(tg, rows, cols, cin, cout, h, cs, nw, 1, false) ||
+                     tc_smem_bytes(tg) != (size_t)smem))
     return cudaErrorInvalidValue;
   const long long esize = dtype == 0 ? 4 : 2;
   if (6LL * batch * cols * cin * esize > cap) return cudaErrorInvalidValue;
@@ -198,18 +295,40 @@ int cs_band_overlap_launch(int dtype, int device, const void* x, const void* sea
     Args<float> a{r, static_cast<const float*>(x), static_cast<const float*>(seam),
                   static_cast<const float*>(wecols), static_cast<const float*>(keq),
                   static_cast<const float*>(kpo), static_cast<const float*>(beq),
-                  static_cast<const float*>(bpo), static_cast<float*>(out), g, batch,
+                  static_cast<const float*>(bpo), static_cast<float*>(out), g, tg, batch,
                   first, last, corners};
-    return launch(a, sent, device, s);
+    const long long items = 6LL * batch * ((rows + h - 1) / h) * g.nslices;
+    return launch_coop(cs_band_overlap_kernel<float>, a.ring, &a, MAX_THREADS, smem_bytes(g),
+                       items, sent, device, s);
   }
   if (dtype == 1) {
     using B = __nv_bfloat16;
+    const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    tg.vec = cin % 8 == 0 && a16(x) && a16(seam) && a16(wecols) && a16(me) && cap % 16 == 0;
+    tg.wvec = cout % 8 == 0 && a16(keq) && a16(kpo);
     Args<B> a{r, static_cast<const B*>(x), static_cast<const B*>(seam),
               static_cast<const B*>(wecols), static_cast<const B*>(keq),
               static_cast<const B*>(kpo), static_cast<const B*>(beq),
-              static_cast<const B*>(bpo), static_cast<B*>(out), g, batch, first, last,
+              static_cast<const B*>(bpo), static_cast<B*>(out), g, tg, batch, first, last,
               corners};
-    return launch(a, sent, device, s);
+    const long long items = 6LL * batch * tg.ntr * tg.nslices;
+    const auto go = [&](auto kernel) {
+      return launch_coop(kernel, a.ring, &a, tg.threads, (size_t)smem, items, sent, device, s);
+    };
+    if (tg.kc == 16) {
+      switch (nw) {
+        case 1: return go(cs_band_overlap_tc_kernel<1, 16>);
+        case 2: return go(cs_band_overlap_tc_kernel<2, 16>);
+        case 4: return go(cs_band_overlap_tc_kernel<4, 16>);
+        default: return go(cs_band_overlap_tc_kernel<8, 16>);
+      }
+    }
+    switch (nw) {
+      case 1: return go(cs_band_overlap_tc_kernel<1, 32>);
+      case 2: return go(cs_band_overlap_tc_kernel<2, 32>);
+      case 4: return go(cs_band_overlap_tc_kernel<4, 32>);
+      default: return go(cs_band_overlap_tc_kernel<8, 32>);
+    }
   }
   return cudaErrorInvalidValue;
 }

@@ -21,36 +21,48 @@
 // accumulation and one rounding to x's dtype at the end.  Weights and biases
 // arrive already rounded to x's dtype (the wrapper checks).
 //
-// What bounds it on this card: at the serving shapes (C48 U-Net, batch 1)
-// the work per conv is 0.05-0.4 GFLOP and under 1 MB of traffic, well under
-// a microsecond at the H100's peak rates, so latency bounds it: the staging
-// of each Cin chunk into shared memory (dependent global loads) and each
-// thread's serial chain of 9*Cin*32 FMAs.  At batch 8 and above the FMA
-// rate of the CUDA cores bounds it (this version uses no tensor cores).  The
-// design answers with small row tiles, so that a batch-1 face set still
-// spreads over the 132 SMs; with all 256 threads of a block staging, four
-// independent loads in flight each; and with register tiles of 4 pixels x
-// 8 output channels per thread, reading each staged input value once per
-// 3 taps.  The padded tile never exists in device memory: the W/E ghost
-// columns and the ghost rows go straight into shared memory.  A shard's band
-// or tile is a quarter of a face or less, so the same latency bound holds
-// there with fewer blocks per launch; the halo exchange that fills ext runs
-// before the launch, outside the kernel.  mma/wgmma, TMA and CUDA graphs are
-// left for later work.
+// What bounds it on this card, and the design: float32 runs on the CUDA
+// cores, bfloat16 on the tensor cores (the header of cs_conv3x3_tile.cuh
+// has both tap loops).  At the serving shapes (C48 U-Net, batch 1) the work
+// per conv is 0.05-0.4 GFLOP and under 1 MB of traffic, well under a
+// microsecond at the H100's peak rates, so latency bounds both: the staging
+// into shared memory and each block's serial chain of products.  At batch
+// 8 and above the products bound them: the FMA rate of the CUDA cores
+// (float32), and the tensor cores with the fragment loads that feed them
+// (bfloat16).  float32 answers with small row tiles of 256 threads that
+// all stage (four loads in flight each) and register tiles of 4 pixels x
+// 8 output channels.  bfloat16 answers with an implicit GEMM on
+// mma.sync.m16n8k16: a block keeps its face group's weights for its
+// output-channel slice resident in shared memory and walks several row
+// tiles of that group (tpb), staging each Cin chunk of a tile's padded rows
+// once, by cp.async into two stages, while the previous chunk multiplies.
+// The host plan (ops/hopper_conv.py::tc_plan) sizes the tiles, slices and
+// walks so that a batch-1 face set fills the 132 SMs and a batch-16 one
+// keeps several blocks per SM.  The padded tile never exists in device
+// memory: the W/E ghost columns and the ghost rows go straight into shared
+// memory.  A shard's band or tile is a quarter of a face or less, so the
+// same bound holds there with fewer tiles per launch; the halo exchange
+// that fills ext runs before the launch, outside the kernel.  wgmma (A from
+// registers, 64-row tiles) and TMA are not used: mma.sync and cp.async
+// first.
 //
 // Layouts (channels last, all contiguous):
 //   x    (B, 6, H, W, Cin)        ext (B, 6, 4, W+2, Cin)   edges S, N, W, E
 //   k_*  (3, 3, Cin, Cout) HWIO   b_* (Cout,)               out (B, 6, H, W, Cout)
 // The W/E ghost columns sit at positions 1..H of their W+2 strips, so H <= W.
-// Grid: (row tiles * Cout slices, 6, B); one block per (row tile, face,
-// batch item, Cout slice).  Each block loops over Cin in chunks of CC,
-// staging the (h+2) x (W+2) padded tile and that chunk's taps of the face's
-// weight group in shared memory as f32.  That tap loop lives in
-// cs_conv3x3_tile.cuh, shared with the band conv fused with the band-row
-// exchange (cs_band_overlap.cu, #11); this file adds its ghost cells (ext).
+// float32 (and the CUDA-core bfloat16 instance, cs_conv3x3_cc_launch): grid
+// (row tiles * Cout slices, 6, B), one block per (row tile, face, batch
+// item, Cout slice), the tap loop conv_tile.  bfloat16: a 1-D grid of
+// nslices * (P_eq + P_pole) blocks, each walking tpb (batch item, face of
+// its group, row tile) items of one (face group, Cout slice) (GridWalk),
+// the tap loop tc_conv.  Both loops live in cs_conv3x3_tile.cuh, shared
+// with the band conv fused with the band-row exchange (cs_band_overlap.cu,
+// #11); this file adds their ghost cells (ext).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 #include <atomic>
 
@@ -66,14 +78,18 @@ template <typename T>
 struct ExtGhost {
   const T* __restrict__ ext;
   int rows, cols, cin;
-  __device__ __forceinline__ float operator()(long long face, int fr, int pc, int ci) const {
+  // the ghost cell's first channel
+  __device__ __forceinline__ const T* cell(long long face, int fr, int pc) const {
     const T* ef = ext + face * 4 * (cols + 2) * cin;
     long long off;
     if (fr == -1) off = (0LL * (cols + 2) + pc) * cin;         // S ghost row
     else if (fr == rows) off = (1LL * (cols + 2) + pc) * cin;  // N ghost row
     else if (pc == 0) off = (2LL * (cols + 2) + fr + 1) * cin; // W ghost column
     else off = (3LL * (cols + 2) + fr + 1) * cin;              // E ghost column
-    return to_f32(ef[off + ci]);
+    return ef + off;
+  }
+  __device__ __forceinline__ float operator()(long long face, int fr, int pc, int ci) const {
+    return to_f32(cell(face, fr, pc)[ci]);
   }
 };
 
@@ -92,10 +108,49 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
             f, face, smem);
 }
 
-// Lets the kernel take up to the card's opt-in shared memory per block (the
-// largest flagship tile needs ~80 KB, past the default 48 KB).  Set once per
-// element type and device, not at every launch.
-template <typename T>
+// The bfloat16 outputs: f32 sums + the group's bias, one rounding.
+struct FwdEpi {
+  bf16* __restrict__ out;
+  const bf16* __restrict__ beq;
+  const bf16* __restrict__ bpo;
+  int rows, cols, cout;
+  __device__ __forceinline__ void store(const TcTile& t, int i, int j, int n, float v0,
+                                        float v1) const {
+    if (n >= cout) return;
+    const bf16* __restrict__ bias = t.f < 4 ? beq : bpo;
+    bf16* o = out + ((t.face * rows + t.r0 + i) * cols + j) * cout + n;
+    const bf16 lo = __float2bfloat16_rn(v0 + __bfloat162float(bias[n]));
+    if (n + 1 >= cout) {
+      o[0] = lo;
+      return;
+    }
+    const bf16 hi = __float2bfloat16_rn(v1 + __bfloat162float(bias[n + 1]));
+    if (cout % 2 == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(lo, hi);
+    } else {
+      o[0] = lo;
+      o[1] = hi;
+    }
+  }
+};
+
+template <int NW, int KC>
+__global__ void __launch_bounds__(TC_MAX_THREADS) cs_conv3x3_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ext, const bf16* __restrict__ keq,
+    const bf16* __restrict__ kpo, const bf16* __restrict__ beq, const bf16* __restrict__ bpo,
+    bf16* __restrict__ out, TcGeom g, int batch) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const FwdSrc<ExtGhost<bf16>> src{x, ExtGhost<bf16>{ext, g.rows, g.cols, g.kch}, g.rows,
+                                   g.cols, g.kch};
+  const FwdEpi epi{out, beq, bpo, g.rows, g.cols, g.nch};
+  GridWalk walk(g, batch);
+  tc_conv<NW, KC, false>(g, src, walk, epi, keq, kpo, tc_smem);
+}
+
+// Lets a kernel take up to the card's opt-in shared memory per block (the
+// largest tiles need more than the default 48 KB).  Set once per kernel and
+// device, not at every launch.
+template <auto Kernel>
 cudaError_t allow_large_smem(int device) {
   static std::atomic<unsigned long long> done{0};  // bit d: done on device d
   const unsigned long long bit = 1ull << device;
@@ -104,18 +159,17 @@ cudaError_t allow_large_smem(int device) {
   cudaError_t err =
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cs_conv3x3_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* ext, const void* keq, const void* kpo,
-                   const void* beq, const void* bpo, void* out, int batch, const Geom& g,
-                   size_t smem, int device, cudaStream_t stream) {
+cudaError_t launch_cc(const void* x, const void* ext, const void* keq, const void* kpo,
+                      const void* beq, const void* bpo, void* out, int batch, const Geom& g,
+                      size_t smem, int device, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<T>(device);
+    cudaError_t err = allow_large_smem<cs_conv3x3_kernel<T>>(device);
     if (err != cudaSuccess) return err;
   }
   const int ntiles = (g.rows + g.h - 1) / g.h;
@@ -127,6 +181,39 @@ cudaError_t launch(const void* x, const void* ext, const void* keq, const void* 
   return cudaGetLastError();
 }
 
+template <int NW, int KC>
+cudaError_t launch_tc_nw(const TcGeom& g, int batch, size_t smem, int device,
+                         cudaStream_t stream, const bf16* x, const bf16* ext, const bf16* keq,
+                         const bf16* kpo, const bf16* beq, const bf16* bpo, bf16* out) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = allow_large_smem<cs_conv3x3_tc_kernel<NW, KC>>(device);
+    if (err != cudaSuccess) return err;
+  }
+  const long long p0 = (4LL * batch * g.ntr + g.tpb - 1) / g.tpb;
+  const long long p1 = (2LL * batch * g.ntr + g.tpb - 1) / g.tpb;
+  const long long blocks = g.nslices * (p0 + p1);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cs_conv3x3_tc_kernel<NW, KC><<<(unsigned)blocks, g.threads, smem, stream>>>(
+      x, ext, keq, kpo, beq, bpo, out, g, batch);
+  return cudaGetLastError();
+}
+
+template <int KC>
+cudaError_t launch_tc(const TcGeom& g, int batch, size_t smem, int device, cudaStream_t s,
+                      const bf16* x, const bf16* ext, const bf16* k0, const bf16* k1,
+                      const bf16* b0, const bf16* b1, bf16* o) {
+  switch (g.nw) {
+    case 1: return launch_tc_nw<1, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    case 2: return launch_tc_nw<2, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    case 4: return launch_tc_nw<4, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    default: return launch_tc_nw<8, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+  }
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -134,13 +221,53 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
 // stream belongs to.  x (B, 6, rows, cols, Cin), ext (B, 6, 4, cols+2, Cin)
 // with the W/E ghosts at positions 1..rows, so rows <= cols: whole faces
-// (rows = cols = n, #1) or a shard's band or tile (#8, #9).  h: output rows
-// per block; cs: output channels per block (a power of two >= 8).  Returns a
+// (rows = cols = n, #1) or a shard's band or tile (#8, #9).
+// float32: the CUDA-core kernel with tile_plan's h (output rows per block)
+// and cs (output channels per block, a power of two >= 8); nw, tpb and smem
+// are not read.  bfloat16: the tensor-core kernel with tc_plan's h, cs, nw
+// (n8 tiles per warp) and tpb (tiles per block); smem must be the shared
+// memory those give (the plan's own count, checked here).  Returns a
 // cudaError_t (0 = success).
 int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
                       const void* keq, const void* kpo, const void* beq,
                       const void* bpo, void* out, int batch, int rows, int cols,
-                      int cin, int cout, int h, int cs, void* stream) {
+                      int cin, int cout, int h, int cs, int nw, int tpb, int smem,
+                      void* stream) {
+  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || rows > cols)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    Geom g;
+    if (!make_geom(g, rows, cols, cin, cout, h, cs)) return cudaErrorInvalidValue;
+    return launch_cc<float>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem_bytes(g), device,
+                            s);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  TcGeom g;
+  if (!make_tc_geom(g, rows, cols, cin, cout, h, cs, nw, tpb, false) ||
+      tc_smem_bytes(g) != (size_t)smem)
+    return cudaErrorInvalidValue;
+  // x and ext are read-only here, so 8-byte copies (through L1) may serve
+  // channels in fours
+  const bool a8 = aligned(x, 8) && aligned(ext, 8);
+  g.vec = cin % 8 == 0 && aligned(x, 16) && aligned(ext, 16) ? 1 : cin % 4 == 0 && a8 ? 2 : 0;
+  g.wvec = cout % 8 == 0 && aligned(keq, 16) && aligned(kpo, 16);
+  const bf16 *bx = static_cast<const bf16*>(x), *be = static_cast<const bf16*>(ext),
+             *k0 = static_cast<const bf16*>(keq), *k1 = static_cast<const bf16*>(kpo),
+             *b0 = static_cast<const bf16*>(beq), *b1 = static_cast<const bf16*>(bpo);
+  bf16* o = static_cast<bf16*>(out);
+  return g.kc == 16 ? launch_tc<16>(g, batch, smem, device, s, bx, be, k0, k1, b0, b1, o)
+                    : launch_tc<32>(g, batch, smem, device, s, bx, be, k0, k1, b0, b1, o);
+}
+
+// The CUDA-core kernel in either dtype, with tile_plan's h and cs: the
+// float32 instance of cs_conv3x3_launch, and the bfloat16 instance that the
+// tensor-core kernel replaced, kept so that the kernel tools can time the
+// two side by side (ops/conv_variants.py::cs_conv3x3_cudacore).
+int cs_conv3x3_cc_launch(int dtype, int device, const void* x, const void* ext,
+                         const void* keq, const void* kpo, const void* beq, const void* bpo,
+                         void* out, int batch, int rows, int cols, int cin, int cout, int h,
+                         int cs, void* stream) {
   Geom g;
   if (device < 0 || device >= 64 || batch < 1 || batch > 65535 ||
       !make_geom(g, rows, cols, cin, cout, h, cs))
@@ -148,10 +275,10 @@ int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
   const size_t smem = smem_bytes(g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device, s);
+    return launch_cc<float>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device,
-                                 s);
+    return launch_cc<__nv_bfloat16>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem, device,
+                                    s);
   return cudaErrorInvalidValue;
 }
 

@@ -39,19 +39,27 @@
 //   calls give bitwise-equal gradients.
 //
 // What bounds them on this card: each does the forward's work,
-// 2*B*6*n^2*9*Cin*Cout operations, here as FMAs on the CUDA cores (no
-// tensor cores in this version), and waits on the staging of its tiles
-// into shared memory; at the flagship training batch (16) both keep it far
-// above the least time its bytes or operations need.  The dx kernel reuses
-// the forward's design (row tiles of the frame, Cout staged in chunks of 16
-// as f32, 4-pixel x 8-channel register tiles; the caller caps its Cin
-// slice at 64 so the staged weights stay small).  The dw kernel keeps a
-// 4 (Cin) x 8 (Cout) register tile per (thread, tap) and reads one float4
-// of P and two of dout from shared memory per 32 FMAs; the caller stages
-// few rows per item and sizes the grid for several blocks per SM, so that
-// blocks hide each other's staging.  Its partials (nsplit x 2 x 9 x Cin x
-// Cout floats) stay at tens of MB at most, not one block per (batch, face).
-// mma/wgmma, TMA and double-buffered staging are left for later work.
+// 2*B*6*n^2*9*Cin*Cout operations, and waits on the staging of its tiles
+// into shared memory; at the flagship training batch (16) the products
+// bound them.  The dx kernel in bfloat16 runs the forward's tensor-core
+// routine (cs_conv3x3_tile.cuh::tc_conv): an implicit GEMM with M = frame
+// pixels (row tiles of the (n+2)^2 frame), N = a Cin slice and K = 9 x
+// Cout, the dout rows of a Cout chunk staged once by cp.async (zero past
+// the face: the zero extension by 2) and read at 9 shifted addresses, the
+// flipped, transposed taps of the block's Cin slice resident in shared
+// memory (straight copies of rows of k, k-contiguous), two stages, and a
+// block walking several row tiles of one (face group, Cin slice).  Its
+// float32 instance (and the bfloat16 one it replaced, kept as a timing row
+// of the kernel tools) keeps the CUDA-core design: row tiles of the frame,
+// Cout staged in chunks of 16 as f32, 4-pixel x 8-channel register tiles,
+// the Cin slice capped at 64 by the caller so the staged weights stay
+// small.  The dw kernel keeps a 4 (Cin) x 8 (Cout) register tile per
+// (thread, tap) on the CUDA cores and reads one float4 of P and two of dout
+// from shared memory per 32 FMAs; the caller stages few rows per item and
+// sizes the grid for several blocks per SM, so that blocks hide each
+// other's staging.  Its partials (nsplit x 2 x 9 x Cin x Cout floats) stay
+// at tens of MB at most, not one block per (batch, face).  wgmma, TMA, and
+// the dw kernel on the tensor cores are left for later work.
 //
 // Layouts (channels last, all contiguous):
 //   x    (B, 6, n, n, Cin)   ext (B, 6, 4, n+2, Cin)   dout (B, 6, n, n, Cout)
@@ -61,10 +69,17 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <atomic>
 
+#include "cs_conv3x3_tile.cuh"
+
 namespace {
+
+using cs3x3::bf16;
+using cs3x3::TcGeom;
+using cs3x3::TcTile;
 
 constexpr int PX = 4;             // dx: frame pixels per thread, along a row
 constexpr int CO = 8;             // dx: Cin channels per thread
@@ -378,10 +393,58 @@ __global__ void __launch_bounds__(DW_THREADS) cs_conv3x3_dw_kernel(
   }
 }
 
+// The dx kernel's bfloat16 outputs: frame pixel (a, b) = (r0 + i, j), as
+// the CUDA-core instance writes them.
+template <bool RAW>
+struct DxEpi {
+  bf16* __restrict__ dx;
+  bf16* __restrict__ dext;
+  int n, cin;
+  __device__ __forceinline__ void put(long long face, int a, int b, int ci, float v) const {
+    if (ci >= cin) return;
+    const int m = n + 2;
+    const bf16 val = __float2bfloat16_rn(v);
+    bf16* __restrict__ ef = dext + face * 4 * m * cin;
+    if (a >= 1 && a <= n && b >= 1 && b <= n) {
+      dx[((face * n + a - 1) * n + b - 1) * cin + ci] = val;
+    } else if (a == 0 || a == n + 1) {
+      ef[((long long)(a == 0 ? 0 : 1) * m + b) * cin + ci] = val;
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      if (b == 0) ef[(2LL * m + a) * cin + ci] = RAW ? val : zero;
+      if (b == m - 1) ef[(3LL * m + a) * cin + ci] = RAW ? val : zero;
+    } else {
+      ef[((long long)(b == 0 ? 2 : 3) * m + a) * cin + ci] = val;  // W / E column
+    }
+  }
+  __device__ __forceinline__ void store(const TcTile& t, int i, int j, int c, float v0,
+                                        float v1) const {
+    const int a = t.r0 + i;
+    if (a >= 1 && a <= n && j >= 1 && j <= n && c + 1 < cin && cin % 2 == 0) {
+      // an interior pixel: both channels in one 4-byte store
+      *reinterpret_cast<__nv_bfloat162*>(dx + ((t.face * n + a - 1) * n + j - 1) * cin + c) =
+          __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+      return;
+    }
+    put(t.face, a, j, c, v0);
+    put(t.face, a, j, c + 1, v1);
+  }
+};
+
+template <int NW, int KC, bool RAW>
+__global__ void __launch_bounds__(cs3x3::TC_MAX_THREADS) cs_conv3x3_dx_tc_kernel(
+    const bf16* __restrict__ dout, const bf16* __restrict__ keq, const bf16* __restrict__ kpo,
+    bf16* __restrict__ dx, bf16* __restrict__ dext, TcGeom g, int batch) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const cs3x3::DxSrc src{dout, g.cols - 2, g.kch};
+  const DxEpi<RAW> epi{dx, dext, g.cols - 2, g.nch};
+  cs3x3::GridWalk walk(g, batch);
+  cs3x3::tc_conv<NW, KC, true>(g, src, walk, epi, keq, kpo, tc_smem);
+}
+
 // Lets a kernel take up to the card's opt-in shared memory per block; set
 // once per kernel and device, not at every launch.
-template <int Kernel, typename T>
-cudaError_t allow_large_smem(const void* fn, int device) {
+template <auto Kernel>
+cudaError_t allow_large_smem(int device) {
   static std::atomic<unsigned long long> done{0};  // bit d: done on device d
   const unsigned long long bit = 1ull << device;
   if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
@@ -389,7 +452,7 @@ cudaError_t allow_large_smem(const void* fn, int device) {
   cudaError_t err =
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
@@ -399,8 +462,7 @@ cudaError_t launch_dx(const void* dout, const void* keq, const void* kpo, void* 
                       void* dext, int batch, const DxGeom& g, size_t smem, int device,
                       cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<RAW ? 2 : 0, T>(
-        (const void*)cs_conv3x3_dx_kernel<T, RAW>, device);
+    cudaError_t err = allow_large_smem<cs_conv3x3_dx_kernel<T, RAW>>(device);
     if (err != cudaSuccess) return err;
   }
   const int ntiles = (g.m + g.h - 1) / g.h;
@@ -411,12 +473,40 @@ cudaError_t launch_dx(const void* dout, const void* keq, const void* kpo, void* 
   return cudaGetLastError();
 }
 
+template <int NW, int KC, bool RAW>
+cudaError_t launch_dx_tc_nw(const TcGeom& g, int batch, size_t smem, int device,
+                            cudaStream_t stream, const bf16* dout, const bf16* keq,
+                            const bf16* kpo, bf16* dx, bf16* dext) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = allow_large_smem<cs_conv3x3_dx_tc_kernel<NW, KC, RAW>>(device);
+    if (err != cudaSuccess) return err;
+  }
+  const long long p0 = (4LL * batch * g.ntr + g.tpb - 1) / g.tpb;
+  const long long p1 = (2LL * batch * g.ntr + g.tpb - 1) / g.tpb;
+  const long long blocks = g.nslices * (p0 + p1);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cs_conv3x3_dx_tc_kernel<NW, KC, RAW><<<(unsigned)blocks, g.threads, smem, stream>>>(
+      dout, keq, kpo, dx, dext, g, batch);
+  return cudaGetLastError();
+}
+
+template <int KC, bool RAW>
+cudaError_t launch_dx_tc(const TcGeom& g, int batch, size_t smem, int device, cudaStream_t s,
+                         const bf16* d, const bf16* k0, const bf16* k1, bf16* o, bf16* e) {
+  switch (g.nw) {
+    case 1: return launch_dx_tc_nw<1, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    case 2: return launch_dx_tc_nw<2, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    case 4: return launch_dx_tc_nw<4, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    default: return launch_dx_tc_nw<8, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+  }
+}
+
 template <typename T>
 cudaError_t launch_dw(const void* x, const void* ext, const void* dout, void* dk_part,
                       void* db_part, const DwGeom& g, int ncob, size_t smem, int device,
                       cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<1, T>((const void*)cs_conv3x3_dw_kernel<T>, device);
+    cudaError_t err = allow_large_smem<cs_conv3x3_dw_kernel<T>>(device);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(g.ncib * ncob, g.nsplit, 2);
@@ -426,11 +516,11 @@ cudaError_t launch_dw(const void* x, const void* ext, const void* dout, void* dk
   return cudaGetLastError();
 }
 
-// The dx kernel (RAW: the raw ring in place of d_ext).
+// The CUDA-core dx kernel (RAW: the raw ring in place of d_ext).
 template <bool RAW>
-int dx_entry(int dtype, int device, const void* dout, const void* keq, const void* kpo,
-             void* dx, void* dext, int batch, int n, int cin, int cout, int h, int cs,
-             void* stream) {
+int dx_cc_entry(int dtype, int device, const void* dout, const void* keq, const void* kpo,
+                void* dx, void* dext, int batch, int n, int cin, int cout, int h, int cs,
+                void* stream) {
   const int m = n + 2;
   if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || n < 1 || cin < 1 ||
       cout < 1 || h < 1 || h > m || cs < CO || (cs & (cs - 1)) != 0)
@@ -460,27 +550,72 @@ int dx_entry(int dtype, int device, const void* dout, const void* keq, const voi
   return cudaErrorInvalidValue;
 }
 
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// float32: the CUDA-core kernel (tile_plan's h, cs); bfloat16: the
+// tensor-core kernel (tc_plan's h, cs, nw, tpb; smem checked).
+template <bool RAW>
+int dx_entry(int dtype, int device, const void* dout, const void* keq, const void* kpo,
+             void* dx, void* dext, int batch, int n, int cin, int cout, int h, int cs, int nw,
+             int tpb, int smem, void* stream) {
+  if (dtype == 0)
+    return dx_cc_entry<RAW>(0, device, dout, keq, kpo, dx, dext, batch, n, cin, cout, h, cs,
+                            stream);
+  if (dtype != 1 || device < 0 || device >= 64 || batch < 1 || batch > 65535 || n < 1)
+    return cudaErrorInvalidValue;
+  TcGeom g;
+  if (!cs3x3::make_tc_geom(g, n + 2, n + 2, cout, cin, h, cs, nw, tpb, true) ||
+      cs3x3::tc_smem_bytes(g) != (size_t)smem)
+    return cudaErrorInvalidValue;
+  g.vec = cout % 8 == 0 && aligned(dout, 16) ? 1 : cout % 4 == 0 && aligned(dout, 8) ? 2 : 0;
+  g.wvec = cout % 8 == 0 && aligned(keq, 16) && aligned(kpo, 16);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *d = static_cast<const bf16*>(dout), *k0 = static_cast<const bf16*>(keq),
+             *k1 = static_cast<const bf16*>(kpo);
+  bf16 *o = static_cast<bf16*>(dx), *e = static_cast<bf16*>(dext);
+  return g.kc == 16 ? launch_dx_tc<16, RAW>(g, batch, smem, device, s, d, k0, k1, o, e)
+                    : launch_dx_tc<32, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
-// stream belongs to.  h: frame rows per block; cs: Cin channels per block
-// (a power of two >= 8).  Returns a cudaError_t (0 = success).
+// stream belongs to.  h: frame rows per tile; cs: Cin channels per block
+// or slice.  float32 takes tile_plan's h and cs (a power of two >= 8) and
+// reads neither nw, tpb nor smem; bfloat16 takes tc_plan's h, cs, nw, tpb
+// and the shared memory they give.  Returns a cudaError_t (0 = success).
 int cs_conv3x3_dx_launch(int dtype, int device, const void* dout, const void* keq,
                          const void* kpo, void* dx, void* dext, int batch, int n, int cin,
-                         int cout, int h, int cs, void* stream) {
+                         int cout, int h, int cs, int nw, int tpb, int smem, void* stream) {
   return dx_entry<false>(dtype, device, dout, keq, kpo, dx, dext, batch, n, cin, cout, h, cs,
-                         stream);
+                         nw, tpb, smem, stream);
 }
 
 // As cs_conv3x3_dx_launch, writing the raw ring [row 0, row n+1, column 0,
 // column n+1] of the (n+2)^2 cotangent into dring (B, 6, 4, n+2, Cin).
 int cs_conv3x3_dx_ring_launch(int dtype, int device, const void* dout, const void* keq,
                               const void* kpo, void* dx, void* dring, int batch, int n,
-                              int cin, int cout, int h, int cs, void* stream) {
+                              int cin, int cout, int h, int cs, int nw, int tpb, int smem,
+                              void* stream) {
   return dx_entry<true>(dtype, device, dout, keq, kpo, dx, dring, batch, n, cin, cout, h, cs,
-                        stream);
+                        nw, tpb, smem, stream);
+}
+
+// The CUDA-core dx kernel in either dtype (raw: the raw ring), with
+// tile_plan's h and cs: the bfloat16 instance that the tensor-core kernel
+// replaced, kept so that the kernel tools can time the two side by side
+// (ops/conv_variants.py::cs_conv3x3_dx_cudacore).
+int cs_conv3x3_dx_cc_launch(int dtype, int device, const void* dout, const void* keq,
+                            const void* kpo, void* dx, void* dext, int raw, int batch, int n,
+                            int cin, int cout, int h, int cs, void* stream) {
+  return raw ? dx_cc_entry<true>(dtype, device, dout, keq, kpo, dx, dext, batch, n, cin, cout,
+                                 h, cs, stream)
+             : dx_cc_entry<false>(dtype, device, dout, keq, kpo, dx, dext, batch, n, cin, cout,
+                                  h, cs, stream);
 }
 
 // rows: face rows staged per item (<= n); nsplit: reduction slices per face

@@ -1,27 +1,67 @@
-// The tap loop of the fused 3x3 cubed-sphere conv, shared by its launches.
+// The tap loops of the fused 3x3 cubed-sphere conv, shared by its launches.
 //
-// conv_tile computes one output tile of a local block of H rows and W
-// columns of every face: h rows from r0, cs output channels from co0, of one
-// face of one batch item.  It loops over Cin in chunks of CC, staging the
-// (h+2) x (W+2) padded tile and that chunk's taps of the face's weight group
-// in shared memory as f32, and runs the 9 taps with register tiles of PX
-// pixels x CO output channels per thread.  The padded tile never exists in
-// device memory: interior cells come from x, and every ghost cell (block row
-// -1 or H, padded column 0 or W+1) from the caller's Ghost functor, so the
-// launches differ only in where their ghost cells live:
+// Two routines compute one output tile of a local block of H rows and W
+// columns of every face.  The padded tile never exists in device memory:
+// interior cells come from x, and every ghost cell (block row -1 or H,
+// padded column 0 or W+1) from the caller's Ghost functor, so the launches
+// differ only in where their ghost cells live:
 //   * cs_conv3x3.cu: ghost strips exchanged or built before the launch
-//     (whole faces #1/#2, a shard's band #8 or tile #9);
+//     (whole faces #1/#2, a shard's band #8 or tile #9, precomputed strips
+//     #12);
 //   * cs_band_overlap.cu: the seam rows and W/E strips of the host-side
 //     exchange, and band rows received from the ring neighbours by remote
 //     copies during the launch (#11).
-// Every output is summed in the same order (Cin chunk, channel, dy, dx) in
-// f32 with one rounding to T at the end, so two launches that stage the same
-// ghost values give bitwise equal outputs.
+//
+// conv_tile (float32; and the earlier bfloat16 instance, kept only as a
+// timing row of the kernel tools): the CUDA cores.  h rows from r0, cs
+// output channels from co0; Cin in chunks of CC staged in shared memory as
+// f32 with that chunk's taps; register tiles of PX pixels x CO channels per
+// thread.  Every output is summed in the same order (Cin chunk, channel,
+// dy, dx) in f32 with one rounding to T at the end.
+//
+// tc_conv (bfloat16): an implicit GEMM on the tensor cores.  A tile is M
+// output pixels (h whole rows of one face, flattened, in m16 row tiles) x
+// N output channels (a slice of cs); K is 9 x Cin, walked in one fixed
+// order: Cin chunk of KC (16 or 32) channels, tap (dy, dx), 16 channels.
+// What bounds it: at batch 1 the work of a conv is 0.03-0.3 GFLOP, under a
+// microsecond at the card's 989 TFLOP/s, so the latency of each block's
+// serial path (staging its weights, then a chain of mma.sync per warp) sets
+// the time; at batch 16 the products (50 GFLOP a U-Net step) and the
+// shared-memory fragment loads that feed them.  The design:
+//   * the (h+2) x (W+2) padded rows of a Cin chunk are staged once, in
+//     bf16, each cell's channels padded to KC + 8 so that the 8 rows of an
+//     ldmatrix fall in 8 distinct 16-byte bank groups; each of the 9 taps
+//     reads its A fragments from that tile at a shifted address (ldmatrix
+//     with one pointer per pixel row, computed once per tile): nothing is
+//     copied nine times;
+//   * mma.sync.m16n8k16, bf16 in, f32 sums; each warp owns 2 m16 tiles x
+//     NW n8 tiles; the block's warps split M, and N where M is small, so a
+//     batch-1 block has several short mma chains rather than one long one;
+//   * cp.async (16 bytes, L2 only) into a ring of two stages: chunk k+1 -
+//     or the next tile's first chunk - loads while chunk k is multiplied,
+//     one barrier per chunk.  Ghost cells come through the Ghost functor's
+//     cell pointers by the same copies; channels not a multiple of 8 (the
+//     U-Net's 12-channel input) are staged by ordinary loads, zero-filled
+//     past Cin;
+//   * the block's weights (its face group's taps for its N slice, all of K,
+//     bf16) stay resident in shared memory while it walks several tiles of
+//     the same (face group, slice), so staged weights serve more than one
+//     tile; they are staged again only where a walk changes group or slice
+//     (#11's walk);
+//   * the same routine runs the dx kernel (cs_conv3x3_bwd.cu): a
+//     correlation of dout, zero-extended by 2, with the flipped,
+//     transposed taps over the (n+2)^2 frame; only the staging sources,
+//     the weight layout and the stores differ.
+// Each output's sum runs in that K order whatever the tile height, the
+// launch, or the block's walk, with one rounding to bf16 at the end, so two
+// launches that stage the same values give bitwise equal outputs (#12 and
+// #1, #11 and #8, the shards' forecasts and one card's).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cs3x3 {
 
@@ -199,6 +239,468 @@ __device__ __forceinline__ void conv_tile(
       if (j < cols) orow[(long long)j * cout + co] = from_f32<T>(acc[p][o] + bv);
     }
   }
+}
+
+
+// ---- the tensor-core routine (bfloat16) -------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TC_MAX_THREADS = 256;  // 8 warps
+constexpr int TC_PAD = 8;            // bf16 after each staged cell's channels
+
+struct TcGeom {
+  int rows, cols;  // output block per face (dx: the (n+2)^2 frame)
+  int kch, nch;    // reduced channels (K = 9 kch) and output channels (N)
+  int h;           // output rows per tile
+  int cs;          // output channels per slice (8, 16, 32 or 64)
+  int nw;          // n8 tiles per warp (1, 2, 4 or 8)
+  int wn, wm;      // warps along N and along M (2 m16 tiles each)
+  int threads;
+  int nslices;     // N slices
+  int ntr;         // row tiles per face
+  int kc;          // K channels per staged chunk (16, or 32 past 16 channels)
+  int nchunks, kp; // chunks; kp = nchunks * kc
+  int wp;          // staged columns: cols + 2
+  int kps;         // pitch of one staged cell: kc + TC_PAD
+  int stage;       // bf16 elements of one stage: (h + 2) * wp * kps
+  int wpitch;      // weight row pitch (see tc_stage_weights)
+  int wsize;       // bf16 elements of the resident weights
+  int tpb;         // tiles per block of a whole-grid walk
+  int vec;         // staged cells by 16-byte async copies
+  int wvec;        // weights likewise
+};
+
+// Fills g; false on sizes the routine cannot take.  dx: the weight layout
+// of the dx kernel.  The host plan (ops/hopper_conv.py::tc_plan) computes
+// the same numbers.
+inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h, int cs,
+                         int nw, int tpb, bool dx) {
+  if (rows < 1 || cols < 1 || kch < 1 || nch < 1 || h < 1 || h > rows || tpb < 1) return false;
+  if (cs != 8 && cs != 16 && cs != 32 && cs != 64) return false;
+  if (nw != 1 && nw != 2 && nw != 4 && nw != 8) return false;
+  if (8 * nw > cs) return false;
+  g.rows = rows;
+  g.cols = cols;
+  g.kch = kch;
+  g.nch = nch;
+  g.h = h;
+  g.cs = cs;
+  g.nw = nw;
+  g.wn = cs / (8 * nw);
+  const int mtiles = (h * cols + 15) / 16;
+  g.wm = (mtiles + 1) / 2;
+  g.threads = 32 * g.wm * g.wn;
+  if (g.threads > TC_MAX_THREADS) return false;
+  g.nslices = (nch + cs - 1) / cs;
+  g.ntr = (rows + h - 1) / h;
+  g.kc = kch <= 16 ? 16 : 32;
+  g.nchunks = (kch + g.kc - 1) / g.kc;
+  g.kp = g.nchunks * g.kc;
+  g.wp = cols + 2;
+  g.kps = g.kc + TC_PAD;
+  g.stage = (h + 2) * g.wp * g.kps;
+  if (dx) {
+    g.wpitch = 9 * g.kp + TC_PAD;  // [n][tap * kp + k]: an odd multiple of 16 bytes
+    g.wsize = cs * g.wpitch;
+  } else {
+    g.wpitch = cs + ((cs / 8) % 2 == 0 ? 8 : 16);  // [tap * kp + k][n]: likewise
+    g.wsize = 9 * g.kp * g.wpitch;
+  }
+  g.tpb = tpb;
+  g.vec = 0;
+  g.wvec = 0;
+  return true;
+}
+
+inline size_t tc_smem_bytes(const TcGeom& g) {
+  return sizeof(bf16) * ((size_t)g.wsize + 2 * (size_t)g.stage);
+}
+
+// One tile: face = batch item * 6 + f, output rows r0.., channels n0..;
+// key names the weights it needs (face group, slice).
+struct TcTile {
+  long long face;
+  int f, r0, n0, key;
+};
+
+// The tiles of one block of a whole-grid launch: the grid holds nslices x
+// P_g blocks per face group g (P_g = ceil(items_g / tpb)); a block walks
+// tpb consecutive items (batch item, face of the group, row tile) of one
+// (group, slice), so its weights stay staged.  ops/hopper_conv.py::
+// tc_blocks enumerates the same.
+struct GridWalk {
+  int q, hi, grp, slice, nf, ntr, h, cs, nslices;
+  __device__ GridWalk(const TcGeom& g, int batch) {
+    ntr = g.ntr;
+    h = g.h;
+    cs = g.cs;
+    nslices = g.nslices;
+    const int per0 = 4 * batch * ntr, per1 = 2 * batch * ntr;
+    const int p0 = (per0 + g.tpb - 1) / g.tpb, p1 = (per1 + g.tpb - 1) / g.tpb;
+    int bid = blockIdx.x;
+    int per;
+    if (bid < nslices * p0) {
+      grp = 0;
+      nf = 4;
+      per = per0;
+      slice = bid / p0;
+      bid -= slice * p0;
+    } else {
+      bid -= nslices * p0;
+      grp = 1;
+      nf = 2;
+      per = per1;
+      slice = bid / p1;
+      bid -= slice * p1;
+    }
+    q = bid * g.tpb;
+    hi = min(q + g.tpb, per);
+  }
+  __device__ bool next(TcTile& t) {
+    if (q >= hi) return false;
+    const int tr = q % ntr, fb = q / ntr;
+    t.f = grp * 4 + fb % nf;
+    t.face = (long long)(fb / nf) * 6 + t.f;
+    t.r0 = tr * h;
+    t.n0 = slice * cs;
+    t.key = grp * nslices + slice;
+    ++q;
+    return true;
+  }
+  __device__ void before(const TcTile&) const {}
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared through L2 only; src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+// 8 bytes (through L1: only for inputs that no one writes during the launch)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The forward's staging source: staged row pr, column pc of the tile at r0
+// is block row r0 - 1 + pr, padded column pc; interior cells from x, the
+// ring from the Ghost functor, rows past the ghost row zero.
+template <typename Ghost>
+struct FwdSrc {
+  const bf16* __restrict__ x;
+  Ghost ghost;
+  int rows, cols, cin;
+  __device__ __forceinline__ const bf16* base() const { return x; }  // any valid address
+  // the cell's first channel, or nullptr for a zero cell
+  __device__ __forceinline__ const bf16* cell(const TcTile& t, int pr, int pc) const {
+    const int fr = t.r0 - 1 + pr;
+    if (fr > rows) return nullptr;
+    if (fr >= 0 && fr < rows && pc >= 1 && pc <= cols)
+      return x + ((t.face * rows + fr) * cols + pc - 1) * cin;
+    return ghost.cell(t.face, fr, pc);
+  }
+  __device__ __forceinline__ bf16 elem(const TcTile& t, int pr, int pc, int ci) const {
+    const int fr = t.r0 - 1 + pr;
+    if (fr > rows) return __float2bfloat16_rn(0.f);
+    if (fr >= 0 && fr < rows && pc >= 1 && pc <= cols)
+      return x[((t.face * rows + fr) * cols + pc - 1) * cin + ci];
+    return __float2bfloat16_rn(ghost(t.face, fr, pc, ci));  // exact: a bf16 value
+  }
+};
+
+// The dx kernel's: staged row pr, column pc of the frame tile at a0 is
+// dout[a0 + pr - 2, pc - 2], zero outside the face.
+struct DxSrc {
+  const bf16* __restrict__ dout;
+  int n, cout;
+  __device__ __forceinline__ const bf16* base() const { return dout; }  // any valid address
+  __device__ __forceinline__ const bf16* cell(const TcTile& t, int pr, int pc) const {
+    const int dr = t.r0 + pr - 2, dc = pc - 2;
+    if (dr < 0 || dr >= n || dc < 0 || dc >= n) return nullptr;
+    return dout + ((t.face * n + dr) * n + dc) * cout;
+  }
+  __device__ __forceinline__ bf16 elem(const TcTile& t, int pr, int pc, int ci) const {
+    const bf16* p = cell(t, pr, pc);
+    return p ? p[ci] : __float2bfloat16_rn(0.f);
+  }
+};
+
+// Chunk k of tile t into the stage S: S[cell][c] = channel k*kc + c of
+// staged cell (pr, pc), cell = pr * wp + pc, zero past kch.
+template <typename Src>
+__device__ __forceinline__ void tc_stage_chunk(bf16* S, const Src& src, const TcTile& t, int k,
+                                               const TcGeom& g) {
+  const int cells = (g.h + 2) * g.wp;
+  const int c0 = k * g.kc;
+  if (g.vec == 1) {
+    const int gpc = g.kc / 8;  // 16-byte groups per cell
+    const int units = cells * gpc;
+    for (int u = threadIdx.x; u < units; u += g.threads) {
+      const int cell = u / gpc, grp8 = u - cell * gpc;
+      const int pr = cell / g.wp, pc = cell - pr * g.wp;
+      const int c = c0 + grp8 * 8;
+      const bf16* p = c < g.kch ? src.cell(t, pr, pc) : nullptr;
+      cp_async16(S + cell * g.kps + grp8 * 8, p ? p + c : src.base(), p ? 16 : 0);
+    }
+  } else if (g.vec == 2) {
+    const int gpc = g.kc / 4;  // 8-byte groups per cell
+    const int units = cells * gpc;
+    for (int u = threadIdx.x; u < units; u += g.threads) {
+      const int cell = u / gpc, grp4 = u - cell * gpc;
+      const int pr = cell / g.wp, pc = cell - pr * g.wp;
+      const int c = c0 + grp4 * 4;
+      const bf16* p = c < g.kch ? src.cell(t, pr, pc) : nullptr;
+      cp_async8(S + cell * g.kps + grp4 * 4, p ? p + c : src.base(), p ? 8 : 0);
+    }
+  } else {
+    // ordinary loads, 4 in flight per thread before their stores
+    const int units = cells * g.kc;
+    for (int base = threadIdx.x; base < units; base += 4 * g.threads) {
+      bf16 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = base + i * g.threads;
+        const int cell = u / g.kc, cc = u - cell * g.kc;
+        const int pr = cell / g.wp, pc = cell - pr * g.wp;
+        v[i] = (u < units && c0 + cc < g.kch) ? src.elem(t, pr, pc, c0 + cc)
+                                                : __float2bfloat16_rn(0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = base + i * g.threads;
+        if (u < units) S[(u / g.kc) * g.kps + u % g.kc] = v[i];
+      }
+    }
+  }
+}
+
+// The resident weights of tile t's (face group, slice), zero past kch and
+// nch.  k is HWIO (3, 3, Cin, Cout) of the group.
+//   forward: Ws[tap * kp + ci][c] = k[tap][ci][n0 + c]   (B as k x n, n contiguous)
+//   dx:      Ws[c][tap * kp + co] = k[8 - tap][n0 + c][co] (B as n x k, k contiguous)
+// with, for dx, kch = Cout (K) and nch = Cin (N).  Both are straight copies
+// of rows of k: no transposition in shared memory.
+template <bool DX>
+__device__ __forceinline__ void tc_stage_weights(bf16* Ws, const bf16* __restrict__ k,
+                                                 const TcTile& t, const TcGeom& g) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  if (!DX) {
+    // rows (tap, ci) of cs channels from n0; k row (tap, ci) has nch channels
+    const int rows = 9 * g.kp;
+    if (g.wvec) {
+      const int gpr = g.cs / 8;
+      for (int u = threadIdx.x; u < rows * gpr; u += g.threads) {
+        const int row = u / gpr, c = (u - row * gpr) * 8;
+        const int tap = row / g.kp, ci = row - tap * g.kp;
+        const bool ok = ci < g.kch && t.n0 + c < g.nch;
+        const bf16* p = k + ((long long)tap * g.kch + ci) * g.nch + t.n0 + c;
+        cp_async16(Ws + row * g.wpitch + c, ok ? p : k, ok ? 16 : 0);
+      }
+    } else {
+      for (int u = threadIdx.x; u < rows * g.cs; u += g.threads) {
+        const int row = u / g.cs, c = u - row * g.cs;
+        const int tap = row / g.kp, ci = row - tap * g.kp;
+        Ws[row * g.wpitch + c] = (ci < g.kch && t.n0 + c < g.nch)
+                                     ? k[((long long)tap * g.kch + ci) * g.nch + t.n0 + c]
+                                     : zero;
+      }
+    }
+  } else {
+    // rows c of the slice, 9 taps of kp reduced channels each; k row
+    // (tap, ci) has kch (= Cout) channels
+    const int rows = g.cs * 9;
+    if (g.wvec) {
+      const int gpr = g.kp / 8;
+      for (int u = threadIdx.x; u < rows * gpr; u += g.threads) {
+        const int row = u / gpr, co = (u - row * gpr) * 8;
+        const int c = row / 9, tap = row - c * 9;
+        const int ci = t.n0 + c;
+        const bool ok = ci < g.nch && co < g.kch;
+        const bf16* p = k + ((long long)(8 - tap) * g.nch + ci) * g.kch + co;
+        cp_async16(Ws + c * g.wpitch + tap * g.kp + co, ok ? p : k, ok ? 16 : 0);
+      }
+    } else {
+      for (int u = threadIdx.x; u < rows * g.kp; u += g.threads) {
+        const int row = u / g.kp, co = u - row * g.kp;
+        const int c = row / 9, tap = row - c * 9;
+        const int ci = t.n0 + c;
+        Ws[c * g.wpitch + tap * g.kp + co] =
+            (ci < g.nch && co < g.kch) ? k[((long long)(8 - tap) * g.nch + ci) * g.kch + co]
+                                        : zero;
+      }
+    }
+  }
+}
+
+// KC: g.kc, the reduced channels per chunk (16 or 32), fixed at compile time
+// so that a chunk's 9 x KC / 16 steps unroll.
+// The block walks its tiles (Walk::next; Walk::before(t) runs, on every
+// thread, before t's first chunk is requested, and may synchronise the
+// block).  Per tile, Epi::store(t, i, j, n, v0, v1) takes the f32 sums of
+// output row i, column j of the tile, channels n and n + 1 (n even; either
+// may be past nch).  Every thread of the block must call it; it
+// synchronises the block.  keq / kpo: the weight groups (faces 0-3, 4-5).
+template <int NW, int KC, bool DX, typename Src, typename Walk, typename Epi>
+__device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& walk,
+                                        const Epi& epi, const bf16* __restrict__ keq,
+                                        const bf16* __restrict__ kpo, unsigned char* smem_raw) {
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* St = Ws + g.wsize;  // two stages
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm_i = warp % g.wm, wn_i = warp / g.wm;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nbase = wn_i * NW * 8;  // this warp's first channel in the slice
+
+  TcTile t, tn;
+  if (!walk.next(t)) return;
+  bool has_next = walk.next(tn);
+  int key = -1, k = 0, buf = 0;
+  float acc[2][NW][4];
+  int a_cell[2];
+  bool m_on[2];
+  for (;;) {
+    cp_async_wait_all();
+    __syncthreads();  // stage buf has landed; the other stage is consumed
+    if (k == 0 && t.key != key) {  // weights of another group or slice (uniform)
+      walk.before(t);
+      tc_stage_weights<DX>(Ws, t.f < 4 ? keq : kpo, t, g);
+      tc_stage_chunk(St + buf * g.stage, src, t, 0, g);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      key = t.key;
+    }
+    if (k + 1 < g.nchunks) {
+      tc_stage_chunk(St + (buf ^ 1) * g.stage, src, t, k + 1, g);
+    } else if (has_next && tn.key == key) {
+      walk.before(tn);
+      tc_stage_chunk(St + (buf ^ 1) * g.stage, src, tn, 0, g);
+    }
+    cp_async_commit();
+    if (k == 0) {
+      const int valid = min(g.h, g.rows - t.r0) * g.cols;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m0 = (2 * wm_i + mt) * 16;
+        m_on[mt] = m0 < valid;
+        const int p = m0 + (lane & 15);
+        const int i = p / g.cols, j = p - i * g.cols;
+        a_cell[mt] = p < valid ? i * g.wp + j : 0;
+#pragma unroll
+        for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+      }
+    }
+    // ---- chunk k: 9 taps x KC / 16 steps of 16 reduced channels ----
+    constexpr int KPS = KC + TC_PAD;
+    const bf16* S = St + buf * g.stage + (lane >> 4) * 8;
+    const bf16* a_row[2] = {S + a_cell[0] * KPS, S + a_cell[1] * KPS};
+    const int row_step = g.wp * KPS;  // one staged row
+    // B fragments: this lane's row of tap 0, channel k * KC, and the steps
+    // to the next tap, the next 16 reduced channels, the next n8 pair
+    const bf16* wk =
+        DX ? Ws + (nbase + ((lane >> 4) << 3) + (lane & 7)) * g.wpitch + k * KC +
+                 ((lane >> 3) & 1) * 8
+           : Ws + (k * KC + (lane & 15)) * g.wpitch + nbase + (lane >> 4) * 8;
+    const int tap_step = DX ? g.kp : g.kp * g.wpitch;
+    const int kk_step = DX ? 16 : 16 * g.wpitch;
+    const int pair_step = DX ? 16 * g.wpitch : 16;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * row_step + (tap % 3) * KPS;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        const bf16* wb = wk + tap * tap_step + (kk / 16) * kk_step;
+        uint32_t b[NW][2];
+        if constexpr (NW == 1) {
+          uint32_t r[2];
+          if constexpr (DX) ldsm_x2(r, wb); else ldsm_x2_t(r, wb);
+          b[0][0] = r[0];
+          b[0][1] = r[1];
+        } else {
+#pragma unroll
+          for (int j = 0; j < NW / 2; ++j) {
+            uint32_t r[4];
+            if constexpr (DX) ldsm_x4(r, wb + j * pair_step); else ldsm_x4_t(r, wb + j * pair_step);
+            b[2 * j][0] = r[0];
+            b[2 * j][1] = r[1];
+            b[2 * j + 1][0] = r[2];
+            b[2 * j + 1][1] = r[3];
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (!m_on[mt]) continue;
+          uint32_t a[4];
+          ldsm_x4(a, a_row[mt] + shift + kk);
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        }
+      }
+    }
+    if (k + 1 < g.nchunks) {
+      ++k;
+    } else {
+      // ---- the tile's sums: row gid (+8) of each m16 tile, channels 2 tig, +1
+      const int valid = min(g.h, g.rows - t.r0) * g.cols;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (!m_on[mt]) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = (2 * wm_i + mt) * 16 + gid + half * 8;
+          if (p >= valid) continue;
+          const int i = p / g.cols, j = p - i * g.cols;
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt)
+            epi.store(t, i, j, t.n0 + nbase + nt * 8 + 2 * tig, acc[mt][nt][2 * half],
+                      acc[mt][nt][2 * half + 1]);
+        }
+      }
+      if (!has_next) break;
+      t = tn;
+      has_next = walk.next(tn);
+      k = 0;
+    }
+    buf ^= 1;
+  }
+  cp_async_wait_all();  // nothing left in flight when the block ends
 }
 
 }  // namespace cs3x3

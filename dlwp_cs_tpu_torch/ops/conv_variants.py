@@ -19,6 +19,13 @@ kernels that the reference's kernel tools time beside its production conv.
   column 0, column n+1]``, corners at both ends of the W/E columns: the raw
   instance of the dx kernel of ``csrc/cs_conv3x3_bwd.cu`` (#4), replacing
   ``tools/kernel_variants.py::_dx_aligned_kernel``.
+* :data:`cs_conv3x3_cudacore` and :data:`cs_conv3x3_dx_cudacore`: the
+  CUDA-core tap loops of #1 and #4 (#14 with ``raw=True``) in either dtype,
+  with :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.tile_plan`'s tiles.  In
+  float32 they are the production kernels; in bfloat16 they are the
+  instances that the tensor-core kernels replaced, kept only so that a
+  timing run can set the two side by side on one card.  No path of the
+  port selects them.
 
 #3 and #13 take bfloat16 only, as the tools run them: a float32 CUDA tensor
 raises ``ValueError`` (TF32 would change the numbers, and nothing falls
@@ -50,10 +57,15 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
     _Conv3x3Kernel,
     _dx_frame_plain,
     _padded_faces,
+    cs_conv3x3_dx_plain,
+    cs_conv3x3_plain,
+    dx_plan_args,
     tile_plan,
 )
 
 __all__ = [
+    "cs_conv3x3_cudacore",
+    "cs_conv3x3_dx_cudacore",
     "cs_conv3x3_dx_ring",
     "cs_conv3x3_dx_ring_plain",
     "cs_conv3x3_im2col",
@@ -246,15 +258,73 @@ class _DxRingKernel(KernelWrapper):
             "k_pole": (k_pole, (3, 3, cin, cout)),
         })
         dev = self._device(dout)
-        h, cs = tile_plan(b, n + 2, n + 2, cin, self._sm_count[dev], max_cs=_DX_MAX_CS)
+        plan = dx_plan_args(dout.dtype, b, n, cin, cout, self._sm_count[dev])
         dx = torch.empty((b, 6, n, n, cin), dtype=dout.dtype, device=dout.device)
         dring = torch.empty((b, 6, 4, n + 2, cin), dtype=dout.dtype, device=dout.device)
         self._launch(
             "cs_conv3x3_dx_ring_launch", dev, DTYPES[dout.dtype], dev,
             *(t.data_ptr() for t in (dout, k_eq, k_pole, dx, dring)),
-            b, n, cin, cout, h, cs,
+            b, n, cin, cout, *plan, sizes=9,
         )
         return dx, dring
+
+
+class _CudaCoreConvKernel(KernelWrapper):
+    def __call__(self, x, ext, k_eq, k_pole, b_eq, b_pole):
+        """The CUDA-core forward kernel; arguments and result as
+        :data:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3`."""
+        if x.device.type == "cpu":
+            return cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole)
+        check_faces(self.name, x)
+        b, _, rows, cols, cin = x.shape
+        if rows > cols:
+            raise ValueError(f"{self.name}: a block of {rows} rows x {cols} columns; H <= W")
+        cout = k_eq.shape[-1]
+        check_cuda_args(self.name, x, {
+            "x": (x, (b, 6, rows, cols, cin)),
+            "ext": (ext, (b, 6, 4, cols + 2, cin)),
+            "k_eq": (k_eq, (3, 3, cin, cout)),
+            "k_pole": (k_pole, (3, 3, cin, cout)),
+            "b_eq": (b_eq, (cout,)),
+            "b_pole": (b_pole, (cout,)),
+        })
+        dev = self._device(x)
+        h, cs = tile_plan(b, rows, cols, cout, self._sm_count[dev])
+        out = torch.empty((b, 6, rows, cols, cout), dtype=x.dtype, device=x.device)
+        self._launch(
+            "cs_conv3x3_cc_launch", dev, DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
+            b, rows, cols, cin, cout, h, cs, sizes=7,
+        )
+        return out
+
+
+class _CudaCoreDxKernel(KernelWrapper):
+    def __call__(self, dout, k_eq, k_pole, raw=False):
+        """The CUDA-core dx kernel: ``(dx, d_ext)`` as
+        :data:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3_dx`, or with
+        ``raw`` ``(dx, dring)`` as :data:`cs_conv3x3_dx_ring`."""
+        if dout.device.type == "cpu":
+            plain = cs_conv3x3_dx_ring_plain if raw else cs_conv3x3_dx_plain
+            return plain(dout, k_eq, k_pole)
+        check_faces(self.name, dout)
+        b, _, n, _, cout = dout.shape
+        cin = k_eq.shape[2]
+        check_cuda_args(self.name, dout, {
+            "dout": (dout, (b, 6, n, n, cout)),
+            "k_eq": (k_eq, (3, 3, cin, cout)),
+            "k_pole": (k_pole, (3, 3, cin, cout)),
+        })
+        dev = self._device(dout)
+        h, cs = tile_plan(b, n + 2, n + 2, cin, self._sm_count[dev], max_cs=_DX_MAX_CS)
+        dx = torch.empty((b, 6, n, n, cin), dtype=dout.dtype, device=dout.device)
+        ring = torch.empty((b, 6, 4, n + 2, cin), dtype=dout.dtype, device=dout.device)
+        self._launch(
+            "cs_conv3x3_dx_cc_launch", dev, DTYPES[dout.dtype], dev,
+            *(t.data_ptr() for t in (dout, k_eq, k_pole, dx, ring)),
+            int(raw), b, n, cin, cout, h, cs, sizes=6,
+        )
+        return dx, ring
 
 
 cs_conv3x3_npack = _MmaConvKernel("cs_conv3x3_npack", "npack", cs_conv3x3_npack_plain)
@@ -262,3 +332,6 @@ cs_conv3x3_im2col = _MmaConvKernel("cs_conv3x3_im2col", "im2col", cs_conv3x3_im2
 # kernel #12: kernel #1 on strips computed outside it, counted apart
 cs_conv3x3_kernel_only = _Conv3x3Kernel("cs_conv3x3_kernel_only", _FWD_LIB)
 cs_conv3x3_dx_ring = _DxRingKernel("cs_conv3x3_dx_ring", _BWD_LIB)
+# the CUDA-core tap loops of #1 and #4 in either dtype (a timing row)
+cs_conv3x3_cudacore = _CudaCoreConvKernel("cs_conv3x3_cudacore", _FWD_LIB)
+cs_conv3x3_dx_cudacore = _CudaCoreDxKernel("cs_conv3x3_dx_cudacore", _BWD_LIB)

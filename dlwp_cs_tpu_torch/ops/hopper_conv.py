@@ -14,6 +14,11 @@ header says what bounds it and how:
   (the weight and bias gradients, as per-block partial sums that a fixed-order
   ``torch.sum`` reduces).
 
+The forward and dx kernels run bfloat16 on the tensor cores (an implicit
+GEMM on ``mma.sync``, ``csrc/cs_conv3x3_tile.cuh::tc_conv``) with the
+tiles, slices and walks of :func:`tc_plan`, and float32 on the CUDA cores
+with those of :func:`tile_plan`.
+
 Beside each kernel:
 
 * a plain-torch version of the same function (:func:`cs_conv3x3_plain`,
@@ -38,6 +43,7 @@ Each kernel source is built and bound by
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -64,17 +70,32 @@ __all__ = [
     "cs_conv3x3_plain",
     "cs_conv3x3_tile",
     "dw_plan",
+    "dx_plan_args",
+    "fwd_plan_args",
+    "tc_blocks",
+    "tc_geom",
+    "tc_plan",
     "tile_plan",
 ]
 
-# Register tile of one thread and the block-size cap (csrc/cs_conv3x3.cu;
-# the dx kernel of csrc/cs_conv3x3_bwd.cu uses the same).
+# Register tile of one thread and the block-size cap of the CUDA-core
+# kernels (float32; csrc/cs_conv3x3.cu, and the dx kernel of
+# csrc/cs_conv3x3_bwd.cu).
 _PX, _CO, _MAX_THREADS = 4, 8, 256
-# The dx kernel's widest channel slice: a block stages 9 x 16 x cs weights
-# per chunk, so a wider slice (up to 256 at Cin = 192) fills shared memory
-# with weights, leaves one block per SM and spends the block's time
+# The CUDA-core dx kernel's widest channel slice: a block stages 9 x 16 x cs
+# weights per chunk, so a wider slice (up to 256 at Cin = 192) fills shared
+# memory with weights, leaves one block per SM and spends the block's time
 # staging them for a single frame row.
 _DX_MAX_CS = 64
+# The tensor-core kernels (csrc/cs_conv3x3_tile.cuh::make_tc_geom): threads
+# per block, bf16 after each staged cell, the shared memory a block may opt
+# in to on an H100 and the per-SM share the occupancy reckoning takes
+# (228 KB less 1 KB a block reserved by the runtime).
+_TC_MAX_THREADS, _TC_PAD, _SMEM_LIMIT, _SMEM_PER_SM = 256, 8, 232448, 233472
+# What tc_plan aims at: output pixels per tile (whole rows), the shared
+# memory above which a block leaves no room for a second on its SM, and
+# the blocks per SM the whole-grid walk keeps resident.
+_TC_TILE_PX, _TC_SOFT_SMEM, _TC_BLOCKS_PER_SM = 128, 113 * 1024, 4
 # The dw kernel's block tile: input and output channels per block
 # (csrc/cs_conv3x3_bwd.cu); the face rows it stages at a time (4: 44 KB of
 # shared memory at n=48, five blocks per SM) and the blocks per SM its grid
@@ -203,8 +224,10 @@ def tile_plan(b: int, rows: int, cols: int, cout: int, sm_count: int,
     register tiles.  ``cs`` is the widest power-of-two channel slice (at
     most ``max_cs``) that lets one row fit a block; ``h`` the most rows that
     fit, lowered until the grid holds two blocks per SM where the batch is
-    small (batch-1 serving).  The dx kernel plans its ``(n+2)^2`` frame with
-    the same function, its slices capped at ``_DX_MAX_CS``.
+    small (batch-1 serving).  The CUDA-core kernels take it (float32, and
+    the bfloat16 timing rows of ``ops/conv_variants.py``); their dx kernel
+    plans its ``(n+2)^2`` frame with the same function, its slices capped at
+    ``_DX_MAX_CS``.
     """
     ncg = -(-cols // _PX)
     if ncg > _MAX_THREADS:
@@ -219,6 +242,196 @@ def tile_plan(b: int, rows: int, cols: int, cout: int, sm_count: int,
     while h > 1 and math.ceil(rows / h) * nslices * 6 * b < 2 * sm_count:
         h -= 1
     return h, cs
+
+
+class TcGeom(NamedTuple):
+    """What ``csrc/cs_conv3x3_tile.cuh::make_tc_geom`` computes from a plan."""
+
+    h: int  # output rows per tile
+    cs: int  # output channels per slice
+    nw: int  # n8 tiles per warp
+    wn: int  # warps along N
+    wm: int  # warps along M (2 m16 tiles each)
+    threads: int
+    nslices: int
+    ntr: int  # row tiles per face
+    kc: int  # reduced channels per staged chunk
+    kp: int  # reduced channels, whole chunks
+    smem: int  # bytes of shared memory per block
+
+
+def _tc_warps_m(h: int, cols: int) -> int:
+    """Warps along M of a tile of ``h`` rows: 2 m16 tiles (32 pixels) each."""
+    return -(-(h * cols) // 32)
+
+
+def tc_geom(rows: int, cols: int, kch: int, nch: int, h: int, cs: int, nw: int,
+            dx: bool = False) -> TcGeom:
+    """The tensor-core kernel's geometry for a tile of ``h`` rows of a
+    ``rows x cols`` block (the dx kernel: of the ``(n+2)^2`` frame), ``kch``
+    reduced and ``nch`` output channels, slices of ``cs`` channels and
+    ``nw`` n8 tiles per warp; raises ``ValueError`` where the kernel does
+    not take them (as ``make_tc_geom`` returns false)."""
+    if not (1 <= h <= rows and cols >= 1 and kch >= 1 and nch >= 1):
+        raise ValueError(f"tc_geom: h={h} rows of a {rows} x {cols} block, K={kch}, N={nch}")
+    if cs not in (8, 16, 32, 64) or nw not in (1, 2, 4, 8) or 8 * nw > cs:
+        raise ValueError(f"tc_geom: slice {cs} with {nw} n8 tiles per warp")
+    wn = cs // (8 * nw)
+    wm = _tc_warps_m(h, cols)
+    threads = 32 * wm * wn
+    if threads > _TC_MAX_THREADS:
+        raise ValueError(f"tc_geom: {threads} threads > {_TC_MAX_THREADS}")
+    kc = 16 if kch <= 16 else 32
+    kp = -(-kch // kc) * kc
+    stage = (h + 2) * (cols + 2) * (kc + _TC_PAD)
+    if dx:
+        wsize = cs * (9 * kp + _TC_PAD)
+    else:
+        wsize = 9 * kp * (cs + (8 if (cs // 8) % 2 == 0 else 16))
+    return TcGeom(h, cs, nw, wn, wm, threads, -(-nch // cs), -(-rows // h), kc, kp,
+                  2 * (wsize + 2 * stage))
+
+
+class TcPlan(NamedTuple):
+    """A launch of the tensor-core kernel: its geometry, the tiles each
+    block walks (``tpb``), the tiles and the blocks of the grid."""
+
+    geom: TcGeom
+    tpb: int
+    tiles: int
+    blocks: int
+
+    def args(self):
+        """``(h, cs, nw, tpb, smem)``, the numbers the C entry points take."""
+        g = self.geom
+        return g.h, g.cs, g.nw, self.tpb, g.smem
+
+
+def _tc_blocks_per_sm(g: TcGeom) -> int:
+    return max(1, min(_SMEM_PER_SM // (g.smem + 1024), 2048 // g.threads, _TC_BLOCKS_PER_SM))
+
+
+def _tc_grid(g: TcGeom, b: int, tpb: int) -> int:
+    return g.nslices * (-(-4 * b * g.ntr // tpb) + -(-2 * b * g.ntr // tpb))
+
+
+def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
+            dx: bool = False) -> TcPlan:
+    """The tensor-core kernel's plan for ``b * 6`` faces of a ``rows x
+    cols`` block (the forward: the block's rows; the dx kernel: the
+    ``(n+2)^2`` frame, ``dx=True``), ``kch`` reduced channels (K = 9 kch)
+    and ``nch`` output channels.
+
+    Where the faces give enough tiles (training batches; n = 96), warps own
+    32 pixels x 32 channels (fewer on slices under 32), a tile holds as
+    many whole rows as 8 warps take, and the slice ``cs`` (8-64) maximises
+    :func:`_tc_score`.  Otherwise (batch-1 serving), the tiles must first
+    fill ``sm_count`` SMs: from tiles of about 128 pixels and the widest
+    slice that leaves room for a second block, slices narrow to 16
+    channels, then tiles lose rows, then slices narrow to 8; warps split N
+    where M has fewer than 4 of them.  A block walks ``tpb`` tiles of one
+    (face group, slice) so that the grid holds about
+    ``_TC_BLOCKS_PER_SM`` blocks per SM.  Raises ``ValueError`` on a shape
+    the kernel cannot take (a row of more than 256 pixels, or the weights of
+    one 8-channel slice past the shared memory).
+    """
+    if cols > _TC_MAX_THREADS:
+        raise ValueError(
+            f"the tensor-core conv takes rows of at most {_TC_MAX_THREADS} pixels, not {cols}")
+    limit = _SMEM_LIMIT - 1024  # room for a launch's static shared memory
+    widest = min(64, max(8, 1 << (nch - 1).bit_length()))
+
+    def tiles(g):
+        return b * 6 * g.ntr * g.nslices
+
+    def plan(g):
+        n_tiles = tiles(g)
+        tpb = max(1, -(-n_tiles // (_tc_blocks_per_sm(g) * sm_count)))
+        return TcPlan(g, tpb, n_tiles, _tc_grid(g, b, tpb))
+
+    wide = []
+    for cs in (8, 16, 32, 64):
+        if cs > widest:
+            continue
+        nw = min(4, cs // 8)
+        wm = _TC_MAX_THREADS // 32 // (cs // (8 * nw))  # warps along M
+        hmax = max(1, min(rows, wm * 32 // cols))
+        for h in sorted({hmax, max(1, hmax // 2)}):
+            try:
+                g = tc_geom(rows, cols, kch, nch, h, cs, nw, dx)
+            except ValueError:
+                continue
+            if g.smem <= limit:
+                wide.append(g)
+    if wide:
+        g = max(wide, key=lambda g: _tc_score(g, cols, nch))
+        if tiles(g) >= sm_count:
+            return plan(g)
+
+    cs = widest
+    h = max(1, min(rows, _TC_TILE_PX // cols))
+
+    def geom(h, cs):
+        wm = _tc_warps_m(h, cols)
+        wn = 1
+        while wm * wn < 4 and cs // (8 * wn) > 1:
+            wn *= 2
+        return tc_geom(rows, cols, kch, nch, h, cs, cs // (8 * wn), dx)
+
+    while cs > 8 and geom(h, cs).smem > _TC_SOFT_SMEM:
+        cs //= 2
+    g = geom(h, cs)
+    if g.smem > limit:
+        raise ValueError(
+            f"the tensor-core conv cannot hold the weights of K={kch} channels x 8 in "
+            f"shared memory ({g.smem} > {limit} bytes)")
+    while tiles(g) < sm_count:
+        if cs > 16:
+            cs //= 2
+        elif h > 1:
+            ntr = g.ntr
+            while h > 1 and -(-rows // h) == ntr:
+                h -= 1
+        elif cs > 8:
+            cs //= 2
+        else:
+            break
+        g = geom(h, cs)
+    return plan(g)
+
+
+def _tc_score(g: TcGeom, cols: int, nch: int) -> float:
+    """How well a plan of :func:`tc_plan`'s training-batch regime uses the
+    card: resident warps per SM (at most 16) x the useful share of a tile
+    (its output rows among its staged rows, its pixels among its m16 tiles'
+    rows, the slices' channels that exist) x cs^0.3 (a wider slice stages
+    each input row for more channels).  Fitted on the flagship U-Net's
+    forward and dx shapes at batch 16 on an H100 (``tools/tc_sweep.py``):
+    the plans it picks there take 1-3 % longer in sum than the fastest of
+    the candidates the sweep times."""
+    bps = max(1, min(_SMEM_PER_SM // (g.smem + 1024), 2048 // g.threads))
+    warps = min(16, bps * g.threads // 32)
+    return (warps * g.h / (g.h + 2) * nch / (g.nslices * g.cs)
+            * g.h * cols / (g.wm * 32) * g.cs ** 0.3)
+
+
+def tc_blocks(plan: TcPlan, b: int):
+    """The tiles of each block of the whole-grid launch, as
+    ``csrc/cs_conv3x3_tile.cuh::GridWalk`` walks them: a list per block of
+    ``(face, r0, n0)`` (face = batch item * 6 + face of the cube)."""
+    g, tpb = plan.geom, plan.tpb
+    out = []
+    for grp, nf in ((0, 4), (1, 2)):
+        per = nf * b * g.ntr
+        for s in range(g.nslices):
+            for j in range(-(-per // tpb)):
+                block = []
+                for q in range(j * tpb, min((j + 1) * tpb, per)):
+                    tr, fb = q % g.ntr, q // g.ntr
+                    f = grp * 4 + fb % nf
+                    block.append(((fb // nf) * 6 + f, tr * g.h, s * g.cs))
+                out.append(block)
+    return out
 
 
 def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
@@ -239,14 +452,35 @@ def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
 
 
 _FWD_LIB = CudaLibrary("cs_conv3x3.cu", {
-    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
+    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 10 + [VP],
+    # the CUDA-core kernel in either dtype (ops/conv_variants.py's timing row)
+    "cs_conv3x3_cc_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
 }, "cs_conv3x3_error_string")
 _BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
-    "cs_conv3x3_dx_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
+    "cs_conv3x3_dx_launch": [I32, I32] + [VP] * 5 + [I32] * 9 + [VP],
     # kernel #14, the raw-ring instance (ops/conv_variants.py)
-    "cs_conv3x3_dx_ring_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
+    "cs_conv3x3_dx_ring_launch": [I32, I32] + [VP] * 5 + [I32] * 9 + [VP],
+    # the CUDA-core dx kernel in either dtype (ops/conv_variants.py's timing row)
+    "cs_conv3x3_dx_cc_launch": [I32, I32] + [VP] * 5 + [I32] * 7 + [VP],
     "cs_conv3x3_dw_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
 }, "cs_conv3x3_bwd_error_string")
+
+
+def fwd_plan_args(x_dtype, b, rows, cols, cin, cout, sm_count):
+    """``(h, cs, nw, tpb, smem)`` of ``cs_conv3x3_launch``: bfloat16 the
+    tensor-core kernel's (:func:`tc_plan`), float32 the CUDA-core kernel's
+    ``(h, cs)`` (:func:`tile_plan`) and zeros."""
+    if x_dtype == torch.bfloat16:
+        return tc_plan(b, rows, cols, cin, cout, sm_count).args()
+    return (*tile_plan(b, rows, cols, cout, sm_count), 0, 0, 0)
+
+
+def dx_plan_args(dtype, b, n, cin, cout, sm_count):
+    """``(h, cs, nw, tpb, smem)`` of the dx entry points, as
+    :func:`fwd_plan_args` (the frame is ``(n+2)^2``; K = 9 Cout, N = Cin)."""
+    if dtype == torch.bfloat16:
+        return tc_plan(b, n + 2, n + 2, cout, cin, sm_count, dx=True).args()
+    return (*tile_plan(b, n + 2, n + 2, cin, sm_count, max_cs=_DX_MAX_CS), 0, 0, 0)
 
 
 class _Conv3x3Kernel(KernelWrapper):
@@ -276,12 +510,12 @@ class _Conv3x3Kernel(KernelWrapper):
             "b_pole": (b_pole, (cout,)),
         })
         dev = self._device(x)
-        h, cs = tile_plan(b, rows, cols, cout, self._sm_count[dev])
+        plan = fwd_plan_args(x.dtype, b, rows, cols, cin, cout, self._sm_count[dev])
         out = torch.empty((b, 6, rows, cols, cout), dtype=x.dtype, device=x.device)
         self._launch(
             "cs_conv3x3_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
-            b, rows, cols, cin, cout, h, cs, sizes=7,
+            b, rows, cols, cin, cout, *plan, sizes=10,
         )
         return out
 
@@ -302,13 +536,13 @@ class _Conv3x3DxKernel(KernelWrapper):
             "k_pole": (k_pole, (3, 3, cin, cout)),
         })
         dev = self._device(dout)
-        h, cs = tile_plan(b, n + 2, n + 2, cin, self._sm_count[dev], max_cs=_DX_MAX_CS)
+        plan = dx_plan_args(dout.dtype, b, n, cin, cout, self._sm_count[dev])
         dx = torch.empty((b, 6, n, n, cin), dtype=dout.dtype, device=dout.device)
         d_ext = torch.empty((b, 6, 4, n + 2, cin), dtype=dout.dtype, device=dout.device)
         self._launch(
             "cs_conv3x3_dx_launch", dev, DTYPES[dout.dtype], dev,
             *(t.data_ptr() for t in (dout, k_eq, k_pole, dx, d_ext)),
-            b, n, cin, cout, h, cs,
+            b, n, cin, cout, *plan, sizes=9,
         )
         return dx, d_ext
 

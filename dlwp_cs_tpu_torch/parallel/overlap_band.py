@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.geometry.cubed_sphere import EDGE_E, EDGE_W
 from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES, I32, VP, CudaLibrary, check_cuda_args
-from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, tile_plan
+from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, fwd_plan_args
 from dlwp_cs_tpu_torch.ops.padding import padding_plan
 from dlwp_cs_tpu_torch.parallel import symmetric
 from dlwp_cs_tpu_torch.parallel.collectives import _no_grad, axis_index, axis_size
@@ -139,7 +139,7 @@ def band_conv3x3_overlap_plain(x, seam, wecols, below, above, k_eq, k_pole, b_eq
 
 
 _LIB = CudaLibrary("cs_band_overlap.cu", {
-    "cs_band_overlap_launch": [I32, I32] + [VP] * 11 + [symmetric.I64] + [I32] * 10
+    "cs_band_overlap_launch": [I32, I32] + [VP] * 11 + [symmetric.I64] + [I32] * 12
     + [symmetric.U64, ctypes.POINTER(symmetric.U64), symmetric.I64, VP, I32, VP],
 }, "cs_band_overlap_error_string")
 
@@ -199,13 +199,15 @@ class _BandOverlapKernel(RemoteCopyKernel):
         dev = self._device(x)
         ring = symmetric.ring_buffer(mesh, axis_name, x.device)
         ring.reserve(b * 6 * n * cin * x.element_size(), self.library)
-        th, cs = tile_plan(b, h, n, cout, self._sm_count[dev])
+        # float32: tile_plan's (h, cs); bfloat16: tc_plan's (h, cs, nw) and
+        # shared memory (the grid is sized by occupancy, not by tpb)
+        th, cs, nw, _, smem = fwd_plan_args(x.dtype, b, h, n, cin, cout, self._sm_count[dev])
         out = torch.empty((b, 6, h, n, cout), dtype=x.dtype, device=x.device)
         me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
         self._launch(
             "cs_band_overlap_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, seam, wecols, k_eq, k_pole, b_eq, b_pole, out)),
-            me, right, left, cap, b, h, n, cin, cout, th, cs, int(first), int(last),
+            me, right, left, cap, b, h, n, cin, cout, th, cs, nw, smem, int(first), int(last),
             _packed_corners(n), epoch, sent, timeout_ns, diag, coord, sizes=11,
         )
         return out

@@ -19,7 +19,12 @@ order 1); its gradients within 1e-4 (f32: cuDNN may pick Winograd or FFT
 algorithms for the SAME convs' VJP) and 2**-6 (bf16) of each gradient's
 largest entry.  The band and tile launches of the forward kernel (#8,
 #9) as the forward kernel; a band conv of 2 ranks sharing the card (a gloo
-group) against the one-card conv likewise.
+group) against the one-card conv likewise.  The bfloat16 forward and dx
+kernels run on the tensor cores (``tc_plan``); each output's sum runs in
+one K order whatever the tile, so a band's or a tile's rows equal the
+whole face's bitwise given the same ghost values, and the CUDA-core
+bfloat16 instances they replaced (kept as the kernel tools' timing rows)
+agree with the plain versions as before.
 """
 
 import numpy as np
@@ -70,8 +75,10 @@ def _case(b, n, cin, cout, seed=4):
     return x, *k, *bias
 
 
-# tile_plan on a 132-SM H100 gives: one row per tile (most serving shapes,
-# n=96 included), ragged 5-row tiles (8, 48, ...) and whole faces (64, 8, ...)
+# float32: tile_plan on a 132-SM H100 gives one row per tile (most serving
+# shapes, n=96 included), ragged 5-row tiles (8, 48, ...) and whole faces
+# (64, 8, ...); bfloat16: tc_plan's tiles of whole rows, ragged at the
+# face's end where h does not divide n
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,n,cin,cout", [
@@ -691,3 +698,145 @@ def test_tools_hold_their_kernel_rows_against_plain_on_card(cuda_device):
     checked = [k for k, r in rows.items() if isinstance(r, dict) and r.get("plain_max_abs_err")
                is not None]
     assert len(checked) == 12 and all(rows[k]["ms"] > 0 for k in checked)
+
+
+# (n, Cin, Cout) of the flagship U-Net's convs, in order; the dx kernel runs
+# on the last 9 in a training step (the first conv's input is data)
+FLAGSHIP_CONVS = [
+    (48, 12, 32), (48, 32, 32), (24, 32, 64), (24, 64, 64), (12, 64, 128), (12, 128, 128),
+    (24, 192, 64), (24, 64, 64), (48, 96, 32), (48, 32, 32),
+]
+TC_SHAPES = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index) + [(96, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("n,cin,cout", TC_SHAPES)
+def test_tensor_core_conv_matches_plain_on_card(cuda_device, b, n, cin, cout):
+    """The bfloat16 forward (#1) on the tensor cores at every flagship conv
+    shape (the 12-channel input included) and n = 96, at the serving and the
+    training batch: one launch, within one bf16 ulp + 1e-4 of its plain
+    version."""
+    x, *w = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+             for a in _case(b, n, cin, cout))
+    w[0], w[1] = w[0] / cin**0.5, w[1] / cin**0.5
+    e = ext_strips(x)
+    before = cs_conv3x3.launches
+    ours = cs_conv3x3(x, e, *w)
+    torch.cuda.synchronize()
+    assert cs_conv3x3.launches == before + 1
+    _close(ours, cs_conv3x3_plain(x, e, *w), "bfloat16")
+
+
+def _block_of(x, ext, r0, c0, rows, cols):
+    """A block of whole faces ``x`` and its ghost strips, as an exchange
+    would give them: rows r0.., columns c0.. of the padded faces."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import _padded_faces
+
+    p = _padded_faces(x, ext)
+    blk = x[:, :, r0 : r0 + rows, c0 : c0 + cols].contiguous()
+    strips = torch.zeros(x.shape[:2] + (4, cols + 2, x.shape[-1]), dtype=x.dtype,
+                         device=x.device)
+    strips[:, :, 0] = p[:, :, r0, c0 : c0 + cols + 2]
+    strips[:, :, 1] = p[:, :, r0 + rows + 1, c0 : c0 + cols + 2]
+    strips[:, :, 2, 1 : rows + 1] = p[:, :, r0 + 1 : r0 + rows + 1, c0]
+    strips[:, :, 3, 1 : rows + 1] = p[:, :, r0 + 1 : r0 + rows + 1, c0 + cols + 1]
+    return blk, strips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (8, 24, 192, 64), (1, 12, 128, 128),
+                                          (2, 48, 96, 32), (16, 24, 64, 64)])
+def test_tensor_core_blocks_equal_the_whole_face_on_card(cuda_device, b, n, cin, cout):
+    """#8 (rank 1's band of 4, rank 3's band of 2) and #9 (the NE tile of
+    2 x 2) in bfloat16, given the ghost values the whole face has there,
+    equal the matching rows of #1's whole-face output bitwise: one K order
+    for every output, whatever the plan's tiles."""
+    x, *w = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+             for a in _case(b, n, cin, cout))
+    w[0], w[1] = w[0] / cin**0.5, w[1] / cin**0.5
+    e = ext_strips(x)
+    whole = cs_conv3x3(x, e, *w)
+    for wrapper, (r0, c0, rows, cols) in (
+        (cs_conv3x3_band, (n // 4, 0, n // 4, n)),
+        (cs_conv3x3_band, (n // 2, 0, n // 2, n)),
+        (cs_conv3x3_tile, (n // 2, n // 2, n // 2, n // 2)),
+    ):
+        blk, strips = _block_of(x, e, r0, c0, rows, cols)
+        ours = wrapper(blk, strips, *w)
+        torch.cuda.synchronize()
+        assert torch.equal(ours, whole[:, :, r0 : r0 + rows, c0 : c0 + cols]), (wrapper.name,
+                                                                               r0, c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cin,cout", FLAGSHIP_CONVS[1:])
+def test_tensor_core_dx_matches_plain_at_the_step_shapes_on_card(cuda_device, n, cin, cout):
+    """The bfloat16 dx kernel (#4) on the tensor cores at the training
+    step's 9 shapes at batch 16: dx and d_ext within one bf16 ulp + 1e-4
+    of the plain version, d_ext's W/E ends zero."""
+    _, k_eq, k_po, _, _ = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                           for a in _case(1, 1, cin, cout))
+    g = torch.randn((16, 6, n, n, cout), generator=torch.Generator().manual_seed(n + cin))
+    g = g.to(cuda_device, torch.bfloat16)
+    before = cs_conv3x3_dx.launches
+    dx, d_ext = cs_conv3x3_dx(g, k_eq / cout**0.5, k_po / cout**0.5)
+    torch.cuda.synchronize()
+    assert cs_conv3x3_dx.launches == before + 1
+    ref_dx, ref_ext = cs_conv3x3_dx_plain(g, k_eq / cout**0.5, k_po / cout**0.5)
+    _close(dx, ref_dx, "bfloat16")
+    _close(d_ext, ref_ext, "bfloat16")
+    assert not bool(d_ext[:, :, 2:, [0, n + 1]].any())
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_refuse_what_the_plan_refuses(cuda_device):
+    """A bfloat16 row of more than 256 pixels, or weights of one 8-channel
+    slice past the shared memory, raise before any launch: nothing falls
+    back to another kernel."""
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    x = torch.zeros((1, 6, 2, 300, 8), **bf)
+    ext = torch.zeros((1, 6, 4, 302, 8), **bf)
+    w = [torch.zeros((3, 3, 8, 8), **bf)] * 2 + [torch.zeros((8,), **bf)] * 2
+    before = (cs_conv3x3_band.launches, cs_conv3x3_dx.launches)
+    with pytest.raises(ValueError, match="rows of at most 256"):
+        cs_conv3x3_band(x, ext, *w)
+    g = torch.zeros((1, 6, 4, 4, 2048), **bf)
+    k = torch.zeros((3, 3, 8, 2048), **bf)
+    with pytest.raises(ValueError, match="cannot hold the weights"):
+        cs_conv3x3_dx(g, k, k)
+    assert (cs_conv3x3_band.launches, cs_conv3x3_dx.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (16, 24, 192, 64), (2, 8, 5, 7)])
+def test_cuda_core_instances_match_plain_on_card(cuda_device, b, n, cin, cout):
+    """The CUDA-core bfloat16 forward and dx kernels that the tensor-core
+    ones replaced (kept so that one card call times the two side by side),
+    and the float32 instances they share: each against its plain version;
+    in float32 the production wrappers' results bitwise."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import (
+        cs_conv3x3_cudacore,
+        cs_conv3x3_dx_cudacore,
+        cs_conv3x3_dx_ring_plain,
+    )
+
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        x, *w = (torch.from_numpy(a).to(cuda_device, tdt) for a in _case(b, n, cin, cout))
+        w[0], w[1] = w[0] / cin**0.5, w[1] / cin**0.5
+        e = ext_strips(x)
+        g = torch.randn((b, 6, n, n, cout), generator=torch.Generator().manual_seed(3))
+        g = g.to(cuda_device, tdt)
+        out = cs_conv3x3_cudacore(x, e, *w)
+        dx, d_ext = cs_conv3x3_dx_cudacore(g, w[0], w[1])
+        dx_r, ring = cs_conv3x3_dx_cudacore(g, w[0], w[1], raw=True)
+        torch.cuda.synchronize()
+        _close(out, cs_conv3x3_plain(x, e, *w), dtype)
+        for ours, ref in zip((dx, d_ext), cs_conv3x3_dx_plain(g, w[0], w[1])):
+            _close(ours, ref, dtype)
+        _close(ring, cs_conv3x3_dx_ring_plain(g, w[0], w[1])[1], dtype)
+        assert torch.equal(dx_r, dx)
+        if dtype == "float32":
+            assert torch.equal(out, cs_conv3x3(x, e, *w))
+            assert torch.equal(dx, cs_conv3x3_dx(g, w[0], w[1])[0])
