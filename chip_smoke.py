@@ -16,20 +16,20 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    fused select + apply), the band-row exchange and the band conv fused
    with it, the conv on the tensor cores (kn2row, im2col) and the probes;
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
-   many row tiles), at batch 1, 8 and 16, in float32 (CUDA cores) and
-   bfloat16 (tensor cores): hold the forward kernel against its plain torch
+   many row tiles), at batch 1, 8 and 16, in float32 (3xTF32) and bfloat16,
+   both on the tensor cores: hold the forward kernel against its plain torch
    version, and time the kernel, the plain version and ``F.conv2d`` (one
    face-grouped cuDNN call on the padded faces) with CUDA events over
    CUDA-graph replays, beside the least time the card could take;
 4. the same for the dx and dw kernels at each conv shape at the training
    batch 16, against ``torch.ops.aten.convolution_backward`` of that cuDNN
    conv (its dgrad is the padded-input cotangent, its wgrad summed over each
-   face group the kernel gradient); then the bfloat16 tensor-core forward
-   and dx kernels against the CUDA-core bfloat16 instances they replaced
-   (``ops/conv_variants.py``), both held against the plain version and
-   timed in turns (old, new, new, old), beside cuDNN and the bound: #1 at
-   batch 1, 8, 16 and n=96, #4 at the step's shapes, #8 and #9 on a rank's
-   block, #12 and #14 at conv_micro's levels;
+   face group the kernel gradient); then the tensor-core kernels against
+   the CUDA-core instances they replaced (``ops/conv_variants.py``), both
+   held against the plain version and timed in turns (old, new, new, old),
+   beside cuDNN and the bound: #1 at batch 1, 8, 16 and n=96 and #8 and #9
+   on a rank's block, in bfloat16 and float32; #4 and #5 (dw) at the
+   step's shapes in bfloat16; #12 and #14 at conv_micro's levels;
 5. the ring-fix kernels at each distinct conv shape of the flagship U-Net
    and the ConvLSTM's two gate-conv shapes, at batch 1 and 16, in float32
    and bfloat16: both held against their plain versions and timed beside
@@ -156,10 +156,14 @@ SHARDED_PATHS = [
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 # the device names of the port's kernels on the serving and training paths
-# (the conv and dx kernels: CUDA cores in float32, tensor cores in bfloat16)
+# (the conv kernel on the tensor cores in both dtypes, cs_conv3x3_kernel
+# being its CUDA-core timing row; the dx and dw kernels on the CUDA cores in
+# float32 and on the tensor cores in bfloat16).  The profiler's names hold
+# the template arguments, so each is matched as a substring: none of these
+# is a substring of another.
 KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kernel",
-                "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_kernel", "cs_ring_fixes_kernel",
-                "cs_xring_apply_kernel")
+                "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_kernel", "cs_conv3x3_dw_tc_kernel",
+                "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
 SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
@@ -233,8 +237,7 @@ def bwd_case(n, cin, cout, b, dtype, gen):
         cs_conv3x3_dx_plain,
     )
     from dlwp_cs_tpu_torch.ops.padding import cs_pad
-    from dlwp_cs_tpu_torch.tools.timing import (
-        HBM_BYTES_PER_S, PEAK_OPS, bf16_excess, face_grouped, graph_ms)
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -280,9 +283,8 @@ def bwd_case(n, cin, cout, b, dtype, gen):
     lib_dw = graph_ms(lambda: lib([False, True, True]), 10)
     item = x.element_size()
     ops = 2 * b * 6 * n * n * 9 * cin * cout
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
     common = {"n": n, "cin": cin, "cout": cout, "batch": b,
-              "dtype": str(dtype).split(".")[-1], "ops": ops}
+              "dtype": str(dtype).split(".")[-1]}
     out = []
     for kind, err, tol, ok, ms, plain_ms, lib_ms, nbytes, extra in (
         ("dx", dx_err, dx_tol, dx_ok, ms_dx, plain_dx, lib_dx,
@@ -291,11 +293,9 @@ def bwd_case(n, cin, cout, b, dtype, gen):
          item * (x.numel() + ext.numel() + g.numel()) + 4 * (2 * ks[0].numel() + 2 * cout),
          {"ref_abs_max": dw_scale, "library_dk_eq_max_abs_err": lib_dw_err}),
     ):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         out.append(dict(common, kernel=kind, max_abs_err=err, tolerance=tol, ok=ok, ms=ms,
-                        plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations", **extra))
+                        plain_ms=plain_ms, library_ms=lib_ms, **bound(nbytes, ops, dtype),
+                        **extra))
     return out
 
 
@@ -314,8 +314,7 @@ def ring_case(n, cin, d, b, dtype, gen):
     )
     from dlwp_cs_tpu_torch.ops.padding import cs_pad
     from dlwp_cs_tpu_torch.ops.ringfix import _same_conv
-    from dlwp_cs_tpu_torch.tools.timing import (
-        HBM_BYTES_PER_S, PEAK_OPS, bf16_excess, face_grouped, graph_ms)
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -355,10 +354,9 @@ def ring_case(n, cin, d, b, dtype, gen):
     ring_fixes.launches, xring_fused_apply.launches, cs_conv3x3.launches = launches
     item = x.element_size()
     ops = 2 * b * 6 * (12 * n + 4) * cin * d
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
     taps = 2 * 8 * cin * d  # the 8 outer taps of each weight group
     common = {"n": n, "cin": cin, "cout": d, "batch": b,
-              "dtype": str(dtype).split(".")[-1], "ops": ops, "tolerance": tol}
+              "dtype": str(dtype).split(".")[-1], "tolerance": tol}
     cases = []
     for kind, err, ok, ms, plain_ms, nbytes in (
         ("fixes", err6, ok6, ms6, plain6,
@@ -367,11 +365,8 @@ def ring_case(n, cin, d, b, dtype, gen):
         ("apply", err7, ok7, ms7, plain7,
          item * (2 * out.numel() + ext.numel() + taps)),
     ):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         cases.append(dict(common, kernel=kind, max_abs_err=err, ok=ok, ms=ms,
-                          plain_ms=plain_ms, library_ms=None, bytes=nbytes,
-                          bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+                          plain_ms=plain_ms, library_ms=None, **bound(nbytes, ops, dtype),
                           xring_conv_ms=xring_ms, fused_conv_ms=fused_ms,
                           cudnn_conv_ms=cudnn_ms))
     return cases
@@ -502,7 +497,6 @@ def dx_ring_cases(gen):
     from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dx_ring, cs_conv3x3_dx_ring_plain
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_dx
     from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
-    from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS, bound
     from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     dev = torch.device("cuda")
@@ -594,43 +588,52 @@ def _turns(new, old, reps):
 
 
 def tc_cases(gen):
-    """The bfloat16 tensor-core kernels against the CUDA-core instances they
-    replaced (``ops/conv_variants.py``: ``cs_conv3x3_cudacore``,
-    ``cs_conv3x3_dx_cudacore``), timed in turns in this call, each beside
-    one cuDNN call and the bound: #1 at each flagship conv shape at batch 1,
-    8 and 16 and at n = 96; #4 at the training step's shapes at batch 16;
-    #8 and #9 on a rank's block (4 row bands, 2 x 2 tiles) at batch 1; #12
-    (#1 on strips computed before the call) and #14 (the dx kernel's raw
-    ring) at conv_micro's levels.  Both instances are held against the
-    plain version (one bf16 ulp of |ref| + 1e-4).  Launches here are not
-    the main path's: every count is put back."""
+    """The tensor-core kernels against the CUDA-core instances they replaced
+    (``ops/conv_variants.py``: ``cs_conv3x3_cudacore``,
+    ``cs_conv3x3_dx_cudacore``, ``cs_conv3x3_dw_cudacore``), timed in turns
+    in this call, each beside one cuDNN call and the bound: #1 at each
+    flagship conv shape at batch 1, 8 and 16 and at n = 96, in bfloat16 and
+    float32 (3xTF32; cuDNN with TF32 off); #4 and #5 (dw) in bfloat16 at
+    the training step's shapes at batch 16; #8 and #9 on a rank's block (4
+    row bands, 2 x 2 tiles) at batch 1 in both dtypes; #12 (#1 on strips
+    computed before the call) and #14 (the dx kernel's raw ring) at
+    conv_micro's levels in bfloat16.  Both instances are held against the
+    plain version at the kernel's tolerance (bfloat16 one bf16 ulp of
+    |ref| + 1e-4; float32 1e-4; dw 1e-5 of the largest entry).  Launches
+    here are not the main path's: every count is put back."""
     from dlwp_cs_tpu_torch.ops import conv_variants as cv
     from dlwp_cs_tpu_torch.ops import hopper_conv as hc
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
     from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
     from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     wrappers = [hc.cs_conv3x3, hc.cs_conv3x3_band, hc.cs_conv3x3_tile, hc.cs_conv3x3_dx,
-                cv.cs_conv3x3_kernel_only, cv.cs_conv3x3_dx_ring, cv.cs_conv3x3_cudacore,
-                cv.cs_conv3x3_dx_cudacore]
+                hc.cs_conv3x3_dw, cv.cs_conv3x3_kernel_only, cv.cs_conv3x3_dx_ring,
+                cv.cs_conv3x3_cudacore, cv.cs_conv3x3_dx_cudacore, cv.cs_conv3x3_dw_cudacore]
     counts = [w.launches for w in wrappers]
     dev, bf = torch.device("cuda"), torch.bfloat16
     cases = []
 
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def forward(kind, new, n, cin, cout, b, rows, cols, reps):
-        x = rand(b, 6, rows, cols, cin)
-        ks = [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5) for _ in range(2)]
-        bs = [rand(cout, scale=0.1) for _ in range(2)]
+    def close(ours, ref, dtype):
+        if dtype == torch.float32:
+            return float((ours - ref).abs().max()) <= 1e-4
+        return bf16_excess(ours, ref) <= 1e-4
+
+    def forward(kind, new, n, cin, cout, b, rows, cols, reps, dtype=bf):
+        x = rand(b, 6, rows, cols, cin, dtype=dtype)
+        ks = [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=dtype) for _ in range(2)]
+        bs = [rand(cout, scale=0.1, dtype=dtype) for _ in range(2)]
         if rows == cols == n:
             ext = ext_strips(x)
         else:  # exchanged strips: S/N rows whole, W/E at positions 1..rows
             ext = torch.randn((b, 6, 4, cols + 2, cin), generator=gen, device=dev)
             ext[:, :, 2:, 0] = 0
             ext[:, :, 2:, rows + 1 :] = 0
-            ext = ext.to(bf)
+            ext = ext.to(dtype)
         args = (x, ext, *ks, *bs)
         ours, theirs = new(*args), cv.cs_conv3x3_cudacore(*args)
         ref = hc.cs_conv3x3_plain(*args)
@@ -639,16 +642,17 @@ def tc_cases(gen):
                                       lambda: cv.cs_conv3x3_cudacore(*args), reps)
         p, w = face_grouped(hc._padded_faces(x, ext), ks)
         bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
-        nbytes = 2 * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
-                      + b * 6 * rows * cols * cout)
+        nbytes = x.element_size() * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
+                                     + b * 6 * rows * cols * cout)
         cases.append({
-            "kernel": kind, "n": n, "rows": rows, "cols": cols, "cin": cin, "cout": cout,
+            "kernel": kind, "dtype": str(dtype).split(".")[-1], "n": n, "rows": rows,
+            "cols": cols, "cin": cin, "cout": cout,
             "batch": b, "ms": new_ms, "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
             "library_ms": graph_ms(lambda: F.conv2d(p, w, bias, groups=6), reps),
             "max_abs_err": float((ours.float() - ref.float()).abs().max()),
             "cudacore_max_abs_err": float((theirs.float() - ref.float()).abs().max()),
-            "ok": bf16_excess(ours, ref) <= 1e-4 and bf16_excess(theirs, ref) <= 1e-4,
-            **bound(nbytes, 2 * b * 6 * rows * cols * 9 * cin * cout, bf),
+            "ok": close(ours, ref, dtype) and close(theirs, ref, dtype),
+            **bound(nbytes, 2 * b * 6 * rows * cols * 9 * cin * cout, dtype),
         })
 
     def backward(kind, n, cin, cout, b, reps):
@@ -669,8 +673,8 @@ def tc_cases(gen):
         nbytes = 2 * (g.numel() + 2 * ks[0].numel() + b * 6 * n * n * cin
                       + b * 6 * 4 * (n + 2) * cin)
         cases.append({
-            "kernel": kind, "n": n, "cin": cin, "cout": cout, "batch": b, "ms": new_ms,
-            "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
+            "kernel": kind, "dtype": "bfloat16", "n": n, "cin": cin, "cout": cout, "batch": b,
+            "ms": new_ms, "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
             "library_ms": graph_ms(lambda: F.conv_transpose2d(go, w, groups=6), reps),
             "max_abs_err": max(float((a.float() - r.float()).abs().max())
                                for a, r in zip(ours, ref)),
@@ -681,15 +685,52 @@ def tc_cases(gen):
             **bound(nbytes, 2 * b * 6 * n * n * 9 * cin * cout, bf),
         })
 
+    def weights(n, cin, cout, b, reps):
+        """#5, the dw kernel: the weight and bias gradients, f32."""
+        x, g = rand(b, 6, n, n, cin), rand(b, 6, n, n, cout)
+        ext = ext_strips(x)
+        ours, theirs = hc.cs_conv3x3_dw(x, ext, g), cv.cs_conv3x3_dw_cudacore(x, ext, g)
+        again = hc.cs_conv3x3_dw(x, ext, g)
+        ref = hc.cs_conv3x3_dw_plain(x, ext, g)
+        torch.cuda.synchronize()
+        new_ms, old_ms, runs = _turns(lambda: hc.cs_conv3x3_dw(x, ext, g),
+                                      lambda: cv.cs_conv3x3_dw_cudacore(x, ext, g), reps)
+        # one cuDNN call: the wgrad (and bias grad) of the face-grouped conv
+        p, w = face_grouped(cs_pad(x, 1), [x.new_zeros((3, 3, cin, cout))] * 2)
+        go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
+        conv_bwd = torch.ops.aten.convolution_backward
+        scale = max(float(r.abs().max()) for r in ref)
+
+        def err(got):
+            return max(float((a - r).abs().max()) for a, r in zip(got, ref))
+
+        ops = 2 * b * 6 * n * n * 9 * cin * cout
+        nbytes = 2 * (x.numel() + ext.numel() + g.numel()) + 4 * 2 * (9 * cin * cout + cout)
+        cases.append({
+            "kernel": "#5", "dtype": "bfloat16", "n": n, "cin": cin, "cout": cout, "batch": b,
+            "ms": new_ms, "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
+            "library_ms": graph_ms(lambda: conv_bwd(go, p, w, [6 * cout], [1, 1], [0, 0],
+                                                    [1, 1], False, [0, 0], 6,
+                                                    [False, True, True]), reps),
+            "max_abs_err": err(ours), "cudacore_max_abs_err": err(theirs), "ref_abs_max": scale,
+            "bitwise_repeatable": all(torch.equal(a, c) for a, c in zip(ours, again)),
+            "ok": err(ours) <= 1e-5 * scale and err(theirs) <= 1e-5 * scale
+                  and all(torch.equal(a, c) for a, c in zip(ours, again)),
+            **bound(nbytes, ops, bf),
+        })
+
     shapes = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)
-    for b in (1, 8, TRAIN_BATCH):
-        for n, cin, cout in shapes + EXTRA_SHAPES:
-            forward("#1", hc.cs_conv3x3, n, cin, cout, b, n, n, 20)
+    for dtype in (bf, torch.float32):
+        for b in (1, 8, TRAIN_BATCH):
+            for n, cin, cout in shapes + EXTRA_SHAPES:
+                forward("#1", hc.cs_conv3x3, n, cin, cout, b, n, n, 20, dtype)
+        for n, cin, cout in shapes:
+            forward("#8", hc.cs_conv3x3_band, n, cin, cout, 1, n // SHARDS, n, 20, dtype)
+            forward("#9", hc.cs_conv3x3_tile, n, cin, cout, 1, n // 2, n // 2, 20, dtype)
     for n, cin, cout in shapes[1:]:
         backward("#4", n, cin, cout, TRAIN_BATCH, 10)
     for n, cin, cout in shapes:
-        forward("#8", hc.cs_conv3x3_band, n, cin, cout, 1, n // SHARDS, n, 20)
-        forward("#9", hc.cs_conv3x3_tile, n, cin, cout, 1, n // 2, n // 2, 20)
+        weights(n, cin, cout, TRAIN_BATCH, 10)
     for n, cin, cout, b in LEVELS:
         forward("#12", cv.cs_conv3x3_kernel_only, n, cin, cout, b, n, n, 20)
         backward("#14", n, cin, cout, b, 10)
@@ -700,23 +741,31 @@ def tc_cases(gen):
 
 def tc_summary(cases):
     """Per row of PERF.md: the new (tensor-core) and the old (CUDA-core)
-    bfloat16 times, cuDNN's and the bound, summed over one model call's 10
-    convs (#1 at batch 1 and a training step's 10 at batch 16, #8, #9), a
-    step's 9 (#4) or conv_micro's three levels (#12, #14)."""
-    def pick(kind, b=None, dx=False):
+    times, cuDNN's and the bound, summed over one model call's 10 convs (#1
+    at batch 1 and 8, a training step's 10 at batch 16, #8, #9; bfloat16
+    and float32), a step's 9 (#4) or 10 (#5) or conv_micro's three levels
+    (#12, #14)."""
+    def pick(kind, b=None, dx=False, dtype="bfloat16"):
         by = {(c["n"], c["cin"], c["cout"]): c for c in cases
-              if c["kernel"] == kind and (b is None or c["batch"] == b)}
+              if c["kernel"] == kind and c["dtype"] == dtype and (b is None or c["batch"] == b)}
         if kind in ("#12", "#14"):
             return list(by.values())
         return [by[s] for s in (FLAGSHIP_CONVS[1:] if dx else FLAGSHIP_CONVS)]
 
     rows = {"#1 call, batch 1": pick("#1", 1), "#1 call, batch 8": pick("#1", 8),
             "#1 step, batch 16": pick("#1", TRAIN_BATCH), "#4 step, batch 16": pick("#4", dx=True),
+            "#5 step, batch 16": pick("#5"),
             "#8 call, batch 1": pick("#8"), "#9 call, batch 1": pick("#9"),
             "#12, conv_micro's levels": pick("#12"), "#14, conv_micro's levels": pick("#14")}
     for b in (1, 8, TRAIN_BATCH):
-        rows[f"#1 at n=96, batch {b}"] = [c for c in cases if c["kernel"] == "#1"
-                                          and c["n"] == 96 and c["batch"] == b]
+        rows[f"#1 f32 call, batch {b}"] = pick("#1", b, dtype="float32")
+    rows["#8 f32 call, batch 1"] = pick("#8", dtype="float32")
+    rows["#9 f32 call, batch 1"] = pick("#9", dtype="float32")
+    for b in (1, 8, TRAIN_BATCH):
+        for dtype, tag in (("bfloat16", ""), ("float32", " f32")):
+            rows[f"#1{tag} at n=96, batch {b}"] = [
+                c for c in cases if c["kernel"] == "#1" and c["dtype"] == dtype and c["n"] == 96
+                and c["batch"] == b]
     return {name: {key: sum(c[key] for c in cs) for key in
                    ("ms", "cudacore_ms", "library_ms", "bound_ms")} for name, cs in rows.items()}
 
@@ -1525,9 +1574,10 @@ def main(argv=None) -> int:
 
     tc = tc_cases(gen)
     bad = [c for c in tc if not c["ok"]]
-    check(not bad, f"a bfloat16 conv or dx kernel disagrees with its plain version: {bad}")
+    check(not bad, f"a tensor-core kernel or its CUDA-core instance disagrees with its plain "
+          f"version: {bad}")
     tc_sum = tc_summary(tc)
-    print("bfloat16, tensor cores vs the CUDA-core instance (timed in turns, old new new old):"
+    print("tensor cores vs the CUDA-core instance (timed in turns, old new new old):"
           " ms new / old / cuDNN / bound", flush=True)
     for name, r in tc_sum.items():
         print(f"{name}: {r['ms']:.4f} / {r['cudacore_ms']:.4f} / {r['library_ms']:.4f} / "

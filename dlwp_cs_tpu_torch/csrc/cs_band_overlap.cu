@@ -23,9 +23,9 @@
 // overlap is between blocks: every block first sends its share of the two
 // slabs, then computes the tiles that touch no ghost row, and only then
 // waits for the arrivals and computes the tiles of rows 0 and h-1.  Every
-// tile runs #8's tap loop of cs_conv3x3_tile.cuh (float32: conv_tile;
-// bfloat16: tc_conv, with #8's K order, its weights staged again where the
-// walk moves to another face group or slice), so the output equals #8's
+// tile runs #8's tap loop of cs_conv3x3_tile.cuh (tc_conv on the tensor
+// cores, in both dtypes, with #8's K order, its weights staged again where
+// the walk moves to another face group or slice), so the output equals #8's
 // bitwise for the same inputs.
 //
 // The launch is cooperative: a grid of at most the blocks that fit on the
@@ -113,8 +113,7 @@ struct Args {
   const T* beq;
   const T* bpo;
   T* out;
-  Geom g;      // float32
-  TcGeom tg;   // bfloat16
+  TcGeom tg;
   int batch;
   int first, last, corners;
 };
@@ -157,71 +156,38 @@ struct OverlapWalk {
   }
 };
 
+template <typename T>
 struct BandEpi {
-  bf16* __restrict__ out;
-  const bf16* __restrict__ beq;
-  const bf16* __restrict__ bpo;
+  T* __restrict__ out;
+  const T* __restrict__ beq;
+  const T* __restrict__ bpo;
   int rows, cols, cout;
   __device__ __forceinline__ void store(const TcTile& t, int i, int j, int n, float v0,
                                         float v1) const {
     if (n >= cout) return;
-    const bf16* __restrict__ bias = t.f < 4 ? beq : bpo;
-    bf16* o = out + ((t.face * rows + t.r0 + i) * cols + j) * cout + n;
-    o[0] = __float2bfloat16_rn(v0 + __bfloat162float(bias[n]));
-    if (n + 1 < cout) o[1] = __float2bfloat16_rn(v1 + __bfloat162float(bias[n + 1]));
+    const T* __restrict__ bias = t.f < 4 ? beq : bpo;
+    T* o = out + ((t.face * rows + t.r0 + i) * cols + j) * cout + n;
+    o[0] = from_f32<T>(v0 + to_f32(bias[n]));
+    if (n + 1 < cout) o[1] = from_f32<T>(v1 + to_f32(bias[n + 1]));
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) cs_band_overlap_kernel(Args<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const Geom& g = a.g;
+template <typename T, int NW, int KC>
+__global__ void __launch_bounds__(TC_MAX_THREADS) cs_band_overlap_tc_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const TcGeom& g = a.tg;
   barrier_and_send(a.ring, reinterpret_cast<const char*>(a.x), 6LL * a.batch, g.rows,
-                   (long long)g.cols * g.cin * sizeof(T), 1);
+                   (long long)g.cols * g.kch * sizeof(T), 1);
   const OverlapGhost<T> ghost{
       a.seam, a.wecols,
       reinterpret_cast<const T*>(a.ring.me + HEADER),
       reinterpret_cast<const T*>(a.ring.me + HEADER + a.ring.cap),
-      g.rows, g.cols, g.cin, a.first != 0, a.last != 0, a.corners};
-  const int per_face = ((g.rows + g.h - 1) / g.h) * g.nslices;
-  const int items = per_face * 6 * a.batch;
-  // pass 0: tiles that touch no ghost row; pass 1: the rest, after the
-  // arrivals they read (the end shards' seam rows need none)
-  bool waited = false;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      const int t = it % per_face;
-      const int f = (it / per_face) % 6;
-      const int b = it / (per_face * 6);
-      const int r0 = (t / g.nslices) * g.h;
-      const bool south = r0 == 0, north = r0 + g.h >= g.rows;
-      if ((south || north) != (pass == 1)) continue;
-      if (pass == 1 && !waited) {
-        wait_arrivals(a.ring, !a.first, !a.last);
-        waited = true;
-      }
-      conv_tile(a.x, ghost, a.keq, a.kpo, a.beq, a.bpo, a.out, g, r0, (t % g.nslices) * g.cs,
-                f, (long long)b * 6 + f, smem);
-    }
-  }
-}
-
-template <int NW, int KC>
-__global__ void __launch_bounds__(TC_MAX_THREADS) cs_band_overlap_tc_kernel(Args<bf16> a) {
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  const TcGeom& g = a.tg;
-  barrier_and_send(a.ring, reinterpret_cast<const char*>(a.x), 6LL * a.batch, g.rows,
-                   (long long)g.cols * g.kch * sizeof(bf16), 1);
-  const OverlapGhost<bf16> ghost{
-      a.seam, a.wecols,
-      reinterpret_cast<const bf16*>(a.ring.me + HEADER),
-      reinterpret_cast<const bf16*>(a.ring.me + HEADER + a.ring.cap),
       g.rows, g.cols, g.kch, a.first != 0, a.last != 0, a.corners};
-  const FwdSrc<OverlapGhost<bf16>> src{a.x, ghost, g.rows, g.cols, g.kch};
-  const BandEpi epi{a.out, a.beq, a.bpo, g.rows, g.cols, g.nch};
+  const FwdSrc<T, OverlapGhost<T>> src{a.x, ghost, g.rows, g.cols, g.kch};
+  const BandEpi<T> epi{a.out, a.beq, a.bpo, g.rows, g.cols, g.nch};
   OverlapWalk walk{&a.ring, (int)blockIdx.x, 0, g.ntr * g.nslices * 6 * a.batch,
                    g.ntr * g.nslices, g.rows, &g, a.first != 0, a.last != 0, false};
-  tc_conv<NW, KC, false>(g, src, walk, epi, a.keq, a.kpo, tc_smem);
+  tc_conv<T, NW, KC, false>(g, src, walk, epi, a.keq, a.kpo, tc_smem);
 }
 
 template <typename Fn>
@@ -256,12 +222,12 @@ extern "C" {
 // Kernel #11 on the current stream.  dtype: 0 = float32, 1 = bfloat16.
 // x (B, 6, rows, cols, Cin) with rows * S = cols; seam, wecols (B, 6, 2,
 // cols+2, Cin); HWIO kernels and biases of x's dtype; out (B, 6, rows, cols,
-// Cout).  h, cs, nw, smem: the tile plan (as cs_conv3x3_launch: float32
-// tile_plan's h and cs, bfloat16 tc_plan's h, cs, nw and its shared memory;
-// tc_plan's tpb is not used, the grid is sized by occupancy).  first, last: this
-// shard is the first or the last of the ring; corners: the packed corner
-// table.  me, right, left, cap, epoch, *sent, timeout_ns, diag, rank: the
-// ring, as cs_band_xchg_launch.  Returns a cudaError_t (0 = success).
+// Cout).  h, cs, nw, smem: the tile plan (as cs_conv3x3_launch: tc_plan's
+// h, cs, nw and its shared memory; tc_plan's tpb is not used, the grid is
+// sized by occupancy).  first, last: this shard is the first or the last
+// of the ring; corners: the packed corner table.  me, right, left, cap,
+// epoch, *sent, timeout_ns, diag, rank: the ring, as cs_band_xchg_launch.
+// Returns a cudaError_t (0 = success).
 int cs_band_overlap_launch(int dtype, int device, const void* x, const void* seam,
                            const void* wecols, const void* keq, const void* kpo,
                            const void* beq, const void* bpo, void* out, void* me,
@@ -270,14 +236,14 @@ int cs_band_overlap_launch(int dtype, int device, const void* x, const void* sea
                            int first, int last, int corners, unsigned long long epoch,
                            unsigned long long* sent, long long timeout_ns, void* diag, int rank,
                            void* stream) {
-  Geom g{};
   TcGeom tg{};
-  if (device < 0 || batch < 1 || timeout_ns < 1) return cudaErrorInvalidValue;
-  if (dtype == 0 && !make_geom(g, rows, cols, cin, cout, h, cs)) return cudaErrorInvalidValue;
-  if (dtype == 1 && (!make_tc_geom(tg, rows, cols, cin, cout, h, cs, nw, 1, false) ||
-                     tc_smem_bytes(tg) != (size_t)smem))
+  if (device < 0 || batch < 1 || timeout_ns < 1 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const long long esize = dtype == 0 ? 4 : 2;
+  const bool f32 = dtype == 0;
+  if (!make_tc_geom(tg, rows, cols, cin, cout, h, cs, nw, 1, false, f32) ||
+      tc_smem_bytes(tg) != (size_t)smem)
+    return cudaErrorInvalidValue;
+  const long long esize = f32 ? 4 : 2;
   if (6LL * batch * cols * cin * esize > cap) return cudaErrorInvalidValue;
   Ring r;
   r.me = static_cast<char*>(me);
@@ -291,46 +257,52 @@ int cs_band_overlap_launch(int dtype, int device, const void* x, const void* sea
   r.rank = rank;
   r.kernel = 11;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  // the received slots are written during the launch: 16-byte copies
+  // (through L2 only) or ordinary loads, never the 8-byte copies through L1
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  tg.vec = cin % (f32 ? 4 : 8) == 0 && a16(x) && a16(seam) && a16(wecols) && a16(me) &&
+           cap % 16 == 0;
+  tg.wvec = !f32 && cout % 8 == 0 && a16(keq) && a16(kpo);
+  const long long items = 6LL * batch * tg.ntr * tg.nslices;
+  const auto go = [&](auto kernel, auto& a) {
+    return launch_coop(kernel, a.ring, &a, tg.threads, (size_t)smem, items, sent, device, s);
+  };
+  if (f32) {
     Args<float> a{r, static_cast<const float*>(x), static_cast<const float*>(seam),
                   static_cast<const float*>(wecols), static_cast<const float*>(keq),
                   static_cast<const float*>(kpo), static_cast<const float*>(beq),
-                  static_cast<const float*>(bpo), static_cast<float*>(out), g, tg, batch,
-                  first, last, corners};
-    const long long items = 6LL * batch * ((rows + h - 1) / h) * g.nslices;
-    return launch_coop(cs_band_overlap_kernel<float>, a.ring, &a, MAX_THREADS, smem_bytes(g),
-                       items, sent, device, s);
-  }
-  if (dtype == 1) {
-    using B = __nv_bfloat16;
-    const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-    tg.vec = cin % 8 == 0 && a16(x) && a16(seam) && a16(wecols) && a16(me) && cap % 16 == 0;
-    tg.wvec = cout % 8 == 0 && a16(keq) && a16(kpo);
-    Args<B> a{r, static_cast<const B*>(x), static_cast<const B*>(seam),
-              static_cast<const B*>(wecols), static_cast<const B*>(keq),
-              static_cast<const B*>(kpo), static_cast<const B*>(beq),
-              static_cast<const B*>(bpo), static_cast<B*>(out), g, tg, batch, first, last,
-              corners};
-    const long long items = 6LL * batch * tg.ntr * tg.nslices;
-    const auto go = [&](auto kernel) {
-      return launch_coop(kernel, a.ring, &a, tg.threads, (size_t)smem, items, sent, device, s);
-    };
-    if (tg.kc == 16) {
-      switch (nw) {
-        case 1: return go(cs_band_overlap_tc_kernel<1, 16>);
-        case 2: return go(cs_band_overlap_tc_kernel<2, 16>);
-        case 4: return go(cs_band_overlap_tc_kernel<4, 16>);
-        default: return go(cs_band_overlap_tc_kernel<8, 16>);
-      }
+                  static_cast<const float*>(bpo), static_cast<float*>(out), tg, batch, first,
+                  last, corners};
+    const bool k16 = tg.kc == 16;
+    switch (nw) {  // float32 takes at most 4 n8 tiles per warp (make_tc_geom)
+      case 1: return k16 ? go(cs_band_overlap_tc_kernel<float, 1, 16>, a)
+                         : go(cs_band_overlap_tc_kernel<float, 1, 32>, a);
+      case 2: return k16 ? go(cs_band_overlap_tc_kernel<float, 2, 16>, a)
+                         : go(cs_band_overlap_tc_kernel<float, 2, 32>, a);
+      default: return k16 ? go(cs_band_overlap_tc_kernel<float, 4, 16>, a)
+                          : go(cs_band_overlap_tc_kernel<float, 4, 32>, a);
     }
+  }
+  using B = __nv_bfloat16;
+  Args<B> a{r, static_cast<const B*>(x), static_cast<const B*>(seam),
+            static_cast<const B*>(wecols), static_cast<const B*>(keq),
+            static_cast<const B*>(kpo), static_cast<const B*>(beq),
+            static_cast<const B*>(bpo), static_cast<B*>(out), tg, batch, first, last,
+            corners};
+  if (tg.kc == 16) {
     switch (nw) {
-      case 1: return go(cs_band_overlap_tc_kernel<1, 32>);
-      case 2: return go(cs_band_overlap_tc_kernel<2, 32>);
-      case 4: return go(cs_band_overlap_tc_kernel<4, 32>);
-      default: return go(cs_band_overlap_tc_kernel<8, 32>);
+      case 1: return go(cs_band_overlap_tc_kernel<B, 1, 16>, a);
+      case 2: return go(cs_band_overlap_tc_kernel<B, 2, 16>, a);
+      case 4: return go(cs_band_overlap_tc_kernel<B, 4, 16>, a);
+      default: return go(cs_band_overlap_tc_kernel<B, 8, 16>, a);
     }
   }
-  return cudaErrorInvalidValue;
+  switch (nw) {
+    case 1: return go(cs_band_overlap_tc_kernel<B, 1, 32>, a);
+    case 2: return go(cs_band_overlap_tc_kernel<B, 2, 32>, a);
+    case 4: return go(cs_band_overlap_tc_kernel<B, 4, 32>, a);
+    default: return go(cs_band_overlap_tc_kernel<B, 8, 32>, a);
+  }
 }
 
 const char* cs_band_overlap_error_string(int err) {

@@ -21,43 +21,44 @@
 // accumulation and one rounding to x's dtype at the end.  Weights and biases
 // arrive already rounded to x's dtype (the wrapper checks).
 //
-// What bounds it on this card, and the design: float32 runs on the CUDA
-// cores, bfloat16 on the tensor cores (the header of cs_conv3x3_tile.cuh
-// has both tap loops).  At the serving shapes (C48 U-Net, batch 1) the work
-// per conv is 0.05-0.4 GFLOP and under 1 MB of traffic, well under a
-// microsecond at the H100's peak rates, so latency bounds both: the staging
-// into shared memory and each block's serial chain of products.  At batch
-// 8 and above the products bound them: the FMA rate of the CUDA cores
-// (float32), and the tensor cores with the fragment loads that feed them
-// (bfloat16).  float32 answers with small row tiles of 256 threads that
-// all stage (four loads in flight each) and register tiles of 4 pixels x
-// 8 output channels.  bfloat16 answers with an implicit GEMM on
-// mma.sync.m16n8k16: a block keeps its face group's weights for its
-// output-channel slice resident in shared memory and walks several row
-// tiles of that group (tpb), staging each Cin chunk of a tile's padded rows
-// once, by cp.async into two stages, while the previous chunk multiplies.
-// The host plan (ops/hopper_conv.py::tc_plan) sizes the tiles, slices and
-// walks so that a batch-1 face set fills the 132 SMs and a batch-16 one
-// keeps several blocks per SM.  The padded tile never exists in device
-// memory: the W/E ghost columns and the ghost rows go straight into shared
-// memory.  A shard's band or tile is a quarter of a face or less, so the
-// same bound holds there with fewer tiles per launch; the halo exchange
-// that fills ext runs before the launch, outside the kernel.  wgmma (A from
-// registers, 64-row tiles) and TMA are not used: mma.sync and cp.async
-// first.
+// What bounds it on this card, and the design: both dtypes run on the
+// tensor cores (the header of cs_conv3x3_tile.cuh has the tap loop).  At
+// the serving shapes (C48 U-Net, batch 1) the work per conv is 0.05-0.4
+// GFLOP and under 1 MB of traffic, well under a microsecond at the H100's
+// peak rates, so latency bounds it: the staging into shared memory and
+// each block's serial chain of products.  At batch 8 and above the
+// products bound it: the tensor cores with the fragment loads that feed
+// them.  It answers with an implicit GEMM on mma.sync (bfloat16:
+// m16n8k16; float32: m16n8k8 in TF32, three products per step, 3xTF32): a
+// block keeps its face group's weights for its output-channel slice
+// resident in shared memory and walks several row tiles of that group
+// (tpb), staging each Cin chunk of a tile's padded rows once, by cp.async
+// into two stages, while the previous chunk multiplies.  The host plan
+// (ops/hopper_conv.py::tc_plan) sizes the tiles, slices and walks so that
+// a batch-1 face set fills the 132 SMs and a batch-16 one keeps several
+// blocks per SM; float32 values take twice the shared memory, so its
+// slices are narrower where the weights are large.  The padded tile never
+// exists in device memory: the W/E ghost columns and the ghost rows go
+// straight into shared memory.  A shard's band or tile is a quarter of a
+// face or less, so the same bound holds there with fewer tiles per launch;
+// the halo exchange that fills ext runs before the launch, outside the
+// kernel.  wgmma (A from registers, 64-row tiles) and TMA are not used:
+// mma.sync and cp.async first.  The CUDA-core loop that both dtypes ran
+// before (conv_tile, register tiles of 4 pixels x 8 channels) stays
+// compiled as a timing row (cs_conv3x3_cc_launch).
 //
 // Layouts (channels last, all contiguous):
 //   x    (B, 6, H, W, Cin)        ext (B, 6, 4, W+2, Cin)   edges S, N, W, E
 //   k_*  (3, 3, Cin, Cout) HWIO   b_* (Cout,)               out (B, 6, H, W, Cout)
 // The W/E ghost columns sit at positions 1..H of their W+2 strips, so H <= W.
-// float32 (and the CUDA-core bfloat16 instance, cs_conv3x3_cc_launch): grid
-// (row tiles * Cout slices, 6, B), one block per (row tile, face, batch
-// item, Cout slice), the tap loop conv_tile.  bfloat16: a 1-D grid of
-// nslices * (P_eq + P_pole) blocks, each walking tpb (batch item, face of
-// its group, row tile) items of one (face group, Cout slice) (GridWalk),
-// the tap loop tc_conv.  Both loops live in cs_conv3x3_tile.cuh, shared
-// with the band conv fused with the band-row exchange (cs_band_overlap.cu,
-// #11); this file adds their ghost cells (ext).
+// A 1-D grid of nslices * (P_eq + P_pole) blocks, each walking tpb (batch
+// item, face of its group, row tile) items of one (face group, Cout slice)
+// (GridWalk), the tap loop tc_conv.  The CUDA-core timing row: grid (row
+// tiles * Cout slices, 6, B), one block per (row tile, face, batch item,
+// Cout slice), the tap loop conv_tile.  Both loops live in
+// cs_conv3x3_tile.cuh, shared with the band conv fused with the band-row
+// exchange (cs_band_overlap.cu, #11); this file adds their ghost cells
+// (ext).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +66,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "cs_conv3x3_tile.cuh"
 
@@ -108,43 +110,46 @@ __global__ void __launch_bounds__(MAX_THREADS) cs_conv3x3_kernel(
             f, face, smem);
 }
 
-// The bfloat16 outputs: f32 sums + the group's bias, one rounding.
+// The outputs: f32 sums + the group's bias, one rounding to T.
+template <typename T>
 struct FwdEpi {
-  bf16* __restrict__ out;
-  const bf16* __restrict__ beq;
-  const bf16* __restrict__ bpo;
+  T* __restrict__ out;
+  const T* __restrict__ beq;
+  const T* __restrict__ bpo;
   int rows, cols, cout;
   __device__ __forceinline__ void store(const TcTile& t, int i, int j, int n, float v0,
                                         float v1) const {
     if (n >= cout) return;
-    const bf16* __restrict__ bias = t.f < 4 ? beq : bpo;
-    bf16* o = out + ((t.face * rows + t.r0 + i) * cols + j) * cout + n;
-    const bf16 lo = __float2bfloat16_rn(v0 + __bfloat162float(bias[n]));
+    const T* __restrict__ bias = t.f < 4 ? beq : bpo;
+    T* o = out + ((t.face * rows + t.r0 + i) * cols + j) * cout + n;
+    const T lo = from_f32<T>(v0 + to_f32(bias[n]));
     if (n + 1 >= cout) {
       o[0] = lo;
       return;
     }
-    const bf16 hi = __float2bfloat16_rn(v1 + __bfloat162float(bias[n + 1]));
-    if (cout % 2 == 0) {
-      *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(lo, hi);
-    } else {
+    const T hi = from_f32<T>(v1 + to_f32(bias[n + 1]));
+    if (cout % 2 != 0) {
       o[0] = lo;
       o[1] = hi;
+    } else if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float2*>(o) = make_float2(lo, hi);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(o) = __halves2bfloat162(lo, hi);
     }
   }
 };
 
-template <int NW, int KC>
+template <typename T, int NW, int KC>
 __global__ void __launch_bounds__(TC_MAX_THREADS) cs_conv3x3_tc_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ ext, const bf16* __restrict__ keq,
-    const bf16* __restrict__ kpo, const bf16* __restrict__ beq, const bf16* __restrict__ bpo,
-    bf16* __restrict__ out, TcGeom g, int batch) {
+    const T* __restrict__ x, const T* __restrict__ ext, const T* __restrict__ keq,
+    const T* __restrict__ kpo, const T* __restrict__ beq, const T* __restrict__ bpo,
+    T* __restrict__ out, TcGeom g, int batch) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const FwdSrc<ExtGhost<bf16>> src{x, ExtGhost<bf16>{ext, g.rows, g.cols, g.kch}, g.rows,
-                                   g.cols, g.kch};
-  const FwdEpi epi{out, beq, bpo, g.rows, g.cols, g.nch};
+  const FwdSrc<T, ExtGhost<T>> src{x, ExtGhost<T>{ext, g.rows, g.cols, g.kch}, g.rows, g.cols,
+                                   g.kch};
+  const FwdEpi<T> epi{out, beq, bpo, g.rows, g.cols, g.nch};
   GridWalk walk(g, batch);
-  tc_conv<NW, KC, false>(g, src, walk, epi, keq, kpo, tc_smem);
+  tc_conv<T, NW, KC, false>(g, src, walk, epi, keq, kpo, tc_smem);
 }
 
 // Lets a kernel take up to the card's opt-in shared memory per block (the
@@ -181,33 +186,48 @@ cudaError_t launch_cc(const void* x, const void* ext, const void* keq, const voi
   return cudaGetLastError();
 }
 
-template <int NW, int KC>
+template <typename T, int NW, int KC>
 cudaError_t launch_tc_nw(const TcGeom& g, int batch, size_t smem, int device,
-                         cudaStream_t stream, const bf16* x, const bf16* ext, const bf16* keq,
-                         const bf16* kpo, const bf16* beq, const bf16* bpo, bf16* out) {
+                         cudaStream_t stream, const T* x, const T* ext, const T* keq,
+                         const T* kpo, const T* beq, const T* bpo, T* out) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<cs_conv3x3_tc_kernel<NW, KC>>(device);
+    cudaError_t err = allow_large_smem<cs_conv3x3_tc_kernel<T, NW, KC>>(device);
     if (err != cudaSuccess) return err;
   }
   const long long p0 = (4LL * batch * g.ntr + g.tpb - 1) / g.tpb;
   const long long p1 = (2LL * batch * g.ntr + g.tpb - 1) / g.tpb;
   const long long blocks = g.nslices * (p0 + p1);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cs_conv3x3_tc_kernel<NW, KC><<<(unsigned)blocks, g.threads, smem, stream>>>(
+  cs_conv3x3_tc_kernel<T, NW, KC><<<(unsigned)blocks, g.threads, smem, stream>>>(
       x, ext, keq, kpo, beq, bpo, out, g, batch);
   return cudaGetLastError();
 }
 
-template <int KC>
+// float32 takes at most 4 n8 tiles per warp (make_tc_geom)
+template <typename T, int KC>
 cudaError_t launch_tc(const TcGeom& g, int batch, size_t smem, int device, cudaStream_t s,
-                      const bf16* x, const bf16* ext, const bf16* k0, const bf16* k1,
-                      const bf16* b0, const bf16* b1, bf16* o) {
+                      const T* x, const T* ext, const T* k0, const T* k1, const T* b0,
+                      const T* b1, T* o) {
   switch (g.nw) {
-    case 1: return launch_tc_nw<1, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
-    case 2: return launch_tc_nw<2, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
-    case 4: return launch_tc_nw<4, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
-    default: return launch_tc_nw<8, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    case 1: return launch_tc_nw<T, 1, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    case 2: return launch_tc_nw<T, 2, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    case 4: return launch_tc_nw<T, 4, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
+    default:
+      if constexpr (std::is_same<T, float>::value) return cudaErrorInvalidValue;
+      else return launch_tc_nw<T, 8, KC>(g, batch, smem, device, s, x, ext, k0, k1, b0, b1, o);
   }
+}
+
+template <typename T>
+cudaError_t launch_tc_typed(TcGeom& g, int batch, size_t smem, int device, cudaStream_t s,
+                            const void* x, const void* ext, const void* keq, const void* kpo,
+                            const void* beq, const void* bpo, void* out) {
+  const T *tx = static_cast<const T*>(x), *te = static_cast<const T*>(ext),
+          *k0 = static_cast<const T*>(keq), *k1 = static_cast<const T*>(kpo),
+          *b0 = static_cast<const T*>(beq), *b1 = static_cast<const T*>(bpo);
+  T* o = static_cast<T*>(out);
+  return g.kc == 16 ? launch_tc<T, 16>(g, batch, smem, device, s, tx, te, k0, k1, b0, b1, o)
+                    : launch_tc<T, 32>(g, batch, smem, device, s, tx, te, k0, k1, b0, b1, o);
 }
 
 inline bool aligned(const void* p, int bytes) {
@@ -221,49 +241,42 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
 // stream belongs to.  x (B, 6, rows, cols, Cin), ext (B, 6, 4, cols+2, Cin)
 // with the W/E ghosts at positions 1..rows, so rows <= cols: whole faces
-// (rows = cols = n, #1) or a shard's band or tile (#8, #9).
-// float32: the CUDA-core kernel with tile_plan's h (output rows per block)
-// and cs (output channels per block, a power of two >= 8); nw, tpb and smem
-// are not read.  bfloat16: the tensor-core kernel with tc_plan's h, cs, nw
-// (n8 tiles per warp) and tpb (tiles per block); smem must be the shared
-// memory those give (the plan's own count, checked here).  Returns a
-// cudaError_t (0 = success).
+// (rows = cols = n, #1) or a shard's band or tile (#8, #9).  The
+// tensor-core kernel with tc_plan's h (output rows per tile), cs (output
+// channels per slice), nw (n8 tiles per warp) and tpb (tiles per block);
+// smem must be the shared memory those give (the plan's own count, checked
+// here).  Returns a cudaError_t (0 = success).
 int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
                       const void* keq, const void* kpo, const void* beq,
                       const void* bpo, void* out, int batch, int rows, int cols,
                       int cin, int cout, int h, int cs, int nw, int tpb, int smem,
                       void* stream) {
-  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || rows > cols)
+  if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || rows > cols ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    Geom g;
-    if (!make_geom(g, rows, cols, cin, cout, h, cs)) return cudaErrorInvalidValue;
-    return launch_cc<float>(x, ext, keq, kpo, beq, bpo, out, batch, g, smem_bytes(g), device,
-                            s);
-  }
-  if (dtype != 1) return cudaErrorInvalidValue;
+  const bool f32 = dtype == 0;
   TcGeom g;
-  if (!make_tc_geom(g, rows, cols, cin, cout, h, cs, nw, tpb, false) ||
+  if (!make_tc_geom(g, rows, cols, cin, cout, h, cs, nw, tpb, false, f32) ||
       tc_smem_bytes(g) != (size_t)smem)
     return cudaErrorInvalidValue;
   // x and ext are read-only here, so 8-byte copies (through L1) may serve
-  // channels in fours
+  // channels in fours (bfloat16) or twos (float32)
+  const int per16 = f32 ? 4 : 8;
   const bool a8 = aligned(x, 8) && aligned(ext, 8);
-  g.vec = cin % 8 == 0 && aligned(x, 16) && aligned(ext, 16) ? 1 : cin % 4 == 0 && a8 ? 2 : 0;
-  g.wvec = cout % 8 == 0 && aligned(keq, 16) && aligned(kpo, 16);
-  const bf16 *bx = static_cast<const bf16*>(x), *be = static_cast<const bf16*>(ext),
-             *k0 = static_cast<const bf16*>(keq), *k1 = static_cast<const bf16*>(kpo),
-             *b0 = static_cast<const bf16*>(beq), *b1 = static_cast<const bf16*>(bpo);
-  bf16* o = static_cast<bf16*>(out);
-  return g.kc == 16 ? launch_tc<16>(g, batch, smem, device, s, bx, be, k0, k1, b0, b1, o)
-                    : launch_tc<32>(g, batch, smem, device, s, bx, be, k0, k1, b0, b1, o);
+  g.vec = cin % per16 == 0 && aligned(x, 16) && aligned(ext, 16) ? 1
+          : cin % (per16 / 2) == 0 && a8                         ? 2
+                                                                 : 0;
+  g.wvec = !f32 && cout % 8 == 0 && aligned(keq, 16) && aligned(kpo, 16);
+  if (f32)
+    return launch_tc_typed<float>(g, batch, smem, device, s, x, ext, keq, kpo, beq, bpo, out);
+  return launch_tc_typed<bf16>(g, batch, smem, device, s, x, ext, keq, kpo, beq, bpo, out);
 }
 
 // The CUDA-core kernel in either dtype, with tile_plan's h and cs: the
-// float32 instance of cs_conv3x3_launch, and the bfloat16 instance that the
-// tensor-core kernel replaced, kept so that the kernel tools can time the
-// two side by side (ops/conv_variants.py::cs_conv3x3_cudacore).
+// instances that the tensor-core kernel replaced in both dtypes, kept so
+// that the kernel tools can time the two side by side
+// (ops/conv_variants.py::cs_conv3x3_cudacore).
 int cs_conv3x3_cc_launch(int dtype, int device, const void* x, const void* ext,
                          const void* keq, const void* kpo, const void* beq, const void* bpo,
                          void* out, int batch, int rows, int cols, int cin, int cout, int h,

@@ -53,13 +53,35 @@
 // of the kernel tools) keeps the CUDA-core design: row tiles of the frame,
 // Cout staged in chunks of 16 as f32, 4-pixel x 8-channel register tiles,
 // the Cin slice capped at 64 by the caller so the staged weights stay
-// small.  The dw kernel keeps a 4 (Cin) x 8 (Cout) register tile per
-// (thread, tap) on the CUDA cores and reads one float4 of P and two of dout
-// from shared memory per 32 FMAs; the caller stages few rows per item and
-// sizes the grid for several blocks per SM, so that blocks hide each
-// other's staging.  Its partials (nsplit x 2 x 9 x Cin x Cout floats) stay
-// at tens of MB at most, not one block per (batch, face).  wgmma, TMA, and
-// the dw kernel on the tensor cores are left for later work.
+// small.
+//
+// The dw kernel in bfloat16 is an implicit GEMM with a long K on the
+// tensor cores: dK[(tap, ci), co] = sum_p P[p + shift(tap)][ci] dout[p][co]
+// with M = 9 x Cin (the tap outer, Cin in groups of 16), N = Cout and K =
+// the pixels of one face group (up to 16 x 4 x 48^2).  A block owns 9 taps
+// x 16 or 32 Cin channels x 32 or 64 Cout channels; per item (R whole face
+// rows) it stages the R + 2 padded rows of its Cin channels and the R rows
+// of dout of its Cout channels, both pixel-major ([pixel][channel], padded
+// by 8 so that the rows of an ldmatrix fall in distinct bank groups), by
+// cp.async into two stages, the next item's while this one multiplies.
+// Both operands come from ldmatrix .trans: A (channels x pixels) at 9
+// shifted addresses of the staged rows, one pointer per pixel (a k16 step
+// may cross a face row: n = 24 and 12 are not multiples of 16), B (pixels
+// x channels) from the dout rows.  Each warp owns one (Cin group of 16,
+// dy): 3 m16 tiles (dx = 0..2) x 4 n8 tiles, mma.sync.m16n8k16 with bf16
+// in and f32 sums.  db comes from the same products: a ones fragment as A
+// (db = 1^T dout), issued round-robin by the warps of the blocks of the
+// first Cin tile and added across warps in a fixed order.  A tensor-core
+// sum is not rounded as an FMA is, so each item's products go into fresh
+// fragments, added into the f32 sums with ordinary adds: no chain longer
+// than one item's k16 steps.  Its float32 instance (and the bfloat16 one
+// it replaced, kept as a timing row of the kernel tools) keeps the
+// CUDA-core design: a 4 (Cin) x 8 (Cout) register tile per (thread, tap),
+// one float4 of P and two of dout read from shared memory per 32 FMAs, few
+// rows staged per item and a grid of several blocks per SM, so that blocks
+// hide each other's staging.  The partials (nsplit x 2 x 9 x Cin x Cout
+// floats) stay under 20 MiB at the flagship's shapes.  wgmma and TMA are
+// left for later work.
 //
 // Layouts (channels last, all contiguous):
 //   x    (B, 6, n, n, Cin)   ext (B, 6, 4, n+2, Cin)   dout (B, 6, n, n, Cout)
@@ -393,6 +415,268 @@ __global__ void __launch_bounds__(DW_THREADS) cs_conv3x3_dw_kernel(
   }
 }
 
+// ---- the dw kernel on the tensor cores (bfloat16) -------------------------
+
+constexpr int DWT_PAD = 8;            // bf16 after each staged cell's channels
+constexpr int DWT_MAX_THREADS = 192;  // 6 warps
+
+struct DwTcGeom {
+  int n, cin, cout, batch;
+  int rows;       // face rows per item (R)
+  int nchunk;     // items per face: ceil(n / R)
+  int nsplit;     // K slices per face group
+  int threads;    // 96 cig ng: warps (Cin group, dy) x Cout groups
+  int ncib, ncob; // Cin and Cout tiles
+  int steps;      // k16 steps per item: ceil(R n / 16)
+  int pw;         // padded row: n + 2 cells
+  int pstage;     // bf16 of the staged P rows: (R + 2) pw (16 cig + 8)
+  int dstage;     // bf16 of the staged dout rows: 16 steps (32 ng + 8)
+  int vec, dvec;  // P / dout staging: 16-byte (1) or 8-byte (2) async copies, or loads
+};
+
+// Fills g for blocks of 16 cig Cin x 32 ng Cout channels; false on sizes
+// the kernel cannot take.  The host plan (ops/hopper_conv.py::dw_tc_plan)
+// computes the same numbers.
+inline bool make_dw_tc_geom(DwTcGeom& g, int batch, int n, int cin, int cout, int rows,
+                            int nsplit, int cig, int ng) {
+  if (batch < 1 || n < 1 || cin < 1 || cout < 1 || rows < 1 || rows > n || nsplit < 1 ||
+      nsplit > 65535 || (cig != 1 && cig != 2) || (ng != 1 && ng != 2) || cig * ng > 2)
+    return false;
+  g.n = n;
+  g.cin = cin;
+  g.cout = cout;
+  g.batch = batch;
+  g.rows = rows;
+  g.nchunk = (n + rows - 1) / rows;
+  g.nsplit = nsplit;
+  g.threads = 96 * cig * ng;
+  g.ncib = (cin + 16 * cig - 1) / (16 * cig);
+  g.ncob = (cout + 32 * ng - 1) / (32 * ng);
+  g.steps = (rows * n + 15) / 16;
+  g.pw = n + 2;
+  g.pstage = (rows + 2) * g.pw * (16 * cig + DWT_PAD);
+  g.dstage = 16 * g.steps * (32 * ng + DWT_PAD);
+  g.vec = 0;
+  g.dvec = 0;
+  return (long long)g.ncib * g.ncob <= 0x7fffffffLL;
+}
+
+inline size_t dw_tc_smem_bytes(const DwTcGeom& g) {
+  return sizeof(bf16) * 2 * ((size_t)g.pstage + g.dstage);  // two stages
+}
+
+// cells x width channels from channel c0 into S (cell pitch `pitch`):
+// cell(c) is the cell's first channel in device memory, or nullptr for a
+// zero cell; zero past C channels.  vec: 16-byte or 8-byte async copies
+// (C a multiple of 8 or 4, aligned), else ordinary loads.
+template <typename CellFn>
+__device__ __forceinline__ void dw_stage(bf16* S, int pitch, int cells, int width, int c0,
+                                         int C, int vec, int threads, const bf16* any,
+                                         const CellFn& cell) {
+  if (vec == 1) {
+    const int gpc = width / 8;
+    for (int u = threadIdx.x; u < cells * gpc; u += threads) {
+      const int c = u / gpc, grp = u - c * gpc;
+      const int ch = c0 + grp * 8;
+      const bf16* p = ch < C ? cell(c) : nullptr;
+      cs3x3::cp_async16(S + c * pitch + grp * 8, p ? p + ch : any, p ? 16 : 0);
+    }
+  } else if (vec == 2) {
+    const int gpc = width / 4;
+    for (int u = threadIdx.x; u < cells * gpc; u += threads) {
+      const int c = u / gpc, grp = u - c * gpc;
+      const int ch = c0 + grp * 4;
+      const bf16* p = ch < C ? cell(c) : nullptr;
+      cs3x3::cp_async8(S + c * pitch + grp * 4, p ? p + ch : any, p ? 8 : 0);
+    }
+  } else {
+    for (int u = threadIdx.x; u < cells * width; u += threads) {
+      const int c = u / width, e = u - c * width;
+      const bf16* p = c0 + e < C ? cell(c) : nullptr;
+      S[c * pitch + e] = p ? p[c0 + e] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Grid (Cin tiles * Cout tiles, nsplit, 2 face groups), 96 CIG NG threads:
+// warp w owns (Cin group, dy) = ((w % WM) / 3, (w % WM) % 3) and Cout
+// channels 32 (w / WM) .. + 31 of the block's tile.
+template <int CIG, int NG>
+__global__ void __launch_bounds__(DWT_MAX_THREADS, 2) cs_conv3x3_dw_tc_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ext, const bf16* __restrict__ dout,
+    float* __restrict__ dk_part, float* __restrict__ db_part, DwTcGeom g) {
+  constexpr int WM = 3 * CIG;
+  constexpr int PPS = 16 * CIG + DWT_PAD, DPS = 32 * NG + DWT_PAD;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  bf16* St = reinterpret_cast<bf16*>(dw_smem);  // two stages of [P rows | dout rows]
+  const int stage = g.pstage + g.dstage;
+  const int n = g.n, pw = g.pw, cin = g.cin, cout = g.cout;
+
+  const int cib = blockIdx.x % g.ncib;
+  const int ci0 = cib * 16 * CIG;
+  const int co0 = (blockIdx.x / g.ncib) * 32 * NG;
+  const int s = blockIdx.y, grp = blockIdx.z;
+  const int nf = grp == 0 ? 4 : 2, f_base = grp == 0 ? 0 : 4;
+  const long long items = (long long)g.batch * nf * g.nchunk;
+  const long long lo = items * s / g.nsplit, hi = items * (s + 1) / g.nsplit;
+  const bool do_db = cib == 0;  // block-uniform
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm_i = warp % WM, wn_i = warp / WM;
+  const int cg = wm_i / 3, dy = wm_i % 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  // A = P^T by ldmatrix .trans: this lane's pixel in a k16 step, channel offset
+  const int a_px = (lane & 7) + ((lane >> 4) << 3);
+  const int a_ch = cg * 16 + ((lane >> 3) & 1) * 8;
+  // B = dout by ldmatrix .trans: this lane's pixel row and channel offset
+  const int b_px = lane & 15;
+  const int b_ch = wn_i * 32 + (lane >> 4) * 8;
+  const uint32_t ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};
+
+  // item it (batch item, face of the group, row chunk) into stage S
+  const auto stage_item = [&](long long it, bf16* S) {
+    const int r0 = (int)(it % g.nchunk) * g.rows;
+    const long long bf = it / g.nchunk;
+    const long long face = (bf / nf) * 6 + f_base + (int)(bf % nf);
+    const bf16* __restrict__ xf = x + face * n * n * cin;
+    const bf16* __restrict__ ef = ext + face * 4 * pw * cin;
+    const bf16* __restrict__ df = dout + (face * n + r0) * n * cout;
+    // padded rows r0 .. r0 + R + 1: S, N rows (corners included), W, E
+    // columns from ext, the interior from x, zero past row n + 1
+    dw_stage(S, PPS, (g.rows + 2) * pw, 16 * CIG, ci0, cin, g.vec, g.threads, x,
+             [&](int c) -> const bf16* {
+               const int q = r0 + c / pw, pc = c % pw;
+               if (q > n + 1) return nullptr;
+               if (q == 0) return ef + (long long)pc * cin;
+               if (q == n + 1) return ef + (1LL * pw + pc) * cin;
+               if (pc == 0) return ef + (2LL * pw + q) * cin;
+               if (pc == n + 1) return ef + (3LL * pw + q) * cin;
+               return xf + ((long long)(q - 1) * n + pc - 1) * cin;
+             });
+    // the item's pixels of dout, zero past its rows and past row n - 1
+    const int valid = min(g.rows, n - r0) * n;
+    dw_stage(S + g.pstage, DPS, 16 * g.steps, 32 * NG, co0, cout, g.dvec, g.threads, dout,
+             [&](int q) -> const bf16* { return q < valid ? df + (long long)q * cout : nullptr; });
+  };
+
+  float sum[3][4][4], dsum[4][2];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[dx][nt][r] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) dsum[nt][0] = dsum[nt][1] = 0.f;
+
+  if (lo < hi) stage_item(lo, St);
+  cs3x3::cp_async_commit();
+  int buf = 0;
+  for (long long it = lo; it < hi; ++it) {
+    cs3x3::cp_async_wait_all();
+    __syncthreads();  // item it has landed in buf; the other stage is consumed
+    if (it + 1 < hi) stage_item(it + 1, St + (buf ^ 1) * stage);
+    cs3x3::cp_async_commit();
+    const bf16* P = St + buf * stage + dy * pw * PPS + a_ch;
+    const bf16* D = St + buf * stage + g.pstage + b_px * DPS + b_ch;
+    float frag[3][4][4], dfrag[4][4];  // this item's products
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        frag[0][nt][r] = frag[1][nt][r] = frag[2][nt][r] = 0.f;
+        dfrag[nt][r] = 0.f;
+      }
+    int i = a_px / n, j = a_px - (a_px / n) * n;  // this lane's pixel of step 0
+    for (int st = 0; st < g.steps; ++st) {
+      const int cell = i < g.rows ? i * pw + j : 0;  // past the item: a zero dout row
+      uint32_t a[3][4];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) cs3x3::ldsm_x4_t(a[dx], P + (cell + dx) * PPS);
+      uint32_t b[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        cs3x3::ldsm_x4_t(r, D + st * 16 * DPS + jj * 16);
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) cs3x3::mma_bf16(frag[dx][nt], a[dx], b[nt][0], b[nt][1]);
+      if (do_db && st % WM == wm_i) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) cs3x3::mma_bf16(dfrag[nt], ones, b[nt][0], b[nt][1]);
+      }
+      j += 16;
+      while (j >= n) {
+        j -= n;
+        ++i;
+      }
+    }
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sum[dx][nt][r] += frag[dx][nt][r];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      dsum[nt][0] += dfrag[nt][0];
+      dsum[nt][1] += dfrag[nt][1];
+    }
+    buf ^= 1;
+  }
+  cs3x3::cp_async_wait_all();
+  __syncthreads();  // the stages are free: the db reduction below reuses them
+
+  // every block writes its whole tile, zeros for an empty slice: row gid
+  // (+8) of each m16 tile is Cin channel cg * 16 + gid (+8), columns 2 tig, +1
+  float* __restrict__ out = dk_part + (long long)(s * 2 + grp) * 9 * cin * cout;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int tap = dy * 3 + dx;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ci = ci0 + cg * 16 + gid + half * 8;
+      if (ci >= cin) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = co0 + wn_i * 32 + nt * 8 + 2 * tig;
+        float* o = out + ((long long)tap * cin + ci) * cout + co;
+        const float v0 = sum[dx][nt][2 * half], v1 = sum[dx][nt][2 * half + 1];
+        if (co + 1 < cout && cout % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (co < cout) o[0] = v0;
+          if (co + 1 < cout) o[1] = v1;
+        }
+      }
+    }
+  }
+  if (do_db) {
+    // every row of a ones product is db: the warps' sums of row gid = 0,
+    // added over the warps along M in order
+    float* red = reinterpret_cast<float*>(dw_smem);  // [WM][32 NG]
+    if (gid == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        red[wm_i * 32 * NG + wn_i * 32 + nt * 8 + 2 * tig] = dsum[nt][0];
+        red[wm_i * 32 * NG + wn_i * 32 + nt * 8 + 2 * tig + 1] = dsum[nt][1];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 32 * NG; c += blockDim.x) {
+      float v = red[c];
+      for (int w = 1; w < WM; ++w) v += red[w * 32 * NG + c];
+      if (co0 + c < cout) db_part[((long long)s * 2 + grp) * cout + co0 + c] = v;
+    }
+  }
+}
+
 // The dx kernel's bfloat16 outputs: frame pixel (a, b) = (r0 + i, j), as
 // the CUDA-core instance writes them.
 template <bool RAW>
@@ -438,7 +722,7 @@ __global__ void __launch_bounds__(cs3x3::TC_MAX_THREADS) cs_conv3x3_dx_tc_kernel
   const cs3x3::DxSrc src{dout, g.cols - 2, g.kch};
   const DxEpi<RAW> epi{dx, dext, g.cols - 2, g.nch};
   cs3x3::GridWalk walk(g, batch);
-  cs3x3::tc_conv<NW, KC, true>(g, src, walk, epi, keq, kpo, tc_smem);
+  cs3x3::tc_conv<bf16, NW, KC, true>(g, src, walk, epi, keq, kpo, tc_smem);
 }
 
 // Lets a kernel take up to the card's opt-in shared memory per block; set
@@ -514,6 +798,48 @@ cudaError_t launch_dw(const void* x, const void* ext, const void* dout, void* dk
       static_cast<const T*>(x), static_cast<const T*>(ext), static_cast<const T*>(dout),
       static_cast<float*>(dk_part), static_cast<float*>(db_part), g);
   return cudaGetLastError();
+}
+
+template <int CIG, int NG>
+cudaError_t launch_dw_tc_cfg(const DwTcGeom& g, size_t smem, int device, cudaStream_t stream,
+                             const bf16* x, const bf16* ext, const bf16* dout, float* dk_part,
+                             float* db_part) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = allow_large_smem<cs_conv3x3_dw_tc_kernel<CIG, NG>>(device);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(g.ncib * g.ncob, g.nsplit, 2);
+  cs_conv3x3_dw_tc_kernel<CIG, NG><<<grid, g.threads, smem, stream>>>(x, ext, dout, dk_part,
+                                                                       db_part, g);
+  return cudaGetLastError();
+}
+
+// The CUDA-core dw kernel in either dtype.
+int dw_cc_entry(int dtype, int device, const void* x, const void* ext, const void* dout,
+                void* dk_part, void* db_part, int batch, int n, int cin, int cout, int rows,
+                int nsplit, void* stream) {
+  if (device < 0 || device >= 64 || batch < 1 || n < 1 || cin < 1 || cout < 1 ||
+      rows < 1 || rows > n || nsplit < 1 || nsplit > 65535)
+    return cudaErrorInvalidValue;
+  DwGeom g;
+  g.n = n;
+  g.cin = cin;
+  g.cout = cout;
+  g.batch = batch;
+  g.rows = rows;
+  g.nchunk = (n + rows - 1) / rows;
+  g.nsplit = nsplit;
+  g.ncib = (cin + DW_CI - 1) / DW_CI;
+  const int ncob = (cout + DW_CO - 1) / DW_CO;
+  if ((long long)g.ncib * ncob > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((size_t)(rows + 2) * (n + 2) * DW_CI + (size_t)rows * n * DW_CO);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dw<float>(x, ext, dout, dk_part, db_part, g, ncob, smem, device, s);
+  if (dtype == 1)
+    return launch_dw<__nv_bfloat16>(x, ext, dout, dk_part, db_part, g, ncob, smem, device, s);
+  return cudaErrorInvalidValue;
 }
 
 // The CUDA-core dx kernel (RAW: the raw ring in place of d_ext).
@@ -618,33 +944,43 @@ int cs_conv3x3_dx_cc_launch(int dtype, int device, const void* dout, const void*
                                   h, cs, stream);
 }
 
-// rows: face rows staged per item (<= n); nsplit: reduction slices per face
-// group (1..65535).  dk_part and db_part are float32, written whole.
+// The tensor-core dw kernel, bfloat16 only (dtype 1; float32 takes
+// cs_conv3x3_dw_cc_launch), with dw_tc_plan's rows (face rows per item),
+// nsplit (K slices per face group), cig (Cin groups of 16 per block), ng
+// (Cout groups of 32) and the shared memory they give (checked here).
+// dk_part and db_part are float32, written whole.
 int cs_conv3x3_dw_launch(int dtype, int device, const void* x, const void* ext,
                          const void* dout, void* dk_part, void* db_part, int batch, int n,
-                         int cin, int cout, int rows, int nsplit, void* stream) {
-  if (device < 0 || device >= 64 || batch < 1 || n < 1 || cin < 1 || cout < 1 ||
-      rows < 1 || rows > n || nsplit < 1 || nsplit > 65535)
+                         int cin, int cout, int rows, int nsplit, int cig, int ng, int smem,
+                         void* stream) {
+  if (dtype != 1 || device < 0 || device >= 64) return cudaErrorInvalidValue;
+  DwTcGeom g;
+  if (!make_dw_tc_geom(g, batch, n, cin, cout, rows, nsplit, cig, ng) ||
+      dw_tc_smem_bytes(g) != (size_t)smem)
     return cudaErrorInvalidValue;
-  DwGeom g;
-  g.n = n;
-  g.cin = cin;
-  g.cout = cout;
-  g.batch = batch;
-  g.rows = rows;
-  g.nchunk = (n + rows - 1) / rows;
-  g.nsplit = nsplit;
-  g.ncib = (cin + DW_CI - 1) / DW_CI;
-  const int ncob = (cout + DW_CO - 1) / DW_CO;
-  if ((long long)g.ncib * ncob > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)(rows + 2) * (n + 2) * DW_CI + (size_t)rows * n * DW_CO);
+  g.vec = cin % 8 == 0 && aligned(x, 16) && aligned(ext, 16)  ? 1
+          : cin % 4 == 0 && aligned(x, 8) && aligned(ext, 8) ? 2
+                                                             : 0;
+  g.dvec = cout % 8 == 0 && aligned(dout, 16) ? 1 : cout % 4 == 0 && aligned(dout, 8) ? 2 : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dw<float>(x, ext, dout, dk_part, db_part, g, ncob, smem, device, s);
-  if (dtype == 1)
-    return launch_dw<__nv_bfloat16>(x, ext, dout, dk_part, db_part, g, ncob, smem, device, s);
-  return cudaErrorInvalidValue;
+  const bf16 *bx = static_cast<const bf16*>(x), *be = static_cast<const bf16*>(ext),
+             *bd = static_cast<const bf16*>(dout);
+  float *dk = static_cast<float*>(dk_part), *db = static_cast<float*>(db_part);
+  if (cig == 2) return launch_dw_tc_cfg<2, 1>(g, smem, device, s, bx, be, bd, dk, db);
+  if (ng == 2) return launch_dw_tc_cfg<1, 2>(g, smem, device, s, bx, be, bd, dk, db);
+  return launch_dw_tc_cfg<1, 1>(g, smem, device, s, bx, be, bd, dk, db);
+}
+
+// The CUDA-core dw kernel in either dtype, with dw_plan's rows (face rows
+// staged per item, <= n) and nsplit (reduction slices per face group,
+// 1..65535): the float32 production kernel, and the bfloat16 instance that
+// the tensor-core kernel replaced, kept so that the kernel tools can time
+// the two side by side (ops/conv_variants.py::cs_conv3x3_dw_cudacore).
+int cs_conv3x3_dw_cc_launch(int dtype, int device, const void* x, const void* ext,
+                            const void* dout, void* dk_part, void* db_part, int batch, int n,
+                            int cin, int cout, int rows, int nsplit, void* stream) {
+  return dw_cc_entry(dtype, device, x, ext, dout, dk_part, db_part, batch, n, cin, cout, rows,
+                     nsplit, stream);
 }
 
 const char* cs_conv3x3_bwd_error_string(int err) {

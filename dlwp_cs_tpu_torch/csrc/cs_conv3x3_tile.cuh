@@ -12,48 +12,71 @@
 //     exchange, and band rows received from the ring neighbours by remote
 //     copies during the launch (#11).
 //
-// conv_tile (float32; and the earlier bfloat16 instance, kept only as a
-// timing row of the kernel tools): the CUDA cores.  h rows from r0, cs
-// output channels from co0; Cin in chunks of CC staged in shared memory as
-// f32 with that chunk's taps; register tiles of PX pixels x CO channels per
-// thread.  Every output is summed in the same order (Cin chunk, channel,
-// dy, dx) in f32 with one rounding to T at the end.
+// conv_tile (the CUDA-core instances that tc_conv replaced, float32 and
+// bfloat16, kept only as timing rows of the kernel tools): the CUDA cores.  h rows from r0, cs output channels from co0; Cin in chunks of
+// CC staged in shared memory as f32 with that chunk's taps; register tiles
+// of PX pixels x CO channels per thread.  Every output is summed in the same
+// order (Cin chunk, channel, dy, dx) in f32 with one rounding to T at the
+// end.
 //
-// tc_conv (bfloat16): an implicit GEMM on the tensor cores.  A tile is M
-// output pixels (h whole rows of one face, flattened, in m16 row tiles) x
-// N output channels (a slice of cs); K is 9 x Cin, walked in one fixed
-// order: Cin chunk of KC (16 or 32) channels, tap (dy, dx), 16 channels.
+// tc_conv (bfloat16 and float32): an implicit GEMM on the tensor cores.  A
+// tile is M output pixels (h whole rows of one face, flattened, in m16 row
+// tiles) x N output channels (a slice of cs); K is 9 x Cin, walked in one
+// fixed order: Cin chunk, tap (dy, dx), k step.  Shared memory is laid out
+// in 16-bit units: a bfloat16 value takes one, a float32 value two, so a
+// chunk of KC units (16 or 32) holds KC bfloat16 or KC / 2 float32
+// channels, a k step of 16 units is one m16n8k16 (bf16) or one m16n8k8
+// (tf32) product, and every ldmatrix address is the same in both types.
 // What bounds it: at batch 1 the work of a conv is 0.03-0.3 GFLOP, under a
 // microsecond at the card's 989 TFLOP/s, so the latency of each block's
 // serial path (staging its weights, then a chain of mma.sync per warp) sets
 // the time; at batch 16 the products (50 GFLOP a U-Net step) and the
 // shared-memory fragment loads that feed them.  The design:
-//   * the (h+2) x (W+2) padded rows of a Cin chunk are staged once, in
-//     bf16, each cell's channels padded to KC + 8 so that the 8 rows of an
-//     ldmatrix fall in 8 distinct 16-byte bank groups; each of the 9 taps
-//     reads its A fragments from that tile at a shifted address (ldmatrix
-//     with one pointer per pixel row, computed once per tile): nothing is
-//     copied nine times;
-//   * mma.sync.m16n8k16, bf16 in, f32 sums; each warp owns 2 m16 tiles x
-//     NW n8 tiles; the block's warps split M, and N where M is small, so a
-//     batch-1 block has several short mma chains rather than one long one;
+//   * the (h+2) x (W+2) padded rows of a Cin chunk are staged once, each
+//     cell's channels padded by 8 units so that the 8 rows of an ldmatrix
+//     fall in 8 distinct 16-byte bank groups; each of the 9 taps reads its
+//     A fragments from that tile at a shifted address (ldmatrix with one
+//     pointer per pixel row, computed once per tile): nothing is copied
+//     nine times;
+//   * bfloat16: mma.sync.m16n8k16, bf16 in, f32 sums, the weights read as
+//     B by ldmatrix .trans from [tap * Cin + ci][n] rows;
+//   * float32 (3xTF32): each f32 operand is split as hi = tf32(v) and lo =
+//     tf32(v - hi), both rounded to nearest (ties away from zero, as
+//     cvt.rna.tf32.f32, but by integer ops: a conversion runs at an eighth
+//     of the FP32 rate), and each k step issues mma.sync.m16n8k8.tf32
+//     three times, lo.hi, hi.lo, then hi.hi (only lo.lo, about 2^-22 of a
+//     product, is dropped).  A staged chunk is split once, when it has
+//     landed: hi in place, lo into a third stage-sized buffer, so the 9
+//     taps and the warps along N that read each value do not split it
+//     again; the weights' B fragments are split as they are loaded.
+//     ldmatrix moves 16-bit elements, but a row of 16 bytes is 4 f32
+//     channels, so the A fragments (pixels x channels) come from the same
+//     non-transposed ldmatrix as in bfloat16, and the weights are staged
+//     transposed once per block, [n][tap * Cin + ci], so that the B
+//     fragments do too.  A tensor-core sum is not rounded as an FMA is,
+//     so each tap's products go into a fresh fragment that is then added
+//     into the f32 sums with ordinary adds: no chain of more than
+//     3 x KC / 16 products;
+//   * each warp owns 2 m16 tiles x NW n8 tiles; the block's warps split M,
+//     and N where M is small, so a batch-1 block has several short mma
+//     chains rather than one long one;
 //   * cp.async (16 bytes, L2 only) into a ring of two stages: chunk k+1 -
 //     or the next tile's first chunk - loads while chunk k is multiplied,
 //     one barrier per chunk.  Ghost cells come through the Ghost functor's
-//     cell pointers by the same copies; channels not a multiple of 8 (the
-//     U-Net's 12-channel input) are staged by ordinary loads, zero-filled
-//     past Cin;
-//   * the block's weights (its face group's taps for its N slice, all of K,
-//     bf16) stay resident in shared memory while it walks several tiles of
-//     the same (face group, slice), so staged weights serve more than one
-//     tile; they are staged again only where a walk changes group or slice
+//     cell pointers by the same copies; channels that 16-byte copies do not
+//     take (the U-Net's 12-channel input in bfloat16) are staged by 8-byte
+//     copies or ordinary loads, zero-filled past Cin;
+//   * the block's weights (its face group's taps for its N slice, all of K)
+//     stay resident in shared memory while it walks several tiles of the
+//     same (face group, slice), so staged weights serve more than one tile;
+//     they are staged again only where a walk changes group or slice
 //     (#11's walk);
-//   * the same routine runs the dx kernel (cs_conv3x3_bwd.cu): a
+//   * the same routine runs the bfloat16 dx kernel (cs_conv3x3_bwd.cu): a
 //     correlation of dout, zero-extended by 2, with the flipped,
 //     transposed taps over the (n+2)^2 frame; only the staging sources,
 //     the weight layout and the stores differ.
 // Each output's sum runs in that K order whatever the tile height, the
-// launch, or the block's walk, with one rounding to bf16 at the end, so two
+// launch, or the block's walk, with one rounding to T at the end, so two
 // launches that stage the same values give bitwise equal outputs (#12 and
 // #1, #11 and #8, the shards' forecasts and one card's).
 
@@ -62,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cs3x3 {
 
@@ -242,44 +267,47 @@ __device__ __forceinline__ void conv_tile(
 }
 
 
-// ---- the tensor-core routine (bfloat16) -------------------------------------
+
+
+// ---- the tensor-core routine (bfloat16 and float32) ------------------------
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int TC_MAX_THREADS = 256;  // 8 warps
-constexpr int TC_PAD = 8;            // bf16 after each staged cell's channels
+constexpr int TC_PAD = 8;            // 16-bit units after each staged cell's channels
 
 struct TcGeom {
   int rows, cols;  // output block per face (dx: the (n+2)^2 frame)
   int kch, nch;    // reduced channels (K = 9 kch) and output channels (N)
   int h;           // output rows per tile
   int cs;          // output channels per slice (8, 16, 32 or 64)
-  int nw;          // n8 tiles per warp (1, 2, 4 or 8)
+  int nw;          // n8 tiles per warp (1, 2, 4 or 8; float32 at most 4)
   int wn, wm;      // warps along N and along M (2 m16 tiles each)
   int threads;
   int nslices;     // N slices
   int ntr;         // row tiles per face
-  int kc;          // K channels per staged chunk (16, or 32 past 16 channels)
-  int nchunks, kp; // chunks; kp = nchunks * kc
+  int unit;        // 16-bit units per element: 1 (bfloat16) or 2 (float32)
+  int kc;          // K units per staged chunk (16, or 32 past 16 units)
+  int nchunks, kp; // chunks; kp = nchunks * kc units
   int wp;          // staged columns: cols + 2
-  int kps;         // pitch of one staged cell: kc + TC_PAD
-  int stage;       // bf16 elements of one stage: (h + 2) * wp * kps
-  int wpitch;      // weight row pitch (see tc_stage_weights)
-  int wsize;       // bf16 elements of the resident weights
+  int kps;         // pitch of one staged cell: kc + TC_PAD units
+  int stage;       // units of one stage: (h + 2) * wp * kps
+  int wpitch;      // weight row pitch in units (see tc_stage_weights)
+  int wsize;       // units of the resident weights
   int tpb;         // tiles per block of a whole-grid walk
-  int vec;         // staged cells by 16-byte async copies
-  int wvec;        // weights likewise
+  int vec;         // staged cells by 16-byte (1) or 8-byte (2) async copies
+  int wvec;        // bfloat16 forward weights by 16-byte async copies
 };
 
 // Fills g; false on sizes the routine cannot take.  dx: the weight layout
-// of the dx kernel.  The host plan (ops/hopper_conv.py::tc_plan) computes
-// the same numbers.
+// of the dx kernel (bfloat16 only); f32: float32 elements.  The host plan
+// (ops/hopper_conv.py::tc_plan) computes the same numbers.
 inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h, int cs,
-                         int nw, int tpb, bool dx) {
+                         int nw, int tpb, bool dx, bool f32 = false) {
   if (rows < 1 || cols < 1 || kch < 1 || nch < 1 || h < 1 || h > rows || tpb < 1) return false;
   if (cs != 8 && cs != 16 && cs != 32 && cs != 64) return false;
   if (nw != 1 && nw != 2 && nw != 4 && nw != 8) return false;
-  if (8 * nw > cs) return false;
+  if (8 * nw > cs || (f32 && (dx || nw > 4))) return false;
   g.rows = rows;
   g.cols = cols;
   g.kch = kch;
@@ -294,13 +322,14 @@ inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h,
   if (g.threads > TC_MAX_THREADS) return false;
   g.nslices = (nch + cs - 1) / cs;
   g.ntr = (rows + h - 1) / h;
-  g.kc = kch <= 16 ? 16 : 32;
-  g.nchunks = (kch + g.kc - 1) / g.kc;
+  g.unit = f32 ? 2 : 1;
+  g.kc = kch * g.unit <= 16 ? 16 : 32;
+  g.nchunks = (kch * g.unit + g.kc - 1) / g.kc;
   g.kp = g.nchunks * g.kc;
   g.wp = cols + 2;
   g.kps = g.kc + TC_PAD;
   g.stage = (h + 2) * g.wp * g.kps;
-  if (dx) {
+  if (dx || f32) {
     g.wpitch = 9 * g.kp + TC_PAD;  // [n][tap * kp + k]: an odd multiple of 16 bytes
     g.wsize = cs * g.wpitch;
   } else {
@@ -313,8 +342,9 @@ inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h,
   return true;
 }
 
+// the weights, two stages and, in float32, the lo halves of one stage
 inline size_t tc_smem_bytes(const TcGeom& g) {
-  return sizeof(bf16) * ((size_t)g.wsize + 2 * (size_t)g.stage);
+  return 2 * ((size_t)g.wsize + (g.unit == 2 ? 3 : 2) * (size_t)g.stage);
 }
 
 // One tile: face = batch item * 6 + f, output rows r0.., channels n0..;
@@ -379,9 +409,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes));
 }
-// 8 bytes (through L1: only for inputs that no one writes during the launch)
+// 8 and 4 bytes (through L1: only for inputs that no one writes during the
+// launch)
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -416,30 +451,61 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// an f32 bit pattern rounded to TF32 (10 explicit mantissa bits), to
+// nearest, ties away from zero: the magnitude bits rounded at bit 13
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t v) { return (v + 0x1000u) & 0xFFFFE000u; }
+// v (an f32 bit pattern) as hi + lo, each rounded to TF32
+__device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__float_as_uint(__uint_as_float(v) - __uint_as_float(hi)));
+}
+// float32: the staged chunk S (cells of kps units, kc units of data each)
+// split in place into its TF32 hi halves, the lo halves into L at the same
+// offsets.  Every thread of the block must call it.
+__device__ __forceinline__ void tc_split_stage(bf16* S, bf16* L, const TcGeom& g) {
+  const int fpc = g.kc / 2;  // floats per cell
+  const int n = (g.h + 2) * g.wp * fpc;
+  for (int u = threadIdx.x; u < n; u += g.threads) {
+    const int cell = u / fpc, off = cell * g.kps + 2 * (u - cell * fpc);
+    uint32_t* sp = reinterpret_cast<uint32_t*>(S + off);
+    uint32_t hi, lo;
+    split_tf32(*sp, hi, lo);
+    *sp = hi;
+    *reinterpret_cast<uint32_t*>(L + off) = lo;
+  }
+}
 
 // The forward's staging source: staged row pr, column pc of the tile at r0
 // is block row r0 - 1 + pr, padded column pc; interior cells from x, the
 // ring from the Ghost functor, rows past the ghost row zero.
-template <typename Ghost>
+template <typename T, typename Ghost>
 struct FwdSrc {
-  const bf16* __restrict__ x;
+  const T* __restrict__ x;
   Ghost ghost;
   int rows, cols, cin;
-  __device__ __forceinline__ const bf16* base() const { return x; }  // any valid address
+  __device__ __forceinline__ const T* base() const { return x; }  // any valid address
   // the cell's first channel, or nullptr for a zero cell
-  __device__ __forceinline__ const bf16* cell(const TcTile& t, int pr, int pc) const {
+  __device__ __forceinline__ const T* cell(const TcTile& t, int pr, int pc) const {
     const int fr = t.r0 - 1 + pr;
     if (fr > rows) return nullptr;
     if (fr >= 0 && fr < rows && pc >= 1 && pc <= cols)
       return x + ((t.face * rows + fr) * cols + pc - 1) * cin;
     return ghost.cell(t.face, fr, pc);
   }
-  __device__ __forceinline__ bf16 elem(const TcTile& t, int pr, int pc, int ci) const {
+  __device__ __forceinline__ T elem(const TcTile& t, int pr, int pc, int ci) const {
     const int fr = t.r0 - 1 + pr;
-    if (fr > rows) return __float2bfloat16_rn(0.f);
+    if (fr > rows) return from_f32<T>(0.f);
     if (fr >= 0 && fr < rows && pc >= 1 && pc <= cols)
       return x[((t.face * rows + fr) * cols + pc - 1) * cin + ci];
-    return __float2bfloat16_rn(ghost(t.face, fr, pc, ci));  // exact: a bf16 value
+    return from_f32<T>(ghost(t.face, fr, pc, ci));  // exact: a value of type T
   }
 };
 
@@ -460,66 +526,82 @@ struct DxSrc {
   }
 };
 
-// Chunk k of tile t into the stage S: S[cell][c] = channel k*kc + c of
-// staged cell (pr, pc), cell = pr * wp + pc, zero past kch.
-template <typename Src>
+// Chunk k of tile t into the stage S (16-bit units): the cell = pr * wp +
+// pc holds channels k * kc / unit .. of staged cell (pr, pc) from unit
+// cell * kps, zero past kch.
+template <typename T, typename Src>
 __device__ __forceinline__ void tc_stage_chunk(bf16* S, const Src& src, const TcTile& t, int k,
                                                const TcGeom& g) {
+  constexpr int U = sizeof(T) / 2;
   const int cells = (g.h + 2) * g.wp;
-  const int c0 = k * g.kc;
+  const int c0 = k * g.kc / U;
   if (g.vec == 1) {
     const int gpc = g.kc / 8;  // 16-byte groups per cell
     const int units = cells * gpc;
     for (int u = threadIdx.x; u < units; u += g.threads) {
-      const int cell = u / gpc, grp8 = u - cell * gpc;
+      const int cell = u / gpc, grp = u - cell * gpc;
       const int pr = cell / g.wp, pc = cell - pr * g.wp;
-      const int c = c0 + grp8 * 8;
-      const bf16* p = c < g.kch ? src.cell(t, pr, pc) : nullptr;
-      cp_async16(S + cell * g.kps + grp8 * 8, p ? p + c : src.base(), p ? 16 : 0);
+      const int c = c0 + grp * (8 / U);
+      const T* p = c < g.kch ? src.cell(t, pr, pc) : nullptr;
+      cp_async16(S + cell * g.kps + grp * 8, p ? p + c : src.base(), p ? 16 : 0);
     }
   } else if (g.vec == 2) {
     const int gpc = g.kc / 4;  // 8-byte groups per cell
     const int units = cells * gpc;
     for (int u = threadIdx.x; u < units; u += g.threads) {
-      const int cell = u / gpc, grp4 = u - cell * gpc;
+      const int cell = u / gpc, grp = u - cell * gpc;
       const int pr = cell / g.wp, pc = cell - pr * g.wp;
-      const int c = c0 + grp4 * 4;
-      const bf16* p = c < g.kch ? src.cell(t, pr, pc) : nullptr;
-      cp_async8(S + cell * g.kps + grp4 * 4, p ? p + c : src.base(), p ? 8 : 0);
+      const int c = c0 + grp * (4 / U);
+      const T* p = c < g.kch ? src.cell(t, pr, pc) : nullptr;
+      cp_async8(S + cell * g.kps + grp * 4, p ? p + c : src.base(), p ? 8 : 0);
     }
   } else {
     // ordinary loads, 4 in flight per thread before their stores
-    const int units = cells * g.kc;
+    const int epc = g.kc / U;  // elements per cell
+    const int units = cells * epc;
     for (int base = threadIdx.x; base < units; base += 4 * g.threads) {
-      bf16 v[4];
+      T v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int u = base + i * g.threads;
-        const int cell = u / g.kc, cc = u - cell * g.kc;
+        const int cell = u / epc, cc = u - cell * epc;
         const int pr = cell / g.wp, pc = cell - pr * g.wp;
-        v[i] = (u < units && c0 + cc < g.kch) ? src.elem(t, pr, pc, c0 + cc)
-                                                : __float2bfloat16_rn(0.f);
+        v[i] = (u < units && c0 + cc < g.kch) ? src.elem(t, pr, pc, c0 + cc) : from_f32<T>(0.f);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int u = base + i * g.threads;
-        if (u < units) S[(u / g.kc) * g.kps + u % g.kc] = v[i];
+        if (u < units) reinterpret_cast<T*>(S + (u / epc) * g.kps)[u % epc] = v[i];
       }
     }
   }
 }
 
 // The resident weights of tile t's (face group, slice), zero past kch and
-// nch.  k is HWIO (3, 3, Cin, Cout) of the group.
-//   forward: Ws[tap * kp + ci][c] = k[tap][ci][n0 + c]   (B as k x n, n contiguous)
-//   dx:      Ws[c][tap * kp + co] = k[8 - tap][n0 + c][co] (B as n x k, k contiguous)
-// with, for dx, kch = Cout (K) and nch = Cin (N).  Both are straight copies
-// of rows of k: no transposition in shared memory.
-template <bool DX>
-__device__ __forceinline__ void tc_stage_weights(bf16* Ws, const bf16* __restrict__ k,
+// nch, in 16-bit units.  k is HWIO (3, 3, Cin, Cout) of the group.
+//   bfloat16 forward: Ws[tap * kp + ci][c] = k[tap][ci][n0 + c]
+//                     (B as k x n, n contiguous: straight copies of rows of k)
+//   dx:               Ws[c][tap * kp + co] = k[8 - tap][n0 + c][co]
+//                     (B as n x k, k contiguous: straight copies of rows of k)
+//   float32 forward:  Ws[c][(tap * kp + 2 ci) / 2] = k[tap][ci][n0 + c], as f32
+//                     (B as n x k: transposed once here, by 4-byte copies)
+// with, for dx, kch = Cout (K) and nch = Cin (N).
+template <bool DX, typename T>
+__device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__ k,
                                                  const TcTile& t, const TcGeom& g) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  if (!DX) {
+  if constexpr (std::is_same<T, float>::value) {
+    float* Wf = reinterpret_cast<float*>(Ws);
+    const int kpe = g.kp / 2, wpe = g.wpitch / 2;  // in floats
+    const int rows = 9 * kpe;                     // (tap, ci), consecutive threads on c
+    for (int u = threadIdx.x; u < rows * g.cs; u += g.threads) {
+      const int row = u / g.cs, c = u - row * g.cs;
+      const int tap = row / kpe, ci = row - tap * kpe;
+      const bool ok = ci < g.kch && t.n0 + c < g.nch;
+      const float* p = k + ((long long)tap * g.kch + ci) * g.nch + t.n0 + c;
+      cp_async4(Wf + c * wpe + row, ok ? p : k, ok ? 4 : 0);
+    }
+  } else if (!DX) {
+    const bf16 zero = __float2bfloat16_rn(0.f);
     // rows (tap, ci) of cs channels from n0; k row (tap, ci) has nch channels
     const int rows = 9 * g.kp;
     if (g.wvec) {
@@ -541,6 +623,7 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const bf16* __restric
       }
     }
   } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
     // rows c of the slice, 9 taps of kp reduced channels each; k row
     // (tap, ci) has kch (= Cout) channels
     const int rows = g.cs * 9;
@@ -567,20 +650,24 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const bf16* __restric
   }
 }
 
-// KC: g.kc, the reduced channels per chunk (16 or 32), fixed at compile time
-// so that a chunk's 9 x KC / 16 steps unroll.
-// The block walks its tiles (Walk::next; Walk::before(t) runs, on every
-// thread, before t's first chunk is requested, and may synchronise the
-// block).  Per tile, Epi::store(t, i, j, n, v0, v1) takes the f32 sums of
-// output row i, column j of the tile, channels n and n + 1 (n even; either
-// may be past nch).  Every thread of the block must call it; it
+// T: bf16 or float (float: forward only).  KC: g.kc, the K units per chunk
+// (16 or 32), fixed at compile time so that a chunk's 9 x KC / 16 steps
+// unroll.  The block walks its tiles (Walk::next; Walk::before(t) runs, on
+// every thread, before t's first chunk is requested, and may synchronise
+// the block).  Per tile, Epi::store(t, i, j, n, v0, v1) takes the f32 sums
+// of output row i, column j of the tile, channels n and n + 1 (n even;
+// either may be past nch).  Every thread of the block must call it; it
 // synchronises the block.  keq / kpo: the weight groups (faces 0-3, 4-5).
-template <int NW, int KC, bool DX, typename Src, typename Walk, typename Epi>
+template <typename T, int NW, int KC, bool DX, typename Src, typename Walk, typename Epi>
 __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& walk,
-                                        const Epi& epi, const bf16* __restrict__ keq,
-                                        const bf16* __restrict__ kpo, unsigned char* smem_raw) {
+                                        const Epi& epi, const T* __restrict__ keq,
+                                        const T* __restrict__ kpo, unsigned char* smem_raw) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr bool BT = DX || F32;  // weights as n x k rows
+  static_assert(!(F32 && DX), "the float32 dx kernel runs on the CUDA cores");
   bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
   bf16* St = Ws + g.wsize;  // two stages
+  bf16* Lo = St + 2 * g.stage;  // float32: the lo halves of the stage in use
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm_i = warp % g.wm, wn_i = warp / g.wm;
   const int gid = lane >> 2, tig = lane & 3;
@@ -599,19 +686,23 @@ __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& w
     if (k == 0 && t.key != key) {  // weights of another group or slice (uniform)
       walk.before(t);
       tc_stage_weights<DX>(Ws, t.f < 4 ? keq : kpo, t, g);
-      tc_stage_chunk(St + buf * g.stage, src, t, 0, g);
+      tc_stage_chunk<T>(St + buf * g.stage, src, t, 0, g);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
       key = t.key;
     }
     if (k + 1 < g.nchunks) {
-      tc_stage_chunk(St + (buf ^ 1) * g.stage, src, t, k + 1, g);
+      tc_stage_chunk<T>(St + (buf ^ 1) * g.stage, src, t, k + 1, g);
     } else if (has_next && tn.key == key) {
       walk.before(tn);
-      tc_stage_chunk(St + (buf ^ 1) * g.stage, src, tn, 0, g);
+      tc_stage_chunk<T>(St + (buf ^ 1) * g.stage, src, tn, 0, g);
     }
     cp_async_commit();
+    if constexpr (F32) {
+      tc_split_stage(St + buf * g.stage, Lo, g);
+      __syncthreads();
+    }
     if (k == 0) {
       const int valid = min(g.h, g.rows - t.r0) * g.cols;
 #pragma unroll
@@ -627,51 +718,91 @@ __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& w
           for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
       }
     }
-    // ---- chunk k: 9 taps x KC / 16 steps of 16 reduced channels ----
+    // ---- chunk k: 9 taps x KC / 16 steps of 16 units ----
     constexpr int KPS = KC + TC_PAD;
     const bf16* S = St + buf * g.stage + (lane >> 4) * 8;
     const bf16* a_row[2] = {S + a_cell[0] * KPS, S + a_cell[1] * KPS};
+    // float32: a_row[mt] + lo_off holds the lo halves of a_row[mt]
+    const int lo_off = Lo - (St + buf * g.stage);
     const int row_step = g.wp * KPS;  // one staged row
-    // B fragments: this lane's row of tap 0, channel k * KC, and the steps
-    // to the next tap, the next 16 reduced channels, the next n8 pair
+    // B fragments: this lane's row of tap 0, unit k * KC, and the steps to
+    // the next tap, the next 16 units, the next n8 pair
     const bf16* wk =
-        DX ? Ws + (nbase + ((lane >> 4) << 3) + (lane & 7)) * g.wpitch + k * KC +
+        BT ? Ws + (nbase + ((lane >> 4) << 3) + (lane & 7)) * g.wpitch + k * KC +
                  ((lane >> 3) & 1) * 8
            : Ws + (k * KC + (lane & 15)) * g.wpitch + nbase + (lane >> 4) * 8;
-    const int tap_step = DX ? g.kp : g.kp * g.wpitch;
-    const int kk_step = DX ? 16 : 16 * g.wpitch;
-    const int pair_step = DX ? 16 * g.wpitch : 16;
+    const int tap_step = BT ? g.kp : g.kp * g.wpitch;
+    const int kk_step = BT ? 16 : 16 * g.wpitch;
+    const int pair_step = BT ? 16 * g.wpitch : 16;
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int shift = (tap / 3) * row_step + (tap % 3) * KPS;
+      float part[2][NW][4];  // float32: this tap's products (see the header)
+      if constexpr (F32) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) part[mt][nt][r] = 0.f;
+      }
 #pragma unroll
       for (int kk = 0; kk < KC; kk += 16) {
         const bf16* wb = wk + tap * tap_step + (kk / 16) * kk_step;
         uint32_t b[NW][2];
         if constexpr (NW == 1) {
           uint32_t r[2];
-          if constexpr (DX) ldsm_x2(r, wb); else ldsm_x2_t(r, wb);
+          if constexpr (BT) ldsm_x2(r, wb); else ldsm_x2_t(r, wb);
           b[0][0] = r[0];
           b[0][1] = r[1];
         } else {
 #pragma unroll
           for (int j = 0; j < NW / 2; ++j) {
             uint32_t r[4];
-            if constexpr (DX) ldsm_x4(r, wb + j * pair_step); else ldsm_x4_t(r, wb + j * pair_step);
+            if constexpr (BT) ldsm_x4(r, wb + j * pair_step); else ldsm_x4_t(r, wb + j * pair_step);
             b[2 * j][0] = r[0];
             b[2 * j][1] = r[1];
             b[2 * j + 1][0] = r[2];
             b[2 * j + 1][1] = r[3];
           }
         }
+        if constexpr (F32) {
+          uint32_t bh[NW][2], bl[NW][2];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          if (!m_on[mt]) continue;
-          uint32_t a[4];
-          ldsm_x4(a, a_row[mt] + shift + kk);
+          for (int nt = 0; nt < NW; ++nt)
 #pragma unroll
-          for (int nt = 0; nt < NW; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+            for (int e = 0; e < 2; ++e) split_tf32(b[nt][e], bh[nt][e], bl[nt][e]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (!m_on[mt]) continue;
+            uint32_t ah[4], al[4];
+            ldsm_x4(ah, a_row[mt] + shift + kk);
+            ldsm_x4(al, a_row[mt] + lo_off + shift + kk);
+#pragma unroll
+            for (int nt = 0; nt < NW; ++nt) {
+              mma_tf32(part[mt][nt], al, bh[nt][0], bh[nt][1]);
+              mma_tf32(part[mt][nt], ah, bl[nt][0], bl[nt][1]);
+              mma_tf32(part[mt][nt], ah, bh[nt][0], bh[nt][1]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (!m_on[mt]) continue;
+            uint32_t a[4];
+            ldsm_x4(a, a_row[mt] + shift + kk);
+#pragma unroll
+            for (int nt = 0; nt < NW; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
+          }
         }
+      }
+      if constexpr (F32) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mt][nt][r] += part[mt][nt][r];
       }
     }
     if (k + 1 < g.nchunks) {

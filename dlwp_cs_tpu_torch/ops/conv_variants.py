@@ -19,13 +19,15 @@ kernels that the reference's kernel tools time beside its production conv.
   column 0, column n+1]``, corners at both ends of the W/E columns: the raw
   instance of the dx kernel of ``csrc/cs_conv3x3_bwd.cu`` (#4), replacing
   ``tools/kernel_variants.py::_dx_aligned_kernel``.
-* :data:`cs_conv3x3_cudacore` and :data:`cs_conv3x3_dx_cudacore`: the
-  CUDA-core tap loops of #1 and #4 (#14 with ``raw=True``) in either dtype,
-  with :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.tile_plan`'s tiles.  In
-  float32 they are the production kernels; in bfloat16 they are the
-  instances that the tensor-core kernels replaced, kept only so that a
-  timing run can set the two side by side on one card.  No path of the
-  port selects them.
+* :data:`cs_conv3x3_cudacore`, :data:`cs_conv3x3_dx_cudacore` and
+  :data:`cs_conv3x3_dw_cudacore`: the CUDA-core kernels of #1, #4 (#14
+  with ``raw=True``) and #5 in either dtype, with
+  :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.tile_plan`'s tiles (#5:
+  :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.dw_plan`'s).  The float32 dx
+  and dw kernels are the production ones; the others are the instances
+  that the tensor-core kernels replaced (#1 in both dtypes, #4 and #5 in
+  bfloat16), kept only so that a timing run can set the two side by side
+  on one card.  No path of the port selects them.
 
 #3 and #13 take bfloat16 only, as the tools run them: a float32 CUDA tensor
 raises ``ValueError`` (TF32 would change the numbers, and nothing falls
@@ -52,6 +54,7 @@ from dlwp_cs_tpu_torch.ops.cuda_build import (
 from dlwp_cs_tpu_torch.ops.hopper_conv import (
     _BWD_LIB,
     _DX_MAX_CS,
+    _Conv3x3DwKernel,
     _FWD_LIB,
     _GROUPS,
     _Conv3x3Kernel,
@@ -65,6 +68,7 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
 
 __all__ = [
     "cs_conv3x3_cudacore",
+    "cs_conv3x3_dw_cudacore",
     "cs_conv3x3_dx_cudacore",
     "cs_conv3x3_dx_ring",
     "cs_conv3x3_dx_ring_plain",
@@ -327,6 +331,13 @@ class _CudaCoreDxKernel(KernelWrapper):
         return dx, ring
 
 
+class _CudaCoreDwKernel(_Conv3x3DwKernel):
+    """The CUDA-core dw kernel in either dtype: arguments and result as
+    :data:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3_dw`."""
+
+    _cudacore = True
+
+
 cs_conv3x3_npack = _MmaConvKernel("cs_conv3x3_npack", "npack", cs_conv3x3_npack_plain)
 cs_conv3x3_im2col = _MmaConvKernel("cs_conv3x3_im2col", "im2col", cs_conv3x3_im2col_plain)
 # kernel #12: kernel #1 on strips computed outside it, counted apart
@@ -335,3 +346,4 @@ cs_conv3x3_dx_ring = _DxRingKernel("cs_conv3x3_dx_ring", _BWD_LIB)
 # the CUDA-core tap loops of #1 and #4 in either dtype (a timing row)
 cs_conv3x3_cudacore = _CudaCoreConvKernel("cs_conv3x3_cudacore", _FWD_LIB)
 cs_conv3x3_dx_cudacore = _CudaCoreDxKernel("cs_conv3x3_dx_cudacore", _BWD_LIB)
+cs_conv3x3_dw_cudacore = _CudaCoreDwKernel("cs_conv3x3_dw_cudacore", _BWD_LIB)

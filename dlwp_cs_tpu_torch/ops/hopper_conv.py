@@ -14,10 +14,13 @@ header says what bounds it and how:
   (the weight and bias gradients, as per-block partial sums that a fixed-order
   ``torch.sum`` reduces).
 
-The forward and dx kernels run bfloat16 on the tensor cores (an implicit
-GEMM on ``mma.sync``, ``csrc/cs_conv3x3_tile.cuh::tc_conv``) with the
-tiles, slices and walks of :func:`tc_plan`, and float32 on the CUDA cores
-with those of :func:`tile_plan`.
+The forward kernel runs on the tensor cores in both dtypes (an implicit
+GEMM on ``mma.sync``, ``csrc/cs_conv3x3_tile.cuh::tc_conv``; float32 as
+3xTF32) with the tiles, slices and walks of :func:`tc_plan`.  The dx kernel
+runs bfloat16 there too, and float32 on the CUDA cores with the tiles of
+:func:`tile_plan`.  The dw kernel runs bfloat16 as an implicit GEMM over the
+pixels of a face group on the tensor cores (:func:`dw_tc_plan`), and
+float32 on the CUDA cores (:func:`dw_plan`).
 
 Beside each kernel:
 
@@ -69,7 +72,11 @@ __all__ = [
     "cs_conv3x3_fused",
     "cs_conv3x3_plain",
     "cs_conv3x3_tile",
+    "dw_launch_args",
     "dw_plan",
+    "dw_tc_blocks",
+    "dw_tc_geom",
+    "dw_tc_plan",
     "dx_plan_args",
     "fwd_plan_args",
     "tc_blocks",
@@ -79,8 +86,8 @@ __all__ = [
 ]
 
 # Register tile of one thread and the block-size cap of the CUDA-core
-# kernels (float32; csrc/cs_conv3x3.cu, and the dx kernel of
-# csrc/cs_conv3x3_bwd.cu).
+# kernels (the float32 dx kernel of csrc/cs_conv3x3_bwd.cu, and the timing
+# rows of ops/conv_variants.py).
 _PX, _CO, _MAX_THREADS = 4, 8, 256
 # The CUDA-core dx kernel's widest channel slice: a block stages 9 x 16 x cs
 # weights per chunk, so a wider slice (up to 256 at Cin = 192) fills shared
@@ -88,9 +95,9 @@ _PX, _CO, _MAX_THREADS = 4, 8, 256
 # staging them for a single frame row.
 _DX_MAX_CS = 64
 # The tensor-core kernels (csrc/cs_conv3x3_tile.cuh::make_tc_geom): threads
-# per block, bf16 after each staged cell, the shared memory a block may opt
-# in to on an H100 and the per-SM share the occupancy reckoning takes
-# (228 KB less 1 KB a block reserved by the runtime).
+# per block, 16-bit units after each staged cell, the shared memory a block
+# may opt in to on an H100 and the per-SM share the occupancy reckoning
+# takes (228 KB less 1 KB a block reserved by the runtime).
 _TC_MAX_THREADS, _TC_PAD, _SMEM_LIMIT, _SMEM_PER_SM = 256, 8, 232448, 233472
 # What tc_plan aims at: output pixels per tile (whole rows), the shared
 # memory above which a block leaves no room for a second on its SM, and
@@ -101,6 +108,11 @@ _TC_TILE_PX, _TC_SOFT_SMEM, _TC_BLOCKS_PER_SM = 128, 113 * 1024, 4
 # shared memory at n=48, five blocks per SM) and the blocks per SM its grid
 # aims at, so that other blocks compute while one waits on its staging.
 _DW_CI, _DW_CO, _DW_ROWS, _DW_BLOCKS_PER_SM = 16, 32, 4, 8
+# The tensor-core dw kernel (csrc/cs_conv3x3_bwd.cu::make_dw_tc_geom): bf16
+# after each staged cell; the pixels an item aims at (whole face rows,
+# 12 k16 steps at n = 48 and 24), the blocks per SM its grid aims at (two
+# of 6 warps are resident; two waves), and the partial sums' cap.
+_DWT_PAD, _DWT_ITEM_PX, _DWT_BLOCKS_PER_SM, _DWT_PARTIAL_BYTES = 8, 192, 4, 20 * 2**20
 
 
 def _padded_faces(x, ext):
@@ -224,10 +236,9 @@ def tile_plan(b: int, rows: int, cols: int, cout: int, sm_count: int,
     register tiles.  ``cs`` is the widest power-of-two channel slice (at
     most ``max_cs``) that lets one row fit a block; ``h`` the most rows that
     fit, lowered until the grid holds two blocks per SM where the batch is
-    small (batch-1 serving).  The CUDA-core kernels take it (float32, and
-    the bfloat16 timing rows of ``ops/conv_variants.py``); their dx kernel
-    plans its ``(n+2)^2`` frame with the same function, its slices capped at
-    ``_DX_MAX_CS``.
+    small (batch-1 serving).  The CUDA-core kernels take it: the float32
+    dx kernel, which plans its ``(n+2)^2`` frame with it, its slices capped
+    at ``_DX_MAX_CS``, and the timing rows of ``ops/conv_variants.py``.
     """
     ncg = -(-cols // _PX)
     if ncg > _MAX_THREADS:
@@ -266,30 +277,36 @@ def _tc_warps_m(h: int, cols: int) -> int:
 
 
 def tc_geom(rows: int, cols: int, kch: int, nch: int, h: int, cs: int, nw: int,
-            dx: bool = False) -> TcGeom:
+            dx: bool = False, esize: int = 2) -> TcGeom:
     """The tensor-core kernel's geometry for a tile of ``h`` rows of a
     ``rows x cols`` block (the dx kernel: of the ``(n+2)^2`` frame), ``kch``
-    reduced and ``nch`` output channels, slices of ``cs`` channels and
-    ``nw`` n8 tiles per warp; raises ``ValueError`` where the kernel does
-    not take them (as ``make_tc_geom`` returns false)."""
+    reduced and ``nch`` output channels of ``esize`` bytes (2: bfloat16, 4:
+    float32, forward only), slices of ``cs`` channels and ``nw`` n8 tiles
+    per warp; raises ``ValueError`` where the kernel does not take them (as
+    ``make_tc_geom`` returns false).  ``kc``, ``kp`` and the staged sizes
+    count 16-bit units: a float32 value takes two."""
     if not (1 <= h <= rows and cols >= 1 and kch >= 1 and nch >= 1):
         raise ValueError(f"tc_geom: h={h} rows of a {rows} x {cols} block, K={kch}, N={nch}")
     if cs not in (8, 16, 32, 64) or nw not in (1, 2, 4, 8) or 8 * nw > cs:
         raise ValueError(f"tc_geom: slice {cs} with {nw} n8 tiles per warp")
+    if esize not in (2, 4) or (esize == 4 and (dx or nw > 4)):
+        raise ValueError(f"tc_geom: {esize}-byte elements (dx={dx}, nw={nw})")
     wn = cs // (8 * nw)
     wm = _tc_warps_m(h, cols)
     threads = 32 * wm * wn
     if threads > _TC_MAX_THREADS:
         raise ValueError(f"tc_geom: {threads} threads > {_TC_MAX_THREADS}")
-    kc = 16 if kch <= 16 else 32
-    kp = -(-kch // kc) * kc
+    units = kch * esize // 2
+    kc = 16 if units <= 16 else 32
+    kp = -(-units // kc) * kc
     stage = (h + 2) * (cols + 2) * (kc + _TC_PAD)
-    if dx:
+    if dx or esize == 4:
         wsize = cs * (9 * kp + _TC_PAD)
     else:
         wsize = 9 * kp * (cs + (8 if (cs // 8) % 2 == 0 else 16))
+    # the weights, two stages and, in float32, the lo halves of one stage
     return TcGeom(h, cs, nw, wn, wm, threads, -(-nch // cs), -(-rows // h), kc, kp,
-                  2 * (wsize + 2 * stage))
+                  2 * (wsize + (3 if esize == 4 else 2) * stage))
 
 
 class TcPlan(NamedTuple):
@@ -315,40 +332,21 @@ def _tc_grid(g: TcGeom, b: int, tpb: int) -> int:
     return g.nslices * (-(-4 * b * g.ntr // tpb) + -(-2 * b * g.ntr // tpb))
 
 
-def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
-            dx: bool = False) -> TcPlan:
-    """The tensor-core kernel's plan for ``b * 6`` faces of a ``rows x
-    cols`` block (the forward: the block's rows; the dx kernel: the
-    ``(n+2)^2`` frame, ``dx=True``), ``kch`` reduced channels (K = 9 kch)
-    and ``nch`` output channels.
+def _tc_launch(g: TcGeom, b: int, sm_count: int, tpb: int | None = None) -> TcPlan:
+    """The launch of geometry ``g`` on ``b * 6`` faces: ``tpb`` tiles a
+    block, by default as many as keep about ``_TC_BLOCKS_PER_SM`` blocks
+    per SM resident."""
+    tiles = b * 6 * g.ntr * g.nslices
+    if tpb is None:
+        tpb = max(1, -(-tiles // (_tc_blocks_per_sm(g) * sm_count)))
+    return TcPlan(g, tpb, tiles, _tc_grid(g, b, tpb))
 
-    Where the faces give enough tiles (training batches; n = 96), warps own
-    32 pixels x 32 channels (fewer on slices under 32), a tile holds as
-    many whole rows as 8 warps take, and the slice ``cs`` (8-64) maximises
-    :func:`_tc_score`.  Otherwise (batch-1 serving), the tiles must first
-    fill ``sm_count`` SMs: from tiles of about 128 pixels and the widest
-    slice that leaves room for a second block, slices narrow to 16
-    channels, then tiles lose rows, then slices narrow to 8; warps split N
-    where M has fewer than 4 of them.  A block walks ``tpb`` tiles of one
-    (face group, slice) so that the grid holds about
-    ``_TC_BLOCKS_PER_SM`` blocks per SM.  Raises ``ValueError`` on a shape
-    the kernel cannot take (a row of more than 256 pixels, or the weights of
-    one 8-channel slice past the shared memory).
-    """
-    if cols > _TC_MAX_THREADS:
-        raise ValueError(
-            f"the tensor-core conv takes rows of at most {_TC_MAX_THREADS} pixels, not {cols}")
-    limit = _SMEM_LIMIT - 1024  # room for a launch's static shared memory
-    widest = min(64, max(8, 1 << (nch - 1).bit_length()))
 
-    def tiles(g):
-        return b * 6 * g.ntr * g.nslices
-
-    def plan(g):
-        n_tiles = tiles(g)
-        tpb = max(1, -(-n_tiles // (_tc_blocks_per_sm(g) * sm_count)))
-        return TcPlan(g, tpb, n_tiles, _tc_grid(g, b, tpb))
-
+def _tc_wide(rows, cols, kch, nch, widest, dx, esize, score):
+    """The training-batch regime's geometry: warps own 32 pixels x 32
+    channels (fewer on slices under 32), a tile holds as many whole rows as
+    8 warps take (or half as many), and the slice ``cs`` (8 to ``widest``)
+    maximises ``score``; ``None`` where none fits the shared memory."""
     wide = []
     for cs in (8, 16, 32, 64):
         if cs > widest:
@@ -358,34 +356,67 @@ def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
         hmax = max(1, min(rows, wm * 32 // cols))
         for h in sorted({hmax, max(1, hmax // 2)}):
             try:
-                g = tc_geom(rows, cols, kch, nch, h, cs, nw, dx)
+                g = tc_geom(rows, cols, kch, nch, h, cs, nw, dx, esize)
             except ValueError:
                 continue
-            if g.smem <= limit:
+            if g.smem <= _SMEM_LIMIT - 1024:  # room for a launch's static shared memory
                 wide.append(g)
-    if wide:
-        g = max(wide, key=lambda g: _tc_score(g, cols, nch))
-        if tiles(g) >= sm_count:
-            return plan(g)
+    return max(wide, key=score) if wide else None
 
-    cs = widest
-    h = max(1, min(rows, _TC_TILE_PX // cols))
+
+def _tc_small_geom(rows, cols, kch, nch, h, cs, warps, dx, esize):
+    """The batch-1 regime's geometry of ``h``-row tiles and ``cs``-channel
+    slices: warps split N where M has fewer than ``warps`` of them; raises
+    ``ValueError`` past the shared memory with the narrowest slice."""
+    wm = _tc_warps_m(h, cols)
+    wn = 1
+    while wm * wn < warps and cs // (8 * wn) > 1 and 64 * wm * wn <= _TC_MAX_THREADS:
+        wn *= 2
+    g = tc_geom(rows, cols, kch, nch, h, cs, cs // (8 * wn), dx, esize)
+    if cs == 8 and g.smem > _SMEM_LIMIT - 1024:
+        raise ValueError(
+            f"the tensor-core conv cannot hold the weights of K={kch} channels x 8 in "
+            f"shared memory ({g.smem} > {_SMEM_LIMIT - 1024} bytes)")
+    return g
+
+
+def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
+            dx: bool = False, esize: int = 2) -> TcPlan:
+    """The tensor-core kernel's plan for ``b * 6`` faces of a ``rows x
+    cols`` block (the forward: the block's rows; the dx kernel: the
+    ``(n+2)^2`` frame, ``dx=True``), ``kch`` reduced channels (K = 9 kch)
+    and ``nch`` output channels of ``esize`` bytes (float32, ``esize=4``:
+    :func:`_tc_plan_f32`).
+
+    Where the faces give enough tiles (training batches; n = 96), the plan
+    of :func:`_tc_wide` whose slice maximises :func:`_tc_score`.  Otherwise
+    (batch-1 serving), the tiles must first fill ``sm_count`` SMs: from
+    tiles of about 128 pixels and the widest slice that leaves room for a
+    second block, slices narrow to 16 channels, then tiles lose rows, then
+    slices narrow to 8; warps split N where M has fewer than 4 of them.  A
+    block walks ``tpb`` tiles of one (face group, slice) so that the grid
+    holds about ``_TC_BLOCKS_PER_SM`` blocks per SM.  Raises ``ValueError``
+    on a shape the kernel cannot take (a row of more than 256 pixels, or the
+    weights of one 8-channel slice past the shared memory).
+    """
+    if cols > _TC_MAX_THREADS:
+        raise ValueError(
+            f"the tensor-core conv takes rows of at most {_TC_MAX_THREADS} pixels, not {cols}")
+    if esize == 4 and not dx:
+        return _tc_plan_f32(b, rows, cols, kch, nch, sm_count)
+    widest = min(64, max(8, 1 << (nch - 1).bit_length()))
+    g = _tc_wide(rows, cols, kch, nch, widest, dx, esize, lambda g: _tc_score(g, cols, nch))
+    if g is not None and b * 6 * g.ntr * g.nslices >= sm_count:
+        return _tc_launch(g, b, sm_count)
 
     def geom(h, cs):
-        wm = _tc_warps_m(h, cols)
-        wn = 1
-        while wm * wn < 4 and cs // (8 * wn) > 1:
-            wn *= 2
-        return tc_geom(rows, cols, kch, nch, h, cs, cs // (8 * wn), dx)
+        return _tc_small_geom(rows, cols, kch, nch, h, cs, 4, dx, esize)
 
+    cs, h = widest, max(1, min(rows, _TC_TILE_PX // cols))
     while cs > 8 and geom(h, cs).smem > _TC_SOFT_SMEM:
         cs //= 2
     g = geom(h, cs)
-    if g.smem > limit:
-        raise ValueError(
-            f"the tensor-core conv cannot hold the weights of K={kch} channels x 8 in "
-            f"shared memory ({g.smem} > {limit} bytes)")
-    while tiles(g) < sm_count:
+    while b * 6 * g.ntr * g.nslices < sm_count:
         if cs > 16:
             cs //= 2
         elif h > 1:
@@ -397,7 +428,51 @@ def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
         else:
             break
         g = geom(h, cs)
-    return plan(g)
+    return _tc_launch(g, b, sm_count)
+
+
+def _tc_plan_f32(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int) -> TcPlan:
+    """:func:`tc_plan` for the float32 forward (3xTF32).  It does six times
+    the bfloat16 kernel's tensor-core work per staged value, so fuller
+    blocks pay (fitted on ``tools/tc_sweep.py --dtype float32`` on an
+    H100): slices of at most 32 channels (at most 4 n8 tiles a warp), the
+    training-batch score times ``cs``; at batch 1 tiles of about 256 pixels
+    and 16-channel slices whatever their shared memory (unless the tiles
+    then need a second wave of resident blocks), up to 8 warps, row tiles
+    split evenly until the tiles fill 90 % of the SMs, and one tile a
+    block."""
+    widest = min(32, max(8, 1 << (nch - 1).bit_length()))
+    g = _tc_wide(rows, cols, kch, nch, widest, False, 4,
+                 lambda g: _tc_score(g, cols, nch) * g.cs)
+    if g is not None and b * 6 * g.ntr * g.nslices >= sm_count:
+        return _tc_launch(g, b, sm_count)
+
+    def geom(h, cs):
+        return _tc_small_geom(rows, cols, kch, nch, h, cs, 8, False, 4)
+
+    def small(soft):
+        """The batch-1 geometry, its slices narrowed to ``soft`` bytes first."""
+        cs, h = min(widest, 16), max(1, min(rows, 2 * _TC_TILE_PX // cols))
+        while cs > 8 and geom(h, cs).smem > soft:
+            cs //= 2
+        g = geom(h, cs)
+        while b * 6 * g.ntr * g.nslices < 0.9 * sm_count:
+            if h > 1:  # one more row tile, the rows split evenly
+                ntr = g.ntr
+                h = -(-rows // (ntr + 1))
+                while h > 1 and -(-rows // h) == ntr:
+                    h -= 1
+            elif cs > 8:
+                cs //= 2
+            else:
+                break
+            g = geom(h, cs)
+        return g
+
+    g = small(_SMEM_LIMIT - 1024)
+    if b * 6 * g.ntr * g.nslices > _tc_blocks_per_sm(g) * sm_count:  # a second wave
+        g = small(_TC_SOFT_SMEM)
+    return _tc_launch(g, b, sm_count, tpb=1)
 
 
 def _tc_score(g: TcGeom, cols: int, nch: int) -> float:
@@ -451,6 +526,98 @@ def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
     return rows, max(1, min(polar_items, -(-_DW_BLOCKS_PER_SM * sm_count // tiles)))
 
 
+class DwTcPlan(NamedTuple):
+    """A launch of the tensor-core dw kernel, as
+    ``csrc/cs_conv3x3_bwd.cu::make_dw_tc_geom`` computes it."""
+
+    rows: int  # face rows per item
+    cig: int  # Cin groups of 16 per block (1 or 2)
+    ng: int  # Cout groups of 32 per block (1 or 2)
+    nsplit: int  # K slices per face group
+    ncib: int  # Cin tiles
+    ncob: int  # Cout tiles
+    steps: int  # k16 steps per item
+    threads: int
+    smem: int  # bytes of shared memory per block
+
+    def args(self):
+        """``(rows, nsplit, cig, ng, smem)``, the numbers the C entry point
+        takes."""
+        return self.rows, self.nsplit, self.cig, self.ng, self.smem
+
+
+def _dw_tc_rows(n: int) -> int:
+    """Face rows per item: the fewest whole rows, dividing the face and
+    filling whole k16 steps, that give ``_DWT_ITEM_PX`` pixels; else the
+    whole face."""
+    for r in range(1, n + 1):
+        if n % r == 0 and r * n % 16 == 0 and r * n >= _DWT_ITEM_PX:
+            return r
+    return n
+
+
+def dw_tc_geom(b: int, n: int, cin: int, cout: int, rows: int, nsplit: int, cig: int,
+               ng: int) -> DwTcPlan:
+    """The tensor-core dw kernel's geometry; raises ``ValueError`` where the
+    kernel does not take it (as ``make_dw_tc_geom`` returns false)."""
+    if not (b >= 1 and n >= 1 and cin >= 1 and cout >= 1 and 1 <= rows <= n
+            and 1 <= nsplit <= 65535 and cig in (1, 2) and ng in (1, 2) and cig * ng <= 2):
+        raise ValueError(f"dw_tc_geom: b={b} n={n} Cin={cin} Cout={cout} rows={rows} "
+                         f"nsplit={nsplit} cig={cig} ng={ng}")
+    steps = -(-(rows * n) // 16)
+    pstage = (rows + 2) * (n + 2) * (16 * cig + _DWT_PAD)
+    dstage = 16 * steps * (32 * ng + _DWT_PAD)
+    return DwTcPlan(rows, cig, ng, nsplit, -(-cin // (16 * cig)), -(-cout // (32 * ng)), steps,
+                    96 * cig * ng, 4 * (pstage + dstage))
+
+
+def dw_tc_plan(b: int, n: int, cin: int, cout: int, sm_count: int) -> DwTcPlan:
+    """The tensor-core dw kernel's plan for ``b * 6`` faces of ``n x n``.
+
+    A block owns 9 taps x ``16 cig`` Cin x ``32 ng`` Cout channels (``cig``
+    = 2 past 16 input channels, else ``ng`` = 2 past 32 output channels:
+    at most 6 warps) and sums over ``nsplit`` contiguous slices of its face
+    group's items (batch item, face, ``rows`` face rows).  ``nsplit`` is
+    raised until the grid holds ``_DWT_BLOCKS_PER_SM`` blocks per SM, never
+    past the polar group's item count nor past partial sums (``nsplit * 2
+    * 9 * Cin * Cout`` floats) of ``_DWT_PARTIAL_BYTES``.  Raises
+    ``ValueError`` where one block's stages pass the shared memory."""
+    cig = 1 if cin <= 16 else 2
+    ng = 2 if cig == 1 and cout > 32 else 1
+    rows = _dw_tc_rows(n)
+    g = dw_tc_geom(b, n, cin, cout, rows, 1, cig, ng)
+    if g.smem > _SMEM_LIMIT - 1024:
+        raise ValueError(f"the tensor-core dw kernel cannot stage {rows} rows of n={n} "
+                         f"({g.smem} bytes of shared memory)")
+    tiles = 2 * g.ncib * g.ncob
+    polar_items = b * 2 * -(-n // rows)
+    budget = max(1, _DWT_PARTIAL_BYTES // (4 * 2 * 9 * cin * cout))
+    nsplit = max(1, min(polar_items, budget, 65535,
+                        -(-_DWT_BLOCKS_PER_SM * sm_count // tiles)))
+    return g._replace(nsplit=nsplit)
+
+
+def dw_tc_blocks(plan: DwTcPlan, b: int, n: int, cin: int, cout: int):
+    """The work of each block of the tensor-core dw kernel, in block order
+    (``blockIdx`` x, then y, then z, as the grid launches them): a list of
+    ``(grp, ci0, co0, items)`` with ``items`` a list of ``(face, r0)``
+    (face = batch item * 6 + face of the cube, r0 its first row)."""
+    nchunk = -(-n // plan.rows)
+    out = []
+    for grp, nf in ((0, 4), (1, 2)):
+        total = b * nf * nchunk
+        for s in range(plan.nsplit):
+            lo, hi = total * s // plan.nsplit, total * (s + 1) // plan.nsplit
+            items = []
+            for it in range(lo, hi):
+                bf = it // nchunk
+                items.append(((bf // nf) * 6 + grp * 4 + bf % nf, (it % nchunk) * plan.rows))
+            for x in range(plan.ncib * plan.ncob):
+                out.append((grp, (x % plan.ncib) * 16 * plan.cig,
+                            (x // plan.ncib) * 32 * plan.ng, items))
+    return out
+
+
 _FWD_LIB = CudaLibrary("cs_conv3x3.cu", {
     "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 10 + [VP],
     # the CUDA-core kernel in either dtype (ops/conv_variants.py's timing row)
@@ -460,27 +627,40 @@ _BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
     "cs_conv3x3_dx_launch": [I32, I32] + [VP] * 5 + [I32] * 9 + [VP],
     # kernel #14, the raw-ring instance (ops/conv_variants.py)
     "cs_conv3x3_dx_ring_launch": [I32, I32] + [VP] * 5 + [I32] * 9 + [VP],
-    # the CUDA-core dx kernel in either dtype (ops/conv_variants.py's timing row)
+    # the CUDA-core dx and dw kernels in either dtype (ops/conv_variants.py's
+    # timing rows)
     "cs_conv3x3_dx_cc_launch": [I32, I32] + [VP] * 5 + [I32] * 7 + [VP],
-    "cs_conv3x3_dw_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
+    "cs_conv3x3_dw_launch": [I32, I32] + [VP] * 5 + [I32] * 9 + [VP],
+    "cs_conv3x3_dw_cc_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
 }, "cs_conv3x3_bwd_error_string")
 
 
 def fwd_plan_args(x_dtype, b, rows, cols, cin, cout, sm_count):
-    """``(h, cs, nw, tpb, smem)`` of ``cs_conv3x3_launch``: bfloat16 the
-    tensor-core kernel's (:func:`tc_plan`), float32 the CUDA-core kernel's
-    ``(h, cs)`` (:func:`tile_plan`) and zeros."""
-    if x_dtype == torch.bfloat16:
-        return tc_plan(b, rows, cols, cin, cout, sm_count).args()
-    return (*tile_plan(b, rows, cols, cout, sm_count), 0, 0, 0)
+    """``(h, cs, nw, tpb, smem)`` of ``cs_conv3x3_launch``: the tensor-core
+    kernel's (:func:`tc_plan`) for elements of ``x_dtype``."""
+    esize = torch.finfo(x_dtype).bits // 8
+    return tc_plan(b, rows, cols, cin, cout, sm_count, esize=esize).args()
 
 
 def dx_plan_args(dtype, b, n, cin, cout, sm_count):
-    """``(h, cs, nw, tpb, smem)`` of the dx entry points, as
-    :func:`fwd_plan_args` (the frame is ``(n+2)^2``; K = 9 Cout, N = Cin)."""
+    """``(h, cs, nw, tpb, smem)`` of the dx entry points: bfloat16 the
+    tensor-core kernel's (:func:`tc_plan`; the frame is ``(n+2)^2``, K = 9
+    Cout, N = Cin), float32 the CUDA-core kernel's ``(h, cs)``
+    (:func:`tile_plan`) and zeros."""
     if dtype == torch.bfloat16:
         return tc_plan(b, n + 2, n + 2, cout, cin, sm_count, dx=True).args()
     return (*tile_plan(b, n + 2, n + 2, cin, sm_count, max_cs=_DX_MAX_CS), 0, 0, 0)
+
+
+def dw_launch_args(dtype, b, n, cin, cout, sm_count, cudacore=False):
+    """The dw kernel's C entry point and its plan arguments: bfloat16 the
+    tensor-core kernel's (``cs_conv3x3_dw_launch``, :func:`dw_tc_plan`'s
+    ``(rows, nsplit, cig, ng, smem)``); float32, or ``cudacore``, the
+    CUDA-core kernel's (``cs_conv3x3_dw_cc_launch``, :func:`dw_plan`'s
+    ``(rows, nsplit)``).  ``args[1]`` is ``nsplit`` in both."""
+    if dtype == torch.bfloat16 and not cudacore:
+        return "cs_conv3x3_dw_launch", dw_tc_plan(b, n, cin, cout, sm_count).args()
+    return "cs_conv3x3_dw_cc_launch", dw_plan(b, n, cin, cout, sm_count)
 
 
 class _Conv3x3Kernel(KernelWrapper):
@@ -548,6 +728,8 @@ class _Conv3x3DxKernel(KernelWrapper):
 
 
 class _Conv3x3DwKernel(KernelWrapper):
+    _cudacore = False  # the CUDA-core kernel in both dtypes (a timing row)
+
     def __call__(self, x, ext, dout):
         """Weight and bias gradients of the fused conv, f32: ``x`` (B, 6, n,
         n, Cin), its ghost strips ``ext`` and ``dout`` (B, 6, n, n, Cout), all
@@ -557,26 +739,32 @@ class _Conv3x3DwKernel(KernelWrapper):
         not change from run to run."""
         if x.device.type == "cpu":
             return cs_conv3x3_dw_plain(x, ext, dout)
-        check_faces("cs_conv3x3_dw", x)
+        check_faces(self.name, x)
         b, _, n, _, cin = x.shape
         cout = dout.shape[-1]
-        check_cuda_args("cs_conv3x3_dw", x, {
+        check_cuda_args(self.name, x, {
             "x": (x, (b, 6, n, n, cin)),
             "ext": (ext, (b, 6, 4, n + 2, cin)),
             "dout": (dout, (b, 6, n, n, cout)),
         })
-        dev = self._device(x)
-        rows, nsplit = dw_plan(b, n, cin, cout, self._sm_count[dev])
-        f32 = dict(dtype=torch.float32, device=x.device)
-        dk_part = torch.empty((nsplit, 2, 3, 3, cin, cout), **f32)
-        db_part = torch.empty((nsplit, 2, cout), **f32)
-        self._launch(
-            "cs_conv3x3_dw_launch", dev, DTYPES[x.dtype], dev,
-            *(t.data_ptr() for t in (x, ext, dout, dk_part, db_part)),
-            b, n, cin, cout, rows, nsplit,
-        )
+        dk_part, db_part = self._partials(x, ext, dout, b, n, cin, cout, self._device(x))
         dk, db = dk_part.sum(dim=0), db_part.sum(dim=0)
         return dk[0], dk[1], db[0], db[1]
+
+    def _partials(self, x, ext, dout, b, n, cin, cout, dev):
+        """One launch: ``(dk_part (nsplit, 2, 3, 3, Cin, Cout), db_part
+        (nsplit, 2, Cout))``, float32."""
+        entry, plan = dw_launch_args(x.dtype, b, n, cin, cout, self._sm_count[dev],
+                                     self._cudacore)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dk_part = torch.empty((plan[1], 2, 3, 3, cin, cout), **f32)
+        db_part = torch.empty((plan[1], 2, cout), **f32)
+        self._launch(
+            entry, dev, DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, ext, dout, dk_part, db_part)),
+            b, n, cin, cout, *plan, sizes=4 + len(plan),
+        )
+        return dk_part, db_part
 
 
 cs_conv3x3 = _Conv3x3Kernel("cs_conv3x3", _FWD_LIB)

@@ -199,8 +199,8 @@ class _BandOverlapKernel(RemoteCopyKernel):
         dev = self._device(x)
         ring = symmetric.ring_buffer(mesh, axis_name, x.device)
         ring.reserve(b * 6 * n * cin * x.element_size(), self.library)
-        # float32: tile_plan's (h, cs); bfloat16: tc_plan's (h, cs, nw) and
-        # shared memory (the grid is sized by occupancy, not by tpb)
+        # tc_plan's (h, cs, nw) and shared memory for x's dtype (the grid is
+        # sized by occupancy, not by tpb)
         th, cs, nw, _, smem = fwd_plan_args(x.dtype, b, h, n, cin, cout, self._sm_count[dev])
         out = torch.empty((b, 6, h, n, cout), dtype=x.dtype, device=x.device)
         me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()

@@ -1,17 +1,18 @@
 """Time the tensor-core conv and dx kernels under many plans, on the card.
 
-The bfloat16 forward (#1) and dx (#4) kernels take their tiles, slices
-and walks from ``ops/hopper_conv.py::tc_plan``.  This tool times, at each
-conv shape of the flagship C48 U-Net (and n = 96), the plans around it:
-slices of 8-64 channels, 1-8 n8 tiles per warp, tiles of whole rows up to
-256 pixels, and tiles per block around the grid that keeps the SMs full.
-Every plan's output is held against the plain version (one bf16 ulp of
-|ref| + 1e-4).  Rows: the shape, cuDNN's time (the face-grouped conv, or
-its dgrad for dx), the time of ``tc_plan``'s own choice and the fastest
-plans.  ``_tc_score`` (the training-batch choice) was fitted on these rows
-(an H100, batch 16).
+The forward (#1, bfloat16 and float32) and bfloat16 dx (#4) kernels take
+their tiles, slices and walks from ``ops/hopper_conv.py::tc_plan``.  This
+tool times, at each conv shape of the flagship C48 U-Net (and n = 96), the
+plans around it: slices of 8-64 channels (float32: 8-32), 1-8 n8 tiles per
+warp (float32: 1-4), tiles of whole rows up to 256 pixels, and tiles per
+block around the grid that keeps the SMs full.  Every plan's output is held
+against the plain version (bfloat16: one bf16 ulp of |ref| + 1e-4;
+float32: 1e-4).  Rows: the shape, cuDNN's time (the face-grouped conv, or
+its dgrad for dx; float32 with TF32 off), the time of ``tc_plan``'s own
+choice and the fastest plans.  ``_tc_score`` (the training-batch choice)
+was fitted on these rows (an H100, batch 16).
 
-    python -m dlwp_cs_tpu_torch.tools.tc_sweep [--out FILE.json]   # on the card
+    python -m dlwp_cs_tpu_torch.tools.tc_sweep [--dtype float32] [--out FILE.json]   # on the card
 """
 
 from __future__ import annotations
@@ -36,10 +37,11 @@ SHAPES = [(48, 12, 32), (48, 32, 32), (24, 32, 64), (24, 64, 64), (12, 64, 128),
 HEIGHTS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)
 
 
-def candidates(b, rows, cols, kch, nch, dx, sm_count):
-    """The plans around ``tc_plan``'s: ``(h, cs, nw, tpb, smem)`` each."""
+def candidates(b, rows, cols, kch, nch, dx, sm_count, esize=2):
+    """The plans around ``tc_plan``'s for ``esize``-byte elements: ``(h, cs,
+    nw, tpb, smem)`` each."""
     out = []
-    widest = min(64, max(8, 1 << (nch - 1).bit_length()))
+    widest = min(64 if esize == 2 else 32, max(8, 1 << (nch - 1).bit_length()))
     hs = [h for h in range(1, rows + 1) if h * cols <= 256]
     hs = [h for h in hs if h in HEIGHTS or h == hs[-1]]
     for cs in (8, 16, 32, 64):
@@ -49,7 +51,7 @@ def candidates(b, rows, cols, kch, nch, dx, sm_count):
                 if nw < 1 or nw * 8 * wn != cs:
                     continue
                 try:
-                    g = hc.tc_geom(rows, cols, kch, nch, h, cs, nw, dx)
+                    g = hc.tc_geom(rows, cols, kch, nch, h, cs, nw, dx, esize)
                 except ValueError:
                     continue
                 if g.smem > hc._SMEM_LIMIT - 1024:
@@ -73,44 +75,55 @@ def _sweep(launch, check, plans, reps):
     return sorted(rows)
 
 
-def run(batches=(16, 1), dx_batch=16, reps=10):
+def run(batches=(16, 1), dx_batch=16, reps=10, dtype=torch.bfloat16):
     """The rows of the module docstring, as dicts; the full table of each
-    shape under ``"all"``."""
+    shape under ``"all"``.  float32: the forward only (its dx kernel is not
+    a tensor-core kernel)."""
     dev, bf = torch.device("cuda"), torch.bfloat16
+    f32 = dtype == torch.float32
+    esize, code = (4, 0) if f32 else (2, 1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+    def rand(*shape, scale=1.0, dt=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
 
     def row(kind, b, n, cin, cout, lib_ms, own, rows):
         own_ms = next((t for t, p in rows if p == own), None)
-        return {"kind": kind, "batch": b, "n": n, "cin": cin, "cout": cout, "library_ms": lib_ms,
-                "plan": own, "plan_ms": own_ms, "best": rows[:5], "all": rows}
+        return {"kind": kind, "dtype": str(dtype).split(".")[-1], "batch": b, "n": n,
+                "cin": cin, "cout": cout, "library_ms": lib_ms, "plan": own, "plan_ms": own_ms,
+                "best": rows[:5], "all": rows}
+
+    def close(y, ref):
+        if f32:
+            return float((y - ref).abs().max()) <= 1e-4
+        return bf16_excess(y, ref) <= 1e-4
 
     out = []
     for b in batches:
         for n, cin, cout in SHAPES:
-            x = rand(b, 6, n, n, cin)
-            ks = [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5) for _ in range(2)]
-            bs = [rand(cout, scale=0.1) for _ in range(2)]
+            x = rand(b, 6, n, n, cin, dt=dtype)
+            ks = [rand(3, 3, cin, cout, scale=(9 * cin) ** -0.5, dt=dtype) for _ in range(2)]
+            bs = [rand(cout, scale=0.1, dt=dtype) for _ in range(2)]
             e = ext_strips(x)
-            y = torch.empty((b, 6, n, n, cout), dtype=bf, device=dev)
+            y = torch.empty((b, 6, n, n, cout), dtype=dtype, device=dev)
             ref = hc.cs_conv3x3_plain(x, e, *ks, *bs)
             ptrs = [t.data_ptr() for t in (x, e, *ks, *bs, y)]
 
             def launch(plan, ptrs=ptrs, b=b, n=n, cin=cin, cout=cout):
-                hc.cs_conv3x3._launch("cs_conv3x3_launch", dev.index or 0, 1, dev.index or 0,
+                hc.cs_conv3x3._launch("cs_conv3x3_launch", dev.index or 0, code, dev.index or 0,
                                       *ptrs, b, n, n, cin, cout, *plan, sizes=10)
 
-            rows = _sweep(launch, lambda y=y, ref=ref: bf16_excess(y, ref) <= 1e-4,
-                          candidates(b, n, n, cin, cout, False, sms), reps)
+            rows = _sweep(launch, lambda y=y, ref=ref: close(y, ref),
+                          candidates(b, n, n, cin, cout, False, sms, esize), reps)
             p, w = face_grouped(cs_pad(x, 1), ks)
             bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
             lib = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), reps)
             out.append(row("fwd", b, n, cin, cout, lib,
-                           hc.tc_plan(b, n, n, cin, cout, sms).args(), rows))
+                           hc.tc_plan(b, n, n, cin, cout, sms, esize=esize).args(), rows))
             yield out[-1]
+    if f32:
+        return
     b = dx_batch
     for n, cin, cout in SHAPES[1:8]:
         g = rand(b, 6, n, n, cout)
@@ -140,13 +153,14 @@ def run(batches=(16, 1), dx_batch=16, reps=10):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write every row (all plans) as JSON here")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("tc_sweep times CUDA kernels: it needs a card")
     torch.backends.cudnn.allow_tf32 = False
     print(f"device={torch.cuda.get_device_name(0)}")
     rows = []
-    for r in run():
+    for r in run(dtype=getattr(torch, args.dtype)):
         rows.append(r)
         best = [(round(t, 4), p[:4]) for t, p in r["best"]]
         own = "-" if r["plan_ms"] is None else f"{r['plan_ms']:.4f}"

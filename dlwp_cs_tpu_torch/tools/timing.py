@@ -18,14 +18,17 @@ import statistics
 
 import torch
 
-__all__ = ["HBM_BYTES_PER_S", "PEAK_OPS", "add_device_args", "bf16_excess", "bound",
-           "check_close", "device_ms", "face_grouped", "graph_ms", "tool_device"]
+__all__ = ["HBM_BYTES_PER_S", "PEAK_OPS", "TF32_OPS", "add_device_args", "bf16_excess",
+           "bound", "check_close", "device_ms", "face_grouped", "graph_ms", "tool_device"]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
-# and the operation rate for the kernel's input type (bf16 tensor-core rate,
-# float32 outside the tensor cores)
+# and the fastest rate of float32-accurate work for the kernel's input type.
+# bf16: the tensor cores' 989 TFLOP/s.  float32: the tensor cores as 3xTF32,
+# three TF32 products (495 TFLOP/s each) per float32 product, which beats
+# the CUDA cores' 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_OPS = 495e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: TF32_OPS / 3}
 
 
 def bound(nbytes, ops, dtype):

@@ -19,12 +19,15 @@ order 1); its gradients within 1e-4 (f32: cuDNN may pick Winograd or FFT
 algorithms for the SAME convs' VJP) and 2**-6 (bf16) of each gradient's
 largest entry.  The band and tile launches of the forward kernel (#8,
 #9) as the forward kernel; a band conv of 2 ranks sharing the card (a gloo
-group) against the one-card conv likewise.  The bfloat16 forward and dx
-kernels run on the tensor cores (``tc_plan``); each output's sum runs in
-one K order whatever the tile, so a band's or a tile's rows equal the
-whole face's bitwise given the same ghost values, and the CUDA-core
-bfloat16 instances they replaced (kept as the kernel tools' timing rows)
-agree with the plain versions as before.
+group) against the one-card conv likewise.  The forward kernel runs on the
+tensor cores in both dtypes (``tc_plan``; float32 as 3xTF32, at the same
+1e-4), the bfloat16 dx kernel too, and the bfloat16 dw kernel as an
+implicit GEMM over the pixels (``dw_tc_plan``, at the same 1e-5); each
+forward output's sum runs in one K order whatever the tile, so a band's or
+a tile's rows equal the whole face's bitwise given the same ghost values.
+The CUDA-core instances they replaced (kept as the kernel tools' timing
+rows) agree with the plain versions as before, and the float32 dx and dw
+kernels, which stay on the CUDA cores, are those instances bit for bit.
 """
 
 import numpy as np
@@ -811,10 +814,12 @@ def test_tensor_core_kernels_refuse_what_the_plan_refuses(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (16, 24, 192, 64), (2, 8, 5, 7)])
 def test_cuda_core_instances_match_plain_on_card(cuda_device, b, n, cin, cout):
-    """The CUDA-core bfloat16 forward and dx kernels that the tensor-core
-    ones replaced (kept so that one card call times the two side by side),
-    and the float32 instances they share: each against its plain version;
-    in float32 the production wrappers' results bitwise."""
+    """The CUDA-core forward (float32 and bfloat16) and bfloat16 dx kernels
+    that the tensor-core ones replaced (kept so that one card call times
+    the two side by side), and the float32 dx kernel they share: each
+    against its plain version; in float32 the production dx wrapper's
+    result bitwise, and the production forward (3xTF32 on the tensor
+    cores) within the forward's 1e-4 of the CUDA-core one."""
     from dlwp_cs_tpu_torch.ops.conv_variants import (
         cs_conv3x3_cudacore,
         cs_conv3x3_dx_cudacore,
@@ -838,5 +843,107 @@ def test_cuda_core_instances_match_plain_on_card(cuda_device, b, n, cin, cout):
         _close(ring, cs_conv3x3_dx_ring_plain(g, w[0], w[1])[1], dtype)
         assert torch.equal(dx_r, dx)
         if dtype == "float32":
-            assert torch.equal(out, cs_conv3x3(x, e, *w))
             assert torch.equal(dx, cs_conv3x3_dx(g, w[0], w[1])[0])
+            _close(cs_conv3x3(x, e, *w), out, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("n,cin,cout", TC_SHAPES)
+def test_float32_tensor_core_conv_matches_plain_on_card(cuda_device, b, n, cin, cout):
+    """The float32 forward (#1) on the tensor cores (3xTF32) at every
+    flagship conv shape and n = 96, at the serving and the training batch:
+    one launch, within 1e-4 of its plain version."""
+    x, *w = (torch.from_numpy(a).to(cuda_device) for a in _case(b, n, cin, cout))
+    w[0], w[1] = w[0] / cin**0.5, w[1] / cin**0.5
+    e = ext_strips(x)
+    before = cs_conv3x3.launches
+    ours = cs_conv3x3(x, e, *w)
+    torch.cuda.synchronize()
+    assert cs_conv3x3.launches == before + 1
+    _close(ours, cs_conv3x3_plain(x, e, *w), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (8, 24, 192, 64), (1, 12, 128, 128),
+                                          (2, 48, 96, 32), (16, 24, 64, 64), (1, 10, 3, 9)])
+def test_float32_blocks_equal_the_whole_face_on_card(cuda_device, b, n, cin, cout):
+    """#8 (band) and #9 (tile) in float32, given the ghost values the whole
+    face has there, equal the matching rows of #1's float32 output bitwise.
+    (#11 equals #8 bitwise in both dtypes:
+    test_band_exchange_kernels_on_ranks_sharing_the_card.)"""
+    x, *w = (torch.from_numpy(a).to(cuda_device) for a in _case(b, n, cin, cout))
+    w[0], w[1] = w[0] / cin**0.5, w[1] / cin**0.5
+    e = ext_strips(x)
+    whole = cs_conv3x3(x, e, *w)
+    for wrapper, (r0, c0, rows, cols) in (
+        (cs_conv3x3_band, (n // 4, 0, n // 4, n)),
+        (cs_conv3x3_band, (n // 2, 0, n // 2, n)),
+        (cs_conv3x3_tile, (n // 2, n // 2, n // 2, n // 2)),
+    ):
+        blk, strips = _block_of(x, e, r0, c0, rows, cols)
+        ours = wrapper(blk, strips, *w)
+        torch.cuda.synchronize()
+        assert torch.equal(ours, whole[:, :, r0 : r0 + rows, c0 : c0 + cols]), (wrapper.name,
+                                                                               r0, c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cin,cout", TC_SHAPES[:-1])
+def test_tensor_core_dw_matches_plain_at_the_step_shapes_on_card(cuda_device, n, cin, cout):
+    """The bfloat16 dw kernel (#5) on the tensor cores at the training
+    step's 8 distinct shapes at batch 16: dK and db within 1e-5 of each
+    one's largest entry of the plain version, and bitwise repeatable."""
+    gen = torch.Generator().manual_seed(n + cin + cout)
+    x = torch.randn((16, 6, n, n, cin), generator=gen).to(cuda_device, torch.bfloat16)
+    g = torch.randn((16, 6, n, n, cout), generator=gen).to(cuda_device, torch.bfloat16)
+    e = ext_strips(x)
+    before = cs_conv3x3_dw.launches
+    dw = cs_conv3x3_dw(x, e, g)
+    again = cs_conv3x3_dw(x, e, g)
+    torch.cuda.synchronize()
+    assert cs_conv3x3_dw.launches == before + 2
+    for ours, twice, ref in zip(dw, again, cs_conv3x3_dw_plain(x, e, g)):
+        torch.testing.assert_close(ours, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+        assert torch.equal(ours, twice)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,cout", [(2, 8, 5, 7), (16, 48, 12, 32), (16, 24, 64, 64)])
+def test_cuda_core_dw_timing_row_matches_plain_on_card(cuda_device, dtype, b, n, cin, cout):
+    """The CUDA-core dw kernel (the bfloat16 instance the tensor-core one
+    replaced, and the float32 production one) against its plain version."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dw_cudacore
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b + n)
+    x = torch.randn((b, 6, n, n, cin), generator=gen).to(cuda_device, tdt)
+    g = torch.randn((b, 6, n, n, cout), generator=gen).to(cuda_device, tdt)
+    e = ext_strips(x)
+    before = cs_conv3x3_dw_cudacore.launches
+    dw = cs_conv3x3_dw_cudacore(x, e, g)
+    torch.cuda.synchronize()
+    assert cs_conv3x3_dw_cudacore.launches == before + 1
+    for ours, ref in zip(dw, cs_conv3x3_dw_plain(x, e, g)):
+        torch.testing.assert_close(ours, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (16, 24, 192, 64), (2, 8, 5, 7),
+                                          (16, 12, 128, 128)])
+def test_float32_dx_and_dw_are_the_cuda_core_kernels_on_card(cuda_device, b, n, cin, cout):
+    """float32's dx and dw kernels stay on the CUDA cores: the production
+    wrappers' outputs equal the CUDA-core timing rows' bitwise."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dw_cudacore, cs_conv3x3_dx_cudacore
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((b, 6, n, n, cin), generator=gen).to(cuda_device)
+    g = torch.randn((b, 6, n, n, cout), generator=gen).to(cuda_device)
+    k = [(torch.randn((3, 3, cin, cout), generator=gen) / cin**0.5).to(cuda_device)
+         for _ in range(2)]
+    e = ext_strips(x)
+    for ours, theirs in zip(cs_conv3x3_dx(g, *k), cs_conv3x3_dx_cudacore(g, *k)):
+        assert torch.equal(ours, theirs)
+    for ours, theirs in zip(cs_conv3x3_dw(x, e, g), cs_conv3x3_dw_cudacore(x, e, g)):
+        assert torch.equal(ours, theirs)

@@ -1,20 +1,30 @@
-"""The host plan of the tensor-core conv kernels (``tc_plan``), on the CPU.
+"""The host plans of the tensor-core conv kernels (``tc_plan``,
+``dw_tc_plan``), on the CPU.
 
-The bfloat16 forward (#1, and through the same entry point #8, #9, #11,
-#12) and dx (#4, #14) kernels launch with the tiles, slices and walks that
-``dlwp_cs_tpu_torch.ops.hopper_conv.tc_plan`` computes; the C side
-(``csrc/cs_conv3x3_tile.cuh``) recomputes the geometry and refuses a
-launch whose shared memory differs.  For every shape that the serving and
+The forward (#1, and through the same entry point #8, #9, #11, #12; in
+bfloat16 and, as 3xTF32, in float32) and the bfloat16 dx (#4, #14) kernels
+launch with the tiles, slices and walks that
+``dlwp_cs_tpu_torch.ops.hopper_conv.tc_plan`` computes; the bfloat16 dw
+kernel (#5) with ``dw_tc_plan``'s.  The C side (``csrc/cs_conv3x3_tile.cuh``,
+``csrc/cs_conv3x3_bwd.cu``) recomputes the geometry and refuses a launch
+whose shared memory differs.  For every shape that the serving and
 training paths, the sharded paths and the kernel tools give these kernels,
-the plan must cover each output pixel and channel exactly once, fit the
-H100's shared memory per block (232,448 bytes) and, at batch 1, fill at
-least one wave of its 132 SMs.  Pure Python: no card, no JAX.
+the plan must cover each output exactly once, fit the H100's shared memory
+per block (232,448 bytes) and, for the forward at batch 1, fill at least
+one wave of its 132 SMs.  The float32 forward's 3xTF32 split is emulated
+in plain torch against float64.  Pure Python: no card, no JAX.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from dlwp_cs_tpu_torch.ops.hopper_conv import (
+    dw_launch_args,
+    dw_plan,
+    dw_tc_blocks,
+    dw_tc_geom,
+    dw_tc_plan,
     dx_plan_args,
     fwd_plan_args,
     tc_blocks,
@@ -96,12 +106,33 @@ def test_dx_plan_covers_the_frame_and_fits(b, n, cin, cout):
 
 
 def test_float32_keeps_the_cuda_core_plan():
-    """float32 launches the CUDA-core kernels with tile_plan's (h, cs)."""
+    """float32's backward stays on the CUDA cores: the dx kernel with
+    tile_plan's (h, cs) on the (n+2)^2 frame, slices of at most 64, and the
+    dw kernel with dw_plan's (rows, nsplit)."""
     for b, n, cin, cout in [(1, 48, 12, 32), (16, 12, 128, 128)]:
-        assert fwd_plan_args(torch.float32, b, n, n, cin, cout, SMS) == (
-            *tile_plan(b, n, n, cout, SMS), 0, 0, 0)
         h, cs, nw, tpb, smem = dx_plan_args(torch.float32, b, n, cin, cout, SMS)
+        assert (h, cs) == tile_plan(b, n + 2, n + 2, cin, SMS, max_cs=64)
         assert (nw, tpb, smem) == (0, 0, 0) and cs <= 64
+        assert dw_launch_args(torch.float32, b, n, cin, cout, SMS) == (
+            "cs_conv3x3_dw_cc_launch", dw_plan(b, n, cin, cout, SMS))
+
+
+@pytest.mark.parametrize("b,rows,cols,cin,cout", FORWARD, ids=_ids(FORWARD))
+def test_float32_forward_plan_covers_fits_and_fills(b, rows, cols, cin, cout):
+    """The float32 forward on the tensor cores: 4-byte values take two
+    16-bit units of shared memory, slices of at most 32 channels (at most
+    4 n8 tiles a warp), the weights as n x k rows; at batch 1 its fuller
+    blocks fill at least 85 % of the SMs (the batch-1 regime aims at 90 %
+    of them; at n = 96 a block of one SM walks 5 tiles: 118 blocks)."""
+    plan = tc_plan(b, rows, cols, cin, cout, SMS, esize=4)
+    g = plan.geom
+    _check_cover(plan, b, rows, cols, cout)
+    assert g.smem <= SMEM and g.cs <= 32 and g.nw <= 4
+    assert g.kp >= 2 * cin and g.kp % g.kc == 0  # whole chunks of f32 channels
+    assert plan.tiles == b * 6 * g.ntr * g.nslices
+    if b == 1:
+        assert plan.blocks >= 0.85 * SMS, (plan, "a batch-1 grid fills 85 % of the SMs")
+    assert fwd_plan_args(torch.float32, b, rows, cols, cin, cout, SMS) == plan.args()
 
 
 @pytest.mark.parametrize("dx", [False, True])
@@ -125,3 +156,132 @@ def test_plan_refuses_what_the_kernel_cannot_take():
         tc_geom(8, 8, 8, 8, 1, 24, 1)  # slices of 8, 16, 32 or 64 channels
     with pytest.raises(ValueError):
         tc_geom(8, 200, 8, 64, 2, 64, 1)  # 16 warps
+
+
+def test_float32_geometry_counts_units():
+    """A float32 channel takes two 16-bit units: 12 channels are 24 units,
+    one chunk of 32; the weights are staged as n x (9 kp + 8) units, and
+    beside the two stages a third holds the lo halves of the one in use."""
+    g = tc_geom(12, 12, 12, 32, 5, 32, 4, esize=4)
+    assert (g.kc, g.kp) == (32, 32)
+    assert g.smem == 2 * (32 * (9 * 32 + 8) + 3 * 7 * 14 * 40)
+    assert tc_geom(12, 12, 192, 32, 5, 8, 1, esize=4).kp == 384
+    assert tc_geom(5, 5, 8, 8, 5, 8, 1, esize=4).kc == 16  # 8 channels: one chunk of 16 units
+    with pytest.raises(ValueError):
+        tc_geom(12, 12, 64, 64, 2, 64, 8, esize=4)  # float32: at most 4 n8 tiles a warp
+    with pytest.raises(ValueError):
+        tc_geom(14, 14, 64, 64, 2, 32, 4, dx=True, esize=4)  # the float32 dx kernel: CUDA cores
+
+
+# ---- the dw kernel on the tensor cores (#5, bfloat16) ----------------------
+
+DW = [(b, n, cin, cout) for b in (1, 16) for n, cin, cout in FLAGSHIP]
+
+
+@pytest.mark.parametrize("b,n,cin,cout", DW, ids=_ids(DW))
+def test_dw_plan_covers_every_tap_channel_and_pixel_once(b, n, cin, cout):
+    """Every (face group, tap, Cin, Cout, pixel) in exactly one block, one
+    warp and one k16 step: the blocks of a K slice tile the channels, the
+    K slices of a group split its items (batch item, face, row chunk)
+    without gap or overlap, the row chunks tile each face, an item's k16
+    steps cover its pixels, and a block's warps cover its 9 taps x 16 cig
+    Cin x 32 ng Cout channels."""
+    plan = dw_tc_plan(b, n, cin, cout, SMS)
+    blocks = dw_tc_blocks(plan, b, n, cin, cout)
+    assert len(blocks) == 2 * plan.ncib * plan.ncob * plan.nsplit
+    ci_w, co_w = 16 * plan.cig, 32 * plan.ng
+    by_items = {}
+    for grp, ci0, co0, items in blocks:
+        by_items.setdefault((grp, tuple(items)), []).append((ci0, co0))
+    for grp, nf in ((0, 4), (1, 2)):
+        seen_px = {}
+        slices = [(items, tiles) for (g, items), tiles in by_items.items() if g == grp]
+        for items, tiles in slices:
+            seen_ch = {}
+            for ci0, co0 in tiles:
+                for ci in range(ci0, min(ci0 + ci_w, cin)):
+                    for co in range(co0, min(co0 + co_w, cout)):
+                        seen_ch[ci, co] = seen_ch.get((ci, co), 0) + 1
+            assert len(seen_ch) == cin * cout and set(seen_ch.values()) == {1}
+            for face, r0 in items:
+                assert (face % 6 >= 4) == (grp == 1)
+                for r in range(r0, min(r0 + plan.rows, n)):
+                    seen_px[face, r] = seen_px.get((face, r), 0) + 1
+        # empty K slices write zeros; the others hold each item once
+        assert len(seen_px) == b * nf * n and set(seen_px.values()) == {1}
+    assert (plan.steps - 1) * 16 < plan.rows * n <= plan.steps * 16
+    warps = {(cg * 16 + c, dy * 3 + dx) for cg in range(plan.cig) for dy in range(3)
+             for dx in range(3) for c in range(16)}
+    assert len(warps) == 9 * ci_w and plan.threads == 32 * 3 * plan.cig * plan.ng
+
+
+@pytest.mark.parametrize("b,n,cin,cout", DW, ids=_ids(DW))
+def test_dw_plan_fits_and_keeps_its_partials_small(b, n, cin, cout):
+    plan = dw_tc_plan(b, n, cin, cout, SMS)
+    # two blocks of up to 6 warps on an SM (the kernel's launch bounds)
+    assert plan.threads <= 192 and 2 * (plan.smem + 1024) <= 233472
+    assert plan.nsplit * 2 * 9 * cin * cout * 4 <= 20 * 2**20
+    assert dw_launch_args(torch.bfloat16, b, n, cin, cout, SMS) == (
+        "cs_conv3x3_dw_launch", plan.args())
+    # the CUDA-core timing row: dw_plan's (rows, nsplit) in either dtype
+    assert dw_launch_args(torch.bfloat16, b, n, cin, cout, SMS, cudacore=True) == (
+        "cs_conv3x3_dw_cc_launch", dw_plan(b, n, cin, cout, SMS))
+    if b == 16:
+        assert 2 * plan.ncib * plan.ncob * plan.nsplit >= 2 * SMS  # two blocks per SM
+
+
+def test_dw_geometry_counts_shared_memory_as_the_kernel_does():
+    """Two stages of the (R+2) x (n+2) padded cells of 16 cig + 8 channels
+    and 16 x steps dout pixels of 32 ng + 8 channels, in bf16."""
+    g = dw_tc_geom(16, 24, 64, 64, 8, 66, 2, 1)
+    assert (g.steps, g.ncib, g.ncob, g.threads) == (12, 2, 2, 192)
+    assert g.smem == 2 * 2 * (10 * 26 * 40 + 16 * 12 * 40)
+    g = dw_tc_geom(1, 10, 3, 9, 10, 1, 1, 1)  # a partial last k16 step
+    assert (g.steps, g.ncib, g.ncob, g.threads) == (7, 1, 1, 96)
+
+
+def test_dw_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        dw_tc_geom(1, 48, 64, 64, 4, 1, 2, 2)  # 12 warps
+    with pytest.raises(ValueError):
+        dw_tc_geom(1, 8, 8, 8, 9, 1, 1, 1)  # more rows than the face
+    with pytest.raises(ValueError):
+        dw_tc_geom(1, 8, 8, 8, 8, 65536, 1, 1)  # a grid dimension past 65535
+    with pytest.raises(ValueError, match="cannot stage"):
+        dw_tc_plan(16, 1000, 64, 64, SMS)
+
+
+# ---- 3xTF32 in plain torch --------------------------------------------------
+
+def _tf32(v):
+    """float32 -> TF32 (10 explicit mantissa bits), to nearest, ties away
+    from zero (cvt.rna.tf32.f32): round the magnitude bits at bit 13."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_three_tf32_products_hold_float32_accuracy_at_the_flagship_k():
+    """The split hi = tf32(v), lo = tf32(v - hi) of both operands, summed as
+    lo.hi + hi.lo + hi.hi (lo.lo dropped), against float64 at the
+    flagship's largest K (9 x 192) with the U-Net's weight scale; the
+    float32 forward's gate is 1e-4 absolute.  One TF32 product alone misses
+    it; three stay under float32's own rounding of the sums."""
+    rng = np.random.default_rng(0)
+    k = 9 * 192
+    a = torch.from_numpy(rng.normal(size=(256, k)).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(k, 64)) / k**0.5).astype(np.float32))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    assert torch.equal(_tf32(ah), ah) and torch.equal(ah + (a - ah), a)
+    exact = a.double() @ b.double()
+    three = al.double() @ bh.double() + ah.double() @ bl.double() + ah.double() @ bh.double()
+    one = ah.double() @ bh.double()
+    f32 = a @ b  # float32's own sums
+    err3 = float((three - exact).abs().max())
+    assert err3 < 1e-6 and err3 <= 4 * float((f32.double() - exact).abs().max())
+    assert float((one - exact).abs().max()) > 1e-4
+    # the kernel's order: each tap's 192 products summed apart, the taps'
+    # sums added in float32
+    taps = sum((al[:, t::9].double() @ bh[t::9].double() + ah[:, t::9].double() @ bl[t::9].double()
+                + ah[:, t::9].double() @ bh[t::9].double()).float() for t in range(9))
+    assert float((taps.double() - exact).abs().max()) < 1e-5
