@@ -28,8 +28,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    the CUDA-core instances they replaced (``ops/conv_variants.py``), both
    held against the plain version and timed in turns (old, new, new, old),
    beside cuDNN and the bound: #1 at batch 1, 8, 16 and n=96 and #8 and #9
-   on a rank's block, in bfloat16 and float32; #4 and #5 (dw) at the
-   step's shapes in bfloat16; #12 and #14 at conv_micro's levels;
+   on a rank's block, #4 and #5 (dw) at the step's shapes, in bfloat16 and
+   float32 (3xTF32); #12 at conv_micro's levels, #14 there in both types;
 5. the ring-fix kernels at each distinct conv shape of the flagship U-Net
    and the ConvLSTM's two gate-conv shapes, at batch 1 and 16, in float32
    and bfloat16: both held against their plain versions and timed beside
@@ -76,7 +76,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    busy and idle time in one profiled step; for the float32 U-Net, step 1's
    gradients also through the plain path in float64, each float32 path's
    error against them per tensor, and the leaky-ReLU pre-activations whose
-   sign differs between the runs;
+   sign differs between the runs; in the float32 U-Net's profiled step, no
+   device time in the CUDA-core dx and dw kernels;
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -156,14 +157,17 @@ SHARDED_PATHS = [
 TRAIN_BATCH = 16
 TRAIN_STEPS = 20
 # the device names of the port's kernels on the serving and training paths
-# (the conv kernel on the tensor cores in both dtypes, cs_conv3x3_kernel
-# being its CUDA-core timing row; the dx and dw kernels on the CUDA cores in
-# float32 and on the tensor cores in bfloat16).  The profiler's names hold
-# the template arguments, so each is matched as a substring: none of these
-# is a substring of another.
+# (the conv and dx kernels on the tensor cores in both dtypes, the dw kernel
+# there in bfloat16 (cs_conv3x3_dw_tc_kernel) and as 3xTF32 in float32
+# (cs_conv3x3_dw_tf32_kernel); cs_conv3x3_kernel, cs_conv3x3_dx_kernel and
+# cs_conv3x3_dw_kernel are the CUDA-core timing rows, which no path runs).
+# The profiler's names hold the template arguments, so each is matched as a
+# substring: none of these is a substring of another.
 KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kernel",
                 "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_kernel", "cs_conv3x3_dw_tc_kernel",
-                "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
+                "cs_conv3x3_dw_tf32_kernel", "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
+# the CUDA-core timing rows of the backward, which no training path runs
+CUDA_CORE_BACKWARD = ("cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
 SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
@@ -593,11 +597,11 @@ def tc_cases(gen):
     ``cs_conv3x3_dx_cudacore``, ``cs_conv3x3_dw_cudacore``), timed in turns
     in this call, each beside one cuDNN call and the bound: #1 at each
     flagship conv shape at batch 1, 8 and 16 and at n = 96, in bfloat16 and
-    float32 (3xTF32; cuDNN with TF32 off); #4 and #5 (dw) in bfloat16 at
-    the training step's shapes at batch 16; #8 and #9 on a rank's block (4
-    row bands, 2 x 2 tiles) at batch 1 in both dtypes; #12 (#1 on strips
-    computed before the call) and #14 (the dx kernel's raw ring) at
-    conv_micro's levels in bfloat16.  Both instances are held against the
+    float32 (3xTF32; cuDNN with TF32 off); #4 and #5 (dw) at the training
+    step's shapes at batch 16 and #8 and #9 on a rank's block (4 row bands,
+    2 x 2 tiles) at batch 1, in both dtypes; #12 (#1 on strips computed
+    before the call) in bfloat16 and #14 (the dx kernel's raw ring) in both
+    at conv_micro's levels.  Both instances are held against the
     plain version at the kernel's tolerance (bfloat16 one bf16 ulp of
     |ref| + 1e-4; float32 1e-4; dw 1e-5 of the largest entry).  Launches
     here are not the main path's: every count is put back."""
@@ -655,10 +659,10 @@ def tc_cases(gen):
             **bound(nbytes, 2 * b * 6 * rows * cols * 9 * cin * cout, dtype),
         })
 
-    def backward(kind, n, cin, cout, b, reps):
+    def backward(kind, n, cin, cout, b, reps, dtype=bf):
         raw = kind == "#14"
-        g = rand(b, 6, n, n, cout)
-        ks = [rand(3, 3, cin, cout, scale=(9 * cout) ** -0.5) for _ in range(2)]
+        g = rand(b, 6, n, n, cout, dtype=dtype)
+        ks = [rand(3, 3, cin, cout, scale=(9 * cout) ** -0.5, dtype=dtype) for _ in range(2)]
         new = cv.cs_conv3x3_dx_ring if raw else hc.cs_conv3x3_dx
         plain = cv.cs_conv3x3_dx_ring_plain if raw else hc.cs_conv3x3_dx_plain
         ours, theirs, ref = new(g, *ks), cv.cs_conv3x3_dx_cudacore(g, *ks, raw=raw), plain(g, *ks)
@@ -670,24 +674,24 @@ def tc_cases(gen):
         go = g.permute(0, 2, 3, 1, 4).reshape(b, n, n, 6 * cout).permute(0, 3, 1, 2)
         go = go.contiguous(memory_format=torch.channels_last)
         _, w = face_grouped(g.new_zeros((b, 6, 1, 1, cin)), ks)
-        nbytes = 2 * (g.numel() + 2 * ks[0].numel() + b * 6 * n * n * cin
-                      + b * 6 * 4 * (n + 2) * cin)
+        nbytes = g.element_size() * (g.numel() + 2 * ks[0].numel() + b * 6 * n * n * cin
+                                     + b * 6 * 4 * (n + 2) * cin)
         cases.append({
-            "kernel": kind, "dtype": "bfloat16", "n": n, "cin": cin, "cout": cout, "batch": b,
+            "kernel": kind, "dtype": str(dtype).split(".")[-1], "n": n, "cin": cin,
+            "cout": cout, "batch": b,
             "ms": new_ms, "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
             "library_ms": graph_ms(lambda: F.conv_transpose2d(go, w, groups=6), reps),
             "max_abs_err": max(float((a.float() - r.float()).abs().max())
                                for a, r in zip(ours, ref)),
             "cudacore_max_abs_err": max(float((a.float() - r.float()).abs().max())
                                         for a, r in zip(theirs, ref)),
-            "ok": all(bf16_excess(a, r) <= 1e-4 for pair in (ours, theirs)
-                      for a, r in zip(pair, ref)),
-            **bound(nbytes, 2 * b * 6 * n * n * 9 * cin * cout, bf),
+            "ok": all(close(a, r, dtype) for pair in (ours, theirs) for a, r in zip(pair, ref)),
+            **bound(nbytes, 2 * b * 6 * n * n * 9 * cin * cout, dtype),
         })
 
-    def weights(n, cin, cout, b, reps):
+    def weights(n, cin, cout, b, reps, dtype=bf):
         """#5, the dw kernel: the weight and bias gradients, f32."""
-        x, g = rand(b, 6, n, n, cin), rand(b, 6, n, n, cout)
+        x, g = rand(b, 6, n, n, cin, dtype=dtype), rand(b, 6, n, n, cout, dtype=dtype)
         ext = ext_strips(x)
         ours, theirs = hc.cs_conv3x3_dw(x, ext, g), cv.cs_conv3x3_dw_cudacore(x, ext, g)
         again = hc.cs_conv3x3_dw(x, ext, g)
@@ -705,9 +709,11 @@ def tc_cases(gen):
             return max(float((a - r).abs().max()) for a, r in zip(got, ref))
 
         ops = 2 * b * 6 * n * n * 9 * cin * cout
-        nbytes = 2 * (x.numel() + ext.numel() + g.numel()) + 4 * 2 * (9 * cin * cout + cout)
+        nbytes = (x.element_size() * (x.numel() + ext.numel() + g.numel())
+                  + 4 * 2 * (9 * cin * cout + cout))
         cases.append({
-            "kernel": "#5", "dtype": "bfloat16", "n": n, "cin": cin, "cout": cout, "batch": b,
+            "kernel": "#5", "dtype": str(dtype).split(".")[-1], "n": n, "cin": cin, "cout": cout,
+            "batch": b,
             "ms": new_ms, "cudacore_ms": old_ms, "runs_old_new_new_old": runs,
             "library_ms": graph_ms(lambda: conv_bwd(go, p, w, [6 * cout], [1, 1], [0, 0],
                                                     [1, 1], False, [0, 0], 6,
@@ -716,7 +722,7 @@ def tc_cases(gen):
             "bitwise_repeatable": all(torch.equal(a, c) for a, c in zip(ours, again)),
             "ok": err(ours) <= 1e-5 * scale and err(theirs) <= 1e-5 * scale
                   and all(torch.equal(a, c) for a, c in zip(ours, again)),
-            **bound(nbytes, ops, bf),
+            **bound(nbytes, ops, dtype),
         })
 
     shapes = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)
@@ -727,13 +733,15 @@ def tc_cases(gen):
         for n, cin, cout in shapes:
             forward("#8", hc.cs_conv3x3_band, n, cin, cout, 1, n // SHARDS, n, 20, dtype)
             forward("#9", hc.cs_conv3x3_tile, n, cin, cout, 1, n // 2, n // 2, 20, dtype)
-    for n, cin, cout in shapes[1:]:
-        backward("#4", n, cin, cout, TRAIN_BATCH, 10)
-    for n, cin, cout in shapes:
-        weights(n, cin, cout, TRAIN_BATCH, 10)
+    for dtype in (bf, torch.float32):
+        for n, cin, cout in shapes[1:]:
+            backward("#4", n, cin, cout, TRAIN_BATCH, 10, dtype)
+        for n, cin, cout in shapes:
+            weights(n, cin, cout, TRAIN_BATCH, 10, dtype)
+        for n, cin, cout, b in LEVELS:
+            backward("#14", n, cin, cout, b, 10, dtype)
     for n, cin, cout, b in LEVELS:
         forward("#12", cv.cs_conv3x3_kernel_only, n, cin, cout, b, n, n, 20)
-        backward("#14", n, cin, cout, b, 10)
     for w, count in zip(wrappers, counts):
         w.launches = count
     return cases
@@ -742,9 +750,9 @@ def tc_cases(gen):
 def tc_summary(cases):
     """Per row of PERF.md: the new (tensor-core) and the old (CUDA-core)
     times, cuDNN's and the bound, summed over one model call's 10 convs (#1
-    at batch 1 and 8, a training step's 10 at batch 16, #8, #9; bfloat16
-    and float32), a step's 9 (#4) or 10 (#5) or conv_micro's three levels
-    (#12, #14)."""
+    at batch 1 and 8, a training step's 10 at batch 16, #8, #9), a step's 9
+    (#4) or 10 (#5) or conv_micro's three levels (#12, #14); bfloat16 and
+    float32 (#12 bfloat16 only)."""
     def pick(kind, b=None, dx=False, dtype="bfloat16"):
         by = {(c["n"], c["cin"], c["cout"]): c for c in cases
               if c["kernel"] == kind and c["dtype"] == dtype and (b is None or c["batch"] == b)}
@@ -759,6 +767,9 @@ def tc_summary(cases):
             "#12, conv_micro's levels": pick("#12"), "#14, conv_micro's levels": pick("#14")}
     for b in (1, 8, TRAIN_BATCH):
         rows[f"#1 f32 call, batch {b}"] = pick("#1", b, dtype="float32")
+    rows["#4 f32 step, batch 16"] = pick("#4", dx=True, dtype="float32")
+    rows["#5 f32 step, batch 16"] = pick("#5", dtype="float32")
+    rows["#14 f32, conv_micro's levels"] = pick("#14", dtype="float32")
     rows["#8 f32 call, batch 1"] = pick("#8", dtype="float32")
     rows["#9 f32 call, batch 1"] = pick("#9", dtype="float32")
     for b in (1, 8, TRAIN_BATCH):
@@ -1168,6 +1179,16 @@ def train_phase(kind, dtype_name, rng):
     profiled_run_ms(lambda: trainer.train_step(state, xb, yb))  # tracer warm-up
     prof_ms, busy_ms, kernel_ms, n_step = profiled_run_ms(
         lambda: trainer.train_step(state, xb, yb))
+    if kind == "unet" and kernel_ms is not None:
+        # the backward on the tensor cores: no device time in the CUDA-core
+        # dx and dw kernels, some in the dw kernel of this dtype
+        dw_name = "cs_conv3x3_dw_tf32_kernel" if dtype_name == "float32" else \
+            "cs_conv3x3_dw_tc_kernel"
+        ran = {k: kernel_ms[k] for k in (*CUDA_CORE_BACKWARD, "cs_conv3x3_dx_tc_kernel",
+                                         dw_name)}
+        check(not any(ran[k] for k in CUDA_CORE_BACKWARD) and ran[dw_name] > 0
+              and ran["cs_conv3x3_dx_tc_kernel"] > 0,
+              f"the profiled {dtype_name} step's backward kernels (ms): {ran}")
     # the step less its forward and backward: the gradient norm and Adam
     n_grad = profiled_run_ms(lambda: vg(state.params, xb, yb))[3]
     n_opt = None if n_step is None or n_grad is None else n_step - n_grad

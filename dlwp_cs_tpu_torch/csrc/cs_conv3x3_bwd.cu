@@ -41,22 +41,23 @@
 // What bounds them on this card: each does the forward's work,
 // 2*B*6*n^2*9*Cin*Cout operations, and waits on the staging of its tiles
 // into shared memory; at the flagship training batch (16) the products
-// bound them.  The dx kernel in bfloat16 runs the forward's tensor-core
-// routine (cs_conv3x3_tile.cuh::tc_conv): an implicit GEMM with M = frame
-// pixels (row tiles of the (n+2)^2 frame), N = a Cin slice and K = 9 x
-// Cout, the dout rows of a Cout chunk staged once by cp.async (zero past
+// bound them.  The dx kernel runs the forward's tensor-core routine
+// (cs_conv3x3_tile.cuh::tc_conv) in both dtypes: an implicit GEMM with M =
+// frame pixels (row tiles of the (n+2)^2 frame), N = a Cin slice and K = 9
+// x Cout, the dout rows of a Cout chunk staged once by cp.async (zero past
 // the face: the zero extension by 2) and read at 9 shifted addresses, the
 // flipped, transposed taps of the block's Cin slice resident in shared
-// memory (straight copies of rows of k, k-contiguous), two stages, and a
-// block walking several row tiles of one (face group, Cin slice).  Its
-// float32 instance (and the bfloat16 one it replaced, kept as a timing row
-// of the kernel tools) keeps the CUDA-core design: row tiles of the frame,
-// Cout staged in chunks of 16 as f32, 4-pixel x 8-channel register tiles,
-// the Cin slice capped at 64 by the caller so the staged weights stay
-// small.
+// memory (straight copies of rows of k, k-contiguous, in float32 too), two
+// stages, and a block walking several row tiles of one (face group, Cin
+// slice).  float32 runs it as 3xTF32, as the forward does: each staged
+// chunk split once into TF32 hi and lo halves, three m16n8k8 products a k
+// step.  The CUDA-core instance it replaced in both dtypes (row tiles of
+// the frame, Cout staged in chunks of 16 as f32, 4-pixel x 8-channel
+// register tiles, the Cin slice capped at 64 by the caller) stays as a
+// timing row of the kernel tools.
 //
-// The dw kernel in bfloat16 is an implicit GEMM with a long K on the
-// tensor cores: dK[(tap, ci), co] = sum_p P[p + shift(tap)][ci] dout[p][co]
+// The dw kernel is an implicit GEMM with a long K on the tensor cores:
+// dK[(tap, ci), co] = sum_p P[p + shift(tap)][ci] dout[p][co]
 // with M = 9 x Cin (the tap outer, Cin in groups of 16), N = Cout and K =
 // the pixels of one face group (up to 16 x 4 x 48^2).  A block owns 9 taps
 // x 16 or 32 Cin channels x 32 or 64 Cout channels; per item (R whole face
@@ -64,24 +65,26 @@
 // of dout of its Cout channels, both pixel-major ([pixel][channel], padded
 // by 8 so that the rows of an ldmatrix fall in distinct bank groups), by
 // cp.async into two stages, the next item's while this one multiplies.
-// Both operands come from ldmatrix .trans: A (channels x pixels) at 9
-// shifted addresses of the staged rows, one pointer per pixel (a k16 step
-// may cross a face row: n = 24 and 12 are not multiples of 16), B (pixels
-// x channels) from the dout rows.  Each warp owns one (Cin group of 16,
+// In bfloat16 both operands come from ldmatrix .trans: A (channels x
+// pixels) at 9 shifted addresses of the staged rows, one pointer per pixel
+// (a k16 step may cross a face row: n = 24 and 12 are not multiples of
+// 16), B (pixels x channels) from the dout rows.  Each warp owns one (Cin group of 16,
 // dy): 3 m16 tiles (dx = 0..2) x 4 n8 tiles, mma.sync.m16n8k16 with bf16
 // in and f32 sums.  db comes from the same products: a ones fragment as A
 // (db = 1^T dout), issued round-robin by the warps of the blocks of the
 // first Cin tile and added across warps in a fixed order.  A tensor-core
 // sum is not rounded as an FMA is, so each item's products go into fresh
 // fragments, added into the f32 sums with ordinary adds: no chain longer
-// than one item's k16 steps.  Its float32 instance (and the bfloat16 one
-// it replaced, kept as a timing row of the kernel tools) keeps the
-// CUDA-core design: a 4 (Cin) x 8 (Cout) register tile per (thread, tap),
-// one float4 of P and two of dout read from shared memory per 32 FMAs, few
-// rows staged per item and a grid of several blocks per SM, so that blocks
-// hide each other's staging.  The partials (nsplit x 2 x 9 x Cin x Cout
-// floats) stay under 20 MiB at the flagship's shapes.  wgmma and TMA are
-// left for later work.
+// than one item's k16 steps.  float32 (cs_conv3x3_dw_tf32_kernel) keeps
+// these blocks, warps and items as 3xTF32 on m16n8k8: 32-bit fragment
+// loads in place of ldmatrix, each staged item split once into hi and lo
+// halves (a third stage-sized buffer), three products a k8 step and db as
+// 1.hi + 1.lo (see the kernel).  The CUDA-core instance it replaced in
+// both dtypes (a 4 (Cin) x 8 (Cout) register tile per (thread, tap), one
+// float4 of P and two of dout read from shared memory per 32 FMAs) stays as
+// a timing row of the kernel tools.  The partials (nsplit x 2 x 9 x Cin x
+// Cout floats) stay under 20 MiB at the flagship's shapes.  wgmma and TMA
+// are left for later work.
 //
 // Layouts (channels last, all contiguous):
 //   x    (B, 6, n, n, Cin)   ext (B, 6, 4, n+2, Cin)   dout (B, 6, n, n, Cout)
@@ -417,83 +420,91 @@ __global__ void __launch_bounds__(DW_THREADS) cs_conv3x3_dw_kernel(
 
 // ---- the dw kernel on the tensor cores (bfloat16) -------------------------
 
-constexpr int DWT_PAD = 8;            // bf16 after each staged cell's channels
+constexpr int DWT_PAD = 8;            // elements after each staged cell's channels
 constexpr int DWT_MAX_THREADS = 192;  // 6 warps
 
 struct DwTcGeom {
   int n, cin, cout, batch;
+  int esize;      // bytes per element: 2 (bfloat16) or 4 (float32)
   int rows;       // face rows per item (R)
   int nchunk;     // items per face: ceil(n / R)
   int nsplit;     // K slices per face group
   int threads;    // 96 cig ng: warps (Cin group, dy) x Cout groups
   int ncib, ncob; // Cin and Cout tiles
-  int steps;      // k16 steps per item: ceil(R n / 16)
+  int kpx;        // pixels per k step: 16 (m16n8k16) or 8 (m16n8k8.tf32)
+  int steps;      // k steps per item: ceil(R n / kpx)
   int pw;         // padded row: n + 2 cells
-  int pstage;     // bf16 of the staged P rows: (R + 2) pw (16 cig + 8)
-  int dstage;     // bf16 of the staged dout rows: 16 steps (32 ng + 8)
+  int pstage;     // elements of the staged P rows: (R + 2) pw (16 cig + 8)
+  int dstage;     // elements of the staged dout rows: kpx steps (32 ng + 8)
   int vec, dvec;  // P / dout staging: 16-byte (1) or 8-byte (2) async copies, or loads
 };
 
-// Fills g for blocks of 16 cig Cin x 32 ng Cout channels; false on sizes
-// the kernel cannot take.  The host plan (ops/hopper_conv.py::dw_tc_plan)
-// computes the same numbers.
+// Fills g for blocks of 16 cig Cin x 32 ng Cout channels of esize-byte
+// elements; false on sizes the kernel cannot take.  The host plan
+// (ops/hopper_conv.py::dw_tc_geom) computes the same numbers.
 inline bool make_dw_tc_geom(DwTcGeom& g, int batch, int n, int cin, int cout, int rows,
-                            int nsplit, int cig, int ng) {
+                            int nsplit, int cig, int ng, int esize) {
   if (batch < 1 || n < 1 || cin < 1 || cout < 1 || rows < 1 || rows > n || nsplit < 1 ||
-      nsplit > 65535 || (cig != 1 && cig != 2) || (ng != 1 && ng != 2) || cig * ng > 2)
+      nsplit > 65535 || (cig != 1 && cig != 2) || (ng != 1 && ng != 2) || cig * ng > 2 ||
+      (esize != 2 && esize != 4))
     return false;
   g.n = n;
   g.cin = cin;
   g.cout = cout;
   g.batch = batch;
+  g.esize = esize;
   g.rows = rows;
   g.nchunk = (n + rows - 1) / rows;
   g.nsplit = nsplit;
   g.threads = 96 * cig * ng;
   g.ncib = (cin + 16 * cig - 1) / (16 * cig);
   g.ncob = (cout + 32 * ng - 1) / (32 * ng);
-  g.steps = (rows * n + 15) / 16;
+  g.kpx = esize == 4 ? 8 : 16;
+  g.steps = (rows * n + g.kpx - 1) / g.kpx;
   g.pw = n + 2;
   g.pstage = (rows + 2) * g.pw * (16 * cig + DWT_PAD);
-  g.dstage = 16 * g.steps * (32 * ng + DWT_PAD);
+  g.dstage = g.kpx * g.steps * (32 * ng + DWT_PAD);
   g.vec = 0;
   g.dvec = 0;
   return (long long)g.ncib * g.ncob <= 0x7fffffffLL;
 }
 
+// two stages and, in float32, the lo halves of the one in use
 inline size_t dw_tc_smem_bytes(const DwTcGeom& g) {
-  return sizeof(bf16) * 2 * ((size_t)g.pstage + g.dstage);  // two stages
+  return (size_t)g.esize * (g.esize == 4 ? 3 : 2) * ((size_t)g.pstage + g.dstage);
 }
 
 // cells x width channels from channel c0 into S (cell pitch `pitch`):
 // cell(c) is the cell's first channel in device memory, or nullptr for a
 // zero cell; zero past C channels.  vec: 16-byte or 8-byte async copies
-// (C a multiple of 8 or 4, aligned), else ordinary loads.
-template <typename CellFn>
-__device__ __forceinline__ void dw_stage(bf16* S, int pitch, int cells, int width, int c0,
-                                         int C, int vec, int threads, const bf16* any,
+// (C a multiple of 16 or 8 bytes' worth of channels, aligned), else
+// ordinary loads.
+template <typename T, typename CellFn>
+__device__ __forceinline__ void dw_stage(T* S, int pitch, int cells, int width, int c0, int C,
+                                         int vec, int threads, const T* any,
                                          const CellFn& cell) {
+  constexpr int E16 = 16 / sizeof(T), E8 = 8 / sizeof(T);  // channels per 16 / 8 bytes
   if (vec == 1) {
-    const int gpc = width / 8;
+    const int gpc = width / E16;
     for (int u = threadIdx.x; u < cells * gpc; u += threads) {
       const int c = u / gpc, grp = u - c * gpc;
-      const int ch = c0 + grp * 8;
-      const bf16* p = ch < C ? cell(c) : nullptr;
-      cs3x3::cp_async16(S + c * pitch + grp * 8, p ? p + ch : any, p ? 16 : 0);
+      const int ch = c0 + grp * E16;
+      const T* p = ch < C ? cell(c) : nullptr;
+      cs3x3::cp_async16(S + c * pitch + grp * E16, p ? p + ch : any, p ? 16 : 0);
     }
   } else if (vec == 2) {
-    const int gpc = width / 4;
+    const int gpc = width / E8;
     for (int u = threadIdx.x; u < cells * gpc; u += threads) {
       const int c = u / gpc, grp = u - c * gpc;
-      const int ch = c0 + grp * 4;
-      const bf16* p = ch < C ? cell(c) : nullptr;
-      cs3x3::cp_async8(S + c * pitch + grp * 4, p ? p + ch : any, p ? 8 : 0);
+      const int ch = c0 + grp * E8;
+      const T* p = ch < C ? cell(c) : nullptr;
+      cs3x3::cp_async8(S + c * pitch + grp * E8, p ? p + ch : any, p ? 8 : 0);
     }
   } else {
     for (int u = threadIdx.x; u < cells * width; u += threads) {
       const int c = u / width, e = u - c * width;
-      const bf16* p = c0 + e < C ? cell(c) : nullptr;
-      S[c * pitch + e] = p ? p[c0 + e] : __float2bfloat16_rn(0.f);
+      const T* p = c0 + e < C ? cell(c) : nullptr;
+      S[c * pitch + e] = p ? p[c0 + e] : from_f32<T>(0.f);
     }
   }
 }
@@ -677,23 +688,271 @@ __global__ void __launch_bounds__(DWT_MAX_THREADS, 2) cs_conv3x3_dw_tc_kernel(
   }
 }
 
-// The dx kernel's bfloat16 outputs: frame pixel (a, b) = (r0 + i, j), as
-// the CUDA-core instance writes them.
-template <bool RAW>
+// ---- the dw kernel on the tensor cores (float32, 3xTF32) -----------------
+
+// The bfloat16 kernel's blocks, warps and items, with K steps of 8 pixels
+// (mma.sync.m16n8k8.tf32).  ldmatrix moves 16-bit elements, so each
+// fragment element is one 32-bit shared load: A (channels x pixels) holds
+// channel gid (+8) and pixel tig (+4) of the lane, B (pixels x channels)
+// pixel tig (+4) and channel gid.  Row gid of an m16 tile is channel
+// 2 gid of its 16 and row gid + 8 channel 2 gid + 1, and column gid of the
+// n8 tiles 2jj and 2jj + 1 is channel 16 jj + 2 gid and 2 gid + 1: so a
+// lane's two channels of A, and of B for two n8 tiles, are one float2,
+// and its sums for one Cin channel are 4 consecutive Cout channels (one
+// float4 store).  Cells of 16 cig + 8 (P) and 32 ng + 8 (dout) floats, 8
+// or 24 words mod 32, put a half-warp's float2 loads on 32 banks.  Each
+// staged item is split once when it has landed (hi in place, lo into a
+// third stage-sized buffer); each k step issues lo.hi, hi.lo and hi.hi
+// into the item's fresh fragments, and db takes 1.hi + 1.lo of dout (1 is
+// exact in TF32).
+template <int CIG, int NG>
+__global__ void __launch_bounds__(DWT_MAX_THREADS, 1) cs_conv3x3_dw_tf32_kernel(
+    const float* __restrict__ x, const float* __restrict__ ext, const float* __restrict__ dout,
+    float* __restrict__ dk_part, float* __restrict__ db_part, DwTcGeom g) {
+  constexpr int WM = 3 * CIG;
+  constexpr int PPS = 16 * CIG + DWT_PAD, DPS = 32 * NG + DWT_PAD;
+  constexpr int PG = PPS / 4 - 2, DG = DPS / 4 - 2;  // float4 groups of a cell's channels
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  float* St = reinterpret_cast<float*>(dw_smem);  // two stages of [P rows | dout rows]
+  const int stage = g.pstage + g.dstage;
+  float* Lo = St + 2 * stage;  // the lo halves of the stage in use
+  const int n = g.n, pw = g.pw, cin = g.cin, cout = g.cout;
+
+  const int cib = blockIdx.x % g.ncib;
+  const int ci0 = cib * 16 * CIG;
+  const int co0 = (blockIdx.x / g.ncib) * 32 * NG;
+  const int s = blockIdx.y, grp = blockIdx.z;
+  const int nf = grp == 0 ? 4 : 2, f_base = grp == 0 ? 0 : 4;
+  const long long items = (long long)g.batch * nf * g.nchunk;
+  const long long first = items * s / g.nsplit, last = items * (s + 1) / g.nsplit;
+  const bool do_db = cib == 0;  // block-uniform
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm_i = warp % WM, wn_i = warp / WM;
+  const int cg = wm_i / 3, dy = wm_i % 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t ones[4] = {0x3F800000u, 0x3F800000u, 0x3F800000u, 0x3F800000u};
+
+  // item it (batch item, face of the group, row chunk) into stage S
+  const auto stage_item = [&](long long it, float* S) {
+    const int r0 = (int)(it % g.nchunk) * g.rows;
+    const long long bf = it / g.nchunk;
+    const long long face = (bf / nf) * 6 + f_base + (int)(bf % nf);
+    const float* __restrict__ xf = x + face * n * n * cin;
+    const float* __restrict__ ef = ext + face * 4 * pw * cin;
+    const float* __restrict__ df = dout + (face * n + r0) * n * cout;
+    dw_stage(S, PPS, (g.rows + 2) * pw, 16 * CIG, ci0, cin, g.vec, g.threads, x,
+             [&](int c) -> const float* {
+               const int q = r0 + c / pw, pc = c % pw;
+               if (q > n + 1) return nullptr;
+               if (q == 0) return ef + (long long)pc * cin;
+               if (q == n + 1) return ef + (1LL * pw + pc) * cin;
+               if (pc == 0) return ef + (2LL * pw + q) * cin;
+               if (pc == n + 1) return ef + (3LL * pw + q) * cin;
+               return xf + ((long long)(q - 1) * n + pc - 1) * cin;
+             });
+    const int valid = min(g.rows, n - r0) * n;
+    dw_stage(S + g.pstage, DPS, 8 * g.steps, 32 * NG, co0, cout, g.dvec, g.threads, dout,
+             [&](int q) -> const float* { return q < valid ? df + (long long)q * cout : nullptr; });
+  };
+  // the landed stage S: hi in place, lo into Lo at the same offsets
+  const auto split = [&](float* S) {
+    const int pn = (g.rows + 2) * pw * PG, dn = 8 * g.steps * DG;
+    for (int u = threadIdx.x; u < pn + dn; u += g.threads) {
+      int off;
+      if (u < pn) {
+        const int c = u / PG;
+        off = c * PPS + (u - c * PG) * 4;
+      } else {
+        const int q = (u - pn) / DG;
+        off = g.pstage + q * DPS + (u - pn - q * DG) * 4;
+      }
+      uint4 v = *reinterpret_cast<const uint4*>(S + off), l;
+      cs3x3::split_tf32(v.x, v.x, l.x);
+      cs3x3::split_tf32(v.y, v.y, l.y);
+      cs3x3::split_tf32(v.z, v.z, l.z);
+      cs3x3::split_tf32(v.w, v.w, l.w);
+      *reinterpret_cast<uint4*>(S + off) = v;
+      *reinterpret_cast<uint4*>(Lo + off) = l;
+    }
+  };
+
+  float sum[3][4][4], dsum[4][2];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[dx][nt][r] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) dsum[nt][0] = dsum[nt][1] = 0.f;
+
+  if (first < last) stage_item(first, St);
+  cs3x3::cp_async_commit();
+  int buf = 0;
+  for (long long it = first; it < last; ++it) {
+    cs3x3::cp_async_wait_all();
+    __syncthreads();  // item it has landed in buf; the other stage and Lo are consumed
+    if (it + 1 < last) stage_item(it + 1, St + (buf ^ 1) * stage);
+    cs3x3::cp_async_commit();
+    split(St + buf * stage);
+    __syncthreads();
+    // this lane's A channels (2 gid, +1) at the warp's dy, and B channels
+    // (2 gid, +1 of each 16) at pixel tig; lo_off: the lo halves
+    const float* P = St + buf * stage + dy * pw * PPS + cg * 16 + 2 * gid;
+    const float* D = St + buf * stage + g.pstage + tig * DPS + wn_i * 32 + 2 * gid;
+    const int lo_off = (int)(Lo - (St + buf * stage));
+    float frag[3][4][4], dfrag[4][4];  // this item's products
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        frag[0][nt][r] = frag[1][nt][r] = frag[2][nt][r] = 0.f;
+        dfrag[nt][r] = 0.f;
+      }
+    // this lane's pixels tig and tig + 4 of step 0, as (face row, column)
+    int i0 = tig / n, j0 = tig - (tig / n) * n;
+    int i1 = (tig + 4) / n, j1 = tig + 4 - ((tig + 4) / n) * n;
+    for (int st = 0; st < g.steps; ++st) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float* d = D + st * 8 * DPS + jj * 16;
+        const float2 h0 = *reinterpret_cast<const float2*>(d);
+        const float2 h1 = *reinterpret_cast<const float2*>(d + 4 * DPS);
+        const float2 l0 = *reinterpret_cast<const float2*>(d + lo_off);
+        const float2 l1 = *reinterpret_cast<const float2*>(d + lo_off + 4 * DPS);
+        bh[2 * jj][0] = __float_as_uint(h0.x);
+        bh[2 * jj + 1][0] = __float_as_uint(h0.y);
+        bh[2 * jj][1] = __float_as_uint(h1.x);
+        bh[2 * jj + 1][1] = __float_as_uint(h1.y);
+        bl[2 * jj][0] = __float_as_uint(l0.x);
+        bl[2 * jj + 1][0] = __float_as_uint(l0.y);
+        bl[2 * jj][1] = __float_as_uint(l1.x);
+        bl[2 * jj + 1][1] = __float_as_uint(l1.y);
+      }
+      // past the item: a zero dout row
+      const int c0 = i0 < g.rows ? i0 * pw + j0 : 0, c1 = i1 < g.rows ? i1 * pw + j1 : 0;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* p0 = P + (c0 + dx) * PPS;
+        const float* p1 = P + (c1 + dx) * PPS;
+        const float2 h0 = *reinterpret_cast<const float2*>(p0);
+        const float2 h1 = *reinterpret_cast<const float2*>(p1);
+        const float2 l0 = *reinterpret_cast<const float2*>(p0 + lo_off);
+        const float2 l1 = *reinterpret_cast<const float2*>(p1 + lo_off);
+        const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h0.y),
+                                __float_as_uint(h1.x), __float_as_uint(h1.y)};
+        const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l0.y),
+                                __float_as_uint(l1.x), __float_as_uint(l1.y)};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          cs3x3::mma_tf32(frag[dx][nt], al, bh[nt][0], bh[nt][1]);
+          cs3x3::mma_tf32(frag[dx][nt], ah, bl[nt][0], bl[nt][1]);
+          cs3x3::mma_tf32(frag[dx][nt], ah, bh[nt][0], bh[nt][1]);
+        }
+      }
+      if (do_db && st % WM == wm_i) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          cs3x3::mma_tf32(dfrag[nt], ones, bl[nt][0], bl[nt][1]);
+          cs3x3::mma_tf32(dfrag[nt], ones, bh[nt][0], bh[nt][1]);
+        }
+      }
+      j0 += 8;
+      while (j0 >= n) {
+        j0 -= n;
+        ++i0;
+      }
+      j1 += 8;
+      while (j1 >= n) {
+        j1 -= n;
+        ++i1;
+      }
+    }
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sum[dx][nt][r] += frag[dx][nt][r];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      dsum[nt][0] += dfrag[nt][0];
+      dsum[nt][1] += dfrag[nt][1];
+    }
+    buf ^= 1;
+  }
+  cs3x3::cp_async_wait_all();
+  __syncthreads();  // the stages are free: the db reduction below reuses them
+
+  // every block writes its whole tile, zeros for an empty slice: row gid
+  // (+8) of each m16 tile is Cin channel 2 gid (+1) of the warp's 16; a
+  // lane holds Cout channels 16 jj + 4 tig .. + 3 of its warp's 32
+  float* __restrict__ out = dk_part + (long long)(s * 2 + grp) * 9 * cin * cout;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int tap = dy * 3 + dx;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ci = ci0 + cg * 16 + 2 * gid + half;
+      if (ci >= cin) continue;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int co = co0 + wn_i * 32 + jj * 16 + 4 * tig;
+        float* o = out + ((long long)tap * cin + ci) * cout + co;
+        const float v[4] = {sum[dx][2 * jj][2 * half], sum[dx][2 * jj + 1][2 * half],
+                            sum[dx][2 * jj][2 * half + 1], sum[dx][2 * jj + 1][2 * half + 1]};
+        if (co + 3 < cout && cout % 4 == 0) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (co + e < cout) o[e] = v[e];
+        }
+      }
+    }
+  }
+  if (do_db) {
+    // every row of a ones product is db: the warps' sums of row gid = 0,
+    // added over the warps along M in order
+    float* red = reinterpret_cast<float*>(dw_smem);  // [WM][32 NG]
+    if (gid == 0) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* r = red + wm_i * 32 * NG + wn_i * 32 + jj * 16 + 4 * tig + e;
+          r[0] = dsum[2 * jj + e][0];
+          r[2] = dsum[2 * jj + e][1];
+        }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 32 * NG; c += blockDim.x) {
+      float v = red[c];
+      for (int w = 1; w < WM; ++w) v += red[w * 32 * NG + c];
+      if (co0 + c < cout) db_part[((long long)s * 2 + grp) * cout + co0 + c] = v;
+    }
+  }
+}
+
+// The dx kernel's outputs, f32 sums rounded once to T: frame pixel (a, b)
+// = (r0 + i, j), as the CUDA-core instance writes them.
+template <typename T, bool RAW>
 struct DxEpi {
-  bf16* __restrict__ dx;
-  bf16* __restrict__ dext;
+  T* __restrict__ dx;
+  T* __restrict__ dext;
   int n, cin;
   __device__ __forceinline__ void put(long long face, int a, int b, int ci, float v) const {
     if (ci >= cin) return;
     const int m = n + 2;
-    const bf16 val = __float2bfloat16_rn(v);
-    bf16* __restrict__ ef = dext + face * 4 * m * cin;
+    const T val = from_f32<T>(v);
+    T* __restrict__ ef = dext + face * 4 * m * cin;
     if (a >= 1 && a <= n && b >= 1 && b <= n) {
       dx[((face * n + a - 1) * n + b - 1) * cin + ci] = val;
     } else if (a == 0 || a == n + 1) {
       ef[((long long)(a == 0 ? 0 : 1) * m + b) * cin + ci] = val;
-      const bf16 zero = __float2bfloat16_rn(0.f);
+      const T zero = from_f32<T>(0.f);
       if (b == 0) ef[(2LL * m + a) * cin + ci] = RAW ? val : zero;
       if (b == m - 1) ef[(3LL * m + a) * cin + ci] = RAW ? val : zero;
     } else {
@@ -704,9 +963,13 @@ struct DxEpi {
                                         float v1) const {
     const int a = t.r0 + i;
     if (a >= 1 && a <= n && j >= 1 && j <= n && c + 1 < cin && cin % 2 == 0) {
-      // an interior pixel: both channels in one 4-byte store
-      *reinterpret_cast<__nv_bfloat162*>(dx + ((t.face * n + a - 1) * n + j - 1) * cin + c) =
-          __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+      // an interior pixel: both channels in one store
+      T* o = dx + ((t.face * n + a - 1) * n + j - 1) * cin + c;
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
       return;
     }
     put(t.face, a, j, c, v0);
@@ -714,15 +977,15 @@ struct DxEpi {
   }
 };
 
-template <int NW, int KC, bool RAW>
+template <typename T, int NW, int KC, bool RAW>
 __global__ void __launch_bounds__(cs3x3::TC_MAX_THREADS) cs_conv3x3_dx_tc_kernel(
-    const bf16* __restrict__ dout, const bf16* __restrict__ keq, const bf16* __restrict__ kpo,
-    bf16* __restrict__ dx, bf16* __restrict__ dext, TcGeom g, int batch) {
+    const T* __restrict__ dout, const T* __restrict__ keq, const T* __restrict__ kpo,
+    T* __restrict__ dx, T* __restrict__ dext, TcGeom g, int batch) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const cs3x3::DxSrc src{dout, g.cols - 2, g.kch};
-  const DxEpi<RAW> epi{dx, dext, g.cols - 2, g.nch};
+  const cs3x3::DxSrc<T> src{dout, g.cols - 2, g.kch};
+  const DxEpi<T, RAW> epi{dx, dext, g.cols - 2, g.nch};
   cs3x3::GridWalk walk(g, batch);
-  cs3x3::tc_conv<bf16, NW, KC, true>(g, src, walk, epi, keq, kpo, tc_smem);
+  cs3x3::tc_conv<T, NW, KC, true>(g, src, walk, epi, keq, kpo, tc_smem);
 }
 
 // Lets a kernel take up to the card's opt-in shared memory per block; set
@@ -757,31 +1020,38 @@ cudaError_t launch_dx(const void* dout, const void* keq, const void* kpo, void* 
   return cudaGetLastError();
 }
 
-template <int NW, int KC, bool RAW>
+template <typename T, int NW, int KC, bool RAW>
 cudaError_t launch_dx_tc_nw(const TcGeom& g, int batch, size_t smem, int device,
-                            cudaStream_t stream, const bf16* dout, const bf16* keq,
-                            const bf16* kpo, bf16* dx, bf16* dext) {
+                            cudaStream_t stream, const T* dout, const T* keq, const T* kpo,
+                            T* dx, T* dext) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<cs_conv3x3_dx_tc_kernel<NW, KC, RAW>>(device);
+    cudaError_t err = allow_large_smem<cs_conv3x3_dx_tc_kernel<T, NW, KC, RAW>>(device);
     if (err != cudaSuccess) return err;
   }
   const long long p0 = (4LL * batch * g.ntr + g.tpb - 1) / g.tpb;
   const long long p1 = (2LL * batch * g.ntr + g.tpb - 1) / g.tpb;
   const long long blocks = g.nslices * (p0 + p1);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cs_conv3x3_dx_tc_kernel<NW, KC, RAW><<<(unsigned)blocks, g.threads, smem, stream>>>(
+  cs_conv3x3_dx_tc_kernel<T, NW, KC, RAW><<<(unsigned)blocks, g.threads, smem, stream>>>(
       dout, keq, kpo, dx, dext, g, batch);
   return cudaGetLastError();
 }
 
-template <int KC, bool RAW>
+// float32 takes at most 4 n8 tiles per warp (make_tc_geom)
+template <typename T, int KC, bool RAW>
 cudaError_t launch_dx_tc(const TcGeom& g, int batch, size_t smem, int device, cudaStream_t s,
-                         const bf16* d, const bf16* k0, const bf16* k1, bf16* o, bf16* e) {
+                         const void* dout, const void* keq, const void* kpo, void* dx,
+                         void* dext) {
+  const T *d = static_cast<const T*>(dout), *k0 = static_cast<const T*>(keq),
+          *k1 = static_cast<const T*>(kpo);
+  T *o = static_cast<T*>(dx), *e = static_cast<T*>(dext);
   switch (g.nw) {
-    case 1: return launch_dx_tc_nw<1, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
-    case 2: return launch_dx_tc_nw<2, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
-    case 4: return launch_dx_tc_nw<4, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
-    default: return launch_dx_tc_nw<8, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    case 1: return launch_dx_tc_nw<T, 1, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    case 2: return launch_dx_tc_nw<T, 2, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    case 4: return launch_dx_tc_nw<T, 4, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+    default:
+      if constexpr (std::is_same<T, float>::value) return cudaErrorInvalidValue;
+      else return launch_dx_tc_nw<T, 8, KC, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
   }
 }
 
@@ -802,15 +1072,26 @@ cudaError_t launch_dw(const void* x, const void* ext, const void* dout, void* dk
 
 template <int CIG, int NG>
 cudaError_t launch_dw_tc_cfg(const DwTcGeom& g, size_t smem, int device, cudaStream_t stream,
-                             const bf16* x, const bf16* ext, const bf16* dout, float* dk_part,
+                             const void* x, const void* ext, const void* dout, float* dk_part,
                              float* db_part) {
+  dim3 grid(g.ncib * g.ncob, g.nsplit, 2);
+  if (g.esize == 4) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = allow_large_smem<cs_conv3x3_dw_tf32_kernel<CIG, NG>>(device);
+      if (err != cudaSuccess) return err;
+    }
+    cs_conv3x3_dw_tf32_kernel<CIG, NG><<<grid, g.threads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(ext),
+        static_cast<const float*>(dout), dk_part, db_part, g);
+    return cudaGetLastError();
+  }
   if (smem > 48 * 1024) {
     cudaError_t err = allow_large_smem<cs_conv3x3_dw_tc_kernel<CIG, NG>>(device);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(g.ncib * g.ncob, g.nsplit, 2);
-  cs_conv3x3_dw_tc_kernel<CIG, NG><<<grid, g.threads, smem, stream>>>(x, ext, dout, dk_part,
-                                                                       db_part, g);
+  cs_conv3x3_dw_tc_kernel<CIG, NG><<<grid, g.threads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ext), static_cast<const bf16*>(dout),
+      dk_part, db_part, g);
   return cudaGetLastError();
 }
 
@@ -880,29 +1161,34 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// float32: the CUDA-core kernel (tile_plan's h, cs); bfloat16: the
-// tensor-core kernel (tc_plan's h, cs, nw, tpb; smem checked).
+// The tensor-core kernel in either dtype (tc_plan's h, cs, nw, tpb; smem
+// checked).
 template <bool RAW>
 int dx_entry(int dtype, int device, const void* dout, const void* keq, const void* kpo,
              void* dx, void* dext, int batch, int n, int cin, int cout, int h, int cs, int nw,
              int tpb, int smem, void* stream) {
-  if (dtype == 0)
-    return dx_cc_entry<RAW>(0, device, dout, keq, kpo, dx, dext, batch, n, cin, cout, h, cs,
-                            stream);
-  if (dtype != 1 || device < 0 || device >= 64 || batch < 1 || batch > 65535 || n < 1)
+  if ((dtype != 0 && dtype != 1) || device < 0 || device >= 64 || batch < 1 ||
+      batch > 65535 || n < 1)
     return cudaErrorInvalidValue;
+  const bool f32 = dtype == 0;
   TcGeom g;
-  if (!cs3x3::make_tc_geom(g, n + 2, n + 2, cout, cin, h, cs, nw, tpb, true) ||
+  if (!cs3x3::make_tc_geom(g, n + 2, n + 2, cout, cin, h, cs, nw, tpb, true, f32) ||
       cs3x3::tc_smem_bytes(g) != (size_t)smem)
     return cudaErrorInvalidValue;
-  g.vec = cout % 8 == 0 && aligned(dout, 16) ? 1 : cout % 4 == 0 && aligned(dout, 8) ? 2 : 0;
-  g.wvec = cout % 8 == 0 && aligned(keq, 16) && aligned(kpo, 16);
+  const int per16 = f32 ? 4 : 8;  // channels per 16 bytes
+  g.vec = cout % per16 == 0 && aligned(dout, 16)          ? 1
+          : cout % (per16 / 2) == 0 && aligned(dout, 8) ? 2
+                                                          : 0;
+  g.wvec = cout % per16 == 0 && aligned(keq, 16) && aligned(kpo, 16);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *d = static_cast<const bf16*>(dout), *k0 = static_cast<const bf16*>(keq),
-             *k1 = static_cast<const bf16*>(kpo);
-  bf16 *o = static_cast<bf16*>(dx), *e = static_cast<bf16*>(dext);
-  return g.kc == 16 ? launch_dx_tc<16, RAW>(g, batch, smem, device, s, d, k0, k1, o, e)
-                    : launch_dx_tc<32, RAW>(g, batch, smem, device, s, d, k0, k1, o, e);
+  if (f32)
+    return g.kc == 16 ? launch_dx_tc<float, 16, RAW>(g, batch, smem, device, s, dout, keq, kpo,
+                                                     dx, dext)
+                      : launch_dx_tc<float, 32, RAW>(g, batch, smem, device, s, dout, keq, kpo,
+                                                     dx, dext);
+  return g.kc == 16
+             ? launch_dx_tc<bf16, 16, RAW>(g, batch, smem, device, s, dout, keq, kpo, dx, dext)
+             : launch_dx_tc<bf16, 32, RAW>(g, batch, smem, device, s, dout, keq, kpo, dx, dext);
 }
 
 }  // namespace
@@ -910,10 +1196,9 @@ int dx_entry(int dtype, int device, const void* dout, const void* keq, const voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  device: the current device, which the
-// stream belongs to.  h: frame rows per tile; cs: Cin channels per block
-// or slice.  float32 takes tile_plan's h and cs (a power of two >= 8) and
-// reads neither nw, tpb nor smem; bfloat16 takes tc_plan's h, cs, nw, tpb
-// and the shared memory they give.  Returns a cudaError_t (0 = success).
+// stream belongs to.  h: frame rows per tile; cs: Cin channels per slice;
+// with tc_plan's nw, tpb and the shared memory they give (checked here).
+// Returns a cudaError_t (0 = success).
 int cs_conv3x3_dx_launch(int dtype, int device, const void* dout, const void* keq,
                          const void* kpo, void* dx, void* dext, int batch, int n, int cin,
                          int cout, int h, int cs, int nw, int tpb, int smem, void* stream) {
@@ -932,7 +1217,7 @@ int cs_conv3x3_dx_ring_launch(int dtype, int device, const void* dout, const voi
 }
 
 // The CUDA-core dx kernel in either dtype (raw: the raw ring), with
-// tile_plan's h and cs: the bfloat16 instance that the tensor-core kernel
+// tile_plan's h and cs: the instances that the tensor-core kernel
 // replaced, kept so that the kernel tools can time the two side by side
 // (ops/conv_variants.py::cs_conv3x3_dx_cudacore).
 int cs_conv3x3_dx_cc_launch(int dtype, int device, const void* dout, const void* keq,
@@ -944,38 +1229,39 @@ int cs_conv3x3_dx_cc_launch(int dtype, int device, const void* dout, const void*
                                   h, cs, stream);
 }
 
-// The tensor-core dw kernel, bfloat16 only (dtype 1; float32 takes
-// cs_conv3x3_dw_cc_launch), with dw_tc_plan's rows (face rows per item),
-// nsplit (K slices per face group), cig (Cin groups of 16 per block), ng
-// (Cout groups of 32) and the shared memory they give (checked here).
-// dk_part and db_part are float32, written whole.
+// The tensor-core dw kernel in either dtype (float32 as 3xTF32), with
+// dw_tc_plan's rows (face rows per item), nsplit (K slices per face group),
+// cig (Cin groups of 16 per block), ng (Cout groups of 32) and the shared
+// memory they give (checked here).  dk_part and db_part are float32,
+// written whole.
 int cs_conv3x3_dw_launch(int dtype, int device, const void* x, const void* ext,
                          const void* dout, void* dk_part, void* db_part, int batch, int n,
                          int cin, int cout, int rows, int nsplit, int cig, int ng, int smem,
                          void* stream) {
-  if (dtype != 1 || device < 0 || device >= 64) return cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || device < 0 || device >= 64) return cudaErrorInvalidValue;
+  const int esize = dtype == 0 ? 4 : 2, per16 = 16 / esize;  // channels per 16 bytes
   DwTcGeom g;
-  if (!make_dw_tc_geom(g, batch, n, cin, cout, rows, nsplit, cig, ng) ||
+  if (!make_dw_tc_geom(g, batch, n, cin, cout, rows, nsplit, cig, ng, esize) ||
       dw_tc_smem_bytes(g) != (size_t)smem)
     return cudaErrorInvalidValue;
-  g.vec = cin % 8 == 0 && aligned(x, 16) && aligned(ext, 16)  ? 1
-          : cin % 4 == 0 && aligned(x, 8) && aligned(ext, 8) ? 2
-                                                             : 0;
-  g.dvec = cout % 8 == 0 && aligned(dout, 16) ? 1 : cout % 4 == 0 && aligned(dout, 8) ? 2 : 0;
+  g.vec = cin % per16 == 0 && aligned(x, 16) && aligned(ext, 16)           ? 1
+          : cin % (per16 / 2) == 0 && aligned(x, 8) && aligned(ext, 8) ? 2
+                                                                         : 0;
+  g.dvec = cout % per16 == 0 && aligned(dout, 16)          ? 1
+           : cout % (per16 / 2) == 0 && aligned(dout, 8) ? 2
+                                                           : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *bx = static_cast<const bf16*>(x), *be = static_cast<const bf16*>(ext),
-             *bd = static_cast<const bf16*>(dout);
   float *dk = static_cast<float*>(dk_part), *db = static_cast<float*>(db_part);
-  if (cig == 2) return launch_dw_tc_cfg<2, 1>(g, smem, device, s, bx, be, bd, dk, db);
-  if (ng == 2) return launch_dw_tc_cfg<1, 2>(g, smem, device, s, bx, be, bd, dk, db);
-  return launch_dw_tc_cfg<1, 1>(g, smem, device, s, bx, be, bd, dk, db);
+  if (cig == 2) return launch_dw_tc_cfg<2, 1>(g, smem, device, s, x, ext, dout, dk, db);
+  if (ng == 2) return launch_dw_tc_cfg<1, 2>(g, smem, device, s, x, ext, dout, dk, db);
+  return launch_dw_tc_cfg<1, 1>(g, smem, device, s, x, ext, dout, dk, db);
 }
 
 // The CUDA-core dw kernel in either dtype, with dw_plan's rows (face rows
 // staged per item, <= n) and nsplit (reduction slices per face group,
-// 1..65535): the float32 production kernel, and the bfloat16 instance that
-// the tensor-core kernel replaced, kept so that the kernel tools can time
-// the two side by side (ops/conv_variants.py::cs_conv3x3_dw_cudacore).
+// 1..65535): the instances that the tensor-core kernels replaced, kept so
+// that the kernel tools can time the two side by side
+// (ops/conv_variants.py::cs_conv3x3_dw_cudacore).
 int cs_conv3x3_dw_cc_launch(int dtype, int device, const void* x, const void* ext,
                             const void* dout, void* dk_part, void* db_part, int batch, int n,
                             int cin, int cout, int rows, int nsplit, void* stream) {

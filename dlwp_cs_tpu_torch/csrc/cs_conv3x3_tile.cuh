@@ -71,10 +71,11 @@
 //     same (face group, slice), so staged weights serve more than one tile;
 //     they are staged again only where a walk changes group or slice
 //     (#11's walk);
-//   * the same routine runs the bfloat16 dx kernel (cs_conv3x3_bwd.cu): a
-//     correlation of dout, zero-extended by 2, with the flipped,
+//   * the same routine runs the dx kernel in both types (cs_conv3x3_bwd.cu):
+//     a correlation of dout, zero-extended by 2, with the flipped,
 //     transposed taps over the (n+2)^2 frame; only the staging sources,
-//     the weight layout and the stores differ.
+//     the weight layout and the stores differ.  Its taps are n x k rows of
+//     k in both types, so float32's are straight copies too.
 // Each output's sum runs in that K order whatever the tile height, the
 // launch, or the block's walk, with one rounding to T at the end, so two
 // launches that stage the same values give bitwise equal outputs (#12 and
@@ -300,14 +301,14 @@ struct TcGeom {
 };
 
 // Fills g; false on sizes the routine cannot take.  dx: the weight layout
-// of the dx kernel (bfloat16 only); f32: float32 elements.  The host plan
+// of the dx kernel; f32: float32 elements.  The host plan
 // (ops/hopper_conv.py::tc_plan) computes the same numbers.
 inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h, int cs,
                          int nw, int tpb, bool dx, bool f32 = false) {
   if (rows < 1 || cols < 1 || kch < 1 || nch < 1 || h < 1 || h > rows || tpb < 1) return false;
   if (cs != 8 && cs != 16 && cs != 32 && cs != 64) return false;
   if (nw != 1 && nw != 2 && nw != 4 && nw != 8) return false;
-  if (8 * nw > cs || (f32 && (dx || nw > 4))) return false;
+  if (8 * nw > cs || (f32 && nw > 4)) return false;
   g.rows = rows;
   g.cols = cols;
   g.kch = kch;
@@ -511,18 +512,19 @@ struct FwdSrc {
 
 // The dx kernel's: staged row pr, column pc of the frame tile at a0 is
 // dout[a0 + pr - 2, pc - 2], zero outside the face.
+template <typename T>
 struct DxSrc {
-  const bf16* __restrict__ dout;
+  const T* __restrict__ dout;
   int n, cout;
-  __device__ __forceinline__ const bf16* base() const { return dout; }  // any valid address
-  __device__ __forceinline__ const bf16* cell(const TcTile& t, int pr, int pc) const {
+  __device__ __forceinline__ const T* base() const { return dout; }  // any valid address
+  __device__ __forceinline__ const T* cell(const TcTile& t, int pr, int pc) const {
     const int dr = t.r0 + pr - 2, dc = pc - 2;
     if (dr < 0 || dr >= n || dc < 0 || dc >= n) return nullptr;
     return dout + ((t.face * n + dr) * n + dc) * cout;
   }
-  __device__ __forceinline__ bf16 elem(const TcTile& t, int pr, int pc, int ci) const {
-    const bf16* p = cell(t, pr, pc);
-    return p ? p[ci] : __float2bfloat16_rn(0.f);
+  __device__ __forceinline__ T elem(const TcTile& t, int pr, int pc, int ci) const {
+    const T* p = cell(t, pr, pc);
+    return p ? p[ci] : from_f32<T>(0.f);
   }
 };
 
@@ -585,11 +587,37 @@ __device__ __forceinline__ void tc_stage_chunk(bf16* S, const Src& src, const Tc
 //                     (B as n x k, k contiguous: straight copies of rows of k)
 //   float32 forward:  Ws[c][(tap * kp + 2 ci) / 2] = k[tap][ci][n0 + c], as f32
 //                     (B as n x k: transposed once here, by 4-byte copies)
+//   float32 dx:       Ws[c][(tap * kp + 2 co) / 2] = k[8 - tap][n0 + c][co], as f32
+//                     (B as n x k, k contiguous: straight copies of rows of k)
 // with, for dx, kch = Cout (K) and nch = Cin (N).
 template <bool DX, typename T>
 __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__ k,
                                                  const TcTile& t, const TcGeom& g) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (DX && std::is_same<T, float>::value) {
+    float* Wf = reinterpret_cast<float*>(Ws);
+    const int kpe = g.kp / 2, wpe = g.wpitch / 2;  // in floats
+    const int rows = g.cs * 9;                    // (c, tap)
+    if (g.wvec) {                                 // Cout a multiple of 4, aligned
+      const int gpr = kpe / 4;
+      for (int u = threadIdx.x; u < rows * gpr; u += g.threads) {
+        const int row = u / gpr, co = (u - row * gpr) * 4;
+        const int c = row / 9, tap = row - c * 9;
+        const int ci = t.n0 + c;
+        const bool ok = ci < g.nch && co < g.kch;
+        const float* p = k + ((long long)(8 - tap) * g.nch + ci) * g.kch + co;
+        cp_async16(Wf + c * wpe + tap * kpe + co, ok ? p : k, ok ? 16 : 0);
+      }
+    } else {
+      for (int u = threadIdx.x; u < rows * kpe; u += g.threads) {
+        const int row = u / kpe, co = u - row * kpe;
+        const int c = row / 9, tap = row - c * 9;
+        const int ci = t.n0 + c;
+        const bool ok = ci < g.nch && co < g.kch;
+        const float* p = k + ((long long)(8 - tap) * g.nch + ci) * g.kch + co;
+        cp_async4(Wf + c * wpe + tap * kpe + co, ok ? p : k, ok ? 4 : 0);
+      }
+    }
+  } else if constexpr (std::is_same<T, float>::value) {
     float* Wf = reinterpret_cast<float*>(Ws);
     const int kpe = g.kp / 2, wpe = g.wpitch / 2;  // in floats
     const int rows = 9 * kpe;                     // (tap, ci), consecutive threads on c
@@ -650,7 +678,7 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__
   }
 }
 
-// T: bf16 or float (float: forward only).  KC: g.kc, the K units per chunk
+// T: bf16 or float.  KC: g.kc, the K units per chunk
 // (16 or 32), fixed at compile time so that a chunk's 9 x KC / 16 steps
 // unroll.  The block walks its tiles (Walk::next; Walk::before(t) runs, on
 // every thread, before t's first chunk is requested, and may synchronise
@@ -664,7 +692,6 @@ __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& w
                                         const T* __restrict__ kpo, unsigned char* smem_raw) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr bool BT = DX || F32;  // weights as n x k rows
-  static_assert(!(F32 && DX), "the float32 dx kernel runs on the CUDA cores");
   bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
   bf16* St = Ws + g.wsize;  // two stages
   bf16* Lo = St + 2 * g.stage;  // float32: the lo halves of the stage in use

@@ -23,11 +23,10 @@ kernels that the reference's kernel tools time beside its production conv.
   :data:`cs_conv3x3_dw_cudacore`: the CUDA-core kernels of #1, #4 (#14
   with ``raw=True``) and #5 in either dtype, with
   :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.tile_plan`'s tiles (#5:
-  :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.dw_plan`'s).  The float32 dx
-  and dw kernels are the production ones; the others are the instances
-  that the tensor-core kernels replaced (#1 in both dtypes, #4 and #5 in
-  bfloat16), kept only so that a timing run can set the two side by side
-  on one card.  No path of the port selects them.
+  :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.dw_plan`'s): the instances
+  that the tensor-core kernels replaced in both dtypes, kept only so that
+  a timing run can set the two side by side on one card.  No path of the
+  port selects them.
 
 #3 and #13 take bfloat16 only, as the tools run them: a float32 CUDA tensor
 raises ``ValueError`` (TF32 would change the numbers, and nothing falls

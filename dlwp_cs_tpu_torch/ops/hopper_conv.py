@@ -14,13 +14,13 @@ header says what bounds it and how:
   (the weight and bias gradients, as per-block partial sums that a fixed-order
   ``torch.sum`` reduces).
 
-The forward kernel runs on the tensor cores in both dtypes (an implicit
-GEMM on ``mma.sync``, ``csrc/cs_conv3x3_tile.cuh::tc_conv``; float32 as
-3xTF32) with the tiles, slices and walks of :func:`tc_plan`.  The dx kernel
-runs bfloat16 there too, and float32 on the CUDA cores with the tiles of
-:func:`tile_plan`.  The dw kernel runs bfloat16 as an implicit GEMM over the
-pixels of a face group on the tensor cores (:func:`dw_tc_plan`), and
-float32 on the CUDA cores (:func:`dw_plan`).
+All three run on the tensor cores in both dtypes, float32 as 3xTF32.  The
+forward and dx kernels are an implicit GEMM on ``mma.sync``
+(``csrc/cs_conv3x3_tile.cuh::tc_conv``) with the tiles, slices and walks of
+:func:`tc_plan`; the dw kernel is an implicit GEMM over the pixels of a
+face group (:func:`dw_tc_plan`).  The CUDA-core instances they replaced
+stay as timing rows (``ops/conv_variants.py``, planned by :func:`tile_plan`
+and :func:`dw_plan`); no path of the port selects them.
 
 Beside each kernel:
 
@@ -45,6 +45,8 @@ Each kernel source is built and bound by
 
 from __future__ import annotations
 
+import functools
+import heapq
 import math
 from typing import NamedTuple
 
@@ -86,13 +88,12 @@ __all__ = [
 ]
 
 # Register tile of one thread and the block-size cap of the CUDA-core
-# kernels (the float32 dx kernel of csrc/cs_conv3x3_bwd.cu, and the timing
-# rows of ops/conv_variants.py).
+# kernels (the timing rows of ops/conv_variants.py).
 _PX, _CO, _MAX_THREADS = 4, 8, 256
-# The CUDA-core dx kernel's widest channel slice: a block stages 9 x 16 x cs
-# weights per chunk, so a wider slice (up to 256 at Cin = 192) fills shared
-# memory with weights, leaves one block per SM and spends the block's time
-# staging them for a single frame row.
+# The CUDA-core dx kernel's widest channel slice (a timing row): a block
+# stages 9 x 16 x cs weights per chunk, so a wider slice (up to 256 at Cin =
+# 192) fills shared memory with weights, leaves one block per SM and spends
+# the block's time staging them for a single frame row.
 _DX_MAX_CS = 64
 # The tensor-core kernels (csrc/cs_conv3x3_tile.cuh::make_tc_geom): threads
 # per block, 16-bit units after each staged cell, the shared memory a block
@@ -103,16 +104,21 @@ _TC_MAX_THREADS, _TC_PAD, _SMEM_LIMIT, _SMEM_PER_SM = 256, 8, 232448, 233472
 # memory above which a block leaves no room for a second on its SM, and
 # the blocks per SM the whole-grid walk keeps resident.
 _TC_TILE_PX, _TC_SOFT_SMEM, _TC_BLOCKS_PER_SM = 128, 113 * 1024, 4
-# The dw kernel's block tile: input and output channels per block
-# (csrc/cs_conv3x3_bwd.cu); the face rows it stages at a time (4: 44 KB of
+# The CUDA-core dw kernel's block tile (a timing row): input and output
+# channels per block (csrc/cs_conv3x3_bwd.cu); the face rows it stages at a time (4: 44 KB of
 # shared memory at n=48, five blocks per SM) and the blocks per SM its grid
 # aims at, so that other blocks compute while one waits on its staging.
 _DW_CI, _DW_CO, _DW_ROWS, _DW_BLOCKS_PER_SM = 16, 32, 4, 8
-# The tensor-core dw kernel (csrc/cs_conv3x3_bwd.cu::make_dw_tc_geom): bf16
-# after each staged cell; the pixels an item aims at (whole face rows,
-# 12 k16 steps at n = 48 and 24), the blocks per SM its grid aims at (two
-# of 6 warps are resident; two waves), and the partial sums' cap.
+# The tensor-core dw kernel (csrc/cs_conv3x3_bwd.cu::make_dw_tc_geom):
+# elements after each staged cell; the pixels an item aims at (whole face
+# rows, 12 k16 steps at n = 48 and 24), the blocks per SM its grid aims at
+# (two of 6 warps are resident; two waves), and the partial sums' cap.
 _DWT_PAD, _DWT_ITEM_PX, _DWT_BLOCKS_PER_SM, _DWT_PARTIAL_BYTES = 8, 192, 4, 20 * 2**20
+# Its float32 instance (3xTF32): ~194 registers a thread leave one block of
+# 6 warps an SM (two of 3 warps where their shared memory allows); the
+# pixels an item aims at, and what each block a resident slot runs adds to
+# the time, as a share of the makespan (tools/tc_sweep.py --kind dw).
+_DWF_ITEM_PX, _DWF_BLOCK_COST = 192, 0.02
 
 
 def _padded_faces(x, ext):
@@ -236,9 +242,9 @@ def tile_plan(b: int, rows: int, cols: int, cout: int, sm_count: int,
     register tiles.  ``cs`` is the widest power-of-two channel slice (at
     most ``max_cs``) that lets one row fit a block; ``h`` the most rows that
     fit, lowered until the grid holds two blocks per SM where the batch is
-    small (batch-1 serving).  The CUDA-core kernels take it: the float32
-    dx kernel, which plans its ``(n+2)^2`` frame with it, its slices capped
-    at ``_DX_MAX_CS``, and the timing rows of ``ops/conv_variants.py``.
+    small (batch-1 serving).  The CUDA-core timing rows of
+    ``ops/conv_variants.py`` take it (the dx row plans its ``(n+2)^2``
+    frame with it, its slices capped at ``_DX_MAX_CS``).
     """
     ncg = -(-cols // _PX)
     if ncg > _MAX_THREADS:
@@ -281,16 +287,16 @@ def tc_geom(rows: int, cols: int, kch: int, nch: int, h: int, cs: int, nw: int,
     """The tensor-core kernel's geometry for a tile of ``h`` rows of a
     ``rows x cols`` block (the dx kernel: of the ``(n+2)^2`` frame), ``kch``
     reduced and ``nch`` output channels of ``esize`` bytes (2: bfloat16, 4:
-    float32, forward only), slices of ``cs`` channels and ``nw`` n8 tiles
-    per warp; raises ``ValueError`` where the kernel does not take them (as
+    float32), slices of ``cs`` channels and ``nw`` n8 tiles per warp;
+    raises ``ValueError`` where the kernel does not take them (as
     ``make_tc_geom`` returns false).  ``kc``, ``kp`` and the staged sizes
     count 16-bit units: a float32 value takes two."""
     if not (1 <= h <= rows and cols >= 1 and kch >= 1 and nch >= 1):
         raise ValueError(f"tc_geom: h={h} rows of a {rows} x {cols} block, K={kch}, N={nch}")
     if cs not in (8, 16, 32, 64) or nw not in (1, 2, 4, 8) or 8 * nw > cs:
         raise ValueError(f"tc_geom: slice {cs} with {nw} n8 tiles per warp")
-    if esize not in (2, 4) or (esize == 4 and (dx or nw > 4)):
-        raise ValueError(f"tc_geom: {esize}-byte elements (dx={dx}, nw={nw})")
+    if esize not in (2, 4) or (esize == 4 and nw > 4):
+        raise ValueError(f"tc_geom: {esize}-byte elements with {nw} n8 tiles per warp")
     wn = cs // (8 * nw)
     wm = _tc_warps_m(h, cols)
     threads = 32 * wm * wn
@@ -386,7 +392,7 @@ def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
     cols`` block (the forward: the block's rows; the dx kernel: the
     ``(n+2)^2`` frame, ``dx=True``), ``kch`` reduced channels (K = 9 kch)
     and ``nch`` output channels of ``esize`` bytes (float32, ``esize=4``:
-    :func:`_tc_plan_f32`).
+    :func:`_tc_plan_f32`, :func:`_tc_plan_dx_f32`).
 
     Where the faces give enough tiles (training batches; n = 96), the plan
     of :func:`_tc_wide` whose slice maximises :func:`_tc_score`.  Otherwise
@@ -402,13 +408,18 @@ def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
     if cols > _TC_MAX_THREADS:
         raise ValueError(
             f"the tensor-core conv takes rows of at most {_TC_MAX_THREADS} pixels, not {cols}")
-    if esize == 4 and not dx:
-        return _tc_plan_f32(b, rows, cols, kch, nch, sm_count)
+    if esize == 4:
+        plan = _tc_plan_dx_f32 if dx else _tc_plan_f32
+        return plan(b, rows, cols, kch, nch, sm_count)
     widest = min(64, max(8, 1 << (nch - 1).bit_length()))
     g = _tc_wide(rows, cols, kch, nch, widest, dx, esize, lambda g: _tc_score(g, cols, nch))
     if g is not None and b * 6 * g.ntr * g.nslices >= sm_count:
         return _tc_launch(g, b, sm_count)
+    return _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize)
 
+
+def _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize) -> TcPlan:
+    """:func:`tc_plan`'s batch-1 regime (see there)."""
     def geom(h, cs):
         return _tc_small_geom(rows, cols, kch, nch, h, cs, 4, dx, esize)
 
@@ -475,6 +486,26 @@ def _tc_plan_f32(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int
     return _tc_launch(g, b, sm_count, tpb=1)
 
 
+def _tc_plan_dx_f32(b: int, m: int, cols: int, kch: int, nch: int,
+                    sm_count: int) -> TcPlan:
+    """:func:`tc_plan` for the float32 dx kernel (3xTF32) on the ``(n+2)^2``
+    frame (``m = cols = n + 2``; K = 9 Cout, N = Cin).  It runs only in
+    training, at batch 16, where the training-batch regime applies: slices
+    of at most 32 channels and the f32 forward's score (the float32
+    forward's reasoning holds: six times the bfloat16 products per staged
+    value).  The weights are resident, ``9 Cout x cs`` floats (147 KB for
+    a 32-channel slice at Cout = 128).  At the flagship's batch-16 shapes
+    its plans take 1 % longer in sum than the fastest of the candidates
+    ``tools/tc_sweep.py --dtype float32 --kind dx`` times on an H100.
+    Smaller grids (the card tests' shapes) take :func:`tc_plan`'s batch-1
+    regime."""
+    widest = min(32, max(8, 1 << (nch - 1).bit_length()))
+    g = _tc_wide(m, cols, kch, nch, widest, True, 4, lambda g: _tc_score(g, cols, nch) * g.cs)
+    if g is not None and b * 6 * g.ntr * g.nslices >= sm_count:
+        return _tc_launch(g, b, sm_count)
+    return _tc_small_plan(b, m, cols, kch, nch, sm_count, widest, True, 4)
+
+
 def _tc_score(g: TcGeom, cols: int, nch: int) -> float:
     """How well a plan of :func:`tc_plan`'s training-batch regime uses the
     card: resident warps per SM (at most 16) x the useful share of a tile
@@ -510,8 +541,8 @@ def tc_blocks(plan: TcPlan, b: int):
 
 
 def dw_plan(b: int, n: int, cin: int, cout: int, sm_count: int):
-    """``(rows, nsplit)`` of the dw kernel: face rows staged at a time, and
-    reduction slices per face group.
+    """``(rows, nsplit)`` of the CUDA-core dw kernel (a timing row): face
+    rows staged at a time, and reduction slices per face group.
 
     The grid has ``ceil(Cin/16) * ceil(Cout/32)`` channel tiles per group,
     each summing over ``nsplit`` contiguous slices of the group's (batch,
@@ -536,9 +567,10 @@ class DwTcPlan(NamedTuple):
     nsplit: int  # K slices per face group
     ncib: int  # Cin tiles
     ncob: int  # Cout tiles
-    steps: int  # k16 steps per item
+    steps: int  # k steps per item
     threads: int
     smem: int  # bytes of shared memory per block
+    kpx: int = 16  # pixels per k step: 16 (bfloat16, k16) or 8 (float32, TF32 k8)
 
     def args(self):
         """``(rows, nsplit, cig, ng, smem)``, the numbers the C entry point
@@ -546,42 +578,61 @@ class DwTcPlan(NamedTuple):
         return self.rows, self.nsplit, self.cig, self.ng, self.smem
 
 
-def _dw_tc_rows(n: int) -> int:
+def _dw_tc_rows(n: int, kpx: int = 16, item_px: int = _DWT_ITEM_PX) -> int:
     """Face rows per item: the fewest whole rows, dividing the face and
-    filling whole k16 steps, that give ``_DWT_ITEM_PX`` pixels; else the
-    whole face."""
+    filling whole k steps of ``kpx`` pixels, that give ``item_px`` pixels;
+    else the whole face."""
     for r in range(1, n + 1):
-        if n % r == 0 and r * n % 16 == 0 and r * n >= _DWT_ITEM_PX:
+        if n % r == 0 and r * n % kpx == 0 and r * n >= item_px:
             return r
     return n
 
 
 def dw_tc_geom(b: int, n: int, cin: int, cout: int, rows: int, nsplit: int, cig: int,
-               ng: int) -> DwTcPlan:
-    """The tensor-core dw kernel's geometry; raises ``ValueError`` where the
-    kernel does not take it (as ``make_dw_tc_geom`` returns false)."""
+               ng: int, esize: int = 2) -> DwTcPlan:
+    """The tensor-core dw kernel's geometry for ``esize``-byte elements (2:
+    bfloat16, k16 steps, two stages; 4: float32, TF32 k8 steps, two stages
+    and the lo halves of one); raises ``ValueError`` where the kernel does
+    not take it (as ``make_dw_tc_geom`` returns false)."""
     if not (b >= 1 and n >= 1 and cin >= 1 and cout >= 1 and 1 <= rows <= n
-            and 1 <= nsplit <= 65535 and cig in (1, 2) and ng in (1, 2) and cig * ng <= 2):
+            and 1 <= nsplit <= 65535 and cig in (1, 2) and ng in (1, 2) and cig * ng <= 2
+            and esize in (2, 4)):
         raise ValueError(f"dw_tc_geom: b={b} n={n} Cin={cin} Cout={cout} rows={rows} "
-                         f"nsplit={nsplit} cig={cig} ng={ng}")
-    steps = -(-(rows * n) // 16)
+                         f"nsplit={nsplit} cig={cig} ng={ng} esize={esize}")
+    kpx = 16 if esize == 2 else 8
+    steps = -(-(rows * n) // kpx)
     pstage = (rows + 2) * (n + 2) * (16 * cig + _DWT_PAD)
-    dstage = 16 * steps * (32 * ng + _DWT_PAD)
+    dstage = kpx * steps * (32 * ng + _DWT_PAD)
+    buffers = 2 if esize == 2 else 3
     return DwTcPlan(rows, cig, ng, nsplit, -(-cin // (16 * cig)), -(-cout // (32 * ng)), steps,
-                    96 * cig * ng, 4 * (pstage + dstage))
+                    96 * cig * ng, esize * buffers * (pstage + dstage), kpx)
 
 
-def dw_tc_plan(b: int, n: int, cin: int, cout: int, sm_count: int) -> DwTcPlan:
-    """The tensor-core dw kernel's plan for ``b * 6`` faces of ``n x n``.
+def _dw_nsplit(g: DwTcPlan, b: int, n: int, cin: int, cout: int, sm_count: int,
+               blocks_per_sm: int) -> int:
+    """K slices per face group: raised until the grid holds
+    ``blocks_per_sm`` blocks per SM, never past the polar group's item
+    count nor past partial sums (``nsplit * 2 * 9 * Cin * Cout`` floats) of
+    ``_DWT_PARTIAL_BYTES``."""
+    tiles = 2 * g.ncib * g.ncob
+    polar_items = b * 2 * -(-n // g.rows)
+    budget = max(1, _DWT_PARTIAL_BYTES // (4 * 2 * 9 * cin * cout))
+    return max(1, min(polar_items, budget, 65535, -(-blocks_per_sm * sm_count // tiles)))
+
+
+def dw_tc_plan(b: int, n: int, cin: int, cout: int, sm_count: int,
+               esize: int = 2) -> DwTcPlan:
+    """The tensor-core dw kernel's plan for ``b * 6`` faces of ``n x n`` of
+    ``esize``-byte elements (float32, ``esize=4``: :func:`_dw_tc_plan_f32`).
 
     A block owns 9 taps x ``16 cig`` Cin x ``32 ng`` Cout channels (``cig``
     = 2 past 16 input channels, else ``ng`` = 2 past 32 output channels:
     at most 6 warps) and sums over ``nsplit`` contiguous slices of its face
-    group's items (batch item, face, ``rows`` face rows).  ``nsplit`` is
-    raised until the grid holds ``_DWT_BLOCKS_PER_SM`` blocks per SM, never
-    past the polar group's item count nor past partial sums (``nsplit * 2
-    * 9 * Cin * Cout`` floats) of ``_DWT_PARTIAL_BYTES``.  Raises
+    group's items (batch item, face, ``rows`` face rows); ``nsplit`` aims at
+    ``_DWT_BLOCKS_PER_SM`` blocks per SM (:func:`_dw_nsplit`).  Raises
     ``ValueError`` where one block's stages pass the shared memory."""
+    if esize == 4:
+        return _dw_tc_plan_f32(b, n, cin, cout, sm_count)
     cig = 1 if cin <= 16 else 2
     ng = 2 if cig == 1 and cout > 32 else 1
     rows = _dw_tc_rows(n)
@@ -589,12 +640,65 @@ def dw_tc_plan(b: int, n: int, cin: int, cout: int, sm_count: int) -> DwTcPlan:
     if g.smem > _SMEM_LIMIT - 1024:
         raise ValueError(f"the tensor-core dw kernel cannot stage {rows} rows of n={n} "
                          f"({g.smem} bytes of shared memory)")
-    tiles = 2 * g.ncib * g.ncob
-    polar_items = b * 2 * -(-n // rows)
-    budget = max(1, _DWT_PARTIAL_BYTES // (4 * 2 * 9 * cin * cout))
-    nsplit = max(1, min(polar_items, budget, 65535,
-                        -(-_DWT_BLOCKS_PER_SM * sm_count // tiles)))
-    return g._replace(nsplit=nsplit)
+    return g._replace(nsplit=_dw_nsplit(g, b, n, cin, cout, sm_count, _DWT_BLOCKS_PER_SM))
+
+
+def _dw_makespan(g: DwTcPlan, b: int, n: int, slots: int):
+    """``(makespan, blocks per slot)`` of the dw grid ``g`` on ``slots``
+    resident blocks, each block taking as long as its items: the blocks
+    issued in launch order (Cin and Cout tile, then K slice, then face
+    group; a polar slice holds half an equatorial one's items), each to the
+    slot that frees first."""
+    nchunk = -(-n // g.rows)
+    free = [0] * slots
+    for nf in (4, 2):
+        items = b * nf * nchunk
+        for s in range(g.nsplit):
+            work = items * (s + 1) // g.nsplit - items * s // g.nsplit
+            for _ in range(g.ncib * g.ncob):
+                heapq.heappush(free, heapq.heappop(free) + work)
+    return max(free), 2 * g.nsplit * g.ncib * g.ncob / slots
+
+
+@functools.lru_cache(maxsize=256)
+def _dw_tc_plan_f32(b: int, n: int, cin: int, cout: int, sm_count: int) -> DwTcPlan:
+    """:func:`dw_tc_plan` for float32 (3xTF32), fitted on ``tools/tc_sweep.py
+    --dtype float32 --kind dw`` on an H100.  The bfloat16 plan's blocks
+    (``cig``, ``ng``).  Each value takes 4 bytes and a third stage-sized
+    buffer holds the lo halves, so an item of ``_DWF_ITEM_PX`` pixels is cut
+    to the most whole rows (filling whole k8 steps where they divide the
+    face) whose three buffers fit one block's shared memory, or half an
+    SM's where blocks of 3 warps let two share it.  Of the K slices that
+    give 1, 2 or 4 blocks per resident slot, the one whose list schedule
+    (:func:`_dw_makespan`) ends first, each block adding
+    ``_DWF_BLOCK_COST``: the polar group's blocks hold half the items, and
+    a grid of 2.2 blocks a slot can end a third later than one of 2.  The
+    plans it picks at the flagship's shapes take 0.7 % longer in sum than
+    the fastest of the candidates the sweep times."""
+    cig = 1 if cin <= 16 else 2
+    ng = 2 if cig == 1 and cout > 32 else 1
+    resident = 2 if cig * ng == 1 else 1  # by registers: 1 block of 6 warps, 3 of 3
+    rows = _dw_tc_rows(n, 8, _DWF_ITEM_PX)
+    g = dw_tc_geom(b, n, cin, cout, rows, 1, cig, ng, 4)
+    limit = min(_SMEM_LIMIT, _SMEM_PER_SM // resident) - 1024
+    while rows > 1 and g.smem > limit:
+        rows -= 1
+        while rows > 1 and (n % rows or rows * n % 8):
+            rows -= 1
+        g = dw_tc_geom(b, n, cin, cout, rows, 1, cig, ng, 4)
+    if g.smem > _SMEM_LIMIT - 1024:
+        raise ValueError(f"the tensor-core dw kernel cannot stage a row of n={n} "
+                         f"({g.smem} bytes of shared memory)")
+    if g.smem > limit:
+        resident = 1
+    slots = resident * sm_count
+
+    def cost(nsplit):
+        span, per_slot = _dw_makespan(g._replace(nsplit=nsplit), b, n, slots)
+        return span * (1 + _DWF_BLOCK_COST * per_slot)
+
+    splits = sorted({_dw_nsplit(g, b, n, cin, cout, sm_count, k * resident) for k in (1, 2, 4)})
+    return g._replace(nsplit=min(splits, key=cost))
 
 
 def dw_tc_blocks(plan: DwTcPlan, b: int, n: int, cin: int, cout: int):
@@ -643,23 +747,23 @@ def fwd_plan_args(x_dtype, b, rows, cols, cin, cout, sm_count):
 
 
 def dx_plan_args(dtype, b, n, cin, cout, sm_count):
-    """``(h, cs, nw, tpb, smem)`` of the dx entry points: bfloat16 the
-    tensor-core kernel's (:func:`tc_plan`; the frame is ``(n+2)^2``, K = 9
-    Cout, N = Cin), float32 the CUDA-core kernel's ``(h, cs)``
-    (:func:`tile_plan`) and zeros."""
-    if dtype == torch.bfloat16:
-        return tc_plan(b, n + 2, n + 2, cout, cin, sm_count, dx=True).args()
-    return (*tile_plan(b, n + 2, n + 2, cin, sm_count, max_cs=_DX_MAX_CS), 0, 0, 0)
+    """``(h, cs, nw, tpb, smem)`` of the dx entry points: the tensor-core
+    kernel's (:func:`tc_plan`; the frame is ``(n+2)^2``, K = 9 Cout, N =
+    Cin) for elements of ``dtype``."""
+    esize = torch.finfo(dtype).bits // 8
+    return tc_plan(b, n + 2, n + 2, cout, cin, sm_count, dx=True, esize=esize).args()
 
 
 def dw_launch_args(dtype, b, n, cin, cout, sm_count, cudacore=False):
-    """The dw kernel's C entry point and its plan arguments: bfloat16 the
+    """The dw kernel's C entry point and its plan arguments: the
     tensor-core kernel's (``cs_conv3x3_dw_launch``, :func:`dw_tc_plan`'s
-    ``(rows, nsplit, cig, ng, smem)``); float32, or ``cudacore``, the
-    CUDA-core kernel's (``cs_conv3x3_dw_cc_launch``, :func:`dw_plan`'s
-    ``(rows, nsplit)``).  ``args[1]`` is ``nsplit`` in both."""
-    if dtype == torch.bfloat16 and not cudacore:
-        return "cs_conv3x3_dw_launch", dw_tc_plan(b, n, cin, cout, sm_count).args()
+    ``(rows, nsplit, cig, ng, smem)`` for elements of ``dtype``); with
+    ``cudacore`` the CUDA-core timing row's (``cs_conv3x3_dw_cc_launch``,
+    :func:`dw_plan`'s ``(rows, nsplit)``).  ``args[1]`` is ``nsplit`` in
+    both."""
+    if not cudacore:
+        esize = torch.finfo(dtype).bits // 8
+        return "cs_conv3x3_dw_launch", dw_tc_plan(b, n, cin, cout, sm_count, esize).args()
     return "cs_conv3x3_dw_cc_launch", dw_plan(b, n, cin, cout, sm_count)
 
 

@@ -19,15 +19,14 @@ order 1); its gradients within 1e-4 (f32: cuDNN may pick Winograd or FFT
 algorithms for the SAME convs' VJP) and 2**-6 (bf16) of each gradient's
 largest entry.  The band and tile launches of the forward kernel (#8,
 #9) as the forward kernel; a band conv of 2 ranks sharing the card (a gloo
-group) against the one-card conv likewise.  The forward kernel runs on the
-tensor cores in both dtypes (``tc_plan``; float32 as 3xTF32, at the same
-1e-4), the bfloat16 dx kernel too, and the bfloat16 dw kernel as an
-implicit GEMM over the pixels (``dw_tc_plan``, at the same 1e-5); each
-forward output's sum runs in one K order whatever the tile, so a band's or
-a tile's rows equal the whole face's bitwise given the same ghost values.
+group) against the one-card conv likewise.  The forward and dx kernels run
+on the tensor cores in both dtypes (``tc_plan``; float32 as 3xTF32, at the
+same 1e-4), and the dw kernel as an implicit GEMM over the pixels
+(``dw_tc_plan``; float32 as 3xTF32; at the same 1e-5); each forward
+output's sum runs in one K order whatever the tile, so a band's or a
+tile's rows equal the whole face's bitwise given the same ghost values.
 The CUDA-core instances they replaced (kept as the kernel tools' timing
-rows) agree with the plain versions as before, and the float32 dx and dw
-kernels, which stay on the CUDA cores, are those instances bit for bit.
+rows) agree with the plain versions as before.
 """
 
 import numpy as np
@@ -814,12 +813,11 @@ def test_tensor_core_kernels_refuse_what_the_plan_refuses(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (16, 24, 192, 64), (2, 8, 5, 7)])
 def test_cuda_core_instances_match_plain_on_card(cuda_device, b, n, cin, cout):
-    """The CUDA-core forward (float32 and bfloat16) and bfloat16 dx kernels
-    that the tensor-core ones replaced (kept so that one card call times
-    the two side by side), and the float32 dx kernel they share: each
-    against its plain version; in float32 the production dx wrapper's
-    result bitwise, and the production forward (3xTF32 on the tensor
-    cores) within the forward's 1e-4 of the CUDA-core one."""
+    """The CUDA-core forward and dx kernels in both dtypes that the
+    tensor-core ones replaced (kept so that one card call times the two
+    side by side): each against its plain version; in float32 the
+    production forward and dx (3xTF32 on the tensor cores) within 1e-4 of
+    the CUDA-core ones."""
     from dlwp_cs_tpu_torch.ops.conv_variants import (
         cs_conv3x3_cudacore,
         cs_conv3x3_dx_cudacore,
@@ -842,8 +840,8 @@ def test_cuda_core_instances_match_plain_on_card(cuda_device, b, n, cin, cout):
             _close(ours, ref, dtype)
         _close(ring, cs_conv3x3_dx_ring_plain(g, w[0], w[1])[1], dtype)
         assert torch.equal(dx_r, dx)
-        if dtype == "float32":
-            assert torch.equal(dx, cs_conv3x3_dx(g, w[0], w[1])[0])
+        if dtype == "float32":  # the production kernels, 3xTF32 on the tensor cores
+            _close(cs_conv3x3_dx(g, w[0], w[1])[0], dx, dtype)
             _close(cs_conv3x3(x, e, *w), out, dtype)
 
 
@@ -912,8 +910,8 @@ def test_tensor_core_dw_matches_plain_at_the_step_shapes_on_card(cuda_device, n,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,n,cin,cout", [(2, 8, 5, 7), (16, 48, 12, 32), (16, 24, 64, 64)])
 def test_cuda_core_dw_timing_row_matches_plain_on_card(cuda_device, dtype, b, n, cin, cout):
-    """The CUDA-core dw kernel (the bfloat16 instance the tensor-core one
-    replaced, and the float32 production one) against its plain version."""
+    """The CUDA-core dw kernel in both dtypes (the instances the
+    tensor-core ones replaced, a timing row) against its plain version."""
     from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dw_cudacore
 
     tdt = getattr(torch, dtype)
@@ -929,21 +927,51 @@ def test_cuda_core_dw_timing_row_matches_plain_on_card(cuda_device, dtype, b, n,
         torch.testing.assert_close(ours, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (16, 24, 192, 64), (2, 8, 5, 7),
-                                          (16, 12, 128, 128)])
-def test_float32_dx_and_dw_are_the_cuda_core_kernels_on_card(cuda_device, b, n, cin, cout):
-    """float32's dx and dw kernels stay on the CUDA cores: the production
-    wrappers' outputs equal the CUDA-core timing rows' bitwise."""
-    from dlwp_cs_tpu_torch.ops.conv_variants import cs_conv3x3_dw_cudacore, cs_conv3x3_dx_cudacore
+F32_BWD_SHAPES = [(16,) + s for s in TC_SHAPES[:-1]] + [(2, 8, 5, 7), (1, 48, 12, 32),
+                                                      (1, 10, 3, 9)]
 
-    gen = torch.Generator().manual_seed(7)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", F32_BWD_SHAPES)
+def test_float32_tensor_core_dx_and_dw_match_plain_on_card(cuda_device, b, n, cin, cout):
+    """The float32 dx (#4) and dw (#5) kernels on the tensor cores (3xTF32)
+    at the training step's shapes at batch 16 and at small, ragged ones:
+    one launch each; dx and d_ext within 1e-4 of the plain version, d_ext's
+    W/E ends zero; dK and db within 1e-5 of each one's largest entry of the
+    plain version, and bitwise repeatable."""
+    gen = torch.Generator().manual_seed(n + cin + cout)
     x = torch.randn((b, 6, n, n, cin), generator=gen).to(cuda_device)
     g = torch.randn((b, 6, n, n, cout), generator=gen).to(cuda_device)
-    k = [(torch.randn((3, 3, cin, cout), generator=gen) / cin**0.5).to(cuda_device)
+    k = [(torch.randn((3, 3, cin, cout), generator=gen) / cout**0.5).to(cuda_device)
          for _ in range(2)]
     e = ext_strips(x)
-    for ours, theirs in zip(cs_conv3x3_dx(g, *k), cs_conv3x3_dx_cudacore(g, *k)):
-        assert torch.equal(ours, theirs)
-    for ours, theirs in zip(cs_conv3x3_dw(x, e, g), cs_conv3x3_dw_cudacore(x, e, g)):
-        assert torch.equal(ours, theirs)
+    before = (cs_conv3x3_dx.launches, cs_conv3x3_dw.launches)
+    dx, d_ext = cs_conv3x3_dx(g, *k)
+    dw = cs_conv3x3_dw(x, e, g)
+    again = cs_conv3x3_dw(x, e, g)
+    torch.cuda.synchronize()
+    assert (cs_conv3x3_dx.launches, cs_conv3x3_dw.launches) == (before[0] + 1, before[1] + 2)
+    ref_dx, ref_ext = cs_conv3x3_dx_plain(g, *k)
+    _close(dx, ref_dx, "float32")
+    _close(d_ext, ref_ext, "float32")
+    assert not bool(d_ext[:, :, 2:, [0, n + 1]].any())
+    for ours, twice, ref in zip(dw, again, cs_conv3x3_dw_plain(x, e, g)):
+        torch.testing.assert_close(ours, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+        assert torch.equal(ours, twice)
+
+
+@pytest.mark.cuda
+def test_float32_tensor_core_kernels_refuse_what_the_plan_refuses(cuda_device):
+    """float32 weights of one 8-channel dx slice past the shared memory, or
+    a face whose single dw row does not fit, raise before any launch:
+    nothing falls back to the CUDA-core or plain versions."""
+    f32 = dict(device=cuda_device, dtype=torch.float32)
+    g = torch.zeros((1, 6, 4, 4, 1024), **f32)
+    k = torch.zeros((3, 3, 8, 1024), **f32)
+    before = (cs_conv3x3_dx.launches, cs_conv3x3_dw.launches)
+    with pytest.raises(ValueError, match="cannot hold the weights"):
+        cs_conv3x3_dx(g, k, k)
+    x = torch.zeros((1, 6, 600, 600, 32), **f32)
+    with pytest.raises(ValueError, match="cannot stage"):
+        cs_conv3x3_dw(x, ext_strips(x), torch.zeros((1, 6, 600, 600, 8), **f32))
+    assert (cs_conv3x3_dx.launches, cs_conv3x3_dw.launches) == before

@@ -1,18 +1,19 @@
 """The host plans of the tensor-core conv kernels (``tc_plan``,
 ``dw_tc_plan``), on the CPU.
 
-The forward (#1, and through the same entry point #8, #9, #11, #12; in
-bfloat16 and, as 3xTF32, in float32) and the bfloat16 dx (#4, #14) kernels
-launch with the tiles, slices and walks that
-``dlwp_cs_tpu_torch.ops.hopper_conv.tc_plan`` computes; the bfloat16 dw
-kernel (#5) with ``dw_tc_plan``'s.  The C side (``csrc/cs_conv3x3_tile.cuh``,
+The forward (#1, and through the same entry point #8, #9, #11, #12) and
+the dx (#4, #14) kernels launch, in bfloat16 and, as 3xTF32, in float32,
+with the tiles, slices and walks that
+``dlwp_cs_tpu_torch.ops.hopper_conv.tc_plan`` computes; the dw kernel (#5)
+with ``dw_tc_plan``'s.  The C side (``csrc/cs_conv3x3_tile.cuh``,
 ``csrc/cs_conv3x3_bwd.cu``) recomputes the geometry and refuses a launch
 whose shared memory differs.  For every shape that the serving and
 training paths, the sharded paths and the kernel tools give these kernels,
 the plan must cover each output exactly once, fit the H100's shared memory
 per block (232,448 bytes) and, for the forward at batch 1, fill at least
-one wave of its 132 SMs.  The float32 forward's 3xTF32 split is emulated
-in plain torch against float64.  Pure Python: no card, no JAX.
+one wave of its 132 SMs.  The float32 kernels' 3xTF32 split and sum orders
+are emulated in plain torch against float64.  Pure Python: no card, no
+JAX.
 """
 
 import numpy as np
@@ -105,16 +106,36 @@ def test_dx_plan_covers_the_frame_and_fits(b, n, cin, cout):
     assert dx_plan_args(torch.bfloat16, b, n, cin, cout, SMS) == plan.args()
 
 
-def test_float32_keeps_the_cuda_core_plan():
-    """float32's backward stays on the CUDA cores: the dx kernel with
-    tile_plan's (h, cs) on the (n+2)^2 frame, slices of at most 64, and the
-    dw kernel with dw_plan's (rows, nsplit)."""
-    for b, n, cin, cout in [(1, 48, 12, 32), (16, 12, 128, 128)]:
-        h, cs, nw, tpb, smem = dx_plan_args(torch.float32, b, n, cin, cout, SMS)
-        assert (h, cs) == tile_plan(b, n + 2, n + 2, cin, SMS, max_cs=64)
-        assert (nw, tpb, smem) == (0, 0, 0) and cs <= 64
-        assert dw_launch_args(torch.float32, b, n, cin, cout, SMS) == (
-            "cs_conv3x3_dw_cc_launch", dw_plan(b, n, cin, cout, SMS))
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 12, 32), (16, 12, 128, 128),
+                                          (16, 24, 192, 64), (2, 8, 5, 7)])
+def test_float32_backward_routes_to_the_tensor_core_entry_points(b, n, cin, cout):
+    """float32's backward runs on the tensor cores: the dx entry points
+    take tc_plan's float32 dx plan (4-byte elements), the dw wrapper
+    ``cs_conv3x3_dw_launch`` with dw_tc_plan's float32 plan; only the
+    CUDA-core timing row takes dw_plan's (rows, nsplit)."""
+    plan = tc_plan(b, n + 2, n + 2, cout, cin, SMS, dx=True, esize=4)
+    assert dx_plan_args(torch.float32, b, n, cin, cout, SMS) == plan.args()
+    assert plan.geom.kp >= 2 * cout and plan.geom.smem > 0 and plan.tpb >= 1
+    assert plan.args() != tc_plan(b, n + 2, n + 2, cout, cin, SMS, dx=True).args()
+    dw = dw_tc_plan(b, n, cin, cout, SMS, esize=4)
+    assert dw.kpx == 8
+    assert dw_launch_args(torch.float32, b, n, cin, cout, SMS) == ("cs_conv3x3_dw_launch",
+                                                                   dw.args())
+    assert dw_launch_args(torch.float32, b, n, cin, cout, SMS, cudacore=True) == (
+        "cs_conv3x3_dw_cc_launch", dw_plan(b, n, cin, cout, SMS))
+
+
+@pytest.mark.parametrize("b,n,cin,cout", DX, ids=_ids(DX))
+def test_float32_dx_plan_covers_the_frame_and_fits(b, n, cin, cout):
+    """The float32 dx kernel (3xTF32): every frame pixel and Cin channel in
+    one tile, the resident float32 weights (9 Cout x cs) and three stages
+    within one block's shared memory, at most 4 n8 tiles a warp."""
+    plan = tc_plan(b, n + 2, n + 2, cout, cin, SMS, dx=True, esize=4)
+    g = plan.geom
+    _check_cover(plan, b, n + 2, n + 2, cin)
+    assert g.smem <= SMEM - 1024 and g.nw <= 4
+    assert g.kp >= 2 * cout and g.kp % g.kc == 0  # whole chunks of f32 channels
+    assert dx_plan_args(torch.float32, b, n, cin, cout, SMS) == plan.args()
 
 
 @pytest.mark.parametrize("b,rows,cols,cin,cout", FORWARD, ids=_ids(FORWARD))
@@ -169,8 +190,33 @@ def test_float32_geometry_counts_units():
     assert tc_geom(5, 5, 8, 8, 5, 8, 1, esize=4).kc == 16  # 8 channels: one chunk of 16 units
     with pytest.raises(ValueError):
         tc_geom(12, 12, 64, 64, 2, 64, 8, esize=4)  # float32: at most 4 n8 tiles a warp
+    # the float32 dx kernel: the weights as n x (9 kp + 8) units as well
+    g = tc_geom(14, 14, 64, 64, 2, 32, 4, dx=True, esize=4)
+    assert (g.kc, g.kp) == (32, 128)
+    assert g.smem == 2 * (32 * (9 * 128 + 8) + 3 * 4 * 16 * 40)
+
+
+@pytest.mark.parametrize("h,cs,nw", [(14, 32, 4), (5, 16, 2), (1, 8, 1)])
+def test_float32_dx_geometry_counts_shared_memory_as_the_kernel_does(h, cs, nw):
+    """The float32 dx kernel at (12, 128 -> 128): K = 9 x 128 f32 channels,
+    256 units a tap, chunks of 32 units; the weights cs rows of 9 kp + 8
+    units, two stages of (h+2) x 16 cells of 40 units and the lo halves of
+    one."""
+    g = tc_geom(14, 14, 128, 128, h, cs, nw, dx=True, esize=4)
+    assert (g.kc, g.kp, g.nslices, g.ntr) == (32, 256, 128 // cs, -(-14 // h))
+    assert g.smem == 2 * (cs * (9 * 256 + 8) + 3 * (h + 2) * 16 * 40)
+
+
+def test_float32_dx_plan_refuses_what_the_kernel_cannot_take():
+    """The weights of one 8-channel slice past the shared memory (Cout =
+    1024 in float32: 310,400 bytes), 8 n8 tiles a warp, a row of more than
+    256 pixels."""
+    with pytest.raises(ValueError, match="cannot hold the weights"):
+        tc_plan(1, 6, 6, 1024, 8, SMS, dx=True, esize=4)
     with pytest.raises(ValueError):
-        tc_geom(14, 14, 64, 64, 2, 32, 4, dx=True, esize=4)  # the float32 dx kernel: CUDA cores
+        tc_geom(14, 14, 64, 64, 2, 64, 8, dx=True, esize=4)
+    with pytest.raises(ValueError, match="rows of at most 256"):
+        tc_plan(16, 300, 300, 32, 32, SMS, dx=True, esize=4)
 
 
 # ---- the dw kernel on the tensor cores (#5, bfloat16) ----------------------
@@ -251,6 +297,72 @@ def test_dw_plan_refuses_what_the_kernel_cannot_take():
         dw_tc_plan(16, 1000, 64, 64, SMS)
 
 
+# ---- the dw kernel on the tensor cores in float32 (#5, 3xTF32) -------------
+
+@pytest.mark.parametrize("b,n,cin,cout", DW, ids=_ids(DW))
+def test_float32_dw_plan_covers_every_tap_channel_and_pixel_once(b, n, cin, cout):
+    """As the bfloat16 plan: every (face group, tap, Cin, Cout, pixel) in
+    exactly one block and one k step, the steps now of 8 pixels (TF32 k8)."""
+    plan = dw_tc_plan(b, n, cin, cout, SMS, esize=4)
+    blocks = dw_tc_blocks(plan, b, n, cin, cout)
+    assert len(blocks) == 2 * plan.ncib * plan.ncob * plan.nsplit
+    ci_w, co_w = 16 * plan.cig, 32 * plan.ng
+    for grp, nf in ((0, 4), (1, 2)):
+        seen_px, seen_ch = {}, {}
+        for g, ci0, co0, items in blocks:
+            if g != grp:
+                continue
+            for ci in range(ci0, min(ci0 + ci_w, cin)):
+                for co in range(co0, min(co0 + co_w, cout)):
+                    seen_ch[ci, co, tuple(items)] = seen_ch.get((ci, co, tuple(items)), 0) + 1
+            if (ci0, co0) == (0, 0):
+                for face, r0 in items:
+                    for r in range(r0, min(r0 + plan.rows, n)):
+                        seen_px[face, r] = seen_px.get((face, r), 0) + 1
+        assert set(seen_ch.values()) == {1}
+        assert len(seen_ch) == cin * cout * plan.nsplit
+        assert len(seen_px) == b * nf * n and set(seen_px.values()) == {1}
+    assert plan.kpx == 8 and (plan.steps - 1) * 8 < plan.rows * n <= plan.steps * 8
+
+
+@pytest.mark.parametrize("b,n,cin,cout", DW, ids=_ids(DW))
+def test_float32_dw_plan_fits_and_keeps_its_partials_small(b, n, cin, cout):
+    """Three stage-sized buffers of 4-byte values within one block's shared
+    memory, at most 6 warps, partial sums of at most 20 MiB, and at batch
+    16 at least one block per SM."""
+    plan = dw_tc_plan(b, n, cin, cout, SMS, esize=4)
+    assert plan.threads <= 192 and plan.smem + 1024 <= SMEM
+    assert plan.nsplit * 2 * 9 * cin * cout * 4 <= 20 * 2**20
+    assert dw_launch_args(torch.float32, b, n, cin, cout, SMS) == (
+        "cs_conv3x3_dw_launch", plan.args())
+    if b == 16:
+        assert 2 * plan.ncib * plan.ncob * plan.nsplit >= SMS
+
+
+@pytest.mark.parametrize("rows,cig,ng", [(8, 2, 1), (3, 1, 2), (12, 1, 1)])
+def test_float32_dw_geometry_counts_shared_memory_as_the_kernel_does(rows, cig, ng):
+    """Two stages of the (R+2) x (n+2) padded cells of 16 cig + 8 floats and
+    8 x steps dout pixels of 32 ng + 8 floats, and a third buffer of the
+    same size for the lo halves, at n = 24."""
+    g = dw_tc_geom(16, 24, 64, 64, rows, 66, cig, ng, esize=4)
+    steps = -(-rows * 24 // 8)
+    assert (g.steps, g.kpx, g.threads) == (steps, 8, 96 * cig * ng)
+    assert g.smem == 4 * 3 * ((rows + 2) * 26 * (16 * cig + 8) + 8 * steps * (32 * ng + 8))
+    # the same geometry in bfloat16: k16 steps, two stages of 2-byte values
+    h = dw_tc_geom(16, 24, 64, 64, rows, 66, cig, ng)
+    assert h.kpx == 16 and h.smem == 2 * 2 * ((rows + 2) * 26 * (16 * cig + 8)
+                                              + 16 * h.steps * (32 * ng + 8))
+
+
+def test_float32_dw_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        dw_tc_geom(1, 48, 64, 64, 4, 1, 2, 1, esize=8)  # 2- or 4-byte elements
+    with pytest.raises(ValueError):
+        dw_tc_geom(1, 48, 64, 64, 4, 1, 2, 2, esize=4)  # 12 warps
+    with pytest.raises(ValueError, match="cannot stage"):
+        dw_tc_plan(16, 600, 32, 8, SMS, esize=4)  # one row of three buffers
+
+
 # ---- 3xTF32 in plain torch --------------------------------------------------
 
 def _tf32(v):
@@ -285,3 +397,82 @@ def test_three_tf32_products_hold_float32_accuracy_at_the_flagship_k():
     taps = sum((al[:, t::9].double() @ bh[t::9].double() + ah[:, t::9].double() @ bl[t::9].double()
                 + ah[:, t::9].double() @ bh[t::9].double()).float() for t in range(9))
     assert float((taps.double() - exact).abs().max()) < 1e-5
+
+
+def _three_tf32(a, b):
+    """``(hi + lo)(a), (hi + lo)(b)`` in float64 and the lo halves: the
+    kernel's lo.hi + hi.lo + hi.hi (each product exact in float64) is
+    ``A B - A_lo B_lo`` with ``A = hi + lo`` (exact in float64)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah.double() + al.double(), bh.double() + bl.double(), al.double(), bl.double()
+
+
+@pytest.mark.parametrize("n,cin,cout", [(48, 12, 32), (12, 128, 128)])
+def test_float32_dw_sum_order_holds_float32_accuracy(n, cin, cout):
+    """The float32 dw kernel's sums at batch 16, emulated: per item (a
+    batch item's face rows of dw_tc_plan), the 3xTF32 products over its
+    pixels into fresh sums (summed exactly, rounded once to float32); the
+    items of each K slice added in float32 in order; the slices' partials
+    reduced by torch.sum in float32.  Against the float64 gradient, within
+    1e-5 of the largest entry (the kernel's gate)."""
+    b = 16
+    plan = dw_tc_plan(b, n, cin, cout, SMS, esize=4)
+    rng = np.random.default_rng(n + cin)
+    p = torch.from_numpy(rng.normal(size=(b, 6, n + 2, n + 2, cin)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(b, 6, n, n, cout)).astype(np.float32))
+    dA, _, dlo, _ = _three_tf32(d, d)
+    nchunk = -(-n // plan.rows)
+    pad = nchunk * plan.rows - n  # the last item's missing rows: zero dout
+    dA = torch.nn.functional.pad(dA, (0, 0, 0, 0, 0, pad))
+    dlo = torch.nn.functional.pad(dlo, (0, 0, 0, 0, 0, pad))
+    for grp, faces in ((0, slice(0, 4)), (1, slice(4, 6))):
+        nf = faces.stop - faces.start
+        items = b * nf * nchunk
+        bounds = [(items * s // plan.nsplit, items * (s + 1) // plan.nsplit)
+                  for s in range(plan.nsplit)]
+        dg = dA[:, faces].reshape(items, plan.rows * n, cout)
+        dgl = dlo[:, faces].reshape(items, plan.rows * n, cout)
+        for dy in range(3):
+            for dx in range(3):
+                win = p[:, faces, dy : dy + n, dx : dx + n]
+                exact = torch.einsum("bfijc,bfijd->cd", win.double(), d[:, faces].double())
+                win = torch.nn.functional.pad(win, (0, 0, 0, 0, 0, pad))
+                pA, _, plo, _ = _three_tf32(win, win)
+                pg = pA.reshape(items, plan.rows * n, cin)
+                pgl = plo.reshape(items, plan.rows * n, cin)
+                per_item = (pg.transpose(1, 2) @ dg - pgl.transpose(1, 2) @ dgl).float()
+                parts = torch.zeros((plan.nsplit, cin, cout))
+                for s, (lo, hi) in enumerate(bounds):
+                    for it in range(lo, hi):  # in order, in float32
+                        parts[s] += per_item[it]
+                got = parts.sum(dim=0)
+                err = float((got.double() - exact).abs().max())
+                assert err <= 1e-5 * float(exact.abs().max()), (grp, dy, dx, err)
+
+
+def test_float32_dx_sum_order_holds_float32_accuracy_at_k_9x128():
+    """The float32 dx kernel's sums, emulated at K = 9 x 128 (the (12, 128
+    -> 128) conv): per staged chunk of 16 Cout channels and per tap, the
+    3xTF32 products into a fresh sum (summed exactly, rounded once to
+    float32), added into the float32 total in the kernel's order (chunk,
+    tap).  dout of order 1, the taps at the U-Net's scale: within 1e-4 of
+    the float64 sums (the kernel's gate; float32's own sums are 2.3e-6
+    off, one TF32 product 1.2e-3)."""
+    rng = np.random.default_rng(1)
+    cout, cin = 128, 128
+    a = torch.from_numpy(rng.normal(size=(256, 9, cout)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(9, cout, cin)) / (9 * cout) ** 0.5).astype(np.float32))
+    aA, wA, alo, wlo = _three_tf32(a, w)
+    exact = torch.einsum("mtk,tkn->mn", a.double(), w.double())
+    acc = torch.zeros((256, cin))
+    for c0 in range(0, cout, 16):
+        for t in range(9):
+            ks = slice(c0, c0 + 16)
+            part = aA[:, t, ks] @ wA[t, ks] - alo[:, t, ks] @ wlo[t, ks]
+            acc += part.float()
+    err = float((acc.double() - exact).abs().max())
+    one = float((_tf32(a).double().reshape(256, -1) @ _tf32(w).double().reshape(-1, cin)
+                 - exact).abs().max())
+    assert err <= 1e-4
+    assert one > 1e-4  # one TF32 product alone misses the gate
