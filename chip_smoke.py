@@ -32,10 +32,14 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    float32 (3xTF32); #12 at conv_micro's levels, #14 there in both types;
 5. the ring-fix kernels at each distinct conv shape of the flagship U-Net
    and the ConvLSTM's two gate-conv shapes, at batch 1 and 16, in float32
-   and bfloat16: both held against their plain versions and timed beside
-   their plain versions and bounds; beside them the whole xring conv (two
-   cuDNN SAME convs, the ghost strips, the fused kernel, the bias), the
-   fused conv kernel and one face-grouped cuDNN call on the same shape;
+   and bfloat16: the ring blocks on the tensor cores (#6, #7) and the
+   CUDA-core kernels they replaced (``ops/conv_variants.py``), all held
+   against their plain versions (#7 also bitwise against itself: the
+   corner handoff) and timed in turns (old, new, new, old) beside the
+   plain versions and the bounds (``ring_summary``: a ConvLSTM call's and
+   step's 4 gate convs); beside them the whole xring conv (two cuDNN SAME
+   convs, the ghost strips, the fused kernel, the bias), the fused conv
+   kernel and one face-grouped cuDNN call on the same shape;
 5b. run the kernel tools' entry points once each (``dlwp_cs_tpu_torch.tools``:
    ``conv_micro``, ``kernel_variants`` and its ``--chain``, ``mosaic_bisect``
    in bfloat16 and float32), the path of kernels #3 and #12-#16, with every
@@ -50,7 +54,10 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    face-grouped cuDNN call and the bound; #14 (dx with the raw ring) at
    conv_micro's levels in float32 and bfloat16, its interior and ring
    bitwise equal to #4's, timed beside ``F.conv_transpose2d``; #15 in both
-   types bitwise equal to 3·x, timed beside ``x * 3``;
+   types bitwise equal to 3·x, timed beside ``x * 3``; every #16 probe in
+   both types against its plain version and bitwise against itself, timed
+   in turns with the kernel its redesign replaced (the ``_v1`` probes),
+   beside its library call and bound (``probe_summary``);
 6. serve 14-day forecasts (28 calls of 6 h x 2) through ``ForecastService``
    in bfloat16 and float32 of the flagship C48 U-Net (filters 32/64/128,
    12 -> 8 channels, seeded weights; 280 conv kernel launches per
@@ -77,7 +84,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    gradients also through the plain path in float64, each float32 path's
    error against them per tensor, and the leaky-ReLU pre-activations whose
    sign differs between the runs; in the float32 U-Net's profiled step, no
-   device time in the CUDA-core dx and dw kernels;
+   device time in the CUDA-core dx and dw kernels; in the ConvLSTM's
+   profiled forecasts and steps, device time in the ring blocks and none
+   in the CUDA-core ring kernels;
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -159,15 +168,20 @@ TRAIN_STEPS = 20
 # the device names of the port's kernels on the serving and training paths
 # (the conv and dx kernels on the tensor cores in both dtypes, the dw kernel
 # there in bfloat16 (cs_conv3x3_dw_tc_kernel) and as 3xTF32 in float32
-# (cs_conv3x3_dw_tf32_kernel); cs_conv3x3_kernel, cs_conv3x3_dx_kernel and
-# cs_conv3x3_dw_kernel are the CUDA-core timing rows, which no path runs).
-# The profiler's names hold the template arguments, so each is matched as a
-# substring: none of these is a substring of another.
+# (cs_conv3x3_dw_tf32_kernel), the ring blocks of the fixes and the fused
+# apply on them (cs_ring_fixes_tc_kernel, cs_xring_tc_kernel);
+# cs_conv3x3_kernel, cs_conv3x3_dx_kernel, cs_conv3x3_dw_kernel,
+# cs_ring_fixes_kernel and cs_xring_apply_kernel are the CUDA-core timing
+# rows, which no path runs).  The profiler's names hold the template
+# arguments, so each is matched as a substring: none of these is a
+# substring of another (checked in main).
 KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kernel",
                 "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_kernel", "cs_conv3x3_dw_tc_kernel",
-                "cs_conv3x3_dw_tf32_kernel", "cs_ring_fixes_kernel", "cs_xring_apply_kernel")
-# the CUDA-core timing rows of the backward, which no training path runs
+                "cs_conv3x3_dw_tf32_kernel", "cs_ring_fixes_kernel", "cs_xring_apply_kernel",
+                "cs_ring_fixes_tc_kernel", "cs_xring_tc_kernel")
+# the CUDA-core timing rows of the backward and of the ring, which no path runs
 CUDA_CORE_BACKWARD = ("cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
+CUDA_CORE_RING = ("cs_ring_fixes_kernel", "cs_xring_apply_kernel")
 SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
@@ -305,14 +319,19 @@ def bwd_case(n, cin, cout, b, dtype, gen):
 
 def ring_case(n, cin, d, b, dtype, gen):
     """The ring-fix kernels (#6 fixes, #7 fused apply) at one gate-conv
-    shape, against their plain versions; the whole xring conv beside the
-    fused conv kernel and one face-grouped cuDNN call on the same shape."""
+    shape, against their plain versions, each timed in turns (old, new,
+    new, old) with the CUDA-core kernel it replaced (``ops/conv_variants.py``:
+    ``ring_fixes_cudacore``, ``xring_fused_apply_cudacore``), which is held
+    against the plain version too; the whole xring conv beside the fused
+    conv kernel and one face-grouped cuDNN call on the same shape."""
+    from dlwp_cs_tpu_torch.ops import conv_variants as cv
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
     from dlwp_cs_tpu_torch.ops.ring_kernel import (
         cs_conv3x3_xring,
         ring_fixes,
         ring_fixes_plain,
+        ring_plan,
         xring_fused_apply,
         xring_fused_apply_plain,
     )
@@ -328,23 +347,36 @@ def ring_case(n, cin, d, b, dtype, gen):
     bs = [(torch.randn((d,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
     ext = ext_strips(x)
     bases = [_same_conv(x, k) for k in ks]
-    launches = (ring_fixes.launches, xring_fused_apply.launches, cs_conv3x3.launches)
+    wrappers = (ring_fixes, xring_fused_apply, cs_conv3x3, cv.ring_fixes_cudacore,
+                cv.xring_fused_apply_cudacore)
+    launches = [w.launches for w in wrappers]
     fixes, corners = ring_fixes(ext, *ks)
     out = xring_fused_apply(*bases, ext, *ks)
+    again = xring_fused_apply(*bases, ext, *ks)
+    old6 = cv.ring_fixes_cudacore(ext, *ks)
+    old7 = cv.xring_fused_apply_cudacore(*bases, ext, *ks)
     ref_fixes, ref_corners = ring_fixes_plain(ext, *ks)
     ref_out = xring_fused_apply_plain(*bases, ext, *ks)
     torch.cuda.synchronize()
     pairs6 = ((fixes, ref_fixes), (corners, ref_corners))
+    old_pairs6 = ((old6[0], ref_fixes), (old6[1], ref_corners))
     err6 = max(float((a.float() - r.float()).abs().max()) for a, r in pairs6)
     err7 = float((out.float() - ref_out.float()).abs().max())
+    old_err6 = max(float((a.float() - r.float()).abs().max()) for a, r in old_pairs6)
+    old_err7 = float((old7.float() - ref_out.float()).abs().max())
     if dtype == torch.float32:
-        tol, ok6, ok7 = "1e-4 abs", err6 <= 1e-4, err7 <= 1e-4
+        tol = "1e-4 abs"
+        ok6, ok7 = err6 <= 1e-4 and old_err6 <= 1e-4, err7 <= 1e-4 and old_err7 <= 1e-4
     else:
         tol = "2**-7*|ref| + 1e-4"
-        ok6 = max(bf16_excess(a, r) for a, r in pairs6) <= 1e-4
-        ok7 = bf16_excess(out, ref_out) <= 1e-4
-    ms6 = graph_ms(lambda: ring_fixes(ext, *ks), 20)
-    ms7 = graph_ms(lambda: xring_fused_apply(*bases, ext, *ks), 20)
+        ok6 = max(bf16_excess(a, r) for a, r in pairs6 + old_pairs6) <= 1e-4
+        ok7 = max(bf16_excess(out, ref_out), bf16_excess(old7, ref_out)) <= 1e-4
+    # the corner handoff: two launches give the same output, bit for bit
+    ok7 = ok7 and bool(torch.equal(out, again))
+    ms6, old6_ms, runs6 = _turns(lambda: ring_fixes(ext, *ks),
+                                 lambda: cv.ring_fixes_cudacore(ext, *ks), 20)
+    ms7, old7_ms, runs7 = _turns(lambda: xring_fused_apply(*bases, ext, *ks),
+                                 lambda: cv.xring_fused_apply_cudacore(*bases, ext, *ks), 20)
     plain6 = graph_ms(lambda: ring_fixes_plain(ext, *ks), 3)
     plain7 = graph_ms(lambda: xring_fused_apply_plain(*bases, ext, *ks), 3)
     # the whole xring conv (forward) beside kernel #1 and cuDNN on this shape
@@ -354,26 +386,51 @@ def ring_case(n, cin, d, b, dtype, gen):
     p, w = face_grouped(cs_pad(x, 1), ks)
     bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
     cudnn_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
-    # timing launches are not the main path's
-    ring_fixes.launches, xring_fused_apply.launches, cs_conv3x3.launches = launches
+    for wr, count in zip(wrappers, launches):  # timing launches are not the main path's
+        wr.launches = count
     item = x.element_size()
     ops = 2 * b * 6 * (12 * n + 4) * cin * d
     taps = 2 * 8 * cin * d  # the 8 outer taps of each weight group
+    plans = {kind: ring_plan(dtype, b, n, cin, d, torch.cuda.get_device_properties(0)
+                             .multi_processor_count, apply=kind == "apply")
+             for kind in ("fixes", "apply")}
     common = {"n": n, "cin": cin, "cout": d, "batch": b,
               "dtype": str(dtype).split(".")[-1], "tolerance": tol}
     cases = []
-    for kind, err, ok, ms, plain_ms, nbytes in (
-        ("fixes", err6, ok6, ms6, plain6,
+    for kind, err, old_err, ok, ms, old_ms, runs, plain_ms, nbytes in (
+        ("fixes", err6, old_err6, ok6, ms6, old6_ms, runs6, plain6,
          item * (ext.numel() + taps + fixes.numel() + corners.numel())),
         # one base read (the face's own), the output written
-        ("apply", err7, ok7, ms7, plain7,
+        ("apply", err7, old_err7, ok7, ms7, old7_ms, runs7, plain7,
          item * (2 * out.numel() + ext.numel() + taps)),
     ):
-        cases.append(dict(common, kernel=kind, max_abs_err=err, ok=ok, ms=ms,
+        g = plans[kind]
+        cases.append(dict(common, kernel=kind, max_abs_err=err, cudacore_max_abs_err=old_err,
+                          ok=ok, ms=ms, cudacore_ms=old_ms, runs_old_new_new_old=runs,
                           plain_ms=plain_ms, library_ms=None, **bound(nbytes, ops, dtype),
+                          plan={"spb": g.spb, "dn": g.dn, "ring_blocks": g.nring,
+                                "copy_blocks": g.ncopy, "smem": g.smem},
                           xring_conv_ms=xring_ms, fused_conv_ms=fused_ms,
                           cudnn_conv_ms=cudnn_ms))
     return cases
+
+
+def ring_summary(cases):
+    """#6 and #7 per ConvLSTM model call (its 4 gate convs, batch 1) and per
+    train step (the same 4 at batch 16), bfloat16 and float32: the ring
+    blocks' and the CUDA-core kernels' times (in turns), the plain
+    version's and the bound."""
+    rows = {}
+    for kind, tag in (("apply", "#7"), ("fixes", "#6")):
+        for dtype in ("bfloat16", "float32"):
+            for b, what in ((1, "call, batch 1"), (TRAIN_BATCH, "step, batch 16")):
+                by = {(c["n"], c["cin"], c["cout"]): c for c in cases if c["kernel"] == kind
+                      and c["dtype"] == dtype and c["batch"] == b}
+                cs = [by[s] for s in CONVLSTM_CALL]
+                name = f"{tag}{' f32' if dtype == 'float32' else ''} {what}"
+                rows[name] = {key: sum(c[key] for c in cs)
+                              for key in ("ms", "cudacore_ms", "plain_ms", "bound_ms")}
+    return rows
 
 
 def block_case(kind, n, cin, cout, b, dtype, gen):
@@ -576,6 +633,62 @@ def lane_store_cases(gen):
         })
         lane_store.launches = launches
     return cases
+
+
+def probe_cases():
+    """#16: every probe of the probe tool at the reference scripts' shapes,
+    in bfloat16 and float32, held against its plain version at the tool's
+    gate (``mosaic_bisect.compare``) and timed in turns (old, new, new, old)
+    with the kernel its redesign replaced (``tools/probes.py``'s
+    ``PROBES_V1``, held too; the bias probe has none), beside the one
+    PyTorch call and the bound.  Launches here are not the main path's."""
+    from dlwp_cs_tpu_torch.tools import mosaic_bisect as mb
+    from dlwp_cs_tpu_torch.tools import probes
+    from dlwp_cs_tpu_torch.tools.timing import bound, graph_ms
+
+    old_of = {probes.PROBES[k].name: v for k, v in probes.PROBES_V1.items()}
+    wrappers = [*probes.PROBES.values(), *probes.PROBES_V1.values()]
+    counts = [w.launches for w in wrappers]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, probe, args in mb._cases(torch.device("cuda"), dtype, False):
+            old = old_of.get(probe.name)
+            got, ref = probe(*args), probe.plain(*args)
+            again = probe(*args)
+            err, tol, ok = mb.compare(name, got, ref)
+            ok = ok and bool(torch.equal(got, again))  # two calls, bit for bit
+            row = {"name": name, "probe": probe.name, "dtype": str(dtype).split(".")[-1],
+                   "shapes": [tuple(a.shape) for a in args], "max_abs_err": err,
+                   "tolerance": tol}
+            if old is not None:
+                old_err, _, old_ok = mb.compare(name, old(*args), ref)
+                ms, old_ms, runs = _turns(lambda: probe(*args), lambda: old(*args), 20)
+                row.update(v1_max_abs_err=old_err, v1_ms=old_ms, runs_old_new_new_old=runs)
+                ok = ok and old_ok
+            else:
+                ms = graph_ms(lambda: probe(*args), 20)
+            library, _ = mb.library_call(probe, args)
+            row.update(ok=ok, ms=ms, plain_ms=graph_ms(lambda: probe.plain(*args), 5),
+                       library_ms=graph_ms(library, 20),
+                       **bound(sum(a.numel() * a.element_size() for a in (*args, got)),
+                               mb._ops(probe, args, got), dtype))
+            rows.append(row)
+    for w, count in zip(wrappers, counts):
+        w.launches = count
+    return rows
+
+
+def probe_summary(rows):
+    """Per probe and dtype: the new and the v1 kernels' times (in turns),
+    the library call's and the bound, summed over bisect3's three dw
+    shapes."""
+    out = {}
+    for r in rows:
+        key = f"{r['probe']} {r['dtype']}"
+        acc = out.setdefault(key, {"ms": 0.0, "v1_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+        for k in acc:
+            acc[k] += r.get(k) or 0.0
+    return out
 
 
 def _turns(new, old, reps):
@@ -992,6 +1105,15 @@ def profiled_run_ms(fn):
     return (wall, total / 1e3, ours, count) if total > 0 else (wall, None, None, None)
 
 
+def check_ring_blocks(kernel_ms, what):
+    """The ConvLSTM's fused ring kernel ran as the ring blocks on the
+    tensor cores: device time in ``cs_xring_tc_kernel``, none in the
+    CUDA-core ring kernels."""
+    ran = {k: kernel_ms[k] for k in (*CUDA_CORE_RING, "cs_xring_tc_kernel")}
+    check(not any(ran[k] for k in CUDA_CORE_RING) and ran["cs_xring_tc_kernel"] > 0,
+          f"{what}'s ring kernels (ms): {ran}")
+
+
 def serve_phase(kind, dtype_name, rng):
     """Serve 14-day forecasts of the full-width model of ``kind``."""
     from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
@@ -1028,6 +1150,8 @@ def serve_phase(kind, dtype_name, rng):
     prof_ms, busy_ms, kernel_ms, n_kernels = profiled_run_ms(
         lambda: svc.forecast(windows[0], t0[0], steps=STEPS))
     idle = None if busy_ms is None else 1.0 - busy_ms / prof_ms
+    if kind == "convlstm" and kernel_ms is not None:
+        check_ring_blocks(kernel_ms, f"the profiled {dtype_name} ConvLSTM forecast")
 
     # the first two model calls against the plain path on the card
     normed = (windows[:1] - mean) / std
@@ -1189,6 +1313,8 @@ def train_phase(kind, dtype_name, rng):
         check(not any(ran[k] for k in CUDA_CORE_BACKWARD) and ran[dw_name] > 0
               and ran["cs_conv3x3_dx_tc_kernel"] > 0,
               f"the profiled {dtype_name} step's backward kernels (ms): {ran}")
+    if kind == "convlstm" and kernel_ms is not None:
+        check_ring_blocks(kernel_ms, f"the profiled {dtype_name} ConvLSTM step")
     # the step less its forward and backward: the gradient norm and Adam
     n_grad = profiled_run_ms(lambda: vg(state.params, xb, yb))[3]
     n_opt = None if n_step is None or n_grad is None else n_step - n_grad
@@ -1544,6 +1670,8 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    check(not [(a, b) for a in KERNEL_NAMES for b in KERNEL_NAMES if a != b and a in b],
+          "a kernel name is a substring of another")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -1605,8 +1733,8 @@ def main(argv=None) -> int:
               f"{r['bound_ms']:.5f}", flush=True)
 
     ring = []
-    print("ring: kernel n Cin D B dtype | max_abs_err (tol) | kernel_ms plain_ms bound_ms | "
-          "xring conv, fused conv kernel, cuDNN ms")
+    print("ring: kernel n Cin D B dtype | max_abs_err (tol) | kernel_ms cudacore_ms plain_ms "
+          "bound_ms | xring conv, fused conv kernel, cuDNN ms")
     ring_shapes = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index) + CONVLSTM_GATES
     for dtype in (torch.float32, torch.bfloat16):
         for b in (1, TRAIN_BATCH):
@@ -1615,11 +1743,18 @@ def main(argv=None) -> int:
                     ring.append(c)
                     print(f"{c['kernel']} {n} {cin} {d} {b} {c['dtype']} | "
                           f"{c['max_abs_err']:.3g} ({c['tolerance']}) | {c['ms']:.4f} "
-                          f"{c['plain_ms']:.4f} {c['bound_ms']:.5f} {c['bound_by']} | "
+                          f"{c['cudacore_ms']:.4f} {c['plain_ms']:.4f} {c['bound_ms']:.5f} "
+                          f"{c['bound_by']} | "
                           f"{c['xring_conv_ms']:.4f} {c['fused_conv_ms']:.4f} "
                           f"{c['cudnn_conv_ms']:.4f}", flush=True)
     bad = [c for c in ring if not c["ok"]]
     check(not bad, f"ring kernel disagrees with its plain version: {bad}")
+    ring_sum = ring_summary(ring)
+    print("ring blocks vs the CUDA-core kernels (timed in turns, old new new old): "
+          "ms new / old / plain / bound", flush=True)
+    for name, r in ring_sum.items():
+        print(f"{name}: {r['ms']:.4f} / {r['cudacore_ms']:.4f} / {r['plain_ms']:.4f} / "
+              f"{r['bound_ms']:.5f}", flush=True)
 
     # the kernel tools: their entry points (this slice's main path), then
     # each of their kernels against its plain version, timed
@@ -1665,7 +1800,14 @@ def main(argv=None) -> int:
         print(f"{c.get('name', 'lane_store')} {c.get('shapes', c.get('shape'))} {c['dtype']} | "
               f"{c['max_abs_err']:.3g} | {c['ms']:.4f} {c['plain_ms']:.4f} "
               f"{c['library_ms']:.4f} {c['bound_ms']:.5f}", flush=True)
-    bad = [c for c in mma + ring_dx + stores if not c["ok"]]
+    probes_turns = probe_cases()
+    probe_sum = probe_summary(probes_turns)
+    print("#16 probes vs their v1 kernels (timed in turns, old new new old): ms new / v1 / "
+          "library / bound", flush=True)
+    for name, r in probe_sum.items():
+        print(f"{name}: {r['ms']:.4f} / {r['v1_ms']:.4f} / {r['library_ms']:.4f} / "
+              f"{r['bound_ms']:.5f}", flush=True)
+    bad = [c for c in mma + ring_dx + stores + probes_turns if not c["ok"]]
     check(not bad, f"a kernel of the tools disagrees with its plain version: {bad}")
 
     blocks = []
@@ -1881,7 +2023,9 @@ def main(argv=None) -> int:
                    "tool_rows": tool_rows, "mma_cases": mma,
                    "kernel_only_cases": only, "dx_ring_cases": ring_dx,
                    "lane_store_cases": stores, "probe_cases": probe_rows,
-                   "tc_cases": tc, "tc_summary": tc_sum, "kernels": kernels},
+                   "tc_cases": tc, "tc_summary": tc_sum, "ring_summary": ring_sum,
+                   "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
+                   "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,6 +27,11 @@ kernels that the reference's kernel tools time beside its production conv.
   that the tensor-core kernels replaced in both dtypes, kept only so that
   a timing run can set the two side by side on one card.  No path of the
   port selects them.
+* :data:`ring_fixes_cudacore` and :data:`xring_fused_apply_cudacore`: the
+  CUDA-core ring kernels of ``csrc/cs_ring.cu`` (#6, #7: one block per 8 x 8
+  output tile or edge chunk, the fix dots serial per thread), which the ring
+  blocks on the tensor cores replaced; timing rows likewise, never selected
+  by a path of the port.
 
 #3 and #13 take bfloat16 only, as the tools run them: a float32 CUDA tensor
 raises ``ValueError`` (TF32 would change the numbers, and nothing falls
@@ -64,6 +69,14 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
     dx_plan_args,
     tile_plan,
 )
+from dlwp_cs_tpu_torch.ops.ring_kernel import (
+    _RING_LIB,
+    _bases_shape,
+    _copy_vec,
+    _strips_shape,
+    ring_fixes_plain,
+    xring_fused_apply_plain,
+)
 
 __all__ = [
     "cs_conv3x3_cudacore",
@@ -79,8 +92,12 @@ __all__ = [
     "im2col_taps",
     "mma_plan",
     "npack_taps",
+    "ring_fixes_cudacore",
+    "xring_fused_apply_cudacore",
 ]
 
+# csrc/cs_ring.cu's CUDA-core kernels: output tile side and edge chunk
+_RING_TILE = 8
 # csrc/cs_conv3x3_mma.cu: rows after each staged row, the im2col kernel's
 # accumulator tiles per block, and the shared memory a block may opt in to
 # on an H100 (232,448 bytes)
@@ -337,6 +354,42 @@ class _CudaCoreDwKernel(_Conv3x3DwKernel):
     _cudacore = True
 
 
+class _RingFixesCudaCore(KernelWrapper):
+    def __call__(self, ext, k_eq, k_pole):
+        """The CUDA-core fixes kernel; arguments and result as
+        :data:`~dlwp_cs_tpu_torch.ops.ring_kernel.ring_fixes`."""
+        if ext.device.type == "cpu":
+            return ring_fixes_plain(ext, k_eq, k_pole)
+        b, n, cin, d, k_eq, k_pole = _strips_shape(self.name, ext, k_eq, k_pole)
+        dev = self._device(ext)
+        fixes = torch.empty((b, 6, 4, n, d), dtype=ext.dtype, device=ext.device)
+        corners = torch.empty((b, 6, 4, d), dtype=ext.dtype, device=ext.device)
+        self._launch(
+            "cs_ring_fixes_launch", dev, DTYPES[ext.dtype], dev,
+            *(t.data_ptr() for t in (ext, k_eq, k_pole, fixes, corners)),
+            b, n, cin, d, _RING_TILE, 0,
+        )
+        return fixes, corners
+
+
+class _XringApplyCudaCore(KernelWrapper):
+    def __call__(self, base_eq, base_po, ext, k_eq, k_pole):
+        """The CUDA-core fused apply; arguments and result as
+        :data:`~dlwp_cs_tpu_torch.ops.ring_kernel.xring_fused_apply`."""
+        if base_eq.device.type == "cpu":
+            return xring_fused_apply_plain(base_eq, base_po, ext, k_eq, k_pole)
+        b, n, cin, d, k_eq, k_pole = _bases_shape(self.name, base_eq, base_po, ext, k_eq,
+                                                  k_pole)
+        dev = self._device(ext)
+        out = torch.empty_like(base_eq)
+        self._launch(
+            "cs_xring_apply_launch", dev, DTYPES[ext.dtype], dev,
+            *(t.data_ptr() for t in (base_eq, base_po, ext, k_eq, k_pole, out)),
+            b, n, cin, d, _RING_TILE, _copy_vec(d, base_eq, base_po, out),
+        )
+        return out
+
+
 cs_conv3x3_npack = _MmaConvKernel("cs_conv3x3_npack", "npack", cs_conv3x3_npack_plain)
 cs_conv3x3_im2col = _MmaConvKernel("cs_conv3x3_im2col", "im2col", cs_conv3x3_im2col_plain)
 # kernel #12: kernel #1 on strips computed outside it, counted apart
@@ -346,3 +399,6 @@ cs_conv3x3_dx_ring = _DxRingKernel("cs_conv3x3_dx_ring", _BWD_LIB)
 cs_conv3x3_cudacore = _CudaCoreConvKernel("cs_conv3x3_cudacore", _FWD_LIB)
 cs_conv3x3_dx_cudacore = _CudaCoreDxKernel("cs_conv3x3_dx_cudacore", _BWD_LIB)
 cs_conv3x3_dw_cudacore = _CudaCoreDwKernel("cs_conv3x3_dw_cudacore", _BWD_LIB)
+# the CUDA-core ring kernels of #6 and #7 (a timing row)
+ring_fixes_cudacore = _RingFixesCudaCore("ring_fixes_cudacore", _RING_LIB)
+xring_fused_apply_cudacore = _XringApplyCudaCore("xring_fused_apply_cudacore", _RING_LIB)

@@ -18,7 +18,10 @@ replace the Pallas kernels:
   SAME-conv bases, the fixes on the boundary ring and the corners
   subtracted, one f32 sum rounded once.
 
-Beside each, its plain-torch version (:func:`ring_fixes_plain`,
+Both launch the ring blocks on the tensor cores (the fix dots as a GEMM of
+the staged strips with each edge's taps), the fused apply with copy blocks
+for the faces' interiors, with the numbers of :func:`ring_plan`.  Beside
+each, its plain-torch version (:func:`ring_fixes_plain`,
 :func:`xring_fused_apply_plain`), which CPU tensors take; on a CUDA tensor
 the wrapper launches the kernel or raises, and counts the launch in its
 ``launches``.
@@ -32,6 +35,8 @@ kernel here) or autograd through
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -63,18 +68,18 @@ from dlwp_cs_tpu_torch.ops.ringfix import (
 
 __all__ = [
     "cs_conv3x3_xring",
+    "grid_roles",
     "ring_apply",
+    "ring_blocks",
     "ring_fixes",
     "ring_fixes_plain",
+    "ring_geom",
+    "ring_plan",
     "split_vjp",
     "xring_fused_apply",
     "xring_fused_apply_plain",
 ]
 
-# Output tile side of the fused kernel and edge chunk of the fixes kernel:
-# 36 tiles per face at n=48 (216 blocks at batch 1), of which 20 hold a
-# boundary line.
-_TILE = 8
 _GROUPS = (slice(0, 4), slice(4, 6))  # equatorial, polar faces
 
 
@@ -117,7 +122,162 @@ def xring_fused_apply_plain(base_eq, base_po, ext, k_eq, k_pole):
     return acc.to(base_eq.dtype)
 
 
+# the card's shared memory per block (232,448 bytes) and the most a block may
+# take for two to share an SM (1 KB each reserved)
+_SMEM_LIMIT, _SMEM_TWO = 232448, (228 * 1024) // 2 - 1024
+
+
+@dataclass(frozen=True)
+class RingGeom:
+    """The ring kernels' geometry, as ``csrc/cs_ring.cu::make_ring_geom``
+    computes it: ``cp`` staged 16-bit units per strip position, ``kpe`` K
+    rows per tap, ``dn`` channels per slice, ``nsplit`` slices, ``spb``
+    strips per ring block, ``nch`` strip chunks per edge of the equatorial
+    and the polar group, ``nring`` ring blocks, ``ncopy`` copy blocks,
+    ``smem`` bytes."""
+
+    esize: int
+    batch: int
+    n: int
+    cin: int
+    d: int
+    cp: int
+    kpe: int
+    dn: int
+    nsplit: int
+    spb: int
+    nch: tuple
+    nring: int
+    ncopy: int
+    smem: int
+
+
+def ring_geom(esize: int, b: int, n: int, cin: int, d: int, spb: int, dn: int, ncopy: int,
+              apply: bool = True) -> RingGeom:
+    """:class:`RingGeom` of one launch (``esize`` 4 float32, 2 bfloat16);
+    ``ValueError`` on sizes the kernel refuses."""
+    if (b < 1 or n < 2 or cin < 1 or d < 1 or not 1 <= spb <= 8 or dn < 16 or dn % 16
+            or ncopy < 0 or (apply and n > 2 and ncopy < 1) or (not apply and ncopy)):
+        raise ValueError(f"ring kernel: b={b}, n={n}, Cin={cin}, D={d}, spb={spb}, dn={dn}, "
+                         f"ncopy={ncopy}")
+    upe = esize // 2  # 16-bit units per element
+    step = 8 // upe
+    cpe = -(-cin // step) * step
+    while (cpe * upe // 8) % 2 == 0:  # an odd multiple of 8 units
+        cpe += step
+    cp = cpe * upe
+    kpe = -(-cin // (16 // upe)) * (16 // upe)
+    nsplit = -(-d // dn)
+    nch = (-(-4 * b // spb), -(-2 * b // spb))
+    nring = 4 * sum(nch) * nsplit
+    # staged cells: a strip's n + 2 positions and the corner dots' 4, then
+    # one zero cell; the edge's 3 taps; the fused apply's base lines and
+    # the flags of its corners; where Cin's bytes are not a multiple of 16,
+    # each strip's raw copy
+    a_units = (spb * (n + 6) + 1) * cp
+    smem = 3 * kpe * (dn + 8) * esize + 2 * a_units
+    if apply:
+        smem += spb * n * (dn + 8) * esize + 4 * 2 * spb
+    if (cin * esize) % 16:  # each strip's raw 16-byte copies, repacked into cells
+        smem = -(-smem // 16) * 16 + spb * (-(-(n + 2) * cin * esize // 16) * 16 + 16)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"ring kernel: {smem} bytes of shared memory for spb={spb}, dn={dn}")
+    return RingGeom(esize, b, n, cin, d, cp, kpe, dn, nsplit, spb, nch, nring, ncopy, smem)
+
+
+def ring_plan(dtype, b: int, n: int, cin: int, d: int, sm_count: int,
+              apply: bool = True) -> RingGeom:
+    """The ring kernels' launch: strips per ring block ``spb`` (1..8) and
+    channels per slice ``dn`` (D split in 1, 2, 4, ... slices of a multiple
+    of 16) whose block fits two to an SM where any does (else the card's
+    shared memory), taking the most ring blocks that fit one wave of
+    ``sm_count`` (at batch 1 the slices fill the card; at larger batches
+    the chunks of strips), else the fewest; the fused apply's copy blocks
+    fill the card twice (at most one per interior row).  Raises
+    ``ValueError`` where no block fits."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    rows = b * 6 * (n - 2)
+    ncopy = min(rows, 2 * sm_count) if apply else 0
+    dns, s = [], 1
+    while True:
+        dn = -(-(-(-d // s)) // 16) * 16
+        if dn < 16 or (dns and dn == dns[-1]):
+            break
+        dns.append(dn)
+        if dn == 16:
+            break
+        s *= 2
+    geoms = []
+    for dn in dns:
+        for spb in range(1, min(8, 4 * b) + 1):
+            try:
+                geoms.append(ring_geom(esize, b, n, cin, d, spb, dn, ncopy, apply))
+            except ValueError:
+                pass
+    pool = [g for g in geoms if g.smem <= _SMEM_TWO] or geoms
+    if not pool:
+        raise ValueError(f"ring kernel: n={n}, Cin={cin}, D={d} needs more shared memory "
+                         "than one block has")
+    wave = [g for g in pool if g.nring <= sm_count]
+    if wave:
+        return max(wave, key=lambda g: (g.nring, g.dn, -g.spb))
+    return min(pool, key=lambda g: (g.nring, -g.dn, g.spb))
+
+
+def grid_roles(g: RingGeom):
+    """The fused apply's grid in launch order, as ``csrc/cs_ring.cu::
+    cs_xring_tc_kernel`` assigns it: ``("ring", r)`` or ``("copy", q)`` per
+    block, the two kinds alternating while both last, then the rest of the
+    more numerous kind."""
+    both = min(g.nring, g.ncopy)
+    roles = []
+    for b in range(g.nring + g.ncopy):
+        if b < 2 * both:
+            roles.append(("copy" if b & 1 else "ring", b >> 1))
+        else:
+            roles.append(("copy" if g.ncopy > g.nring else "ring", b - both))
+    return roles
+
+
+def ring_blocks(g: RingGeom, apply: bool = True):
+    """What each block of the launch writes, in launch order: per block a
+    list of ``(face, i, j, d0, d1)`` output runs (face = batch item * 6 +
+    face of the cube; channels d0..d1-1) for the fused apply (a corner
+    pixel under both of its ring blocks: the second of them to arrive
+    writes it), or of ``("fix", face, edge, t, d0, d1)`` and ``("corner",
+    face, c, d0, d1)`` for the fixes."""
+    n = g.n
+    rows = g.batch * 6 * (n - 2)
+    out = []
+    for kind, r in grid_roles(g) if apply else [("ring", r) for r in range(g.nring)]:
+        if kind == "copy":
+            runs = []
+            for u in range(r, rows, g.ncopy):
+                face, i = u // (n - 2), 1 + u % (n - 2)
+                runs += [(face, i, j, 0, g.d) for j in range(1, n - 1)]
+            out.append(runs)
+            continue
+        sl, q = r % g.nsplit, r // g.nsplit
+        e, ch = divmod(q, sum(g.nch))
+        grp = 0 if ch < g.nch[0] else 1
+        ch -= g.nch[0] * grp
+        nf, f0 = (2, 4) if grp else (4, 0)
+        d0, d1 = sl * g.dn, min((sl + 1) * g.dn, g.d)
+        runs = []
+        for sg in range(ch * g.spb, min((ch + 1) * g.spb, g.batch * nf)):
+            face = (sg // nf) * 6 + f0 + sg % nf
+            for t in range(n):
+                if apply:
+                    runs.append((face, (0, n - 1, t, t)[e], (t, t, 0, n - 1)[e], d0, d1))
+                else:
+                    runs.append(("fix", face, e, t, d0, d1))
+            if not apply and e < 2:
+                runs += [("corner", face, 2 * e, d0, d1), ("corner", face, 2 * e + 1, d0, d1)]
+        out.append(runs)
+    return out
+
 _RING_LIB = CudaLibrary("cs_ring.cu", {
+    "cs_ring_tc_launch": [I32] * 3 + [VP] * 10 + [I32] * 9 + [VP],
     "cs_ring_fixes_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
     "cs_xring_apply_launch": [I32, I32] + [VP] * 6 + [I32] * 6 + [VP],
 }, "cs_ring_error_string")
@@ -147,41 +307,76 @@ class _RingFixesKernel(KernelWrapper):
             return ring_fixes_plain(ext, k_eq, k_pole)
         b, n, cin, d, k_eq, k_pole = _strips_shape("ring_fixes", ext, k_eq, k_pole)
         dev = self._device(ext)
+        g = ring_plan(ext.dtype, b, n, cin, d, self._sm_count[dev], apply=False)
         fixes = torch.empty((b, 6, 4, n, d), dtype=ext.dtype, device=ext.device)
         corners = torch.empty((b, 6, 4, d), dtype=ext.dtype, device=ext.device)
         self._launch(
-            "cs_ring_fixes_launch", dev, DTYPES[ext.dtype], dev,
-            *(t.data_ptr() for t in (ext, k_eq, k_pole, fixes, corners)),
-            b, n, cin, d, _TILE, 0,
+            "cs_ring_tc_launch", dev, DTYPES[ext.dtype], dev, 0,
+            0, 0, *(t.data_ptr() for t in (ext, k_eq, k_pole)), 0, fixes.data_ptr(),
+            corners.data_ptr(), 0, 0, b, n, cin, d, g.spb, g.dn, 0, 1, g.smem, sizes=9,
         )
         return fixes, corners
 
 
 class _XringApplyKernel(KernelWrapper):
+    def __init__(self, name, library):
+        super().__init__(name, library)
+        self._count_buffers = {}
+
     def __call__(self, base_eq, base_po, ext, k_eq, k_pole):
         """Fused select + ring correction of the SAME-conv outputs
         ``base_*`` (B, 6, n, n, D) with the ghost strips ``ext`` (B, 6, 4,
         n+2, Cin) of their input, see :func:`xring_fused_apply_plain`."""
         if base_eq.device.type == "cpu":
             return xring_fused_apply_plain(base_eq, base_po, ext, k_eq, k_pole)
-        check_faces("xring_fused_apply", base_eq)
-        b, n, cin, d, k_eq, k_pole = _strips_shape("xring_fused_apply", ext, k_eq, k_pole)
-        check_cuda_args("xring_fused_apply", ext, {
-            "base_eq": (base_eq, (b, 6, n, n, d)),
-            "base_po": (base_po, (b, 6, n, n, d)),
-        })
+        b, n, cin, d, k_eq, k_pole = _bases_shape("xring_fused_apply", base_eq, base_po, ext,
+                                                  k_eq, k_pole)
         dev = self._device(ext)
+        g = ring_plan(ext.dtype, b, n, cin, d, self._sm_count[dev])
         out = torch.empty_like(base_eq)
-        # 16-byte accesses where D and the bases' addresses allow
-        vec = 16 // ext.element_size()
-        if d % vec or any(t.data_ptr() % 16 for t in (base_eq, base_po, out)):
-            vec = 1
+        # the corners' handoff between the S/N and the W/E ring blocks
+        cx = torch.empty((b, 6, 4, 3, d), dtype=torch.float32, device=ext.device)
+        cnt = self._counters(ext.device, b * 6 * 4 * g.nsplit)
         self._launch(
-            "cs_xring_apply_launch", dev, DTYPES[ext.dtype], dev,
-            *(t.data_ptr() for t in (base_eq, base_po, ext, k_eq, k_pole, out)),
-            b, n, cin, d, _TILE, vec,
+            "cs_ring_tc_launch", dev, DTYPES[ext.dtype], dev, 1,
+            *(t.data_ptr() for t in (base_eq, base_po, ext, k_eq, k_pole, out)), 0, 0,
+            cx.data_ptr(), cnt.data_ptr(), b, n, cin, d, g.spb, g.dn, g.ncopy,
+            _copy_vec(d, base_eq, base_po, out), g.smem, sizes=9,
         )
         return out
+
+    def _counters(self, device, size):
+        """The handoff's arrival counts on ``device``: zero, and left zero by
+        every launch (the second block of a corner resets its count), so
+        one buffer per device serves every launch there as long as two
+        launches never run at once (the port's callers issue them on one
+        stream); made outside any CUDA-graph capture, grown as launches
+        need."""
+        t = self._count_buffers.get(device)
+        if t is None or t.numel() < size:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{self.name}: call it once outside graph capture at this size first")
+            t = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
+            self._count_buffers[device] = t
+        return t
+
+
+def _bases_shape(name, base_eq, base_po, ext, k_eq, k_pole):
+    """:func:`_strips_shape`, and the bases (B, 6, n, n, D) checked."""
+    check_faces(name, base_eq)
+    b, n, cin, d, k_eq, k_pole = _strips_shape(name, ext, k_eq, k_pole)
+    check_cuda_args(name, ext, {
+        "base_eq": (base_eq, (b, 6, n, n, d)),
+        "base_po": (base_po, (b, 6, n, n, d)),
+    })
+    return b, n, cin, d, k_eq, k_pole
+
+
+def _copy_vec(d, *tensors):
+    """16-byte accesses where D and the addresses allow, else 1."""
+    vec = 16 // tensors[0].element_size()
+    return 1 if d % vec or any(t.data_ptr() % 16 for t in tensors) else vec
 
 
 ring_fixes = _RingFixesKernel("ring_fixes", _RING_LIB)

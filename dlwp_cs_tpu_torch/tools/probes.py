@@ -20,7 +20,12 @@ wrapper takes float32 or bfloat16, runs its plain version (its ``plain``)
 on a CPU tensor and launches its kernel (counted in ``launches``) on a
 CUDA tensor; the plain versions sum in ``torch.promote_types(dtype,
 float32)`` and round once to the output type (the dw probes return the sum
-type).
+type).  The assembly and ghost-write probes are a 16-byte gather, the
+select 16-byte copies, the dot and shifted dots one implicit GEMM on the
+tensor cores (:func:`conv_plan`), the dw probes a split-K GEMM there
+(:func:`dw_split`) whose partials ``torch.sum`` adds in a fixed order.
+The kernels they replaced stay as timing rows, each the same wrapper with
+``v1`` (:data:`PROBES_V1`); no tool path runs them.
 """
 
 from __future__ import annotations
@@ -28,15 +33,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dataclasses import dataclass
+
 from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES, I32, VP, CudaLibrary, KernelWrapper
 
 __all__ = [
     "PROBES",
+    "PROBES_V1",
     "assemble_plain",
     "bias_plain",
+    "conv_plan",
     "dot_plain",
     "dw_batched_plain",
     "dw_reshape_plain",
+    "dw_slices",
+    "dw_split",
     "lane_store",
     "lane_store_plain",
     "probe_assemble",
@@ -55,7 +66,12 @@ __all__ = [
 ]
 
 GHOST_S, GHOST_N, GHOST_W, GHOST_E = 1, 2, 4, 8
-_ASSEMBLE_ROWS = 4  # padded rows a block of the assembly kernel holds
+_ASSEMBLE_ROWS = 4  # padded rows a block of the v1 assembly kernel holds
+# csrc/cs_probes.cu: the dw kernel's block tile (Cin, Cout) and pixels per
+# chunk; the card's shared memory per block and the most a block may take
+# for two to share an SM
+_DW_MC, _DW_ND, _DW_KS = 32, 64, 64
+_SMEM_LIMIT, _SMEM_TWO = 232448, (228 * 1024) // 2 - 1024
 
 
 def _acc(t):
@@ -127,6 +143,98 @@ def dw_batched_plain(x, g):
     return torch.einsum("ijc,ijd->jcd", _acc(x), _acc(g)).sum(dim=0)
 
 
+@dataclass(frozen=True)
+class ConvGeom:
+    """The dot and shifted-dots kernel's geometry, as
+    ``csrc/cs_probes.cu::make_conv_geom`` computes it: ``h`` face rows and
+    ``dn`` output channels per block, ``cp`` staged 16-bit units per pixel,
+    ``kpe`` K rows per tap, ``smem`` bytes; grid (ceil(N / h), ceil(D / dn))."""
+
+    n: int
+    c: int
+    d: int
+    ntaps: int
+    h: int
+    dn: int
+    cp: int
+    kpe: int
+    smem: int
+
+    @property
+    def blocks(self):
+        return -(-self.n // self.h) * -(-self.d // self.dn)
+
+
+def conv_geom(esize: int, shifted: bool, n: int, c: int, d: int, h: int, dn: int) -> ConvGeom:
+    """:class:`ConvGeom` of one launch; ``ValueError`` where the kernel
+    refuses it."""
+    if n < 1 or c < 1 or d < 1 or not 1 <= h <= n or dn < 16 or dn % 16:
+        raise ValueError(f"probe conv: n={n}, C={c}, D={d}, h={h}, dn={dn}")
+    upe = esize // 2
+    step = 8 // upe
+    cpe = -(-c // step) * step
+    while (cpe * upe // 8) % 2 == 0:  # an odd multiple of 8 units
+        cpe += step
+    cp = cpe * upe
+    kpe = -(-c // (16 // upe)) * (16 // upe)
+    ntaps = 9 if shifted else 1
+    cells = (h + 2) * (n + 2) if shifted else h * n
+    smem = ntaps * kpe * (dn + 8) * esize + 2 * (cells + 1) * cp
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"probe conv: {smem} bytes of shared memory for h={h}, dn={dn}")
+    return ConvGeom(n, c, d, ntaps, h, dn, cp, kpe, smem)
+
+
+def conv_plan(dtype, shifted: bool, n: int, c: int, d: int, sm_count: int) -> ConvGeom:
+    """The dot (``shifted`` False: 1 tap) or shifted-dots (9 taps) probe's
+    launch: of the blocks of h in 1, 2, 4 face rows and dn channels (D
+    halved down to 16) that fit two to an SM where any does, the most
+    blocks within one wave of ``sm_count``, then the widest slice, else the
+    fewest blocks."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    geoms, dn = [], -(-d // 16) * 16
+    while dn >= 16:
+        for h in (1, 2, 4):
+            try:
+                geoms.append(conv_geom(esize, shifted, n, c, d, min(h, n), dn))
+            except ValueError:
+                pass
+        dn = -(-(dn // 2) // 16) * 16 if dn > 16 else 0
+    pool = [g for g in geoms if g.smem <= _SMEM_TWO] or geoms
+    if not pool:
+        raise ValueError(f"probe conv: n={n}, C={c}, D={d} does not fit a block")
+    wave = [g for g in pool if g.blocks <= sm_count]
+    if wave:
+        return max(wave, key=lambda g: (g.blocks, g.dn, g.h))
+    return min(pool, key=lambda g: (g.blocks, -g.dn))
+
+
+def dw_split(n: int, c: int, d: int, batched: bool, sm_count: int) -> int:
+    """K slices of the dw probe: about one wave of ``sm_count`` blocks over
+    its (32 Cin x 64 Cout) tiles, at most one slice per chunk of 64 pixels
+    (k1) or per column (k2)."""
+    tiles = -(-c // _DW_MC) * -(-d // _DW_ND)
+    units = n if batched else -(-n * n // _DW_KS)
+    return max(1, min(units, sm_count // tiles))
+
+
+def dw_slices(n: int, nsplit: int, batched: bool):
+    """The pixel chunks of each K slice, in the order the kernel sums them:
+    per slice a list of chunks, each a list of flat pixel indices (i * n +
+    j) that go into one fresh sum; k2's chunk is a column (rows i in order),
+    k1's a run of up to 64 consecutive pixels.  The kernel adds the chunks
+    of a slice in order and ``torch.sum`` the slices."""
+    total = n if batched else n * n
+    out = []
+    for s in range(nsplit):
+        lo, hi = total * s // nsplit, total * (s + 1) // nsplit
+        if batched:
+            out.append([[i * n + j for i in range(n)] for j in range(lo, hi)])
+        else:
+            out.append([list(range(p, min(p + _DW_KS, hi))) for p in range(lo, hi, _DW_KS)])
+    return out
+
+
 _LIB = CudaLibrary("cs_probes.cu", {
     "cs_lane_store_launch": [I32, VP, VP, I32, I32, I32, VP],
     "cs_probe_assemble_launch": [I32, VP, VP, VP, I32, I32, I32, I32, VP],
@@ -135,7 +243,17 @@ _LIB = CudaLibrary("cs_probes.cu", {
     "cs_probe_shifted_launch": [I32, VP, VP, VP, I32, I32, I32, VP],
     "cs_probe_bias_launch": [I32, VP, VP, VP, I32, I32, VP],
     "cs_probe_dw_launch": [I32, VP, VP, VP, I32, I32, I32, I32, VP],
+    "cs_probe_gather_launch": [I32, VP, VP, VP, I32, I32, I32, I32, VP],
+    "cs_probe_select_vec_launch": [I32, VP, VP, VP, I32, I32, I32, I32, VP],
+    "cs_probe_conv_tc_launch": [I32, VP, VP, VP] + [I32] * 7 + [VP],
+    "cs_probe_dw_tc_launch": [I32, VP, VP, VP] + [I32] * 5 + [VP],
 }, "cs_probes_error_string")
+
+
+def _vec(t, width, *tensors):
+    """16-byte accesses where ``width`` elements and every address allow."""
+    v = 16 // t.element_size()
+    return 1 if width % v or any(a.data_ptr() % 16 for a in (t, *tensors)) else v
 
 
 def _check(name, shapes):
@@ -172,9 +290,18 @@ class _LaneStore(KernelWrapper):
         return out
 
 
-class _Assemble(KernelWrapper):
-    def __init__(self, name, mask):
+class _Probe(KernelWrapper):
+    """A probe's wrapper; ``v1``: the kernel its redesign replaced (a
+    timing row)."""
+
+    def __init__(self, name, v1=False):
         super().__init__(name, _LIB)
+        self.v1 = v1
+
+
+class _Assemble(_Probe):
+    def __init__(self, name, mask, v1=False):
+        super().__init__(name, v1)
         self.mask = mask
 
     def plain(self, x, e):
@@ -189,12 +316,17 @@ class _Assemble(KernelWrapper):
         _check(self.name, [(x, (n, n, c)), (e, (4, n + 2, c))])
         out = torch.empty_like(x)
         dev = self._device(x)
-        self._launch("cs_probe_assemble_launch", dev, DTYPES[x.dtype], x.data_ptr(),
-                     e.data_ptr(), out.data_ptr(), n, c, _ASSEMBLE_ROWS, self.mask, sizes=4)
+        ptrs = (x.data_ptr(), e.data_ptr(), out.data_ptr())
+        if self.v1:
+            self._launch("cs_probe_assemble_launch", dev, DTYPES[x.dtype], *ptrs, n, c,
+                         _ASSEMBLE_ROWS, self.mask, sizes=4)
+        else:
+            self._launch("cs_probe_gather_launch", dev, DTYPES[x.dtype], *ptrs, n, c,
+                         self.mask, _vec(x, c, e, out), sizes=4)
         return out
 
 
-class _Select(KernelWrapper):
+class _Select(_Probe):
     plain = staticmethod(select_plain)
 
     def __call__(self, k1, k2, programs=2):
@@ -206,14 +338,19 @@ class _Select(KernelWrapper):
         _check(self.name, [(k1, (3, 3, c, d)), (k2, (3, 3, c, d))])
         out = k1.new_empty((programs, c, d))
         dev = self._device(k1)
-        self._launch("cs_probe_select_launch", dev, DTYPES[k1.dtype], k1.data_ptr(),
-                     k2.data_ptr(), out.data_ptr(), programs, c, d, sizes=3)
+        ptrs = (k1.data_ptr(), k2.data_ptr(), out.data_ptr())
+        if self.v1:
+            self._launch("cs_probe_select_launch", dev, DTYPES[k1.dtype], *ptrs, programs, c,
+                         d, sizes=3)
+        else:
+            self._launch("cs_probe_select_vec_launch", dev, DTYPES[k1.dtype], *ptrs, programs,
+                         c, d, _vec(k1, c * d, k2, out), sizes=4)
         return out
 
 
-class _Dot(KernelWrapper):
-    def __init__(self, name, shifted):
-        super().__init__(name, _LIB)
+class _Dot(_Probe):
+    def __init__(self, name, shifted, v1=False):
+        super().__init__(name, v1)
         self.shifted = shifted
         self.plain = shifted_dots_plain if shifted else dot_plain
 
@@ -226,16 +363,21 @@ class _Dot(KernelWrapper):
         _check(self.name, [(x, (n, n, c)), (k, (3, 3, c, d) if self.shifted else (c, d))])
         out = x.new_empty((n, n, d))
         dev = self._device(x)
-        if self.shifted:
-            self._launch("cs_probe_shifted_launch", dev, DTYPES[x.dtype], x.data_ptr(),
-                         k.data_ptr(), out.data_ptr(), n, c, d, sizes=3)
+        ptrs = (x.data_ptr(), k.data_ptr(), out.data_ptr())
+        if not self.v1:
+            g = conv_plan(x.dtype, self.shifted, n, c, d, self._sm_count[dev])
+            self._launch("cs_probe_conv_tc_launch", dev, DTYPES[x.dtype], *ptrs, n, c, d,
+                         int(self.shifted), g.h, g.dn, g.smem, sizes=7)
+        elif self.shifted:
+            self._launch("cs_probe_shifted_launch", dev, DTYPES[x.dtype], *ptrs, n, c, d,
+                         sizes=3)
         else:
-            self._launch("cs_probe_dot_launch", dev, DTYPES[x.dtype], x.data_ptr(),
-                         k.data_ptr(), out.data_ptr(), n * n, c, d, sizes=3)
+            self._launch("cs_probe_dot_launch", dev, DTYPES[x.dtype], *ptrs, n * n, c, d,
+                         sizes=3)
         return out
 
 
-class _Bias(KernelWrapper):
+class _Bias(_Probe):
     plain = staticmethod(bias_plain)
 
     def __call__(self, x, b):
@@ -251,9 +393,9 @@ class _Bias(KernelWrapper):
         return out
 
 
-class _Dw(KernelWrapper):
-    def __init__(self, name, batched):
-        super().__init__(name, _LIB)
+class _Dw(_Probe):
+    def __init__(self, name, batched, v1=False):
+        super().__init__(name, v1)
         self.batched = batched
         self.plain = dw_batched_plain if batched else dw_reshape_plain
 
@@ -264,31 +406,53 @@ class _Dw(KernelWrapper):
             return self.plain(x, g)
         n, c, d = x.shape[0], x.shape[-1], g.shape[-1]
         _check(self.name, [(x, (n, n, c)), (g, (n, n, d))])
-        out = torch.empty((c, d), dtype=torch.float32, device=x.device)
         dev = self._device(x)
-        self._launch("cs_probe_dw_launch", dev, DTYPES[x.dtype], x.data_ptr(), g.data_ptr(),
-                     out.data_ptr(), n, c, d, int(self.batched), sizes=4)
-        return out
+        if self.v1:
+            out = torch.empty((c, d), dtype=torch.float32, device=x.device)
+            self._launch("cs_probe_dw_launch", dev, DTYPES[x.dtype], x.data_ptr(),
+                         g.data_ptr(), out.data_ptr(), n, c, d, int(self.batched), sizes=4)
+            return out
+        nsplit = dw_split(n, c, d, self.batched, self._sm_count[dev])
+        part = torch.empty((nsplit, c, d), dtype=torch.float32, device=x.device)
+        self._launch("cs_probe_dw_tc_launch", dev, DTYPES[x.dtype], x.data_ptr(),
+                     g.data_ptr(), part.data_ptr(), n, c, d, int(self.batched), nsplit, sizes=5)
+        return part[0] if nsplit == 1 else part.sum(dim=0)
 
 
 lane_store = _LaneStore("lane_store", _LIB)
-probe_assemble = _Assemble("probe_assemble", GHOST_S | GHOST_N | GHOST_W | GHOST_E)
-probe_rows_int = _Assemble("probe_rows_int", GHOST_S | GHOST_N)
-probe_rows_slice = _Assemble("probe_rows_slice", GHOST_S | GHOST_N)
-probe_col_int = _Assemble("probe_col_int", GHOST_W)
-probe_col_newaxis = _Assemble("probe_col_newaxis", GHOST_W)
-probe_select = _Select("probe_select", _LIB)
-probe_dot = _Dot("probe_dot", shifted=False)
-probe_shifted_dots = _Dot("probe_shifted_dots", shifted=True)
-probe_bias = _Bias("probe_bias", _LIB)
-probe_dw_reshape = _Dw("probe_dw_reshape", batched=False)
-probe_dw_batched = _Dw("probe_dw_batched", batched=True)
 
-# every probe of tools/mosaic_bisect{,2,3}.py by the reference's name
-PROBES = {
-    "A-assembly": probe_assemble, "B-select": probe_select, "C-dot": probe_dot,
-    "D-shifted-dots": probe_shifted_dots, "E-bias": probe_bias,
-    "rows-int-idx": probe_rows_int, "rows-slice-idx": probe_rows_slice,
-    "col-int-idx": probe_col_int, "col-newaxis": probe_col_newaxis,
-    "reshape-collapse": probe_dw_reshape, "batched-dot": probe_dw_batched,
-}
+
+def _probes(v1=False):
+    """Every probe of tools/mosaic_bisect{,2,3}.py by the reference's name;
+    ``v1``: the kernels the redesign replaced (the bias probe has none)."""
+    tag = "_v1" if v1 else ""
+    rows = GHOST_S | GHOST_N
+    out = {
+        "A-assembly": _Assemble("probe_assemble" + tag, rows | GHOST_W | GHOST_E, v1),
+        "B-select": _Select("probe_select" + tag, v1),
+        "C-dot": _Dot("probe_dot" + tag, False, v1),
+        "D-shifted-dots": _Dot("probe_shifted_dots" + tag, True, v1),
+        "E-bias": None if v1 else _Bias("probe_bias"),
+        "rows-int-idx": _Assemble("probe_rows_int" + tag, rows, v1),
+        "rows-slice-idx": _Assemble("probe_rows_slice" + tag, rows, v1),
+        "col-int-idx": _Assemble("probe_col_int" + tag, GHOST_W, v1),
+        "col-newaxis": _Assemble("probe_col_newaxis" + tag, GHOST_W, v1),
+        "reshape-collapse": _Dw("probe_dw_reshape" + tag, False, v1),
+        "batched-dot": _Dw("probe_dw_batched" + tag, True, v1),
+    }
+    return {k: v for k, v in out.items() if v is not None}
+
+
+PROBES = _probes()
+PROBES_V1 = _probes(v1=True)
+probe_assemble = PROBES["A-assembly"]
+probe_select = PROBES["B-select"]
+probe_dot = PROBES["C-dot"]
+probe_shifted_dots = PROBES["D-shifted-dots"]
+probe_bias = PROBES["E-bias"]
+probe_rows_int = PROBES["rows-int-idx"]
+probe_rows_slice = PROBES["rows-slice-idx"]
+probe_col_int = PROBES["col-int-idx"]
+probe_col_newaxis = PROBES["col-newaxis"]
+probe_dw_reshape = PROBES["reshape-collapse"]
+probe_dw_batched = PROBES["batched-dot"]

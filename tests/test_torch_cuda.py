@@ -214,6 +214,40 @@ def test_ring_kernels_match_plain_on_card(cuda_device, dtype, b, n, cin, d):
     _close(fixes, ref_fixes, dtype)
     _close(corners, ref_corners, dtype)
     _close(out, xring_fused_apply_plain(*bases, e, k_eq, k_po), dtype)
+    # the corners' handoff between ring blocks: the same output again, and
+    # the arrival counts left at zero for the next launch
+    assert torch.equal(xring_fused_apply(*bases, e, k_eq, k_po), out)
+    torch.cuda.synchronize()
+    assert not xring_fused_apply._count_buffers[x.device].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,d", RING_SHAPES)
+def test_cuda_core_ring_rows_match_plain_on_card(cuda_device, dtype, b, n, cin, d):
+    """The CUDA-core ring kernels that the ring blocks replaced, kept as
+    timing rows (ops/conv_variants.py), against the same plain versions."""
+    from dlwp_cs_tpu_torch.ops.conv_variants import (
+        ring_fixes_cudacore,
+        xring_fused_apply_cudacore,
+    )
+
+    tdt = getattr(torch, dtype)
+    x, k_eq, k_po, _, _ = (torch.from_numpy(a).to(cuda_device, tdt)
+                           for a in _case(b, n, cin, d, seed=5))
+    gen = torch.Generator().manual_seed(7)
+    bases = [torch.randn((b, 6, n, n, d), generator=gen).to(cuda_device, tdt) for _ in range(2)]
+    e = ext_strips(x)
+    before = (ring_fixes.launches, xring_fused_apply.launches, ring_fixes_cudacore.launches)
+    fixes, corners = ring_fixes_cudacore(e, k_eq, k_po)
+    out = xring_fused_apply_cudacore(*bases, e, k_eq, k_po)
+    torch.cuda.synchronize()
+    assert (ring_fixes.launches, xring_fused_apply.launches) == before[:2]
+    assert ring_fixes_cudacore.launches == before[2] + 1
+    ref_fixes, ref_corners = ring_fixes_plain(e, k_eq, k_po)
+    _close(fixes, ref_fixes, dtype)
+    _close(corners, ref_corners, dtype)
+    _close(out, xring_fused_apply_plain(*bases, e, k_eq, k_po), dtype)
 
 
 @pytest.mark.cuda
@@ -662,6 +696,32 @@ def test_probes_match_plain_on_card(cuda_device, dtype, small):
     for k in probes.PROBES.values():  # one checked launch, 3 timed per row
         n_rows = sum(r["probe"] == k.name for r in rows)
         assert k.launches - before[k.name] == 4 * n_rows, k.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("small", [True, False])
+def test_v1_probes_match_plain_on_card(cuda_device, dtype, small):
+    """The probe kernels that #16's redesign replaced (tools/probes.py's
+    ``PROBES_V1``, timing rows), at the probe tool's inputs and gate,
+    counted apart from the tool's probes; the redesigned probes bitwise
+    equal from one call to the next."""
+    from dlwp_cs_tpu_torch.tools import mosaic_bisect, probes
+
+    old_of = {probes.PROBES[k].name: v for k, v in probes.PROBES_V1.items()}
+    before = {k.name: k.launches for k in probes.PROBES.values()}
+    checked = 0
+    for name, probe, args in mosaic_bisect._cases(cuda_device, getattr(torch, dtype), small):
+        ref = probe.plain(*args)
+        old = old_of.get(probe.name)
+        if old is not None:
+            err, tol, ok = mosaic_bisect.compare(name, old(*args), ref)
+            assert ok, (name, err, tol)
+            checked += 1
+    assert {k.name: k.launches for k in probes.PROBES.values()} == before
+    assert checked == 8 + 2 * (2 if small else len(mosaic_bisect.DW_SHAPES))
+    for name, probe, args in mosaic_bisect._cases(cuda_device, getattr(torch, dtype), small):
+        assert torch.equal(probe(*args), probe(*args)), name
 
 
 @pytest.mark.cuda

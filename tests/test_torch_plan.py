@@ -476,3 +476,253 @@ def test_float32_dx_sum_order_holds_float32_accuracy_at_k_9x128():
                  - exact).abs().max())
     assert err <= 1e-4
     assert one > 1e-4  # one TF32 product alone misses the gate
+
+
+# ---- the ring kernels (#6, #7) and the probes (#16) ---------------------------
+
+from dlwp_cs_tpu_torch.ops.ring_kernel import grid_roles, ring_blocks, ring_geom, ring_plan  # noqa: E402
+from dlwp_cs_tpu_torch.tools.probes import conv_geom, conv_plan, dw_slices, dw_split  # noqa: E402
+
+# (b, n, Cin, D) of the ring phase of chip_smoke.py (the flagship U-Net's
+# conv shapes and the ConvLSTM's two gate convs at batch 1 and 16) and of
+# tests/test_torch_cuda.py::RING_SHAPES
+RING = (
+    [(b, n, cin, d) for b in (1, 16) for n, cin, d in
+     sorted(set(FLAGSHIP), key=FLAGSHIP.index) + [(48, 39, 128), (48, 64, 128)]]
+    + [(1, 48, 39, 128), (16, 48, 64, 128), (1, 12, 128, 128), (2, 10, 3, 9),
+       (2, 20, 5, 12), (1, 6, 4, 8)]
+)
+RING = sorted(set(RING), key=RING.index)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,d", RING, ids=_ids(RING))
+def test_ring_plan_covers_every_pixel_once_and_fits(dtype, b, n, cin, d):
+    """The fused apply's launch: every (face, pixel, channel) of the output
+    written by exactly one block - the ring blocks' lines and the copy
+    blocks' interiors - except the corners, which both of their ring blocks
+    (one S/N, one W/E) publish and the second to arrive writes; the ring
+    blocks' D slices tile D; the block fits the card's shared memory, two
+    to an SM where any plan does."""
+    g = ring_plan(getattr(torch, dtype), b, n, cin, d, SMS)
+    assert g.smem <= SMEM and g.dn % 16 == 0 and 1 <= g.spb <= 8
+    esize = 4 if dtype == "float32" else 2
+    two = (228 * 1024) // 2 - 1024  # two blocks an SM (1 KB each reserved)
+
+    def smem(dn):
+        try:
+            return ring_geom(esize, b, n, cin, d, 1, dn, g.ncopy).smem
+        except ValueError:
+            return SMEM + 1
+
+    if any(smem(dn) <= two for dn in (16, 32, 64, 128) if dn < d + 16):
+        assert g.smem <= two
+    slices = sorted({(r * g.dn, min((r + 1) * g.dn, d)) for r in range(g.nsplit)})
+    assert slices[0][0] == 0 and slices[-1][1] == d
+    assert all(a[1] == b_[0] for a, b_ in zip(slices, slices[1:]))
+    index = {s: k for k, s in enumerate(slices)}
+    count = np.zeros((b * 6, n, n, len(slices)), np.int32)
+    roles = grid_roles(g)
+    assert sorted(roles) == sorted([("ring", r) for r in range(g.nring)]
+                                   + [("copy", q) for q in range(g.ncopy)])
+    blocks = ring_blocks(g)
+    assert len(blocks) == g.nring + g.ncopy
+    for (kind, _), runs in zip(roles, blocks):
+        for face, i, j, d0, d1 in runs:
+            if kind == "copy":
+                assert (d0, d1) == (0, d) and 0 < i < n - 1 and 0 < j < n - 1
+                count[face, i, j] += 1
+            else:
+                count[face, i, j, index[d0, d1]] += 1
+    corner = np.zeros((n, n), bool)
+    corner[[0, 0, n - 1, n - 1], [0, n - 1, 0, n - 1]] = True
+    assert (count[:, corner] == 2).all() and (count[:, ~corner] == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,d", RING, ids=_ids(RING))
+def test_ring_fixes_plan_covers_every_fix_and_corner_once(dtype, b, n, cin, d):
+    """The fixes' launch (ring blocks only): every fix (face, edge,
+    position, channel) and every corner (face, corner, channel) once; no
+    copy blocks."""
+    g = ring_plan(getattr(torch, dtype), b, n, cin, d, SMS, apply=False)
+    assert g.ncopy == 0 and g.smem <= SMEM
+    fix = np.zeros((b * 6, 4, n, d), np.int32)
+    cor = np.zeros((b * 6, 4, d), np.int32)
+    for runs in ring_blocks(g, apply=False):
+        for run in runs:
+            if run[0] == "fix":
+                _, face, e, t, d0, d1 = run
+                fix[face, e, t, d0:d1] += 1
+            else:
+                _, face, c, d0, d1 = run
+                cor[face, c, d0:d1] += 1
+    assert (fix == 1).all() and (cor == 1).all()
+
+
+def test_ring_geometry_counts_shared_memory_as_the_kernel_does():
+    """csrc/cs_ring.cu::make_ring_geom's numbers at the bf16 gate conv
+    (48, 64 -> 128), one strip, a 32-channel slice: taps 3 x 64 rows of 40
+    units, staged cells (48 + 6 + 1 zero) x 72 units, and for the fused
+    apply the 48 base rows of 40 elements and 2 flags."""
+    g = ring_geom(2, 1, 48, 64, 128, 1, 32, 264)
+    assert (g.cp, g.kpe, g.nsplit, g.nch, g.nring) == (72, 64, 4, (4, 2), 96)
+    assert g.smem == 3 * 64 * 40 * 2 + 2 * (54 + 1) * 72 + 48 * 40 * 2 + 8
+    f = ring_geom(4, 1, 48, 39, 128, 1, 32, 0, apply=False)
+    # float32: 44 channels a cell (an odd multiple of 16 bytes), K = 40 a
+    # tap; 39 channels are 156 bytes, not a multiple of 16, so the strip
+    # also lands raw (50 x 156 bytes in 16-byte copies from the boundary
+    # before it) and is repacked into its cells
+    assert (f.cp, f.kpe) == (88, 40)
+    assert f.smem == 3 * 40 * 40 * 4 + 2 * (54 + 1) * 88 + 7808 + 16
+    with pytest.raises(ValueError):
+        ring_geom(2, 1, 48, 64, 128, 9, 32, 264)  # at most 8 strips a block
+    with pytest.raises(ValueError):
+        ring_geom(2, 1, 48, 64, 128, 1, 24, 264)  # slices of 16 channels
+    with pytest.raises(ValueError):
+        ring_geom(2, 1, 48, 64, 128, 1, 32, 0)  # the fused apply needs copy blocks
+
+
+def _three_tf32_mm(a, b):
+    """a @ b as the kernel's 3xTF32 products: exact in float64, less lo.lo."""
+    aA, bA, alo, blo = _three_tf32(a, b)
+    return aA @ bA - alo @ blo
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("n,cin,d", [(48, 39, 128), (48, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_fix_sum_order_holds_the_gates(dtype, n, cin, d, b):
+    """The ring blocks' sums at the ConvLSTM's gate convs, emulated: each
+    ring row's window (3 positions x Cin) times its edge's taps, float32 as
+    3xTF32 with each tap's products into a fresh sum (exact, rounded once to
+    float32) added in tap order, bfloat16 as one float32 sum of exact
+    products; the corner dots the same rows with the window [P0, 0, 0] or
+    [0, 0, P(n+1)]; then the fused apply's lines base + fix and corners
+    ((base + S|N fix) + W|E fix) - corner in float32, rounded once.
+    Against the float64 sums, within the card's gates (float32 1e-4
+    absolute; bfloat16 2**-7 |ref| + 1e-4)."""
+    rng = np.random.default_rng(n + cin + b)
+    tdt = getattr(torch, dtype)
+    ext = torch.from_numpy(rng.normal(size=(b, 6, 4, n + 2, cin)).astype(np.float32)).to(tdt)
+    ks = [torch.from_numpy((rng.normal(size=(3, 3, cin, d)) / (9 * cin) ** 0.5)
+                           .astype(np.float32)).to(tdt) for _ in range(2)]
+    base = torch.from_numpy(rng.normal(size=(b, 6, n, n, d)).astype(np.float32)).to(tdt)
+    taps = lambda k: torch.stack([k[0], k[2], k[:, 0], k[:, 2]])  # noqa: E731  [S, N, W, E]
+    fix32, fix64 = [], []
+    for faces, k in ((slice(0, 4), ks[0]), (slice(4, 6), ks[1])):
+        e = ext[:, faces].float()
+        t = taps(k).float()  # (4, 3, Cin, D)
+        win = torch.stack([e[..., dy:dy + n, :] for dy in range(3)], dim=-2)  # (b,F,4,n,3,C)
+        exact = torch.einsum("bfetyc,eycd->bfetd", win.double(), t.double())
+        if dtype == "float32":
+            acc = torch.zeros(exact.shape, dtype=torch.float32)
+            for dy in range(3):  # fresh sums per tap, added in order
+                for edge in range(4):
+                    part = _three_tf32_mm(win[:, :, edge, :, dy].reshape(-1, cin), t[edge, dy])
+                    acc[:, :, edge] += part.float().reshape(acc[:, :, edge].shape)
+        else:
+            acc = exact.float()
+        fix32.append(acc)
+        fix64.append(exact)
+    fix32, fix64 = torch.cat(fix32, 1), torch.cat(fix64, 1)  # (b, 6, 4, n, D)
+    err = float((fix32.double() - fix64).abs().max())
+    assert err <= 1e-4, err
+    # the corner dots: the S/N rows [P0, 0, 0] and [0, 0, P(n+1)]
+    cor64 = torch.cat([torch.einsum("bfqc,qcd->bfqd", torch.stack(
+        [ext[:, faces, 0, 0], ext[:, faces, 0, n + 1], ext[:, faces, 1, 0],
+         ext[:, faces, 1, n + 1]], 2).double(),
+        torch.stack([k[0, 0], k[0, 2], k[2, 0], k[2, 2]]).double())
+        for faces, k in ((slice(0, 4), ks[0]), (slice(4, 6), ks[1]))], 1)
+    out = base.float().clone()
+    ref = base.double().clone()
+    for o, f, c in ((out, fix32, None), (ref, fix64, cor64)):
+        c = c if c is not None else cor64.float()
+        o[:, :, 0] += f[:, :, 0]
+        o[:, :, n - 1] += f[:, :, 1]
+        o[:, :, 1:n - 1, 0] += f[:, :, 2, 1:n - 1]
+        o[:, :, 1:n - 1, n - 1] += f[:, :, 3, 1:n - 1]
+        for ci, (i, j, e2, t2) in enumerate(((0, 0, 2, 0), (0, n - 1, 3, 0), (n - 1, 0, 2, n - 1),
+                                             (n - 1, n - 1, 3, n - 1))):
+            o[:, :, i, j] += f[:, :, e2, t2]
+            o[:, :, i, j] -= c[:, :, ci]
+    got = out.to(tdt).double()
+    if dtype == "float32":
+        assert float((got - ref).abs().max()) <= 1e-4
+    else:
+        assert float(((got - ref).abs() - ref.abs() * 2.0**-7).max()) <= 1e-4
+
+
+PROBE_DW = [(48, 32, 64), (24, 64, 64), (12, 128, 128), (8, 8, 16), (4, 16, 16)]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("n,c,d", PROBE_DW, ids=_ids(PROBE_DW))
+def test_dw_probe_slices_cover_every_pixel_once_in_order(n, c, d, batched):
+    """#16's dw probes: the K slices of ``dw_split`` hold every pixel once,
+    k1's as runs of at most 64 consecutive pixels in order, k2's as whole
+    columns (rows in order); the slices fill about one wave of the card."""
+    nsplit = dw_split(n, c, d, batched, SMS)
+    tiles = -(-c // 32) * -(-d // 64)
+    assert 1 <= nsplit and tiles * nsplit <= max(SMS, tiles)
+    chunks = [ch for sl in dw_slices(n, nsplit, batched) for ch in sl]
+    flat = [p for ch in chunks for p in ch]
+    assert sorted(flat) == list(range(n * n))
+    if batched:
+        assert all(ch == [i * n + ch[0] for i in range(n)] for ch in chunks)
+    else:
+        assert flat == list(range(n * n)) and all(len(ch) <= 64 for ch in chunks)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("n,c,d", PROBE_DW[:3], ids=_ids(PROBE_DW[:3]))
+def test_float32_dw_probe_sum_order_holds_the_gate(n, c, d, batched):
+    """The float32 dw probes' sums, emulated: each chunk's 3xTF32 products
+    into a fresh sum (exact, rounded once to float32; k2: a column), the
+    chunks of a slice added in float32 in order, the slices' partials summed
+    in float32 (torch.sum): within the probe tool's 1e-5 of the largest
+    entry of the float64 product."""
+    rng = np.random.default_rng(n + c)
+    x = torch.from_numpy(rng.normal(size=(n * n, c)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n * n, d)).astype(np.float32))
+    exact = x.double().T @ g.double()
+    parts = []
+    for sl in dw_slices(n, dw_split(n, c, d, batched, SMS), batched):
+        acc = torch.zeros((c, d))
+        for ch in sl:
+            acc += _three_tf32_mm(x[ch].T.contiguous(), g[ch]).float()
+        parts.append(acc)
+    got = torch.stack(parts).sum(0)
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("n,c,d", [(48, 64, 64), (8, 8, 8), (8, 8, 16)])
+def test_probe_conv_plan_fits_and_covers(dtype, shifted, n, c, d):
+    """#16's dot and shifted-dots kernel: the plan's blocks (h face rows x
+    dn channels) tile the output, fit the card's shared memory, and its
+    geometry counts shared memory as ``make_conv_geom`` does: the taps
+    (ntaps x Cin rounded to a k step, rows of dn + 8), the staged cells
+    (h rows, or h + 2 framed rows of n + 2 pixels, + 1 zero cell)."""
+    g = conv_plan(getattr(torch, dtype), shifted, n, c, d, SMS)
+    esize = 4 if dtype == "float32" else 2
+    assert g.smem <= SMEM and g.dn % 16 == 0 and 1 <= g.h <= n
+    assert -(-n // g.h) * g.h >= n and -(-d // g.dn) * g.dn >= d
+    cells = (g.h + 2) * (n + 2) if shifted else g.h * n
+    assert g.smem == (9 if shifted else 1) * g.kpe * (g.dn + 8) * esize + 2 * (cells + 1) * g.cp
+    assert g == conv_geom(esize, shifted, n, c, d, g.h, g.dn)
+    assert (g.cp // 8) % 2 == 1 and g.cp * 2 >= c * esize
+
+
+def test_ring_phase_tool_switches_guard_the_kernel_source():
+    """``tools/ring_phases.py`` compiles variants of ``csrc/cs_ring.cu``
+    with phases switched off: every switch's anchor is in the source once
+    and each variant defines every switch."""
+    from dlwp_cs_tpu_torch.tools import ring_phases
+
+    for name, switches in ring_phases.VARIANTS.items():
+        src = ring_phases.patched_source(switches)
+        for s in ring_phases.SWITCHES:
+            assert f"#define {s} {int(s in switches)}\n" in src, (name, s)
+            assert src.count(f"{s}") >= 2, (name, s)
