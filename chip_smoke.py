@@ -40,6 +40,14 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    step's 4 gate convs); beside them the whole xring conv (two cuDNN SAME
    convs, the ghost strips, the fused kernel, the bias), the fused conv
    kernel and one face-grouped cuDNN call on the same shape;
+5a. shapes past a kernel's plan: ``conv3x3_route`` keeps every flagship
+   shape on its kernels and sends (1, 6, 128, 128, 32) -> 32 in float32
+   with a gradient (the dw plan refuses) to the ring-fix composition; one
+   training step there through ``cs_conv`` launches no kernel and matches
+   the plain path; then a CUDA graph of the fused ring apply captured at
+   batch 1 and replayed after an eager batch-16 call grew its arrival
+   counts and other memory was allocated: bitwise repeatable, equal to the
+   plain version, every count buffer alive and zero;
 5b. run the kernel tools' entry points once each (``dlwp_cs_tpu_torch.tools``:
    ``conv_micro``, ``kernel_variants`` and its ``--chain``, ``mosaic_bisect``
    in bfloat16 and float32), the path of kernels #3 and #12-#16, with every
@@ -49,15 +57,18 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    with its plain and library times); #12's and #16's lines come from
    these rows.  Then: #3 (kn2row) and #13 (im2col) on the tensor cores,
    bfloat16, at each conv shape of the flagship U-Net at batch 1 and at
-   conv_micro's levels and the decoder's shape at batch 16, against their
+   conv_micro's levels and the decoder's shape at batch 16 (#13 also at
+   Cout = 256 and on the packed layout's 128 channels), against their
    plain versions and #1 on the same strips, timed beside #1, the
-   face-grouped cuDNN call and the bound; #14 (dx with the raw ring) at
-   conv_micro's levels in float32 and bfloat16, its interior and ring
-   bitwise equal to #4's, timed beside ``F.conv_transpose2d``; #15 in both
-   types bitwise equal to 3·x, timed beside ``x * 3``; every #16 probe in
-   both types against its plain version and bitwise against itself, timed
-   in turns with the kernel its redesign replaced (the ``_v1`` probes),
-   beside its library call and bound (``probe_summary``);
+   face-grouped cuDNN call and the bound, #13 in turns with the im2col
+   kernel of the first design (``im2col_summary``); #14 (dx with the raw
+   ring) at conv_micro's levels in float32 and bfloat16, its interior and
+   ring bitwise equal to #4's, timed beside ``F.conv_transpose2d``; #15 in
+   both types bitwise equal to 3·x (also at C = 39, 3 and 24), timed in
+   turns with the kernel its redesign replaced, beside ``x * 3``; every
+   #16 probe in both types against its plain version and bitwise against
+   itself, timed in turns with the kernel its redesign replaced (the
+   ``_v1`` probes), beside its library call and bound (``probe_summary``);
 6. serve 14-day forecasts (28 calls of 6 h x 2) through ``ForecastService``
    in bfloat16 and float32 of the flagship C48 U-Net (filters 32/64/128,
    12 -> 8 channels, seeded weights; 280 conv kernel launches per
@@ -487,18 +498,23 @@ def block_case(kind, n, cin, cout, b, dtype, gen):
     }
 
 
-def mma_cases(n, cin, cout, b, gen):
+def mma_cases(n, cin, cout, b, gen, kinds=("npack", "im2col")):
     """Kernels #3 (kn2row) and #13 (im2col) at one conv shape in bfloat16
     (the only type they take): each against its plain version and against
-    kernel #1 on the same strips, one bf16 ulp of |ref| + 1e-4; each timed
-    beside #1, the face-grouped cuDNN call and the bound, which is #1's (the
-    same function)."""
+    kernel #1 on the same strips, one bf16 ulp of |ref| + 1e-4; #13 also
+    bitwise against itself and timed in turns (old, new, new, old) with the
+    im2col kernel of the first design (``cs_conv3x3_im2col_v1``, held too;
+    where its plan refuses the shape, its entries are None); each timed
+    beside #1, the face-grouped cuDNN call and the bound, which is #1's
+    (the same function)."""
     from dlwp_cs_tpu_torch.ops.conv_variants import (
         cs_conv3x3_im2col,
         cs_conv3x3_im2col_plain,
+        cs_conv3x3_im2col_v1,
         cs_conv3x3_npack,
         cs_conv3x3_npack_plain,
         im2col_taps,
+        mma_plan,
         npack_taps,
     )
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
@@ -513,7 +529,7 @@ def mma_cases(n, cin, cout, b, gen):
           for _ in range(2)]
     bs = [(torch.randn((cout,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
     ext = ext_strips(x)
-    wrappers = (cs_conv3x3, cs_conv3x3_npack, cs_conv3x3_im2col)
+    wrappers = (cs_conv3x3, cs_conv3x3_npack, cs_conv3x3_im2col, cs_conv3x3_im2col_v1)
     launches = [w.launches for w in wrappers]
     conv1 = cs_conv3x3(x, ext, *ks, *bs)
     conv1_ms = graph_ms(lambda: cs_conv3x3(x, ext, *ks, *bs), 20)
@@ -523,29 +539,73 @@ def mma_cases(n, cin, cout, b, gen):
     nbytes = x.element_size() * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
                                  + b * 6 * n * n * cout)
     ops = 2 * b * 6 * n * n * 9 * cin * cout
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
     for kind, wrapper, plain, taps in (
         ("npack", cs_conv3x3_npack, cs_conv3x3_npack_plain, npack_taps),
         ("im2col", cs_conv3x3_im2col, cs_conv3x3_im2col_plain, im2col_taps),
     ):
+        if kind not in kinds:
+            continue
         tw = [taps(k) for k in ks]
         ours = wrapper(x, ext, *tw, *bs)
         ref = plain(x, ext, *tw, *bs)
         torch.cuda.synchronize()
         ok = bf16_excess(ours, ref) <= 1e-4 and bf16_excess(ours, conv1) <= 1e-4
-        cases.append({
+        case = {
             "kernel": kind, "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": "bfloat16",
             "max_abs_err": float((ours.float() - ref.float()).abs().max()),
             "vs_conv_kernel_max_abs_err": float((ours.float() - conv1.float()).abs().max()),
-            "tolerance": "2**-7*|ref| + 1e-4 (plain and #1)", "ok": ok,
-            "ms": graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20),
+            "tolerance": "2**-7*|ref| + 1e-4 (plain and #1)",
             "plain_ms": graph_ms(lambda: plain(x, ext, *tw, *bs), 3),
             "library_ms": library_ms, "conv_kernel_ms": conv1_ms,
             **bound(nbytes, ops, dtype),
-        })
+        }
+        if kind == "npack":
+            case["ms"] = graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20)
+        else:
+            ok = ok and bool(torch.equal(wrapper(x, ext, *tw, *bs), ours))
+            try:  # the first design's plan, as its wrapper runs it
+                mma_plan("im2col", b, n, cin, cout, sms)
+                v1_refuses = False
+            except ValueError:
+                v1_refuses = True
+            if v1_refuses:
+                case.update(ms=graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20), v1_ms=None,
+                            v1_max_abs_err=None, runs_old_new_new_old=None)
+            else:
+                old = cs_conv3x3_im2col_v1(x, ext, *tw, *bs)
+                ok = ok and bf16_excess(old, ref) <= 1e-4
+                ms, old_ms, runs = _turns(lambda: wrapper(x, ext, *tw, *bs),
+                                          lambda: cs_conv3x3_im2col_v1(x, ext, *tw, *bs), 20)
+                case.update(ms=ms, v1_ms=old_ms, runs_old_new_new_old=runs,
+                            v1_max_abs_err=float((old.float() - ref.float()).abs().max()))
+        case["ok"] = ok
+        cases.append(case)
     for wr, count in zip(wrappers, launches):  # timing launches are not the main path's
         wr.launches = count
     return cases
+
+
+def im2col_summary(cases):
+    """#13 against the first design's kernel (timed in turns), per group of
+    shapes: a flagship model call's 10 convs at batch 1, each of
+    conv_micro's levels and the decoder's shape at batch 16, the shapes the
+    first design cannot take; ms new / v1 / cuDNN / plain / bound."""
+    from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
+
+    im = {(c["n"], c["cin"], c["cout"], c["batch"]): c for c in cases if c["kernel"] == "im2col"}
+    groups = {"model call, batch 1": [im[s + (1,)] for s in FLAGSHIP_CONVS]}
+    for key in LEVELS + [(48, 96, 32, TRAIN_BATCH)]:
+        groups["(%d, %d, %d), batch %d" % key] = [im[key]]
+    for key, c in im.items():
+        if c["v1_ms"] is None:
+            groups["(%d, %d, %d), batch %d (v1 refuses)" % key] = [c]
+    out = {}
+    for name, rows in groups.items():
+        out[name] = {k: (None if any(r[k] is None for r in rows) else sum(r[k] for r in rows))
+                     for k in ("ms", "v1_ms", "library_ms", "plain_ms", "bound_ms")}
+    return out
 
 
 def dx_ring_cases(gen):
@@ -609,30 +669,41 @@ def dx_ring_cases(gen):
 
 def lane_store_cases(gen):
     """Kernel #15 at the kernel_variants tool's shape (16, 6, 48, 48, 32), in
-    float32 and bfloat16: bitwise equal to 3·x; timed beside its plain
-    version, ``x * 3`` and the bound (x read once, the output written once)."""
-    from dlwp_cs_tpu_torch.tools.probes import lane_store, lane_store_plain
+    float32 and bfloat16: bitwise equal to 3·x, as is the kernel its
+    redesign replaced (``lane_store_v1``), with which it is timed in turns
+    (old, new, new, old); beside its plain version, ``x * 3`` and the bound
+    (x read once, the output written once).  Then bitwise 3·x, without
+    times, at C = 39 and 3 (the element path) and 24."""
+    from dlwp_cs_tpu_torch.tools.probes import lane_store, lane_store_plain, lane_store_v1
     from dlwp_cs_tpu_torch.tools.timing import bound, graph_ms
 
-    cases = []
+    cases, launches = [], (lane_store.launches, lane_store_v1.launches)
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn((16, 6, 48, 48, 32), generator=gen, device="cuda").to(dtype)
-        launches = lane_store.launches
         out = lane_store(x)
+        again = lane_store(x)
+        old = lane_store_v1(x)
         ref = lane_store_plain(x)
         torch.cuda.synchronize()
-        equal = bool(torch.equal(out, 3 * x)) and bool(torch.equal(out, ref))
+        equal = all(bool(torch.equal(t, 3 * x)) for t in (out, again, old, ref))
         nbytes, ops = 2 * x.numel() * x.element_size(), 2 * x.numel()
+        ms, old_ms, runs = _turns(lambda: lane_store(x), lambda: lane_store_v1(x), 20)
         cases.append({
             "shape": list(x.shape), "dtype": str(dtype).split(".")[-1], "equal_to_3x": equal,
             "ok": equal, "max_abs_err": float((out.float() - 3 * x.float()).abs().max()),
-            "ms": graph_ms(lambda: lane_store(x), 20),
+            "ms": ms, "v1_ms": old_ms, "runs_old_new_new_old": runs,
             "plain_ms": graph_ms(lambda: lane_store_plain(x), 5),
             "library_ms": graph_ms(lambda: x * 3, 20),
             **bound(nbytes, ops, dtype),
         })
-        lane_store.launches = launches
-    return cases
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 6, 48, 48, 39), (3, 6, 24, 24, 3), (1, 6, 7, 7, 24)):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            checks.append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                           "ok": bool(torch.equal(lane_store(x), 3 * x))})
+    lane_store.launches, lane_store_v1.launches = launches
+    return cases, checks
 
 
 def probe_cases():
@@ -702,6 +773,139 @@ def _turns(new, old, reps):
     n2 = graph_ms(new, reps)
     o2 = graph_ms(old, reps)
     return (n1 + n2) / 2, (o1 + o2) / 2, [o1, n1, n2, o2]
+
+
+# F4: a whole-face 3x3 conv whose dw plan refuses (float32, n = 128,
+# Cin = Cout = 32, with a gradient) takes the ring-fix composition
+REFUSED_SHAPE = (1, 128, 32, 32)
+
+
+def refused_shape_phase(gen):
+    """F4: ``conv3x3_route`` keeps every flagship shape of both models on
+    its kernel (U-Net: forward, dx and dw at batch 1 and 16 in both dtypes;
+    ConvLSTM: the xring kernel at its gates) and sends ``REFUSED_SHAPE`` to
+    the ring-fix composition; one float32 training step there through
+    ``cs_conv`` (forward, backward, SGD) launches no kernel at all (every
+    count set to 0 before, read after) and matches the plain path (the
+    fused conv's plain version through autograd): outputs 1e-4, gradients
+    and updated weights 1e-5 of the largest entry."""
+    from dlwp_cs_tpu_torch.ops.conv import conv3x3_route, cs_conv
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kept = [conv3x3_route(dt, b, n, cin, cout, sms, True, "auto")
+            for dt in (torch.float32, torch.bfloat16) for b in (1, TRAIN_BATCH)
+            for n, cin, cout in FLAGSHIP_CONVS + EXTRA_SHAPES]
+    kept += [conv3x3_route(dt, b, n, cin, d, sms, True, "xring")
+             for dt in (torch.float32, torch.bfloat16) for b in (1, TRAIN_BATCH)
+             for n, cin, d in CONVLSTM_GATES]
+    check(set(kept) == {"kernel"}, f"a flagship shape leaves its kernel: {kept}")
+    b, n, cin, cout = REFUSED_SHAPE
+    route = conv3x3_route(torch.float32, b, n, cin, cout, sms, True, "auto")
+    check(route == "ringfix", f"{REFUSED_SHAPE} float32 with a gradient routes to {route}")
+    x0 = torch.randn((b, 6, n, n, cin), generator=gen, device=dev)
+    weights = [torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (9 * cin) ** -0.5
+               for _ in range(2)] + [torch.randn((cout,), generator=gen, device=dev) * 0.1
+                                     for _ in range(2)]
+    kernels = all_kernels()
+    paths = {}
+    for name in ("route", "plain"):
+        x = x0.clone().requires_grad_(True)
+        params = [w.clone().requires_grad_(True) for w in weights]
+        opt = torch.optim.SGD(params, lr=0.1)
+        counts = {k: w.launches for k, w in kernels.items()}
+        for w in kernels.values():
+            w.launches = 0
+        t = time.perf_counter()
+        if name == "route":
+            out = cs_conv(x, params[0], params[1], bias_eq=params[2], bias_pole=params[3])
+        else:
+            out = cs_conv3x3_plain(x, ext_strips(x), *params)
+        out.square().mean().backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        launched = {k: w.launches for k, w in kernels.items() if w.launches}
+        for k, w in kernels.items():
+            w.launches = counts[k]
+        check(not launched, f"the {name} step at {REFUSED_SHAPE} launched {launched}")
+        paths[name] = ([out.detach(), x.grad] + [p.grad for p in params]
+                       + [p.detach() for p in params], step_ms)
+    out_err = float((paths["route"][0][0] - paths["plain"][0][0]).abs().max())
+    rel = [float((a - r).abs().max()) / float(r.abs().max())
+           for a, r in zip(paths["route"][0][1:], paths["plain"][0][1:])]
+    check(out_err <= 1e-4 and max(rel) <= 1e-5,
+          f"ring-fix step vs plain: output {out_err}, gradients and weights {rel}")
+    return {"shape": list(REFUSED_SHAPE), "dtype": "float32", "route": route,
+            "flagship_routes": len(kept), "launches": 0, "max_abs_err": out_err,
+            "grad_and_weight_rel_err": rel, "tolerance": "1e-4 abs; 1e-5 of the largest entry",
+            "step_ms": paths["route"][1], "plain_step_ms": paths["plain"][1]}
+
+
+def graph_replay_phase(gen):
+    """F5: a CUDA graph of the fused apply (#7, a wrapper of its own)
+    captured at batch 1 at the ConvLSTM's second gate shape, then an eager
+    call at batch 16 whose arrival counts need a larger buffer, then 16 MB
+    of other allocations filled with -1; two replays agree bitwise, equal
+    the plain version (one bf16 ulp of |ref| + 1e-4; float32 1e-4), and
+    every count buffer is still zero."""
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.ring_kernel import (
+        _RING_LIB,
+        _XringApplyKernel,
+        xring_fused_apply_plain,
+    )
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess
+
+    dev = torch.device("cuda")
+    n, cin, d = CONVLSTM_GATES[1]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        kernel = _XringApplyKernel("xring_fused_apply_graph", _RING_LIB)
+
+        def inputs(b):
+            x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
+            ks = [(torch.randn((3, 3, cin, d), generator=gen, device=dev)
+                   * (9 * cin) ** -0.5).to(dtype) for _ in range(2)]
+            bases = [torch.randn((b, 6, n, n, d), generator=gen, device=dev).to(dtype)
+                     for _ in range(2)]
+            return (*bases, ext_strips(x), *ks)
+
+        small, big = inputs(1), inputs(TRAIN_BATCH)
+        kernel(*small)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel(*small)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kernel(*small)
+        out16 = kernel(*big)
+        bufs = kernel._count_buffers[small[2].device]
+        junk = torch.full((1 << 22,), -1, dtype=torch.int32, device=dev)
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        ref, ref16 = xring_fused_apply_plain(*small), xring_fused_apply_plain(*big)
+        err = max(float((a.float() - r.float()).abs().max()) for a, r in ((first, ref),
+                                                                          (out16, ref16)))
+        if dtype == torch.float32:
+            close = err <= 1e-4
+        else:
+            close = max(bf16_excess(first, ref), bf16_excess(out16, ref16)) <= 1e-4
+        row = {"dtype": str(dtype).split(".")[-1], "count_buffers": [t.numel() for t in bufs],
+               "replays_bitwise_equal": bool(torch.equal(out, first)), "max_abs_err": err,
+               "counts_zero": not any(bool(t.any()) for t in bufs)}
+        row["ok"] = (close and row["replays_bitwise_equal"] and row["counts_zero"]
+                     and len(bufs) == 2)
+        check(row["ok"], f"the fused apply's graph after its counters grew: {row}")
+        rows.append(row)
+        del graph, junk
+    return rows
 
 
 def tc_cases(gen):
@@ -1755,6 +1959,17 @@ def main(argv=None) -> int:
     for name, r in ring_sum.items():
         print(f"{name}: {r['ms']:.4f} / {r['cudacore_ms']:.4f} / {r['plain_ms']:.4f} / "
               f"{r['bound_ms']:.5f}", flush=True)
+    refused = refused_shape_phase(gen)
+    print(f"F4: {refused['flagship_routes']} flagship shapes on their kernels; "
+          f"{refused['shape']} float32 with a gradient -> {refused['route']}: a step launched "
+          f"{refused['launches']} kernels, vs plain {refused['max_abs_err']:.3g} (gradients and "
+          f"weights {max(refused['grad_and_weight_rel_err']):.3g} of max); "
+          f"{refused['step_ms']:.1f} ms (plain {refused['plain_step_ms']:.1f})", flush=True)
+    replays = graph_replay_phase(gen)
+    for r in replays:
+        print(f"F5 {r['dtype']}: count buffers {r['count_buffers']}, replays bitwise "
+              f"{r['replays_bitwise_equal']}, vs plain {r['max_abs_err']:.3g}, counts zero "
+              f"{r['counts_zero']}", flush=True)
 
     # the kernel tools: their entry points (this slice's main path), then
     # each of their kernels against its plain version, timed
@@ -1768,13 +1983,25 @@ def main(argv=None) -> int:
     from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS, bound
     mma_shapes = ([s + (1,) for s in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)]
                   + LEVELS + [(48, 96, 32, TRAIN_BATCH)])
-    for n, cin, cout, b in mma_shapes:
-        for c in mma_cases(n, cin, cout, b, gen):
+    # #13 alone: Cout = 256 (past the first design's plan) and the packed
+    # layout's 128 channels (kn2row's block does not fit there)
+    im2col_only = [(48, 64, 256, 1), (48, 128, 128, 4)]
+    for n, cin, cout, b in mma_shapes + im2col_only:
+        kinds = ("im2col",) if (n, cin, cout, b) in im2col_only else ("npack", "im2col")
+        for c in mma_cases(n, cin, cout, b, gen, kinds):
             mma.append(c)
+            old = "" if c.get("v1_ms") is None else f" (v1 {c['v1_ms']:.4f})"
             print(f"{c['kernel']} {n} {cin} {cout} {b} | {c['max_abs_err']:.3g} "
-                  f"({c['vs_conv_kernel_max_abs_err']:.3g}) | {c['ms']:.4f} {c['plain_ms']:.4f} "
-                  f"{c['conv_kernel_ms']:.4f} {c['library_ms']:.4f} {c['bound_ms']:.5f}",
-                  flush=True)
+                  f"({c['vs_conv_kernel_max_abs_err']:.3g}) | {c['ms']:.4f}{old} "
+                  f"{c['plain_ms']:.4f} {c['conv_kernel_ms']:.4f} {c['library_ms']:.4f} "
+                  f"{c['bound_ms']:.5f}", flush=True)
+    im_sum = im2col_summary(mma)
+    print("#13 vs the first design's im2col kernel (timed in turns, old new new old): ms new / "
+          "v1 / cuDNN / plain / bound", flush=True)
+    for name, r in im_sum.items():
+        print(f"{name}: " + " / ".join("-" if r[k] is None else f"{r[k]:.4f}" for k in
+                                      ("ms", "v1_ms", "library_ms", "plain_ms", "bound_ms")),
+              flush=True)
     # #12 at conv_micro's levels, as the tool's run measured it
     only = [{"ms": r["kernel"], "plain_ms": r["kernel_plain_ms"],
              "library_ms": r["kernel_library_ms"], "max_abs_err": r["kernel_max_abs_err"],
@@ -1791,15 +2018,18 @@ def main(argv=None) -> int:
               f"{c['max_abs_err']:.3g} ({c['tolerance']}), equal to #4 {c['equal_to_dx_kernel']} "
               f"| {c['ms']:.4f} (#4 {c['dx_kernel_ms']:.4f}) {c['plain_ms']:.4f} "
               f"{c['library_ms']:.4f} {c['bound_ms']:.5f}", flush=True)
-    stores = lane_store_cases(gen)
+    stores, store_checks = lane_store_cases(gen)
     # #16 at the reference scripts' shapes in bfloat16, as the probe tool's
     # run measured and checked them
     probe_rows = [dict(r, **bound(r["bytes"], r["ops"], torch.bfloat16))
                   for r in tool_rows["mosaic_bisect"]]
     for c in stores + probe_rows:
+        old = f" (v1 {c['v1_ms']:.4f})" if "shape" in c else ""
         print(f"{c.get('name', 'lane_store')} {c.get('shapes', c.get('shape'))} {c['dtype']} | "
-              f"{c['max_abs_err']:.3g} | {c['ms']:.4f} {c['plain_ms']:.4f} "
+              f"{c['max_abs_err']:.3g} | {c['ms']:.4f}{old} {c['plain_ms']:.4f} "
               f"{c['library_ms']:.4f} {c['bound_ms']:.5f}", flush=True)
+    print("lane_store bitwise 3x at C, dtype: "
+          f"{[(c['shape'][-1], c['dtype'], c['ok']) for c in store_checks]}", flush=True)
     probes_turns = probe_cases()
     probe_sum = probe_summary(probes_turns)
     print("#16 probes vs their v1 kernels (timed in turns, old new new old): ms new / v1 / "
@@ -1807,7 +2037,7 @@ def main(argv=None) -> int:
     for name, r in probe_sum.items():
         print(f"{name}: {r['ms']:.4f} / {r['v1_ms']:.4f} / {r['library_ms']:.4f} / "
               f"{r['bound_ms']:.5f}", flush=True)
-    bad = [c for c in mma + ring_dx + stores + probes_turns if not c["ok"]]
+    bad = [c for c in mma + ring_dx + stores + store_checks + probes_turns if not c["ok"]]
     check(not bad, f"a kernel of the tools disagrees with its plain version: {bad}")
 
     blocks = []
@@ -2022,7 +2252,9 @@ def main(argv=None) -> int:
                    "tool_launches": tool_launches, "tools_seconds": tools_s,
                    "tool_rows": tool_rows, "mma_cases": mma,
                    "kernel_only_cases": only, "dx_ring_cases": ring_dx,
-                   "lane_store_cases": stores, "probe_cases": probe_rows,
+                   "lane_store_cases": stores, "lane_store_checks": store_checks,
+                   "im2col_summary": im_sum, "refused_shape": refused,
+                   "graph_replays": replays, "probe_cases": probe_rows,
                    "tc_cases": tc, "tc_summary": tc_sum, "ring_summary": ring_sum,
                    "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
                    "kernels": kernels},

@@ -12,7 +12,10 @@
 //     Cout slices;
 //   * tools/kernel_variants.py::_kernel_im2col (launched by call_im2col):
 //     im2col.  The 9 shifted windows of the padded face side by side in one
-//     (pixels, 9*Cin) column tile, one product with the weights (9*Cin, Cout).
+//     (pixels, 9*Cin) column tile, one product with the weights (9*Cin, Cout):
+//     cs_conv3x3_im2col_gemm_kernel (below, after the two kernels of the
+//     first design, which stay: kn2row, and the im2col kernel as a timing
+//     row, cs_conv3x3_im2col_kernel).
 // The reference's W/E ghost-column correction dots (a Mosaic workaround) and
 // its batch->lane packing (a TPU layout) are not part of the math: here the
 // W/E ghost columns are staged with the face, and the packing, where a tool
@@ -57,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cs_conv3x3_tile.cuh"
 
 namespace {
 
@@ -390,6 +395,388 @@ __global__ void __launch_bounds__(THREADS) cs_conv3x3_im2col_kernel(
   }
 }
 
+
+// ---- im2col as one GEMM per weight group (cs_conv3x3_im2col_gemm_kernel) ----
+//
+// The function of cs_conv3x3_im2col_kernel, tiled for this card.  What held
+// that kernel back: blocks of one face's 1-8 output rows, each staging all
+// nine taps' weights through L2 for a few dozen pixels; a serial chain of
+// staging, column building and nine barrier-separated tap products, no copy
+// overlapping a product; accumulators capped at 64 tiles a block (h * n *
+// Cout <= 8192: not even one row at n = 48, Cout = 256); 2-byte stores from
+// the fragments.
+//
+// Here the pixels of faces 0-3 over the batch are the M rows of one GEMM
+// with K_eq, those of faces 4-5 of one with K_pole: out_g (M_g, Cout) =
+// Col_g (M_g, 9*kp) . W_g (9*kp, Cout) + b_g, kp = Cin rounded up to 16, K
+// ordered (tap, cin) as the weights are.  A block owns a BM x BN tile
+// (BM 64 or 128 pixels, BN 32 or 64 channels; ops/conv_variants.py::
+// im2col_plan picks the configuration) and walks K in windows: tpw whole
+// taps (tpw * kp <= the window's width) or one slice of bks channels of a
+// tap.  For each window the block's BM rows of the column matrix are
+// gathered by cp.async straight from x and the ext strips (a (pixel, tap)
+// row is one contiguous Cin run of one or the other; channels past Cin and
+// rows past M_g zero-filled by the copy's source size), and the window's
+// rows of the weights (one BN slice) likewise; three stages, so that two
+// windows' copies are in flight during a window's products.  Fragments by
+// ldmatrix from rows padded by 8 elements (the 8 rows of a load hit
+// distinct banks; B by .trans from k-major rows), the next k step's loaded
+// before this one's mma.sync m16n8k16 (bf16, f32 sums).  At batch 1 the
+// tiles are few (a face group of a 24 x 24 face is 2,304 pixels) and each
+// block's walk over K is a chain of latencies, one barrier and one copy
+// wait a window: there the windows are as wide as the blocks' shared
+// memory allows (up to 256 of K, all nine taps at Cin <= 16), the tiles
+// small (64 pixels), and KG = 2 groups of warps share each window's k
+// steps (k step s to group s % KG), adding their partial sums through
+// shared memory in group order.  With many tiles (batch 16) 128-pixel
+// tiles and windows of at most 128 that keep two blocks an SM.  Epilogue: bias, one rounding, the tile staged in shared
+// memory and written with 16-byte stores.  Copies are 16 bytes where Cin's
+// (Cout's) bytes and the addresses allow, else 8 or 4 (Cin = 12: 24-byte
+// runs), else plain 2-byte loads (odd Cin).  Each output is one block's
+// sum in one fixed order: launches agree bit for bit.
+//
+// What bounds it (tools/im2col_phases.py: variants with phases compiled
+// out, and the K window widths, timed on the card; PERF.md): not the
+// bytes (the bound is a few us a conv) but a chain of latencies per
+// window: its copy wait and barrier, the ldmatrix loads and the products.
+// Fewer, wider windows are what shortened it at batch 1.
+namespace im2 {
+
+constexpr int STAGES = 3;
+constexpr int PADE = 8;  // bf16 elements after each staged row
+
+struct Geom {
+  int batch, n, cin, cout;
+  int bm, bn, threads, kg;  // tile rows, columns; threads a block; warp groups along K
+  int kp;                   // a tap's K run: Cin rounded up to 16
+  int bks, nsl, tpw;        // a window: tpw whole taps (nsl = 1, bks = kp) or a bks slice
+  int nwin;                 // windows: ceil(9 / tpw) * nsl
+  int ga, gb, go;           // copy granules (bytes) of A rows, B rows; 16-byte stores
+  int apitch, bpitch;       // staged A and B row pitches (elements)
+  int mt_eq, mt_po, nt;     // M tiles of each group, N tiles
+  int ub_log2;              // log2 of B units a row (bn * 2 / gb)
+  long long m_eq, m_po;     // M of each group
+};
+
+// The configurations the plan chooses from: (warps along M, along N, m16
+// tiles a warp, n8 tiles a warp, warp groups along K).
+template <int WM_, int WN_, int TM_, int TN_, int KG_>
+struct Cfg {
+  static constexpr int WM = WM_, WN = WN_, TM = TM_, TN = TN_, KG = KG_;
+  static constexpr int BM = WM * TM * 16, BN = WN * TN * 8;
+  static constexpr int THREADS = WM * WN * KG * 32;
+};
+typedef Cfg<2, 2, 2, 2, 2> Cfg0;  // 64 x 32, 8 warps (2 groups along K): batch 1
+typedef Cfg<2, 2, 2, 4, 2> Cfg1;  // 64 x 64, the same
+typedef Cfg<4, 2, 2, 2, 1> Cfg2;  // 128 x 32, 8 warps: many tiles
+typedef Cfg<4, 2, 2, 4, 1> Cfg3;  // 128 x 64, 8 warps
+
+inline size_t smem_bytes(const Geom& g) {
+  const int kw = g.tpw * g.bks;
+  const size_t stages = (size_t)STAGES * 2 * ((size_t)g.bm * g.apitch + (size_t)kw * g.bpitch);
+  const size_t epilogue = (size_t)(g.kg - 1) * g.bm * g.bn * 4 + (size_t)g.bm * g.bpitch * 2;
+  return stages > epilogue ? stages : epilogue;
+}
+
+inline int granule(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+}
+
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+}
+
+__device__ __forceinline__ void copy_unit(bf16* dst, const bf16* src, int g, int bytes) {
+  if (g == 16) cs3x3::cp_async16(dst, src, bytes);
+  else if (g == 8) cs3x3::cp_async8(dst, src, bytes);
+  else cs3x3::cp_async4(dst, src, bytes);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS) cs_conv3x3_im2col_gemm_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ext, const bf16* __restrict__ weq,
+    const bf16* __restrict__ wpo, const bf16* __restrict__ beq, const bf16* __restrict__ bpo,
+    bf16* __restrict__ out, Geom g) {
+  constexpr int LPR = C::THREADS / C::BM;  // threads a tile row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kw = g.tpw * g.bks;
+  bf16* stage_a = reinterpret_cast<bf16*>(smem);                   // [STAGES][BM][apitch]
+  bf16* stage_b = stage_a + (long long)STAGES * C::BM * g.apitch;  // [STAGES][kw][bpitch]
+  const int n = g.n, cin = g.cin, cout = g.cout;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the block's tile: N tiles fastest, so the blocks of one M tile run together
+  const int bid = blockIdx.x;
+  const int nti = bid % g.nt, mti = bid / g.nt;
+  const int grp = mti < g.mt_eq ? 0 : 1;
+  const long long m0 = (long long)(grp ? mti - g.mt_eq : mti) * C::BM;
+  const long long mg = grp ? g.m_po : g.m_eq;
+  const int nf = grp ? 2 : 4, f0 = grp ? 4 : 0;
+  const int n0 = nti * C::BN;
+  const bf16* __restrict__ w = grp ? wpo : weq;
+  const bf16* __restrict__ bias = grp ? bpo : beq;
+
+  // this thread's row of the tile (LPR threads a row): its pixel, once
+  const int r = tid / LPR, lr = tid % LPR;
+  const long long m = m0 + r;
+  const bool valid = m < mg;
+  int i = 0, j = 0;
+  long long face = 0;
+  if (valid) {
+    const long long per_item = (long long)nf * n * n;
+    const long long bimg = m / per_item;
+    const long long rem = m - bimg * per_item;
+    const int fl = (int)(rem / ((long long)n * n));
+    const int pix = (int)(rem - (long long)fl * n * n);
+    i = pix / n;
+    j = pix - i * n;
+    face = bimg * 6 + f0 + fl;
+  }
+  const bf16* xf = x + face * n * n * cin;
+  const bf16* ef = ext + face * 4 * (n + 2) * cin;
+
+  // window q: taps t0 .. t0 + nt_w - 1, channels c0 .. c0 + wd of each
+  auto window = [&](int q, int& t0, int& ntw, int& c0, int& wd) {
+    const int tg = q / g.nsl;
+    t0 = tg * g.tpw;
+    ntw = min(g.tpw, 9 - t0);
+    c0 = (q - tg * g.nsl) * g.bks;
+    wd = min(g.bks, g.kp - c0);
+  };
+  auto load_window = [&](int q, int st) {
+    int t0, ntw, c0, wd;
+    window(q, t0, ntw, c0, wd);
+    const int avail = 2 * max(0, min(wd, cin - c0));  // bytes of a tap's run
+    bf16* arow = stage_a + ((long long)st * C::BM + r) * g.apitch;
+    bf16* bst = stage_b + (long long)st * kw * g.bpitch;
+    for (int tt = 0; tt < ntw; ++tt) {
+      const int t = t0 + tt, dy = t / 3, dx = t - dy * 3;
+      // A: this thread's row, the (pixel, tap) cell's channels c0 .. c0 + wd
+      bf16* adst = arow + tt * wd;
+      const bf16* asrc = valid ? cell_ptr(xf, ef, n, cin, i + dy, j + dx) + c0 : x;
+      if (g.ga > 2) {
+        for (int u = lr; u < 2 * wd / g.ga; u += LPR) {
+          const int off = u * g.ga;
+          const int bytes = valid && avail > off ? g.ga : 0;
+          copy_unit(adst + off / 2, bytes ? asrc + off / 2 : x, g.ga, bytes);
+        }
+      } else {
+        for (int e = lr; e < wd; e += LPR)
+          adst[e] = valid && 2 * e < avail ? asrc[e] : __float2bfloat16_rn(0.f);
+      }
+      // B: weight rows t * Cin + c0 + kk, columns n0 .. n0 + BN
+      bf16* bdst = bst + (long long)tt * wd * g.bpitch;
+      const bf16* bsrc = w + ((long long)t * cin + c0) * cout + n0;
+      if (g.gb > 2) {
+        const int ub = 1 << g.ub_log2, eu = g.gb / 2;
+        for (int idx = tid; idx < wd * ub; idx += C::THREADS) {
+          const int kk = idx >> g.ub_log2, uu = idx & (ub - 1);
+          const int bytes = (c0 + kk < cin && n0 + uu * eu < cout) ? g.gb : 0;
+          copy_unit(bdst + kk * g.bpitch + uu * eu,
+                    bytes ? bsrc + (long long)kk * cout + uu * eu : w, g.gb, bytes);
+        }
+      } else {
+        for (int idx = tid; idx < wd * C::BN; idx += C::THREADS) {
+          const int kk = idx / C::BN, cc = idx - kk * C::BN;
+          bdst[kk * g.bpitch + cc] = (c0 + kk < cin && n0 + cc < cout)
+                                         ? bsrc[(long long)kk * cout + cc]
+                                         : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+  };
+
+  float acc[C::TM][C::TN][4];
+#pragma unroll
+  for (int a = 0; a < C::TM; ++a)
+#pragma unroll
+    for (int b = 0; b < C::TN; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+  const int kgi = warp / (C::WM * C::WN), wt = warp % (C::WM * C::WN);
+  const int wm0 = (wt % C::WM) * C::TM * 16, wn0 = (wt / C::WM) * C::TN * 8;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < g.nwin) load_window(s, s);
+    cs3x3::cp_async_commit();
+  }
+  for (int q = 0; q < g.nwin; ++q) {
+    cp_async_wait_stages();
+    __syncthreads();  // window q has landed; window q - 1's stage is free
+    if (q + STAGES - 1 < g.nwin) load_window(q + STAGES - 1, (q + STAGES - 1) % STAGES);
+    cs3x3::cp_async_commit();
+    int t0, ntw, c0, wd;
+    window(q, t0, ntw, c0, wd);
+    const int st = q % STAGES, nks = ntw * wd / 16;
+    const bf16* as = stage_a + (long long)st * C::BM * g.apitch + (wm0 + (lane & 15)) * g.apitch +
+                     (lane >> 4) * 8;
+    const bf16* bs = stage_b + (long long)st * kw * g.bpitch +
+                     ((lane & 7) + ((lane >> 3) & 1) * 8) * g.bpitch + wn0 + (lane >> 4) * 8;
+    // this warp group's k steps kgi, kgi + KG, ...: the next one's fragments
+    // are loaded before this one's products (two register sets, named)
+    uint32_t af0[C::TM][4], bf0[C::TN][2], af1[C::TM][4], bf1[C::TN][2];
+    auto frags = [&](int s, uint32_t (&af)[C::TM][4], uint32_t (&bf)[C::TN][2]) {
+#pragma unroll
+      for (int a = 0; a < C::TM; ++a) cs3x3::ldsm_x4(af[a], as + a * 16 * g.apitch + s * 16);
+#pragma unroll
+      for (int b = 0; b < C::TN; b += 2) {
+        uint32_t t4[4];
+        cs3x3::ldsm_x4_t(t4, bs + s * 16 * g.bpitch + b * 8);
+        bf[b][0] = t4[0];
+        bf[b][1] = t4[1];
+        bf[b + 1][0] = t4[2];
+        bf[b + 1][1] = t4[3];
+      }
+    };
+    auto mmas = [&](const uint32_t (&af)[C::TM][4], const uint32_t (&bf)[C::TN][2]) {
+#pragma unroll
+      for (int a = 0; a < C::TM; ++a)
+#pragma unroll
+        for (int b = 0; b < C::TN; ++b) cs3x3::mma_bf16(acc[a][b], af[a], bf[b][0], bf[b][1]);
+    };
+    if (kgi < nks) frags(kgi, af0, bf0);
+    for (int s = kgi; s < nks; s += 2 * C::KG) {
+      if (s + C::KG < nks) frags(s + C::KG, af1, bf1);
+      mmas(af0, bf0);
+      if (s + C::KG >= nks) break;
+      if (s + 2 * C::KG < nks) frags(s + 2 * C::KG, af0, bf0);
+      mmas(af1, bf1);
+    }
+  }
+  cs3x3::cp_async_wait_all();
+  __syncthreads();  // every product done: the stages hold the epilogue now
+
+  // the warp groups' partial sums, added in group order by group 0
+  float* red = reinterpret_cast<float*>(smem);  // [KG - 1][BM][BN]
+  bf16* ot = reinterpret_cast<bf16*>(red + (long long)(C::KG - 1) * C::BM * C::BN);
+  const int gid = lane >> 2, tig = lane & 3;
+  if (C::KG > 1) {
+    if (kgi > 0) {
+      float* rp = red + (long long)(kgi - 1) * C::BM * C::BN;
+#pragma unroll
+      for (int a = 0; a < C::TM; ++a)
+#pragma unroll
+        for (int b = 0; b < C::TN; ++b)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(rp + (wm0 + a * 16 + gid + hh * 8) * C::BN + wn0 +
+                                       b * 8 + tig * 2) =
+                make_float2(acc[a][b][2 * hh], acc[a][b][2 * hh + 1]);
+    }
+    __syncthreads();
+  }
+  if (kgi == 0) {
+    // bias and one rounding into the tile [BM][bpitch], two bf16 a 32-bit store
+#pragma unroll
+    for (int b = 0; b < C::TN; ++b) {
+      const int cc = wn0 + b * 8 + tig * 2;
+      const float b0 = n0 + cc < cout ? __bfloat162float(bias[n0 + cc]) : 0.f;
+      const float b1 = n0 + cc + 1 < cout ? __bfloat162float(bias[n0 + cc + 1]) : 0.f;
+#pragma unroll
+      for (int a = 0; a < C::TM; ++a)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rr = wm0 + a * 16 + gid + hh * 8;
+          float v0 = acc[a][b][2 * hh], v1 = acc[a][b][2 * hh + 1];
+#pragma unroll
+          for (int k = 0; k < C::KG - 1; ++k) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                red + ((long long)k * C::BM + rr) * C::BN + cc);
+            v0 += p.x;
+            v1 += p.y;
+          }
+          __nv_bfloat162 v;
+          v.x = __float2bfloat16_rn(v0 + b0);
+          v.y = __float2bfloat16_rn(v1 + b1);
+          *reinterpret_cast<__nv_bfloat162*>(ot + rr * g.bpitch + cc) = v;
+        }
+    }
+  }
+  __syncthreads();
+  if (!valid) return;
+  const int ncols = min(C::BN, cout - n0);
+  bf16* orow = out + ((face * n + i) * (long long)n + j) * cout + n0;
+  const bf16* trow = ot + r * g.bpitch;
+  if (g.go) {
+    for (int u = lr; u < ncols / 8; u += LPR)
+      *reinterpret_cast<uint4*>(orow + u * 8) = *reinterpret_cast<const uint4*>(trow + u * 8);
+  } else {
+    for (int e = lr; e < ncols; e += LPR) orow[e] = trow[e];
+  }
+}
+
+// Fills g for configuration cfg (Cfg0..Cfg3), window slices bks and taps
+// tpw; false on what the kernel cannot take.
+inline bool make_geom(Geom& g, int batch, int n, int cin, int cout, int cfg, int bks, int tpw,
+                      int ga, int gb, int go) {
+  static const int bms[4] = {Cfg0::BM, Cfg1::BM, Cfg2::BM, Cfg3::BM};
+  static const int bns[4] = {Cfg0::BN, Cfg1::BN, Cfg2::BN, Cfg3::BN};
+  static const int ths[4] = {Cfg0::THREADS, Cfg1::THREADS, Cfg2::THREADS, Cfg3::THREADS};
+  static const int kgs[4] = {Cfg0::KG, Cfg1::KG, Cfg2::KG, Cfg3::KG};
+  if (cfg < 0 || cfg > 3 || batch < 1 || n < 1 || cin < 1 || cout < 1) return false;
+  g.batch = batch;
+  g.n = n;
+  g.cin = cin;
+  g.cout = cout;
+  g.bm = bms[cfg];
+  g.bn = bns[cfg];
+  g.threads = ths[cfg];
+  g.kg = kgs[cfg];
+  g.kp = (cin + 15) / 16 * 16;
+  // whole taps (bks = kp) or slices of one tap, 16-channel multiples
+  if (bks < 16 || bks % 16 || bks > g.kp || tpw < 1 || tpw > 9 || (tpw > 1 && bks != g.kp))
+    return false;
+  g.bks = bks;
+  g.tpw = tpw;
+  g.nsl = (g.kp + bks - 1) / bks;
+  g.nwin = (9 + tpw - 1) / tpw * g.nsl;
+  // a granule of 2 (plain loads) always works; a larger one must divide
+  // the row's bytes (the caller checks the addresses)
+  if ((ga != 2 && ga != 4 && ga != 8 && ga != 16) || (gb != 2 && gb != 4 && gb != 8 && gb != 16))
+    return false;
+  if (ga > granule(2 * cin) || gb > granule(2 * cout)) return false;
+  if (go && cout % 8) return false;
+  g.ga = ga;
+  g.gb = gb;
+  g.go = go;
+  g.apitch = tpw * bks + PADE;
+  g.bpitch = g.bn + PADE;
+  g.m_eq = (long long)batch * 4 * n * n;
+  g.m_po = (long long)batch * 2 * n * n;
+  g.mt_eq = (int)((g.m_eq + g.bm - 1) / g.bm);
+  g.mt_po = (int)((g.m_po + g.bm - 1) / g.bm);
+  g.nt = (cout + g.bn - 1) / g.bn;
+  const int ub = gb > 2 ? 2 * g.bn / gb : 1;
+  g.ub_log2 = 0;
+  while ((1 << g.ub_log2) < ub) ++g.ub_log2;
+  return (long long)(g.mt_eq + g.mt_po) * g.nt < (1LL << 31);
+}
+
+template <class C>
+int launch_gemm(int device, const void* x, const void* ext, const void* weq, const void* wpo,
+                const void* beq, const void* bpo, void* out, const Geom& g, size_t smem,
+                void* stream) {
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(cs_conv3x3_im2col_gemm_kernel<C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = (unsigned)((long long)(g.mt_eq + g.mt_po) * g.nt);
+  cs_conv3x3_im2col_gemm_kernel<C><<<blocks, C::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ext), static_cast<const bf16*>(weq),
+      static_cast<const bf16*>(wpo), static_cast<const bf16*>(beq),
+      static_cast<const bf16*>(bpo), static_cast<bf16*>(out), g);
+  return cudaGetLastError();
+}
+
+}  // namespace im2
+
 // Fills g and the shared memory a block needs; false on sizes the kernels
 // cannot take.
 bool make_geom(MmaGeom& g, int n, int cin, int cout, int h, int vec, int wvec, bool im2col,
@@ -477,6 +864,38 @@ int cs_conv3x3_im2col_launch(int dtype, int device, const void* x, const void* e
     return cudaErrorInvalidValue;
   return launch(cs_conv3x3_im2col_kernel, device, x, ext, weq, wpo, beq, bpo, out, batch, g,
                 smem, stream);
+}
+
+// #13: im2col as one GEMM per weight group (cs_conv3x3_im2col_gemm_kernel),
+// weights (9*Cin, Cout) per group.  cfg: the tile configuration (0: 64 x 32
+// pixels x channels, 8 warps in 2 groups along K; 1: 64 x 64, the same; 2:
+// 128 x 32, 8 warps; 3: 128 x 64, 8 warps); a K window is tpw whole taps
+// (bks = Cin rounded up to 16) or one bks-wide slice of a tap (tpw = 1);
+// ga / gb: the copy granule in bytes of the column gather (x and ext) and
+// of the weight rows (16, 8, 4: the largest dividing Cin's / Cout's bytes
+// and the addresses; 2: plain loads); go: 16-byte output stores (Cout % 8
+// == 0).  smem must equal the bytes the kernel computes
+// (ops/conv_variants.py::im2col_plan).
+int cs_conv3x3_im2col_gemm_launch(int dtype, int device, const void* x, const void* ext,
+                                  const void* weq, const void* wpo, const void* beq,
+                                  const void* bpo, void* out, int batch, int n, int cin,
+                                  int cout, int cfg, int bks, int tpw, int ga, int gb, int go,
+                                  int smem, void* stream) {
+  im2::Geom g;
+  if (dtype != 1 || device < 0 ||
+      !im2::make_geom(g, batch, n, cin, cout, cfg, bks, tpw, ga, gb, go))
+    return cudaErrorInvalidValue;
+  const size_t bytes = im2::smem_bytes(g);
+  if ((size_t)smem != bytes) return cudaErrorInvalidValue;
+#define CS_IM2COL_GEMM(C) \
+  im2::launch_gemm<C>(device, x, ext, weq, wpo, beq, bpo, out, g, bytes, stream)
+  switch (cfg) {
+    case 0: return CS_IM2COL_GEMM(im2::Cfg0);
+    case 1: return CS_IM2COL_GEMM(im2::Cfg1);
+    case 2: return CS_IM2COL_GEMM(im2::Cfg2);
+    default: return CS_IM2COL_GEMM(im2::Cfg3);
+  }
+#undef CS_IM2COL_GEMM
 }
 
 const char* cs_conv3x3_mma_error_string(int err) {

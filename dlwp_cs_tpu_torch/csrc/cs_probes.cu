@@ -5,8 +5,8 @@
 //
 // Replaces the TPU kernels
 //   * tools/kernel_variants.py::_store_kernel (launched by lane_store):
-//     cs_lane_store_kernel.  x stored into 3 channel-offset slices of a
-//     scratch (n, 3C) row in shared memory and summed back: 3 x;
+//     cs_lane_store_tiles_kernel.  x stored into 3 channel-offset slices of
+//     a scratch (pixels, 3C) row in shared memory and summed back: 3 x;
 //   * tools/mosaic_bisect.py kA (padded-face assembly, ghost rows then ghost
 //     columns, output xpad[1:N+1, 2:N+2]) and tools/mosaic_bisect2.py mk (the
 //     same scratch with only the ghost rows, or only the W column, written;
@@ -26,6 +26,18 @@
 // most 0.6 GFLOP, so one launch's latency, and the serial path of its
 // slowest block, bound them.  The designs, each for what its probe
 // computes:
+//   * lane store: bytes bound it (x read once, 3 x written once).  Tiles
+//     of several face rows' pixels (up to 1,024 16-byte items a tile), a
+//     grid of a few blocks an SM looping over the tiles; each thread holds
+//     four 16-byte loads in flight, stores each into the three slices of
+//     its pixel's scratch row at channel offsets 0, C, 2C with 16-byte
+//     shared stores (where C's bytes are a multiple of 16; else the same
+//     kernel moves one element at a time), reads the three back, sums
+//     (s0 + s1) + s2 in f32, rounds once and stores 16 bytes.  The shared
+//     accesses are volatile, so the round trip through the scratch is kept
+//     (each thread reads back what it wrote: no barrier).  A thread's
+//     (pixel, item) pairs advance by a constant step, no division per
+//     element.  Bitwise 3 x in both types (x + x is exact);
 //   * assembly: the output window xpad[1:N+1, 2:N+2] holds no ghost row, so
 //     out[:, :N-1] = x[:, 1:] and out[:, N-1] is the E ghost column (or
 //     zero): a direct gather, one block a row, 16-byte accesses; exact;
@@ -44,7 +56,9 @@
 //     are bitwise equal;
 //   * bias: one thread per output, as before (already faster than torch's
 //     add).
-// The kernels they replaced (cs_probe_assemble_kernel, 13 blocks and four
+// The kernels they replaced (cs_lane_store_kernel, one block of 256
+// threads a face row, 2- or 4-byte accesses, a division and a modulo per
+// element and a barrier in every tiny block; cs_probe_assemble_kernel, 13 blocks and four
 // passes with a barrier each; cs_probe_select_kernel; cs_probe_dot_kernel,
 // cs_probe_shifted_kernel and cs_probe_dw_kernel, one thread per output
 // with a serial f32 chain) stay as timing rows (tools/probes.py's *_v1
@@ -58,6 +72,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "cs_tap_gemm.cuh"
 
@@ -97,6 +112,120 @@ __global__ void __launch_bounds__(THREADS) cs_lane_store_kernel(const T* __restr
     const int j = e / c, ch = e % c;
     const T* sj = s + j * 3 * c;
     orow[e] = from_f32<T>(to_f32(sj[ch]) + to_f32(sj[c + ch]) + to_f32(sj[2 * c + ch]));
+  }
+}
+
+// ---- the lane store on tiles of pixels --------------------------------------
+// items a thread moves per tile: 16-byte items (VEC), else single elements
+constexpr int LS_VEC_ITEMS = 4, LS_ELEM_ITEMS = 8;
+
+__device__ __forceinline__ uint32_t sm_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// volatile shared accesses: the scratch round trip is not forwarded away
+__device__ __forceinline__ void sts(void* p, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(sm_addr(p)), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+__device__ __forceinline__ void sts(void* p, float v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sm_addr(p)), "r"(__float_as_uint(v)) : "memory");
+}
+__device__ __forceinline__ void sts(void* p, __nv_bfloat16 v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(sm_addr(p)), "h"(__bfloat16_as_ushort(v))
+               : "memory");
+}
+__device__ __forceinline__ void lds(uint4& v, const void* p) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(sm_addr(p)) : "memory");
+}
+__device__ __forceinline__ void lds(float& v, const void* p) {
+  uint32_t u;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(u) : "r"(sm_addr(p)) : "memory");
+  v = __uint_as_float(u);
+}
+__device__ __forceinline__ void lds(__nv_bfloat16& v, const void* p) {
+  unsigned short u;
+  asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(u) : "r"(sm_addr(p)) : "memory");
+  v = __ushort_as_bfloat16(u);
+}
+
+// (a + b) + c in f32, rounded once to T, per element of an item
+template <typename T>
+__device__ __forceinline__ T sum3(T a, T b, T c) {
+  return from_f32<T>((to_f32(a) + to_f32(b)) + to_f32(c));
+}
+template <typename T>
+__device__ __forceinline__ uint4 sum3(uint4 a, uint4 b, uint4 c) {
+  uint4 r;
+  const T* pa = reinterpret_cast<const T*>(&a);
+  const T* pb = reinterpret_cast<const T*>(&b);
+  const T* pc = reinterpret_cast<const T*>(&c);
+  T* pr = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int e = 0; e < 16 / (int)sizeof(T); ++e) pr[e] = sum3<T>(pa[e], pb[e], pc[e]);
+  return r;
+}
+
+// x, out (npix, C), viewed as npix * u items (16-byte items where VEC,
+// else elements; u items a pixel).  Tile t holds pixels t*p .. t*p+p-1;
+// the block stores each of its pixels' items into the slices [0:C],
+// [C:2C], [2C:3C] of the pixel's scratch row s[q][3u], reads them back and
+// writes their sum.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS) cs_lane_store_tiles_kernel(
+    const T* __restrict__ x, T* __restrict__ out, long long npix, int u, int p, long long ntiles) {
+  typedef typename std::conditional<VEC, uint4, T>::type Item;
+  constexpr int J = VEC ? LS_VEC_ITEMS : LS_ELEM_ITEMS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Item* s = reinterpret_cast<Item*>(smem);  // [p][3u]
+  const Item* __restrict__ xi = reinterpret_cast<const Item*>(x);
+  Item* __restrict__ oi = reinterpret_cast<Item*>(out);
+  // this thread's items of a tile, tid + j * THREADS, as (pixel q, item v):
+  // one division here, then a constant step
+  int q[J], v[J];
+  {
+    const int dq = THREADS / u, dv = THREADS % u;
+    int qq = threadIdx.x / u, vv = threadIdx.x % u;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      q[j] = qq;
+      v[j] = vv;
+      qq += dq;
+      vv += dv;
+      if (vv >= u) {
+        vv -= u;
+        ++qq;
+      }
+    }
+  }
+  const long long items = npix * u;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long base = t * p * (long long)u;
+    Item r[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j)  // every load in flight before any store
+      if (q[j] < p && base + threadIdx.x + j * THREADS < items)
+        r[j] = xi[base + threadIdx.x + j * THREADS];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (q[j] < p && base + threadIdx.x + j * THREADS < items) {
+        Item* row = s + (long long)q[j] * 3 * u + v[j];
+        sts(row, r[j]);
+        sts(row + u, r[j]);
+        sts(row + 2 * u, r[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (q[j] < p && base + threadIdx.x + j * THREADS < items) {
+        const Item* row = s + (long long)q[j] * 3 * u + v[j];
+        Item a, b, c;
+        lds(a, row);
+        lds(b, row + u);
+        lds(c, row + 2 * u);
+        oi[base + threadIdx.x + j * THREADS] = sum3<T>(a, b, c);
+      }
+    }
   }
 }
 
@@ -565,6 +694,40 @@ int cs_lane_store_launch(int dtype, const void* x, void* out, int rows, int n, i
   } else {
     return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// x, out (npix, c); vec: 16-byte items (c's bytes a multiple of 16, x and
+// out 16-byte aligned), else elements; p pixels a tile (p * items a pixel
+// <= the items a block moves per tile); grid blocks looping over the tiles.
+int cs_lane_store_tiles_launch(int dtype, const void* x, void* out, long long npix, int c,
+                               int vec, int p, int grid, void* stream) {
+  const int esize = dtype == 0 ? 4 : 2;
+  if ((dtype != 0 && dtype != 1) || npix < 1 || c < 1 || p < 1 || grid < 1 ||
+      (vec && (c * esize) % 16))
+    return cudaErrorInvalidValue;
+  const int u = vec ? c * esize / 16 : c;
+  const int isize = vec ? 16 : esize;
+  if ((long long)p * u > (long long)(vec ? LS_VEC_ITEMS : LS_ELEM_ITEMS) * THREADS)
+    return cudaErrorInvalidValue;
+  const long long ntiles = (npix + p - 1) / p;
+  const size_t smem = (size_t)isize * 3 * p * u;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define CS_LANE_STORE(T, V)                                                              \
+  if ((err = allow_smem(cs_lane_store_tiles_kernel<T, V>, smem)) != cudaSuccess) return err; \
+  cs_lane_store_tiles_kernel<T, V><<<grid, THREADS, smem, s>>>(                          \
+      static_cast<const T*>(x), static_cast<T*>(out), npix, u, p, ntiles)
+  if (dtype == 0 && vec) {
+    CS_LANE_STORE(float, true);
+  } else if (dtype == 0) {
+    CS_LANE_STORE(float, false);
+  } else if (vec) {
+    CS_LANE_STORE(__nv_bfloat16, true);
+  } else {
+    CS_LANE_STORE(__nv_bfloat16, false);
+  }
+#undef CS_LANE_STORE
   return cudaGetLastError();
 }
 

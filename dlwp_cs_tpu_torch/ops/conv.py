@@ -24,6 +24,14 @@ Backends:
 * ``'xla'``: the reference-style path, ``cs_pad`` then one VALID conv per
   weight group (the name the configurations use).
 
+Under ``'auto'`` and ``'xring'``, a CUDA tensor whose shape a kernel's
+plan refuses (:func:`conv3x3_route`: the forward plan, the dx and dw plans
+when a gradient will be taken, the ring plan under ``'xring'``) takes
+:func:`~dlwp_cs_tpu_torch.ops.ringfix.cs_conv3x3_ringfix`, the reference's
+last resort, as the reference does past its kernels' gates.  The choice is
+made from the plans before anything launches; a launch that fails still
+raises.  CPU tensors keep their path: the plain versions fit every shape.
+
 Under every backend but ``'xla'``, other kernel sizes (the 1x1 head) take
 the generic path with the dual-base face select.  ``'int8'`` is not ported.
 
@@ -42,15 +50,21 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
-from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_fused
+from dlwp_cs_tpu_torch.ops.hopper_conv import (
+    cs_conv3x3_fused,
+    dw_launch_args,
+    dx_plan_args,
+    fwd_plan_args,
+)
 from dlwp_cs_tpu_torch.ops import padding as _padding
 from dlwp_cs_tpu_torch.ops.padding import cs_pad, use_pad_impl
-from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring
+from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring, ring_plan
 from dlwp_cs_tpu_torch.ops.ringfix import (
     _same_conv,
     add_group_bias,
@@ -58,7 +72,13 @@ from dlwp_cs_tpu_torch.ops.ringfix import (
     face_select,
 )
 
-__all__ = ["cs_conv", "conv_halo_width", "shard_local_region", "use_conv3x3_impl"]
+__all__ = [
+    "conv3x3_route",
+    "conv_halo_width",
+    "cs_conv",
+    "shard_local_region",
+    "use_conv3x3_impl",
+]
 
 _KERNEL_BACKENDS = ("auto", "pallas", "pallas_interpret")
 _XRING_BACKENDS = ("xring", "xring_interpret")
@@ -103,6 +123,52 @@ def conv_halo_width(kernel_size: tuple[int, int], dilation: int = 1) -> int:
     if kh % 2 == 0 or kw % 2 == 0:
         raise ValueError(f"cubed-sphere conv requires odd kernels, got {kernel_size}")
     return max((kh - 1) // 2, (kw - 1) // 2) * dilation
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_route(dtype, b: int, n: int, cin: int, cout: int, sm_count: int, grad: bool,
+                  backend: str) -> str:
+    """``"kernel"`` where the hand-written kernels of ``backend`` plan a
+    whole-face 3x3 conv of ``(b, 6, n, n, cin) -> cout`` in ``dtype`` on a
+    card of ``sm_count`` SMs, else ``"ringfix"``.  Runs the plan functions
+    that the wrappers run: under ``'xring'`` the fused ring kernel's
+    (:func:`~dlwp_cs_tpu_torch.ops.ring_kernel.ring_plan`; its backward is
+    torch), else the forward kernel's and, with ``grad``, the dx and dw
+    kernels'.  Only those plans' ``ValueError`` is caught; nothing is
+    launched."""
+    try:
+        if backend in _XRING_BACKENDS:
+            ring_plan(dtype, b, n, cin, cout, sm_count)
+        else:
+            fwd_plan_args(dtype, b, n, n, cin, cout, sm_count)
+            if grad:
+                dx_plan_args(dtype, b, n, cin, cout, sm_count)
+                dw_launch_args(dtype, b, n, cin, cout, sm_count)
+    except ValueError:
+        return "ringfix"
+    return "kernel"
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _sm_count(x):
+    """The SM count of ``x``'s card; None for a CPU tensor, whose wrappers
+    run the plain versions (they fit every shape)."""
+    return _device_sm_count(x.device) if x.is_cuda else None
+
+
+def _route(x, kernel_eq, kernel_pole, backend: str) -> str:
+    """:func:`conv3x3_route` of this call (``"kernel"`` on the CPU)."""
+    sm_count = _sm_count(x)
+    if sm_count is None:
+        return "kernel"
+    b, _, n, _, cin = x.shape
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or kernel_eq.requires_grad or kernel_pole.requires_grad)
+    return conv3x3_route(x.dtype, b, n, cin, kernel_eq.shape[-1], sm_count, grad, backend)
 
 
 def _group_conv(xp, kernel, stride, dilation):
@@ -160,6 +226,9 @@ def cs_conv(
     if impl is not None and is_3x3s1:
         return impl(x, kernel_eq, kernel_pole, bias_eq, bias_pole)
     whole_faces = not _pad_impl_installed()
+    if (is_3x3s1 and whole_faces and backend in _KERNEL_BACKENDS + _XRING_BACKENDS
+            and _route(x, kernel_eq, kernel_pole, backend) == "ringfix"):
+        backend = "ringfix"  # past a kernel's plan: the reference's last resort
     if is_3x3s1 and whole_faces and backend in _KERNEL_BACKENDS + _XRING_BACKENDS:
         kernels = (kernel_eq.to(x.dtype).contiguous(), kernel_pole.to(x.dtype).contiguous())
         biases = tuple(

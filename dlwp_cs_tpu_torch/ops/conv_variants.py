@@ -10,7 +10,11 @@ kernels that the reference's kernel tools time beside its production conv.
 * :data:`cs_conv3x3_im2col`: im2col on the tensor cores (the same source),
   replacing ``tools/kernel_variants.py::_kernel_im2col`` without its
   batch->lane packing.  Weights ``(9*Cin, Cout)`` as :func:`im2col_taps`
-  makes them; one product of the ``(pixels, 9*Cin)`` column tile with them.
+  makes them; one product of the ``(pixels, 9*Cin)`` column matrix with
+  them per weight group, in tiles of pixels x channels
+  (:func:`im2col_plan`), the column chunks gathered straight from ``x`` and
+  the ghost strips.  :data:`cs_conv3x3_im2col_v1`, the kernel of the first
+  design (one face's rows a block, :func:`mma_plan`), is a timing row.
 * :data:`cs_conv3x3_kernel_only`: the conv kernel of ``csrc/cs_conv3x3.cu``
   (#1) launched on ghost strips the caller computed, counted apart;
   replaces ``tools/conv_micro.py::_kernel_only``.
@@ -43,6 +47,8 @@ float dtype and sums in ``torch.promote_types(dtype, float32)``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -79,6 +85,7 @@ from dlwp_cs_tpu_torch.ops.ring_kernel import (
 )
 
 __all__ = [
+    "Im2colPlan",
     "cs_conv3x3_cudacore",
     "cs_conv3x3_dw_cudacore",
     "cs_conv3x3_dx_cudacore",
@@ -86,9 +93,13 @@ __all__ = [
     "cs_conv3x3_dx_ring_plain",
     "cs_conv3x3_im2col",
     "cs_conv3x3_im2col_plain",
+    "cs_conv3x3_im2col_v1",
     "cs_conv3x3_kernel_only",
     "cs_conv3x3_npack",
     "cs_conv3x3_npack_plain",
+    "im2col_blocks",
+    "im2col_launch",
+    "im2col_plan",
     "im2col_taps",
     "mma_plan",
     "npack_taps",
@@ -102,6 +113,12 @@ _RING_TILE = 8
 # accumulator tiles per block, and the shared memory a block may opt in to
 # on an H100 (232,448 bytes)
 _PAD, _IM_TILES, _SMEM_LIMIT = 8, 64, 232448
+# its im2col GEMM kernel (csrc/cs_conv3x3_mma.cu, namespace im2): the tile
+# configurations (pixels, channels, threads, warp groups along K) by index,
+# the K window widths to choose from, the copy stages and an SM's shared
+# memory (228 KB, less 1 KB a block)
+_IM2_CFGS = ((64, 32, 256, 2), (64, 64, 256, 2), (128, 32, 256, 1), (128, 64, 256, 1))
+_IM2_KWS, _IM2_STAGES, _SMEM_PER_SM = (256, 128, 64), 3, 233472
 
 
 def npack_taps(k):
@@ -216,9 +233,111 @@ def mma_plan(kind: str, b: int, n: int, cin: int, cout: int, sm_count: int) -> i
     return h
 
 
+class Im2colPlan(NamedTuple):
+    """The im2col GEMM kernel's launch: configuration ``cfg`` (a ``bm`` x
+    ``bn`` tile of pixels x output channels, ``threads`` a block in ``kg``
+    warp groups along K), K windows of ``tpw`` whole taps or of one
+    ``bks``-wide slice of a tap (``nsl`` slices a tap; ``nwin`` windows),
+    ``mt`` M tiles of each weight group (faces 0-3, faces 4-5, over the
+    batch), ``nt`` N tiles, ``smem`` bytes; the grid is ``(mt[0] + mt[1])
+    * nt`` blocks, N tiles fastest."""
+
+    cfg: int
+    bm: int
+    bn: int
+    threads: int
+    kg: int
+    bks: int
+    tpw: int
+    nsl: int
+    nwin: int
+    mt: tuple
+    nt: int
+    smem: int
+
+    @property
+    def blocks(self):
+        return sum(self.mt) * self.nt
+
+
+def _granule(nbytes: int) -> int:
+    """The widest copy (16, 8 or 4 bytes; 2: plain loads) dividing ``nbytes``."""
+    return next(g for g in (16, 8, 4, 2) if nbytes % g == 0)
+
+
+def im2col_launch(b: int, n: int, cin: int, cout: int, cfg: int, kw: int) -> Im2colPlan:
+    """The im2col GEMM kernel's launch in configuration ``cfg`` with K
+    windows at most ``kw`` wide: as many whole taps as that holds, else
+    equal 16-channel slices of one tap; its shared memory as the kernel
+    counts it (the stages, or the epilogue's partial sums and tile)."""
+    bm, bn, threads, kg = _IM2_CFGS[cfg]
+    kp = -(-cin // 16) * 16
+    if kp <= kw:
+        bks, tpw = kp, min(9, kw // kp)
+    else:
+        bks, tpw = -(-kp // -(-kp // kw) // 16) * 16, 1
+    nsl = -(-kp // bks)
+    mt = tuple(-(-(b * nf * n * n) // bm) for nf in (4, 2))
+    stages = _IM2_STAGES * 2 * (bm * (tpw * bks + _PAD) + tpw * bks * (bn + _PAD))
+    smem = max(stages, (kg - 1) * bm * bn * 4 + bm * (bn + _PAD) * 2)
+    return Im2colPlan(cfg, bm, bn, threads, kg, bks, tpw, nsl, -(-9 // tpw) * nsl, mt,
+                      -(-cout // bn), smem)
+
+
+def im2col_plan(b: int, n: int, cin: int, cout: int, sm_count: int) -> Im2colPlan:
+    """The launch of the im2col GEMM kernel.  Of the configurations whose N
+    tiles pad Cout least: where the 128-pixel tiles (one warp group) fill a
+    wave of ``sm_count`` blocks, the largest of them, with the widest K
+    window (at most 128) that keeps two blocks an SM; else (batch 1) the
+    64-pixel tile with the most blocks, its k steps shared by two warp
+    groups, with the widest K window (up to 256) whose shared memory still
+    lets every block be resident at once: each window costs a copy wait
+    and a barrier, and at batch 1 that chain is the kernel's time
+    (``tools/im2col_phases.py``)."""
+    if b < 1 or n < 1 or cin < 1 or cout < 1:
+        raise ValueError(f"cs_conv3x3_im2col: b={b}, n={n}, Cin={cin}, Cout={cout}")
+
+    def widest(cfg, kws, resident):
+        fits = [p for p in (im2col_launch(b, n, cin, cout, cfg, kw) for kw in kws)
+                if p.smem <= min(_SMEM_LIMIT, _SMEM_PER_SM // resident - 1024)]
+        return fits[0] if fits else im2col_launch(b, n, cin, cout, cfg, kws[-1])
+
+    tiles = [im2col_launch(b, n, cin, cout, cfg, _IM2_KWS[-1]) for cfg in range(len(_IM2_CFGS))]
+    least = min(p.nt * p.bn for p in tiles)
+    pool = [p for p in tiles if p.nt * p.bn == least]
+    many = [p for p in pool if p.kg == 1 and p.blocks >= sm_count]
+    if many:
+        best = max(many, key=lambda p: p.bm * p.bn)
+        return widest(best.cfg, (128, 64), 2)
+    best = max((p for p in pool if p.kg > 1), key=lambda p: p.blocks)
+    return widest(best.cfg, _IM2_KWS, -(-best.blocks // sm_count))
+
+
+def im2col_blocks(plan: Im2colPlan, b: int, n: int, cout: int):
+    """What each block of the launch writes, in launch order: ``(group,
+    pixels, (c0, c1))``, the flat output pixels ``(item * 6 + face) * n * n
+    + i * n + j`` of its M tile and its channels ``c0 .. c1 - 1``, as
+    ``csrc/cs_conv3x3_mma.cu::cs_conv3x3_im2col_gemm_kernel`` decodes its
+    block and rows."""
+    out = []
+    for bid in range(plan.blocks):
+        nti, mti = bid % plan.nt, bid // plan.nt
+        grp = 0 if mti < plan.mt[0] else 1
+        nf, f0 = (2, 4) if grp else (4, 0)
+        m0 = (mti - plan.mt[0] if grp else mti) * plan.bm
+        pixels = []
+        for m in range(m0, min(m0 + plan.bm, b * nf * n * n)):
+            item, rem = divmod(m, nf * n * n)
+            fl, pix = divmod(rem, n * n)
+            pixels.append((item * 6 + f0 + fl) * n * n + pix)
+        out.append((grp, pixels, (nti * plan.bn, min((nti + 1) * plan.bn, cout))))
+    return out
+
+
 _MMA_LIB = CudaLibrary("cs_conv3x3_mma.cu", {
     "cs_conv3x3_npack_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
     "cs_conv3x3_im2col_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
+    "cs_conv3x3_im2col_gemm_launch": [I32, I32] + [VP] * 7 + [I32] * 11 + [VP],
 }, "cs_conv3x3_mma_error_string")
 
 
@@ -251,16 +370,43 @@ class _MmaConvKernel(KernelWrapper):
             "b_pole": (b_pole, (cout,)),
         })
         dev = self._device(x)
+        out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
+        self._launch_kernel(dev, x, ext, w_eq, w_pole, b_eq, b_pole, out)
+        return out
+
+    def _launch_kernel(self, dev, x, ext, w_eq, w_pole, b_eq, b_pole, out):
+        b, _, n, _, cin = x.shape
+        cout = out.shape[-1]
         h = mma_plan(self.kind, b, n, cin, cout, self._sm_count[dev])
         vec = int(x.data_ptr() % 16 == 0 and ext.data_ptr() % 16 == 0)
         wvec = int(w_eq.data_ptr() % 16 == 0 and w_pole.data_ptr() % 16 == 0)
-        out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
         self._launch(
             f"cs_conv3x3_{self.kind}_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, w_eq, w_pole, b_eq, b_pole, out)),
             b, n, cin, cout, h, vec, wvec, sizes=7,
         )
-        return out
+
+
+class _Im2colGemmKernel(_MmaConvKernel):
+    """#13: the im2col GEMM kernel (:func:`im2col_plan`) on bfloat16 CUDA
+    tensors, weights (9*Cin, Cout)."""
+
+    def __init__(self, name):
+        super().__init__(name, "im2col", cs_conv3x3_im2col_plain)
+
+    def _launch_kernel(self, dev, x, ext, w_eq, w_pole, b_eq, b_pole, out, plan=None):
+        b, _, n, _, cin = x.shape
+        cout = out.shape[-1]
+        p = plan or im2col_plan(b, n, cin, cout, self._sm_count[dev])
+        ga = max(g for g in (2, 4, 8, 16) if g <= _granule(2 * cin)
+                 and x.data_ptr() % g == 0 and ext.data_ptr() % g == 0)
+        gb = max(g for g in (2, 4, 8, 16) if g <= _granule(2 * cout)
+                 and w_eq.data_ptr() % g == 0 and w_pole.data_ptr() % g == 0)
+        self._launch(
+            "cs_conv3x3_im2col_gemm_launch", dev, DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, ext, w_eq, w_pole, b_eq, b_pole, out)),
+            b, n, cin, cout, p.cfg, p.bks, p.tpw, ga, gb, int(cout % 8 == 0), p.smem, sizes=11,
+        )
 
 
 class _DxRingKernel(KernelWrapper):
@@ -391,7 +537,9 @@ class _XringApplyCudaCore(KernelWrapper):
 
 
 cs_conv3x3_npack = _MmaConvKernel("cs_conv3x3_npack", "npack", cs_conv3x3_npack_plain)
-cs_conv3x3_im2col = _MmaConvKernel("cs_conv3x3_im2col", "im2col", cs_conv3x3_im2col_plain)
+cs_conv3x3_im2col = _Im2colGemmKernel("cs_conv3x3_im2col")
+# the im2col kernel of the first design (a timing row)
+cs_conv3x3_im2col_v1 = _MmaConvKernel("cs_conv3x3_im2col_v1", "im2col", cs_conv3x3_im2col_plain)
 # kernel #12: kernel #1 on strips computed outside it, counted apart
 cs_conv3x3_kernel_only = _Conv3x3Kernel("cs_conv3x3_kernel_only", _FWD_LIB)
 cs_conv3x3_dx_ring = _DxRingKernel("cs_conv3x3_dx_ring", _BWD_LIB)

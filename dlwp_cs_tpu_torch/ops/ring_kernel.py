@@ -276,6 +276,10 @@ def ring_blocks(g: RingGeom, apply: bool = True):
         out.append(runs)
     return out
 
+# the fused apply's first arrival-count buffer (int32 entries; a launch
+# needs B * 6 * 4 * nsplit)
+_MIN_COUNTERS = 256
+
 _RING_LIB = CudaLibrary("cs_ring.cu", {
     "cs_ring_tc_launch": [I32] * 3 + [VP] * 10 + [I32] * 9 + [VP],
     "cs_ring_fixes_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
@@ -350,16 +354,20 @@ class _XringApplyKernel(KernelWrapper):
         every launch (the second block of a corner resets its count), so
         one buffer per device serves every launch there as long as two
         launches never run at once (the port's callers issue them on one
-        stream); made outside any CUDA-graph capture, grown as launches
-        need."""
-        t = self._count_buffers.get(device)
-        if t is None or t.numel() < size:
-            if torch.cuda.is_current_stream_capturing():
+        stream).  Made outside any CUDA-graph capture, grown (at least
+        doubled) as launches need.  Every buffer once handed out lives as
+        long as the wrapper: a graph captured with an older, smaller buffer
+        keeps its address, and a replay after the buffer grew counts in it,
+        which is still zero and still its own.  The last one is the live
+        one."""
+        bufs = self._count_buffers.setdefault(device, [])
+        if not bufs or bufs[-1].numel() < size:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError(
                     f"{self.name}: call it once outside graph capture at this size first")
-            t = torch.zeros(max(size, 4096), dtype=torch.int32, device=device)
-            self._count_buffers[device] = t
-        return t
+            grown = max(size, 2 * bufs[-1].numel() if bufs else _MIN_COUNTERS)
+            bufs.append(torch.zeros(grown, dtype=torch.int32, device=device))
+        return bufs[-1]
 
 
 def _bases_shape(name, base_eq, base_po, ext, k_eq, k_pole):

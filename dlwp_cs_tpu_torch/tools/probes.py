@@ -2,6 +2,8 @@
 
 * :data:`lane_store`: x stored into 3 channel-offset slices of a scratch row
   and summed back, 3·x; replaces ``tools/kernel_variants.py::_store_kernel``.
+  Tiles of pixels, 16-byte accesses where C allows (:func:`lane_store_geom`);
+  the kernel it replaced stays as the timing row :data:`lane_store_v1`.
 * The lowering probes of ``tools/mosaic_bisect{,2,3}.py``, one wrapper each:
   :data:`probe_assemble` (kA: the padded face assembled with ghost rows,
   then ghost columns; ``xpad[1:N+1, 2:N+2]``), :data:`probe_rows_int`,
@@ -30,6 +32,8 @@ The kernels they replaced stay as timing rows, each the same wrapper with
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +42,7 @@ from dataclasses import dataclass
 from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES, I32, VP, CudaLibrary, KernelWrapper
 
 __all__ = [
+    "LaneGeom",
     "PROBES",
     "PROBES_V1",
     "assemble_plain",
@@ -49,7 +54,9 @@ __all__ = [
     "dw_slices",
     "dw_split",
     "lane_store",
+    "lane_store_geom",
     "lane_store_plain",
+    "lane_store_v1",
     "probe_assemble",
     "probe_bias",
     "probe_col_int",
@@ -72,6 +79,11 @@ _ASSEMBLE_ROWS = 4  # padded rows a block of the v1 assembly kernel holds
 # for two to share an SM
 _DW_MC, _DW_ND, _DW_KS = 32, 64, 64
 _SMEM_LIMIT, _SMEM_TWO = 232448, (228 * 1024) // 2 - 1024
+# csrc/cs_probes.cu's lane store: threads a block, the items a thread moves
+# per tile (16-byte items, or single elements), an SM's threads and shared
+# memory (228 KB, less 1 KB a block), and the grid's waves of resident blocks
+_LS_THREADS, _LS_VEC_ITEMS, _LS_ELEM_ITEMS = 256, 4, 8
+_SM_THREADS, _SM_SMEM, _LS_WAVES = 2048, 233472, 2
 
 
 def _acc(t):
@@ -141,6 +153,43 @@ def dw_batched_plain(x, g):
     """The same as :func:`dw_reshape_plain`, as the reference's k2 sums it:
     per column the product over rows, then the sum over the columns."""
     return torch.einsum("ijc,ijd->jcd", _acc(x), _acc(g)).sum(dim=0)
+
+
+@dataclass(frozen=True)
+class LaneGeom:
+    """The lane store's launch, as ``csrc/cs_probes.cu::
+    cs_lane_store_tiles_launch`` takes and checks it: ``vec`` 16-byte
+    items (else elements), ``u`` items a pixel, ``p`` pixels a tile,
+    ``ntiles`` tiles over ``npix`` pixels, ``grid`` blocks looping over
+    them, ``smem`` bytes (the tile's scratch rows of 3C)."""
+
+    npix: int
+    c: int
+    vec: bool
+    u: int
+    p: int
+    ntiles: int
+    grid: int
+    smem: int
+
+
+def lane_store_geom(esize: int, npix: int, c: int, vec: bool, sm_count: int) -> LaneGeom:
+    """The lane store's tiles for ``npix`` pixels of ``c`` channels of
+    ``esize`` bytes: as many whole pixels as a block's threads move in one
+    pass, the grid the tiles or ``_LS_WAVES`` waves of the blocks an SM
+    holds, whichever is fewer.  ``vec`` needs C's bytes a multiple of 16;
+    ``ValueError`` where one pixel does not fit a tile."""
+    if npix < 1 or c < 1 or (vec and (c * esize) % 16):
+        raise ValueError(f"lane store: {npix} pixels of C={c} ({esize}-byte), vec={vec}")
+    u = c * esize // 16 if vec else c
+    p = (_LS_VEC_ITEMS if vec else _LS_ELEM_ITEMS) * _LS_THREADS // u
+    if p < 1:
+        raise ValueError(f"lane store: a pixel of C={c} is wider than a tile")
+    smem = 3 * p * u * (16 if vec else esize)
+    resident = min(_SM_THREADS // _LS_THREADS, _SM_SMEM // (smem + 1024))
+    ntiles = -(-npix // p)
+    return LaneGeom(npix, c, vec, u, p, ntiles, min(ntiles, _LS_WAVES * resident * sm_count),
+                    smem)
 
 
 @dataclass(frozen=True)
@@ -237,6 +286,7 @@ def dw_slices(n: int, nsplit: int, batched: bool):
 
 _LIB = CudaLibrary("cs_probes.cu", {
     "cs_lane_store_launch": [I32, VP, VP, I32, I32, I32, VP],
+    "cs_lane_store_tiles_launch": [I32, VP, VP, ctypes.c_longlong] + [I32] * 4 + [VP],
     "cs_probe_assemble_launch": [I32, VP, VP, VP, I32, I32, I32, I32, VP],
     "cs_probe_select_launch": [I32, VP, VP, VP, I32, I32, I32, VP],
     "cs_probe_dot_launch": [I32, VP, VP, VP, I32, I32, I32, VP],
@@ -273,7 +323,13 @@ def _check(name, shapes):
 
 
 class _LaneStore(KernelWrapper):
+    """#15; ``v1``: the kernel its redesign replaced (a timing row)."""
+
     plain = staticmethod(lane_store_plain)
+
+    def __init__(self, name, v1=False):
+        super().__init__(name, _LIB)
+        self.v1 = v1
 
     def __call__(self, x):
         """``x`` (B, 6, n, n, C) -> 3·x (see :func:`lane_store_plain`)."""
@@ -285,8 +341,14 @@ class _LaneStore(KernelWrapper):
         n, c = x.shape[3], x.shape[4]
         out = torch.empty_like(x)
         dev = self._device(x)
-        self._launch("cs_lane_store_launch", dev, DTYPES[x.dtype], x.data_ptr(), out.data_ptr(),
-                     x.numel() // (n * c), n, c, sizes=3)
+        if self.v1:
+            self._launch("cs_lane_store_launch", dev, DTYPES[x.dtype], x.data_ptr(),
+                         out.data_ptr(), x.numel() // (n * c), n, c, sizes=3)
+            return out
+        g = lane_store_geom(x.element_size(), x.numel() // c, c, _vec(x, c, out) > 1,
+                            self._sm_count[dev])
+        self._launch("cs_lane_store_tiles_launch", dev, DTYPES[x.dtype], x.data_ptr(),
+                     out.data_ptr(), g.npix, c, int(g.vec), g.p, g.grid, sizes=5)
         return out
 
 
@@ -419,7 +481,8 @@ class _Dw(_Probe):
         return part[0] if nsplit == 1 else part.sum(dim=0)
 
 
-lane_store = _LaneStore("lane_store", _LIB)
+lane_store = _LaneStore("lane_store")
+lane_store_v1 = _LaneStore("lane_store_v1", v1=True)
 
 
 def _probes(v1=False):

@@ -218,7 +218,7 @@ def test_ring_kernels_match_plain_on_card(cuda_device, dtype, b, n, cin, d):
     # the arrival counts left at zero for the next launch
     assert torch.equal(xring_fused_apply(*bases, e, k_eq, k_po), out)
     torch.cuda.synchronize()
-    assert not xring_fused_apply._count_buffers[x.device].any()
+    assert not any(t.any() for t in xring_fused_apply._count_buffers[x.device])
 
 
 @pytest.mark.cuda
@@ -563,17 +563,21 @@ def _mma_kernels():
     from dlwp_cs_tpu_torch.ops import conv_variants as cv
 
     return {"npack": (cv.cs_conv3x3_npack, cv.cs_conv3x3_npack_plain, cv.npack_taps),
-            "im2col": (cv.cs_conv3x3_im2col, cv.cs_conv3x3_im2col_plain, cv.im2col_taps)}
+            "im2col": (cv.cs_conv3x3_im2col, cv.cs_conv3x3_im2col_plain, cv.im2col_taps),
+            "im2col_v1": (cv.cs_conv3x3_im2col_v1, cv.cs_conv3x3_im2col_plain,
+                          cv.im2col_taps)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["npack", "im2col"])
+@pytest.mark.parametrize("kind", ["npack", "im2col", "im2col_v1"])
 @pytest.mark.parametrize("b,n,cin,cout", MMA_SHAPES)
 def test_mma_conv_kernels_match_plain_and_conv_kernel_on_card(cuda_device, kind, b, n, cin,
                                                               cout):
-    """Kernels #3 (kn2row) and #13 (im2col) in bfloat16 against their plain
-    versions and against kernel #1 on the same strips, each within one bf16
-    ulp of |ref| + 1e-4 (all three round an f32 sum once)."""
+    """Kernels #3 (kn2row) and #13 (im2col; and the im2col kernel it
+    replaced, a timing row) in bfloat16 against their plain versions and
+    against kernel #1 on the same strips, each within one bf16 ulp of |ref|
+    + 1e-4 (all three round an f32 sum once); bitwise equal from launch to
+    launch."""
     wrapper, plain, taps = _mma_kernels()[kind]
     x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
                                  for a in _case(b, n, cin, cout))
@@ -587,6 +591,28 @@ def test_mma_conv_kernels_match_plain_and_conv_kernel_on_card(cuda_device, kind,
     assert ours.shape == (b, 6, n, n, cout) and ours.dtype == torch.bfloat16
     _close(ours, plain(x, e, *w, b_eq, b_po), "bfloat16")
     _close(ours, cs_conv3x3(x, e, k_eq, k_po, b_eq, b_po), "bfloat16")
+    assert torch.equal(wrapper(x, e, *w, b_eq, b_po), ours)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 32, 256), (1, 48, 64, 256), (16, 24, 64, 64),
+                                          (2, 12, 39, 40), (1, 20, 8, 12)])
+def test_im2col_kernel_past_the_first_designs_plan_on_card(cuda_device, b, n, cin, cout):
+    """Kernel #13 where the first design's 64 accumulator tiles a block did
+    not reach (n = 48 with Cout = 256), at batch 16, with an odd Cin (plain
+    2-byte gathers) and a Cout whose rows take 8-byte copies: within one
+    bf16 ulp of |ref| + 1e-4 of its plain version and of #1, bitwise equal
+    from launch to launch."""
+    wrapper, plain, taps = _mma_kernels()["im2col"]
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                                 for a in _case(b, n, cin, cout))
+    k_eq, k_po = k_eq / cin**0.5, k_po / cin**0.5
+    e = ext_strips(x)
+    w = (taps(k_eq), taps(k_po))
+    ours = wrapper(x, e, *w, b_eq, b_po)
+    _close(ours, plain(x, e, *w, b_eq, b_po), "bfloat16")
+    _close(ours, cs_conv3x3(x, e, k_eq, k_po, b_eq, b_po), "bfloat16")
+    assert torch.equal(wrapper(x, e, *w, b_eq, b_po), ours)
 
 
 @pytest.mark.cuda
@@ -604,7 +630,7 @@ def test_im2col_kernel_on_the_packed_layout_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["npack", "im2col"])
+@pytest.mark.parametrize("kind", ["npack", "im2col", "im2col_v1"])
 def test_mma_conv_kernels_reject_float32(cuda_device, kind):
     wrapper, _, taps = _mma_kernels()[kind]
     x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device) for a in _case(1, 8, 4, 8))
@@ -666,17 +692,23 @@ def test_dx_ring_kernel_matches_plain_and_dx_kernel_on_card(cuda_device, dtype, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 6, 8, 8, 5), (16, 6, 48, 48, 32), (1, 6, 12, 12, 128)])
-def test_lane_store_is_three_x_on_card(cuda_device, dtype, shape):
-    """Kernel #15 returns 3 x bitwise (x + x is exact, so one rounding)."""
-    from dlwp_cs_tpu_torch.tools.probes import lane_store
+@pytest.mark.parametrize("shape", [(2, 6, 8, 8, 5), (16, 6, 48, 48, 32), (1, 6, 12, 12, 128),
+                                   (2, 6, 48, 48, 39), (3, 6, 24, 24, 3), (1, 6, 7, 7, 24)])
+@pytest.mark.parametrize("v1", [False, True])
+def test_lane_store_is_three_x_on_card(cuda_device, dtype, shape, v1):
+    """Kernel #15 returns 3 x bitwise (x + x is exact, so one rounding),
+    through its 16-byte path (C's bytes a multiple of 16; C = 24: three or
+    six 16-byte items a pixel) and its element path (C = 5, 39, 3), as does
+    the kernel it replaced (the timing row ``lane_store_v1``)."""
+    from dlwp_cs_tpu_torch.tools.probes import lane_store, lane_store_v1
 
+    kernel = lane_store_v1 if v1 else lane_store
     x = torch.randn(shape, generator=torch.Generator().manual_seed(10))
     x = x.to(cuda_device, getattr(torch, dtype))
-    before = lane_store.launches
-    out = lane_store(x)
+    before = kernel.launches
+    out = kernel(x)
     torch.cuda.synchronize()
-    assert lane_store.launches == before + 1
+    assert kernel.launches == before + 1
     assert torch.equal(out, 3 * x)
 
 
@@ -1035,3 +1067,96 @@ def test_float32_tensor_core_kernels_refuse_what_the_plan_refuses(cuda_device):
     with pytest.raises(ValueError, match="cannot stage"):
         cs_conv3x3_dw(x, ext_strips(x), torch.zeros((1, 6, 600, 600, 8), **f32))
     assert (cs_conv3x3_dx.launches, cs_conv3x3_dw.launches) == before
+
+
+# ---- F4: shapes past a kernel's plan; F5: the fused apply under CUDA graphs ----
+
+@pytest.mark.cuda
+def test_refused_shape_trains_through_ringfix_on_card(cuda_device):
+    """At (1, 6, 128, 128, 32) -> 32 in float32 with a gradient only the dw
+    kernel's plan refuses: ``cs_conv`` takes the ring-fix composition, so
+    one training step (forward, backward, SGD) launches none of #1, #4,
+    #5, and matches the plain path (the fused conv's plain version through
+    autograd): outputs 1e-4, gradients and updated weights 1e-5 of the
+    largest entry.  Without a gradient the forward kernel plans and runs."""
+    from dlwp_cs_tpu_torch.ops.conv import conv3x3_route
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert conv3x3_route(torch.float32, 1, 128, 32, 32, sms, True, "auto") == "ringfix"
+    assert conv3x3_route(torch.float32, 1, 128, 32, 32, sms, False, "auto") == "kernel"
+    arrays = _case(1, 128, 32, 32)
+    paths = {}
+    for name in ("route", "plain"):
+        x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
+                                     for a in arrays)
+        params = [k_eq, k_po, b_eq, b_po]
+        opt = torch.optim.SGD(params, lr=0.1)
+        before = (cs_conv3x3.launches, cs_conv3x3_dx.launches, cs_conv3x3_dw.launches)
+        if name == "route":
+            out = cs_conv(x, k_eq, k_po, bias_eq=b_eq, bias_pole=b_po)
+        else:
+            out = cs_conv3x3_plain(x, ext_strips(x), k_eq, k_po, b_eq, b_po)
+        (out.square().mean()).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        assert (cs_conv3x3.launches, cs_conv3x3_dx.launches, cs_conv3x3_dw.launches) == before
+        paths[name] = (out.detach(), x.grad, *(p.grad for p in params),
+                       *(p.detach() for p in params))
+    torch.testing.assert_close(paths["route"][0], paths["plain"][0], rtol=0, atol=1e-4)
+    for ours, ref in zip(paths["route"][1:], paths["plain"][1:]):
+        assert float((ours - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    with torch.no_grad():
+        x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+        before = cs_conv3x3.launches
+        out = cs_conv(x, k_eq, k_po, bias_eq=b_eq, bias_pole=b_po)
+        assert cs_conv3x3.launches == before + 1
+    _close(out, cs_conv3x3_plain(x, ext_strips(x), k_eq, k_po, b_eq, b_po), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_apply_graph_replays_after_its_counters_grow_on_card(cuda_device, dtype):
+    """A CUDA graph of the fused apply (#7) captured at batch 1, then an
+    eager call at batch 16 that needs more arrival counts (a second
+    buffer), then other allocations: the graph's replays still count in
+    its own buffer, which stays alive and zero.  Two replays agree bitwise
+    and equal the plain version; the batch-16 call does too."""
+    from dlwp_cs_tpu_torch.ops.ring_kernel import _RING_LIB, _XringApplyKernel
+
+    kernel = _XringApplyKernel("xring_fused_apply_graph", _RING_LIB)  # buffers of its own
+    tdt = getattr(torch, dtype)
+    n, cin, d = 48, 64, 128
+
+    def inputs(b, seed):
+        x, k_eq, k_po, _, _ = (torch.from_numpy(a).to(cuda_device, tdt)
+                               for a in _case(b, n, cin, d, seed=seed))
+        gen = torch.Generator().manual_seed(seed)
+        bases = [torch.randn((b, 6, n, n, d), generator=gen).to(cuda_device, tdt)
+                 for _ in range(2)]
+        return (*bases, ext_strips(x), k_eq, k_po)
+
+    small = inputs(1, 7)
+    kernel(*small)  # eager first: the counters are made outside capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*small)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(*small)
+    bufs = kernel._count_buffers[small[2].device]
+    assert len(bufs) == 1
+    big = inputs(16, 8)
+    out16 = kernel(*big)
+    assert len(bufs) == 2 and bufs[1].numel() > bufs[0].numel()
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int32, device=cuda_device) for _ in range(64)]
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    _close(first, xring_fused_apply_plain(*small), dtype)
+    _close(out16, xring_fused_apply_plain(*big), dtype)
+    assert not any(t.any() for t in bufs)
+    del junk

@@ -20,6 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from dlwp_cs_tpu_torch.ops.conv_variants import (
+    cs_conv3x3_im2col_plain,
+    im2col_blocks,
+    im2col_plan,
+)
+from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import (
     dw_launch_args,
     dw_plan,
@@ -36,6 +42,7 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
 
 SMS = 132
 SMEM = 232448
+_SMEM_TWO_BLOCKS = 233472 // 2 - 1024  # two blocks an SM, 1 KB each reserved
 # (n, Cin, Cout) of the flagship C48 U-Net's 3x3 convs, the n = 96 shape of
 # the card's checks, and the kernel tools' (conv_micro's levels,
 # kernel_variants' packed and decoder rows)
@@ -481,7 +488,13 @@ def test_float32_dx_sum_order_holds_float32_accuracy_at_k_9x128():
 # ---- the ring kernels (#6, #7) and the probes (#16) ---------------------------
 
 from dlwp_cs_tpu_torch.ops.ring_kernel import grid_roles, ring_blocks, ring_geom, ring_plan  # noqa: E402
-from dlwp_cs_tpu_torch.tools.probes import conv_geom, conv_plan, dw_slices, dw_split  # noqa: E402
+from dlwp_cs_tpu_torch.tools.probes import (  # noqa: E402
+    conv_geom,
+    conv_plan,
+    dw_slices,
+    dw_split,
+    lane_store_geom,
+)
 
 # (b, n, Cin, D) of the ring phase of chip_smoke.py (the flagship U-Net's
 # conv shapes and the ConvLSTM's two gate convs at batch 1 and 16) and of
@@ -724,5 +737,199 @@ def test_ring_phase_tool_switches_guard_the_kernel_source():
     for name, switches in ring_phases.VARIANTS.items():
         src = ring_phases.patched_source(switches)
         for s in ring_phases.SWITCHES:
+            assert f"#define {s} {int(s in switches)}\n" in src, (name, s)
+            assert src.count(f"{s}") >= 2, (name, s)
+
+
+# ---- #13: the im2col GEMM kernel's tiles and its column gather --------------
+
+IM2COL = ([(b, n, cin, cout) for b in (1, 16) for n, cin, cout in FLAGSHIP]
+          + [(4, 48, 128, 128), (1, 48, 64, 256), (1, 48, 32, 256), (1, 96, 64, 64),
+             (1, 10, 5, 7), (2, 8, 12, 16)])
+
+
+@pytest.mark.parametrize("b,n,cin,cout", IM2COL, ids=_ids(IM2COL))
+def test_im2col_plan_covers_every_pixel_of_both_groups_once(b, n, cin, cout):
+    """#13's blocks, as the kernel decodes them (N tiles fastest, then the
+    equatorial group's M tiles, then the polar group's): every output pixel
+    and channel in exactly one block, each block's pixels of one weight
+    group; the tiles fit the card's shared memory two to an SM; at batch 1
+    the plan takes the configuration with the most blocks, at batch 16 the
+    largest tile that still fills a wave."""
+    plan = im2col_plan(b, n, cin, cout, SMS)
+    seen = np.zeros((b * 6 * n * n, cout), dtype=np.int32)
+    blocks = im2col_blocks(plan, b, n, cout)
+    assert len(blocks) == plan.blocks
+    for grp, pixels, (c0, c1) in blocks:
+        faces = (np.asarray(pixels) // (n * n)) % 6
+        assert ((faces >= 4) == bool(grp)).all() and 0 < len(pixels) <= plan.bm
+        assert 0 <= c0 < c1 <= min(c0 + plan.bn, cout)
+        seen[pixels, c0:c1] += 1
+    assert (seen == 1).all()
+    # K windows: whole taps, or equal 16-channel slices of one tap
+    kp = -(-cin // 16) * 16
+    assert plan.bks % 16 == 0 and plan.tpw * plan.bks <= (256 if plan.kg > 1 else 128)
+    assert plan.nsl * plan.bks >= kp > (plan.nsl - 1) * plan.bks
+    assert plan.tpw == 1 or plan.bks == kp
+    assert plan.nwin == -(-9 // plan.tpw) * plan.nsl
+    assert plan.threads == 256 and plan.smem <= SMEM
+    if plan.kg == 1:  # many tiles: 128 pixels, two blocks an SM
+        assert plan.bm == 128 and plan.blocks >= SMS and plan.smem <= _SMEM_TWO_BLOCKS
+    else:  # few tiles (batch 1): 64 pixels, every block resident at once
+        assert plan.bm == 64 and plan.smem <= 233472 // -(-plan.blocks // SMS) - 1024
+    if b == 16 and n >= 24:
+        assert plan.kg == 1
+
+
+def _cell_offset(face, n, cin, p, pc, ext_base):
+    """The flat offset of padded cell (p, pc) of ``face`` in x followed by
+    the ghost strips, as ``csrc/cs_conv3x3_mma.cu::cell_ptr`` addresses it."""
+    m = n + 2
+    e = ext_base + face * 4 * m * cin
+    if p == 0:
+        return e + pc * cin
+    if p == n + 1:
+        return e + (m + pc) * cin
+    if pc == 0:
+        return e + (2 * m + p) * cin
+    if pc == n + 1:
+        return e + (3 * m + p) * cin
+    return face * n * n * cin + ((p - 1) * n + pc - 1) * cin
+
+
+def _im2col_gemm_emulated(x, ext, w_eq, w_pole, b_eq, b_pole, plan):
+    """The im2col GEMM kernel's index arithmetic in plain torch: per block
+    the rows of its M tile decoded to pixels, per K window (taps t0 ..
+    t0 + ntw - 1, channels c0 .. c0 + wd of each) the rows' cell runs
+    gathered from the flat x and ghost strips side by side (channels past
+    Cin zero) and the weight rows t * Cin + c0 .. (past Cin zero), the
+    window products summed, the bias added, the rows written back through
+    their flat output offsets."""
+    b, _, n, _, cin = x.shape
+    cout = w_eq.shape[1]
+    src = torch.cat([x.reshape(-1), ext.reshape(-1)])
+    ext_base = x.numel()
+    kp = -(-cin // 16) * 16
+    out = torch.full((b * 6 * n * n * cout,), float("nan"), dtype=x.dtype)
+    for bid in range(plan.blocks):
+        nti, mti = bid % plan.nt, bid // plan.nt
+        grp = 0 if mti < plan.mt[0] else 1
+        nf, f0 = (2, 4) if grp else (4, 0)
+        m0 = (mti - plan.mt[0] if grp else mti) * plan.bm
+        n0 = nti * plan.bn
+        w, bias = (w_pole, b_pole) if grp else (w_eq, b_eq)
+        rows = []
+        for r in range(plan.bm):
+            m = m0 + r
+            if m >= b * nf * n * n:
+                break
+            item, rem = divmod(m, nf * n * n)
+            fl, pix = divmod(rem, n * n)
+            rows.append((item * 6 + f0 + fl, *divmod(pix, n)))
+        acc = torch.zeros((plan.bm, plan.bn), dtype=x.dtype)
+        ncols = min(plan.bn, cout - n0)
+        for q in range(plan.nwin):
+            tg = q // plan.nsl
+            t0, c0 = tg * plan.tpw, (q - tg * plan.nsl) * plan.bks
+            ntw, wd = min(plan.tpw, 9 - t0), min(plan.bks, kp - c0)
+            avail = max(0, min(wd, cin - c0))
+            a = torch.zeros((plan.bm, ntw * wd), dtype=x.dtype)
+            bm = torch.zeros((ntw * wd, plan.bn), dtype=x.dtype)
+            for tt in range(ntw):
+                t = t0 + tt
+                dy, dx = divmod(t, 3)
+                for r, (face, i, j) in enumerate(rows):
+                    off = _cell_offset(face, n, cin, i + dy, j + dx, ext_base) + c0
+                    a[r, tt * wd : tt * wd + avail] = src[off : off + avail]
+                rw = t * cin + c0
+                bm[tt * wd : tt * wd + avail, :ncols] = w[rw : rw + avail, n0 : n0 + ncols]
+            acc += a @ bm
+        for r, (face, i, j) in enumerate(rows):
+            o = ((face * n + i) * n + j) * cout + n0
+            out[o : o + ncols] = acc[r, :ncols] + bias[n0 : n0 + ncols]
+    return out.reshape(b, 6, n, n, cout)
+
+
+@pytest.mark.parametrize("sms", [SMS, 4])
+@pytest.mark.parametrize("b,n,cin,cout", [(2, 8, 12, 16), (1, 10, 5, 7), (1, 6, 39, 40),
+                                          (2, 4, 80, 24), (1, 8, 96, 70), (1, 4, 200, 16)])
+def test_im2col_gather_emulation_reproduces_the_plain_version(sms, b, n, cin, cout):
+    """The windowed column gather of #13 (several taps a window, odd Cin,
+    slices of a tap, ragged N tiles; the small card's plan takes the
+    single-group tiles) against
+    ``cs_conv3x3_im2col_plain`` in float64: the same map to rounding."""
+    rng = np.random.default_rng(b * 100 + n + cin)
+    x = torch.from_numpy(rng.normal(size=(b, 6, n, n, cin)))
+    ws = [torch.from_numpy(rng.normal(size=(9 * cin, cout))) for _ in range(2)]
+    bs = [torch.from_numpy(rng.normal(size=(cout,))) for _ in range(2)]
+    ext = ext_strips(x)
+    plan = im2col_plan(b, n, cin, cout, sms)
+    got = _im2col_gemm_emulated(x, ext, *ws, *bs, plan)
+    ref = cs_conv3x3_im2col_plain(x, ext, *ws, *bs)
+    assert ref.dtype == torch.float64
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-10)
+
+
+# ---- #15: the lane store's tiles --------------------------------------------
+
+LANE = [(16 * 6 * 48 * 48, 32, 2), (16 * 6 * 48 * 48, 32, 4), (2 * 6 * 48 * 48, 39, 2),
+        (3 * 6 * 24 * 24, 3, 4), (6 * 7 * 7, 24, 2), (6 * 7 * 7, 24, 4), (2 * 6 * 8 * 8, 5, 4),
+        (6 * 12 * 12, 128, 4), (1, 512, 4)]
+
+
+@pytest.mark.parametrize("npix,c,esize", LANE, ids=_ids(LANE))
+def test_lane_store_tiles_cover_every_item_once(npix, c, esize):
+    """#15's launch: 16-byte items exactly where C's bytes allow; each
+    thread's (pixel, item) pairs, advanced by the kernel's constant step,
+    equal the division of its flat item index; over the tiles every item
+    of every pixel is moved once, within the tile's pixels; the tile's
+    scratch rows (3C a pixel) fit the shared memory; the grid is at most
+    the tiles and at least one block an SM where there are enough tiles."""
+    vec = (c * esize) % 16 == 0
+    g = lane_store_geom(esize, npix, c, vec, SMS)
+    u = c * esize // 16 if vec else c
+    items_per_thread = 4 if vec else 8
+    assert (g.vec, g.u) == (vec, u)
+    assert g.p * u <= items_per_thread * 256 < (g.p + 1) * u
+    assert g.smem == 3 * g.p * u * (16 if vec else esize) <= SMEM
+    assert g.ntiles == -(-npix // g.p) and 1 <= g.grid <= g.ntiles
+    assert g.grid == g.ntiles or g.grid >= SMS
+    tid = np.arange(256)
+    dq, dv = 256 // u, 256 % u
+    qq, vv = tid // u, tid % u
+    idx, q = [], []
+    for j in range(items_per_thread):
+        flat = tid + j * 256
+        assert (qq == flat // u).all() and (vv == flat % u).all()
+        idx.append(flat)
+        q.append(qq.copy())
+        qq, vv = qq + dq, vv + dv
+        qq, vv = np.where(vv >= u, qq + 1, qq), np.where(vv >= u, vv - u, vv)
+    idx, q = np.stack(idx).ravel(), np.stack(q).ravel()
+    seen = np.zeros(npix * u, dtype=np.int32)
+    for t in range(g.ntiles):
+        items = t * g.p * u + idx
+        keep = (q < g.p) & (items < npix * u)
+        seen[items[keep]] += 1
+    assert (seen == 1).all()
+
+
+def test_lane_store_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="wider than a tile"):
+        lane_store_geom(2, 4, 4096, False, SMS)
+    with pytest.raises(ValueError, match="vec"):
+        lane_store_geom(2, 4, 12, True, SMS)
+
+
+def test_im2col_phase_tool_switches_guard_the_kernel_source():
+    """``tools/im2col_phases.py`` compiles variants of
+    ``csrc/cs_conv3x3_mma.cu`` with phases of #13 switched off: every
+    switch's anchor is in the source once and each variant defines every
+    switch."""
+    from dlwp_cs_tpu_torch.tools import im2col_phases
+
+    for name, switches in im2col_phases.VARIANTS.items():
+        src = im2col_phases.patched_source(switches)
+        for s in im2col_phases.SWITCHES:
             assert f"#define {s} {int(s in switches)}\n" in src, (name, s)
             assert src.count(f"{s}") >= 2, (name, s)
