@@ -40,14 +40,15 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    step's 4 gate convs); beside them the whole xring conv (two cuDNN SAME
    convs, the ghost strips, the fused kernel, the bias), the fused conv
    kernel and one face-grouped cuDNN call on the same shape;
-5a. shapes past a kernel's plan: ``conv3x3_route`` keeps every flagship
-   shape on its kernels and sends (1, 6, 128, 128, 32) -> 32 in float32
-   with a gradient (the dw plan refuses) to the ring-fix composition; one
-   training step there through ``cs_conv`` launches no kernel and matches
-   the plain path; then a CUDA graph of the fused ring apply captured at
-   batch 1 and replayed after an eager batch-16 call grew its arrival
-   counts and other memory was allocated: bitwise repeatable, equal to the
-   plain version, every count buffer alive and zero;
+5a. shapes past a kernel's plan: the wrappers' plans (``fused_fits``,
+   ``xring_fits``) keep every flagship shape on its kernels and refuse
+   (1, 6, 128, 128, 32) -> 32 in float32 with a gradient (the dw plan),
+   where ``cs_conv`` takes the ring-fix composition: one training step
+   there launches no kernel and matches the plain path; then a CUDA graph
+   of the fused ring apply captured at batch 1 and replayed after its
+   arrival counts grew to a second buffer, an eager batch-16 call ran on
+   that one and other memory was allocated: bitwise repeatable, equal to
+   the plain version, every count buffer alive and zero;
 5b. run the kernel tools' entry points once each (``dlwp_cs_tpu_torch.tools``:
    ``conv_micro``, ``kernel_variants`` and its ``--chain``, ``mosaic_bisect``
    in bfloat16 and float32), the path of kernels #3 and #12-#16, with every
@@ -672,10 +673,13 @@ def lane_store_cases(gen):
     float32 and bfloat16: bitwise equal to 3·x, as is the kernel its
     redesign replaced (``lane_store_v1``), with which it is timed in turns
     (old, new, new, old); beside its plain version, ``x * 3`` and the bound
-    (x read once, the output written once).  Then bitwise 3·x, without
-    times, at C = 39 and 3 (the element path) and 24."""
+    (x read once, the output written once from and to HBM).  Timed twice:
+    L2-warm (CUDA-graph replays; the bf16 pass fits in the 50 MB L2, so the
+    HBM bound does not bind there) and with a cold L2 (``cold_ms``), the
+    times the bound is held against.  Then bitwise 3·x, without times, at
+    C = 39 and 3 (the element path) and 24."""
     from dlwp_cs_tpu_torch.tools.probes import lane_store, lane_store_plain, lane_store_v1
-    from dlwp_cs_tpu_torch.tools.timing import bound, graph_ms
+    from dlwp_cs_tpu_torch.tools.timing import bound, cold_ms, graph_ms
 
     cases, launches = [], (lane_store.launches, lane_store_v1.launches)
     for dtype in (torch.float32, torch.bfloat16):
@@ -688,12 +692,17 @@ def lane_store_cases(gen):
         equal = all(bool(torch.equal(t, 3 * x)) for t in (out, again, old, ref))
         nbytes, ops = 2 * x.numel() * x.element_size(), 2 * x.numel()
         ms, old_ms, runs = _turns(lambda: lane_store(x), lambda: lane_store_v1(x), 20)
+        cold, old_cold, cold_runs = _turns(lambda: lane_store(x), lambda: lane_store_v1(x), 20,
+                                           cold_ms)
         cases.append({
             "shape": list(x.shape), "dtype": str(dtype).split(".")[-1], "equal_to_3x": equal,
             "ok": equal, "max_abs_err": float((out.float() - 3 * x.float()).abs().max()),
             "ms": ms, "v1_ms": old_ms, "runs_old_new_new_old": runs,
             "plain_ms": graph_ms(lambda: lane_store_plain(x), 5),
             "library_ms": graph_ms(lambda: x * 3, 20),
+            "cold_ms": cold, "v1_cold_ms": old_cold, "cold_runs_old_new_new_old": cold_runs,
+            "plain_cold_ms": cold_ms(lambda: lane_store_plain(x), 5),
+            "library_cold_ms": cold_ms(lambda: x * 3, 20),
             **bound(nbytes, ops, dtype),
         })
     checks = []
@@ -762,16 +771,17 @@ def probe_summary(rows):
     return out
 
 
-def _turns(new, old, reps):
+def _turns(new, old, reps, timer=None):
     """``(new_ms, old_ms, runs)``: the two kernels timed in turns, old, new,
-    new, old (CUDA-graph replays, ``reps`` calls each), each the mean of
-    its two runs."""
+    new, old (``timer``, by default CUDA-graph replays, ``reps`` calls
+    each), each the mean of its two runs."""
     from dlwp_cs_tpu_torch.tools.timing import graph_ms
 
-    o1 = graph_ms(old, reps)
-    n1 = graph_ms(new, reps)
-    n2 = graph_ms(new, reps)
-    o2 = graph_ms(old, reps)
+    timer = timer or graph_ms
+    o1 = timer(old, reps)
+    n1 = timer(new, reps)
+    n2 = timer(new, reps)
+    o2 = timer(old, reps)
     return (n1 + n2) / 2, (o1 + o2) / 2, [o1, n1, n2, o2]
 
 
@@ -781,29 +791,31 @@ REFUSED_SHAPE = (1, 128, 32, 32)
 
 
 def refused_shape_phase(gen):
-    """F4: ``conv3x3_route`` keeps every flagship shape of both models on
-    its kernel (U-Net: forward, dx and dw at batch 1 and 16 in both dtypes;
-    ConvLSTM: the xring kernel at its gates) and sends ``REFUSED_SHAPE`` to
-    the ring-fix composition; one float32 training step there through
+    """F4: the wrappers' plans (``fused_fits``, ``xring_fits``) keep every
+    flagship shape of both models on its kernel (U-Net: forward, dx and dw
+    at batch 1 and 16 in both dtypes; ConvLSTM: the xring kernel at its
+    gates) and refuse ``REFUSED_SHAPE``, where ``cs_conv`` takes the
+    ring-fix composition; one float32 training step there through
     ``cs_conv`` (forward, backward, SGD) launches no kernel at all (every
     count set to 0 before, read after) and matches the plain path (the
     fused conv's plain version through autograd): outputs 1e-4, gradients
     and updated weights 1e-5 of the largest entry."""
-    from dlwp_cs_tpu_torch.ops.conv import conv3x3_route, cs_conv
+    from dlwp_cs_tpu_torch.ops.conv import cs_conv
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, fused_fits
+    from dlwp_cs_tpu_torch.ops.ring_kernel import xring_fits
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    kept = [conv3x3_route(dt, b, n, cin, cout, sms, True, "auto")
+    kept = [fused_fits(dt, b, n, cin, cout, sms, True, True)
             for dt in (torch.float32, torch.bfloat16) for b in (1, TRAIN_BATCH)
             for n, cin, cout in FLAGSHIP_CONVS + EXTRA_SHAPES]
-    kept += [conv3x3_route(dt, b, n, cin, d, sms, True, "xring")
+    kept += [xring_fits(dt, b, n, cin, d, sms)
              for dt in (torch.float32, torch.bfloat16) for b in (1, TRAIN_BATCH)
              for n, cin, d in CONVLSTM_GATES]
-    check(set(kept) == {"kernel"}, f"a flagship shape leaves its kernel: {kept}")
+    check(all(kept), f"a flagship shape leaves its kernel: {kept}")
     b, n, cin, cout = REFUSED_SHAPE
-    route = conv3x3_route(torch.float32, b, n, cin, cout, sms, True, "auto")
+    route = "kernel" if fused_fits(torch.float32, b, n, cin, cout, sms, True, True) else "ringfix"
     check(route == "ringfix", f"{REFUSED_SHAPE} float32 with a gradient routes to {route}")
     x0 = torch.randn((b, 6, n, n, cin), generator=gen, device=dev)
     weights = [torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (9 * cin) ** -0.5
@@ -846,11 +858,11 @@ def refused_shape_phase(gen):
 
 def graph_replay_phase(gen):
     """F5: a CUDA graph of the fused apply (#7, a wrapper of its own)
-    captured at batch 1 at the ConvLSTM's second gate shape, then an eager
-    call at batch 16 whose arrival counts need a larger buffer, then 16 MB
-    of other allocations filled with -1; two replays agree bitwise, equal
-    the plain version (one bf16 ulp of |ref| + 1e-4; float32 1e-4), and
-    every count buffer is still zero."""
+    captured at batch 1 at the ConvLSTM's second gate shape, then its
+    arrival counts grown past the first buffer (a second buffer), an eager
+    call at batch 16 on it, then 16 MB of other allocations filled with -1;
+    two replays agree bitwise, equal the plain version (one bf16 ulp of
+    |ref| + 1e-4; float32 1e-4), and every count buffer is still zero."""
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
     from dlwp_cs_tpu_torch.ops.ring_kernel import (
         _RING_LIB,
@@ -883,8 +895,9 @@ def graph_replay_phase(gen):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = kernel(*small)
-        out16 = kernel(*big)
         bufs = kernel._count_buffers[small[2].device]
+        kernel._counters(small[2].device, bufs[0].numel() + 1)
+        out16 = kernel(*big)
         junk = torch.full((1 << 22,), -1, dtype=torch.int32, device=dev)
         graph.replay()
         first = out.clone()
@@ -2025,9 +2038,11 @@ def main(argv=None) -> int:
                   for r in tool_rows["mosaic_bisect"]]
     for c in stores + probe_rows:
         old = f" (v1 {c['v1_ms']:.4f})" if "shape" in c else ""
+        cold = (f" | cold L2 {c['cold_ms']:.5f} (v1 {c['v1_cold_ms']:.5f}) "
+                f"{c['plain_cold_ms']:.4f} {c['library_cold_ms']:.5f}" if "shape" in c else "")
         print(f"{c.get('name', 'lane_store')} {c.get('shapes', c.get('shape'))} {c['dtype']} | "
               f"{c['max_abs_err']:.3g} | {c['ms']:.4f}{old} {c['plain_ms']:.4f} "
-              f"{c['library_ms']:.4f} {c['bound_ms']:.5f}", flush=True)
+              f"{c['library_ms']:.4f} {c['bound_ms']:.5f}{cold}", flush=True)
     print("lane_store bitwise 3x at C, dtype: "
           f"{[(c['shape'][-1], c['dtype'], c['ok']) for c in store_checks]}", flush=True)
     probes_turns = probe_cases()
@@ -2219,9 +2234,12 @@ def main(argv=None) -> int:
                         [c for c in ring_dx if c["dtype"] == "bfloat16"],
                         [c["max_abs_err"] for c in ring_dx]))
     src_probes = "dlwp_cs_tpu_torch/csrc/cs_probes.cu"
+    # #15 against its HBM bound: the cold-L2 times
     kernels.append(line("lane_store", src_probes, "tools/kernel_variants.py:427",
                         tool_launches["lane_store"],
-                        [c for c in stores if c["dtype"] == "bfloat16"],
+                        [dict(c, ms=c["cold_ms"], plain_ms=c["plain_cold_ms"],
+                              library_ms=c["library_cold_ms"])
+                         for c in stores if c["dtype"] == "bfloat16"],
                         [c["max_abs_err"] for c in stores]))
     # #16: each probe at the reference scripts' shapes (bisect3's three dw
     # shapes summed)

@@ -24,13 +24,17 @@ Backends:
 * ``'xla'``: the reference-style path, ``cs_pad`` then one VALID conv per
   weight group (the name the configurations use).
 
-Under ``'auto'`` and ``'xring'``, a CUDA tensor whose shape a kernel's
-plan refuses (:func:`conv3x3_route`: the forward plan, the dx and dw plans
-when a gradient will be taken, the ring plan under ``'xring'``) takes
-:func:`~dlwp_cs_tpu_torch.ops.ringfix.cs_conv3x3_ringfix`, the reference's
-last resort, as the reference does past its kernels' gates.  The choice is
-made from the plans before anything launches; a launch that fails still
-raises.  CPU tensors keep their path: the plain versions fit every shape.
+Under ``'auto'`` and ``'xring'``, a CUDA tensor whose shape a plan of
+the kernels its wrapper would launch refuses
+(:func:`~dlwp_cs_tpu_torch.ops.hopper_conv.fused_fits`: the forward plan,
+the dx and dw plans where the backward will launch them;
+:func:`~dlwp_cs_tpu_torch.ops.ring_kernel.xring_fits` under ``'xring'``)
+takes :func:`~dlwp_cs_tpu_torch.ops.ringfix.cs_conv3x3_ringfix`, the
+reference's last resort, as the reference's ``'auto'`` does past its
+kernels' gates.  Under ``'pallas'`` / ``'pallas_interpret'`` such a conv
+raises ``ValueError``, as the reference's does.  The choice is made from
+the plans before anything launches; a launch that fails still raises.  CPU
+tensors keep their path: the plain versions fit every shape.
 
 Under every backend but ``'xla'``, other kernel sizes (the 1x1 head) take
 the generic path with the dual-base face select.  ``'int8'`` is not ported.
@@ -50,21 +54,15 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
-from dlwp_cs_tpu_torch.ops.hopper_conv import (
-    cs_conv3x3_fused,
-    dw_launch_args,
-    dx_plan_args,
-    fwd_plan_args,
-)
+from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_fused, fused_fits
 from dlwp_cs_tpu_torch.ops import padding as _padding
 from dlwp_cs_tpu_torch.ops.padding import cs_pad, use_pad_impl
-from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring, ring_plan
+from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring, xring_fits
 from dlwp_cs_tpu_torch.ops.ringfix import (
     _same_conv,
     add_group_bias,
@@ -73,7 +71,6 @@ from dlwp_cs_tpu_torch.ops.ringfix import (
 )
 
 __all__ = [
-    "conv3x3_route",
     "conv_halo_width",
     "cs_conv",
     "shard_local_region",
@@ -83,6 +80,10 @@ __all__ = [
 _KERNEL_BACKENDS = ("auto", "pallas", "pallas_interpret")
 _XRING_BACKENDS = ("xring", "xring_interpret")
 _BACKENDS = _KERNEL_BACKENDS + _XRING_BACKENDS + ("ringfix", "same", "xla")
+# the backends that take ring-fix where a kernel's plan refuses (the
+# reference's 'auto'; its 'xring' has no fallback: ROADMAP.md's recorded
+# divergences); 'pallas' raises there, as the reference's does
+_RINGFIX_PAST_PLANS = ("auto",) + _XRING_BACKENDS
 # Formulations of the reference that the port has not taken over yet.
 _NOT_PORTED = {"int8": "queue 1, item 15 (ops/quant.py)"}
 
@@ -125,50 +126,31 @@ def conv_halo_width(kernel_size: tuple[int, int], dilation: int = 1) -> int:
     return max((kh - 1) // 2, (kw - 1) // 2) * dilation
 
 
-@functools.lru_cache(maxsize=None)
-def conv3x3_route(dtype, b: int, n: int, cin: int, cout: int, sm_count: int, grad: bool,
-                  backend: str) -> str:
-    """``"kernel"`` where the hand-written kernels of ``backend`` plan a
-    whole-face 3x3 conv of ``(b, 6, n, n, cin) -> cout`` in ``dtype`` on a
-    card of ``sm_count`` SMs, else ``"ringfix"``.  Runs the plan functions
-    that the wrappers run: under ``'xring'`` the fused ring kernel's
-    (:func:`~dlwp_cs_tpu_torch.ops.ring_kernel.ring_plan`; its backward is
-    torch), else the forward kernel's and, with ``grad``, the dx and dw
-    kernels'.  Only those plans' ``ValueError`` is caught; nothing is
-    launched."""
-    try:
-        if backend in _XRING_BACKENDS:
-            ring_plan(dtype, b, n, cin, cout, sm_count)
-        else:
-            fwd_plan_args(dtype, b, n, n, cin, cout, sm_count)
-            if grad:
-                dx_plan_args(dtype, b, n, cin, cout, sm_count)
-                dw_launch_args(dtype, b, n, cin, cout, sm_count)
-    except ValueError:
-        return "ringfix"
-    return "kernel"
-
-
-@functools.lru_cache(maxsize=None)
-def _device_sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _sm_count(x):
-    """The SM count of ``x``'s card; None for a CPU tensor, whose wrappers
-    run the plain versions (they fit every shape)."""
-    return _device_sm_count(x.device) if x.is_cuda else None
+    """The SM count the kernel wrappers plan with on ``x``'s card; None for
+    a CPU tensor, whose wrappers run the plain versions (they fit every
+    shape)."""
+    return cs_conv3x3._sm_count[cs_conv3x3._device(x)] if x.is_cuda else None
 
 
-def _route(x, kernel_eq, kernel_pole, backend: str) -> str:
-    """:func:`conv3x3_route` of this call (``"kernel"`` on the CPU)."""
+def _kernels_fit(x, kernel_eq, kernel_pole, bias_eq, bias_pole, backend: str) -> bool:
+    """Whether the kernels that ``backend``'s wrapper would launch for this
+    whole-face 3x3 conv plan it (true on the CPU): :func:`xring_fits` under
+    ``'xring'``, else :func:`fused_fits`, asked for the dx kernel where
+    ``x`` will get a gradient and for the dw kernel where a weight or a
+    bias will."""
     sm_count = _sm_count(x)
     if sm_count is None:
-        return "kernel"
+        return True
     b, _, n, _, cin = x.shape
-    grad = torch.is_grad_enabled() and (
-        x.requires_grad or kernel_eq.requires_grad or kernel_pole.requires_grad)
-    return conv3x3_route(x.dtype, b, n, cin, kernel_eq.shape[-1], sm_count, grad, backend)
+    cout = kernel_eq.shape[-1]
+    if backend in _XRING_BACKENDS:
+        return xring_fits(x.dtype, b, n, cin, cout, sm_count)
+    grad = torch.is_grad_enabled()
+    dx = grad and x.requires_grad
+    dw = grad and any(t is not None and t.requires_grad
+                      for t in (kernel_eq, kernel_pole, bias_eq, bias_pole))
+    return fused_fits(x.dtype, b, n, cin, cout, sm_count, dx, dw)
 
 
 def _group_conv(xp, kernel, stride, dilation):
@@ -227,7 +209,11 @@ def cs_conv(
         return impl(x, kernel_eq, kernel_pole, bias_eq, bias_pole)
     whole_faces = not _pad_impl_installed()
     if (is_3x3s1 and whole_faces and backend in _KERNEL_BACKENDS + _XRING_BACKENDS
-            and _route(x, kernel_eq, kernel_pole, backend) == "ringfix"):
+            and not _kernels_fit(x, kernel_eq, kernel_pole, bias_eq, bias_pole, backend)):
+        if backend not in _RINGFIX_PAST_PLANS:
+            raise ValueError(
+                f"{backend} backend requested but configuration unsupported: a plan of "
+                f"its kernels refuses {x.dtype} {tuple(x.shape)} -> {kernel_eq.shape[-1]}")
         backend = "ringfix"  # past a kernel's plan: the reference's last resort
     if is_3x3s1 and whole_faces and backend in _KERNEL_BACKENDS + _XRING_BACKENDS:
         kernels = (kernel_eq.to(x.dtype).contiguous(), kernel_pole.to(x.dtype).contiguous())

@@ -80,6 +80,7 @@ __all__ = [
     "dw_tc_geom",
     "dw_tc_plan",
     "dx_plan_args",
+    "fused_fits",
     "fwd_plan_args",
     "tc_blocks",
     "tc_geom",
@@ -917,3 +918,24 @@ def cs_conv3x3_fused(x, ext, k_eq, k_pole, b_eq, b_pole):
     or ``ext`` needs a gradient (not for a model's input data).
     """
     return _FusedConv3x3.apply(x, ext, k_eq, k_pole, b_eq, b_pole)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_fits(dtype, b, n, cin, cout, sm_count, dx, dw) -> bool:
+    """Whether the kernels :func:`cs_conv3x3_fused` launches on a card of
+    ``sm_count`` SMs plan the whole-face conv ``(b, 6, n, n, cin) -> cout``
+    in ``dtype``: the forward kernel's plan, and the dx kernel's (``dx``)
+    and the dw kernel's (``dw``) where its backward will launch them.  The
+    plan functions those launches run; only their ``ValueError`` is caught,
+    and nothing is launched."""
+    plans = [(fwd_plan_args, (dtype, b, n, n, cin, cout, sm_count))]
+    if dx:
+        plans.append((dx_plan_args, (dtype, b, n, cin, cout, sm_count)))
+    if dw:
+        plans.append((dw_launch_args, (dtype, b, n, cin, cout, sm_count)))
+    try:
+        for plan, args in plans:
+            plan(*args)
+    except ValueError:
+        return False
+    return True

@@ -36,6 +36,7 @@ kernel here) or autograd through
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -78,6 +79,7 @@ __all__ = [
     "split_vjp",
     "xring_fused_apply",
     "xring_fused_apply_plain",
+    "xring_fits",
 ]
 
 _GROUPS = (slice(0, 4), slice(4, 6))  # equatorial, polar faces
@@ -276,10 +278,6 @@ def ring_blocks(g: RingGeom, apply: bool = True):
         out.append(runs)
     return out
 
-# the fused apply's first arrival-count buffer (int32 entries; a launch
-# needs B * 6 * 4 * nsplit)
-_MIN_COUNTERS = 256
-
 _RING_LIB = CudaLibrary("cs_ring.cu", {
     "cs_ring_tc_launch": [I32] * 3 + [VP] * 10 + [I32] * 9 + [VP],
     "cs_ring_fixes_launch": [I32, I32] + [VP] * 5 + [I32] * 6 + [VP],
@@ -354,19 +352,17 @@ class _XringApplyKernel(KernelWrapper):
         every launch (the second block of a corner resets its count), so
         one buffer per device serves every launch there as long as two
         launches never run at once (the port's callers issue them on one
-        stream).  Made outside any CUDA-graph capture, grown (at least
-        doubled) as launches need.  Every buffer once handed out lives as
-        long as the wrapper: a graph captured with an older, smaller buffer
-        keeps its address, and a replay after the buffer grew counts in it,
-        which is still zero and still its own.  The last one is the live
-        one."""
+        stream).  Made outside any CUDA-graph capture, grown as launches
+        need.  Every buffer once handed out lives as long as the wrapper: a
+        graph captured with an older, smaller buffer keeps its address, and
+        a replay after the buffer grew counts in it, which is still zero
+        and still its own.  The last one is the live one."""
         bufs = self._count_buffers.setdefault(device, [])
         if not bufs or bufs[-1].numel() < size:
             if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
                 raise RuntimeError(
                     f"{self.name}: call it once outside graph capture at this size first")
-            grown = max(size, 2 * bufs[-1].numel() if bufs else _MIN_COUNTERS)
-            bufs.append(torch.zeros(grown, dtype=torch.int32, device=device))
+            bufs.append(torch.zeros(max(size, 4096), dtype=torch.int32, device=device))
         return bufs[-1]
 
 
@@ -514,3 +510,16 @@ def cs_conv3x3_xring(x, k_eq, k_pole, b_eq, b_pole, backward: str = "split"):
     if x.ndim != 5 or x.shape[1] != 6 or x.shape[2] != x.shape[3]:
         raise ValueError(f"expected (B, 6, n, n, C), got {tuple(x.shape)}")
     return _XringConv.apply(x.contiguous(), k_eq, k_pole, b_eq, b_pole, backward)
+
+
+@functools.lru_cache(maxsize=None)
+def xring_fits(dtype, b, n, cin, cout, sm_count) -> bool:
+    """Whether the fused ring kernel that :func:`cs_conv3x3_xring` launches
+    on a card of ``sm_count`` SMs plans the conv ``(b, 6, n, n, cin) ->
+    cout`` in ``dtype`` (:func:`ring_plan`; the backward is torch).  Only
+    the plan's ``ValueError`` is caught, and nothing is launched."""
+    try:
+        ring_plan(dtype, b, n, cin, cout, sm_count)
+    except ValueError:
+        return False
+    return True

@@ -23,13 +23,12 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from dlwp_cs_tpu_torch.ops import conv_variants as cv
-from dlwp_cs_tpu_torch.ops import cuda_build
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
+from dlwp_cs_tpu_torch.tools import phases
 from dlwp_cs_tpu_torch.tools.timing import bf16_excess, graph_ms
 
 __all__ = ["ANCHORS", "SHAPES", "VARIANTS", "main", "patched_source", "run"]
@@ -65,36 +64,14 @@ VARIANTS = {
 def patched_source(switches) -> str:
     """``cs_conv3x3_mma.cu`` with every switch's guard in place, those of
     ``switches`` on."""
-    src = cv._MMA_LIB.source.read_text()
-    for name, pairs in ANCHORS.items():
-        for old, new in pairs:
-            if src.count(old) != 1:
-                raise RuntimeError(f"im2col_phases: an anchor of {name} is not in the "
-                                   "source once")
-            src = src.replace(old, new)
-    return "".join(f"#define {s} {int(s in switches)}\n" for s in SWITCHES) + src
-
-
-def _library(name):
-    """The variant's library, built under ``_build/im2col_phases/<name>/``."""
-    d = cuda_build._BUILD_ROOT / "im2col_phases" / name
-    d.mkdir(parents=True, exist_ok=True)
-    for h in cv._MMA_LIB.source.parent.glob("*.cuh"):
-        (d / h.name).write_bytes(h.read_bytes())
-    (d / cv._MMA_LIB.source.name).write_text(patched_source(VARIANTS[name]))
-    lib = cuda_build.CudaLibrary(cv._MMA_LIB.source.name, cv._MMA_LIB.functions,
-                                 cv._MMA_LIB.error_string)
-    lib.source = d / cv._MMA_LIB.source.name
-    lib.build()
-    return lib
+    return phases.patched_source(cv._MMA_LIB, ANCHORS, SWITCHES, switches)
 
 
 def run(reps: int = 20):
     """Every variant at ``SHAPES`` (bfloat16, the kernel's only type), and
     the full kernel at each K window width: one dict per shape with the
     plan's launch and the device ms of each."""
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant, at once
-        libs = dict(zip(VARIANTS, pool.map(_library, VARIANTS)))
+    libs = phases.variant_libraries(cv._MMA_LIB, ANCHORS, SWITCHES, VARIANTS, "im2col_phases")
     kernel = cv.cs_conv3x3_im2col
     saved = kernel.library, kernel.launches
     dev = torch.device("cuda")

@@ -23,13 +23,12 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from dlwp_cs_tpu_torch.ops import cuda_build
 from dlwp_cs_tpu_torch.ops import ring_kernel as rk
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
+from dlwp_cs_tpu_torch.tools import phases
 from dlwp_cs_tpu_torch.tools.timing import bf16_excess, graph_ms
 
 __all__ = ["ANCHORS", "SHAPES", "VARIANTS", "main", "patched_source", "run"]
@@ -68,35 +67,14 @@ VARIANTS = {
 def patched_source(switches) -> str:
     """``cs_ring.cu`` with every switch's guard in place, those of
     ``switches`` on."""
-    src = rk._RING_LIB.source.read_text()
-    for name, pairs in ANCHORS.items():
-        for old, new in pairs:
-            if src.count(old) != 1:
-                raise RuntimeError(f"ring_phases: an anchor of {name} is not in cs_ring.cu once")
-            src = src.replace(old, new)
-    return "".join(f"#define {s} {int(s in switches)}\n" for s in SWITCHES) + src
-
-
-def _library(name):
-    """The variant's library, built under ``_build/ring_phases/<name>/``."""
-    d = cuda_build._BUILD_ROOT / "ring_phases" / name
-    d.mkdir(parents=True, exist_ok=True)
-    for h in rk._RING_LIB.source.parent.glob("*.cuh"):
-        (d / h.name).write_bytes(h.read_bytes())
-    (d / "cs_ring.cu").write_text(patched_source(VARIANTS[name]))
-    lib = cuda_build.CudaLibrary("cs_ring.cu", rk._RING_LIB.functions,
-                                 rk._RING_LIB.error_string)
-    lib.source = d / "cs_ring.cu"
-    lib.build()
-    return lib
+    return phases.patched_source(rk._RING_LIB, ANCHORS, SWITCHES, switches)
 
 
 def run(reps: int = 20):
     """Every variant of both ring kernels at ``SHAPES`` in bfloat16 and
     float32: one dict per (dtype, shape) with each variant's device ms for
     the fused apply and, for the variants that keep its work, the fixes."""
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant, at once
-        libs = dict(zip(VARIANTS, pool.map(_library, VARIANTS)))
+    libs = phases.variant_libraries(rk._RING_LIB, ANCHORS, SWITCHES, VARIANTS, "ring_phases")
     wrappers = (rk.xring_fused_apply, rk.ring_fixes)
     saved = [(w.library, w.launches) for w in wrappers]
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -3,7 +3,8 @@
 
 The counterpart of the reference's ``tools/_timing.py`` and of its tools'
 chained-scan ``time_chain`` functions: a call's device time, with host
-launch overhead kept out by a CUDA graph.  On the CPU nothing is timed
+launch overhead kept out by a CUDA graph, and with a cold L2
+(:func:`cold_ms`) for a pass that would otherwise fit in it.  On the CPU nothing is timed
 (:func:`device_ms` returns ``None``): a tool never reports the plain path's
 CPU time as if it were the card's.  Beside it: the least time the H100
 could take for a call (:func:`bound`), the bfloat16 check every kernel is
@@ -19,7 +20,7 @@ import statistics
 import torch
 
 __all__ = ["HBM_BYTES_PER_S", "PEAK_OPS", "TF32_OPS", "add_device_args", "bf16_excess",
-           "bound", "check_close", "device_ms", "face_grouped", "graph_ms", "tool_device"]
+           "bound", "check_close", "cold_ms", "device_ms", "face_grouped", "graph_ms", "tool_device"]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
 # and the fastest rate of float32-accurate work for the kernel's input type.
@@ -92,6 +93,28 @@ def graph_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     del g
+    return statistics.median(times)
+
+
+def cold_ms(fn, reps, flush_bytes=1 << 28):
+    """Device milliseconds per call of ``fn`` with its inputs out of the
+    L2: before each of ``reps`` calls a ``flush_bytes`` buffer (256 MB,
+    five times an H100's 50 MB L2) is read, which leaves the L2 holding
+    clean lines of it (a write would leave dirty lines whose write-back
+    the timed call would pay for), and CUDA events bracket the call alone,
+    whose launch the host issues while the read still runs; the median
+    call."""
+    flush = torch.zeros(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.max()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 

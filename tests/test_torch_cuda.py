@@ -1079,11 +1079,11 @@ def test_refused_shape_trains_through_ringfix_on_card(cuda_device):
     #5, and matches the plain path (the fused conv's plain version through
     autograd): outputs 1e-4, gradients and updated weights 1e-5 of the
     largest entry.  Without a gradient the forward kernel plans and runs."""
-    from dlwp_cs_tpu_torch.ops.conv import conv3x3_route
+    from dlwp_cs_tpu_torch.ops.hopper_conv import fused_fits
 
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert conv3x3_route(torch.float32, 1, 128, 32, 32, sms, True, "auto") == "ringfix"
-    assert conv3x3_route(torch.float32, 1, 128, 32, 32, sms, False, "auto") == "kernel"
+    assert not fused_fits(torch.float32, 1, 128, 32, 32, sms, True, True)
+    assert fused_fits(torch.float32, 1, 128, 32, 32, sms, False, False)
     arrays = _case(1, 128, 32, 32)
     paths = {}
     for name in ("route", "plain"):
@@ -1116,11 +1116,12 @@ def test_refused_shape_trains_through_ringfix_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_apply_graph_replays_after_its_counters_grow_on_card(cuda_device, dtype):
-    """A CUDA graph of the fused apply (#7) captured at batch 1, then an
-    eager call at batch 16 that needs more arrival counts (a second
-    buffer), then other allocations: the graph's replays still count in
-    its own buffer, which stays alive and zero.  Two replays agree bitwise
-    and equal the plain version; the batch-16 call does too."""
+    """A CUDA graph of the fused apply (#7) captured at batch 1, then the
+    arrival counts grown past the first buffer (a second buffer), an eager
+    call at batch 16 on it, then other allocations: the graph's replays
+    still count in its own buffer, which stays alive and zero.  Two
+    replays agree bitwise and equal the plain version; the batch-16 call
+    does too."""
     from dlwp_cs_tpu_torch.ops.ring_kernel import _RING_LIB, _XringApplyKernel
 
     kernel = _XringApplyKernel("xring_fused_apply_graph", _RING_LIB)  # buffers of its own
@@ -1147,6 +1148,7 @@ def test_fused_apply_graph_replays_after_its_counters_grow_on_card(cuda_device, 
         out = kernel(*small)
     bufs = kernel._count_buffers[small[2].device]
     assert len(bufs) == 1
+    kernel._counters(bufs[0].device, bufs[0].numel() + 1)
     big = inputs(16, 8)
     out16 = kernel(*big)
     assert len(bufs) == 2 and bufs[1].numel() > bufs[0].numel()

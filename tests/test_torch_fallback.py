@@ -1,15 +1,20 @@
 """Shapes past a kernel's plan, and the fused ring apply's arrival counts.
 
-``cs_conv`` on a CUDA tensor asks :func:`~dlwp_cs_tpu_torch.ops.conv.
-conv3x3_route` before any launch: where a plan of the kernels that the call
-would run refuses the shape (the forward kernel's, the dx and dw kernels'
-when a gradient will be taken, the ring kernel's under ``'xring'``), the
-conv takes the ring-fix composition, as the reference's dispatch does past
-its kernels' gates.  Here, on the CPU, at an H100's 132 SMs:
+``cs_conv`` on a CUDA tensor asks the wrappers' plans before any launch
+(:func:`~dlwp_cs_tpu_torch.ops.hopper_conv.fused_fits`, :func:`~dlwp_cs_
+tpu_torch.ops.ring_kernel.xring_fits`): where a plan of the kernels that
+the call would run refuses the shape (the forward kernel's, the dx kernel's
+when ``x`` will get a gradient and the dw kernel's when a weight or a bias
+will, the ring kernel's under ``'xring'``), the conv takes the ring-fix
+composition under ``'auto'`` and ``'xring'``, as the reference's ``'auto'``
+does past its kernels' gates, and raises under ``'pallas'``, as the
+reference's does.  Here, on the CPU, at an H100's 132 SMs:
 
 * the route refuses exactly where one of those plans raises, over a grid
   of shapes, keeps every flagship shape (and n = 96) on its kernels, and
   refuses the shapes named in the port's fault record;
+* which gradients are taken decides which backward plans count;
+* ``'pallas'`` raises at a refused shape and ``'xring'`` takes ring-fix;
 * at one refused shape (float32 with a gradient, n = 128, Cin = Cout = 32,
   batch 1: only the dw plan refuses), ``cs_conv`` with the SM count of a
   card (a stand-in on the CPU) takes the ring-fix composition, whose
@@ -35,9 +40,19 @@ import jax.numpy as jnp
 
 from dlwp_cs_tpu.ops.conv import cs_conv as j_cs_conv
 from dlwp_cs_tpu_torch.ops import conv as conv_mod
-from dlwp_cs_tpu_torch.ops.conv import conv3x3_route, cs_conv
-from dlwp_cs_tpu_torch.ops.hopper_conv import dw_launch_args, dx_plan_args, fwd_plan_args
-from dlwp_cs_tpu_torch.ops.ring_kernel import _RING_LIB, _XringApplyKernel, ring_plan
+from dlwp_cs_tpu_torch.ops.conv import cs_conv
+from dlwp_cs_tpu_torch.ops.hopper_conv import (
+    dw_launch_args,
+    dx_plan_args,
+    fused_fits,
+    fwd_plan_args,
+)
+from dlwp_cs_tpu_torch.ops.ring_kernel import (
+    _RING_LIB,
+    _XringApplyKernel,
+    ring_plan,
+    xring_fits,
+)
 
 SMS = 132
 DTYPES = [torch.float32, torch.bfloat16]
@@ -56,6 +71,16 @@ def _refuses(fn, *args):
     except ValueError:
         return True
     return False
+
+
+def conv3x3_route(dtype, b, n, cin, cout, sms, grad, backend):
+    """The route ``cs_conv`` takes on a card of ``sms`` SMs, with every
+    gradient taken (``grad``) or none."""
+    if backend == "xring":
+        fits = xring_fits(dtype, b, n, cin, cout, sms)
+    else:
+        fits = fused_fits(dtype, b, n, cin, cout, sms, grad, grad)
+    return "kernel" if fits else "ringfix"
 
 
 def _plans_refuse(dtype, b, n, cin, cout, grad, backend):
@@ -114,10 +139,37 @@ def test_float32_dw_still_plans_narrow_inputs_at_n128(cin):
 
 
 def test_route_is_memoised():
-    conv3x3_route(torch.float32, 1, 128, 32, 32, SMS, True, "auto")
-    hits = conv3x3_route.cache_info().hits
-    conv3x3_route(torch.float32, 1, 128, 32, 32, SMS, True, "auto")
-    assert conv3x3_route.cache_info().hits == hits + 1
+    for fits, args in ((fused_fits, (torch.float32, 1, 128, 32, 32, SMS, True, True)),
+                       (xring_fits, (torch.float32, 1, 48, 512, 512, SMS))):
+        fits(*args)
+        hits = fits.cache_info().hits
+        fits(*args)
+        assert fits.cache_info().hits == hits + 1
+
+
+@pytest.mark.parametrize("dtype,n,x_grad,w_grad,fits", [
+    (torch.float32, 128, False, True, False),   # the dw plan refuses: weights need it
+    (torch.float32, 128, True, False, True),    # frozen weights: no dw launch
+    (torch.bfloat16, 256, False, True, True),   # data input: no dx launch
+    (torch.bfloat16, 256, True, False, False),  # the dx plan refuses
+    (torch.float32, 128, True, True, False),
+    (torch.bfloat16, 256, False, False, True),
+])
+def test_the_gradients_taken_decide_which_backward_plans_count(monkeypatch, dtype, n, x_grad,
+                                                                w_grad, fits):
+    """``dx`` where ``x`` will get a gradient, ``dw`` where a weight or a
+    bias will, as the fused backward launches them; under ``no_grad``
+    neither."""
+    monkeypatch.setattr(conv_mod, "_sm_count", lambda x: SMS)
+    x = torch.empty((1, 6, n, n, 32), dtype=dtype, requires_grad=x_grad)
+    ks = [torch.empty((3, 3, 32, 32), dtype=dtype, requires_grad=w_grad) for _ in range(2)]
+    assert conv_mod._kernels_fit(x, *ks, None, None, "auto") is fits
+    bias = torch.empty((32,), dtype=dtype, requires_grad=True)
+    frozen = [k.detach() for k in ks]
+    assert conv_mod._kernels_fit(x, *frozen, bias, None, "auto") is (
+        fused_fits(dtype, 1, n, 32, 32, SMS, x_grad, True))
+    with torch.no_grad():
+        assert conv_mod._kernels_fit(x, *ks, bias, bias, "auto") is True
 
 
 def _refused_case(seed=3):
@@ -130,8 +182,8 @@ def _refused_case(seed=3):
     return [x, *ks, *bs], g
 
 
-def _fused_must_not_run(*args):
-    raise AssertionError("the fused kernel path ran at a shape its dw plan refuses")
+def _must_not_run(*args, **kwargs):
+    raise AssertionError("cs_conv took a path that the route refuses")
 
 
 def test_cs_conv_takes_ringfix_where_the_dw_plan_refuses(monkeypatch):
@@ -139,7 +191,7 @@ def test_cs_conv_takes_ringfix_where_the_dw_plan_refuses(monkeypatch):
     ring-fix composition, never the fused kernel path; output and
     gradients against the JAX package's ``cs_conv`` and ``jax.grad``."""
     monkeypatch.setattr(conv_mod, "_sm_count", lambda x: SMS)
-    monkeypatch.setattr(conv_mod, "cs_conv3x3_fused", _fused_must_not_run)
+    monkeypatch.setattr(conv_mod, "cs_conv3x3_fused", _must_not_run)
     args, g = _refused_case()
     ins = [torch.from_numpy(a).requires_grad_(True) for a in args]
     out = cs_conv(ins[0], ins[1], ins[2], bias_eq=ins[3], bias_pole=ins[4])
@@ -156,6 +208,40 @@ def test_cs_conv_takes_ringfix_where_the_dw_plan_refuses(monkeypatch):
         r = np.asarray(r)
         np.testing.assert_allclose(ours.detach().numpy(), r, rtol=0,
                                    atol=2e-5 * float(np.abs(r).max()))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret"])
+def test_pallas_raises_where_a_plan_refuses(monkeypatch, backend):
+    """The reference's ``'pallas'`` raises where its kernels do not fit
+    (only ``'auto'`` falls back); so does the port's, before any launch."""
+    monkeypatch.setattr(conv_mod, "_sm_count", lambda x: SMS)
+    monkeypatch.setattr(conv_mod, "cs_conv3x3_fused", _must_not_run)
+    monkeypatch.setattr(conv_mod, "cs_conv3x3_ringfix", _must_not_run)
+    args, _ = _refused_case()
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    with pytest.raises(ValueError, match="configuration unsupported"):
+        cs_conv(ins[0], ins[1], ins[2], bias_eq=ins[3], bias_pole=ins[4], backend=backend)
+
+
+@pytest.mark.parametrize("backend", ["xring", "xring_interpret"])
+def test_xring_takes_ringfix_where_the_ring_plan_refuses(monkeypatch, backend):
+    """At (1, 6, 48, 48, 512) -> 512 in float32 the ring kernel's plan
+    refuses: ``cs_conv`` hands the conv, unchanged, to the ring-fix
+    composition and never to the xring wrapper."""
+    monkeypatch.setattr(conv_mod, "_sm_count", lambda x: SMS)
+    monkeypatch.setattr(conv_mod, "cs_conv3x3_xring", _must_not_run)
+    calls = []
+
+    def ringfix(x, k_eq, k_pole, bias_eq=None, bias_pole=None):
+        calls.append((x, k_eq, k_pole, bias_eq, bias_pole))
+        return x
+
+    monkeypatch.setattr(conv_mod, "cs_conv3x3_ringfix", ringfix)
+    x = torch.zeros((1, 6, 48, 48, 512))
+    k = torch.zeros((3, 3, 512, 512))
+    with torch.no_grad():
+        assert cs_conv(x, k, k, backend=backend) is x
+    assert len(calls) == 1 and calls[0][1] is k and calls[0][3] is None
 
 
 def test_cs_conv_keeps_the_kernel_path_without_a_gradient(monkeypatch):
@@ -181,8 +267,8 @@ def test_cpu_tensors_keep_their_path():
     wrappers' plain versions fit every shape."""
     x = torch.zeros((1, 6, 4, 4, 2), requires_grad=True)
     assert conv_mod._sm_count(x) is None
-    assert conv_mod._route(x, torch.zeros((3, 3, 2, 3)), torch.zeros((3, 3, 2, 3)),
-                           "auto") == "kernel"
+    assert conv_mod._kernels_fit(x, torch.zeros((3, 3, 2, 3)), torch.zeros((3, 3, 2, 3)),
+                                 None, None, "auto") is True
 
 
 def test_counter_buffers_outlive_their_growth():

@@ -741,6 +741,23 @@ def test_ring_phase_tool_switches_guard_the_kernel_source():
             assert src.count(f"{s}") >= 2, (name, s)
 
 
+
+def test_phase_tools_refuse_an_anchor_not_in_the_source_once():
+    """``tools/phases.py`` patches a guard only where its anchor is in the
+    source exactly once (an anchor that drifted would guard nothing)."""
+    from dlwp_cs_tpu_torch.ops.ring_kernel import _RING_LIB
+    from dlwp_cs_tpu_torch.tools import phases
+
+    with pytest.raises(RuntimeError, match="an anchor of NO_X is not in cs_ring.cu once"):
+        phases.patched_source(_RING_LIB, {"NO_X": [("no such text", "")]}, ("NO_X",), ())
+    twice = "__syncthreads();"
+    assert _RING_LIB.source.read_text().count(twice) > 1
+    with pytest.raises(RuntimeError, match="NO_Y"):
+        phases.patched_source(_RING_LIB, {"NO_Y": [(twice, "")]}, ("NO_Y",), ("NO_Y",))
+    src = phases.patched_source(_RING_LIB, {}, ("NO_A", "NO_B"), ("NO_B",))
+    assert src.startswith("#define NO_A 0\n#define NO_B 1\n")
+
+
 # ---- #13: the im2col GEMM kernel's tiles and its column gather --------------
 
 IM2COL = ([(b, n, cin, cout) for b in (1, 16) for n, cin, cout in FLAGSHIP]
