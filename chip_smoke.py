@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels, run its kernel tools, serve and
-train the flagship U-Net and the ConvLSTM on one GPU, and serve the U-Net
-spatially sharded over 4 ranks that share the GPU, through gloo and through
-CUDA IPC.
+train the flagship U-Net and the ConvLSTM on one GPU, serve ensembles of
+the U-Net, and serve the U-Net spatially sharded over 4 ranks that share
+the GPU, through gloo and through CUDA IPC.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -57,12 +57,14 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    bitwise against #1, every probe of #16 at the reference scripts' shapes
    with its plain and library times); #12's and #16's lines come from
    these rows.  Then: #3 (kn2row) and #13 (im2col) on the tensor cores,
-   bfloat16, at each conv shape of the flagship U-Net at batch 1 and at
-   conv_micro's levels and the decoder's shape at batch 16 (#13 also at
-   Cout = 256 and on the packed layout's 128 channels), against their
-   plain versions and #1 on the same strips, timed beside #1, the
-   face-grouped cuDNN call and the bound, #13 in turns with the im2col
-   kernel of the first design (``im2col_summary``); #14 (dx with the raw
+   bfloat16, at each conv shape of the flagship U-Net at batch 1, at
+   conv_micro's levels and the decoder's shape at batch 16, and past the
+   first designs' plans (Cout = 256, the packed layout's 128 channels at
+   batch 4, n = 48 with 128 -> 128 at batch 1), against their plain
+   versions and #1 on the same strips and bitwise against themselves,
+   timed beside #1, the face-grouped cuDNN call and the bound, each in
+   turns (old, new, new, old) with the kernel of its first design where
+   that plans the shape (``npack_summary``, ``im2col_summary``); #14 (dx with the raw
    ring) at conv_micro's levels in float32 and bfloat16, its interior and
    ring bitwise equal to #4's, timed beside ``F.conv_transpose2d``; #15 in
    both types bitwise equal to 3·x (also at C = 39, 3 and 24), timed in
@@ -78,6 +80,18 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    fields, the first two model calls equal to the plain path on the card, 8
    concurrent submits coalesced into at most 2 dispatches and equal to
    direct forecasts;
+6a. serve 14-day perturbed-IC ensembles of the flagship U-Net in bfloat16
+   and float32 (``ForecastService.forecast_ensemble``, 8 members folded
+   into one rollout at batch 8: 280 launches of #1 per ensemble, each at
+   batch 8): finite mean, spread and members; the control member against
+   ``forecast`` of the same window (bitwise equality recorded; within 1e-4
+   / 1e-2 std); the first two model calls against the plain path on the
+   card; 3 concurrent ``submit_ensemble`` calls with one key in one
+   dispatch, equal to ``forecast_ensemble`` of the stacked windows with the
+   same seed; ``DLWPEstimator.forecast`` from a seeded ``MemoryStore`` (2
+   inits, 4 steps) against ``ForecastService.forecast`` of the same
+   windows; the wall time, the device's busy time and idle share in one
+   profiled ensemble, the launches;
 7. at each 3x3 shape of the flagship U-Net cut into 4 row bands (h = 12,
    6, 3 at n = 48, 24, 12) and into 2x2 tiles (24^2, 12^2, 6^2), at batch 1
    and 8, in float32 and bfloat16: hold the band and tile launches of the
@@ -124,8 +138,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    ``all_gather``, of one band and one tile conv with its exchange, of the
    band rows by the ``ppermute`` pair and by #10, of a band conv with #10
    and of a #11 conv; then a group of 2 ranks: #10 at the same rows;
-10. print the kernel line (JSON), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. print the #3/#13 tables and the ensemble lines again, the kernel line
+   (JSON), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, in any rank, so the script exits non-zero and
 prints no result.
@@ -499,23 +513,25 @@ def block_case(kind, n, cin, cout, b, dtype, gen):
     }
 
 
-def mma_cases(n, cin, cout, b, gen, kinds=("npack", "im2col")):
+def mma_cases(n, cin, cout, b, gen):
     """Kernels #3 (kn2row) and #13 (im2col) at one conv shape in bfloat16
     (the only type they take): each against its plain version and against
-    kernel #1 on the same strips, one bf16 ulp of |ref| + 1e-4; #13 also
-    bitwise against itself and timed in turns (old, new, new, old) with the
-    im2col kernel of the first design (``cs_conv3x3_im2col_v1``, held too;
-    where its plan refuses the shape, its entries are None); each timed
-    beside #1, the face-grouped cuDNN call and the bound, which is #1's
-    (the same function)."""
+    kernel #1 on the same strips, one bf16 ulp of |ref| + 1e-4, bitwise
+    against itself, and timed in turns (old, new, new, old) with the kernel
+    of its first design (``cs_conv3x3_npack_v1``, ``cs_conv3x3_im2col_v1``,
+    held too; where that design's plan refuses the shape, its entries are
+    None); each timed beside #1, the face-grouped cuDNN call and the bound,
+    which is #1's (the same function)."""
     from dlwp_cs_tpu_torch.ops.conv_variants import (
         cs_conv3x3_im2col,
         cs_conv3x3_im2col_plain,
         cs_conv3x3_im2col_v1,
         cs_conv3x3_npack,
         cs_conv3x3_npack_plain,
+        cs_conv3x3_npack_v1,
         im2col_taps,
         mma_plan,
+        npack_plan,
         npack_taps,
     )
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
@@ -530,7 +546,8 @@ def mma_cases(n, cin, cout, b, gen, kinds=("npack", "im2col")):
           for _ in range(2)]
     bs = [(torch.randn((cout,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
     ext = ext_strips(x)
-    wrappers = (cs_conv3x3, cs_conv3x3_npack, cs_conv3x3_im2col, cs_conv3x3_im2col_v1)
+    wrappers = (cs_conv3x3, cs_conv3x3_npack, cs_conv3x3_npack_v1, cs_conv3x3_im2col,
+                cs_conv3x3_im2col_v1)
     launches = [w.launches for w in wrappers]
     conv1 = cs_conv3x3(x, ext, *ks, *bs)
     conv1_ms = graph_ms(lambda: cs_conv3x3(x, ext, *ks, *bs), 20)
@@ -542,45 +559,43 @@ def mma_cases(n, cin, cout, b, gen, kinds=("npack", "im2col")):
     ops = 2 * b * 6 * n * n * 9 * cin * cout
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
-    for kind, wrapper, plain, taps in (
-        ("npack", cs_conv3x3_npack, cs_conv3x3_npack_plain, npack_taps),
-        ("im2col", cs_conv3x3_im2col, cs_conv3x3_im2col_plain, im2col_taps),
+    for kind, wrapper, v1, plain, taps in (
+        ("npack", cs_conv3x3_npack, cs_conv3x3_npack_v1, cs_conv3x3_npack_plain, npack_taps),
+        ("im2col", cs_conv3x3_im2col, cs_conv3x3_im2col_v1, cs_conv3x3_im2col_plain,
+         im2col_taps),
     ):
-        if kind not in kinds:
-            continue
         tw = [taps(k) for k in ks]
         ours = wrapper(x, ext, *tw, *bs)
         ref = plain(x, ext, *tw, *bs)
         torch.cuda.synchronize()
         ok = bf16_excess(ours, ref) <= 1e-4 and bf16_excess(ours, conv1) <= 1e-4
+        ok = ok and bool(torch.equal(wrapper(x, ext, *tw, *bs), ours))
         case = {
             "kernel": kind, "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": "bfloat16",
             "max_abs_err": float((ours.float() - ref.float()).abs().max()),
             "vs_conv_kernel_max_abs_err": float((ours.float() - conv1.float()).abs().max()),
-            "tolerance": "2**-7*|ref| + 1e-4 (plain and #1)",
+            "tolerance": "2**-7*|ref| + 1e-4 (plain and #1); bitwise repeat",
             "plain_ms": graph_ms(lambda: plain(x, ext, *tw, *bs), 3),
             "library_ms": library_ms, "conv_kernel_ms": conv1_ms,
             **bound(nbytes, ops, dtype),
         }
         if kind == "npack":
-            case["ms"] = graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20)
+            case["plan"] = npack_plan(b, n, cin, cout, sms)._asdict()
+        try:  # the first design's plan, as its wrapper runs it
+            mma_plan(kind, b, n, cin, cout, sms)
+            v1_refuses = False
+        except ValueError:
+            v1_refuses = True
+        if v1_refuses:
+            case.update(ms=graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20), v1_ms=None,
+                        v1_max_abs_err=None, runs_old_new_new_old=None)
         else:
-            ok = ok and bool(torch.equal(wrapper(x, ext, *tw, *bs), ours))
-            try:  # the first design's plan, as its wrapper runs it
-                mma_plan("im2col", b, n, cin, cout, sms)
-                v1_refuses = False
-            except ValueError:
-                v1_refuses = True
-            if v1_refuses:
-                case.update(ms=graph_ms(lambda: wrapper(x, ext, *tw, *bs), 20), v1_ms=None,
-                            v1_max_abs_err=None, runs_old_new_new_old=None)
-            else:
-                old = cs_conv3x3_im2col_v1(x, ext, *tw, *bs)
-                ok = ok and bf16_excess(old, ref) <= 1e-4
-                ms, old_ms, runs = _turns(lambda: wrapper(x, ext, *tw, *bs),
-                                          lambda: cs_conv3x3_im2col_v1(x, ext, *tw, *bs), 20)
-                case.update(ms=ms, v1_ms=old_ms, runs_old_new_new_old=runs,
-                            v1_max_abs_err=float((old.float() - ref.float()).abs().max()))
+            old = v1(x, ext, *tw, *bs)
+            ok = ok and bf16_excess(old, ref) <= 1e-4
+            ms, old_ms, runs = _turns(lambda: wrapper(x, ext, *tw, *bs),
+                                      lambda: v1(x, ext, *tw, *bs), 20)
+            case.update(ms=ms, v1_ms=old_ms, runs_old_new_new_old=runs,
+                        v1_max_abs_err=float((old.float() - ref.float()).abs().max()))
         case["ok"] = ok
         cases.append(case)
     for wr, count in zip(wrappers, launches):  # timing launches are not the main path's
@@ -588,18 +603,19 @@ def mma_cases(n, cin, cout, b, gen, kinds=("npack", "im2col")):
     return cases
 
 
-def im2col_summary(cases):
-    """#13 against the first design's kernel (timed in turns), per group of
-    shapes: a flagship model call's 10 convs at batch 1, each of
-    conv_micro's levels and the decoder's shape at batch 16, the shapes the
-    first design cannot take; ms new / v1 / cuDNN / plain / bound."""
+def mma_summary(cases, kind):
+    """#3 (``kind`` "npack") or #13 ("im2col") against its first design's
+    kernel (timed in turns), per group of shapes: a flagship model call's
+    10 convs at batch 1, each of conv_micro's levels and the decoder's
+    shape at batch 16, the shapes the first design cannot take; ms new / v1
+    / cuDNN / plain / bound."""
     from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
 
-    im = {(c["n"], c["cin"], c["cout"], c["batch"]): c for c in cases if c["kernel"] == "im2col"}
-    groups = {"model call, batch 1": [im[s + (1,)] for s in FLAGSHIP_CONVS]}
+    by = {(c["n"], c["cin"], c["cout"], c["batch"]): c for c in cases if c["kernel"] == kind}
+    groups = {"model call, batch 1": [by[s + (1,)] for s in FLAGSHIP_CONVS]}
     for key in LEVELS + [(48, 96, 32, TRAIN_BATCH)]:
-        groups["(%d, %d, %d), batch %d" % key] = [im[key]]
-    for key, c in im.items():
+        groups["(%d, %d, %d), batch %d" % key] = [by[key]]
+    for key, c in by.items():
         if c["v1_ms"] is None:
             groups["(%d, %d, %d), batch %d (v1 refuses)" % key] = [c]
     out = {}
@@ -1408,6 +1424,127 @@ def serve_phase(kind, dtype_name, rng):
     }
 
 
+ENS_MEMBERS = 8  # ensemble members: each ensemble forecast runs #1 at batch 8
+
+
+def ensemble_phase(dtype_name, rng):
+    """Serve 14-day perturbed-IC ensembles of the flagship U-Net and the
+    estimator's forecast facade, through the port's entry points."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
+    from dlwp_cs_tpu_torch import ForecastService
+    from dlwp_cs_tpu_torch.data import MemoryStore
+
+    kernels = all_kernels()
+    cfg = ExperimentConfig(data=DataConfig(), model=model_config("unet", dtype_name))
+    d = cfg.data
+    mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
+    std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
+    stats = {"mean": mean, "std": std, "insol_mean": 340.0, "insol_std": 420.0}
+    est = DLWPEstimator(cfg, device="cuda", seed=0).load_state(stats)
+    const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
+    windows = (rng.normal(size=(3, 2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
+    t0 = 9668.5 + 0.25 * np.arange(3)
+    svc = ForecastService(est, constants=const, max_batch=4, max_wait_ms=500.0)
+    args = dict(steps=STEPS, members=ENS_MEMBERS, amplitude=0.05)
+
+    def ensemble():
+        return svc.forecast_ensemble(windows[0], t0[0], keep_members=True,
+                                     generator=torch.Generator().manual_seed(0), **args)
+
+    ensemble()  # warm-up
+    for k in kernels.values():
+        k.launches = 0
+    ens = ensemble()
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = want_launches(PER_CALL["unet"], STEPS)
+    check(launches == want, f"ensemble launches {launches}, want {want}")
+    lead = 2 * STEPS
+    check(ens.mean.shape == ens.spread.shape == (1, lead, 6, 48, 48, 4)
+          and ens.members.shape == (1, ENS_MEMBERS, lead, 6, 48, 48, 4),
+          f"ensemble shapes {ens.mean.shape} {ens.members.shape}")
+    check(all(bool(np.isfinite(a).all()) for a in (ens.mean, ens.spread, ens.members)),
+          "non-finite ensemble fields")
+    check(bool((ens.spread[:, -1].mean(axis=(0, 1, 2, 3)) > 0).all()),
+          "the members did not spread")
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        ensemble()
+        times.append((time.perf_counter() - t) * 1e3)
+    profiled_run_ms(lambda: svc.forecast_ensemble(windows[0], t0[0], steps=2,
+                                                  members=ENS_MEMBERS))  # tracer warm-up
+    prof_ms, busy_ms, kernel_ms, n_kernels = profiled_run_ms(ensemble)
+    idle = None if busy_ms is None else 1.0 - busy_ms / prof_ms
+
+    # the control member (batch 8) against the forecast of its window
+    # (batch 1): #1 sums each output in one K order whatever the batch;
+    # library calls (the 1x1 head's matmul) may pick another algorithm
+    fc = svc.forecast(windows[0], t0[0], steps=STEPS).fields
+    control = ens.members[:, 0]
+    control_equal = bool(np.array_equal(control, fc))
+    control_err = float((np.abs(control - fc) / std).max())
+    tol_std = 1e-4 if dtype_name == "float32" else 1e-2
+    check(control_err <= tol_std, f"control member vs forecast: {control_err} std > {tol_std}")
+
+    # the first two model calls against the plain path on the card
+    normed = (windows[:1] - mean) / std
+    kw = dict(steps=2, members=ENS_MEMBERS, normalized=True, keep_members=True)
+    two = svc.forecast_ensemble(normed, t0[0], generator=torch.Generator().manual_seed(1), **kw)
+    with plain_convs():
+        two_plain = svc.forecast_ensemble(normed, t0[0],
+                                          generator=torch.Generator().manual_seed(1), **kw)
+    err2 = float(np.abs(two.members - two_plain.members).max())
+    scale = float(np.abs(two_plain.members).max())
+    tol2 = 1e-4 * scale if dtype_name == "float32" else 2.0**-6 * scale
+    check(err2 <= tol2, f"ensemble's first two calls differ from the plain path: {err2} > {tol2}")
+
+    # three concurrent requests with one key: one dispatch (a bucket of 4),
+    # equal to the ensemble of the three stacked windows with the same seed
+    batches0 = svc.stats.batches
+    futs = [svc.submit_ensemble(windows[i], t0[i], seed=3, keep_members=True, **args)
+            for i in range(3)]
+    results = [f.result(timeout=600) for f in futs]
+    dispatches = svc.stats.batches - batches0
+    check(dispatches == 1, f"3 ensemble submits took {dispatches} dispatches")
+    stacked = svc.forecast_ensemble(windows, t0, keep_members=True,
+                                    generator=torch.Generator().manual_seed(3), **args)
+    sub_equal = all(np.array_equal(r.members[0], stacked.members[i])
+                    for i, r in enumerate(results))
+    sub_err = max(float((np.abs(r.members[0] - stacked.members[i]) / std).max())
+                  for i, r in enumerate(results))
+    check(sub_err <= tol_std, f"coalesced ensembles vs stacked: {sub_err} std > {tol_std}")
+
+    # the estimator's facade from a seeded store against the service
+    steps4 = 4
+    store = MemoryStore.from_raw(
+        (rng.normal(size=(6, 6, 48, 48, 4)) * std + mean).astype(np.float32),
+        9668.5 + 0.25 * np.arange(6), d.variables, constants=const,
+        constant_names=d.constants)
+    idx = np.asarray([1, 4])
+    est_fc = est.forecast(store, init_indices=idx, steps=steps4).fields.cpu().numpy()
+    win = np.stack([(store.fields[i - 1 : i + 1] - mean) / std for i in idx])
+    svc_fc = svc.forecast(win, store.times[idx], steps=steps4, normalized=True).fields
+    est_equal = bool(np.array_equal(est_fc, svc_fc))
+    est_err = float(np.abs(est_fc - svc_fc).max())
+    check(est_err <= tol_std, f"estimator forecast vs service: {est_err} > {tol_std}")
+    svc.close()
+    return {
+        "dtype": dtype_name, "members": ENS_MEMBERS, "steps": STEPS,
+        "launches_per_ensemble": launches, "ensemble_ms": times,
+        "ensemble_ms_median": statistics.median(times), "profiled_ensemble_ms": prof_ms,
+        "device_busy_ms": busy_ms, "kernel_device_ms": kernel_ms, "device_kernels": n_kernels,
+        "device_idle_share": idle,
+        "control_bitwise_equal_to_forecast": control_equal,
+        "control_vs_forecast_max_err_in_std": control_err, "tolerance_in_std": tol_std,
+        "first_two_calls_max_abs_err": err2, "first_two_calls_tolerance": tol2,
+        "submit_dispatches": dispatches, "submit_bitwise_equal_to_stacked": sub_equal,
+        "submit_vs_stacked_max_err_in_std": sub_err,
+        "estimator_bitwise_equal_to_service": est_equal,
+        "estimator_vs_service_max_abs_err": est_err,
+        "spread_mean_last_lead": [float(v) for v in ens.spread[0, -1].mean(axis=(0, 1, 2))],
+    }
+
+
 def train_phase(kind, dtype_name, rng):
     """Train the full-width model of ``kind`` on the card through the port's
     entry points."""
@@ -1995,26 +2132,30 @@ def main(argv=None) -> int:
     from dlwp_cs_tpu_torch.tools.conv_micro import LEVELS
     from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS, bound
     mma_shapes = ([s + (1,) for s in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)]
-                  + LEVELS + [(48, 96, 32, TRAIN_BATCH)])
-    # #13 alone: Cout = 256 (past the first design's plan) and the packed
-    # layout's 128 channels (kn2row's block does not fit there)
-    im2col_only = [(48, 64, 256, 1), (48, 128, 128, 4)]
-    for n, cin, cout, b in mma_shapes + im2col_only:
-        kinds = ("im2col",) if (n, cin, cout, b) in im2col_only else ("npack", "im2col")
-        for c in mma_cases(n, cin, cout, b, gen, kinds):
+                  + LEVELS + [(48, 96, 32, TRAIN_BATCH)]
+                  # past the first designs' plans: Cout = 256, the packed
+                  # layout's 128 channels, and n = 48 with 128 -> 128
+                  + [(48, 64, 256, 1), (48, 128, 128, 4), (48, 128, 128, 1)])
+    for n, cin, cout, b in mma_shapes:
+        for c in mma_cases(n, cin, cout, b, gen):
             mma.append(c)
             old = "" if c.get("v1_ms") is None else f" (v1 {c['v1_ms']:.4f})"
             print(f"{c['kernel']} {n} {cin} {cout} {b} | {c['max_abs_err']:.3g} "
                   f"({c['vs_conv_kernel_max_abs_err']:.3g}) | {c['ms']:.4f}{old} "
                   f"{c['plain_ms']:.4f} {c['conv_kernel_ms']:.4f} {c['library_ms']:.4f} "
                   f"{c['bound_ms']:.5f}", flush=True)
-    im_sum = im2col_summary(mma)
-    print("#13 vs the first design's im2col kernel (timed in turns, old new new old): ms new / "
-          "v1 / cuDNN / plain / bound", flush=True)
-    for name, r in im_sum.items():
-        print(f"{name}: " + " / ".join("-" if r[k] is None else f"{r[k]:.4f}" for k in
-                                      ("ms", "v1_ms", "library_ms", "plain_ms", "bound_ms")),
-              flush=True)
+    summaries = {kind: mma_summary(mma, kind) for kind in ("npack", "im2col")}
+    # the tables a reader compares are printed again just before the result
+    # lines, so that the end of the output holds them
+    recap = []
+    for kind, label in (("npack", "#3"), ("im2col", "#13")):
+        recap.append(f"{label} vs the first design's {kind} kernel (timed in turns, old new "
+                     "new old): ms new / v1 / cuDNN / plain / bound")
+        for name, r in summaries[kind].items():
+            recap.append(f"{name}: " + " / ".join(
+                "-" if r[k] is None else f"{r[k]:.4f}"
+                for k in ("ms", "v1_ms", "library_ms", "plain_ms", "bound_ms")))
+    print("\n".join(recap), flush=True)
     # #12 at conv_micro's levels, as the tool's run measured it
     only = [{"ms": r["kernel"], "plain_ms": r["kernel_plain_ms"],
              "library_ms": r["kernel_library_ms"], "max_abs_err": r["kernel_max_abs_err"],
@@ -2073,7 +2214,7 @@ def main(argv=None) -> int:
 
     # one generator per model, drawn in the same order for each: serve
     # bf16, f32, then train bf16, f32 (the U-Net's draws are PR 2's)
-    serve, train = {}, {}
+    serve, train, ensembles = {}, {}, {}
     for kind, seed in (("unet", 0), ("convlstm", 1)):
         rng = np.random.default_rng(seed)
         for dtype_name in ("bfloat16", "float32"):
@@ -2089,6 +2230,27 @@ def main(argv=None) -> int:
                   f"(tol {s['first_two_calls_tolerance']:.3g}), "
                   f"8 submits in {s['submit_dispatches']} dispatches, vs direct "
                   f"{s['submit_vs_direct_max_err_in_std']:.3g} std", flush=True)
+        if kind == "unet":
+            for dtype_name in ("bfloat16", "float32"):
+                e = ensemble_phase(dtype_name, np.random.default_rng(3))
+                ensembles[dtype_name] = e
+                recap.append(f"ensemble unet {dtype_name}: {e['members']} members x {e['steps']} "
+                      f"calls in {e['ensemble_ms_median']:.2f} ms median (runs "
+                      f"{['%.2f' % t for t in e['ensemble_ms']]}); profiled "
+                      f"{e['profiled_ensemble_ms']:.2f} ms: device busy {e['device_busy_ms']} "
+                      f"ms (idle share {e['device_idle_share']}), kernels "
+                      f"{e['kernel_device_ms']} ms; device kernels {e['device_kernels']}; "
+                      f"{e['launches_per_ensemble']} launches; control member vs forecast "
+                      f"bitwise {e['control_bitwise_equal_to_forecast']} "
+                      f"({e['control_vs_forecast_max_err_in_std']:.3g} std); first two calls "
+                      f"vs plain {e['first_two_calls_max_abs_err']:.3g} (tol "
+                      f"{e['first_two_calls_tolerance']:.3g}); 3 submits in "
+                      f"{e['submit_dispatches']} dispatch, vs stacked bitwise "
+                      f"{e['submit_bitwise_equal_to_stacked']} "
+                      f"({e['submit_vs_stacked_max_err_in_std']:.3g} std); estimator vs "
+                      f"service bitwise {e['estimator_bitwise_equal_to_service']} "
+                      f"({e['estimator_vs_service_max_abs_err']:.3g})")
+                print(recap[-1], flush=True)
         for dtype_name in ("bfloat16", "float32"):
             r = train_phase(kind, dtype_name, rng)
             train[kind, dtype_name] = r
@@ -2265,18 +2427,21 @@ def main(argv=None) -> int:
                    "build_seconds": build_s, "registers": regs, "conv_cases": cases,
                    "bwd_cases": bwd, "ring_cases": ring, "block_cases": blocks,
                    "serve": list(serve.values()), "train": list(train.values()),
+                   "ensemble": list(ensembles.values()),
                    "sharded": sharded, "sharded_exchange_ms": exchange,
                    "sharded_group_seconds": group_s, "remote_cases": remote,
                    "tool_launches": tool_launches, "tools_seconds": tools_s,
                    "tool_rows": tool_rows, "mma_cases": mma,
                    "kernel_only_cases": only, "dx_ring_cases": ring_dx,
                    "lane_store_cases": stores, "lane_store_checks": store_checks,
-                   "im2col_summary": im_sum, "refused_shape": refused,
+                   "im2col_summary": summaries["im2col"],
+                   "npack_summary": summaries["npack"], "refused_shape": refused,
                    "graph_replays": replays, "probe_cases": probe_rows,
                    "tc_cases": tc, "tc_summary": tc_sum, "ring_summary": ring_sum,
                    "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
                    "kernels": kernels},
                   f, indent=1)
+    print("\n".join(recap))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

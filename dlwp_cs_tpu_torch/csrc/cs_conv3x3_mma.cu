@@ -9,7 +9,9 @@
 //     tools/kernel_variants.py::call_kernel from its "npack" row): kn2row.
 //     Per dy, one product of the padded face's rows with the dy slice of the
 //     tap-packed weights (Cin, 9*Cout), then the dx-shifted adds of its three
-//     Cout slices;
+//     Cout slices: cs_conv3x3_npack_tiles_kernel (namespace kn2, at the
+//     end), and the kernel of the first design, cs_conv3x3_npack_kernel,
+//     which stays as a timing row;
 //   * tools/kernel_variants.py::_kernel_im2col (launched by call_im2col):
 //     im2col.  The 9 shifted windows of the padded face side by side in one
 //     (pixels, 9*Cin) column tile, one product with the weights (9*Cin, Cout):
@@ -31,8 +33,8 @@
 //     im2col: taps (9*Cin, Cout), taps[(dy*3+dx)*Cin + ci, co] = K[dy,dx,ci,co]
 //
 // What bounds them on this card: each does the conv's 2*B*6*n^2*9*Cin*Cout
-// operations (kn2row 3x that: its product covers the n+2 padded columns and
-// all three dx slices), on the tensor cores by mma.sync.m16n8k16 (bf16 in,
+// operations (kn2row (n+2)/n of that: its products cover the n+2 padded
+// columns), on the tensor cores by mma.sync.m16n8k16 (bf16 in,
 // f32 sums); at the flagship shapes that is 0.03-0.3 GFLOP a conv at batch 1,
 // well under a microsecond at 989 TFLOP/s, and under a megabyte of traffic.
 // So latency bounds them: the staging of the padded rows and of the weights
@@ -777,6 +779,344 @@ int launch_gemm(int device, const void* x, const void* ext, const void* weq, con
 
 }  // namespace im2
 
+
+// ---- kn2row on tiles of output rows (cs_conv3x3_npack_tiles_kernel) ------
+//
+// The function of cs_conv3x3_npack_kernel in the same formulation, tiled
+// for this card.  What held that kernel back: for each of a block's output
+// rows and each dy one product over one padded row (n + 2 <= 64 cells: 1-4
+// M tiles, almost no products in flight), stored to a shared f32 buffer,
+// two barriers and a pass of shifted adds into shared f32 output sums: 6 h
+// barriers and 3 h shared round trips a block; the dy slice of the weights
+// and the padded rows staged by plain loads, no copy overlapping a
+// product; fragments by 32-bit loads; the f32 output sums in shared memory
+// (h n Cout 4 bytes), which kept n = 48 with 128 -> 128 channels out.
+//
+// Here a block takes h output rows r0 .. r0 + h - 1 of one face and bn
+// output channels c0 .. c0 + bn - 1 (bn a multiple of 8;
+// ops/conv_variants.py::npack_plan picks h and bn).  It stages the tile's
+// h + 2 padded rows, all of Cin, as one run of cells (cell q = padded row
+// r0 + q / (n + 2), column q % (n + 2); kp = Cin rounded up to 16, rows
+// padded by 8 elements), and the dy slice of the taps for its channels,
+// (kp, 3 sw) k-major: the three dx slices' sw columns side by side (sw =
+// bn, or Cout where Cout < bn), all by cp.async (16, 8 or 4 bytes as
+// Cin's and Cout's bytes allow, else plain loads; zero fill past Cin, Cout and the face by the copies' source size).
+// Two weight buffers where shared memory allows: dy 0's and dy 1's slices
+// are copied with the cells, dy 2's while dy 0's products are summed.
+// Per dy one product over all the tile's cells at once: M = h (n + 2) rows
+// (cells dy (n + 2) .. on, so M tiles run across padded rows), N = 3 sw
+// rounded up to 8, K = kp; warps take chunks of one M tile x 6 n8 tiles
+// (the last M tile's rows past the cells read the last cell; its sums are
+// not read), fragments by
+// ldmatrix (B by .trans), the next k step's loaded before this one's
+// mma.sync m16n8k16 (bf16, f32 sums).  The chunk's sums go to a shared f32
+// product buffer once; after one barrier each thread adds, for the output
+// units it holds in registers (8 channels of one pixel, at most 4 a
+// thread), product rows i (n + 2) + j + dx of the dx slice, dx = 0, 1, 2:
+// one shared exchange and two barriers a dy, in the fixed order dy then
+// dx, so launches agree bit for bit.  Epilogue: bias, one rounding,
+// 16-byte stores (Cout % 8 == 0), else 2-byte ones.
+//
+// What bounds it: not the bytes or the operations (kn2row does (n + 2)/n
+// of the conv's products, well under a microsecond a conv at 989 TFLOP/s)
+// but the chain of each block: the copies' latency, then three rounds of
+// products, a shared exchange and two barriers.  The exchange of the f32
+// product through shared memory is the largest phase (at (48, 32 -> 32)
+// batch 16 it stores about 270 MB a conv to shared memory against 29 MB of
+// HBM traffic); tools/npack_phases.py times the kernel with each phase
+// compiled out.
+namespace kn2 {
+
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+constexpr int TM = 1;    // M tiles (16 cells) of a warp's chunk
+constexpr int TN = 6;    // n8 tiles of a warp's chunk: 48 product columns
+constexpr int OU = 4;    // output units (8 channels of a pixel) a thread holds at most
+constexpr int PADE = 8;  // bf16 elements after each staged cell (and some weight rows)
+constexpr int PADF = 8;  // floats after each product row
+
+struct Geom {
+  int n, cin, cout;
+  int h, bn, wbufs;  // output rows and channels a tile; weight buffers (1 or 2)
+  int sw, nw;        // channels of a dx run (bn; Cout where Cout < bn); 3 sw rounded up to 8
+  int kp, apitch;    // Cin rounded up to 16; staged cell pitch kp + PADE
+  int wpitch;        // staged weight row pitch: nw, plus PADE where nw / 8 is even
+  int ppitch;        // product row pitch nw + PADF (floats)
+  int mt;            // M tiles of a product: h (n + 2) rows over 16
+  int cells;         // staged cells: (h + 2)(n + 2)
+  int rt, ct;        // row tiles, channel tiles
+  int ga, gb, go;    // copy granules (bytes) of cells and weight runs; 16-byte stores
+};
+
+inline size_t smem_bytes(const Geom& g) {
+  return 2 * ((size_t)g.cells * g.apitch + (size_t)g.wbufs * g.kp * g.wpitch) +
+         4 * (size_t)16 * g.mt * g.ppitch;
+}
+
+inline bool make_geom(Geom& g, int n, int cin, int cout, int h, int bn, int wbufs, int ga,
+                      int gb, int go) {
+  if (n < 1 || cin < 1 || cout < 1 || h < 1 || h > n || bn < 8 || bn % 8 || bn > 1024 ||
+      (wbufs != 1 && wbufs != 2))
+    return false;
+  if ((long long)h * n * (bn / 8) > (long long)OU * THREADS) return false;
+  if ((ga != 2 && ga != 4 && ga != 8 && ga != 16) || (gb != 2 && gb != 4 && gb != 8 && gb != 16))
+    return false;
+  if (ga > im2::granule(2 * cin) || gb > im2::granule(2 * cout)) return false;
+  if (go && cout % 8) return false;
+  g.n = n;
+  g.cin = cin;
+  g.cout = cout;
+  g.h = h;
+  g.bn = bn;
+  g.wbufs = wbufs;
+  g.ga = ga;
+  g.gb = gb;
+  g.go = go;
+  g.kp = round_up(cin, 16);
+  g.apitch = g.kp + PADE;
+  // a tile narrower than bn holds its three runs side by side, so that
+  // Cout < 8 stages no more weights than the first design; a weight row of
+  // an odd count of 16 bytes already puts ldmatrix's eight rows in eight
+  // distinct bank groups, an even count takes PADE more
+  g.sw = cout < bn ? cout : bn;
+  g.nw = round_up(3 * g.sw, 8);
+  g.wpitch = g.nw + ((g.nw / 8) % 2 ? 0 : PADE);
+  g.ppitch = g.nw + PADF;
+  g.mt = (h * (n + 2) + 15) / 16;
+  g.cells = (h + 2) * (n + 2);
+  g.rt = (n + h - 1) / h;
+  g.ct = (cout + bn - 1) / bn;
+  return (long long)g.rt * g.ct < (1LL << 31);
+}
+
+// A narrow instance: runs of a width that is not a multiple of 4 (read
+// by plain loads) or an odd count of n8 tiles (the last loaded alone).
+// Tiles of bn >= 16 channels never are, and keep the wide instance's code.
+inline bool narrow(const Geom& g) { return g.sw % 4 || (g.nw / 8) % 2; }
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// two blocks an SM: at most 128 registers a thread
+template <bool NARROW>
+__global__ void __launch_bounds__(THREADS, 2) cs_conv3x3_npack_tiles_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ ext, const bf16* __restrict__ teq,
+    const bf16* __restrict__ tpo, const bf16* __restrict__ beq, const bf16* __restrict__ bpo,
+    bf16* __restrict__ out, Geom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* T = reinterpret_cast<bf16*>(smem);                                // [cells][apitch]
+  bf16* W = T + (long long)g.cells * g.apitch;                            // [wbufs][kp][wpitch]
+  float* Pf = reinterpret_cast<float*>(W + (long long)g.wbufs * g.kp * g.wpitch);  // [16 mt][ppitch]
+  const int n = g.n, cin = g.cin, cout = g.cout, np2 = n + 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rti = blockIdx.x / g.ct, cti = blockIdx.x - rti * g.ct;
+  const int r0 = rti * g.h, c0 = cti * g.bn;
+  const int f = blockIdx.y;
+  const long long face = (long long)blockIdx.z * 6 + f;
+  const bf16* __restrict__ taps = f < 4 ? teq : tpo;
+  const bf16* __restrict__ bias = f < 4 ? beq : bpo;
+  const bf16* xf = x + face * n * n * cin;
+  const bf16* ef = ext + face * 4 * np2 * cin;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // the tile's padded rows, all of Cin, cell q at T[q]; zero past the face
+  // and past Cin
+  {
+    const int upc = 2 * g.kp / g.ga;  // copy units a cell
+    for (int idx = tid; idx < g.cells * upc; idx += THREADS) {
+      const int q = idx / upc, u = idx - q * upc;
+      const int pr = q / np2, pc = q - pr * np2, p = r0 + pr;
+      const int off = u * g.ga / 2;  // elements into the cell
+      const bool ok = p <= n + 1 && off < cin;
+      bf16* tdst = T + (long long)q * g.apitch + off;
+      const bf16* tsrc = ok ? cell_ptr(xf, ef, n, cin, p, pc) + off : x;
+      if (g.ga > 2) {
+        im2::copy_unit(tdst, tsrc, g.ga, ok ? g.ga : 0);
+      } else {
+        *tdst = ok ? *tsrc : zero;
+      }
+    }
+  }
+  // the dy slice of the taps for channels c0 .. c0 + sw - 1 into buffer
+  // buf: W[k][dx sw + c] = taps[k][(3 dy + dx) Cout + c0 + c]; zero past Cin
+  // and Cout
+  auto stage_weights = [&](int dy, int buf) {
+    bf16* Wb = W + (long long)buf * g.kp * g.wpitch;
+    const int eu = g.gb / 2, upr = g.sw / eu;  // elements a unit, units a dx run
+    for (int idx = tid; idx < g.kp * 3 * upr; idx += THREADS) {
+      const int k = idx / (3 * upr), rem = idx - k * 3 * upr;
+      const int dx = rem / upr, co = c0 + (rem - dx * upr) * eu;
+      const bool ok = k < cin && co < cout;
+      bf16* wdst = Wb + (long long)k * g.wpitch + dx * g.sw + (co - c0);
+      const bf16* wsrc = ok ? taps + (long long)k * 9 * cout + (3 * dy + dx) * cout + co : taps;
+      if (g.gb > 2) {
+        im2::copy_unit(wdst, wsrc, g.gb, ok ? g.gb : 0);
+      } else {
+        *wdst = ok ? *wsrc : zero;
+      }
+    }
+  };
+  stage_weights(0, 0);
+  cs3x3::cp_async_commit();
+  if (g.wbufs > 1) {
+    stage_weights(1, 1);
+    cs3x3::cp_async_commit();
+  }
+
+  // this thread's output units: u = (i n + j) (bn / 8) + cg, 8 channels
+  // each; poff: the product offset of its dx = 0 run (-1: no unit)
+  const int bu = (g.sw + 7) / 8, rows = min(g.h, n - r0), units = rows * n * bu;
+  float o[OU][8];
+  int poff[OU];
+#pragma unroll
+  for (int v = 0; v < OU; ++v) {
+    const int u = tid + v * THREADS, pix = u / bu, i = pix / n, j = pix - i * n;
+    poff[v] = u < units ? (i * np2 + j) * g.ppitch + (u - pix * bu) * 8 : -1;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[v][e] = 0.f;
+  }
+
+  const int nts = g.nw / 8, nc = (nts + TN - 1) / TN;  // n8 tiles of a product, chunks
+  const int chunks = (g.mt + TM - 1) / TM * nc;
+  for (int dy = 0; dy < 3; ++dy) {
+    if (g.wbufs > 1 && dy < 2) cp_async_wait_one();
+    else cs3x3::cp_async_wait_all();
+    __syncthreads();  // dy's weights (and the cells) have landed; Pf is free
+    const int buf = g.wbufs > 1 ? dy % 2 : 0;
+    const bf16* Wb = W + (long long)buf * g.kp * g.wpitch;
+    // the product of cells dy (n + 2) + m, m < 16 mt, with the slice
+    for (int c = warp; c < chunks; c += NWARPS) {
+      const int mc = c / nc, nt0 = (c - mc * nc) * TN, mt0 = mc * TM;
+      const int tms = min(TM, g.mt - mt0), tns = min(TN, nts - nt0);
+      float acc[TM][TN][4];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+      // A rows past the staged cells (the last M tile's padding, whose
+      // sums no output reads) read the last cell
+      const bf16* as[TM];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+        as[a] = T + (long long)min(dy * np2 + (mt0 + a) * 16 + (lane & 15), g.cells - 1) *
+                        g.apitch + (lane >> 4) * 8;
+      const bf16* bs = Wb + (long long)((lane & 7) + ((lane >> 3) & 1) * 8) * g.wpitch +
+                       nt0 * 8 + (lane >> 4) * 8;
+      uint32_t af0[TM][4], bf0[TN][2], af1[TM][4], bf1[TN][2];
+      auto frags = [&](int s, uint32_t (&af)[TM][4], uint32_t (&bfr)[TN][2]) {
+#pragma unroll
+        for (int a = 0; a < TM; ++a)
+          if (a < tms) cs3x3::ldsm_x4(af[a], as[a] + s * 16);
+        // pairs of n8 tiles; an odd last one alone (a weight row may end
+        // with it)
+#pragma unroll
+        for (int b = 0; b < TN; b += 2) {
+          if (b >= tns) break;
+          if (!NARROW || b + 1 < tns) {
+            uint32_t t4[4];
+            cs3x3::ldsm_x4_t(t4, bs + (long long)s * 16 * g.wpitch + b * 8);
+            bfr[b][0] = t4[0];
+            bfr[b][1] = t4[1];
+            bfr[b + 1][0] = t4[2];
+            bfr[b + 1][1] = t4[3];
+          } else {
+            cs3x3::ldsm_x2_t(bfr[b], bs + (long long)s * 16 * g.wpitch + b * 8);
+          }
+        }
+      };
+      auto mmas = [&](const uint32_t (&af)[TM][4], const uint32_t (&bfr)[TN][2]) {
+#pragma unroll
+        for (int a = 0; a < TM; ++a) {
+          if (a >= tms) continue;
+#pragma unroll
+          for (int b = 0; b < TN; ++b)
+            if (b < tns) cs3x3::mma_bf16(acc[a][b], af[a], bfr[b][0], bfr[b][1]);
+        }
+      };
+      const int ks = g.kp / 16;
+      frags(0, af0, bf0);
+      for (int s = 0; s < ks; s += 2) {
+        if (s + 1 < ks) frags(s + 1, af1, bf1);
+        mmas(af0, bf0);
+        if (s + 1 >= ks) break;
+        if (s + 2 < ks) frags(s + 2, af0, bf0);
+        mmas(af1, bf1);
+      }
+      // the chunk's sums to the product buffer, once
+      const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+      for (int a = 0; a < TM; ++a) {
+        if (a >= tms) continue;
+#pragma unroll
+        for (int b = 0; b < TN; ++b) {
+          if (b >= tns) break;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(
+                Pf + (long long)((mt0 + a) * 16 + gid + hh * 8) * g.ppitch + (nt0 + b) * 8 +
+                tig * 2) = make_float2(acc[a][b][2 * hh], acc[a][b][2 * hh + 1]);
+        }
+      }
+    }
+    __syncthreads();  // the product is complete; this dy's weight buffer is free
+    if (dy + g.wbufs < 3) {
+      stage_weights(dy + g.wbufs, buf);
+      cs3x3::cp_async_commit();
+    }
+    // the kn2row shift: output (i, j) takes product rows i (n + 2) + j + dx
+    // of the dx slice, dx = 0, 1, 2 (16-byte loads but in the narrow
+    // instance; the sums of channels past Cout are never stored)
+#pragma unroll
+    for (int v = 0; v < OU; ++v) {
+      if (poff[v] >= 0) {
+        const float* pp = Pf + poff[v];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* q = pp + dx * (g.ppitch + g.sw);
+          const float4 lo = NARROW ? make_float4(q[0], q[1], q[2], q[3])
+                                   : *reinterpret_cast<const float4*>(q);
+          const float4 hi = NARROW ? make_float4(q[4], q[5], q[6], q[7])
+                                   : *reinterpret_cast<const float4*>(q + 4);
+          o[v][0] += lo.x;
+          o[v][1] += lo.y;
+          o[v][2] += lo.z;
+          o[v][3] += lo.w;
+          o[v][4] += hi.x;
+          o[v][5] += hi.y;
+          o[v][6] += hi.z;
+          o[v][7] += hi.w;
+        }
+      }
+    }
+  }
+
+  cs3x3::cp_async_wait_all();  // nothing is left in flight when the block ends
+  // bias, one rounding, 16-byte stores
+#pragma unroll
+  for (int v = 0; v < OU; ++v) {
+    const int u = tid + v * THREADS;
+    if (u >= units) continue;
+    const int pix = u / bu, cg = u - pix * bu, i = pix / n, j = pix - i * n;
+    const int co = c0 + cg * 8;
+    if (co >= cout) continue;
+    bf16* op = out + ((face * n + r0 + i) * (long long)n + j) * cout + co;
+    __align__(16) bf16 r[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      r[e] = __float2bfloat16_rn(o[v][e] + (co + e < cout ? __bfloat162float(bias[co + e]) : 0.f));
+    if (g.go && co + 8 <= cout) {
+      *reinterpret_cast<uint4*>(op) = *reinterpret_cast<const uint4*>(r);
+    } else {
+      for (int e = 0; e < 8 && co + e < cout; ++e) op[e] = r[e];
+    }
+  }
+}
+
+}  // namespace kn2
+
 // Fills g and the shared memory a block needs; false on sizes the kernels
 // cannot take.
 bool make_geom(MmaGeom& g, int n, int cin, int cout, int h, int vec, int wvec, bool im2col,
@@ -896,6 +1236,57 @@ int cs_conv3x3_im2col_gemm_launch(int dtype, int device, const void* x, const vo
     default: return CS_IM2COL_GEMM(im2::Cfg3);
   }
 #undef CS_IM2COL_GEMM
+}
+
+// #3: kn2row on tiles of h output rows x bn output channels
+// (cs_conv3x3_npack_tiles_kernel), taps (Cin, 9*Cout) per weight group.
+// wbufs: weight buffers (2: the next dy slice copied while one multiplies;
+// 1: copied during the shifted adds); ga / gb: the copy granule in bytes of
+// the staged cells (x and ext) and of the weight runs (16, 8, 4: the
+// largest dividing Cin's / Cout's bytes and the addresses; 2: plain
+// loads); go: 16-byte output stores (Cout % 8 == 0).  smem must equal the
+// bytes the kernel computes (ops/conv_variants.py::npack_launch).
+int cs_conv3x3_npack_tiles_launch(int dtype, int device, const void* x, const void* ext,
+                                  const void* teq, const void* tpo, const void* beq,
+                                  const void* bpo, void* out, int batch, int n, int cin,
+                                  int cout, int h, int bn, int wbufs, int ga, int gb, int go,
+                                  int smem, void* stream) {
+  kn2::Geom g;
+  if (dtype != 1 || device < 0 || batch < 1 || batch > 65535 ||
+      !kn2::make_geom(g, n, cin, cout, h, bn, wbufs, ga, gb, go))
+    return cudaErrorInvalidValue;
+  const size_t bytes = kn2::smem_bytes(g);
+  if ((size_t)smem != bytes) return cudaErrorInvalidValue;
+  int optin = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
+  const auto kernel = kn2::narrow(g) ? kn2::cs_conv3x3_npack_tiles_kernel<true>
+                                     : kn2::cs_conv3x3_npack_tiles_kernel<false>;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid((unsigned)(g.rt * g.ct), 6, batch);
+  kernel<<<grid, kn2::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ext), static_cast<const bf16*>(teq),
+      static_cast<const bf16*>(tpo), static_cast<const bf16*>(beq),
+      static_cast<const bf16*>(bpo), static_cast<bf16*>(out), g);
+  return cudaGetLastError();
+}
+
+// Blocks of the kn2row tile kernel (its narrow instance where narrow != 0)
+// an SM holds at once with smem bytes of dynamic shared memory (its
+// registers and shared memory both counted), into *blocks.
+int cs_conv3x3_npack_tiles_occupancy(int smem, int narrow, void* blocks) {
+  const auto kernel = narrow ? kn2::cs_conv3x3_npack_tiles_kernel<true>
+                             : kn2::cs_conv3x3_npack_tiles_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(blocks), kernel,
+                                                       kn2::THREADS, smem);
 }
 
 const char* cs_conv3x3_mma_error_string(int err) {

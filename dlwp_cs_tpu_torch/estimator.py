@@ -2,19 +2,18 @@
 
 The counterpart of ``dlwp_cs_tpu.estimator.DLWPEstimator``: ``fit`` trains
 on a predictor store (``SeriesDataset`` -> ``prefetch_to_device`` ->
-``Trainer``), ``save`` / ``load`` persist the training state with the
+``Trainer``), ``forecast`` and ``forecast_lagged`` roll the model out from
+a store's samples (a ``MemoryStore``), ``denormalize`` undoes the
+normalization, ``save`` / ``load`` persist the training state with the
 JSON config and stats, and serving reads ``config``, ``model``, ``cs``,
 ``state`` and ``stats``.  :meth:`DLWPEstimator.load_state` fills it for
 serving from the reference's parameter tree (or the model's own seeded
-initialisation) plus the normalization statistics.  The reference's
-``forecast``, ``forecast_lagged``, ``denormalize`` and ``replace_config``
-are not ported yet (ROADMAP.md queue 1, item 12): ``ForecastService``
-serves a forecast from a window, not from a store and init indices, and
-nothing rolls a lagged ensemble.
+initialisation) plus the normalization statistics.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -23,10 +22,14 @@ import torch
 
 from dlwp_cs_tpu_torch.data.prefetch import prefetch_to_device
 from dlwp_cs_tpu_torch.data.series import SeriesDataset
+from dlwp_cs_tpu_torch.data.store import select_constants
 from dlwp_cs_tpu_torch.geometry.cubed_sphere import CubedSphere
+from dlwp_cs_tpu_torch.geometry.insolation import INSOLATION_PERIOD_DAYS
 from dlwp_cs_tpu_torch.models import build_model
 from dlwp_cs_tpu_torch.models.config import ExperimentConfig
 from dlwp_cs_tpu_torch.models.weights import load_jax_params
+from dlwp_cs_tpu_torch.rollout.ensemble import EnsembleForecast, make_lagged_rollout
+from dlwp_cs_tpu_torch.rollout.estimator import Forecast, TimeSeriesEstimator
 from dlwp_cs_tpu_torch.train.train_step import (
     TrainState,
     init_state,
@@ -111,6 +114,23 @@ class DLWPEstimator:
                     "step_hours so they agree"
                 )
 
+    def _norm_fn(self, store):
+        """Window normalizer: ``(x - mean) / std``, or the identity for a
+        store normalized already (``attrs['normalized']``, the contract
+        ``SeriesDataset`` honours at fit time: normalizing it again would
+        feed the model doubly normalized inputs)."""
+        if getattr(store, "attrs", {}).get("normalized"):
+            return lambda x: np.asarray(x, np.float32)
+        mean = np.asarray(self.stats["mean"], np.float32)
+        std = np.asarray(self.stats["std"], np.float32)
+        return lambda x: (np.asarray(x, np.float32) - mean) / std
+
+    def _store_constants(self, store):
+        names = self.config.data.constants
+        if store.constants is None or not len(names):
+            return None
+        return select_constants(store, names)
+
     def _set_stats(self, stats: dict) -> None:
         missing = [k for k in _STATS_KEYS if k not in stats]
         if missing:
@@ -185,6 +205,95 @@ class DLWPEstimator:
             load_jax_params(self.model, params)
         self.state = ServingState(params=dict(self.model.named_parameters()))
         return self
+
+    # -- inference ---------------------------------------------------------
+    def forecast(self, store, *, init_indices, steps: int) -> Forecast:
+        """Autoregressive forecast from store samples, normalized, on the
+        estimator's device.
+
+        ``init_indices``: the store sample index of each initialization's
+        last input time; ``steps``: model calls (each emits
+        ``output_time_steps``).  Each initialization's insolation runs from
+        its own init time (float64, reduced modulo the insolation period
+        before the float32 clock).
+        """
+        if self.state is None or self.stats is None:
+            raise RuntimeError("fit or load the estimator first")
+        dcfg = self.config.data
+        t_in, iv = dcfg.input_time_steps, dcfg.interval
+        self._check_store_spacing(store)
+        norm = self._norm_fn(store)
+        init_indices = np.asarray(init_indices)
+        need = (t_in - 1) * iv
+        if np.any(init_indices < need):
+            bad = int(init_indices[init_indices < need][0])
+            raise ValueError(
+                f"init index {bad} needs {need} preceding store samples for a "
+                f"{t_in}-step input window at interval {iv}"
+            )
+        windows = np.stack([norm(store.fields[i - need : i + 1 : iv]) for i in init_indices])
+        lat, lon = self.cs.cell_latlon
+        est = TimeSeriesEstimator(
+            model=self.model, data_cfg=dcfg, lat=lat, lon=lon,
+            constants=self._store_constants(store), insol_mean=self.stats["insol_mean"],
+            insol_std=self.stats["insol_std"], device=self.device,
+        )
+        t0 = np.asarray(store.times, np.float64)[init_indices]
+        return est.predict(windows, t0, steps=steps)
+
+    def forecast_lagged(self, store, *, init_indices, steps: int, lags,
+                        keep_members: bool = False) -> EnsembleForecast:
+        """Lagged-average-forecast ensemble from store samples, normalized.
+
+        Member ``m`` starts ``lags[m]`` model steps before each control index
+        (``lags[0]`` is 0); every member rolls far enough to cover the
+        control's leads and is aligned by valid time
+        (:func:`~dlwp_cs_tpu_torch.rollout.ensemble.make_lagged_rollout`).
+        """
+        if self.state is None or self.stats is None:
+            raise RuntimeError("fit or load the estimator first")
+        dcfg = self.config.data
+        t_in, iv = dcfg.input_time_steps, dcfg.interval
+        lags = tuple(int(g) for g in lags)
+        self._check_store_spacing(store)
+        norm = self._norm_fn(store)
+        init_indices = np.asarray(init_indices)
+        need = (t_in - 1) * iv + max(lags) * iv
+        if np.any(init_indices < need):
+            bad = int(init_indices[init_indices < need][0])
+            raise ValueError(
+                f"init index {bad} needs {need} preceding store samples for a "
+                f"{t_in}-step window at interval {iv} with max lag {max(lags)}"
+            )
+        win = (t_in - 1) * iv
+        windows = np.stack([
+            np.stack([norm(store.fields[i - g * iv - win : i - g * iv + 1 : iv]) for g in lags])
+            for i in init_indices
+        ])  # (B, M, T_in, 6, n, n, C)
+        lat, lon = self.cs.cell_latlon
+        fn = make_lagged_rollout(
+            self.model, dcfg, lat=lat, lon=lon, constants=self._store_constants(store),
+            insol_mean=self.stats["insol_mean"], insol_std=self.stats["insol_std"],
+            steps=steps, lags=lags, keep_members=keep_members, device=self.device,
+        )
+        t0 = np.asarray(store.times, np.float64)[init_indices]
+        t0_red = np.mod(t0, INSOLATION_PERIOD_DAYS).astype(np.float32)
+        fc = fn(windows, t0_red)
+        return fc._replace(init_times=t0, variables=tuple(dcfg.variables))
+
+    def denormalize(self, fields):
+        """Undo the store normalization on forecast fields (numpy, or a
+        tensor on any device): a numpy array in physical units."""
+        if isinstance(fields, torch.Tensor):
+            fields = fields.detach().cpu().numpy()
+        mean = np.asarray(self.stats["mean"], np.float32)
+        std = np.asarray(self.stats["std"], np.float32)
+        return np.asarray(fields) * std + mean
+
+    def replace_config(self, **kwargs) -> "DLWPEstimator":
+        """A new estimator on the same device with updated config fields
+        (the state is not carried over)."""
+        return DLWPEstimator(dataclasses.replace(self.config, **kwargs), device=self.device)
 
     # -- persistence -------------------------------------------------------
     def save(self, path) -> Path:

@@ -6,7 +6,10 @@ kernels that the reference's kernel tools time beside its production conv.
   ``dlwp_cs_tpu/ops/pallas_conv.py::_kernel_npack``.  Weights tap-packed
   ``(Cin, 9*Cout)`` as :func:`npack_taps` makes them; per dy, one product of
   the padded face's rows with the dy slice, then the dx-shifted adds of its
-  three Cout slices.
+  three Cout slices, in tiles of output rows x output channels
+  (:func:`npack_plan`).  :data:`cs_conv3x3_npack_v1`, the kernel of the
+  first design (one face's rows a block, one product a padded row,
+  :func:`mma_plan`), is a timing row.
 * :data:`cs_conv3x3_im2col`: im2col on the tensor cores (the same source),
   replacing ``tools/kernel_variants.py::_kernel_im2col`` without its
   batch->lane packing.  Weights ``(9*Cin, Cout)`` as :func:`im2col_taps`
@@ -86,6 +89,7 @@ from dlwp_cs_tpu_torch.ops.ring_kernel import (
 
 __all__ = [
     "Im2colPlan",
+    "NpackPlan",
     "cs_conv3x3_cudacore",
     "cs_conv3x3_dw_cudacore",
     "cs_conv3x3_dx_cudacore",
@@ -97,12 +101,18 @@ __all__ = [
     "cs_conv3x3_kernel_only",
     "cs_conv3x3_npack",
     "cs_conv3x3_npack_plain",
+    "cs_conv3x3_npack_v1",
     "im2col_blocks",
     "im2col_launch",
     "im2col_plan",
     "im2col_taps",
     "mma_plan",
+    "npack_blocks",
+    "npack_launch",
+    "npack_occupancy",
+    "npack_plan",
     "npack_taps",
+    "npack_tiles",
     "ring_fixes_cudacore",
     "xring_fused_apply_cudacore",
 ]
@@ -119,6 +129,11 @@ _PAD, _IM_TILES, _SMEM_LIMIT = 8, 64, 232448
 # memory (228 KB, less 1 KB a block)
 _IM2_CFGS = ((64, 32, 256, 2), (64, 64, 256, 2), (128, 32, 256, 1), (128, 64, 256, 1))
 _IM2_KWS, _IM2_STAGES, _SMEM_PER_SM = (256, 128, 64), 3, 233472
+# its kn2row tile kernel (namespace kn2): the tile channel widths to choose
+# from, the output units (8 channels of a pixel) a block holds in
+# registers (4 a thread), the M tiles of a warp's chunk and the floats
+# after each product row
+_KN2_BNS, _KN2_UNITS, _KN2_PADF = (8, 16, 32, 64, 128), 4 * 256, 8
 
 
 def npack_taps(k):
@@ -334,11 +349,147 @@ def im2col_blocks(plan: Im2colPlan, b: int, n: int, cout: int):
     return out
 
 
+class NpackPlan(NamedTuple):
+    """The kn2row tile kernel's launch: tiles of ``h`` output rows x ``bn``
+    output channels of one face (``rt`` row tiles, ``ct`` channel tiles a
+    face), ``sw`` channels of a dx run of the staged weights and the
+    product (``bn``, or Cout where Cout < ``bn``), ``wbufs`` weight
+    buffers (2: the next dy slice copied while one multiplies), ``mt`` M
+    tiles of a product (``h * (n + 2)`` padded cells over 16), ``cells``
+    staged cells, ``smem`` bytes; the grid is ``(rt * ct, 6, B)``,
+    ``blocks`` in all."""
+
+    h: int
+    bn: int
+    sw: int
+    wbufs: int
+    rt: int
+    ct: int
+    mt: int
+    cells: int
+    smem: int
+    blocks: int
+
+
+def npack_launch(b: int, n: int, cin: int, cout: int, h: int, bn: int, wbufs: int) -> NpackPlan:
+    """The kn2row tile kernel's launch for tiles of ``h`` rows x ``bn``
+    channels with ``wbufs`` weight buffers, its shared memory as
+    ``csrc/cs_conv3x3_mma.cu::kn2::smem_bytes`` counts it: the staged cells
+    (``(h+2)(n+2)``, Cin rounded up to 16 plus 8 a cell), the weight
+    buffers (kp rows of the three dx runs, ``3 sw`` rounded up to 8 = nw,
+    plus 8 where nw / 8 is even) and the f32 product (``16 mt`` rows of nw
+    + 8)."""
+    kp = -(-cin // 16) * 16
+    mt = -(-(h * (n + 2)) // 16)
+    cells = (h + 2) * (n + 2)
+    sw = min(cout, bn)
+    nw = -(-(3 * sw) // 8) * 8
+    wpitch = nw + (0 if (nw // 8) % 2 else _PAD)
+    smem = (2 * (cells * (kp + _PAD) + wbufs * kp * wpitch)
+            + 4 * 16 * mt * (nw + _KN2_PADF))
+    rt, ct = -(-n // h), -(-cout // bn)
+    return NpackPlan(h, bn, sw, wbufs, rt, ct, mt, cells, smem, rt * ct * 6 * b)
+
+
+def npack_tiles(b: int, n: int, cin: int, cout: int) -> list:
+    """Every launch :func:`npack_plan` chooses from: tiles of h <= 8 rows and
+    ``bn`` in 8, 16, 32, 64, 128 channels (none past Cout rounded up to 16
+    but 8) whose output units fit the block's registers, each with two
+    weight buffers where its block fits shared memory, else one."""
+    out = []
+    for bn in _KN2_BNS:
+        if bn > max(-(-cout // 16) * 16, 8):
+            continue
+        for h in range(1, min(n, 8) + 1):
+            if h * n * (bn // 8) > _KN2_UNITS:
+                break
+            for wbufs in (2, 1):
+                p = npack_launch(b, n, cin, cout, h, bn, wbufs)
+                if p.smem <= _SMEM_LIMIT:
+                    out.append(p)
+                    break
+    return out
+
+
+def npack_plan(b: int, n: int, cin: int, cout: int, sm_count: int) -> NpackPlan:
+    """The launch of the kn2row tile kernel.  Of :func:`npack_tiles` (16
+    channels or more where Cout is wider than 8: each 8-channel tile
+    restages the cells), those whose channel tiles pad Cout least; of
+    these, where some grid fits the card at once (two blocks an SM where
+    the block's shared memory allows; its registers always do), the one
+    with the most blocks (then more rows, then more channels): every block
+    resident, each a shorter chain; else (many tiles) of those that fit two
+    blocks an SM, the one with the fewest product rows x channels in all
+    (ragged and padded tiles cost products; then fewer blocks).  The rule
+    comes from timing every tile on the card (``tools/npack_phases.py``).
+    Raises ``ValueError`` where no tile fits."""
+    if b < 1 or n < 1 or cin < 1 or cout < 1:
+        raise ValueError(f"cs_conv3x3_npack: b={b}, n={n}, Cin={cin}, Cout={cout}")
+    fits = npack_tiles(b, n, cin, cout)
+    if not fits:
+        raise ValueError(
+            f"cs_conv3x3_npack: n={n}, Cin={cin}, Cout={cout} needs more shared memory "
+            "than one block has"
+        )
+    fits = [p for p in fits if p.bn > 8 or cout <= 8] or fits
+    least = min(p.ct * p.bn for p in fits)
+    pool = [p for p in fits if p.ct * p.bn == least]
+    two = [p for p in pool if p.smem <= _SMEM_PER_SM // 2 - 1024]
+    wave = [p for p in pool if p.blocks <= sm_count * (2 if p in two else 1)]
+    if wave:
+        return max(wave, key=lambda p: (p.blocks, p.h, p.bn, p.wbufs))
+    return min(two or pool,
+               key=lambda p: (p.rt * p.ct * p.mt * p.bn, p.blocks, -p.bn, -p.wbufs))
+
+
+def npack_blocks(plan: NpackPlan, n: int, cout: int):
+    """What each block of one face writes, in ``blockIdx.x`` order: ``(rows,
+    (c0, c1))``, its output rows ``r0 .. r1 - 1`` and channels ``c0 .. c1 -
+    1``, as ``cs_conv3x3_npack_tiles_kernel`` decodes its block."""
+    out = []
+    for bid in range(plan.rt * plan.ct):
+        rti, cti = divmod(bid, plan.ct)
+        r0, c0 = rti * plan.h, cti * plan.bn
+        out.append(((r0, min(r0 + plan.h, n)), (c0, min(c0 + plan.bn, cout))))
+    return out
+
+
 _MMA_LIB = CudaLibrary("cs_conv3x3_mma.cu", {
     "cs_conv3x3_npack_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
     "cs_conv3x3_im2col_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
     "cs_conv3x3_im2col_gemm_launch": [I32, I32] + [VP] * 7 + [I32] * 11 + [VP],
+    "cs_conv3x3_npack_tiles_launch": [I32, I32] + [VP] * 7 + [I32] * 11 + [VP],
+    "cs_conv3x3_npack_tiles_occupancy": [I32, I32, VP],
 }, "cs_conv3x3_mma_error_string")
+
+
+def npack_occupancy(plan: NpackPlan, library=None) -> int:
+    """Blocks of the kn2row tile kernel's instance for ``plan`` that one SM
+    of the current card holds at once with the plan's shared memory (the
+    CUDA occupancy calculator: its registers and shared memory both
+    counted)."""
+    import ctypes
+
+    lib = (library or _MMA_LIB).build()
+    out = ctypes.c_int(0)
+    # the narrow instance, as csrc/cs_conv3x3_mma.cu::kn2::narrow picks it
+    narrow = plan.sw % 4 or -(-(3 * plan.sw) // 8) % 2
+    err = lib.cs_conv3x3_npack_tiles_occupancy(int(plan.smem), int(bool(narrow)),
+                                               ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"cs_conv3x3_npack_tiles_occupancy: error {err}")
+    return out.value
+
+
+def _copy_granules(x, ext, w_eq, w_pole, cin, cout):
+    """The widest copies (bytes) the inputs' rows and addresses allow: of
+    the cells of ``x`` and ``ext`` (Cin runs) and of the weights' rows
+    (Cout runs)."""
+    ga = max(g for g in (2, 4, 8, 16) if g <= _granule(2 * cin)
+             and x.data_ptr() % g == 0 and ext.data_ptr() % g == 0)
+    gb = max(g for g in (2, 4, 8, 16) if g <= _granule(2 * cout)
+             and w_eq.data_ptr() % g == 0 and w_pole.data_ptr() % g == 0)
+    return ga, gb
 
 
 class _MmaConvKernel(KernelWrapper):
@@ -398,14 +549,30 @@ class _Im2colGemmKernel(_MmaConvKernel):
         b, _, n, _, cin = x.shape
         cout = out.shape[-1]
         p = plan or im2col_plan(b, n, cin, cout, self._sm_count[dev])
-        ga = max(g for g in (2, 4, 8, 16) if g <= _granule(2 * cin)
-                 and x.data_ptr() % g == 0 and ext.data_ptr() % g == 0)
-        gb = max(g for g in (2, 4, 8, 16) if g <= _granule(2 * cout)
-                 and w_eq.data_ptr() % g == 0 and w_pole.data_ptr() % g == 0)
+        ga, gb = _copy_granules(x, ext, w_eq, w_pole, cin, cout)
         self._launch(
             "cs_conv3x3_im2col_gemm_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, w_eq, w_pole, b_eq, b_pole, out)),
             b, n, cin, cout, p.cfg, p.bks, p.tpw, ga, gb, int(cout % 8 == 0), p.smem, sizes=11,
+        )
+
+
+class _NpackTilesKernel(_MmaConvKernel):
+    """#3: the kn2row tile kernel (:func:`npack_plan`) on bfloat16 CUDA
+    tensors, taps (Cin, 9*Cout)."""
+
+    def __init__(self, name):
+        super().__init__(name, "npack", cs_conv3x3_npack_plain)
+
+    def _launch_kernel(self, dev, x, ext, w_eq, w_pole, b_eq, b_pole, out, plan=None):
+        b, _, n, _, cin = x.shape
+        cout = out.shape[-1]
+        p = plan or npack_plan(b, n, cin, cout, self._sm_count[dev])
+        ga, gb = _copy_granules(x, ext, w_eq, w_pole, cin, cout)
+        self._launch(
+            "cs_conv3x3_npack_tiles_launch", dev, DTYPES[x.dtype], dev,
+            *(t.data_ptr() for t in (x, ext, w_eq, w_pole, b_eq, b_pole, out)),
+            b, n, cin, cout, p.h, p.bn, p.wbufs, ga, gb, int(cout % 8 == 0), p.smem, sizes=11,
         )
 
 
@@ -536,7 +703,9 @@ class _XringApplyCudaCore(KernelWrapper):
         return out
 
 
-cs_conv3x3_npack = _MmaConvKernel("cs_conv3x3_npack", "npack", cs_conv3x3_npack_plain)
+cs_conv3x3_npack = _NpackTilesKernel("cs_conv3x3_npack")
+# the kn2row kernel of the first design (a timing row)
+cs_conv3x3_npack_v1 = _MmaConvKernel("cs_conv3x3_npack_v1", "npack", cs_conv3x3_npack_plain)
 cs_conv3x3_im2col = _Im2colGemmKernel("cs_conv3x3_im2col")
 # the im2col kernel of the first design (a timing row)
 cs_conv3x3_im2col_v1 = _MmaConvKernel("cs_conv3x3_im2col_v1", "im2col", cs_conv3x3_im2col_plain)

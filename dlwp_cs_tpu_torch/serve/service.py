@@ -1,8 +1,9 @@
 """Forecast serving: batched autoregressive inference on the device.
 
-The counterpart of ``dlwp_cs_tpu.serve.service``: one resident model, a
-direct ``forecast`` call, and a ``submit`` future API whose micro-batcher
-coalesces concurrent single-member requests into one device dispatch
+The counterpart of ``dlwp_cs_tpu.serve.service``: one resident model,
+direct ``forecast`` and ``forecast_ensemble`` calls, and ``submit`` /
+``submit_ensemble`` future APIs whose micro-batcher coalesces concurrent
+single-window requests with the same parameters into one device dispatch
 (padded to a power-of-two bucket), with a bounded queue and request
 timeouts.
 
@@ -33,6 +34,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from dlwp_cs_tpu_torch.parallel.collectives import axis_size
 from dlwp_cs_tpu_torch.parallel.mesh import DATA_AXIS
 from dlwp_cs_tpu_torch.parallel.sharding import make_spatial_apply
+from dlwp_cs_tpu_torch.rollout.ensemble import EnsembleForecast, EnsembleForecaster
 from dlwp_cs_tpu_torch.rollout.estimator import Forecast, TimeSeriesEstimator
 
 __all__ = [
@@ -93,7 +95,7 @@ def _bucket(n: int, max_batch: int) -> int:
 class _Request:
     """One queued single-window request."""
 
-    kind: str            # "fc"
+    kind: str            # "fc" or "ens"
     window: np.ndarray   # (1, T_in, 6, n, n, C)
     t0: float
     key: tuple           # coalescing key, kind included
@@ -112,8 +114,9 @@ class MicroBatcher:
     ``request_timeout_s`` at dispatch fail with :class:`RequestTimeout`.
 
     Subclasses provide ``_forecast_batch(window, t0_days, *, steps,
-    normalized)``, ``_check_window(window)`` and ``_worker_context()``, and
-    call :meth:`_init_batcher` in their constructor.
+    normalized)``, ``_check_window(window)`` and ``_worker_context()``
+    (and, to serve ``submit_ensemble``, ``_ensemble_batch``), and call
+    :meth:`_init_batcher` in their constructor.
     """
 
     def _init_batcher(self, max_batch: int, max_wait_ms: float,
@@ -179,11 +182,44 @@ class MicroBatcher:
             deadline=self._deadline(),
         ))
 
-    def submit_ensemble(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ensembles are not ported yet: ROADMAP.md queue 1, item 12 "
-            "(rollout/ensemble.py)"
-        )
+    def submit_ensemble(self, window, t0_days, *, steps: int, members: int,
+                        amplitude=0.05, seed: int = 0, antithetic: bool = True,
+                        keep_members: bool = False, normalized: bool = False) -> Future:
+        """Enqueue a single-window ensemble request; returns a
+        Future[EnsembleForecast].
+
+        Requests with the same ``(steps, members, amplitude, seed,
+        antithetic, keep_members, normalized)`` coalesce into one dispatch
+        whose members fold into the batch of one rollout.  Different seeds
+        do not coalesce (one seeded ``torch.Generator`` draws the whole
+        dispatch's perturbations).  A request's perturbations depend on its
+        place in the coalesced batch, so a coalesced member forecast
+        differs sample by sample (not in distribution) from the same
+        request dispatched alone.
+        """
+        window = self._check_window(window)
+        if window.shape[0] != 1:
+            raise ValueError(
+                "submit_ensemble takes one window per request; use "
+                "forecast_ensemble() for explicit batches"
+            )
+        self._validate_request(int(steps), members=int(members))
+        amp = np.asarray(amplitude, np.float32)
+        key = ("ens", int(steps), int(members), tuple(np.ravel(amp).tolist()), int(seed),
+               bool(antithetic), bool(keep_members), bool(normalized))
+        return self._enqueue(_Request(
+            kind="ens",
+            window=window,
+            t0=float(np.asarray(t0_days).reshape(())),
+            key=key,
+            params={
+                "steps": int(steps), "members": int(members), "amplitude": amp,
+                "seed": int(seed), "antithetic": bool(antithetic),
+                "keep_members": bool(keep_members), "normalized": bool(normalized),
+            },
+            fut=Future(),
+            deadline=self._deadline(),
+        ))
 
     def _validate_request(self, steps: int, members: int | None = None):
         """Cap hook (overridden by ForecastService); default: no caps."""
@@ -261,8 +297,10 @@ class MicroBatcher:
                 [windows, np.repeat(windows[-1:], pad, axis=0)], axis=0
             )
             t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
+        ens = batch[0].kind == "ens"
         try:
-            fc = self._forecast_batch(windows, t0, **batch[0].params)
+            dispatch = self._ensemble_batch if ens else self._forecast_batch
+            fc = dispatch(windows, t0, **batch[0].params)
         except Exception as e:  # noqa: BLE001 — propagate to every waiter
             for b in batch:
                 _resolve(b.fut, error=e)
@@ -272,10 +310,16 @@ class MicroBatcher:
             self.stats.batches += 1
             self.stats.padded_members += pad
         for i, b in enumerate(batch):
-            _resolve(b.fut, result=fc._replace(
-                fields=fc.fields[i : i + 1],
-                init_times=np.asarray([b.t0]),
-            ))
+            if ens:
+                out = fc._replace(
+                    mean=fc.mean[i : i + 1],
+                    spread=fc.spread[i : i + 1],
+                    members=None if fc.members is None else fc.members[i : i + 1],
+                    init_times=np.asarray([b.t0]),
+                )
+            else:
+                out = fc._replace(fields=fc.fields[i : i + 1], init_times=np.asarray([b.t0]))
+            _resolve(b.fut, result=out)
 
     def close(self):
         """Stop the batching worker (pending requests are flushed first)."""
@@ -326,9 +370,10 @@ class ForecastService(MicroBatcher):
     ``data``, face rows over ``spatial``, columns over ``spatial_x``) with
     the band ring-fix conv, batches padded to a multiple of the ``data``
     size (``stats.padded_mesh``).  ``forecast`` is then a collective call
-    (every rank, the same arguments); ``submit`` raises
-    ``NotImplementedError``, since each rank's batcher would coalesce
-    differently.
+    (every rank, the same arguments); ``submit``, ``submit_ensemble`` and
+    ``forecast_ensemble`` raise ``NotImplementedError``, since each rank's
+    batcher would coalesce differently and the ensemble's batch is not yet
+    padded to the ``data`` axis.
     """
 
     def __init__(self, estimator, *, constants=None, constants_store=None,
@@ -412,6 +457,18 @@ class ForecastService(MicroBatcher):
             )
         return super().submit(window, t0_days, steps=steps, normalized=normalized)
 
+    def submit_ensemble(self, window, t0_days, **kwargs) -> Future:
+        self._no_mesh_ensembles()
+        return super().submit_ensemble(window, t0_days, **kwargs)
+
+    def _no_mesh_ensembles(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ensembles under mesh= are not ported yet: ROADMAP.md queue 1, item 17c "
+                "(a rank-0 front end, and the ensemble batch padded to the data axis as "
+                "the reference pads it)"
+            )
+
     def info(self) -> dict:
         """Model/grid metadata."""
         dcfg = self.config.data
@@ -463,14 +520,84 @@ class ForecastService(MicroBatcher):
             self.stats.batches += 1
         return fc
 
-    def forecast_ensemble(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ensembles are not ported yet: ROADMAP.md queue 1, item 12 "
-            "(rollout/ensemble.py)"
+    def forecast_ensemble(self, window, t0_days, *, steps: int, members: int,
+                          amplitude=0.05, generator=None, antithetic: bool = True,
+                          keep_members: bool = False, normalized: bool = False,
+                          perturbations=None) -> EnsembleForecast:
+        """Perturbed-IC ensemble forecast of one window batch.
+
+        The raw-units contract of :meth:`forecast`; ``amplitude`` is the
+        perturbations' standard deviation in normalized units (scalar or
+        per variable ``(C_var,)``), drawn from ``generator`` (a
+        ``torch.Generator``; default: a CPU generator seeded with 0) or
+        given as unit ``perturbations`` ``(B, members, T_in, 6, n, n,
+        C_var)``.  The members fold into the batch of one rollout
+        (:mod:`dlwp_cs_tpu_torch.rollout.ensemble`); returns an
+        :class:`~dlwp_cs_tpu_torch.rollout.ensemble.EnsembleForecast` of
+        numpy arrays, ``mean`` and ``members`` (when kept) denormalized and
+        ``spread`` scaled by the std (a spread has no offset) unless
+        ``normalized=True``.
+        """
+        self._no_mesh_ensembles()
+        self._validate_request(int(steps), members=int(members))
+        fc = self._ensemble_impl(
+            window, t0_days, steps=steps, members=members, amplitude=amplitude,
+            generator=generator, antithetic=antithetic, keep_members=keep_members,
+            normalized=normalized, perturbations=perturbations,
+        )
+        with self._lock:
+            self.stats.requests += fc.mean.shape[0]
+            self.stats.batches += 1
+        return fc
+
+    def _ensemble_batch(self, window, t0_days, *, steps: int, members: int,
+                        amplitude=0.05, seed: int = 0, antithetic: bool = True,
+                        keep_members: bool = False,
+                        normalized: bool = False) -> EnsembleForecast:
+        """The batcher's ensemble dispatch: ``seed`` seeds a CPU
+        ``torch.Generator``; leaves the stats to the batcher."""
+        return self._ensemble_impl(
+            window, t0_days, steps=steps, members=members, amplitude=amplitude,
+            generator=torch.Generator().manual_seed(int(seed)), antithetic=antithetic,
+            keep_members=keep_members, normalized=normalized,
         )
 
-    def _forecast_batch(self, window, t0_days, *, steps: int,
-                        normalized: bool = False) -> Forecast:
+    def _ensemble_impl(self, window, t0_days, *, steps: int, members: int,
+                       amplitude=0.05, generator=None, antithetic: bool = True,
+                       keep_members: bool = False, normalized: bool = False,
+                       perturbations=None) -> EnsembleForecast:
+        window, t0 = self._prepare(window, t0_days, normalized)
+        e = self._est
+        # a forecaster per call: building its rollout only moves the grid
+        # and the constants to the device
+        ens = EnsembleForecaster(
+            model=e.model, data_cfg=e.data_cfg, lat=e.lat, lon=e.lon,
+            constants=e.constants, insol_mean=e.insol_mean,
+            insol_std=e.insol_std, device=e.device,
+        )
+        t0_wall = time.perf_counter()
+        fc = ens.predict(
+            window, t0, steps=steps, members=members, generator=generator,
+            amplitude=amplitude, antithetic=antithetic, keep_members=keep_members,
+            perturbations=perturbations,
+        )
+        mean = fc.mean.cpu().numpy()  # waits for the device
+        spread = fc.spread.cpu().numpy()
+        mem = None if fc.members is None else fc.members.cpu().numpy()
+        with self._lock:
+            self.stats.device_seconds += time.perf_counter() - t0_wall
+        if not normalized:
+            mean = mean * self._std + self._mean
+            spread = spread * self._std  # a spread is scaled, not shifted
+            if mem is not None:
+                mem = mem * self._std + self._mean
+        return fc._replace(mean=mean, spread=spread, members=mem,
+                           lead_hours=fc.lead_hours.cpu().numpy(),
+                           init_times=np.asarray(fc.init_times))
+
+    def _prepare(self, window, t0_days, normalized: bool):
+        """The checked, normalized window batch and its float64 init times
+        (a scalar ``t0_days`` broadcast over the batch)."""
         window = self._check_window(window)
         if not normalized:
             window = (window - self._mean) / self._std
@@ -482,6 +609,11 @@ class ForecastService(MicroBatcher):
                 f"t0_days batch {t0.shape[0]} != window batch "
                 f"{window.shape[0]}"
             )
+        return window, t0
+
+    def _forecast_batch(self, window, t0_days, *, steps: int,
+                        normalized: bool = False) -> Forecast:
+        window, t0 = self._prepare(window, t0_days, normalized)
         b = window.shape[0]
         pad = (-b) % self._data_div  # mesh data-axis divisibility
         if pad:

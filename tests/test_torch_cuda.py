@@ -563,18 +563,19 @@ def _mma_kernels():
     from dlwp_cs_tpu_torch.ops import conv_variants as cv
 
     return {"npack": (cv.cs_conv3x3_npack, cv.cs_conv3x3_npack_plain, cv.npack_taps),
+            "npack_v1": (cv.cs_conv3x3_npack_v1, cv.cs_conv3x3_npack_plain, cv.npack_taps),
             "im2col": (cv.cs_conv3x3_im2col, cv.cs_conv3x3_im2col_plain, cv.im2col_taps),
             "im2col_v1": (cv.cs_conv3x3_im2col_v1, cv.cs_conv3x3_im2col_plain,
                           cv.im2col_taps)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["npack", "im2col", "im2col_v1"])
+@pytest.mark.parametrize("kind", ["npack", "npack_v1", "im2col", "im2col_v1"])
 @pytest.mark.parametrize("b,n,cin,cout", MMA_SHAPES)
 def test_mma_conv_kernels_match_plain_and_conv_kernel_on_card(cuda_device, kind, b, n, cin,
                                                               cout):
-    """Kernels #3 (kn2row) and #13 (im2col; and the im2col kernel it
-    replaced, a timing row) in bfloat16 against their plain versions and
+    """Kernels #3 (kn2row) and #13 (im2col; and the kernels of their first
+    designs, timing rows) in bfloat16 against their plain versions and
     against kernel #1 on the same strips, each within one bf16 ulp of |ref|
     + 1e-4 (all three round an f32 sum once); bitwise equal from launch to
     launch."""
@@ -616,6 +617,83 @@ def test_im2col_kernel_past_the_first_designs_plan_on_card(cuda_device, b, n, ci
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 48, 128, 128), (1, 48, 64, 256), (1, 48, 32, 256),
+                                          (16, 24, 64, 64), (2, 12, 39, 40), (1, 20, 8, 12),
+                                          (4, 48, 128, 128), (1, 126, 256, 5), (2, 10, 5, 7)])
+def test_npack_kernel_past_the_first_designs_plan_on_card(cuda_device, b, n, cin, cout):
+    """Kernel #3 where the first design's block did not fit shared memory
+    (n = 48 with 128 -> 128 channels, Cout = 256), at one of the first
+    design's largest blocks for Cout < 8 (the three dx runs of Cout
+    channels side by side, odd run widths read by plain loads), at batch
+    16, with an odd Cin (plain 2-byte staging) and Cout whose runs take
+    8-byte copies:
+    within one bf16 ulp of |ref| + 1e-4 of its plain version and of #1,
+    bitwise equal from launch to launch."""
+    wrapper, plain, taps = _mma_kernels()["npack"]
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                                 for a in _case(b, n, cin, cout))
+    k_eq, k_po = k_eq / cin**0.5, k_po / cin**0.5
+    e = ext_strips(x)
+    w = (taps(k_eq), taps(k_po))
+    ours = wrapper(x, e, *w, b_eq, b_po)
+    _close(ours, plain(x, e, *w, b_eq, b_po), "bfloat16")
+    _close(ours, cs_conv3x3(x, e, k_eq, k_po, b_eq, b_po), "bfloat16")
+    assert torch.equal(wrapper(x, e, *w, b_eq, b_po), ours)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 30, 1024, 1), (1, 62, 512, 3)])
+def test_npack_kernel_at_the_first_designs_largest_blocks_on_card(cuda_device, b, n, cin, cout):
+    """Kernel #3 at shapes whose block the first design only just fits
+    (Cin of 512 and 1024, Cout < 8: the three dx runs of Cout channels side
+    by side) and #1 does not plan: within one bf16 ulp of |ref| + 1e-4 of
+    its plain version, bitwise equal from launch to launch."""
+    wrapper, plain, taps = _mma_kernels()["npack"]
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                                 for a in _case(b, n, cin, cout))
+    k_eq, k_po = k_eq / cin**0.5, k_po / cin**0.5
+    e = ext_strips(x)
+    w = (taps(k_eq), taps(k_po))
+    ours = wrapper(x, e, *w, b_eq, b_po)
+    _close(ours, plain(x, e, *w, b_eq, b_po), "bfloat16")
+    assert torch.equal(wrapper(x, e, *w, b_eq, b_po), ours)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,cin,cout", [(1, 12, 39, 40), (2, 8, 24, 24), (1, 7, 16, 8),
+                                          (1, 9, 16, 5), (1, 6, 24, 12)])
+def test_npack_kernel_at_every_tile_on_card(cuda_device, b, n, cin, cout):
+    """Kernel #3 launched with every tile its plan chooses from, and each
+    with one weight buffer too (ragged row and channel tiles, an odd count
+    of n8 tiles at 8 channels): each within one bf16 ulp of |ref| + 1e-4 of
+    the plain version, and every tile's output bitwise equal to the plan's
+    where both sum in the same order (the same channel width: the K order
+    of a product column does not depend on the rows)."""
+    from dlwp_cs_tpu_torch.ops import conv_variants as cv
+
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                                 for a in _case(b, n, cin, cout))
+    k_eq, k_po = k_eq / cin**0.5, k_po / cin**0.5
+    e = ext_strips(x)
+    w = (cv.npack_taps(k_eq), cv.npack_taps(k_po))
+    ref = cv.cs_conv3x3_npack_plain(x, e, *w, b_eq, b_po)
+    kernel = cv.cs_conv3x3_npack
+    dev = kernel._device(x)
+    tiles = cv.npack_tiles(b, n, cin, cout)
+    tiles += [cv.npack_launch(b, n, cin, cout, p.h, p.bn, 1) for p in tiles if p.wbufs == 2]
+    assert {p.wbufs for p in tiles} == {1, 2} and 8 in {p.bn for p in tiles}
+    outs = {}
+    for p in tiles:
+        out = torch.empty((b, 6, n, n, cout), dtype=torch.bfloat16, device=cuda_device)
+        kernel._launch_kernel(dev, x, e, *w, b_eq, b_po, out, plan=p)
+        _close(out, ref, "bfloat16")
+        outs.setdefault(p.bn, []).append(out)
+    for same in outs.values():
+        for out in same[1:]:
+            assert torch.equal(out, same[0])
+
+
+@pytest.mark.cuda
 def test_im2col_kernel_on_the_packed_layout_on_card(cuda_device):
     """Kernel #13 at the packed layout's 128 channels (n = 48, batch 4):
     the kernel_variants tool's ``im2colonly`` row."""
@@ -630,7 +708,7 @@ def test_im2col_kernel_on_the_packed_layout_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["npack", "im2col", "im2col_v1"])
+@pytest.mark.parametrize("kind", ["npack", "npack_v1", "im2col", "im2col_v1"])
 def test_mma_conv_kernels_reject_float32(cuda_device, kind):
     wrapper, _, taps = _mma_kernels()[kind]
     x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device) for a in _case(1, 8, 4, 8))

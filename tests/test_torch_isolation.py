@@ -37,9 +37,11 @@ def test_importing_every_module_loads_no_jax():
               "models.convlstm", "parallel.halo", "parallel.halo2d", "parallel.hopper_band",
               "parallel.hopper_tile", "parallel.sharding", "parallel.launch",
               "ops.conv_variants", "tools.timing", "tools.probes", "tools.conv_micro",
-              "tools.kernel_variants", "tools.mosaic_bisect"):
+              "tools.kernel_variants", "tools.mosaic_bisect", "tools.npack_phases",
+              "rollout.ensemble", "utils.misc", "verify", "verify.alignment",
+              "verify.ensemble", "verify.metrics", "verify.oracle", "verify.relabel"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
-    assert len(mods) >= 35
+    assert len(mods) >= 45
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -22,8 +22,15 @@ import torch
 
 from dlwp_cs_tpu_torch.ops.conv_variants import (
     cs_conv3x3_im2col_plain,
+    cs_conv3x3_npack_plain,
     im2col_blocks,
     im2col_plan,
+    mma_plan,
+    npack_blocks,
+    npack_launch,
+    npack_plan,
+    npack_taps,
+    npack_tiles,
 )
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import (
@@ -885,6 +892,165 @@ def test_im2col_gather_emulation_reproduces_the_plain_version(sms, b, n, cin, co
     ref = cs_conv3x3_im2col_plain(x, ext, *ws, *bs)
     assert ref.dtype == torch.float64
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-10)
+
+
+# ---- #3: the kn2row tile kernel's tiles and its shifted adds ----------------
+
+NPACK = ([(b, n, cin, cout) for b in (1, 16) for n, cin, cout in FLAGSHIP]
+         + [(1, 48, 128, 128), (4, 48, 128, 128), (1, 48, 64, 256), (1, 48, 32, 256),
+            (1, 96, 64, 64), (1, 10, 5, 7), (2, 8, 12, 16), (2, 12, 39, 40)])
+
+
+@pytest.mark.parametrize("b,n,cin,cout", NPACK, ids=_ids(NPACK))
+def test_npack_plan_covers_every_output_once(b, n, cin, cout):
+    """#3's tiles, as the kernel decodes its blocks: every output row and
+    channel of a face in exactly one block; the block fits the card's shared
+    memory (two to an SM at the flagship shapes), its output units fit the
+    registers (4 a thread of 256); the staged cells reach every product row
+    the shifted adds read; where some tile's grid is resident on the card at
+    once (two blocks an SM where shared memory allows), the plan's is, with
+    the most blocks of those of its channel width; else its block fits two
+    to an SM where some tile's does."""
+    plan = npack_plan(b, n, cin, cout, SMS)
+    seen = np.zeros((n, cout), dtype=np.int32)
+    blocks = npack_blocks(plan, n, cout)
+    assert len(blocks) == plan.rt * plan.ct and plan.blocks == len(blocks) * 6 * b
+    for (r0, r1), (c0, c1) in blocks:
+        assert 0 <= r0 < r1 <= r0 + plan.h and 0 <= c0 < c1 <= c0 + plan.bn
+        seen[r0:r1, c0:c1] += 1
+    assert (seen == 1).all()
+    assert plan.smem <= SMEM and plan.bn % 8 == 0
+    assert plan.h * n * plan.bn // 8 <= 4 * 256
+    assert plan.cells == (plan.h + 2) * (n + 2)
+    # the last output (h - 1, n - 1) reads product row (h - 1)(n + 2) + n + 1,
+    # which is cell 2(n + 2) + that at dy = 2
+    last = (plan.h - 1) * (n + 2) + n + 1
+    assert last < 16 * plan.mt and 2 * (n + 2) + last < plan.cells
+    if (n, cin, cout) in FLAGSHIP:
+        assert plan.smem <= _SMEM_TWO_BLOCKS and plan.wbufs == 2 and plan.bn >= 16
+    same = [p for p in npack_tiles(b, n, cin, cout) if p.bn * p.ct == plan.bn * plan.ct]
+
+    def resident(p):
+        return p.blocks <= SMS * (2 if p.smem <= _SMEM_TWO_BLOCKS else 1)
+
+    if any(resident(p) for p in same):
+        assert resident(plan)
+        assert plan.blocks == max(p.blocks for p in same if resident(p) and p.bn == plan.bn)
+    elif any(p.smem <= _SMEM_TWO_BLOCKS for p in same):
+        assert plan.smem <= _SMEM_TWO_BLOCKS
+
+
+def test_npack_plan_takes_every_shape_the_first_design_takes():
+    """Every shape of a grid of n, Cin and Cout that the first design's plan
+    (``mma_plan("npack")``) takes, the tile kernel's plan takes too (Cout <
+    8 with Cin >= 256 among them, where a tile's three dx runs of Cout
+    channels side by side keep its weights as small as v1's); and the tile
+    kernel plans (48, 128 -> 128) and Cout = 256 at n = 48, where v1
+    refuses."""
+    ns = (1, 2, 3, 6, 8, 10, 12, 14, 16, 24, 30, 46, 48, 62, 64, 96, 126, 128, 192)
+    cs = (1, 3, 5, 8, 12, 16, 24, 32, 39, 48, 64, 96, 128, 160, 192, 256, 384, 512, 1024)
+    v1_only = []
+    for n in ns:
+        for cin in cs:
+            for cout in cs:
+                try:
+                    mma_plan("npack", 1, n, cin, cout, SMS)
+                except ValueError:
+                    continue
+                try:
+                    npack_plan(1, n, cin, cout, SMS)
+                except ValueError:
+                    v1_only.append((n, cin, cout))
+    assert not v1_only, v1_only
+    for n, cin, cout in ((30, 1024, 1), (62, 512, 3), (126, 256, 5)):
+        plan = npack_plan(1, n, cin, cout, SMS)
+        assert plan.bn == 8 and plan.sw == cout
+    for n, cin, cout in ((48, 128, 128), (48, 64, 256), (48, 32, 256)):
+        with pytest.raises(ValueError):
+            mma_plan("npack", 1, n, cin, cout, SMS)
+        npack_plan(1, n, cin, cout, SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        npack_plan(1, 48, 4096, 512, SMS)
+
+
+def _npack_tiles_emulated(x, ext, t_eq, t_pole, b_eq, b_pole, plan):
+    """The kn2row tile kernel's index arithmetic in plain torch: per block
+    the tile's cells (padded rows r0 .. r0 + h + 1 as one run of cells,
+    zero past the face and past Cin), per dy the product of the cells dy (n
+    + 2) .. dy (n + 2) + 16 mt - 1 (past the staged cells: the last one)
+    with the dy slice's three sw-channel runs side by side (zero past Cin
+    and Cout), then
+    for each output (i, j) the product rows i (n + 2) + j + dx of the dx
+    run, added in the order dy, dx; bias; the tile's rows and channels
+    written."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import _padded_faces
+
+    b, _, n, _, cin = x.shape
+    cout = t_eq.shape[1] // 9
+    np2, kp, h, sw = n + 2, -(-cin // 16) * 16, plan.h, plan.sw
+    nw = -(-(3 * sw) // 8) * 8
+    pad = torch.zeros((b, 6, n + 2 + h + 2, np2, kp), dtype=x.dtype)
+    pad[:, :, :np2, :, :cin] = _padded_faces(x, ext)
+    out = torch.full((b, 6, n, n, cout), float("nan"), dtype=x.dtype)
+    for (r0, r1), (c0, c1) in npack_blocks(plan, n, cout):
+        cells = pad[:, :, r0 : r0 + h + 2].reshape(b, 6, -1, kp)
+        assert cells.shape[2] == plan.cells
+        rows = torch.arange(16 * plan.mt)
+        o = torch.zeros((b, 6, h, n, sw), dtype=x.dtype)
+        for dy in range(3):
+            a = cells[:, :, torch.clamp(dy * np2 + rows, max=plan.cells - 1)]
+            for g, (taps, faces) in enumerate(((t_eq, slice(0, 4)), (t_pole, slice(4, 6)))):
+                w = torch.zeros((kp, nw), dtype=x.dtype)
+                for dx in range(3):
+                    cc = min(c1, cout) - c0
+                    col = (3 * dy + dx) * cout + c0
+                    w[:cin, dx * sw : dx * sw + cc] = taps[:, col : col + cc]
+                prod = a[:, faces] @ w
+                for i in range(h):
+                    for dx in range(3):
+                        m = i * np2 + dx + torch.arange(n)
+                        o[:, faces, i] += prod[:, :, m, dx * sw : (dx + 1) * sw]
+        for g, (bias, faces) in enumerate(((b_eq, slice(0, 4)), (b_pole, slice(4, 6)))):
+            out[:, faces, r0:r1, :, c0:c1] = (o[:, faces, : r1 - r0, :, : c1 - c0]
+                                              + bias[c0:c1])
+    return out
+
+
+@pytest.mark.parametrize("tile", [None, (1, 8, 1), (3, 16, 2), (2, 32, 1)])
+@pytest.mark.parametrize("b,n,cin,cout", [(2, 8, 12, 16), (1, 10, 5, 7), (1, 6, 39, 40),
+                                          (1, 7, 24, 24), (1, 9, 20, 3), (1, 6, 16, 12)])
+def test_npack_tile_emulation_reproduces_the_plain_version(tile, b, n, cin, cout):
+    """The tile kernel's cells, M rows across padded rows, clamped reads
+    past the cells, channel runs and shifted adds (ragged row and channel
+    tiles, odd Cin, 8-channel runs, runs of Cout channels where Cout is
+    narrower than the tile), at the plan's tile and at forced ones,
+    against ``cs_conv3x3_npack_plain`` in float64: the same map to
+    rounding."""
+    rng = np.random.default_rng(b * 100 + n + cin)
+    x = torch.from_numpy(rng.normal(size=(b, 6, n, n, cin)))
+    ts = [npack_taps(torch.from_numpy(rng.normal(size=(3, 3, cin, cout)))) for _ in range(2)]
+    bs = [torch.from_numpy(rng.normal(size=(cout,))) for _ in range(2)]
+    ext = ext_strips(x)
+    plan = npack_plan(b, n, cin, cout, SMS) if tile is None else npack_launch(
+        b, n, cin, cout, *tile)
+    got = _npack_tiles_emulated(x, ext, *ts, *bs, plan)
+    ref = cs_conv3x3_npack_plain(x, ext, *ts, *bs)
+    assert ref.dtype == torch.float64
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-10)
+
+
+def test_npack_phase_tool_switches_guard_the_kernel_source():
+    """``tools/npack_phases.py`` compiles variants of
+    ``csrc/cs_conv3x3_mma.cu`` with phases of #3 switched off: every
+    switch's anchor is in the source once and each variant defines every
+    switch."""
+    from dlwp_cs_tpu_torch.tools import npack_phases
+
+    for name, switches in npack_phases.VARIANTS.items():
+        src = npack_phases.patched_source(switches)
+        for sw in npack_phases.SWITCHES:
+            assert f"#define {sw} {int(sw in switches)}\n" in src, (name, sw)
+            assert src.count(sw) >= 2, (name, sw)
 
 
 # ---- #15: the lane store's tiles --------------------------------------------

@@ -137,6 +137,7 @@ def test_unported_options_raise(served):
     with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is tests/test_torch_parallel.py's
         ForecastService(est, constants=const, mesh=object())
     svc = ForecastService(est, constants=const)
+    svc.mesh = object()  # ensembles under a mesh (item 17c) raise before any rollout
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         svc.forecast_ensemble(windows[0], 0.0, steps=1, members=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
