@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels, run its kernel tools, serve and
 train the flagship U-Net and the ConvLSTM on one GPU, serve ensembles of
-the U-Net, and serve the U-Net spatially sharded over 4 ranks that share
-the GPU, through gloo and through CUDA IPC.
+the U-Net, exported artifacts as CUDA-graph replays and the HTTP front end,
+and serve the U-Net spatially sharded over 4 ranks that share the GPU,
+through gloo and through CUDA IPC, with a rank-0 front end.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -113,6 +114,25 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    device time in the CUDA-core dx and dw kernels; in the ConvLSTM's
    profiled forecasts and steps, device time in the ring blocks and none
    in the CUDA-core ring kernels;
+8a. export (``serve/export.py``): the flagship U-Net in bfloat16 and
+   float32 at window batch buckets 1 and 8, the ConvLSTM (``xring``) in
+   bfloat16 at bucket 1, each a ``torch.export`` program of one model call
+   per bucket calling kernels #1 / #7 as operators (``ops/library.py``),
+   loaded with no estimator; each bucket's first 14-day forecast runs the
+   program eagerly, captures the 28 calls as one CUDA graph and replays
+   it (280 / 112 launches while capturing, none from the host after); the
+   exported forecast against the live service's (bitwise equality
+   recorded; within 1e-6 std in float32, 2**-6 of the largest normalized
+   output in bfloat16), replays bitwise repeatable; the seconds to export,
+   load and capture; wall medians of the exported and the live forecast
+   (also through the operators) in turns; one profiled exported and live
+   forecast each (busy time, idle share, the kernels in the replay, the
+   host's CUDA calls);
+8b. HTTP (``serve/http.py``): a ``ForecastHTTPServer`` on an ephemeral
+   port over the bfloat16 U-Net; 8 concurrent ``forecast_request`` calls
+   in one dispatch, bitwise equal to the direct batch; 3 ``ensemble_request``
+   calls with one seed in one dispatch, bitwise equal to the stacked call;
+   one request's round trip;
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -124,7 +144,11 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    with the band-row exchange in the launch, nothing else), and on a (1,
    2, 2) mesh (280 of #9), and at batch 3 through
    ``ForecastService(mesh=create_mesh(data=2, spatial=2))`` (the band
-   ring-fix conv, data-axis padding, no kernel); each held, on every rank,
+   ring-fix conv, data-axis padding, no kernel), then its ensemble of 3
+   members on data = 2 (padded by one window, the perturbations handed in)
+   and its rank-0 front end (3 ``submit`` calls on rank 0 while ranks 1-3
+   ``follow()``: one dispatch, bitwise equal to the collective forecast of
+   the same windows); each held, on every rank,
    against the one-card forecast in units of the field's std (the kernel
    paths, #11's included, which sums every output in #8's order, to 1e-6
    in float32 and 2**-6 of the value in bfloat16, the service to 1e-3 and
@@ -138,8 +162,11 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    ``all_gather``, of one band and one tile conv with its exchange, of the
    band rows by the ``ppermute`` pair and by #10, of a band conv with #10
    and of a #11 conv; then a group of 2 ranks: #10 at the same rows;
-10. print the #3/#13 tables and the ensemble lines again, the kernel line
-   (JSON), the card line, and last ``{"ok": true, "device": {...}}``.
+10. print whether ``nvidia-cuda-mps-control`` is on the PATH and the card
+   count (the route for measuring #10 and #11; nothing is started), the
+   #3/#13 tables, the ensemble, export, HTTP and front-end lines again, the
+   kernel line (JSON), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises, in any rank, so the script exits non-zero and
 prints no result.
@@ -155,6 +182,7 @@ import contextlib
 import json
 from concurrent.futures import ThreadPoolExecutor
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -209,6 +237,7 @@ KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kern
 CUDA_CORE_BACKWARD = ("cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
 CUDA_CORE_RING = ("cs_ring_fixes_kernel", "cs_xring_apply_kernel")
 SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
+MESH_MEMBERS = 3  # the mesh ensemble's members: data = 2 pads one window
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
 # band ring-fix conv sums float32 in another order and rounds bfloat16 at
@@ -1296,6 +1325,8 @@ def model_config(kind, dtype_name):
 
 # launches of each kernel per model call (forecast) and per train step
 PER_CALL = {"unet": {"cs_conv3x3": 10}, "convlstm": {"xring_fused_apply": 4}}
+# the device kernel each serving wrapper launches (its profiler name)
+KERNEL_OF = {"cs_conv3x3": "cs_conv3x3_tc_kernel", "xring_fused_apply": "cs_xring_tc_kernel"}
 PER_STEP = {"unet": {"cs_conv3x3": 10, "cs_conv3x3_dw": 10, "cs_conv3x3_dx": 9},
             "convlstm": {"xring_fused_apply": 4}}
 
@@ -1543,6 +1574,247 @@ def ensemble_phase(dtype_name, rng):
         "estimator_vs_service_max_abs_err": est_err,
         "spread_mean_last_lead": [float(v) for v in ens.spread[0, -1].mean(axis=(0, 1, 2))],
     }
+
+
+# the export phase: (model, dtype, window batch buckets)
+EXPORT_CASES = (("unet", "bfloat16", (1, 8)), ("unet", "float32", (1, 8)),
+                ("convlstm", "bfloat16", (1,)))
+# host-side CUDA calls that put work on the device: a kernel launch, a
+# graph launch, a copy or a set
+RUNTIME_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemcpy", "cudaMemsetAsync", "cudaMemset")
+
+
+def dispatch_counts(fn):
+    """One run of ``fn`` traced on the host and the device: ``(host, device)``,
+    the host's CUDA calls that put work on the device by name
+    (``RUNTIME_CALLS``; empty where the profiler records none), and the
+    device's kernels: each of the port's by name (``KERNEL_NAMES``) and all
+    (``"all"``, memory copies and sets not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host, device = {}, dict.fromkeys(KERNEL_NAMES + ("all",), 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if not e.key.startswith(("Memcpy", "Memset")):
+                device["all"] += e.count
+            for name in KERNEL_NAMES:
+                if name in e.key:
+                    device[name] += e.count
+        elif e.key in RUNTIME_CALLS:
+            host[e.key] = host.get(e.key, 0) + e.count
+    return host, device
+
+
+def export_phase(kind, dtype_name, buckets, rng, workdir):
+    """Export the full-width model of ``kind`` (``serve/export.py``), load
+    the artifact with no estimator, and serve 14-day forecasts from it at
+    each bucket: the first request runs the program eagerly and captures the
+    rollout as one CUDA graph, later ones replay it.  Each is held against
+    the live service's forecast of the same windows and timed beside it in
+    the same run; one exported forecast is profiled (busy time, idle share,
+    the kernels in the replay, the host's CUDA calls)."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
+    from dlwp_cs_tpu_torch import ForecastService
+    from dlwp_cs_tpu_torch.ops.library import use_library_ops
+    from dlwp_cs_tpu_torch.serve import ExportedForecaster, export_forecaster
+
+    kernels = all_kernels()
+    name = next(iter(PER_CALL[kind]))
+    kernel = kernels[name]
+    cfg = ExperimentConfig(data=DataConfig(), model=model_config(kind, dtype_name))
+    mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
+    std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
+    stats = {"mean": mean, "std": std, "insol_mean": 340.0, "insol_std": 420.0}
+    est = DLWPEstimator(cfg, device="cuda", seed=0).load_state(stats)
+    const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
+    windows = (rng.normal(size=(max(buckets), 2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
+    t0 = 9668.5 + 0.25 * np.arange(max(buckets))
+    svc = ForecastService(est, constants=const)
+    path = os.path.join(workdir, f"{kind}_{dtype_name}")
+    t = time.perf_counter()
+    export_forecaster(est, path, steps=STEPS, batch_sizes=buckets, constants=const)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    exp = ExportedForecaster(path)
+    load_s = time.perf_counter() - t
+    out = {"model": kind, "dtype": dtype_name, "steps": STEPS, "export_seconds": export_s,
+           "load_seconds": load_s, "buckets": []}
+    for b in buckets:
+        w, tt = windows[:b], t0[:b]
+        live = svc.forecast(w, tt, steps=STEPS)  # also the live path's warm-up at b
+        launches = kernel.launches
+        t = time.perf_counter()
+        first = exp.forecast(w, tt)  # eager run, capture, first replay
+        capture_s = time.perf_counter() - t
+        # the eager run and the capture launch every call's kernels once each
+        captured = kernel.launches - launches
+        want = 2 * PER_CALL[kind][name] * STEPS
+        check(captured == want, f"export {kind} {dtype_name} b{b}: {captured} launches, want "
+              f"{want}")
+        again = exp.forecast(w, tt)
+        check(kernel.launches - launches == want, "a replay launched kernels from the host")
+        check(np.array_equal(again.fields, first.fields),
+              f"export {kind} {dtype_name} b{b}: replays differ")
+        check(first.fields.shape == (b, 2 * STEPS, 6, 48, 48, 4)
+              and bool(np.isfinite(first.fields).all()), f"exported fields {first.fields.shape}")
+        bitwise = bool(np.array_equal(first.fields, live.fields))
+        err = float((np.abs(first.fields - live.fields) / std).max())
+        norm_live = (live.fields - mean) / std
+        tol = 1e-6 if dtype_name == "float32" else 2.0**-6 * float(np.abs(norm_live).max())
+        check(err <= tol, f"export {kind} {dtype_name} b{b}: {err} std from live > {tol}")
+        # wall times in turns: live, exported, exported, live; the live path
+        # also through the registered operators (ops/library.py)
+        live_ms, exp_ms, op_ms = [], [], []
+        for fn, times in ((lambda: svc.forecast(w, tt, steps=STEPS), live_ms),
+                          (lambda: exp.forecast(w, tt), exp_ms),
+                          (lambda: exp.forecast(w, tt), exp_ms),
+                          (lambda: svc.forecast(w, tt, steps=STEPS), live_ms)):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        for _ in range(2):
+            with use_library_ops():
+                t = time.perf_counter()
+                svc.forecast(w, tt, steps=STEPS)
+                op_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            svc.forecast(w, tt, steps=STEPS)
+            live_ms.append((time.perf_counter() - t) * 1e3)
+        for _ in range(4):
+            t = time.perf_counter()
+            exp.forecast(w, tt)
+            exp_ms.append((time.perf_counter() - t) * 1e3)
+        # the replay alone (host clock to its end), the rest of a forecast
+        # being host work: copies, padding, denormalization
+        graph = exp._graphs[STEPS, b].graph
+        replay_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            graph.replay()
+            torch.cuda.synchronize()
+            replay_ms.append((time.perf_counter() - t) * 1e3)
+        prof_ms, busy_ms, kernel_ms, n_kernels = profiled_run_ms(lambda: exp.forecast(w, tt))
+        live_prof = profiled_run_ms(lambda: svc.forecast(w, tt, steps=STEPS))
+        host, device = dispatch_counts(lambda: exp.forecast(w, tt))
+        live_host, live_device = dispatch_counts(lambda: svc.forecast(w, tt, steps=STEPS))
+        check(device[KERNEL_OF[name]] == PER_CALL[kind][name] * STEPS,
+              f"the profiled replay ran {device[KERNEL_OF[name]]} {KERNEL_OF[name]}")
+        out["buckets"].append({
+            "batch": b, "capture_seconds": capture_s, "launches_eager_and_capture": captured,
+            "bitwise_equal_to_live": bitwise, "max_err_in_std": err, "tolerance_in_std": tol,
+            "exported_ms": exp_ms, "exported_ms_median": statistics.median(exp_ms),
+            "live_ms": live_ms, "live_ms_median": statistics.median(live_ms),
+            "replay_ms": replay_ms, "replay_ms_median": statistics.median(replay_ms),
+            "live_through_operators_ms": op_ms,
+            "live_through_operators_ms_median": statistics.median(op_ms),
+            "profiled_exported_ms": prof_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+            "kernel_device_ms": kernel_ms, "device_kernels": n_kernels,
+            "profiled_live_ms": live_prof[0], "live_device_busy_ms": live_prof[1],
+            "live_device_idle_share": None if live_prof[1] is None
+            else 1.0 - live_prof[1] / live_prof[0],
+            "host_calls_per_forecast": host, "device_kernels_per_forecast": device,
+            "live_host_calls_per_forecast": live_host,
+            "live_device_kernels_per_forecast": live_device,
+            "graphs": len(exp._graphs),
+        })
+    return out
+
+
+def http_phase(rng):
+    """The HTTP front end over the bf16 flagship U-Net: 8 concurrent
+    ``forecast_request`` and 3 ``ensemble_request`` calls (one key) to a
+    ``ForecastHTTPServer`` on an ephemeral port, each coalesced into one
+    dispatch and bitwise equal to the direct call of the same batch; one
+    request's round trip alone (the batcher waiting its default 5 ms for
+    peers)."""
+    import threading
+
+    from dlwp_cs_tpu_torch.serve import (
+        ForecastHTTPServer,
+        ForecastService,
+        ensemble_request,
+        forecast_request,
+    )
+
+    est = flagship_estimator("bfloat16")
+    mean, std = est.stats["mean"], est.stats["std"]
+    const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
+    windows = (rng.normal(size=(8, 2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
+    t0 = 9668.5 + 0.25 * np.arange(8)
+    svc = ForecastService(est, constants=const, max_batch=8)  # waits 5 ms for peers
+    srv = ForecastHTTPServer(svc, port=0).start()
+    try:
+        direct = svc.forecast(windows, t0, steps=STEPS).fields  # also the warm-up at batch 8
+        one = forecast_request("127.0.0.1", srv.port, windows[0], t0[0], STEPS)  # warm-up
+        rt = []
+        for _ in range(3):
+            t = time.perf_counter()
+            forecast_request("127.0.0.1", srv.port, windows[0], t0[0], STEPS)
+            rt.append((time.perf_counter() - t) * 1e3)
+        svc.max_wait_s = 1.0  # the bursts below coalesce whatever the threads' timing
+        results, errors = {}, []
+
+        def call(i, fn, *args, **kw):
+            try:
+                results[i] = fn("127.0.0.1", srv.port, *args, **kw)
+            except Exception as e:  # noqa: BLE001 — reported by the check below
+                errors.append(e)
+
+        batches = svc.stats.batches
+        t = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i, forecast_request, windows[i], t0[i],
+                                                       STEPS)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        burst_ms = (time.perf_counter() - t) * 1e3
+        fc_dispatches = svc.stats.batches - batches
+        check(not errors and len(results) == 8, f"HTTP forecasts failed: {errors}")
+        check(fc_dispatches == 1, f"8 HTTP forecasts took {fc_dispatches} dispatches")
+        # one dispatch of 8: each row's sums are those of the direct batch
+        fc_bitwise = all(np.array_equal(results[i][0][0], direct[i]) for i in range(8))
+        check(fc_bitwise, "HTTP forecasts differ from the direct batch")
+        check(np.array_equal(one[0], svc.forecast(windows[0], t0[0], steps=STEPS).fields),
+              "an HTTP forecast differs from the direct call")
+        # 3 ensembles with one key, started 50 ms apart so that they queue in
+        # order: one dispatch of a bucket of 4, equal to the stacked call
+        # padded alike (the last window repeated) with the same seed
+        args = dict(members=4, amplitude=0.05, seed=7, keep_members=True)
+        results.clear()
+        batches = svc.stats.batches
+        threads = []
+        for i in range(3):
+            threads.append(threading.Thread(target=call, args=(i, ensemble_request, windows[i],
+                                                               t0[i], STEPS), kwargs=args))
+            threads[-1].start()
+            time.sleep(0.05)
+        for th in threads:
+            th.join(timeout=600)
+        ens_dispatches = svc.stats.batches - batches
+        check(not errors and len(results) == 3, f"HTTP ensembles failed: {errors}")
+        check(ens_dispatches == 1, f"3 HTTP ensembles took {ens_dispatches} dispatches")
+        stacked = svc.forecast_ensemble(
+            np.concatenate([windows[:3], windows[2:3]]), np.append(t0[:3], t0[2]),
+            steps=STEPS, members=4, amplitude=0.05, keep_members=True,
+            generator=torch.Generator().manual_seed(7))
+        ens_bitwise = all(np.array_equal(results[i][k][0], getattr(stacked, k)[i])
+                          for i in range(3) for k in ("mean", "spread", "members"))
+        check(ens_bitwise, "HTTP ensembles differ from the stacked call")
+    finally:
+        srv.stop()
+    return {"forecast_dispatches": fc_dispatches, "forecast_bitwise_equal": fc_bitwise,
+            "burst_ms": burst_ms, "round_trip_ms": rt,
+            "round_trip_ms_median": statistics.median(rt),
+            "ensemble_dispatches": ens_dispatches, "ensemble_bitwise_equal": ens_bitwise,
+            "requests": svc.stats.requests, "batches": svc.stats.batches}
 
 
 def train_phase(kind, dtype_name, rng):
@@ -1868,14 +2140,19 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
     return xchg, conv
 
 
-def sharded_rank(dtype_names, windows, t0, const):
+def sharded_rank(dtype_names, windows, t0, const, pert):
     """One rank of the sharded serve phase (a spawned process of a gloo
     group of ``SHARDS`` ranks sharing the card): per dtype, a 14-day forecast
     at batch 1 through kernel #8 on row bands, through #9 on 2 x 2 tiles,
     through #8 with #10 moving the band rows, and through #11, then the mesh
-    service at batch 3; before them kernels #10 and #11 at every flagship
-    band shape.  Returns the fields, the launches of every kernel and the
-    collectives per forecast, the wall times and the kernel cases."""
+    service at batch 3, its ensemble of ``MESH_MEMBERS`` members on
+    ``data = 2`` (padded by one window) with the perturbations ``pert``, and
+    its rank-0 front end (3 submits on rank 0 while the others follow());
+    before them kernels #10 and #11 at every flagship band shape.  Returns
+    the fields, the launches of every kernel and the collectives per
+    forecast, the wall times and the kernel cases."""
+    import torch.distributed as dist
+
     from dlwp_cs_tpu_torch import ForecastService, TimeSeriesEstimator
     from dlwp_cs_tpu_torch.parallel import collectives, create_mesh, make_spatial_apply
 
@@ -1912,7 +2189,10 @@ def sharded_rank(dtype_names, windows, t0, const):
             out[kind, dtype_name] = {
                 "fields": fields, "wall_ms": wall, "collectives": collectives.calls - calls,
                 "launches": {name: k.launches for name, k in kernels.items()}}
-        svc = ForecastService(est, constants=const, mesh=meshes["service"])
+        # the front end's 3 submits fill its batch of 3 (padded to 4 over
+        # data, as the collective call's 3 windows are): no wait for peers
+        svc = ForecastService(est, constants=const, mesh=meshes["service"], max_batch=3,
+                              max_wait_ms=1000.0)
         svc.forecast(windows[:3], t0[:3], steps=1)  # warm-up
         padded = svc.stats.padded_mesh
         for k in kernels.values():
@@ -1925,6 +2205,30 @@ def sharded_rank(dtype_names, windows, t0, const):
             "fields": fc.fields, "wall_ms": wall, "collectives": collectives.calls - calls,
             "padded_mesh": svc.stats.padded_mesh - padded,
             "launches": {name: k.launches for name, k in kernels.items()}}
+        # an ensemble under data = 2: one window, MESH_MEMBERS members,
+        # padded by one window; the perturbations handed in
+        padded = svc.stats.padded_mesh
+        t = time.perf_counter()
+        ens = svc.forecast_ensemble(windows[0], t0[0], steps=STEPS, members=MESH_MEMBERS,
+                                    perturbations=pert, keep_members=True)
+        out["mesh_ensemble", dtype_name] = {
+            "members": ens.members, "mean": ens.mean, "spread": ens.spread,
+            "wall_ms": (time.perf_counter() - t) * 1e3,
+            "padded_mesh": svc.stats.padded_mesh - padded}
+        # the rank-0 front end: rank 0 submits 3 requests, the others follow
+        batches = svc.stats.batches
+        t = time.perf_counter()
+        if dist.get_rank() == 0:
+            futs = [svc.submit(windows[i], t0[i], steps=STEPS) for i in range(3)]
+            fields = np.concatenate([f.result(timeout=900).fields for f in futs])
+            wall = (time.perf_counter() - t) * 1e3
+            svc.close()
+            front = {"fields": fields, "wall_ms": wall}
+        else:
+            front = {"runs": svc.follow(), "errors": [repr(e) for e in svc.follow_errors]}
+            svc.close()
+        front["dispatches"] = svc.stats.batches - batches
+        out["front", dtype_name] = front
     return out
 
 
@@ -1954,6 +2258,10 @@ def sharded_phase(rng, workdir):
     std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
     windows = (rng.normal(size=(3, 2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
     t0 = 9668.5 + 0.25 * np.arange(3)
+    from dlwp_cs_tpu_torch.rollout import ic_perturbations
+
+    pert = ic_perturbations(torch.Generator().manual_seed(4), windows[:1].shape,
+                            MESH_MEMBERS).numpy()
     one_card = {}
     for dtype_name in dtype_names:
         svc = ForecastService(flagship_estimator(dtype_name), constants=const)
@@ -1961,8 +2269,11 @@ def sharded_phase(rng, workdir):
         one_card["kernel", dtype_name] = svc.forecast(
             normed, t0[0], steps=STEPS, normalized=True).fields
         one_card["service", dtype_name] = svc.forecast(windows, t0, steps=STEPS).fields
+        one_card["ensemble", dtype_name] = svc.forecast_ensemble(
+            windows[0], t0[0], steps=STEPS, members=MESH_MEMBERS, perturbations=pert,
+            keep_members=True).members
     t = time.perf_counter()
-    ranks = spawn_group(sharded_rank, SHARDS, dtype_names, windows, t0, const,
+    ranks = spawn_group(sharded_rank, SHARDS, dtype_names, windows, t0, const, pert,
                         workdir=os.path.join(workdir, "four"))
     group_s = time.perf_counter() - t
     pair = spawn_group(pair_rank, 2, workdir=os.path.join(workdir, "two"))
@@ -2003,6 +2314,39 @@ def sharded_phase(rng, workdir):
                 "max_err_in_std": max(errs), "tolerance_in_std": f"{rel:.3g}*|ref| + {tol:.3g}",
                 "wall_ms_per_rank": walls,
             })
+    # the mesh ensemble and the rank-0 front end, against one card; the
+    # front end's dispatch against the collective forecast of the same
+    # windows (both pad the 3 windows to 4 over data, repeating the last)
+    front = []
+    for dtype_name in dtype_names:
+        _, tol = SHARDED_TOL["service", dtype_name]
+        ens_err = max(float((np.abs(r["mesh_ensemble", dtype_name]["members"]
+                                    - one_card["ensemble", dtype_name]) / std).max())
+                      for r in ranks)
+        check(ens_err <= tol, f"mesh ensemble {dtype_name}: {ens_err} std from one card")
+        check(all(r["mesh_ensemble", dtype_name]["padded_mesh"] == 1 for r in ranks),
+              "the mesh ensemble padded other than one window")
+        lead = ranks[0]["front", dtype_name]
+        check(lead["dispatches"] == 1, f"3 submits on rank 0 took {lead['dispatches']} "
+              "dispatches")
+        check(all(r["front", dtype_name]["runs"] == 1 and not r["front", dtype_name]["errors"]
+                  for r in ranks[1:]), "a follower missed the dispatch or failed")
+        front_err = float((np.abs(lead["fields"] - one_card["service", dtype_name]) / std).max())
+        check(front_err <= tol, f"front end {dtype_name}: {front_err} std from one card")
+        front_equal = bool(np.array_equal(lead["fields"],
+                                          ranks[0]["service", dtype_name]["fields"]))
+        check(front_equal, f"front end {dtype_name}: differs from the collective forecast")
+        front.append({
+            "dtype": dtype_name, "dispatches": lead["dispatches"], "wall_ms": lead["wall_ms"],
+            "follower_runs": [r["front", dtype_name]["runs"] for r in ranks[1:]],
+            "vs_one_card_max_err_in_std": front_err,
+            "bitwise_equal_to_collective": front_equal,
+            "ensemble_members": MESH_MEMBERS,
+            "ensemble_padded_mesh": ranks[0]["mesh_ensemble", dtype_name]["padded_mesh"],
+            "ensemble_vs_one_card_max_err_in_std": ens_err,
+            "ensemble_wall_ms": [r["mesh_ensemble", dtype_name]["wall_ms"] for r in ranks],
+            "tolerance_in_std": tol,
+        })
     remote = {"xchg4": [c for r in ranks for c in r["xchg"]],
               "overlap4": [c for r in ranks for c in r["overlap"]],
               "xchg2": [c for r in pair for c in r]}
@@ -2010,7 +2354,7 @@ def sharded_phase(rng, workdir):
     check(not bad, f"kernel #10 or #11 disagrees with its plain version: {bad}")
     # per rank, per shape: #10's case (input rows) and #11's, rank 0 first
     remote["per_rank"] = [{"xchg": r["xchg"], "overlap": r["overlap"]} for r in ranks]
-    return results, exchange, group_s, remote
+    return results, exchange, group_s, remote, front
 
 
 def main(argv=None) -> int:
@@ -2271,8 +2615,60 @@ def main(argv=None) -> int:
                   f"{r['grad_check']['tolerance']:.3g}), "
                   f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
 
+    # exported artifacts (serve/export.py) replayed as one CUDA graph per
+    # forecast, beside the live service in the same run
+    exports = []
+    with tempfile.TemporaryDirectory() as workdir:  # the artifacts
+        for kind, dtype_name, buckets in EXPORT_CASES:
+            e = export_phase(kind, dtype_name, buckets, np.random.default_rng(4), workdir)
+            exports.append(e)
+            for r in e["buckets"]:
+                recap.append(
+                    f"export {kind} {dtype_name} batch {r['batch']}: export "
+                    f"{e['export_seconds']:.1f} s, load {e['load_seconds']:.2f} s, eager run + "
+                    f"capture + first replay {r['capture_seconds']:.2f} s; 14-day forecast "
+                    f"{r['exported_ms_median']:.2f} ms median (the replay alone "
+                    f"{r['replay_ms_median']:.2f}; live {r['live_ms_median']:.2f}, "
+                    f"live through the operators {r['live_through_operators_ms_median']:.2f}); "
+                    f"profiled exported {r['profiled_exported_ms']:.2f} ms: busy "
+                    f"{r['device_busy_ms']} ms (idle share {r['device_idle_share']}); live "
+                    f"{r['profiled_live_ms']:.2f} ms: busy {r['live_device_busy_ms']} ms (idle "
+                    f"share {r['live_device_idle_share']}); host CUDA calls per forecast "
+                    f"{r['host_calls_per_forecast']} (live {r['live_host_calls_per_forecast']});"
+                    f" device kernels {r['device_kernels_per_forecast']['all']} (live "
+                    f"{r['live_device_kernels_per_forecast']['all']}); vs live bitwise "
+                    f"{r['bitwise_equal_to_live']} ({r['max_err_in_std']:.3g} std, tol "
+                    f"{r['tolerance_in_std']:.3g})")
+                print(recap[-1], flush=True)
+    web = http_phase(np.random.default_rng(5))
+    recap.append(
+        f"http: 8 concurrent /forecast in {web['forecast_dispatches']} dispatch ({web['burst_ms']:.1f}"
+        f" ms), bitwise equal to the direct batch {web['forecast_bitwise_equal']}; 3 /ensemble "
+        f"in {web['ensemble_dispatches']} dispatch, bitwise equal to the stacked call "
+        f"{web['ensemble_bitwise_equal']}; one round trip {web['round_trip_ms_median']:.1f} ms "
+        f"median (runs {['%.1f' % t for t in web['round_trip_ms']]})")
+    print(recap[-1], flush=True)
+
     with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
-        sharded, exchange, group_s, remote = sharded_phase(np.random.default_rng(2), workdir)
+        sharded, exchange, group_s, remote, front = sharded_phase(np.random.default_rng(2),
+                                                                  workdir)
+    for r in front:
+        recap.append(
+            f"mesh front end {r['dtype']} (4 ranks sharing one card, data 2 x spatial 2): 3 "
+            f"submits on rank 0 in {r['dispatches']} dispatch ({r['wall_ms']:.1f} ms), followed "
+            f"by ranks 1-3 ({r['follower_runs']}), vs one card {r['vs_one_card_max_err_in_std']:.3g}"
+            f" std, bitwise equal to the collective call {r['bitwise_equal_to_collective']}; "
+            f"ensemble of {r['ensemble_members']} padded by {r['ensemble_padded_mesh']}, vs one "
+            f"card {r['ensemble_vs_one_card_max_err_in_std']:.3g} std (tol "
+            f"{r['tolerance_in_std']:.3g})")
+        print(recap[-1], flush=True)
+    # the route by which the band-exchange kernels (#10, #11) can be
+    # measured: CUDA MPS on this machine (look only)
+    mps = {"nvidia_cuda_mps_control": shutil.which("nvidia-cuda-mps-control"),
+           "device_count": torch.cuda.device_count()}
+    recap.append(f"item 17d route: nvidia-cuda-mps-control {mps['nvidia_cuda_mps_control']}, "
+                 f"{mps['device_count']} card(s)")
+    print(recap[-1], flush=True)
     print("remote: kernel ranks n rows Cin Cout B dtype | max_abs_err | kernel_ms plain_ms "
           "library_ms bound_ms (rank 0; #11: max |#11 - #8|)")
     for key, name, ranks_n in (("xchg2", "#10", 2), ("xchg4", "#10", 4), ("overlap4", "#11", 4)):
@@ -2439,6 +2835,7 @@ def main(argv=None) -> int:
                    "graph_replays": replays, "probe_cases": probe_rows,
                    "tc_cases": tc, "tc_summary": tc_sum, "ring_summary": ring_sum,
                    "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
+                   "export": exports, "http": web, "mesh_front_end": front, "mps": mps,
                    "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))

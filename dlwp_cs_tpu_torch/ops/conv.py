@@ -60,9 +60,14 @@ import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_fused, fused_fits
+from dlwp_cs_tpu_torch.ops.library import (
+    cs_conv3x3_op,
+    library_ops_enabled,
+    xring_fused_apply_op,
+)
 from dlwp_cs_tpu_torch.ops import padding as _padding
 from dlwp_cs_tpu_torch.ops.padding import cs_pad, use_pad_impl
-from dlwp_cs_tpu_torch.ops.ring_kernel import cs_conv3x3_xring, xring_fits
+from dlwp_cs_tpu_torch.ops.ring_kernel import _xring_forward, cs_conv3x3_xring, xring_fits
 from dlwp_cs_tpu_torch.ops.ringfix import (
     _same_conv,
     add_group_bias,
@@ -221,6 +226,12 @@ def cs_conv(
             (x.new_zeros(kernel_eq.shape[-1]) if b is None else b).to(x.dtype).contiguous()
             for b in (bias_eq, bias_pole)
         )
+        if library_ops_enabled(x, kernel_eq, kernel_pole, bias_eq, bias_pole):
+            # inference through the registered operators (torch.export)
+            if backend in _XRING_BACKENDS:
+                return _xring_forward(x.contiguous(), *kernels, *biases,
+                                      apply=xring_fused_apply_op)
+            return cs_conv3x3_op(x.contiguous(), ext_strips(x), *kernels, *biases)
         if backend in _XRING_BACKENDS:
             return cs_conv3x3_xring(x, *kernels, *biases)
         return cs_conv3x3_fused(x.contiguous(), ext_strips(x), *kernels, *biases)

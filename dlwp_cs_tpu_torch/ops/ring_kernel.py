@@ -387,10 +387,12 @@ ring_fixes = _RingFixesKernel("ring_fixes", _RING_LIB)
 xring_fused_apply = _XringApplyKernel("xring_fused_apply", _RING_LIB)
 
 
-def _xring_forward(x, k_eq, k_pole, b_eq, b_pole):
+def _xring_forward(x, k_eq, k_pole, b_eq, b_pole, apply=None):
     # the dual base: two full 6-face SAME convs, the select in the kernel
-    out = xring_fused_apply(_same_conv(x, k_eq), _same_conv(x, k_pole), ext_strips(x),
-                            k_eq, k_pole)
+    # (``apply``: the wrapper, looked up at the call, or its registered
+    # operator, ops/library.py)
+    apply = xring_fused_apply if apply is None else apply
+    out = apply(_same_conv(x, k_eq), _same_conv(x, k_pole), ext_strips(x), k_eq, k_pole)
     return add_group_bias(out, b_eq, b_pole)
 
 

@@ -28,7 +28,7 @@ from dlwp_cs_tpu_torch.device import resolve_device
 from dlwp_cs_tpu_torch.geometry.insolation import INSOLATION_PERIOD_DAYS
 from dlwp_cs_tpu_torch.models.config import DataConfig
 
-__all__ = ["Forecast", "TimeSeriesEstimator", "make_rollout_fn"]
+__all__ = ["Forecast", "RolloutStep", "TimeSeriesEstimator", "make_rollout_fn"]
 
 
 class Forecast(NamedTuple):
@@ -54,6 +54,42 @@ class Forecast(NamedTuple):
         return t0[:, None] + lead[None, :] / 24.0
 
 
+class RolloutStep(torch.nn.Module):
+    """One model call of the rollout: ``step(window, t_days) -> (window,
+    out_window, t_days)``.
+
+    Packs the normalized ``window`` ``(B, T_in, 6, n, n, C_var)``, the
+    insolation of its valid times (ending at ``t_days``, ``(B,)`` or a
+    scalar float32 tensor already reduced mod 1461) and the constants into
+    the model input, calls the model and returns the next window, the
+    ``(B, T_out, 6, n, n, C_var)`` predicted steps and the clock advanced by
+    ``T_out`` steps.  The grid and the constants are tensors of the module
+    (moved to ``device`` once); ``model`` is its submodule or, for a sharded
+    apply, any callable.  :func:`make_rollout_fn` loops over it, and
+    :mod:`dlwp_cs_tpu_torch.serve.export` exports it.
+    """
+
+    def __init__(self, model, data_cfg: DataConfig, *, lat, lon, constants=None,
+                 insol_mean: float = 0.0, insol_std: float = 1.0, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.model = model
+        self.t_out = data_cfg.output_time_steps
+        self.dt_days = data_cfg.step_hours / 24.0
+        lat = torch.as_tensor(np.asarray(lat), dtype=torch.float32, device=dev)
+        lon = torch.as_tensor(np.asarray(lon), dtype=torch.float32, device=dev)
+        if constants is not None:
+            constants = torch.as_tensor(constants, dtype=torch.float32, device=dev)
+        self.constants = constants
+        self.device = dev
+        self._insolation = make_input_insolation(data_cfg, lat, lon, insol_mean, insol_std)
+
+    def forward(self, window, t_days):
+        inputs = pack_inputs(window, self._insolation(t_days), self.constants)
+        window, out_window = advance_window(window, self.model(inputs), self.t_out)
+        return window, out_window, t_days + self.t_out * self.dt_days
+
+
 def make_rollout_fn(
     model,
     data_cfg: DataConfig,
@@ -75,17 +111,10 @@ def make_rollout_fn(
     initial ``window`` ``(B, T_in, 6, n, n, C_var)`` holds normalized fields
     at valid times ``t0 - (T_in-1)*dt .. t0``.
     """
-    dev = resolve_device(device)
+    step = RolloutStep(model, data_cfg, lat=lat, lon=lon, constants=constants,
+                       insol_mean=insol_mean, insol_std=insol_std, device=device)
+    dev = step.device
     t_in = data_cfg.input_time_steps
-    t_out = data_cfg.output_time_steps
-    dt_days = data_cfg.step_hours / 24.0
-    lat = torch.as_tensor(np.asarray(lat), dtype=torch.float32, device=dev)
-    lon = torch.as_tensor(np.asarray(lon), dtype=torch.float32, device=dev)
-    if constants is not None:
-        constants = torch.as_tensor(constants, dtype=torch.float32, device=dev)
-    input_insolation = make_input_insolation(
-        data_cfg, lat, lon, insol_mean, insol_std
-    )
 
     @torch.no_grad()
     def rollout(window, t0_days) -> Forecast:
@@ -104,12 +133,10 @@ def make_rollout_fn(
         t = torch.remainder(t, INSOLATION_PERIOD_DAYS)
         outs = []
         for _ in range(steps):
-            inputs = pack_inputs(window, input_insolation(t), constants)
-            window, out_window = advance_window(window, model(inputs), t_out)
+            window, out_window, t = step(window, t)
             outs.append(out_window)
-            t = t + t_out * dt_days
         fields = torch.cat(outs, dim=1)  # (B, steps*T_out, 6, n, n, C)
-        lead = (torch.arange(steps * t_out, device=dev) + 1) * data_cfg.step_hours
+        lead = (torch.arange(steps * step.t_out, device=dev) + 1) * data_cfg.step_hours
         return Forecast(fields=fields, lead_hours=lead)
 
     return rollout

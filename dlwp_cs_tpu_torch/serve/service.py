@@ -12,14 +12,17 @@ C_var)`` plus its init time; the service normalizes, rolls out and returns
 denormalized numpy fields.
 
 Under a device mesh (``mesh=``) the model runs spatially decomposed
-(:func:`~dlwp_cs_tpu_torch.parallel.make_spatial_apply`) and ``forecast``
-is a collective call: every rank of the mesh calls it with the same
-arguments and gets the same forecast.
+(:func:`~dlwp_cs_tpu_torch.parallel.make_spatial_apply`), one process per
+rank, in one of two modes (:class:`ForecastService`): collective calls
+(every rank calls ``forecast`` / ``forecast_ensemble`` with the same
+arguments), or a rank-0 front end (rank 0 submits, the others
+``follow()``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import queue
 import threading
 import time
@@ -29,8 +32,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from dlwp_cs_tpu_torch.estimator import DLWPEstimator
 from dlwp_cs_tpu_torch.parallel.collectives import axis_size
 from dlwp_cs_tpu_torch.parallel.mesh import DATA_AXIS
 from dlwp_cs_tpu_torch.parallel.sharding import make_spatial_apply
@@ -299,8 +304,7 @@ class MicroBatcher:
             t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
         ens = batch[0].kind == "ens"
         try:
-            dispatch = self._ensemble_batch if ens else self._forecast_batch
-            fc = dispatch(windows, t0, **batch[0].params)
+            fc = self._dispatch(ens, windows, t0, batch[0].params, len(batch))
         except Exception as e:  # noqa: BLE001 — propagate to every waiter
             for b in batch:
                 _resolve(b.fut, error=e)
@@ -320,6 +324,12 @@ class MicroBatcher:
             else:
                 out = fc._replace(fields=fc.fields[i : i + 1], init_times=np.asarray([b.t0]))
             _resolve(b.fut, result=out)
+
+    def _dispatch(self, ens: bool, windows, t0, params: dict, requests: int):
+        """One device dispatch of ``requests`` coalesced requests, padded to
+        ``windows.shape[0]``."""
+        dispatch = self._ensemble_batch if ens else self._forecast_batch
+        return dispatch(windows, t0, **params)
 
     def close(self):
         """Stop the batching worker (pending requests are flushed first)."""
@@ -351,6 +361,10 @@ def _select_constants(store, names):
     return np.asarray(store.constants)[..., [have.index(c) for c in names]]
 
 
+# the mesh front end's header kinds (ForecastService._send_header)
+_STOP, _FORECAST, _ENSEMBLE = 0, 1, 2
+
+
 class ForecastService(MicroBatcher):
     """Batched rollout serving on top of a loaded
     :class:`~dlwp_cs_tpu_torch.estimator.DLWPEstimator`, on the estimator's
@@ -366,14 +380,39 @@ class ForecastService(MicroBatcher):
 
     ``mesh``: an optional ``DeviceMesh``
     (:func:`~dlwp_cs_tpu_torch.parallel.create_mesh`) on the estimator's
-    device type.  The model forward then runs domain-decomposed (batch over
-    ``data``, face rows over ``spatial``, columns over ``spatial_x``) with
-    the band ring-fix conv, batches padded to a multiple of the ``data``
-    size (``stats.padded_mesh``).  ``forecast`` is then a collective call
-    (every rank, the same arguments); ``submit``, ``submit_ensemble`` and
-    ``forecast_ensemble`` raise ``NotImplementedError``, since each rank's
-    batcher would coalesce differently and the ensemble's batch is not yet
-    padded to the ``data`` axis.
+    device type, one process per rank.  The model forward then runs
+    domain-decomposed (batch over ``data``, face rows over ``spatial``,
+    columns over ``spatial_x``) with the band ring-fix conv; a forecast's
+    window batch is padded to a multiple of the ``data`` size, an
+    ensemble's to the smallest multiple whose ``batch * members`` the
+    ``data`` size divides, as the reference pads them (``stats.padded_mesh``).
+    Each dispatch is a collective, made in one of two modes:
+
+    * collective calls: every rank calls ``forecast`` /
+      ``forecast_ensemble`` with the same arguments (the same seeded
+      ``generator``, or the same ``perturbations``) and gets the same
+      result;
+    * a rank-0 front end: rank 0 (the mesh's first rank) calls ``submit`` /
+      ``submit_ensemble``, whose micro-batcher coalesces as on one device;
+      every other rank calls :meth:`follow`, which blocks.  Before each
+      dispatch rank 0's batcher thread broadcasts a header (the kind,
+      ``steps``, the batch, ``members``, ``amplitude``, ``seed``,
+      ``antithetic``, ``keep_members``, ``normalized``) and the window and
+      ``t0`` arrays over the process group; each follower runs the same
+      dispatch (an ensemble's generator seeded from the broadcast seed, so
+      every rank draws the same perturbations).  ``close()`` on rank 0
+      flushes the queue and broadcasts a stop header, which ends the
+      followers' :meth:`follow`.
+
+    The two modes do not interleave: one thread per rank issues all of the
+    service's collectives (gloo collectives issued from two threads would
+    interleave differently on each rank and deadlock).  Collective calls
+    come before rank 0's first ``submit``; from then until ``close()`` rank
+    0's direct ``forecast`` / ``forecast_ensemble`` raise ``RuntimeError``.
+    Under a mesh ``close()`` is collective: rank 0 broadcasts the stop
+    header, and a rank that is not in :meth:`follow` receives it in its own
+    ``close()``.  A follower waits for each header in a broadcast, so the
+    process group's timeout bounds the idle time between dispatches.
     """
 
     def __init__(self, estimator, *, constants=None, constants_store=None,
@@ -406,6 +445,8 @@ class ForecastService(MicroBatcher):
         model = estimator.model
         self.mesh = mesh
         self._data_div = 1
+        self._leading = False  # rank 0 of a mesh, once it has submitted
+        self.follow_errors: list[Exception] = []
         if mesh is not None:
             if not isinstance(mesh, DeviceMesh):
                 raise TypeError(f"mesh must be a DeviceMesh (create_mesh), got {type(mesh)}")
@@ -415,6 +456,8 @@ class ForecastService(MicroBatcher):
                 )
             model = make_spatial_apply(model, mesh, band_conv="ringfix")
             self._data_div = axis_size(mesh, DATA_AXIS)
+            self._root = int(mesh.mesh.flatten()[0])
+            self._rank = dist.get_rank()
         self._est = TimeSeriesEstimator(
             model=model,
             data_cfg=dcfg,
@@ -429,6 +472,13 @@ class ForecastService(MicroBatcher):
                            request_timeout_s=request_timeout_s)
         self.max_steps = int(max_steps)
         self.max_members = int(max_members)
+
+    @classmethod
+    def load(cls, path, *, device=None, **kwargs) -> "ForecastService":
+        """Build a service from a ``DLWPEstimator.save`` checkpoint
+        directory, on ``device`` (the GPU unless named); ``kwargs`` go to
+        the constructor."""
+        return cls(DLWPEstimator.load(path, device=device), **kwargs)
 
     def _worker_context(self):
         if self.device.type == "cuda":
@@ -448,25 +498,138 @@ class ForecastService(MicroBatcher):
             )
 
     def submit(self, window, t0_days, *, steps: int, normalized: bool = False) -> Future:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "submit under mesh= is not ported yet: each rank's batcher would "
-                "coalesce differently; a rank-0 front end that broadcasts its "
-                "batches is ROADMAP.md queue 1, item 17.  Call forecast() on "
-                "every rank"
-            )
+        self._lead("submit")
         return super().submit(window, t0_days, steps=steps, normalized=normalized)
 
     def submit_ensemble(self, window, t0_days, **kwargs) -> Future:
-        self._no_mesh_ensembles()
+        self._lead("submit_ensemble")
         return super().submit_ensemble(window, t0_days, **kwargs)
 
-    def _no_mesh_ensembles(self):
+    # -- the mesh front end ------------------------------------------------
+    def _lead(self, what: str):
+        """Under a mesh, only rank 0 submits; it then leads until close()."""
+        if self.mesh is None:
+            return
+        if self._rank != self._root:
+            raise RuntimeError(
+                f"{what} under a mesh runs on rank {self._root}; rank {self._rank} "
+                "calls follow()"
+            )
+        self._leading = True
+
+    def _collective_call(self, what: str):
+        if self._leading:
+            raise RuntimeError(
+                f"{what}: rank {self._root} leads the mesh front end (it has "
+                "submitted) and the other ranks follow() its batcher until close(); "
+                "submit() or submit_ensemble() instead"
+            )
+
+    def _dispatch(self, ens: bool, windows, t0, params: dict, requests: int):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "ensembles under mesh= are not ported yet: ROADMAP.md queue 1, item 17c "
-                "(a rank-0 front end, and the ensemble batch padded to the data axis as "
-                "the reference pads it)"
+            # rank 0's batcher thread: the followers run the same dispatch
+            if ens:
+                params = dict(params, amplitude=self._amplitude(params["amplitude"]))
+            self._send_header(_ENSEMBLE if ens else _FORECAST, windows, t0, params, requests)
+        return super()._dispatch(ens, windows, t0, params, requests)
+
+    def _amplitude(self, amplitude) -> np.ndarray:
+        """A scalar or per-variable amplitude as ``(C_var,)`` float32."""
+        return np.ascontiguousarray(np.broadcast_to(
+            np.asarray(amplitude, np.float32), (self.config.data.n_variables,)))
+
+    def _send_header(self, kind: int, windows=None, t0=None, params=None, requests=0):
+        p = params or {}
+        header = torch.tensor(
+            [kind, p.get("steps", 0), 0 if windows is None else windows.shape[0], requests,
+             p.get("members", 0), p.get("seed", 0), p.get("antithetic", False),
+             p.get("keep_members", False), p.get("normalized", False)], dtype=torch.int64)
+        dist.broadcast(header, src=self._root)
+        if kind == _STOP:
+            return
+        if kind == _ENSEMBLE:
+            dist.broadcast(torch.from_numpy(p["amplitude"]), src=self._root)
+        dist.broadcast(torch.from_numpy(np.ascontiguousarray(windows, np.float32)),
+                       src=self._root)
+        dist.broadcast(torch.from_numpy(np.ascontiguousarray(t0, np.float64)), src=self._root)
+
+    def _recv_header(self):
+        """A follower's side of :meth:`_send_header`: ``None`` for the stop
+        header, else ``(ens, windows, t0, params, requests)``."""
+        header = torch.empty(9, dtype=torch.int64)
+        dist.broadcast(header, src=self._root)
+        (kind, steps, batch, requests, members, seed, antithetic, keep,
+         normalized) = header.tolist()
+        if kind == _STOP:
+            return None
+        params = {"steps": steps, "normalized": bool(normalized)}
+        if kind == _ENSEMBLE:
+            amplitude = torch.empty(self.config.data.n_variables, dtype=torch.float32)
+            dist.broadcast(amplitude, src=self._root)
+            params.update(members=members, amplitude=amplitude.numpy(), seed=seed,
+                          antithetic=bool(antithetic), keep_members=bool(keep))
+        windows = torch.empty((batch,) + self._window_shape(), dtype=torch.float32)
+        t0 = torch.empty(batch, dtype=torch.float64)
+        dist.broadcast(windows, src=self._root)
+        dist.broadcast(t0, src=self._root)
+        return kind == _ENSEMBLE, windows.numpy(), t0.numpy(), params, requests
+
+    def follow(self) -> int:
+        """Run rank 0's front end on this rank (a rank other than 0 of a
+        mesh service): each dispatch rank 0's batcher broadcasts, until
+        rank 0's ``close()``.  Returns the number of dispatches run.  A
+        dispatch that raises here raises on rank 0 too, which hands the
+        error to its requests and goes on; so does this loop, keeping the
+        exception in ``follow_errors``."""
+        if self.mesh is None or self._rank == self._root:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh service")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("service is closed")
+        runs = 0
+        with self._worker_context():
+            while True:
+                got = self._recv_header()
+                if got is None:
+                    with self._lock:
+                        self._closed = True
+                    return runs
+                ens, windows, t0, params, requests = got
+                try:
+                    super()._dispatch(ens, windows, t0, params, requests)
+                except Exception as e:  # noqa: BLE001 — rank 0 reports it to its waiters
+                    self.follow_errors.append(e)
+                    continue
+                with self._lock:
+                    self.stats.requests += requests
+                    self.stats.batches += 1
+                    self.stats.padded_members += windows.shape[0] - requests
+                runs += 1
+
+    def close(self):
+        """Stop the batching worker (pending requests are flushed first).
+        Under a mesh a collective call (see the class docstring): rank 0
+        then broadcasts the stop header; a follower that has left
+        :meth:`follow` returns at once."""
+        if self.mesh is None:
+            return super().close()
+        with self._lock:
+            already = self._closed
+            self._closed = True
+            worker = self._worker
+            self._worker = None
+        if already:
+            return
+        if worker is not None:
+            self._queue.put(None)
+            worker.join()  # its collectives end before the stop header
+        if self._rank == self._root:
+            self._send_header(_STOP)
+            self._leading = False
+        elif self._recv_header() is not None:
+            raise RuntimeError(
+                f"close() on rank {self._rank} received a dispatch: rank {self._root} "
+                "leads a front end, so this rank calls follow()"
             )
 
     def info(self) -> dict:
@@ -510,6 +673,7 @@ class ForecastService(MicroBatcher):
         fields unless ``normalized=True`` (then input and output stay in
         training-normalized units).
         """
+        self._collective_call("forecast")
         self._validate_request(int(steps))
         fc = self._forecast_batch(window, t0_days, steps=steps,
                                   normalized=normalized)
@@ -538,7 +702,7 @@ class ForecastService(MicroBatcher):
         ``spread`` scaled by the std (a spread has no offset) unless
         ``normalized=True``.
         """
-        self._no_mesh_ensembles()
+        self._collective_call("forecast_ensemble")
         self._validate_request(int(steps), members=int(members))
         fc = self._ensemble_impl(
             window, t0_days, steps=steps, members=members, amplitude=amplitude,
@@ -567,6 +731,18 @@ class ForecastService(MicroBatcher):
                        keep_members: bool = False, normalized: bool = False,
                        perturbations=None) -> EnsembleForecast:
         window, t0 = self._prepare(window, t0_days, normalized)
+        b = window.shape[0]
+        # mesh data-axis divisibility: the rollout batch is b * members, so
+        # pad b to the smallest b' with (b' * members) % data_div == 0
+        unit = self._data_div // math.gcd(int(members), self._data_div)
+        pad = (-b) % unit
+        if pad:
+            window = np.concatenate([window, np.repeat(window[-1:], pad, axis=0)], axis=0)
+            t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
+            if perturbations is not None:
+                perturbations = torch.as_tensor(perturbations)
+                perturbations = torch.cat(
+                    [perturbations, perturbations[-1:].expand(pad, *perturbations.shape[1:])])
         e = self._est
         # a forecaster per call: building its rollout only moves the grid
         # and the constants to the device
@@ -581,11 +757,12 @@ class ForecastService(MicroBatcher):
             amplitude=amplitude, antithetic=antithetic, keep_members=keep_members,
             perturbations=perturbations,
         )
-        mean = fc.mean.cpu().numpy()  # waits for the device
-        spread = fc.spread.cpu().numpy()
-        mem = None if fc.members is None else fc.members.cpu().numpy()
+        mean = fc.mean[:b].cpu().numpy()  # waits for the device
+        spread = fc.spread[:b].cpu().numpy()
+        mem = None if fc.members is None else fc.members[:b].cpu().numpy()
         with self._lock:
             self.stats.device_seconds += time.perf_counter() - t0_wall
+            self.stats.padded_mesh += pad
         if not normalized:
             mean = mean * self._std + self._mean
             spread = spread * self._std  # a spread is scaled, not shifted
@@ -593,7 +770,7 @@ class ForecastService(MicroBatcher):
                 mem = mem * self._std + self._mean
         return fc._replace(mean=mean, spread=spread, members=mem,
                            lead_hours=fc.lead_hours.cpu().numpy(),
-                           init_times=np.asarray(fc.init_times))
+                           init_times=np.asarray(fc.init_times)[:b])
 
     def _prepare(self, window, t0_days, normalized: bool):
         """The checked, normalized window batch and its float64 init times

@@ -1240,3 +1240,52 @@ def test_fused_apply_graph_replays_after_its_counters_grow_on_card(cuda_device, 
     _close(out16, xring_fused_apply_plain(*big), dtype)
     assert not any(t.any() for t in bufs)
     del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["unet", "convlstm"])
+def test_exported_forecast_equals_live_and_replays_bitwise_on_card(cuda_device, tmp_path,
+                                                                   kind, dtype):
+    """An exported artifact (``serve/export.py``) served on the card: the
+    first request runs the program eagerly, captures the rollout as one CUDA
+    graph and replays it; its forecast equals the live service's bitwise
+    (the same kernels in the same order), the next replays repeat it
+    bitwise, and the kernels launched while capturing (280 / 112 at full
+    size; here 10 / 4 a call) show the graph holds the kernels, not their
+    plain versions."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
+    from dlwp_cs_tpu_torch.serve import ExportedForecaster, ForecastService, export_forecaster
+
+    n, steps = 24, 3
+    data = DataConfig(grid_n=n, variables=("z500", "t2m"), constants=("topography",))
+    if kind == "unet":
+        model, per_call, kernel = UNetConfig(filters=(8, 16), compute_dtype=dtype), 6, cs_conv3x3
+    else:
+        model, per_call, kernel = (ConvLSTMConfig(filters=(8, 8), conv_backend="xring",
+                                                  compute_dtype=dtype), 4, xring_fused_apply)
+    stats = {"mean": [5400.0, 280.0], "std": [300.0, 20.0], "insol_mean": 300.0,
+             "insol_std": 400.0}
+    est = DLWPEstimator(ExperimentConfig(data=data, model=model), device=cuda_device,
+                        seed=2).load_state(stats)
+    rng = np.random.default_rng(6)
+    const = rng.normal(size=(6, n, n, 1)).astype(np.float32)
+    windows = (rng.normal(size=(2, 2, 6, n, n, 2)) * [300.0, 20.0]
+               + [5400.0, 280.0]).astype(np.float32)
+    t0 = [9668.5, 9701.25]
+    export_forecaster(est, tmp_path / "art", steps=steps, batch_sizes=(2,), constants=const)
+    exp = ExportedForecaster(tmp_path / "art")
+    launches = kernel.launches
+    live = ForecastService(est, constants=const).forecast(windows, t0, steps=steps)
+    per_forecast = kernel.launches - launches
+    assert per_forecast == per_call * steps
+    launches = kernel.launches
+    first = exp.forecast(windows, t0)
+    # the eager run and the capture each launch every call's kernels once
+    assert kernel.launches - launches == 2 * per_forecast
+    again = exp.forecast(windows, t0)
+    assert kernel.launches - launches == 2 * per_forecast  # replays launch from the graph
+    assert len(exp._graphs) == 1
+    np.testing.assert_array_equal(first.fields, live.fields)
+    np.testing.assert_array_equal(again.fields, first.fields)
+    np.testing.assert_array_equal(exp.forecast(windows[1], t0[1]).fields, first.fields[1:])

@@ -39,9 +39,10 @@ def test_importing_every_module_loads_no_jax():
               "ops.conv_variants", "tools.timing", "tools.probes", "tools.conv_micro",
               "tools.kernel_variants", "tools.mosaic_bisect", "tools.npack_phases",
               "rollout.ensemble", "utils.misc", "verify", "verify.alignment",
-              "verify.ensemble", "verify.metrics", "verify.oracle", "verify.relabel"):
+              "verify.ensemble", "verify.metrics", "verify.oracle", "verify.relabel",
+              "ops.library", "serve.export", "serve.http", "tools.export_artifact"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
-    assert len(mods) >= 45
+    assert len(mods) >= 49
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -106,6 +106,11 @@ def _lstm_config(module, backend=None):
                                  variable_channels=2, add_insolation=True, **kw)
 
 
+# ensembles under the mesh: members, amplitude, the seed of the front end's
+# dispatch and of the reference's perturbations
+ENS_MEMBERS, ENS_AMP, ENS_SEED, ENS_KEY = 3, 0.05, 5, 11
+
+
 def _service_inputs():
     rng = np.random.default_rng(0)
     const = rng.normal(size=(6, N, N, 1)).astype(np.float32)
@@ -124,7 +129,7 @@ def _caught(fn):
 
 # ---- what each rank runs ---------------------------------------------------
 
-def _rank_cases(params, lstm_params):
+def _rank_cases(params, lstm_params, ens_pert):
     import torch.distributed as dist
 
     from dlwp_cs_tpu_torch import models
@@ -217,11 +222,45 @@ def _rank_cases(params, lstm_params):
         out["lstm", backend, shape, band_conv] = fn(xl).numpy()
 
     const, windows, t0 = _service_inputs()
-    svc = ForecastService(est, constants=const, mesh=mesh((2, 2, 1)))
+    svc = ForecastService(est, constants=const, mesh=mesh((2, 2, 1)), max_wait_ms=500.0)
     fc = svc.forecast(windows, t0, steps=2)
     out["service"] = (fc.fields, np.asarray(fc.init_times), svc.stats.padded_mesh,
                       svc.stats.requests)
-    out["service_submit"] = _caught(lambda: svc.submit(windows[0], t0[0], steps=1))
+    # ensembles under the mesh, collective calls: one window, 3 members on
+    # data = 2 (padded by one window), with the reference's perturbations;
+    # then with a seeded generator, as the front end's dispatch draws them
+    ens = svc.forecast_ensemble(windows[0], t0[0], steps=2, members=ENS_MEMBERS,
+                                amplitude=ENS_AMP, perturbations=ens_pert, keep_members=True)
+    out["ensemble"] = (ens.mean, ens.spread, ens.members, np.asarray(ens.init_times),
+                       svc.stats.padded_mesh)
+    seeded = svc.forecast_ensemble(windows[1], t0[1], steps=2, members=ENS_MEMBERS,
+                                   amplitude=ENS_AMP, keep_members=True,
+                                   generator=torch.Generator().manual_seed(ENS_SEED))
+    out["ensemble_seeded"] = (seeded.mean, seeded.spread, seeded.members)
+    # the rank-0 front end: rank 0 submits, the others follow
+    if dist.get_rank() == 0:
+        batches = svc.stats.batches
+        futs = [svc.submit(windows[i], t0[i], steps=2) for i in range(3)]
+        fcs = [f.result(timeout=300) for f in futs]
+        dispatches = svc.stats.batches - batches
+        efc = svc.submit_ensemble(windows[1], t0[1], steps=2, members=ENS_MEMBERS,
+                                  amplitude=ENS_AMP, seed=ENS_SEED,
+                                  keep_members=True).result(timeout=300)
+        leading = _caught(lambda: svc.forecast(windows, t0, steps=1))
+        svc.close()
+        out["front"] = {"fields": [f.fields for f in fcs],
+                        "init_times": [np.asarray(f.init_times) for f in fcs],
+                        "dispatches": dispatches, "leading": leading,
+                        "ensemble": (efc.mean, efc.spread, efc.members)}
+    else:
+        wrong_rank = _caught(lambda: svc.submit(windows[0], t0[0], steps=1))
+        runs = svc.follow()
+        svc.close()  # a no-op once follow() has returned
+        out["front"] = {"runs": runs, "wrong_rank": wrong_rank,
+                        "errors": [repr(e) for e in svc.follow_errors]}
+    out["front_stats"] = (svc.stats.requests, svc.stats.batches, svc.stats.padded_members,
+                          svc.stats.padded_mesh)
+    out["closed_submit"] = _caught(lambda: svc.submit(windows[0], t0[0], steps=1))
 
     for i, (shape, kwargs, _, _) in enumerate(CTX_ERRORS):
         out["ctx_error", i] = _caught(lambda: sharded_model_ctx(mesh(shape), **kwargs)())
@@ -281,12 +320,25 @@ def jax_convlstm():
     return jax.tree_util.tree_map(np.asarray, params), np.asarray(jax.jit(net.apply)(params, x))
 
 
+def _reference_perturbations():
+    """The perturbations the reference's mesh service draws for one window
+    padded to two, with ``ENS_KEY``: ``(2, members, T_in, 6, n, n, C)``."""
+    import jax
+
+    from dlwp_cs_tpu.rollout import ic_perturbations
+
+    _, windows, _ = _service_inputs()
+    return np.array(ic_perturbations(jax.random.PRNGKey(ENS_KEY), (2,) + windows.shape[1:],
+                                     ENS_MEMBERS))
+
+
 @pytest.fixture(scope="module")
 def group(jax_model, jax_convlstm, tmp_path_factory):
     import jax
 
     params = jax.tree_util.tree_map(np.asarray, jax_model.state.params)
     results = spawn_group(_rank_cases, 4, params, jax_convlstm[0],
+                          _reference_perturbations()[:1],
                           workdir=tmp_path_factory.mktemp("ranks"))
     assert [r["rank"] for r in results] == [0, 1, 2, 3]
     return results
@@ -546,8 +598,10 @@ def test_sharded_convlstm_matches_reference(group, jax_convlstm, backend, shape,
 def test_forecast_service_on_mesh_matches_reference(group, jax_model):
     """``ForecastService(mesh=create_mesh(data=2, spatial=2))`` at batch 3
     (padded to 4 over the data dimension), 2 steps, against the reference's
-    service on the same mesh; every rank gets the same forecast, and
-    ``submit`` raises under a mesh."""
+    service on the same mesh; every rank gets the same forecast.  Then the
+    rank-0 front end: 3 submits on rank 0 while the others follow()
+    coalesce into one dispatch, equal to the collective forecast of the
+    same windows."""
     from dlwp_cs_tpu.parallel import create_mesh
     from dlwp_cs_tpu.serve import ForecastService as JForecastService
 
@@ -562,8 +616,68 @@ def test_forecast_service_on_mesh_matches_reference(group, jax_model):
         np.testing.assert_array_equal(fields, group[0]["service"][0])
         np.testing.assert_array_equal(init_times, t0)
         assert (padded, requests) == (1, 3)
-        kind, msg = r["service_submit"]
-        assert kind == "NotImplementedError" and "ROADMAP" in msg
+    front = group[0]["front"]
+    assert front["dispatches"] == 1
+    for i in range(3):
+        assert front["fields"][i].shape == (1, 4, 6, N, N, 2)
+        np.testing.assert_allclose(front["fields"][i][0], want[i], rtol=0,
+                                   atol=1e-4 * float(std.max()))
+        np.testing.assert_array_equal(front["init_times"][i], [t0[i]])
+    # the coalesced batch of 3 runs at batch 4 (one padding member), the
+    # collective call at batch 3 padded to 4 over data: the same sums
+    np.testing.assert_array_equal(np.concatenate(front["fields"]), group[0]["service"][0])
+    kind, msg = front["leading"]
+    assert kind == "RuntimeError" and "submit()" in msg
+
+
+def test_mesh_front_end_followers(group):
+    """Ranks 1-3 follow() both of rank 0's dispatches, refuse to submit,
+    and keep the same counts as rank 0; close() ends the front end on
+    every rank."""
+    for r in group[1:]:
+        front = r["front"]
+        assert front["runs"] == 2 and front["errors"] == []
+        kind, msg = front["wrong_rank"]
+        assert kind == "RuntimeError" and "follow()" in msg
+    # requests: 3 collective + 1 + 1 ensembles + 3 submits + 1 submit_ensemble
+    # in 5 dispatches; the submits' bucket pads one member; the mesh pads the
+    # forecast, both collective ensembles and the submitted one
+    for r in group:
+        assert r["front_stats"] == (9, 5, 1, 4)
+        kind, msg = r["closed_submit"]
+        assert kind == "RuntimeError" and ("closed" if r is group[0] else "follow()") in msg
+
+
+def test_mesh_ensemble_pads_data_axis_matches_reference(group, jax_model):
+    """``forecast_ensemble`` under data = 2 with 3 members: the window batch
+    padded by one (``stats.padded_mesh``), against the reference's mesh
+    service with its own perturbations handed in; then the front end's
+    ``submit_ensemble`` with a seed against the collective call with the
+    generator seeded alike: every rank drew the same perturbations."""
+    import jax
+
+    from dlwp_cs_tpu.parallel import create_mesh
+    from dlwp_cs_tpu.serve import ForecastService as JForecastService
+
+    const, windows, t0 = _service_inputs()
+    ref = JForecastService(jax_model, constants=const, mesh=create_mesh(data=2, spatial=2))
+    want = ref.forecast_ensemble(windows[0], t0[0], steps=2, members=ENS_MEMBERS,
+                                 amplitude=ENS_AMP, key=jax.random.PRNGKey(ENS_KEY),
+                                 keep_members=True)
+    tol = 1e-4 * float(np.max(STATS["std"]))
+    for r in group:
+        mean, spread, members, init_times, padded = r["ensemble"]
+        assert mean.shape == np.asarray(want.mean).shape == (1, 4, 6, N, N, 2)
+        assert members.shape == (1, ENS_MEMBERS, 4, 6, N, N, 2)
+        np.testing.assert_allclose(mean, np.asarray(want.mean), rtol=0, atol=tol)
+        np.testing.assert_allclose(spread, np.asarray(want.spread), rtol=0, atol=tol)
+        np.testing.assert_allclose(members, np.asarray(want.members), rtol=0, atol=tol)
+        np.testing.assert_array_equal(init_times, [t0[0]])
+        assert padded == 2  # the forecast's one window and the ensemble's
+        for a, b in zip(r["ensemble_seeded"], group[0]["ensemble_seeded"]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(group[0]["front"]["ensemble"], group[0]["ensemble_seeded"]):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("i", range(len(CTX_ERRORS)),

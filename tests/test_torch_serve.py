@@ -14,6 +14,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -131,19 +132,36 @@ def test_full_queue_raises_overloaded(served):
 
 
 def test_unported_options_raise(served):
+    """Only ``quantize`` (item 15) still raises; the mesh front end's calls
+    refuse a service without a mesh."""
     _, est, const, windows = served
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ForecastService(est, constants=const, quantize=True)
     with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is tests/test_torch_parallel.py's
         ForecastService(est, constants=const, mesh=object())
     svc = ForecastService(est, constants=const)
-    svc.mesh = object()  # ensembles under a mesh (item 17c) raise before any rollout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.forecast_ensemble(windows[0], 0.0, steps=1, members=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.submit_ensemble(windows[0], 0.0, steps=1, members=2)
+    with pytest.raises(RuntimeError, match="follow"):
+        svc.follow()
+    fc = svc.forecast_ensemble(windows[0], 0.0, steps=1, members=2)
+    assert fc.mean.shape == (1, 2, 6, N, N, 2) and svc.stats.padded_mesh == 0
     cfg = ExperimentConfig(data=DataConfig(**DATA), model=UNetConfig(filters=(4,)))
     with pytest.raises(RuntimeError, match="state"):
         ForecastService(DLWPEstimator(cfg, device="cpu"), constants=const)
     with pytest.raises(KeyError, match="stats"):
         DLWPEstimator(cfg, device="cpu").load_state({"mean": [0.0]})
+
+
+def test_load_from_checkpoint(served, tmp_path, monkeypatch):
+    """``ForecastService.load`` of a saved estimator serves what the
+    estimator's service serves (equal: the same weights and operations); it
+    runs on the GPU unless a device is named."""
+    _, est, const, windows = served
+    est.save(tmp_path / "model")
+    svc = ForecastService.load(tmp_path / "model", device="cpu", constants=const, max_steps=4)
+    assert svc.device.type == "cpu" and svc.max_steps == 4
+    fc = svc.forecast(windows[0], 9668.5, steps=2)
+    direct = ForecastService(est, constants=const).forecast(windows[0], 9668.5, steps=2)
+    np.testing.assert_array_equal(fc.fields, direct.fields)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ForecastService.load(tmp_path / "model", constants=const)
