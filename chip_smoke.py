@@ -2,8 +2,9 @@
 """Build the PyTorch/CUDA port's kernels, run its kernel tools, serve and
 train the flagship U-Net and the ConvLSTM on one GPU, serve ensembles of
 the U-Net, exported artifacts as CUDA-graph replays and the HTTP front end,
-and serve the U-Net spatially sharded over 4 ranks that share the GPU,
-through gloo and through CUDA IPC, with a rank-0 front end.
+serve the U-Net spatially sharded over 4 ranks that share the GPU,
+through gloo and through CUDA IPC, with a rank-0 front end, and train it
+under data-parallel and spatial meshes of those 4 ranks.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -162,10 +163,31 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    ``all_gather``, of one band and one tile conv with its exchange, of the
    band rows by the ``ppermute`` pair and by #10, of a band conv with #10
    and of a #11 conv; then a group of 2 ranks: #10 at the same rows;
+9a. spawn 4 ranks sharing the card again and train the flagship U-Net at
+   global batch 16, in bfloat16 and float32, under ``MESH_TRAIN_PATHS``:
+   ``data=4`` through the data-parallel step (#1, #4, #5 on each rank's
+   block of 4), 4 row bands through the spatial step with
+   ``band_conv="pallas"`` (#8), with ``band_impl="rdma"`` too (#10 + #8)
+   and with ``band_conv="overlap"`` (#11), 2x2 tiles (#9) and ``data=2 x
+   spatial=2`` with the area-weighted loss (#8); the band and tile
+   kernels' backward is the ring-fix composition's.  Per path: one SGD
+   step at learning rate 2**20, each rank's all-reduced gradients (the
+   parameters' change over 2**20) against the one-card
+   ``Trainer.train_step``'s on the same batch within 1e-4 (float32) and
+   2**-6 (bfloat16) of each tensor's largest entry, every parameter
+   moved, the parameters bitwise equal on every rank; then 5 Adam steps
+   (launch counts set to 0 before, read after: 10 of #1, 9 of #4, 10 of
+   #5 a step under ``data=4``, 10 of the block kernel a step on bands and
+   tiles), a falling loss, bitwise equal parameters, each rank's step
+   times and gloo collectives; then one ``Trainer(mesh=data 4).fit``
+   epoch (3 steps) on a seeded ``MemoryStore`` fed by
+   ``prefetch_to_device(sharding=mesh)`` and one
+   ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands;
 10. print whether ``nvidia-cuda-mps-control`` is on the PATH and the card
    count (the route for measuring #10 and #11; nothing is started), the
-   #3/#13 tables, the ensemble, export, HTTP and front-end lines again, the
-   kernel line (JSON), the card line, and last ``{"ok": true, "device":
+   #3/#13 tables, the ensemble, export, HTTP, front-end and mesh-training
+   lines again, the kernel line (JSON, with each kernel's launches per
+   step and the ranks' step times under the mesh-training paths), the card line, and last ``{"ok": true, "device":
    {...}}``.
 
 Any failed check raises, in any rank, so the script exits non-zero and
@@ -2357,6 +2379,271 @@ def sharded_phase(rng, workdir):
     return results, exchange, group_s, remote, front
 
 
+# training under a mesh, 4 ranks sharing the card: (name, mesh (data,
+# spatial, spatial_x), make_spatial_train_step options (None: the
+# data-parallel step), loss, launches of each kernel per step on every rank)
+MESH_TRAIN_PATHS = [
+    ("dp", (4, 1, 1), None, "mse",
+     {"cs_conv3x3": 10, "cs_conv3x3_dx": 9, "cs_conv3x3_dw": 10}),
+    ("band", (1, 4, 1), dict(band_conv="pallas"), "mse", {"cs_conv3x3_band": 10}),
+    ("band_rdma", (1, 4, 1), dict(band_impl="rdma", band_conv="pallas"), "mse",
+     {"cs_conv3x3_band": 10, "band_exchange_rdma": 10}),
+    ("band_overlap", (1, 4, 1), dict(band_conv="overlap"), "mse", {"band_conv3x3_overlap": 10}),
+    ("tile", (1, 2, 2), dict(band_conv="pallas"), "mse", {"cs_conv3x3_tile": 10}),
+    ("weighted", (2, 2, 1), dict(band_conv="pallas"), "area", {"cs_conv3x3_band": 10}),
+]
+MESH_TRAIN_ADAM = 5  # Adam steps a path
+MESH_FIT_BATCHES = 3  # the Trainer.fit epoch on data = 4
+MESH_SEQ_BATCH = 4  # the sharded sequence step's global batch (sequence = 2)
+# the all-reduced SGD gradients against the one-card step's, per tensor,
+# relative to its largest entry
+MESH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-6}
+MESH_SGD_LR = 2.0**20
+
+
+def _digest(params):
+    """SHA-256 of every parameter's bytes, in order: equal on two ranks iff
+    their parameters are bitwise equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in params.values():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_train_rank(dtype_names, seed):
+    """One rank of the mesh-training phase (a gloo group of ``SHARDS`` ranks
+    sharing the card), per dtype: for each path of ``MESH_TRAIN_PATHS``, one
+    SGD step (learning rate ``MESH_SGD_LR``) on the global batch, its all-reduced
+    gradients (the parameters' change) against the one-card
+    ``Trainer.train_step``'s on the same batch, then ``MESH_TRAIN_ADAM`` Adam
+    steps with every launch count set to 0 before and read after, their
+    losses and host times; then one ``Trainer(mesh=data 4).fit`` epoch on a
+    seeded ``MemoryStore`` fed by ``prefetch_to_device(sharding=mesh)`` and
+    one ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands.
+    Returns errors, losses, times, launches, collectives and the digests of
+    the parameters (the parent compares the ranks')."""
+    from dlwp_cs_tpu_torch.data import MemoryStore, SeriesDataset, prefetch_to_device
+    from dlwp_cs_tpu_torch.geometry.cubed_sphere import CubedSphere
+    from dlwp_cs_tpu_torch.models import DataConfig, build_model
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.ops.losses import AreaWeightedLoss, mse
+    from dlwp_cs_tpu_torch.parallel import (
+        collectives,
+        create_mesh,
+        make_dp_train_step,
+        make_spatial_train_step,
+        shard_batch,
+    )
+    from dlwp_cs_tpu_torch.train import (
+        Trainer,
+        init_state,
+        make_optimizer,
+        make_sequence_loss,
+        make_sharded_sequence_train_step,
+        model_apply,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = all_kernels()
+    meshes = {}
+
+    def mesh(shape):  # every rank creates the meshes in the same order
+        if shape not in meshes:
+            meshes[shape] = create_mesh(data=shape[0], spatial=shape[1], spatial_x=shape[2])
+        return meshes[shape]
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+        return collectives.calls
+
+    d = DataConfig()
+    cs = CubedSphere(d.grid_n)
+    rng = np.random.default_rng(seed)  # the same draws on every rank
+    x = rng.standard_normal((TRAIN_BATCH, 6, 48, 48, d.input_channels), dtype=np.float32)
+    xb = torch.from_numpy(x).cuda()
+    yb = 0.5 * xb[..., : d.output_channels]
+    n_times = TRAIN_BATCH * MESH_FIT_BATCHES + d.input_time_steps + d.output_time_steps - 1
+    fields = rng.standard_normal((n_times, 6, 48, 48, 4), dtype=np.float32) * 10.0 + 280.0
+    const = rng.standard_normal((6, 48, 48, 2), dtype=np.float32)
+    window = rng.standard_normal((MESH_SEQ_BATCH, d.input_time_steps, 6, 48, 48, 4),
+                                 dtype=np.float32)
+    targets = rng.standard_normal((MESH_SEQ_BATCH, 2, 6, 48, 48, d.output_channels),
+                                  dtype=np.float32)
+    t0 = 9668.5 + 0.25 * np.arange(MESH_SEQ_BATCH)
+    lat, lon = cs.cell_latlon
+    out = {}
+    for dtype_name in dtype_names:
+        model = build_model(model_config("unet", dtype_name), d.input_channels, device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+        apply = model_apply(model)
+        for name, shape, opts, loss_kind, _ in MESH_TRAIN_PATHS:
+            area = loss_kind == "area"
+            loss_fn = AreaWeightedLoss("mse", cs.area_weights) if area else mse
+            m = mesh(shape)
+            batch = shard_batch((xb, yb), m) if opts is None else (xb, yb)
+
+            def make(opt):
+                if opts is None:
+                    return make_dp_train_step(apply, opt, loss_fn, m)
+                return make_spatial_train_step(apply, opt, loss_fn, m, **opts)
+
+            # one SGD step at learning rate 2**20: each parameter's change is
+            # its all-reduced gradient scaled by a power of two, rounded once
+            # relative to the gradient; against the one-card step's
+            one = Trainer(model, TrainConfig(optimizer="sgd", learning_rate=MESH_SGD_LR,
+                                             area_weighted_loss=area),
+                          area_weights=cs.area_weights if area else None)
+            state0 = one.init(xb)
+            ref, _ = one.train_step(state0, xb, yb)
+            sgd, _ = make(one.optimizer)(state0, *batch)
+            errs = {}
+            for k, p0 in state0.params.items():
+                g_ref = (p0 - ref.params[k]).detach()
+                g = (p0 - sgd.params[k]).detach()
+                errs[k] = float((g - g_ref).abs().max() / g_ref.abs().max())
+            worst = max(errs, key=errs.get)
+            # Adam steps: the main path of this phase, counted
+            adam = make_optimizer(TrainConfig(learning_rate=1e-3))
+            step = make(adam)
+            state = init_state(dict(state0.params), adam)
+            losses, times = [], []
+            calls = reset()
+            for _ in range(MESH_TRAIN_ADAM):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(state, *batch)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            out[name, dtype_name] = {
+                "grad_rel_err": errs[worst], "grad_worst_tensor": worst,
+                "grads_nonzero": all(float((p0 - sgd.params[k]).detach().abs().max()) > 0
+                                     for k, p0 in state0.params.items()),
+                "losses": losses, "step_ms": times,
+                "launches": {k: v.launches for k, v in kernels.items()},
+                "collectives_per_step": (collectives.calls - calls) / MESH_TRAIN_ADAM,
+                "digest_sgd": _digest(sgd.params), "digest": _digest(state.params),
+            }
+        # one Trainer.fit epoch on data = 4, each rank fed its blocks
+        store = MemoryStore.from_raw(fields, 9000.0 + 0.25 * np.arange(n_times), d.variables,
+                                     constants=const, constant_names=d.constants)
+        ds = SeriesDataset(store, d, lat=lat, lon=lon, batch_size=TRAIN_BATCH)
+        m4 = mesh((4, 1, 1))
+        trainer = Trainer(model, TrainConfig(batch_size=TRAIN_BATCH, learning_rate=1e-3,
+                                             max_epochs=1), mesh=m4)
+        state = trainer.init(xb)
+        calls = reset()
+        t = time.perf_counter()
+        state = trainer.fit(state, lambda: prefetch_to_device(iter(ds), sharding=m4),
+                            verbose=False)
+        torch.cuda.synchronize()
+        out["fit", dtype_name] = {
+            "seconds": time.perf_counter() - t, "steps": state.step,
+            "losses": [r["loss"] for r in trainer.history.steps],
+            "launches": {k: v.launches for k, v in kernels.items()},
+            "collectives": collectives.calls - calls, "digest": _digest(state.params)}
+        # one sharded sequence step (sequence 2) on 4 bands: the band
+        # ring-fix conv, no kernel; its loss beside the one-card sequence loss
+        kw = dict(lat=lat, lon=lon, constants=const, insol_mean=300.0, insol_std=400.0,
+                  sequence=2)
+        seq_step = make_sharded_sequence_train_step(apply, d, adam, mesh((1, 4, 1)), **kw)
+        state = init_state(dict(state0.params), adam)
+        with torch.no_grad():
+            one_card = float(make_sequence_loss(apply, d, **kw)(
+                state.params, *(torch.from_numpy(np.asarray(a, np.float32)).cuda()
+                                for a in (window, t0, targets))))
+        calls = reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = seq_step(state, window, t0, targets)
+        loss = float(metrics["loss"])
+        out["sequence", dtype_name] = {
+            "loss": loss, "one_card_loss": one_card, "step_ms": (time.perf_counter() - t) * 1e3,
+            "launches": {k: v.launches for k, v in kernels.items()},
+            "collectives": collectives.calls - calls, "digest": _digest(state.params)}
+    return out
+
+
+def mesh_train_phase(workdir):
+    """Train the flagship U-Net under the meshes of ``MESH_TRAIN_PATHS`` on
+    ``SHARDS`` ranks sharing the card and check every rank's results."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    dtype_names = ("bfloat16", "float32")
+    t = time.perf_counter()
+    ranks = spawn_group(mesh_train_rank, SHARDS, dtype_names, 6,
+                        workdir=os.path.join(workdir, "mesh_train"))
+    group_s = time.perf_counter() - t
+    names = list(all_kernels())
+    paths = []
+    for dtype_name in dtype_names:
+        tol = MESH_GRAD_TOL[dtype_name]
+        for name, shape, opts, _, per_step in MESH_TRAIN_PATHS:
+            rows = [r[name, dtype_name] for r in ranks]
+            want = {k: per_step.get(k, 0) * MESH_TRAIN_ADAM for k in names}
+            for rank, row in enumerate(rows):
+                check(row["launches"] == want, f"mesh train {name} {dtype_name} rank {rank}: "
+                      f"launches {row['launches']}, want {want}")
+                check(row["grads_nonzero"], f"mesh train {name} {dtype_name} rank {rank}: a "
+                      "parameter got no gradient")
+                check(row["grad_rel_err"] <= tol, f"mesh train {name} {dtype_name} rank {rank}: "
+                      f"gradients vs one card {row['grad_rel_err']} > {tol} in "
+                      f"{row['grad_worst_tensor']}")
+                losses = row["losses"]
+                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      f"mesh train {name} {dtype_name} rank {rank}: losses {losses}")
+            for key in ("digest_sgd", "digest"):
+                check(len({row[key] for row in rows}) == 1,
+                      f"mesh train {name} {dtype_name}: parameters differ across ranks ({key})")
+            paths.append({
+                "path": name, "mesh": shape, "options": opts, "dtype": dtype_name,
+                "launches_per_step": {k: v // MESH_TRAIN_ADAM for k, v in want.items() if v},
+                "grad_rel_err_per_rank": [row["grad_rel_err"] for row in rows],
+                "grad_tolerance": tol, "losses_rank0": rows[0]["losses"],
+                "step_ms_per_rank": [row["step_ms"] for row in rows],
+                "step_ms_median_per_rank": [statistics.median(row["step_ms"]) for row in rows],
+                "collectives_per_step": [row["collectives_per_step"] for row in rows],
+                "bitwise_equal_across_ranks": True,
+            })
+        fits = [r["fit", dtype_name] for r in ranks]
+        want = {k: 0 for k in names}
+        want.update({k: v * MESH_FIT_BATCHES for k, v in MESH_TRAIN_PATHS[0][4].items()})
+        for rank, f in enumerate(fits):
+            check(f["steps"] == MESH_FIT_BATCHES and len(f["losses"]) == MESH_FIT_BATCHES
+                  and all(np.isfinite(f["losses"])), f"fit {dtype_name} rank {rank}: {f}")
+            check(f["launches"] == want, f"fit {dtype_name} rank {rank}: launches "
+                  f"{f['launches']}, want {want}")
+        check(len({f["digest"] for f in fits}) == 1, f"fit {dtype_name}: parameters differ "
+              "across ranks")
+        seqs = [r["sequence", dtype_name] for r in ranks]
+        check(all(np.isfinite(q["loss"]) and q["loss"] == seqs[0]["loss"] for q in seqs),
+              f"sequence {dtype_name}: losses {[q['loss'] for q in seqs]}")
+        check(all(not any(q["launches"].values()) for q in seqs),
+              f"sequence {dtype_name}: a kernel launched on the ring-fix path")
+        check(len({q["digest"] for q in seqs}) == 1, f"sequence {dtype_name}: parameters "
+              "differ across ranks")
+        paths.append({
+            "path": "fit", "mesh": (4, 1, 1), "dtype": dtype_name, "steps": MESH_FIT_BATCHES,
+            "seconds_per_rank": [f["seconds"] for f in fits], "losses_rank0": fits[0]["losses"],
+            "launches_per_step": {k: v // MESH_FIT_BATCHES for k, v in want.items() if v},
+            "collectives_per_rank": [f["collectives"] for f in fits],
+            "bitwise_equal_across_ranks": True,
+        })
+        paths.append({
+            "path": "sequence", "mesh": (1, 4, 1), "dtype": dtype_name, "sequence": 2,
+            "batch": MESH_SEQ_BATCH, "loss": seqs[0]["loss"],
+            "one_card_loss": seqs[0]["one_card_loss"],
+            "step_ms_per_rank": [q["step_ms"] for q in seqs],
+            "collectives_per_rank": [q["collectives"] for q in seqs],
+            "bitwise_equal_across_ranks": True,
+        })
+    return paths, group_s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -2691,6 +2978,36 @@ def main(argv=None) -> int:
           f"and per #11 conv (4 ranks sharing one card over gloo + CUDA IPC): {exchange}",
           flush=True)
 
+    # training under a mesh, 4 ranks sharing the card
+    with tempfile.TemporaryDirectory() as workdir:  # the group's FileStore
+        mesh_train, mesh_train_s = mesh_train_phase(workdir)
+    for r in mesh_train:
+        if r["path"] == "fit":
+            line_ = (f"mesh train fit {r['dtype']} (data 4, Trainer.fit, one epoch of "
+                     f"{r['steps']} steps from a MemoryStore through prefetch_to_device("
+                     f"sharding=mesh)): losses {['%.4f' % v for v in r['losses_rank0']]}; "
+                     f"seconds per rank {['%.2f' % v for v in r['seconds_per_rank']]}; launches "
+                     f"per step {r['launches_per_step']}; gloo collectives per rank "
+                     f"{r['collectives_per_rank']}; bitwise equal across ranks")
+        elif r["path"] == "sequence":
+            line_ = (f"mesh train sequence {r['dtype']} (data 1 x spatial 4, sequence 2, "
+                     f"batch {r['batch']}, the band ring-fix conv): loss {r['loss']:.5f} (one "
+                     f"card {r['one_card_loss']:.5f}); step ms per rank "
+                     f"{['%.1f' % v for v in r['step_ms_per_rank']]}; gloo collectives per "
+                     f"rank {r['collectives_per_rank']}; bitwise equal across ranks")
+        else:
+            line_ = (f"mesh train {r['path']} {r['dtype']} mesh {r['mesh']}: SGD gradients vs "
+                     f"one card {max(r['grad_rel_err_per_rank']):.3g} of each tensor's max "
+                     f"(tol {r['grad_tolerance']:.3g}); Adam losses "
+                     f"{r['losses_rank0'][0]:.5f} -> {r['losses_rank0'][-1]:.5f}; step ms "
+                     f"median per rank {['%.1f' % v for v in r['step_ms_median_per_rank']]}; "
+                     f"launches per step {r['launches_per_step']}; gloo collectives per step "
+                     f"{r['collectives_per_step'][0]:.0f}; bitwise equal across ranks")
+        recap.append(line_)
+        print(line_, flush=True)
+    print(f"mesh train group: {mesh_train_s:.1f} s from spawn to the last rank's exit",
+          flush=True)
+
     def line(name, source, replaces, launches, per_path, errs):
         """One kernel's entry: times summed over the convs of one model call
         (forward) or one train step (backward) in bfloat16."""
@@ -2817,6 +3134,14 @@ def main(argv=None) -> int:
         rows = [c for c in probe_rows if c["probe"] == name]
         kernels.append(line(name, src_probes, replaces, tool_launches[name], rows,
                             [c["max_abs_err"] for c in rows]))
+    # this slice's training under a mesh, bf16: launches per step and each
+    # rank's median step time, per path that launches the kernel
+    for entry in kernels:
+        entry["mesh_train"] = [
+            {"path": r["path"], "launches_per_step": r["launches_per_step"][entry["name"]],
+             "step_ms_median_per_rank": r["step_ms_median_per_rank"]}
+            for r in mesh_train if r["dtype"] == "bfloat16"
+            and entry["name"] in r.get("launches_per_step", {}) and "step_ms_median_per_rank" in r]
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2836,6 +3161,7 @@ def main(argv=None) -> int:
                    "tc_cases": tc, "tc_summary": tc_sum, "ring_summary": ring_sum,
                    "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
                    "export": exports, "http": web, "mesh_front_end": front, "mps": mps,
+                   "mesh_train": mesh_train, "mesh_train_group_seconds": mesh_train_s,
                    "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))

@@ -6,9 +6,10 @@ conv's ring-fix kernels (hand-written CUDA kernels, ``csrc/``), the
 ring-fix conv, the U-Net and the ConvLSTM, losses, the optimizer and
 trainer, the data feed (``SeriesDataset``, prefetching), checkpoints, the
 autoregressive rollout, ensembles, verification, spatially sharded serving
-and the kernel tools.  Serving is complete: the micro-batching forecast
-service (also under a device mesh, with a rank-0 front end), exported
-artifacts replayed as one CUDA graph per forecast, and the HTTP front end.
+and training (data-parallel and spatial steps, sequence training) and the
+kernel tools.  Serving is complete: the micro-batching forecast service
+(also under a device mesh, with a rank-0 front end), exported artifacts
+replayed as one CUDA graph per forecast, and the HTTP front end.
 Entry points run on the GPU unless the caller passes ``device="cpu"``.  This
 package imports neither JAX nor ``dlwp_cs_tpu``.
 """

@@ -10,6 +10,13 @@ from the iterable and copies them to the device ``depth`` batches ahead:
   the copy of batch k+1 overlaps the compute of batch k;
 * on the CPU, the same thread without pinning.
 
+With ``sharding=mesh`` the thread cuts this rank's block out of every
+tensor before the copy, as ``parallel.shard_batch`` does (the batch axis
+over ``data``; with ``spatial=True`` also the face rows and columns of
+every ``(B, 6, n, n, C)`` tensor), so only the block reaches the device.
+The cut reads the rank's mesh coordinates and issues no collective: the
+thread must not, while the consumer's steps issue theirs.
+
 Errors in the iterable reach the consumer; :meth:`PrefetchIterator.close`
 releases the thread of an abandoned iterator and cannot hang.
 """
@@ -46,8 +53,10 @@ class PrefetchIterator:
 
     _SENTINEL = object()
 
-    def __init__(self, iterable, *, depth: int = 2, device=None):
+    def __init__(self, iterable, *, depth: int = 2, device=None, sharding=None,
+                 spatial: bool = False):
         self.device = resolve_device(device)
+        self.sharding, self.spatial = sharding, spatial
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
@@ -60,11 +69,19 @@ class PrefetchIterator:
 
     def _copy(self, a):
         t = torch.as_tensor(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+        if isinstance(t, torch.Tensor) and self.sharding is not None:
+            t = self._block(t)
         if not isinstance(t, torch.Tensor) or t.device == self.device:
             return t
         if self._cuda and t.device.type == "cpu":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    def _block(self, t):
+        from dlwp_cs_tpu_torch.parallel.mesh import local_block
+
+        spatial = self.spatial and t.ndim == 5 and t.shape[1] == 6
+        return local_block(t, self.sharding, spatial=spatial)
 
     def _put(self, item):
         """``(batch on the device, event its copy records or None)``."""
@@ -141,14 +158,18 @@ class PrefetchIterator:
             pass
 
 
-def prefetch_to_device(iterable, *, depth: int = 2, device=None, sharding=None):
+def prefetch_to_device(iterable, *, depth: int = 2, device=None, sharding=None,
+                       spatial: bool = False):
     """Wrap an iterable of batches; yields device copies ``depth`` ahead.
 
     ``device``: where the batches go (``None``: the GPU, which must exist).
-    ``sharding`` (the reference's multi-device input feed) is not ported.
+    ``sharding``: the reference's multi-device input feed; here a mesh
+    (:func:`~dlwp_cs_tpu_torch.parallel.create_mesh`), whose rank gets its
+    block of every tensor (the batch over ``data``; with ``spatial``, face
+    rows over ``spatial`` and columns over ``spatial_x`` of every ``(B, 6,
+    n, n, C)`` tensor), as ``parallel.shard_batch`` cuts them.  Without
+    ``spatial`` these are what ``Trainer(mesh=...)`` and the data-parallel
+    steps take; the spatial steps take the global batch.
     """
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharded input feeding is not ported yet: ROADMAP.md queue 1, item 17"
-        )
-    return PrefetchIterator(iterable, depth=depth, device=device)
+    return PrefetchIterator(iterable, depth=depth, device=device, sharding=sharding,
+                            spatial=spatial)

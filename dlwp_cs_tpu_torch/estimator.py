@@ -155,9 +155,11 @@ class DLWPEstimator:
 
         Starts from the seeded initialisation of ``config.train.seed`` (or
         from the parameters :meth:`load_state` set, or the state of an
-        earlier ``fit`` / :meth:`load`).  ``mesh`` (data-parallel or
-        sharded training) is the next slice of ``parallel/`` and raises in
-        ``Trainer``; serving under a mesh is ``ForecastService(mesh=...)``.
+        earlier ``fit`` / :meth:`load`).  ``mesh``: data-parallel training
+        (``Trainer(mesh=...)``), a collective call: every rank of the mesh
+        calls ``fit`` with the same store, the seeded shuffle gives every
+        rank the same batches, and each rank's prefetcher copies only its
+        block to the device; rank 0 alone writes under ``workdir``.
         """
         train_ds = self._dataset(store, shuffle=True)
         self._set_stats({
@@ -183,9 +185,10 @@ class DLWPEstimator:
         try:
             self.state = trainer.fit(
                 self.state,
-                lambda: prefetch_to_device(iter(train_ds), device=dev),
+                lambda: prefetch_to_device(iter(train_ds), device=dev, sharding=mesh),
                 val_data=(
-                    (lambda: prefetch_to_device(iter(val_ds), device=dev)) if val_ds else None
+                    (lambda: prefetch_to_device(iter(val_ds), device=dev, sharding=mesh))
+                    if val_ds else None
                 ),
                 epochs=epochs,
                 verbose=verbose,

@@ -43,12 +43,20 @@ def _expand(w, err):
     return w[..., None]
 
 
+def _weight_total(w, err):
+    """``sum(broadcast_to(w, err.shape))``, as the weights' sum times the
+    number of times the broadcast repeats each: on the CPU a sum over a
+    stride-0 expanded tensor runs sequentially and drifts (2.8e-5 relative
+    at 2e5 terms)."""
+    return torch.sum(w) * (err.numel() // w.numel())
+
+
 def _apply_weights(err, weights):
     """Weighted mean of ``err`` with ``weights`` broadcast over space and
     channels (e.g. cubed-sphere ``(6, n, n)`` weights against
     ``(B, 6, n, n, C)`` errors)."""
     w = _expand(_as_weights(weights, err), err)
-    return torch.sum(err * w) / torch.sum(w.expand(err.shape))
+    return torch.sum(err * w) / _weight_total(w, err)
 
 
 def weighted_mse(pred, target, weights):
@@ -64,8 +72,10 @@ class AreaWeightedLoss:
     """Area-weighted MSE/MAE.
 
     Callable like any ``loss(pred, target)``.  :meth:`local_terms` returns
-    ``(sum(w * err), sum(w))``, the terms a spatially sharded step adds
-    across shards before dividing.
+    a shard's ``(sum(w * err), sum(w))``, the terms the spatially sharded
+    step (``parallel.sharding.make_spatial_train_step``) adds across shards
+    before dividing: the global weighted mean, exactly, though the shards'
+    weight sums differ.
 
     Args:
       base: 'mse' or 'mae'.
@@ -85,27 +95,43 @@ class AreaWeightedLoss:
     def __call__(self, pred, target):
         return _apply_weights(self._err(pred, target), self.weights)
 
-    def local_terms(self, pred, target, *, spatial_axis=None, spatial_x_axis=None):
-        """``(sum(w * err), sum(w))`` over the whole field.
+    def local_terms(self, pred, target, *, spatial_axis=None, spatial_x_axis=None, mesh=None):
+        """Per-shard ``(sum(w * err), sum(w))`` for ``psum``-combining.
 
-        The reference slices the weights to a shard's tile by its mesh axes
-        for sharded training, the next slice of ``parallel/`` (``ROADMAP.md``
-        queue 1, item 17).
+        When ``pred`` holds only a tile of each face (its row or column
+        count is smaller than the weight table's), ``spatial_axis`` /
+        ``spatial_x_axis`` name the dimensions of ``mesh`` that carry the
+        row / column decomposition, and the weights are sliced to this
+        rank's rows and columns by its coordinates
+        (:func:`~dlwp_cs_tpu_torch.parallel.collectives.axis_index`).
         """
-        if spatial_axis is not None or spatial_x_axis is not None:
-            raise NotImplementedError(
-                "spatially sharded losses are not ported yet: ROADMAP.md "
-                "queue 1, item 17 (the training slice of parallel/)"
-            )
         w = self.weights
-        if tuple(pred.shape[2:4]) != tuple(w.shape[1:3]):
-            raise ValueError(
-                f"pred rows/cols {tuple(pred.shape[2:4])} != weight rows/cols "
-                f"{tuple(w.shape[1:3])}"
-            )
+        h, wl = pred.shape[2], pred.shape[3]
+        if h != w.shape[1]:
+            if spatial_axis is None:
+                raise ValueError(
+                    f"pred rows {h} != weight rows {w.shape[1]} but no "
+                    "spatial_axis given to slice by"
+                )
+            w = w.narrow(1, _coordinate(mesh, spatial_axis) * h, h)
+        if wl != w.shape[2]:
+            if spatial_x_axis is None:
+                raise ValueError(
+                    f"pred cols {wl} != weight cols {w.shape[2]} but no "
+                    "spatial_x_axis given to slice by"
+                )
+            w = w.narrow(2, _coordinate(mesh, spatial_x_axis) * wl, wl)
         err = self._err(pred, target)
         w = _expand(_as_weights(w, err), err)
-        return torch.sum(err * w), torch.sum(w.expand(err.shape))
+        return torch.sum(err * w), _weight_total(w, err)
+
+
+def _coordinate(mesh, name: str) -> int:
+    if mesh is None:
+        raise ValueError(f"slicing the weights by {name!r} needs the mesh (mesh=...)")
+    from dlwp_cs_tpu_torch.parallel.collectives import axis_index
+
+    return axis_index(mesh, name)
 
 
 def latitude_weights(lats_deg) -> np.ndarray:

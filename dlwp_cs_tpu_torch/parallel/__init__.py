@@ -8,9 +8,12 @@ and tile conv kernels #8 and #9, and on row bands the band-row exchange
 kernel #10, ``band_impl="rdma"``, and the band conv with the exchange in
 the launch #11, ``band_conv="overlap"``, which move the band rows between
 the ranks of one host through buffers mapped by CUDA IPC:
-``parallel.symmetric``).  The training steps, the GSPMD shardings
-(the port slices blocks explicitly: ``shard_batch``) and ``scaling.py`` are
-not: those names raise ``NotImplementedError`` naming ``ROADMAP.md``.
+``parallel.symmetric``).  So is training (``make_dp_train_step`` and its
+variants, ``make_spatial_train_step``, gradients through the halo exchange:
+``parallel.collectives``) and ``scaling.py``.  The GSPMD shardings are not:
+the port slices blocks explicitly (``shard_batch``), and
+``batch_sharding``, ``batch_spatial_sharding`` and ``replicated`` raise
+``NotImplementedError`` naming ``ROADMAP.md``.
 """
 
 from dlwp_cs_tpu_torch.parallel.halo import make_sharded_pad, sharded_cs_pad
@@ -26,8 +29,12 @@ from dlwp_cs_tpu_torch.parallel.multihost import (
     host_batch_slice,
     initialize_distributed,
 )
+from dlwp_cs_tpu_torch.parallel.scaling import ScalingResult, measure_scaling
 from dlwp_cs_tpu_torch.parallel.sharding import (
     make_dp_eval_step,
+    make_dp_scanned_train_step,
+    make_dp_shardmap_eval_step,
+    make_dp_shardmap_scanned_train_step,
     make_dp_shardmap_train_step,
     make_dp_train_step,
     make_spatial_apply,
@@ -48,8 +55,6 @@ _SHARDINGS = "queue 1, item 17 (GSPMD shardings; the port slices blocks: shard_b
 batch_sharding = _not_ported("batch_sharding", _SHARDINGS)
 batch_spatial_sharding = _not_ported("batch_spatial_sharding", _SHARDINGS)
 replicated = _not_ported("replicated", _SHARDINGS)
-ScalingResult = _not_ported("ScalingResult", "queue 1, item 17 (parallel/scaling.py)")
-measure_scaling = _not_ported("measure_scaling", "queue 1, item 17 (parallel/scaling.py)")
 
 __all__ = [
     "make_sharded_pad",
@@ -69,6 +74,9 @@ __all__ = [
     "ScalingResult",
     "measure_scaling",
     "make_dp_eval_step",
+    "make_dp_scanned_train_step",
+    "make_dp_shardmap_eval_step",
+    "make_dp_shardmap_scanned_train_step",
     "make_dp_shardmap_train_step",
     "make_dp_train_step",
     "make_spatial_apply",

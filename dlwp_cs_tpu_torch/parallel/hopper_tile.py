@@ -10,7 +10,9 @@ tile in shared memory.  The ghost strips share the ``wl + 2`` layout of the
 S/N rows, so the kernel takes tiles with ``h <= wl``; other tiles, and
 dtypes the kernel does not take, go pad-then-VALID through the 2-D pad.
 
-Forward only, as :mod:`~dlwp_cs_tpu_torch.parallel.hopper_band`.
+The backward is the reference's: autograd through the pad-then-VALID conv
+on the 2-D pad (:func:`_reference`) recomputed on the saved inputs, as
+:mod:`~dlwp_cs_tpu_torch.parallel.hopper_band` does on bands.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_tile
 from dlwp_cs_tpu_torch.ops.padding import use_pad_impl
 from dlwp_cs_tpu_torch.parallel.collectives import axis_size
 from dlwp_cs_tpu_torch.parallel.halo2d import halo_pieces_2d, make_sharded_pad_2d
-from dlwp_cs_tpu_torch.parallel.hopper_band import band_ext
+from dlwp_cs_tpu_torch.parallel.hopper_band import band_ext, ringfix_backward
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS, SPATIAL_X_AXIS
 
 __all__ = ["make_tile_pallas_conv3x3", "tile_conv3x3", "tile_supported"]
@@ -40,7 +42,8 @@ def tile_conv3x3(x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_y: str = SPATIAL_A
     """Fused CS tile conv, 3x3/stride-1: this rank's tile ``(B, 6, h, wl,
     Cin)``, ``h <= wl``, -> ``(B, 6, h, wl, Cout)``, the same cells of the
     single-device ``cs_conv``.  Kernels and biases are cast to ``x``'s
-    dtype."""
+    dtype.  Differentiable: the backward is the pad-then-VALID conv's (a
+    collective call, as the forward)."""
     _, nf, h, wl, _ = x.shape
     sy, sx = axis_size(mesh, axis_y), axis_size(mesh, axis_x)
     if nf != 6 or h * sy != wl * sx:
@@ -50,10 +53,28 @@ def tile_conv3x3(x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_y: str = SPATIAL_A
             f"the tile kernel needs h <= wl (got h={h}, wl={wl}): the W/E ghost "
             "strips ride in the (wl+2) ext strips"
         )
-    ext = band_ext(*halo_pieces_2d(x, 1, mesh=mesh, axis_y=axis_y, axis_x=axis_x))
-    ks = (k.to(x.dtype).contiguous() for k in (k_eq, k_pole))
-    bs = (bias.to(x.dtype).contiguous() for bias in (b_eq, b_pole))
-    return cs_conv3x3_tile(x.contiguous(), ext.contiguous(), *ks, *bs)
+    return _TileConv.apply(x, k_eq, k_pole, b_eq, b_pole, mesh, axis_y, axis_x)
+
+
+class _TileConv(torch.autograd.Function):
+    """Forward: kernel #9 on the exchanged strips; backward: the
+    pad-then-VALID conv's on the 2-D pad."""
+
+    @staticmethod
+    def forward(ctx, x, k_eq, k_pole, b_eq, b_pole, mesh, axis_y, axis_x):
+        ctx.save_for_backward(x, k_eq, k_pole, b_eq, b_pole)
+        ctx.mesh, ctx.axes = mesh, (axis_y, axis_x)
+        ext = band_ext(*halo_pieces_2d(x, 1, mesh=mesh, axis_y=axis_y, axis_x=axis_x))
+        ks = (k.to(x.dtype).contiguous() for k in (k_eq, k_pole))
+        bs = (bias.to(x.dtype).contiguous() for bias in (b_eq, b_pole))
+        return cs_conv3x3_tile(x.contiguous(), ext.contiguous(), *ks, *bs)
+
+    @staticmethod
+    def backward(ctx, g):
+        def reference(x, *weights):
+            return _reference(x, *(w.to(x.dtype) for w in weights), ctx.mesh, *ctx.axes)
+
+        return ringfix_backward(ctx, g, reference) + (None, None, None)
 
 
 def _reference(x, k_eq, k_pole, b_eq, b_pole, mesh, axis_y, axis_x):

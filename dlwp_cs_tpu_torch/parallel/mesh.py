@@ -94,13 +94,15 @@ def _cut(x, mesh, name, dim):
     return x.narrow(dim, axis_index(mesh, name) * per, per)
 
 
-def local_block(x, mesh, *, spatial: bool = True):
+def local_block(x, mesh, *, spatial: bool = True, rows_dim: int = 2):
     """This rank's block of the global ``x`` ``(B, 6, H, W, ...)``: the
     batch split over ``data`` and, with ``spatial``, face rows over
-    ``spatial`` and columns over ``spatial_x``; contiguous."""
+    ``spatial`` and columns over ``spatial_x``; contiguous.  ``rows_dim``:
+    the face rows' dimension, the columns' the next (3 for a sequence
+    batch ``(B, T, 6, H, W, C)``)."""
     x = _cut(x, mesh, DATA_AXIS, 0)
     if spatial:
-        x = _cut(_cut(x, mesh, SPATIAL_AXIS, 2), mesh, SPATIAL_X_AXIS, 3)
+        x = _cut(_cut(x, mesh, SPATIAL_AXIS, rows_dim), mesh, SPATIAL_X_AXIS, rows_dim + 1)
     return x.contiguous()
 
 

@@ -21,9 +21,9 @@ the kernel consumes (the seam strips, the two rows the ``ppermute`` pair
 brings, the corner table), assembles the ghost rows as the kernel does and
 runs the conv's plain version.  CPU tensors take it.
 
-Forward only: the reference's backward is the VJP of the band ring-fix
-composition through the collectives, the training slice's work; a tensor
-that requires a gradient raises in the exchange.
+The backward is the reference's: autograd through the band ring-fix
+composition recomputed on the saved inputs (over the ``ppermute`` pair), as
+:mod:`~dlwp_cs_tpu_torch.parallel.hopper_band` does for kernel #8.
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES, I32, VP, CudaLibrary, check
 from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, fwd_plan_args
 from dlwp_cs_tpu_torch.ops.padding import padding_plan
 from dlwp_cs_tpu_torch.parallel import symmetric
-from dlwp_cs_tpu_torch.parallel.collectives import _no_grad, axis_index, axis_size
+from dlwp_cs_tpu_torch.parallel.collectives import axis_index, axis_size
 from dlwp_cs_tpu_torch.parallel.halo import halo_pieces, use_band_exchange
+from dlwp_cs_tpu_torch.parallel.hopper_band import ringfix_backward
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
 from dlwp_cs_tpu_torch.parallel.overlap import sharded_ringfix_conv3x3
 from dlwp_cs_tpu_torch.parallel.rdma_halo import RemoteCopyKernel, band_exchange_plain
@@ -144,6 +145,25 @@ _LIB = CudaLibrary("cs_band_overlap.cu", {
 }, "cs_band_overlap_error_string")
 
 
+class _OverlapConv(torch.autograd.Function):
+    """Forward: kernel #11 (its wrapper's ``_forward``); backward: the band
+    ring-fix composition's."""
+
+    @staticmethod
+    def forward(ctx, x, k_eq, k_pole, b_eq, b_pole, kernel, mesh, axis_name):
+        ctx.save_for_backward(x, k_eq, k_pole, b_eq, b_pole)
+        ctx.mesh, ctx.axis_name = mesh, axis_name
+        return kernel._forward(x, k_eq, k_pole, b_eq, b_pole, mesh=mesh, axis_name=axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        def reference(x, *weights):
+            return sharded_ringfix_conv3x3(x, *(w.to(x.dtype) for w in weights),
+                                           mesh=ctx.mesh, axis_name=ctx.axis_name)
+
+        return ringfix_backward(ctx, g, reference) + (None, None, None)
+
+
 class _BandOverlapKernel(RemoteCopyKernel):
     def __call__(self, x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_name: str = SPATIAL_AXIS):
         """Fused CS band conv, 3x3/stride-1, with the band-row exchange in
@@ -152,15 +172,18 @@ class _BandOverlapKernel(RemoteCopyKernel):
         collective call of every rank of ``axis_name`` (at least 2).
         Kernels and biases are cast to ``x``'s dtype.  On a CPU tensor
         :func:`band_conv3x3_overlap_plain` on the ``ppermute`` pair's
-        rows."""
+        rows.  Differentiable: the backward is the band ring-fix
+        composition's (a collective call, as the forward)."""
         b, nf, h, n, cin = x.shape
         S = axis_size(mesh, axis_name)
         if nf != 6 or h * S != n or S < 2:
             raise ValueError(
                 f"band_conv3x3_overlap: expected a local band (B, 6, n/{S}, n, C) of "
                 f"at least 2 shards, got {tuple(x.shape)}")
-        _no_grad(x, "band_conv3x3_overlap")
-        cout = k_eq.shape[-1]
+        return _OverlapConv.apply(x, k_eq, k_pole, b_eq, b_pole, self, mesh, axis_name)
+
+    def _forward(self, x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_name):
+        S = axis_size(mesh, axis_name)
         k_eq, k_pole, b_eq, b_pole = (t.to(x.dtype).contiguous()
                                       for t in (k_eq, k_pole, b_eq, b_pole))
         x = x.contiguous()

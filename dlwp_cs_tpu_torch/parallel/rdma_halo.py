@@ -12,6 +12,13 @@ collective of the process group.  Selected with
 
 :func:`band_exchange_plain` is the plain version, the two ``ppermute`` s,
 which CPU tensors take.
+
+No gradient: the reference's kernel has no VJP (JAX's ``pallas_call`` JVP
+rule fails on its remote copies), so a tensor that requires a gradient
+under grad mode raises here too.  Training under ``band_impl="rdma"`` works
+where the reference's does: with ``band_conv="pallas"`` or ``"overlap"``,
+whose backward differentiates the band ring-fix composition over the
+``ppermute`` pair.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 
 from dlwp_cs_tpu_torch.ops.cuda_build import KernelWrapper
 from dlwp_cs_tpu_torch.parallel import symmetric
-from dlwp_cs_tpu_torch.parallel.collectives import _no_grad, axis_size, ppermute
+from dlwp_cs_tpu_torch.parallel.collectives import axis_size, ppermute
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
 
 __all__ = ["band_exchange_plain", "band_exchange_rdma"]
@@ -63,7 +70,15 @@ class _BandExchangeKernel(RemoteCopyKernel):
         S = axis_size(mesh, axis_name)
         if S == 1:
             return x[:, :, h - w :], x[:, :, :w]
-        _no_grad(x, "band_exchange_rdma")
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "band_exchange_rdma (kernel #10) carries no gradient, as the "
+                "reference's Pallas remote-copy exchange has none (its pallas_call "
+                "has no JVP): differentiate band_impl='rdma' through "
+                "band_conv='pallas' or 'overlap' (their backward runs the band "
+                "ring-fix composition over the ppermute pair), or use "
+                "band_impl='ppermute'"
+            )
         if x.device.type == "cpu":
             return band_exchange_plain(x, w, mesh=mesh, axis_name=axis_name)
         if x.device.type != "cuda":

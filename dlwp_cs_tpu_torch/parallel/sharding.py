@@ -11,43 +11,71 @@ every convolution:
   :mod:`~dlwp_cs_tpu_torch.ops.conv`'s ``use_conv3x3_impl``);
 * :func:`make_spatial_apply` wraps a model: every rank calls the result
   with the same global batch, runs the model on its block and returns the
-  global output, all-gathered.
+  global output, all-gathered;
+* :func:`make_spatial_train_step`: batch over ``data``, face rows (and
+  columns) over ``spatial`` (``spatial_x``), the forward and backward on
+  the rank's block through the differentiable halo exchange
+  (:mod:`~dlwp_cs_tpu_torch.parallel.collectives`), then the gradients
+  summed over every mesh dimension;
+* the data-parallel steps (:func:`make_dp_train_step` and its variants):
+  the single-device forward and backward on the rank's batch block, the
+  fused kernels included (:func:`~dlwp_cs_tpu_torch.ops.conv.
+  shard_local_region`), then the gradients averaged over ``data``.  The
+  reference's GSPMD and ``shard_map`` variants are one per-rank step here:
+  its GSPMD step leaves the fused kernel only because a ``pallas_call`` is
+  opaque to its partitioner.
 
-Only the forward is ported (serving).  The sharded training steps, the
-data-parallel steps and ``AreaWeightedLoss.local_terms`` need gradients
-through the collectives: they raise, naming ``ROADMAP.md``.
+Each step all-reduces its gradients, with the loss terms, as one flat
+buffer per dtype: one collective per step (counted in
+``collectives.calls``).  Every rank applies the same optimizer update to
+the same sums, so the parameters and the optimizer state stay bitwise
+equal on every rank.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
-from dlwp_cs_tpu_torch.ops.conv import use_conv3x3_impl
+from dlwp_cs_tpu_torch.ops.conv import shard_local_region, use_conv3x3_impl
 from dlwp_cs_tpu_torch.ops.padding import use_pad_impl
-from dlwp_cs_tpu_torch.parallel.collectives import axis_size
+from dlwp_cs_tpu_torch.parallel import collectives
+from dlwp_cs_tpu_torch.parallel.collectives import axis_size, psum
 from dlwp_cs_tpu_torch.parallel.halo import check_band_impl, make_sharded_pad, use_band_exchange
 from dlwp_cs_tpu_torch.parallel.halo2d import make_sharded_pad_2d
 from dlwp_cs_tpu_torch.parallel.hopper_band import make_sharded_pallas_conv3x3
 from dlwp_cs_tpu_torch.parallel.hopper_tile import make_tile_pallas_conv3x3
-from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_X_AXIS, gather_blocks, local_block
+from dlwp_cs_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    SPATIAL_X_AXIS,
+    gather_blocks,
+    local_block,
+)
 from dlwp_cs_tpu_torch.parallel.overlap import make_sharded_conv3x3
 from dlwp_cs_tpu_torch.parallel.overlap_band import make_overlap_conv3x3
 from dlwp_cs_tpu_torch.parallel.symmetric import check_timeouts
+from dlwp_cs_tpu_torch.train.train_step import apply_gradients, scan_steps
 
 __all__ = [
     "make_dp_eval_step",
+    "make_dp_scanned_train_step",
+    "make_dp_shardmap_eval_step",
+    "make_dp_shardmap_scanned_train_step",
     "make_dp_shardmap_train_step",
     "make_dp_train_step",
     "make_spatial_apply",
     "make_spatial_train_step",
+    "mesh_axes",
+    "pmean_update",
+    "psum_bucket",
     "shard_batch",
     "sharded_model_ctx",
 ]
 
 _KERNEL_CONVS = ("pallas", "pallas_interpret")
-_TRAINING = "ROADMAP.md queue 1, item 17 (the sharded training slice)"
 
 
 def shard_batch(batch, mesh, *, spatial: bool = False):
@@ -159,9 +187,9 @@ def make_spatial_apply(model, mesh, *, overlap: bool = True, band_impl: str = "p
     global ``inputs``; each runs ``model`` on its block (the batch split
     over ``data``, which must divide it, face rows over ``spatial``,
     columns over ``spatial_x``) under :func:`sharded_model_ctx` and returns
-    the global output.  No gradients (the training slice).  A wait of
-    kernel #10 or #11 that runs out raises an error naming the rank, the
-    call and what it waited for.
+    the global output.  No gradients (:func:`make_spatial_train_step`
+    trains).  A wait of kernel #10 or #11 that runs out raises an error
+    naming the rank, the call and what it waited for.
     """
     model_ctx = sharded_model_ctx(mesh, overlap=overlap, band_impl=band_impl,
                                   band_conv=band_conv)
@@ -178,17 +206,144 @@ def make_spatial_apply(model, mesh, *, overlap: bool = True, band_impl: str = "p
     return apply
 
 
-def make_spatial_train_step(*args, **kwargs):
-    raise NotImplementedError(f"make_spatial_train_step is not ported yet: {_TRAINING}")
+def mesh_axes(mesh) -> tuple:
+    """The mesh's dimension names among ``('data', 'spatial',
+    'spatial_x')``, in that order."""
+    return tuple(a for a in (DATA_AXIS, SPATIAL_AXIS, SPATIAL_X_AXIS)
+                 if a in mesh.mesh_dim_names)
 
 
-def make_dp_train_step(*args, **kwargs):
-    raise NotImplementedError(f"make_dp_train_step is not ported yet: {_TRAINING}")
+def psum_bucket(values, mesh, names):
+    """``psum`` over ``names`` of each tensor of ``values``, detached: one
+    all-reduce of one flat buffer in the first tensor's dtype.  Returns
+    the sums in order, each in its tensor's dtype."""
+    with torch.no_grad():
+        flat = torch.cat([v.reshape(-1).to(values[0].dtype) for v in values])
+        parts = psum(flat, mesh, names).split([v.numel() for v in values])
+    return [p.reshape(v.shape).to(v.dtype) for p, v in zip(parts, values)]
 
 
-def make_dp_shardmap_train_step(*args, **kwargs):
-    raise NotImplementedError(f"make_dp_shardmap_train_step is not ported yet: {_TRAINING}")
+def pmean_update(optimizer, state, loss, grads, mesh, names):
+    """``(state, metrics)`` after the optimizer step on ``grads`` (a list in
+    ``state.params``' order) and ``loss`` averaged over the shards of
+    ``names`` (``lax.pmean``): one bucket of the gradients and the loss.  A
+    collective call."""
+    n = math.prod(axis_size(mesh, a) for a in names)
+    summed = psum_bucket([*grads, loss], mesh, names)
+    mean = dict(zip(state.params, (g / n for g in summed[:-1])))
+    return apply_gradients(optimizer, state, summed[-1] / n, mean)
 
 
-def make_dp_eval_step(*args, **kwargs):
-    raise NotImplementedError(f"make_dp_eval_step is not ported yet: {_TRAINING}")
+def _dp_local_step(apply_fn, optimizer, loss_fn, mesh):
+    """The per-rank data-parallel step: the single-device forward and
+    backward on the rank's batch block (the installed sharded machinery
+    cleared, so the fused kernels apply), then the gradients and the loss
+    averaged over ``data``."""
+
+    def step(state, inputs, targets):
+        with shard_local_region():
+            loss = loss_fn(apply_fn(state.params, inputs), targets)
+        grads = list(torch.autograd.grad(loss, list(state.params.values())))
+        return pmean_update(optimizer, state, loss, grads, mesh, (DATA_AXIS,))
+
+    return step
+
+
+def make_dp_train_step(apply_fn, optimizer, loss_fn, mesh):
+    """Data-parallel train step ``step(state, inputs, targets) -> (state,
+    metrics)``, where ``inputs`` / ``targets`` are this rank's block of the
+    global batch (:func:`shard_batch`) and ``state`` is the same on every
+    rank.  A collective call of every rank of ``mesh``: one all-reduce of
+    the gradients and the loss over ``data``.  The reference's GSPMD step;
+    here the same per-rank step as :func:`make_dp_shardmap_train_step`."""
+    return _dp_local_step(apply_fn, optimizer, loss_fn, mesh)
+
+
+def make_dp_shardmap_train_step(apply_fn, optimizer, loss_fn, mesh):
+    """The reference's ``shard_map`` data-parallel step: as
+    :func:`make_dp_train_step`."""
+    return _dp_local_step(apply_fn, optimizer, loss_fn, mesh)
+
+
+def make_dp_scanned_train_step(apply_fn, optimizer, loss_fn, mesh):
+    """``k`` data-parallel steps over stacked batches ``(k, B/data, ...)``
+    (this rank's block of each): ``step_k(state, inputs_k, targets_k) ->
+    (state, metrics_k)``, the metrics as ``(k,)`` tensors."""
+    return scan_steps(_dp_local_step(apply_fn, optimizer, loss_fn, mesh))
+
+
+def make_dp_shardmap_scanned_train_step(apply_fn, optimizer, loss_fn, mesh):
+    """The reference's ``shard_map`` scanned step: as
+    :func:`make_dp_scanned_train_step`."""
+    return scan_steps(_dp_local_step(apply_fn, optimizer, loss_fn, mesh))
+
+
+def make_dp_eval_step(apply_fn, loss_fn, mesh):
+    """Data-parallel eval step ``step(params, inputs_block, targets_block)
+    -> {"loss": ...}``: the loss over the global batch (the blocks' losses
+    averaged over ``data``), the same on every rank.  A collective call."""
+    n = axis_size(mesh, DATA_AXIS)
+
+    def step(params, inputs, targets):
+        with torch.no_grad(), shard_local_region():
+            loss = loss_fn(apply_fn(params, inputs), targets)
+            return {"loss": psum(loss, mesh, DATA_AXIS) / n}
+
+    return step
+
+
+def make_dp_shardmap_eval_step(apply_fn, loss_fn, mesh):
+    """The reference's ``shard_map`` eval step: as :func:`make_dp_eval_step`."""
+    return make_dp_eval_step(apply_fn, loss_fn, mesh)
+
+
+def make_spatial_train_step(apply_fn, optimizer, loss_fn, mesh, *, jit: bool = True,
+                            overlap: bool = True, band_impl: str = "ppermute",
+                            band_conv: str = "ringfix"):
+    """Spatially decomposed train step ``step(state, inputs, targets) ->
+    (state, metrics)``: every rank calls it with the same global batch and
+    state; each takes its block (the batch over ``data``, which must divide
+    it, face rows over ``spatial``, columns over ``spatial_x``) and runs the
+    forward under :func:`sharded_model_ctx` and the backward through the
+    exchanges.  A collective call.
+
+    ``loss_fn`` is an unweighted elementwise mean (mse/mae), whose local
+    means are averaged over all mesh dimensions (exact: every block holds
+    as many elements), or a loss with the ``local_terms`` protocol
+    (:class:`~dlwp_cs_tpu_torch.ops.losses.AreaWeightedLoss`): the local
+    weighted error sum alone is differentiated, and the step divides the
+    sums of its gradients and of the error sums by the sum of the weight
+    sums, the global weighted mean exactly.  ``overlap``, ``band_impl``,
+    ``band_conv``: :func:`sharded_model_ctx`.  ``jit`` is accepted and
+    changes nothing.  Under ``band_impl='rdma'`` (kernel #10) the
+    exchange carries no gradient, as the reference's: train it with
+    ``band_conv='pallas'`` or ``'overlap'``, whose backward moves the band
+    rows by the ``ppermute`` pair.
+    """
+    model_ctx = sharded_model_ctx(mesh, overlap=overlap, band_impl=band_impl,
+                                  band_conv=band_conv)
+    axes = mesh_axes(mesh)
+    sx_axis = SPATIAL_X_AXIS if axis_size(mesh, SPATIAL_X_AXIS) > 1 else None
+    weighted = hasattr(loss_fn, "local_terms")
+
+    def step(state, inputs, targets):
+        inputs, targets = shard_batch((inputs, targets), mesh, spatial=True)
+        params = list(state.params.values())
+        with collectives.recording() as rec:
+            with model_ctx():
+                pred = apply_fn(state.params, inputs)
+            if weighted:
+                value, wtot = loss_fn.local_terms(pred, targets, spatial_axis=SPATIAL_AXIS,
+                                                  spatial_x_axis=sx_axis, mesh=mesh)
+            else:
+                value = loss_fn(pred, targets)
+        grads = collectives.grad(rec, [value], params)
+        check_timeouts()
+        if not weighted:
+            return pmean_update(optimizer, state, value, grads, mesh, axes)
+        summed = psum_bucket([*grads, value.detach(), wtot.detach()], mesh, axes)
+        total = summed[-1]
+        mean = dict(zip(state.params, (g / total for g in summed[:-2])))
+        return apply_gradients(optimizer, state, summed[-2] / total, mean)
+
+    return step

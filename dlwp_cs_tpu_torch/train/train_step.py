@@ -50,6 +50,8 @@ __all__ = [
     "make_train_step",
     "make_scanned_train_step",
     "make_eval_step",
+    "apply_gradients",
+    "scan_steps",
 ]
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam / adamw defaults
@@ -233,6 +235,21 @@ def value_and_grad(apply_fn, loss_fn) -> Callable:
     return fn
 
 
+def apply_gradients(optimizer: Optimizer, state: TrainState, loss, grads: dict):
+    """``(state, metrics)`` after one optimizer step on ``grads`` (by
+    parameter name); metrics ``loss`` and the pre-clip ``grad_norm``."""
+    gnorm = global_norm(grads.values())
+    with torch.no_grad():
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        params = state.params
+        if updates is not None:
+            params = {
+                k: (p.detach() + updates[k]).requires_grad_(True)
+                for k, p in params.items()
+            }
+    return TrainState(params, opt_state, state.step + 1), {"loss": loss, "grad_norm": gnorm}
+
+
 def make_train_step(apply_fn, optimizer: Optimizer, loss_fn) -> Callable:
     """``train_step(state, inputs, targets) -> (state, metrics)``; metrics
     ``loss`` and the pre-clip ``grad_norm`` stay on the device."""
@@ -240,16 +257,7 @@ def make_train_step(apply_fn, optimizer: Optimizer, loss_fn) -> Callable:
 
     def step(state: TrainState, inputs, targets):
         loss, grads = vg(state.params, inputs, targets)
-        gnorm = global_norm(grads.values())
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-            params = state.params
-            if updates is not None:
-                params = {
-                    k: (p.detach() + updates[k]).requires_grad_(True)
-                    for k, p in params.items()
-                }
-        return TrainState(params, opt_state, state.step + 1), {"loss": loss, "grad_norm": gnorm}
+        return apply_gradients(optimizer, state, loss, grads)
 
     return step
 
@@ -258,7 +266,13 @@ def make_scanned_train_step(apply_fn, optimizer: Optimizer, loss_fn) -> Callable
     """``step_k(state, inputs_k, targets_k) -> (state, metrics_k)``: ``k``
     optimizer steps over the leading (step) axis of stacked batches, as a
     loop; metrics come back as ``(k,)`` tensors."""
-    base = make_train_step(apply_fn, optimizer, loss_fn)
+    return scan_steps(make_train_step(apply_fn, optimizer, loss_fn))
+
+
+def scan_steps(base: Callable) -> Callable:
+    """``step_k(state, inputs_k, targets_k)``: ``base`` on each batch of the
+    leading (step) axis in turn, the metrics stacked into ``(k,)``
+    tensors (the reference's ``lax.scan`` of a step)."""
 
     def step_k(state: TrainState, inputs_k, targets_k):
         ms = []

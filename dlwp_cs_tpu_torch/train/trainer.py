@@ -13,6 +13,13 @@ issues steps ahead of the device instead of waiting on each loss.
 Every batch takes one ``train_step`` call.  ``TrainConfig.fused_steps`` is
 accepted and changes nothing: the reference fuses k steps into one
 dispatch with ``lax.scan``, and eager torch has no such dispatch to save.
+
+With a mesh every rank of the process group runs ``fit`` on the same
+global data (SPMD); the trainer feeds each rank its block of every batch
+and trains data-parallel (:func:`~dlwp_cs_tpu_torch.parallel.sharding.
+make_dp_train_step`).  The reference has one controller; here rank 0 alone
+writes ``metrics.jsonl``, the checkpoints and the profile, and every rank
+waits at a barrier before it reads a checkpoint.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dlwp_cs_tpu_torch.models.config import TrainConfig
 from dlwp_cs_tpu_torch.train.train_step import (
@@ -95,27 +103,41 @@ class Trainer:
       workdir: if set, ``metrics.jsonl`` and periodic checkpoints go under it.
       profile_steps: ``(start, stop)``: a ``torch.profiler`` trace of those
         global steps is written to ``workdir/profile``.
-      mesh: data-parallel and sharded training are the next slice of
-        ``parallel/`` (``ROADMAP.md`` queue 1, item 17); anything but
-        ``None`` raises.  Serving under a mesh is ported
-        (``ForecastService(mesh=...)``).
+      mesh: optional ``('data', 'spatial')`` mesh
+        (:func:`~dlwp_cs_tpu_torch.parallel.create_mesh`): data-parallel
+        training, each rank on its block of every batch (the global batch
+        must divide by the ``data`` size); a collective call of every rank.
+      dp_impl: ``'gspmd'`` (default) or ``'shard_map'``, the reference's two
+        data-parallel steps; one per-rank step here.
     """
 
     def __init__(self, model, cfg: TrainConfig, *, area_weights=None,
                  workdir: str | Path | None = None,
-                 profile_steps: tuple[int, int] | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel and sharded training) is not ported yet: "
-                "ROADMAP.md queue 1, item 17 (the training slice of parallel/)"
-            )
+                 profile_steps: tuple[int, int] | None = None, mesh=None,
+                 dp_impl: str = "gspmd"):
+        if dp_impl not in ("gspmd", "shard_map"):
+            raise ValueError(f"dp_impl must be gspmd|shard_map, got {dp_impl!r}")
         self.model = model
         self.cfg = cfg
         self.optimizer = make_optimizer(cfg)
         self.loss_fn = make_loss_fn(cfg, area_weights)
         self.apply_fn = model_apply(model)
-        self.train_step = make_train_step(self.apply_fn, self.optimizer, self.loss_fn)
-        self.eval_step = make_eval_step(self.apply_fn, self.loss_fn)
+        self.mesh = mesh
+        if mesh is None:
+            self.train_step = make_train_step(self.apply_fn, self.optimizer, self.loss_fn)
+            self.eval_step = make_eval_step(self.apply_fn, self.loss_fn)
+        else:
+            from dlwp_cs_tpu_torch.parallel import sharding
+
+            shard_map = dp_impl == "shard_map"
+            self.train_step = (
+                sharding.make_dp_shardmap_train_step if shard_map else sharding.make_dp_train_step
+            )(self.apply_fn, self.optimizer, self.loss_fn, mesh)
+            self.eval_step = (
+                sharding.make_dp_shardmap_eval_step if shard_map else sharding.make_dp_eval_step
+            )(self.apply_fn, self.loss_fn, mesh)
+        # with a mesh, rank 0 alone writes the metrics, checkpoints and profile
+        self._writer = mesh is None or dist.get_rank() == 0
         self.workdir = Path(workdir) if workdir is not None else None
         if profile_steps is not None and self.workdir is None:
             raise ValueError("profile_steps requires a workdir for the trace")
@@ -125,7 +147,7 @@ class Trainer:
         self.stopper: EarlyStoppingMin | None = None
         self.history = History()
         self._metrics_file = None
-        if self.workdir is not None:
+        if self.workdir is not None and self._writer:
             self.workdir.mkdir(parents=True, exist_ok=True)
             self._metrics_file = (self.workdir / "metrics.jsonl").open("a")
 
@@ -152,6 +174,8 @@ class Trainer:
         The completed-epoch count and the early-stopping state ride in the
         checkpoint, so a resumed ``fit`` trains only the remaining epochs
         and stops and restores exactly as the uninterrupted run would.
+        With a mesh, a collective call: every rank waits for the others
+        (rank 0 may still be writing) and reads the same checkpoint.
         """
         from dlwp_cs_tpu_torch.utils.checkpoint import (
             latest_step,
@@ -162,6 +186,8 @@ class Trainer:
         template = self.init(sample_inputs, seed)
         if self.workdir is None:
             return template
+        if self.mesh is not None:
+            dist.barrier()
         ckpt_dir = self.workdir / "checkpoints"
         if latest_step(ckpt_dir) is None:
             return template
@@ -191,7 +217,7 @@ class Trainer:
     def _checkpoint(self, state: TrainState, *, step: int, epochs_done: int,
                     stopper: EarlyStoppingMin | None = None) -> None:
         # keyed by the global optimizer step, monotone across restarts
-        if self.workdir is None:
+        if self.workdir is None or not self._writer:
             return
         from dlwp_cs_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -212,7 +238,10 @@ class Trainer:
     def fit(self, state: TrainState, train_data, *, val_data=None,
             epochs: int | None = None, verbose: bool = True) -> TrainState:
         """Train; ``train_data``/``val_data`` are callables returning an
-        iterable of (inputs, targets) per epoch, or re-iterable iterables."""
+        iterable of (inputs, targets) per epoch, or re-iterable iterables.
+        With a mesh, the global batches, the same on every rank (each takes
+        its block), or a ``prefetch_to_device(..., sharding=mesh)`` iterator
+        of this rank's blocks."""
         cfg = self.cfg
         epochs = cfg.max_epochs if epochs is None else epochs
         if self.stopper is None:
@@ -256,19 +285,20 @@ class Trainer:
                 t_flush = time.perf_counter()
 
             it = iter(_epoch_iter(train_data))
+            feed = self._feed(it, dev)
             while True:
                 t_wait = time.perf_counter()
                 batch = next(it, None)
                 data_wait = time.perf_counter() - t_wait
                 if batch is None:
                     break
-                if self.profile_steps is not None and prof is None and (
+                if self.profile_steps is not None and prof is None and self._writer and (
                     gstep == self.profile_steps[0]
                 ):
                     prof = _start_profile()
                 inputs, targets = batch
                 t_step = time.perf_counter()
-                state, metrics = self.train_step(state, _on(inputs, dev), _on(targets, dev))
+                state, metrics = self.train_step(state, feed(inputs), feed(targets))
                 pending.append((gstep, metrics, time.perf_counter() - t_step, data_wait))
                 gstep += 1
                 if prof is not None and gstep > self.profile_steps[1]:
@@ -280,8 +310,10 @@ class Trainer:
             train_loss = float(np.mean(losses)) if losses else float("nan")
             val_loss = None
             if val_data is not None:
-                vl = [self.eval_step(state.params, _on(vi, dev), _on(vt, dev))["loss"]
-                      for vi, vt in _epoch_iter(val_data)]
+                vit = iter(_epoch_iter(val_data))
+                vfeed = self._feed(vit, dev)
+                vl = [self.eval_step(state.params, vfeed(vi), vfeed(vt))["loss"]
+                      for vi, vt in vit]
                 val_loss = float(torch.stack(vl).double().mean()) if vl else float("nan")
             dt = time.perf_counter() - t0
             rec = {"kind": "epoch", "epoch": epoch, "train_loss": train_loss,
@@ -316,6 +348,24 @@ class Trainer:
                     for k, v in stopper.best_params.items()}
             state = TrainState(best, state.opt_state, state.step)
         return state
+
+
+    def _feed(self, it, device):
+        """``feed(x)``: a batch tensor of ``it`` as the step takes it on
+        ``device``; with a mesh this rank's block, cut before the copy (an
+        iterator of blocks, ``prefetch_to_device(sharding=mesh)``, passes
+        as it is)."""
+        if self.mesh is None:
+            return lambda x: _on(x, device)
+        sharding = getattr(it, "sharding", None)
+        if sharding is not None:
+            if sharding is not self.mesh or getattr(it, "spatial", False):
+                raise ValueError("the prefetcher's blocks are not this trainer's: give "
+                                 "it sharding=<the trainer's mesh>, spatial=False")
+            return lambda x: _on(x, device)
+        from dlwp_cs_tpu_torch.parallel.mesh import local_block
+
+        return lambda x: local_block(torch.as_tensor(x), self.mesh, spatial=False).to(device)
 
 
 def _start_profile():

@@ -1289,3 +1289,96 @@ def test_exported_forecast_equals_live_and_replays_bitwise_on_card(cuda_device, 
     np.testing.assert_array_equal(first.fields, live.fields)
     np.testing.assert_array_equal(again.fields, first.fields)
     np.testing.assert_array_equal(exp.forecast(windows[1], t0[1]).fields, first.fields[1:])
+
+
+# ---- training under a mesh: 4 ranks sharing the card -----------------------
+
+TRAIN_SGD_LR = 2.0**20  # the parameters' change is the gradient scaled by a power of two
+
+
+def _mesh_train_steps():
+    """One rank of a 4-rank group sharing the card: one SGD step of a small
+    U-Net (n = 16, filters (8, 16)) through the data-parallel step on data
+    = 4 (kernels #1, #4, #5 on the rank's block) and through the spatial
+    step on 4 row bands (kernel #8; its backward the band ring-fix
+    composition), in both dtypes: the new parameters and each path's
+    launches."""
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_dw, cs_conv3x3_dx
+    from dlwp_cs_tpu_torch.ops.losses import mse
+    from dlwp_cs_tpu_torch.parallel import (
+        create_mesh,
+        make_dp_train_step,
+        make_spatial_train_step,
+        shard_batch,
+    )
+    from dlwp_cs_tpu_torch.train import init_params, init_state, make_optimizer, model_apply
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = (cs_conv3x3, cs_conv3x3_dx, cs_conv3x3_dw, cs_conv3x3_band)
+    meshes = {"dp": create_mesh(data=4), "band": create_mesh(data=1, spatial=4)}
+    x, y = (torch.from_numpy(a).cuda() for a in _train_batch())
+    opt = make_optimizer(TrainConfig(optimizer="sgd", learning_rate=TRAIN_SGD_LR))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model = CubeSphereUNet(UNetConfig(output_channels=2, filters=(8, 16), compute_dtype=dtype),
+                               3, device="cuda")
+        apply = model_apply(model)
+        for name, m in meshes.items():
+            if name == "dp":
+                step, batch = make_dp_train_step(apply, opt, mse, m), shard_batch((x, y), m)
+            else:
+                step, batch = make_spatial_train_step(apply, opt, mse, m, band_conv="pallas"), (x, y)
+            for w in wrappers:
+                w.launches = 0
+            state, _ = step(init_state(init_params(model, 0), opt), *batch)
+            out[name, dtype] = ({k: v.detach().cpu() for k, v in state.params.items()},
+                                {w.name: w.launches for w in wrappers})
+    return out
+
+
+def _train_batch():
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(8, 6, 16, 16, 3)).astype(np.float32)
+    return x, (0.5 * x[..., :2]).copy()
+
+
+@pytest.mark.cuda
+def test_mesh_train_steps_of_ranks_sharing_the_card(cuda_device, tmp_path):
+    """The data-parallel step through #1/#4/#5 and the band step through #8,
+    4 ranks sharing the card: each parameter's change (its all-reduced
+    gradient times 2**20) against the one-card step's within 1e-4 (float32)
+    and 2**-6 (bfloat16) of the tensor's largest, every parameter moved, the
+    parameters bitwise equal on every rank; the data-parallel step launches
+    #1 per 3x3 conv, #5 per 3x3 conv and #4 for all but the first, the band
+    step #8 per 3x3 conv and none of #1/#4/#5."""
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+    from dlwp_cs_tpu_torch.train import Trainer
+
+    results = spawn_group(_mesh_train_steps, 4, workdir=tmp_path)
+    x, y = (torch.from_numpy(a).to(cuda_device) for a in _train_batch())
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2.0**-6)):
+        model = CubeSphereUNet(UNetConfig(output_channels=2, filters=(8, 16), compute_dtype=dtype),
+                               3, device=cuda_device)
+        one = Trainer(model, TrainConfig(optimizer="sgd", learning_rate=TRAIN_SGD_LR))
+        state0 = one.init(x)
+        cs_conv3x3.launches = 0
+        ref, _ = one.train_step(state0, x, y)
+        convs = cs_conv3x3.launches
+        want = {"dp": {"cs_conv3x3": convs, "cs_conv3x3_dx": convs - 1, "cs_conv3x3_dw": convs,
+                       "cs_conv3x3_band": 0},
+                "band": {"cs_conv3x3": 0, "cs_conv3x3_dx": 0, "cs_conv3x3_dw": 0,
+                         "cs_conv3x3_band": convs}}
+        for name in ("dp", "band"):
+            for r in results:
+                params, launches = r[name, dtype]
+                assert launches == want[name], (name, dtype, launches)
+                for k, p0 in state0.params.items():
+                    p0 = p0.detach().cpu()
+                    g, g_ref = p0 - params[k], p0 - ref.params[k].detach().cpu()
+                    assert float(g.abs().max()) > 0, (name, dtype, k)
+                    err = float((g - g_ref).abs().max() / g_ref.abs().max())
+                    assert err <= tol, (name, dtype, k, err)
+                    assert torch.equal(params[k], results[0][name, dtype][0][k])

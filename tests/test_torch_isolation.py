@@ -40,9 +40,10 @@ def test_importing_every_module_loads_no_jax():
               "tools.kernel_variants", "tools.mosaic_bisect", "tools.npack_phases",
               "rollout.ensemble", "utils.misc", "verify", "verify.alignment",
               "verify.ensemble", "verify.metrics", "verify.oracle", "verify.relabel",
-              "ops.library", "serve.export", "serve.http", "tools.export_artifact"):
+              "ops.library", "serve.export", "serve.http", "tools.export_artifact",
+              "parallel.scaling", "train.sequence"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
-    assert len(mods) >= 49
+    assert len(mods) >= 51
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

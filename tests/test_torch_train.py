@@ -87,6 +87,19 @@ def jax_apply():
     return jax.jit(JUNet(JUNetConfig(**MODEL, conv_backend="xla")).apply)
 
 
+class _StubMesh:
+    """A mesh as the port reads one (``mesh_dim_names``, ``shape``,
+    ``get_local_rank``) at fixed coordinates, with no process group."""
+
+    def __init__(self, sizes: dict, coords: dict):
+        self.mesh_dim_names = tuple(sizes)
+        self.shape = tuple(sizes.values())
+        self._coords = coords
+
+    def get_local_rank(self, name):
+        return self._coords[name]
+
+
 def _data(seed=0, steps=3, b=2):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(steps, b, 6, N, N, 3)).astype(np.float32)
@@ -125,10 +138,62 @@ def test_losses_match_reference():
     for ours, ref in pairs:
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-7)
     np.testing.assert_array_equal(losses.latitude_weights(lats), jlosses.latitude_weights(lats))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        losses.AreaWeightedLoss("mse", w).local_terms(pt, tt, spatial_axis="spatial")
+    # whole faces need no slice, named axes or not; a band needs its axis
+    # and the mesh to slice the weights by
+    aw = losses.AreaWeightedLoss("mse", w)
+    for a, b in zip(aw.local_terms(pt, tt, spatial_axis="spatial"), aw.local_terms(pt, tt)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="no spatial_axis"):
+        aw.local_terms(pt[:, :, :4], tt[:, :, :4])
+    with pytest.raises(ValueError, match="no spatial_x_axis"):
+        aw.local_terms(pt[:, :, :, :4], tt[:, :, :, :4], spatial_axis="spatial")
+    with pytest.raises(ValueError, match="needs the mesh"):
+        aw.local_terms(pt[:, :, :4], tt[:, :, :4], spatial_axis="spatial")
     with pytest.raises(ValueError, match="base"):
         losses.AreaWeightedLoss("huber", w)
+
+
+@pytest.mark.parametrize("sy,sx", [(4, 1), (2, 2), (1, 2)])
+def test_local_terms_slice_weights_by_mesh_coordinates(sy, sx):
+    """``local_terms`` on each block of a (sy, sx) tiling, its weights
+    sliced by the (stub) mesh's coordinates, against the reference's under
+    ``shard_map`` on sy * sx CPU devices; the blocks' sums are the whole
+    field's."""
+    from jax.sharding import PartitionSpec as P
+
+    from dlwp_cs_tpu.parallel import create_mesh as j_create_mesh
+
+    rng = np.random.default_rng(4)
+    p, t = (rng.normal(size=(2, 6, N, N, 3)).astype(np.float32) for _ in range(2))
+    w = CubedSphere(N).area_weights
+    ref_loss = jlosses.AreaWeightedLoss("mae", w)
+    names = ("spatial", "spatial_x") if sx > 1 else ("spatial",)
+    spec = P(None, None, "spatial", "spatial_x" if sx > 1 else None, None)
+
+    def terms(pl, tl):
+        wsum, wtot = ref_loss.local_terms(pl, tl, spatial_axis="spatial",
+                                          spatial_x_axis="spatial_x" if sx > 1 else None)
+        return jnp.stack([wsum, wtot])[None]
+
+    jmesh = j_create_mesh(data=1, spatial=sy, spatial_x=sx)
+    ref = np.asarray(jax.jit(jax.shard_map(terms, mesh=jmesh, in_specs=(spec, spec),
+                                           out_specs=P(names, None), check_vma=False))(
+        jnp.asarray(p), jnp.asarray(t)))
+    ours = losses.AreaWeightedLoss("mae", w)
+    h, wl = N // sy, N // sx
+    sums = np.zeros(2)
+    for iy in range(sy):
+        for jx in range(sx):
+            mesh = _StubMesh({"data": 1, "spatial": sy, "spatial_x": sx},
+                             {"spatial": iy, "spatial_x": jx})
+            cut = (slice(None), slice(None), slice(iy * h, (iy + 1) * h), slice(jx * wl, (jx + 1) * wl))
+            got = ours.local_terms(torch.from_numpy(p[cut]), torch.from_numpy(t[cut]),
+                                   spatial_axis="spatial",
+                                   spatial_x_axis="spatial_x" if sx > 1 else None, mesh=mesh)
+            np.testing.assert_allclose([float(v) for v in got], ref[iy * sx + jx], rtol=1e-5)
+            sums += [float(v) for v in got]
+    whole = ours.local_terms(torch.from_numpy(p), torch.from_numpy(t))
+    np.testing.assert_allclose(sums, [float(v) for v in whole], rtol=1e-5)
 
 
 # -- train step ---------------------------------------------------------------
@@ -243,8 +308,89 @@ def test_prefetch_on_cpu_keeps_order_and_raises_errors():
     assert not it._thread.is_alive()
     with pytest.raises(StopIteration):
         next(it)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        prefetch_to_device(iter(batches), device="cpu", sharding=object())
+    # sharding=: this rank's block of every tensor (test_prefetch_copies_this_ranks_block)
+    it = prefetch_to_device(iter(batches), device="cpu", sharding=_StubMesh({"data": 2}, {"data": 1}))
+    assert [tuple(a.shape) for a, _ in it] == [(1, 3)] * 5
+
+
+def test_prefetch_copies_this_ranks_block():
+    """``prefetch_to_device(sharding=mesh)``: the batch axis over ``data``
+    and, with ``spatial``, the face rows and columns of every ``(B, 6, n,
+    n, C)`` tensor, as ``shard_batch`` cuts them; other tensors keep their
+    other axes."""
+    from dlwp_cs_tpu_torch.parallel import shard_batch
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(4, 6, N, N, 3)).astype(np.float32)
+    t0 = np.arange(4, dtype=np.float32)
+    mesh = _StubMesh({"data": 2, "spatial": 2, "spatial_x": 2},
+                     {"data": 1, "spatial": 0, "spatial_x": 1})
+    for spatial in (False, True):
+        it = prefetch_to_device(iter([(x, t0), {"x": x}]), device="cpu", sharding=mesh,
+                                spatial=spatial)
+        (xb, tb), d = list(it)
+        want = shard_batch(torch.from_numpy(x), mesh, spatial=spatial)
+        torch.testing.assert_close(xb, want, rtol=0, atol=0)
+        torch.testing.assert_close(d["x"], want, rtol=0, atol=0)
+        torch.testing.assert_close(tb, torch.tensor([2.0, 3.0]), rtol=0, atol=0)
+        assert it.sharding is mesh and it.spatial is spatial
+
+
+SEQ_DATA = dict(grid_n=N, variables=("a", "b"), input_time_steps=2, output_time_steps=2,
+                add_insolation=True, constants=())
+
+
+def test_sequence_loss_and_step_match_reference():
+    """``make_sequence_loss`` and two steps of ``make_sequence_train_step``
+    on a sequence batch of the port's ``SeriesDataset`` against the
+    reference's (the window advance and the insolation clock of
+    ``data/channels.py``): loss and grad norm 1e-5 relative, parameters
+    2e-5 (Adam, as ``test_train_step_matches_optax``)."""
+    from dlwp_cs_tpu.models import DataConfig as JDataConfig
+    from dlwp_cs_tpu.train import make_sequence_loss as j_make_sequence_loss
+    from dlwp_cs_tpu.train import make_sequence_train_step as j_make_sequence_train_step
+    from dlwp_cs_tpu_torch.train import make_sequence_loss, make_sequence_train_step
+
+    dcfg = DataConfig(**SEQ_DATA)
+    rng = np.random.default_rng(5)
+    store = MemoryStore.from_raw(rng.normal(size=(30, 6, N, N, 2)).astype(np.float32),
+                                 9000.0 + 0.25 * np.arange(30), ("a", "b"))
+    lat, lon = CubedSphere(N).cell_latlon
+    ds = SeriesDataset(store, dcfg, lat=lat, lon=lon, batch_size=3, sequence=3)
+    window, targets, t0 = ds.make_batch(np.array([0, 5, 9]))
+    model = CubeSphereUNet(UNetConfig(output_channels=dcfg.output_channels, filters=(4, 8)),
+                           dcfg.input_channels, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    tree = _flax_tree(model)
+    jmodel = JUNet(JUNetConfig(output_channels=dcfg.output_channels, filters=(4, 8),
+                               conv_backend="xla"))
+    kw = dict(lat=lat, lon=lon, insol_mean=300.0, insol_std=400.0, sequence=3)
+    jloss = j_make_sequence_loss(jmodel.apply, JDataConfig(**SEQ_DATA), **kw)
+    loss = make_sequence_loss(model_apply(model), dcfg, **kw)
+    jargs = tuple(map(jnp.asarray, (window, t0, targets)))
+    args = tuple(map(torch.from_numpy, (window, t0, targets)))
+    jtree = jax.tree.map(jnp.asarray, tree)
+    with torch.no_grad():
+        value = float(loss(params_of(model), *args))
+    np.testing.assert_allclose(value, float(jax.jit(jloss)(jtree, *jargs)), rtol=1e-5)
+    with pytest.raises(ValueError, match="sequence=3"):
+        loss(params_of(model), args[0], args[1], args[2][:, :2])
+    jopt = j_make_optimizer(JTrainConfig(learning_rate=1e-2))
+    opt = make_optimizer(TrainConfig(learning_rate=1e-2))
+    jstate = j_init_state(jax.tree.map(jnp.copy, jtree), jopt)  # the step donates it
+    state = init_state(params_of(model), opt)
+    jstep = j_make_sequence_train_step(jloss, jopt)
+    step = make_sequence_train_step(loss, opt)
+    for _ in range(2):
+        jstate, jm = jstep(jstate, *jargs)
+        state, m = step(state, *args)
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-5)
+    ref = jax.tree.map(np.asarray, jstate.params)["params"]
+    for name, p in state.params.items():
+        _, scope, key = name.split(".")
+        np.testing.assert_allclose(p.detach().numpy(), ref[scope][key], rtol=0, atol=2e-5,
+                                   err_msg=name)
 
 
 # -- checkpoints --------------------------------------------------------------
@@ -357,9 +503,12 @@ def test_resumed_run_ends_where_the_uninterrupted_run_does(tmp_path):
 
 
 def test_trainer_rejects_mesh_and_profiles(tmp_path):
+    """A data-parallel step the reference does not have raises (training
+    under a mesh: ``tests/test_torch_parallel_train.py``); the profiler
+    window writes a trace."""
     model = CubeSphereUNet(UNetConfig(**MODEL), 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Trainer(model, TrainConfig(), mesh=object())
+    with pytest.raises(ValueError, match="dp_impl"):
+        Trainer(model, TrainConfig(), dp_impl="pmap")
     train, _, _ = _train_setup()
     t = Trainer(model, TrainConfig(max_epochs=1), workdir=tmp_path, profile_steps=(0, 0))
     t.fit(t.init(train[0][0]), train, verbose=False)
