@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels, run its kernel tools, serve and
-train the flagship U-Net and the ConvLSTM on one GPU, serve ensembles of
+train the flagship U-Net and the ConvLSTM on one GPU, build a predictor
+store from lat-lon fields on it and train from that store, serve ensembles of
 the U-Net, exported artifacts as CUDA-graph replays and the HTTP front end,
 serve the U-Net spatially sharded over 4 ranks that share the GPU,
 through gloo and through CUDA IPC, with a rank-0 front end, and train it
@@ -134,6 +135,21 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    in one dispatch, bitwise equal to the direct batch; 3 ``ensemble_request``
    calls with one seed in one dispatch, bitwise equal to the stacked call;
    one request's round trip;
+8c. the data pipeline (``remap/``, ``data/``): build the exact
+   conservative weights ERA5 1 degree (181 x 360, poles included) <-> C48
+   with the C++ generator (compiled with the kernels, above); make the
+   analytic sources of ``examples/01_build_dataset.py`` (z500, z1000,
+   tau300-700, t2m and two constants) for 120 days at 6 h on that grid;
+   ``Preprocessor.data_to_series`` remaps them on the card, 256 times a
+   batch, twice (bitwise equal), held against ``RemapWeights.apply_numpy``
+   on the host (every time, the constants, the mean and std); one batch's
+   remap timed with CUDA events beside the plain version's host time; the
+   store written and opened as HDF5 where h5py imports, else
+   ``write_store``'s ``ImportError`` checked and the ``MemoryStore`` kept;
+   ``DLWPEstimator.fit`` of the flagship bf16 U-Net, 10 steps at batch 16
+   from the store's head (#1, #4, #5 counted); a 14-day forecast from its
+   first window (280 launches of #1) remapped back to 181 x 360 on the card
+   (``remap_cs_to_ll``) and held against the plain version;
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -1995,6 +2011,246 @@ def flagship_estimator(dtype_name):
     return DLWPEstimator(cfg, device="cuda", seed=0).load_state(stats)
 
 
+# the data phase: ERA5's 1 degree grid (poles included) -> C48, 120 days
+# at 6 h, the remap's batch, the plain version's sample, the training head
+DATA_GRID = (181, 360)
+DATA_DAYS, DATA_STEP_HOURS = 120.0, 6.0
+DATA_BATCH = 256
+DATA_PLAIN_TIMES = 32
+DATA_TRAIN_STEPS = 10
+DATA_TOL = 1e-5  # of each variable's largest |value|: float32 sums in another order
+
+
+def synthetic_sources(lats, lons, days, step_hours):
+    """The analytic lat-lon "reanalysis" of ``examples/01_build_dataset.py``
+    (travelling waves and a seasonal cycle: z500, z1000, tau300-700, t2m,
+    float64 ``(T, H, W)``) and its two constants, sampled at ``lats`` /
+    ``lons`` (radians); days since 2000-01-01."""
+    glat, glon = np.meshgrid(lats, lons, indexing="ij")
+    times = np.arange(0.0, days, step_hours / 24.0)
+    t = times[:, None, None]
+    x = np.cos(glat) * np.cos(glon)
+    y = np.cos(glat) * np.sin(glon)
+    z = np.sin(glat)
+    season = np.cos(2 * np.pi * t / 365.25)
+
+    def wave(k, c, amp):
+        return amp * np.cos(k * glon - c * 2 * np.pi * t) * np.cos(glat) ** 2
+
+    sources = {
+        "z500": 5500.0 + 100.0 * z[None] * season + wave(4, 0.35, 80.0),
+        "z1000": 100.0 + 40.0 * z[None] * season + wave(3, 0.30, 40.0),
+        "tau300-700": 7500.0 - 300.0 * np.abs(z)[None] + wave(5, 0.4, 60.0),
+        "t2m": 288.0 - 30.0 * z[None] ** 2 + 10.0 * z[None] * season + wave(6, 0.5, 2.0),
+    }
+    constants = {
+        "topography": np.maximum(0.0, 2000.0 * (x * y + 0.3 * z * z)),
+        "land_sea_mask": (x * y + 0.3 * z > 0).astype(np.float64),
+    }
+    return sources, constants, times
+
+
+class StoreHead:
+    """The first ``t`` times of a store, its fields read lazily as an
+    ``H5Store``'s are: the data phase trains 10 steps from the head of the
+    480-time store."""
+
+    def __init__(self, store, t):
+        self._fields = store.fields
+        self.shape = (t,) + tuple(store.fields.shape[1:])
+        self.fields = self
+        self.times = np.asarray(store.times)[:t]
+        for k in ("mean", "std", "variables", "constants", "constant_names", "attrs"):
+            setattr(self, k, getattr(store, k))
+
+    def __getitem__(self, idx):
+        return self._fields[idx]
+
+
+def data_phase(workdir):
+    """The data pipeline on the card: exact conservative ERA5 1 degree <->
+    C48 weights built here, the analytic sources remapped by the
+    ``Preprocessor`` into a 480-time store and held against the plain
+    version, the store written and opened as HDF5 where h5py imports, the
+    flagship bf16 U-Net trained 10 steps from it, and a 14-day forecast
+    remapped back to 181 x 360."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
+    from dlwp_cs_tpu_torch.data import MemoryStore, Preprocessor, open_store, write_store
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.remap import (
+        apply_remap,
+        conservative_weights,
+        latlon_grid,
+        remap_cs_to_ll,
+    )
+    from dlwp_cs_tpu_torch.tools.timing import bound
+
+    (h, w), n = DATA_GRID, 48
+    out = {"grid": [h, w], "n": n}
+    weights = {}
+    for mode in ("ll2cs", "cs2ll"):
+        t = time.perf_counter()
+        weights[mode] = conservative_weights(mode, n_lat=h, n_lon=w, n_cs=n,
+                                             lat_centered=False, cache_dir=workdir)
+        lengths = np.bincount(weights[mode].rows, minlength=weights[mode].shape[0])
+        out[mode] = {"seconds": time.perf_counter() - t, "nnz": int(len(weights[mode].rows)),
+                     "shape": list(weights[mode].shape),
+                     "row_nnz_min_mean_max": [int(lengths.min()), float(lengths.mean()),
+                                              int(lengths.max())]}
+    ll2cs, cs2ll = weights["ll2cs"], weights["cs2ll"]
+    lats, lons = latlon_grid(h, w, cell_centered=False)  # the grid of the weights
+    t = time.perf_counter()
+    sources, constants, times = synthetic_sources(lats, lons, DATA_DAYS, DATA_STEP_HOURS)
+    out["sources_seconds"] = time.perf_counter() - t
+    pre = Preprocessor(sources, lats, lons, times)
+    runs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        store = pre.data_to_series(n, weights=ll2cs, constant_sources=constants,
+                                   batch_size=DATA_BATCH, device="cuda")
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t, store))
+    store = runs[0][1]
+    out["preprocessor_seconds"] = [r[0] for r in runs]
+    out["fields_shape"] = list(store.fields.shape)
+    out["second_run_bitwise_equal"] = bool(
+        np.array_equal(store.fields, runs[1][1].fields)
+        and np.array_equal(store.constants, runs[1][1].constants)
+        and np.array_equal(store.mean, runs[1][1].mean)
+        and np.array_equal(store.std, runs[1][1].std))
+    check(out["second_run_bitwise_equal"], "two Preprocessor runs on the card differ")
+    check(tuple(store.fields.shape) == (len(times), 6, n, n, 4) and bool(
+        np.isfinite(store.fields).all()), f"store fields {store.fields.shape} not finite")
+
+    # the plain version on the host: every time of every variable (the
+    # stats need them all), the constants standardized as the port does
+    plain = np.empty(store.fields.shape, np.float32)
+    t = time.perf_counter()
+    for ci, name in enumerate(store.variables):
+        for lo in range(0, len(times), 96):
+            blk = np.asarray(sources[name][lo:lo + 96], np.float32).reshape(-1, h * w)
+            plain[lo:lo + 96, ..., ci] = ll2cs.apply_numpy(blk).reshape(-1, 6, n, n)
+    out["plain_seconds"] = time.perf_counter() - t
+    errs = {}
+    for ci, name in enumerate(store.variables):
+        err = float(np.abs(store.fields[:DATA_PLAIN_TIMES, ..., ci]
+                           - plain[:DATA_PLAIN_TIMES, ..., ci]).max())
+        errs[name] = err / float(np.abs(plain[..., ci]).max())
+        errs[name + " (all times)"] = float(
+            np.abs(store.fields[..., ci] - plain[..., ci]).max() / np.abs(plain[..., ci]).max())
+    for k, (cname, cfield) in enumerate(constants.items()):
+        cube = ll2cs.apply_numpy(np.asarray(cfield, np.float32).reshape(1, -1)).reshape(6, n, n)
+        sd = cube.std()
+        cube = (cube - cube.mean()) / (sd if sd > 1e-12 else 1.0)
+        errs[cname] = float(np.abs(store.constants[..., k] - cube).max() / np.abs(cube).max())
+    out["max_err_of_largest"] = errs
+    check(max(errs.values()) <= DATA_TOL, f"store vs the plain version: {errs} > {DATA_TOL}")
+    ref = MemoryStore.from_raw(plain, times, store.variables)
+    out["mean_rel_err"] = float(np.max(np.abs(store.mean - ref.mean) / np.abs(ref.mean)))
+    out["std_rel_err"] = float(np.max(np.abs(store.std - ref.std) / ref.std))
+    check(max(out["mean_rel_err"], out["std_rel_err"]) <= 1e-6,
+          f"store stats vs plain: mean {out['mean_rel_err']}, std {out['std_rel_err']}")
+
+    # one 256-time batch: the card's remap (CUDA events) and the plain one
+    blk = np.asarray(sources["z500"][:DATA_BATCH], np.float32).reshape(DATA_BATCH, -1)
+    xd = torch.from_numpy(blk).cuda()
+    first = apply_remap(ll2cs, xd)
+    check(torch.equal(first, apply_remap(ll2cs, xd)), "the card's remap is not repeatable")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        apply_remap(ll2cs, xd)
+    end.record()
+    end.synchronize()
+    out["remap_batch_ms"] = start.elapsed_time(end) / 10
+    t = time.perf_counter()
+    want = ll2cs.apply_numpy(blk)
+    out["plain_batch_ms"] = (time.perf_counter() - t) * 1e3
+    out["remap_batch_max_abs_err"] = float((first.cpu() - torch.from_numpy(want)).abs().max())
+    nnz = len(ll2cs.rows)
+    out.update(bound(blk.nbytes + want.nbytes + nnz * 8 + (ll2cs.shape[0] + 1) * 8,
+                     2 * nnz * DATA_BATCH, torch.float32))
+
+    # HDF5 where h5py imports; without it write_store must name h5py
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    if has_h5py:
+        write_store(os.path.join(workdir, "predictors_cs.h5"), store)
+        train_store = open_store(os.path.join(workdir, "predictors_cs.h5"))
+        check(np.array_equal(train_store.load().fields, store.fields), "HDF5 store differs")
+        out["store_branch"] = "hdf5 (write_store, open_store)"
+    else:
+        try:
+            write_store(os.path.join(workdir, "predictors_cs.h5"), store)
+            raised = None
+        except ImportError as e:
+            raised = str(e)
+        check(raised is not None and "h5py" in raised,
+              f"write_store without h5py raised {raised!r}, not an ImportError naming h5py")
+        train_store = store
+        out["store_branch"] = f"memory (no h5py: write_store raised ImportError: {raised})"
+
+    # the flagship bf16 U-Net: 10 steps at batch 16 from the head of the store
+    d = DataConfig()
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, optimizer="adam", learning_rate=1e-3,
+                       loss="mse", max_epochs=1, metrics_every=DATA_TRAIN_STEPS)
+    cfg = ExperimentConfig(data=d, model=model_config("unet", "bfloat16"), train=tcfg)
+    check(tuple(store.variables) == d.variables and store.constant_names == d.constants,
+          f"store {store.variables} {store.constant_names} is not the flagship's")
+    head = StoreHead(train_store, TRAIN_BATCH * DATA_TRAIN_STEPS + d.input_time_steps
+                     + d.output_time_steps - 1)
+    kernels = all_kernels()
+    est = DLWPEstimator(cfg, device="cuda", seed=0)
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    est.fit(head, verbose=False)
+    torch.cuda.synchronize()
+    out["fit_seconds"] = time.perf_counter() - t
+    out["train_launches"] = {name: k.launches for name, k in kernels.items()}
+    want_fit = want_launches(PER_STEP["unet"], DATA_TRAIN_STEPS)
+    check(out["train_launches"] == want_fit,
+          f"data phase fit launches {out['train_launches']}, want {want_fit}")
+    out["losses"] = [r["loss"] for r in est._last_history.steps]
+    check(len(out["losses"]) == DATA_TRAIN_STEPS and all(np.isfinite(out["losses"])),
+          f"losses {out['losses']}")
+
+    # a 14-day forecast from the first window, remapped back on the card
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    fc = est.forecast(train_store, init_indices=[d.input_time_steps - 1], steps=STEPS)
+    torch.cuda.synchronize()
+    out["forecast_ms"] = (time.perf_counter() - t) * 1e3
+    out["forecast_launches"] = kernels["cs_conv3x3"].launches
+    check(out["forecast_launches"] == PER_CALL["unet"]["cs_conv3x3"] * STEPS,
+          f"forecast launches {out['forecast_launches']}")
+    mean = torch.as_tensor(np.asarray(store.mean, np.float32), device="cuda")
+    std = torch.as_tensor(np.asarray(store.std, np.float32), device="cuda")
+    fields = (fc.fields * std + mean).movedim(-1, 2)  # (1, 56, C, 6, n, n)
+    check(bool(torch.isfinite(fields).all()), "forecast not finite")
+    t = time.perf_counter()
+    ll = remap_cs_to_ll(cs2ll, fields, h, w)
+    torch.cuda.synchronize()
+    out["remap_back_ms"] = (time.perf_counter() - t) * 1e3
+    check(ll.device.type == "cuda" and tuple(ll.shape) == (1, 2 * STEPS, 4, h, w),
+          f"remapped forecast {ll.device} {tuple(ll.shape)}")
+    host = fields.cpu().numpy().reshape(-1, 6 * n * n)
+    back = cs2ll.apply_numpy(host).reshape(ll.shape)
+    ll = ll.cpu().numpy()
+    out["remap_back_max_err_of_largest"] = {
+        name: float(np.abs(ll[:, :, ci] - back[:, :, ci]).max() / np.abs(back[:, :, ci]).max())
+        for ci, name in enumerate(store.variables)}
+    check(max(out["remap_back_max_err_of_largest"].values()) <= DATA_TOL,
+          f"forecast remap vs plain: {out['remap_back_max_err_of_largest']}")
+    if has_h5py:
+        train_store.close()
+    return out
+
+
 def exchange_ms(meshes):
     """Host ms per call, 20 calls after one warm-up, on this rank: one
     ``all_gather`` of a ghost-row strip (1, 6, 1, 48, 32) over the 4 bands,
@@ -2665,10 +2921,13 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    from dlwp_cs_tpu_torch.remap import build_csremap
+
     libraries = list({id(k.library): k.library for k in all_kernels().values()}.values())
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, at once
-        for fut in [pool.submit(lib.build) for lib in libraries]:
+    # one nvcc per source, and the remap weight generator, all at once
+    with ThreadPoolExecutor(len(libraries) + 1) as pool:
+        for fut in [pool.submit(lib.build) for lib in libraries] + [pool.submit(build_csremap)]:
             fut.result()
     build_s = time.perf_counter() - t
     regs = {lib.source.name: [ln.strip() for ln in lib.build_log.splitlines()
@@ -2936,6 +3195,32 @@ def main(argv=None) -> int:
         f"median (runs {['%.1f' % t for t in web['round_trip_ms']]})")
     print(recap[-1], flush=True)
 
+    # the data pipeline: weights built here, the Preprocessor's remap on the
+    # card, then training and a forecast from the store it built
+    with tempfile.TemporaryDirectory() as workdir:  # the weights and the store
+        t = time.perf_counter()
+        data = data_phase(workdir)
+        data["phase_seconds"] = time.perf_counter() - t
+    recap.append(
+        f"data: ERA5 {data['grid'][0]}x{data['grid'][1]} <-> C{data['n']} exact conservative "
+        f"weights ll2cs {data['ll2cs']['seconds']:.2f} s ({data['ll2cs']['nnz']} nonzeros, "
+        f"{data['ll2cs']['row_nnz_min_mean_max']} per row), cs2ll {data['cs2ll']['seconds']:.2f} s "
+        f"({data['cs2ll']['nnz']}); Preprocessor {data['fields_shape']} in "
+        f"{['%.2f' % v for v in data['preprocessor_seconds']]} s on the card, second run "
+        f"bitwise {data['second_run_bitwise_equal']}; vs plain (of each variable's largest) "
+        f"{max(data['max_err_of_largest'].values()):.3g}, mean {data['mean_rel_err']:.3g}, std "
+        f"{data['std_rel_err']:.3g} (rel); remap of a {DATA_BATCH}-time batch "
+        f"{data['remap_batch_ms']:.3f} ms on the card (bound {data['bound_ms']:.4f} ms, "
+        f"{data['bound_by']}), plain {data['plain_batch_ms']:.1f} ms on the host; store "
+        f"{data['store_branch']}; fit {DATA_TRAIN_STEPS} steps in {data['fit_seconds']:.2f} s, "
+        f"launches {data['train_launches']}, loss {data['losses'][0]:.4f} -> "
+        f"{data['losses'][-1]:.4f}; 14-day forecast {data['forecast_ms']:.1f} ms "
+        f"({data['forecast_launches']} launches of #1), remapped to {data['grid'][0]}x"
+        f"{data['grid'][1]} on the card in {data['remap_back_ms']:.1f} ms, vs plain "
+        f"{max(data['remap_back_max_err_of_largest'].values()):.3g}; phase "
+        f"{data['phase_seconds']:.1f} s")
+    print(recap[-1], flush=True)
+
     with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
         sharded, exchange, group_s, remote, front = sharded_phase(np.random.default_rng(2),
                                                                   workdir)
@@ -3162,6 +3447,7 @@ def main(argv=None) -> int:
                    "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
                    "export": exports, "http": web, "mesh_front_end": front, "mps": mps,
                    "mesh_train": mesh_train, "mesh_train_group_seconds": mesh_train_s,
+                   "data": data,
                    "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))

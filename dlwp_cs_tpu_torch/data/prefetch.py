@@ -146,10 +146,16 @@ class PrefetchIterator:
                 self._queue.get_nowait()
             except queue.Empty:
                 self._thread.join(timeout=0.05)
-        try:
-            self._queue.put_nowait(self._SENTINEL)
-        except queue.Full:
-            pass
+        # the worker is gone, but its last put may have landed after the
+        # last get above (and its sentinel then given up on the full
+        # queue): empty the queue, so that every next() after close finds
+        # the sentinel, never a stale batch, and never blocks
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._queue.put_nowait(self._SENTINEL)
 
     def __del__(self):  # noqa: D105 - best-effort release
         try:

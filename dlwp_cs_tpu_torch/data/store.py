@@ -3,16 +3,20 @@
 The counterpart of ``dlwp_cs_tpu.data.store``: the cubed-sphere layout
 ``(time, 6, n, n, C_var)`` channels-last, times as float64 days since
 2000-01-01, normalization stats beside the fields.  :class:`MemoryStore`
-holds it in RAM and is a copy of the reference's.  The HDF5 format
-(``H5Store``, ``open_store``, ``write_store``) needs ``h5py``, which the
-GPU machine does not provide; it raises ``NotImplementedError`` until it is
-ported (``ROADMAP.md`` queue 1, item 11).
+holds it in RAM; :func:`write_store` writes it to HDF5, chunked one time
+sample per chunk, and :class:`H5Store` (:func:`open_store`) reads it back
+lazily, in the reference's file layout, so either package reads the
+other's files.  HDF5 needs ``h5py``, imported when a file is touched; the
+GPU machine has none, and there these raise an ``ImportError`` that says
+so (:func:`import_h5py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 
@@ -25,7 +29,17 @@ __all__ = [
     "write_store",
 ]
 
-_H5_TODO = "HDF5 stores are not ported yet: ROADMAP.md queue 1, item 11 (H5Store)"
+
+def import_h5py(what: str = "HDF5 stores"):
+    """``h5py``, or an ``ImportError`` naming it and what needs it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{what} need h5py, which is not installed here; without it, "
+            "build and train from a MemoryStore (or the tensorstore cache)"
+        ) from e
+    return h5py
 
 
 @dataclass
@@ -161,20 +175,76 @@ def normalize_store(store: MemoryStore) -> MemoryStore:
     )
 
 
-def write_store(path, store: MemoryStore):
-    """Write a store to HDF5 (not ported)."""
-    raise NotImplementedError(_H5_TODO)
+def write_store(path, store: MemoryStore) -> Path:
+    """Write a MemoryStore to HDF5."""
+    h5py = import_h5py()
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset(
+            "fields",
+            data=store.fields,
+            chunks=(1,) + store.fields.shape[1:],
+            compression=None,
+        )
+        f.create_dataset("times", data=store.times)
+        f.create_dataset("mean", data=store.mean)
+        f.create_dataset("std", data=store.std)
+        f.attrs["variables"] = json.dumps(list(store.variables))
+        f.attrs["attrs"] = json.dumps(store.attrs)
+        if store.constants is not None:
+            f.create_dataset("constants", data=store.constants)
+            f.attrs["constant_names"] = json.dumps(list(store.constant_names))
+    return path
 
 
 class H5Store:
-    """Lazy HDF5-backed store (not ported)."""
+    """Lazy HDF5-backed store with the MemoryStore interface.
+
+    ``fields`` is the live h5py dataset (sliceable without loading);
+    everything small is read eagerly.
+    """
 
     def __init__(self, path):
-        raise NotImplementedError(_H5_TODO)
+        h5py = import_h5py()
+        self.path = Path(path)
+        self._f = h5py.File(self.path, "r")
+        self.fields = self._f["fields"]
+        self.times = np.asarray(self._f["times"])
+        self.mean = np.asarray(self._f["mean"])
+        self.std = np.asarray(self._f["std"])
+        self.variables = tuple(json.loads(self._f.attrs["variables"]))
+        self.attrs = json.loads(self._f.attrs.get("attrs", "{}"))
+        if "constants" in self._f:
+            self.constants = np.asarray(self._f["constants"])
+            self.constant_names = tuple(json.loads(self._f.attrs["constant_names"]))
+        else:
+            self.constants = None
+            self.constant_names = ()
+
+    @property
+    def grid_n(self) -> int:
+        return self.fields.shape[2]
+
+    def load(self) -> MemoryStore:
+        """Read fully into RAM."""
+        return MemoryStore(
+            fields=np.asarray(self.fields),
+            times=self.times,
+            variables=self.variables,
+            mean=self.mean,
+            std=self.std,
+            constants=self.constants,
+            constant_names=self.constant_names,
+            attrs=self.attrs,
+        )
+
+    def close(self):
+        self._f.close()
 
 
-def open_store(path):
-    raise NotImplementedError(_H5_TODO)
+def open_store(path) -> H5Store:
+    return H5Store(path)
 
 
 def select_constants(store, names):

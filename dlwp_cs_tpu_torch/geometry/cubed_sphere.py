@@ -2,8 +2,9 @@
 
 A copy of the numpy-only part of ``dlwp_cs_tpu.geometry.cubed_sphere``
 that the port needs: the edge identifiers, the numerically derived
-neighbor table and the :class:`CubedSphere` cell centers, areas and area
-weights.  The port keeps
+neighbor table, the :class:`CubedSphere` cell centers, areas and area
+weights, and the chart inverses (:func:`xyz_to_face_angles`) that the
+remap weights use.  The port keeps
 its own copy because importing anything of ``dlwp_cs_tpu`` pulls in JAX;
 ``tests/test_torch_geometry.py`` holds the two copies equal.
 
@@ -33,6 +34,8 @@ __all__ = [
     "verify_edge_table",
     "CubedSphere",
     "face_xyz",
+    "xyz_to_face",
+    "xyz_to_face_angles",
 ]
 
 # S/N are constant-row edges (i = 0 / i = n-1); W/E constant-column edges.
@@ -71,6 +74,59 @@ def face_xyz(face: int, xi, eta):
     else:
         raise ValueError(f"face must be in 0..5, got {face}")
     return np.stack(np.broadcast_arrays(*v), axis=-1)
+
+
+# Outward unit normals of the 6 face centers, in face order.
+_FACE_NORMALS = np.array(
+    [
+        [1.0, 0.0, 0.0],
+        [0.0, 1.0, 0.0],
+        [-1.0, 0.0, 0.0],
+        [0.0, -1.0, 0.0],
+        [0.0, 0.0, 1.0],
+        [0.0, 0.0, -1.0],
+    ]
+)
+
+
+def xyz_to_face(p: np.ndarray) -> np.ndarray:
+    """Containing face index for 3D point(s) ``p`` (trailing axis 3); a point
+    on an edge or a corner goes to the lowest face index (``argmax``)."""
+    p = np.asarray(p, dtype=np.float64)
+    return np.argmax(p @ _FACE_NORMALS.T, axis=-1)
+
+
+def _face_local_exact(face: int, p: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Exact chart inverses ``(xi, eta)``, read off the :func:`face_xyz` table."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    if face == 0:  # P = r*(1, xi, eta)
+        return y / x, z / x
+    if face == 1:  # P = r*(-xi, 1, eta)
+        return -x / y, z / y
+    if face == 2:  # P = r*(-1, -xi, eta)
+        return y / x, -z / x
+    if face == 3:  # P = r*(xi, -1, eta)
+        return -x / y, -z / y
+    if face == 4:  # P = r*(-eta, xi, 1)
+        return y / z, -x / z
+    if face == 5:  # P = r*(eta, xi, -1)
+        return -y / z, -x / z
+    raise ValueError(f"face must be in 0..5, got {face}")
+
+
+def xyz_to_face_angles(p: np.ndarray):
+    """``(face, a, b)`` equiangular coordinates of 3D point(s) ``p``;
+    vectorized, with :func:`xyz_to_face`'s lowest-face tie-break."""
+    p = np.asarray(p, dtype=np.float64)
+    face = xyz_to_face(p)
+    xi = np.empty(face.shape)
+    eta = np.empty(face.shape)
+    for f in range(6):
+        m = face == f
+        if not np.any(m):
+            continue
+        xi[m], eta[m] = _face_local_exact(f, p[m])
+    return face, np.arctan(xi), np.arctan(eta)
 
 
 @dataclass(frozen=True)

@@ -129,9 +129,12 @@ def export_forecaster(
     )
     target = Path(path)
     target.mkdir(parents=True, exist_ok=True)
-    # Stage every program under a tmp name first; the pre-existing artifact
-    # (old programs + meta.json) is replaced only after ALL exports succeed,
-    # so a failure over a live artifact directory leaves it servable.
+    # Stage every program under a tmp name first, then publish so that a
+    # failure or a crash at any point leaves a meta.json whose programs all
+    # exist: the programs are renamed into place first, then stats.npz and
+    # meta.json are each written to a tmp name and renamed over the old one,
+    # meta.json last, and only then are the programs of buckets the new
+    # meta.json does not name deleted.
     staged: dict[str, Path] = {}
     try:
         for b in batch_sizes:
@@ -146,34 +149,39 @@ def export_forecaster(
                 step(window, t)
                 program = torch.export.export(step, (window, t), strict=False)
             torch.export.save(program, tmp)
-    except BaseException:
+        programs = set(staged)
+        for name in sorted(programs):
+            staged[name].replace(target / name)
+        meta = {
+            "format": _FORMAT,
+            # the longest product, as the reference's primary value; the full
+            # set lives in steps_values
+            "steps": steps_values[-1],
+            "steps_values": steps_values,
+            "batch_sizes": batch_sizes,
+            "window_shape": [t_in, 6, n, n, c_var],
+            "variables": list(dcfg.variables),
+            "platforms": [dev.type],
+            # temporal contract: clients sample the input window at this spacing
+            "step_hours": dcfg.step_hours,
+            "output_time_steps": dcfg.output_time_steps,
+        }
+        staged["stats.npz"] = target / ".stats.tmp.npz"
+        np.savez(
+            staged["stats.npz"],
+            mean=np.asarray(stats["mean"], np.float32),
+            std=np.asarray(stats["std"], np.float32),
+        )
+        staged["stats.npz"].replace(target / "stats.npz")
+        staged["meta.json"] = target / ".meta.tmp.json"
+        staged["meta.json"].write_text(json.dumps(meta, indent=1))
+        staged["meta.json"].replace(target / "meta.json")
+    finally:
         for tmp in staged.values():
             tmp.unlink(missing_ok=True)
-        raise
     for old in target.glob("step_b*.pt2"):
-        old.unlink()
-    for name, tmp in staged.items():
-        tmp.replace(target / name)
-    meta = {
-        "format": _FORMAT,
-        # the longest product, as the reference's primary value; the full
-        # set lives in steps_values
-        "steps": steps_values[-1],
-        "steps_values": steps_values,
-        "batch_sizes": batch_sizes,
-        "window_shape": [t_in, 6, n, n, c_var],
-        "variables": list(dcfg.variables),
-        "platforms": [dev.type],
-        # temporal contract: clients sample the input window at this spacing
-        "step_hours": dcfg.step_hours,
-        "output_time_steps": dcfg.output_time_steps,
-    }
-    (target / "meta.json").write_text(json.dumps(meta, indent=1))
-    np.savez(
-        target / "stats.npz",
-        mean=np.asarray(stats["mean"], np.float32),
-        std=np.asarray(stats["std"], np.float32),
-    )
+        if old.name not in programs:
+            old.unlink()
     return target
 
 

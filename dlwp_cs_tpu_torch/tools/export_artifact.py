@@ -11,8 +11,8 @@ rollout step per batch bucket) without retraining or a running service.
 Several ``--steps`` values share one artifact; the serving layer checks each
 request's value against them.  The programs run on the device they were
 exported on: the GPU unless ``--device`` names another.  A model with
-constant channels takes them from ``--constants-store``, an HDF5 store,
-which is not ported yet (it raises).
+constant channels takes them from ``--constants-store``, an HDF5 store
+(:func:`~dlwp_cs_tpu_torch.data.store.open_store`, which needs h5py).
 """
 
 from __future__ import annotations

@@ -1382,3 +1382,57 @@ def test_mesh_train_steps_of_ranks_sharing_the_card(cuda_device, tmp_path):
                     err = float((g - g_ref).abs().max() / g_ref.abs().max())
                     assert err <= tol, (name, dtype, k, err)
                     assert torch.equal(params[k], results[0][name, dtype][0][k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bilinear", "conservative"])
+def test_apply_remap_on_card(cuda_device, tmp_path, kind):
+    """``apply_remap`` on a CUDA tensor computes on the card: float32 within
+    1e-5 of the largest |x| of ``RemapWeights.apply_numpy`` (float32 sums in
+    another order), bitwise repeatable; an integer field promoted to
+    float32 likewise; bfloat16 within 2**-6 of the largest |x| of the plain
+    version on the bfloat16-rounded inputs and weights (bfloat16 roundings
+    of partial sums); a NaN source column poisons exactly the rows that use
+    it."""
+    from dlwp_cs_tpu_torch.geometry import CubedSphere
+    from dlwp_cs_tpu_torch.remap import (
+        RemapWeights,
+        apply_remap,
+        conservative_weights,
+        latlon_grid,
+        ll_to_cs_weights,
+    )
+
+    if kind == "bilinear":
+        w = ll_to_cs_weights(*latlon_grid(46, 90), CubedSphere(24))
+    else:
+        w = conservative_weights("ll2cs", n_lat=91, n_lon=180, n_cs=24, lat_centered=False,
+                                 cache_dir=tmp_path)
+    rng = np.random.default_rng(12)
+    x = (rng.normal(size=(3, 5, w.shape[1])) * 100.0).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    out = apply_remap(w, xd)
+    assert out.device.type == "cuda" and out.dtype == torch.float32
+    scale = float(np.abs(x).max())
+    np.testing.assert_allclose(out.cpu().numpy(), w.apply_numpy(x), rtol=0, atol=1e-5 * scale)
+    assert torch.equal(apply_remap(w, xd), out)
+    ints = np.round(x).astype(np.int32)
+    got = apply_remap(w, torch.from_numpy(ints).to(cuda_device))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), w.apply_numpy(ints.astype(np.float32)),
+                               rtol=0, atol=1e-5 * scale)
+    xb = xd.bfloat16()
+    wb = RemapWeights(w.rows, w.cols, torch.from_numpy(w.vals).bfloat16().float().numpy(),
+                      w.shape)
+    gotb = apply_remap(w, xb)
+    assert gotb.dtype == torch.bfloat16
+    np.testing.assert_allclose(gotb.float().cpu().numpy(), wb.apply_numpy(xb.float().cpu().numpy()),
+                               rtol=0, atol=2.0**-6 * scale)
+    col = int(w.cols[len(w.cols) // 3])
+    x[1, 2, col] = np.nan
+    nan_out = apply_remap(w, torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    users = np.zeros(w.shape[0], bool)
+    users[w.rows[w.cols == col]] = True
+    assert users.any() and not users.all()
+    np.testing.assert_array_equal(np.isnan(nan_out[1, 2]), users)
+    assert np.isnan(nan_out).sum() == users.sum()

@@ -22,6 +22,7 @@ reference is StableHLO, which a PyTorch artifact is not (``ROADMAP.md``'s
 recorded divergences).
 """
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -309,6 +310,41 @@ def test_failed_reexport_preserves_old_artifact(served, artifact, tmp_path, monk
     assert np.isfinite(fc.fields).all()
 
 
+def test_republish_failing_at_a_rename_leaves_the_old_artifact_servable(
+        served, artifact, tmp_path, monkeypatch):
+    """A republish that fails at its second ``Path.replace`` (after the first
+    new program was renamed into place) leaves the old artifact loading and
+    forecasting as before, and its meta.json names no missing program: the
+    programs are renamed first, stats.npz and meta.json after them, and the
+    old buckets' programs are deleted last."""
+    import pathlib
+
+    _, est, const, windows, t0 = served
+    target = tmp_path / "live"
+    shutil.copytree(artifact, target)
+    before = ExportedForecaster.load(target, device="cpu").forecast(windows[0], t0[0])
+    real_replace = pathlib.Path.replace
+    calls = []
+
+    def failing_replace(self, dst):
+        calls.append(Path(dst).name)
+        if len(calls) == 2:
+            raise OSError("simulated crash at the second rename")
+        return real_replace(self, dst)
+
+    monkeypatch.setattr(pathlib.Path, "replace", failing_replace)
+    with pytest.raises(OSError, match="simulated"):
+        export_forecaster(est, target, steps=STEPS, batch_sizes=(1, 2), constants=const)
+    monkeypatch.undo()
+    assert calls == ["step_b1.pt2", "step_b2.pt2"]
+    meta = json.loads((target / "meta.json").read_text())
+    assert meta["batch_sizes"] == [1, 4]
+    assert all((target / f"step_b{b}.pt2").exists() for b in meta["batch_sizes"])
+    assert not list(target.glob(".*"))
+    after = ExportedForecaster.load(target, device="cpu").forecast(windows[0], t0[0])
+    np.testing.assert_array_equal(after.fields, before.fields)
+
+
 def test_empty_steps_and_platforms_rejected(served, tmp_path):
     _, est, const, _, _ = served
     with pytest.raises(ValueError, match="at least one"):
@@ -386,7 +422,8 @@ def test_convlstm_artifact_matches_live_service(tmp_path):
 
 def test_export_tool_writes_an_artifact(served, tmp_path, capsys):
     """``python -m dlwp_cs_tpu_torch.tools.export_artifact`` on a checkpoint
-    of a model without constants; ``--constants-store`` raises (item 11)."""
+    of a model without constants, then on one of a model with a constant
+    channel taken from ``--constants-store``, an HDF5 store."""
     from dlwp_cs_tpu_torch.tools import export_artifact
 
     cfg = ExperimentConfig(data=DataConfig(grid_n=N, variables=("z500", "t2m"), constants=()),
@@ -403,8 +440,21 @@ def test_export_tool_writes_an_artifact(served, tmp_path, capsys):
     w = (rng.normal(size=(2, 6, N, N, 2)) * 10 + 100).astype(np.float32)
     np.testing.assert_array_equal(exp.forecast(w, 10.0, steps=2).fields,
                                   ForecastService(est).forecast(w, 10.0, steps=2).fields)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export_artifact.main(argv + ["--constants-store", str(tmp_path / "s.h5")])
+    from dlwp_cs_tpu_torch.data import MemoryStore, write_store
+
+    const = rng.normal(size=(6, N, N, 1)).astype(np.float32)
+    write_store(tmp_path / "s.h5", MemoryStore.from_raw(
+        np.zeros((3, 6, N, N, 2), np.float32), [0.0, 0.25, 0.5], ("z500", "t2m"),
+        constants=const, constant_names=("topography",)))
+    cfg = dataclasses.replace(cfg, data=DataConfig(**DATA))
+    est = DLWPEstimator(cfg, device="cpu", seed=1).load_state(STATS)
+    est.save(tmp_path / "ckpt_c")
+    argv = ["--checkpoint", str(tmp_path / "ckpt_c"), "--out", str(tmp_path / "art_c"),
+            "--steps", "2", "--device", "cpu", "--constants-store", str(tmp_path / "s.h5")]
+    assert export_artifact.main(argv) == 0
+    np.testing.assert_array_equal(
+        ExportedForecaster(tmp_path / "art_c", device="cpu").forecast(w, 10.0).fields,
+        ForecastService(est, constants=const).forecast(w, 10.0, steps=2).fields)
 
 
 # ---- ops/library.py --------------------------------------------------------

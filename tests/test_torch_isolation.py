@@ -41,7 +41,9 @@ def test_importing_every_module_loads_no_jax():
               "rollout.ensemble", "utils.misc", "verify", "verify.alignment",
               "verify.ensemble", "verify.metrics", "verify.oracle", "verify.relabel",
               "ops.library", "serve.export", "serve.http", "tools.export_artifact",
-              "parallel.scaling", "train.sequence"):
+              "parallel.scaling", "train.sequence", "remap", "remap.apply",
+              "remap.native", "remap.weights", "data.era5", "data.cfsr", "data.grib2",
+              "data.tscache", "data.preprocessing"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
     assert len(mods) >= 51
     code = (
@@ -102,6 +104,15 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         create_mesh(data=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         global_mesh()
+    import numpy as np
+
+    from dlwp_cs_tpu_torch.data import Preprocessor
+
+    pre = Preprocessor({"z500": np.zeros((2, 4, 8))}, np.linspace(-1.5, 1.5, 4),
+                       np.arange(8) * np.pi / 4, [0.0, 0.25])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pre.data_to_series(4)
+    assert pre.data_to_series(4, device="cpu").fields.shape == (2, 6, 4, 4, 1)
     est = DLWPEstimator(cfg, device="cpu")  # an explicit device is honoured
     assert est.device.type == "cpu"
     assert dlwp_cs_tpu_torch.DLWPEstimator is DLWPEstimator

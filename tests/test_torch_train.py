@@ -313,6 +313,49 @@ def test_prefetch_on_cpu_keeps_order_and_raises_errors():
     assert [tuple(a.shape) for a, _ in it] == [(1, 3)] * 5
 
 
+def test_prefetch_close_leaves_no_stale_batch(monkeypatch):
+    """``next()`` after ``close()`` neither returns a batch nor blocks, even
+    where the worker's last put lands after close's last drain: a queue
+    whose empty ``get_nowait`` stalls 0.25 s (a closing thread descheduled
+    there) lets the blocked put of the next batch complete in that window,
+    and the worker's sentinel then gives up on the full queue."""
+    import queue
+    import threading
+    import time
+
+    from dlwp_cs_tpu_torch.data import prefetch as prefetch_mod
+
+    class StallingQueue(queue.Queue):
+        def get_nowait(self):
+            with self.mutex:
+                empty = not self._qsize()
+            if empty:
+                time.sleep(0.25)
+                raise queue.Empty
+            return super().get_nowait()
+
+    monkeypatch.setattr(prefetch_mod.queue, "Queue", StallingQueue)
+    batches = ((np.full((2, 3), i, np.float32),) for i in range(100))
+    it = prefetch_to_device(batches, device="cpu", depth=1)
+    time.sleep(0.2)  # the worker filled the queue and blocks on its next put
+    it.close()
+    assert not it._thread.is_alive()
+    outcomes = []
+
+    def consume():
+        for _ in range(2):
+            try:
+                outcomes.append(next(it))
+            except StopIteration:
+                outcomes.append("stop")
+
+    reader = threading.Thread(target=consume, daemon=True)
+    reader.start()
+    reader.join(timeout=5.0)
+    assert not reader.is_alive(), f"next() after close() blocked after {outcomes}"
+    assert outcomes == ["stop", "stop"]
+
+
 def test_prefetch_copies_this_ranks_block():
     """``prefetch_to_device(sharding=mesh)``: the batch axis over ``data``
     and, with ``spatial``, the face rows and columns of every ``(B, 6, n,
