@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels, run its kernel tools, serve and
 train the flagship U-Net and the ConvLSTM on one GPU, build a predictor
-store from lat-lon fields on it and train from that store, serve ensembles of
+store from lat-lon fields on it and train from that store, serve the U-Net
+quantized to int8, run the lat-lon models and the registry, serve ensembles of
 the U-Net, exported artifacts as CUDA-graph replays and the HTTP front end,
 serve the U-Net spatially sharded over 4 ranks that share the GPU,
 through gloo and through CUDA IPC, with a rank-0 front end, and train it
@@ -17,7 +18,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    source, all at once: the fused cubed-sphere conv, its backward (the dx
    and dw kernels), the xring conv's ring-fix kernels (the fixes and the
    fused select + apply), the band-row exchange and the band conv fused
-   with it, the conv on the tensor cores (kn2row, im2col) and the probes;
+   with it, the conv on the tensor cores (kn2row, im2col), the probes and
+   the int8 base conv;
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
    many row tiles), at batch 1, 8 and 16, in float32 (3xTF32) and bfloat16,
    both on the tensor cores: hold the forward kernel against its plain torch
@@ -150,6 +152,23 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    from the store's head (#1, #4, #5 counted); a 14-day forecast from its
    first window (280 launches of #1) remapped back to 181 x 360 on the card
    (``remap_cs_to_ll``) and held against the plain version;
+8d. quantized serving (``ops/quant.py``): the int8 base conv
+   (``csrc/cs_conv3x3_int8.cu``) at each flagship conv shape, batch 1 and
+   8, bf16 and f32 out, bitwise against its plain version, timed beside
+   it, ``torch._int_mm`` on the gathered columns (the gather apart) and #1;
+   ``ForecastService(quantize=True)`` of the flagship U-Net, bf16 and f32:
+   14-day forecasts and 8-member ensembles (280 launches of the int8
+   kernel each, no #1 and no cuDNN convolution), two forecasts bitwise
+   equal, the first two calls bitwise equal to the plain version's, the
+   error against the live service in std units, walls in turns with it
+   and one profiled forecast; the int8 ConvLSTM (bf16, 112 launches)
+   beside the ``xring`` one of the same weights;
+8e. the lat-lon models and the registry: ``LatLonUNet(UNetConfig())`` on
+   a 96 x 192 grid (a forward at batch 1, an Adam step at batch 2), the
+   lat-lon ConvLSTM layer over 4 steps and the reference registry's
+   docstring spec at C48 (#1 in the forward, #1 and #5 in a train step),
+   bf16 and f32, each timed and held against its CPU run of the same
+   weights (f32 1e-4, bf16 2**-6 of the largest output);
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -261,8 +280,8 @@ TRAIN_STEPS = 20
 # (the conv and dx kernels on the tensor cores in both dtypes, the dw kernel
 # there in bfloat16 (cs_conv3x3_dw_tc_kernel) and as 3xTF32 in float32
 # (cs_conv3x3_dw_tf32_kernel), the ring blocks of the fixes and the fused
-# apply on them (cs_ring_fixes_tc_kernel, cs_xring_tc_kernel);
-# cs_conv3x3_kernel, cs_conv3x3_dx_kernel, cs_conv3x3_dw_kernel,
+# apply on them (cs_ring_fixes_tc_kernel, cs_xring_tc_kernel), the int8
+# base conv of the quantized path (cs_conv3x3_int8_kernel); cs_conv3x3_kernel, cs_conv3x3_dx_kernel, cs_conv3x3_dw_kernel,
 # cs_ring_fixes_kernel and cs_xring_apply_kernel are the CUDA-core timing
 # rows, which no path runs).  The profiler's names hold the template
 # arguments, so each is matched as a substring: none of these is a
@@ -270,7 +289,7 @@ TRAIN_STEPS = 20
 KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kernel",
                 "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_kernel", "cs_conv3x3_dw_tc_kernel",
                 "cs_conv3x3_dw_tf32_kernel", "cs_ring_fixes_kernel", "cs_xring_apply_kernel",
-                "cs_ring_fixes_tc_kernel", "cs_xring_tc_kernel")
+                "cs_ring_fixes_tc_kernel", "cs_xring_tc_kernel", "cs_conv3x3_int8_kernel")
 # the CUDA-core timing rows of the backward and of the ring, which no path runs
 CUDA_CORE_BACKWARD = ("cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
 CUDA_CORE_RING = ("cs_ring_fixes_kernel", "cs_xring_apply_kernel")
@@ -1314,23 +1333,29 @@ def f64_gradients(cfg, model, trainer, params, xb, yb, grads, plain):
 def plain_convs():
     """Route the models' 3x3 convs through the kernels' plain versions: the
     fused conv (differentiable by autograd, so the U-Net's backward is plain
-    too) and the xring conv's fused ring kernel (its backward is torch)."""
+    too), the xring conv's fused ring kernel (its backward is torch) and the
+    int8 base conv."""
     from dlwp_cs_tpu_torch.ops import conv as conv_mod
+    from dlwp_cs_tpu_torch.ops import quant as quant_mod
     from dlwp_cs_tpu_torch.ops import ring_kernel as ring_mod
     from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain
 
-    saved = conv_mod.cs_conv3x3_fused, ring_mod.xring_fused_apply
+    saved = (conv_mod.cs_conv3x3_fused, ring_mod.xring_fused_apply,
+             quant_mod.cs_conv3x3_int8_base)
     conv_mod.cs_conv3x3_fused = cs_conv3x3_plain
     ring_mod.xring_fused_apply = ring_mod.xring_fused_apply_plain
+    quant_mod.cs_conv3x3_int8_base = quant_mod.cs_conv3x3_int8_plain
     try:
         yield
     finally:
-        conv_mod.cs_conv3x3_fused, ring_mod.xring_fused_apply = saved
+        (conv_mod.cs_conv3x3_fused, ring_mod.xring_fused_apply,
+         quant_mod.cs_conv3x3_int8_base) = saved
 
 
 def all_kernels():
     """Every kernel wrapper, by name: the nine of the serving, training and
-    sharded paths, then the kernel tools' (``TOOL_KERNELS``)."""
+    sharded paths, the int8 base conv of the quantized path, then the kernel
+    tools' (``TOOL_KERNELS``)."""
     from dlwp_cs_tpu_torch.ops import conv_variants
     from dlwp_cs_tpu_torch.ops.hopper_conv import (
         cs_conv3x3,
@@ -1339,6 +1364,7 @@ def all_kernels():
         cs_conv3x3_dx,
         cs_conv3x3_tile,
     )
+    from dlwp_cs_tpu_torch.ops.quant import cs_conv3x3_int8_base
     from dlwp_cs_tpu_torch.ops.ring_kernel import ring_fixes, xring_fused_apply
     from dlwp_cs_tpu_torch.parallel.overlap_band import band_conv3x3_overlap
     from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_rdma
@@ -1348,7 +1374,8 @@ def all_kernels():
              for name in TOOL_KERNELS]
     return {k.name: k for k in (cs_conv3x3, cs_conv3x3_dx, cs_conv3x3_dw, ring_fixes,
                                 xring_fused_apply, cs_conv3x3_band, cs_conv3x3_tile,
-                                band_exchange_rdma, band_conv3x3_overlap, *tools)}
+                                band_exchange_rdma, band_conv3x3_overlap,
+                                cs_conv3x3_int8_base, *tools)}
 
 
 def model_config(kind, dtype_name):
@@ -2900,6 +2927,330 @@ def mesh_train_phase(workdir):
     return paths, group_s
 
 
+# the quantized serving phase (ops/quant.py): the int8 base conv at each
+# flagship conv shape, then the flagship U-Net and the ConvLSTM served in int8
+QUANT_BATCHES = (1, ENS_MEMBERS)
+
+
+def int8_conv_case(n, cin, cout, b, dtype, gen):
+    """The int8 base conv at one shape, bitwise against its plain version on
+    the card; its time (CUDA-graph replays) beside the plain version's, that
+    of ``torch._int_mm`` on the gathered columns (the gather timed apart)
+    and #1's on the same shape in ``dtype``."""
+    from dlwp_cs_tpu_torch.ops.halo import ext_strips
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3
+    from dlwp_cs_tpu_torch.ops.quant import (
+        cs_conv3x3_int8_base,
+        cs_conv3x3_int8_plain,
+        quantize_kernel,
+        quantize_tensor,
+    )
+    from dlwp_cs_tpu_torch.tools.timing import bound, graph_ms
+
+    dev = torch.device("cuda")
+    x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
+    ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (9 * cin) ** -0.5)
+          .to(dtype) for _ in range(2)]
+    qx, sx = quantize_tensor(x)
+    (qke, ske), (qkp, skp) = quantize_kernel(ks[0]), quantize_kernel(ks[1])
+    args = (qx, torch.stack([qke, qkp]), torch.stack([sx * ske, sx * skp]), dtype)
+    ours = cs_conv3x3_int8_base(*args)
+    ref = cs_conv3x3_int8_plain(*args)
+    torch.cuda.synchronize()
+    # the library's int8 product: every face's 3x3 windows gathered into
+    # columns (K = 9 Cin, padded to a multiple of 8) against both groups'
+    # kernels side by side (N = 2 Cout, padded likewise), the reference's
+    # two full-face convs as one s8 x s8 -> s32 matrix product
+    k8, n8 = -(-9 * cin // 8) * 8, -(-2 * cout // 8) * 8
+    qxp = F.pad(qx, (0, 0, 1, 1, 1, 1))
+
+    def gather():
+        cols = torch.cat([qxp[:, :, dy:dy + n, dx:dx + n] for dy in range(3) for dx in range(3)],
+                         dim=-1)
+        return F.pad(cols.reshape(-1, 9 * cin), (0, k8 - 9 * cin))
+
+    cols = gather()
+    w = F.pad(torch.cat([qke.reshape(9 * cin, cout), qkp.reshape(9 * cin, cout)], dim=1),
+              (0, n8 - 2 * cout, 0, k8 - 9 * cin))
+    sums = torch._int_mm(cols, w).reshape(b, 6, n, n, n8)
+    lib = torch.cat([(sums[:, :4, ..., :cout].float() * args[2][0]).to(dtype),
+                     (sums[:, 4:, ..., cout:2 * cout].float() * args[2][1]).to(dtype)], dim=1)
+    kernel = cs_conv3x3_int8_base
+    before = kernel.launches
+    ms = graph_ms(lambda: kernel(*args), 20)
+    kernel.launches = before  # timing launches are not the main path's
+    plain_ms = graph_ms(lambda: cs_conv3x3_int8_plain(*args), 3)
+    gather_ms = graph_ms(gather, 20)
+    library_ms = graph_ms(lambda: torch._int_mm(cols, w), 20)
+    ext, zero = ext_strips(x), torch.zeros(cout, dtype=dtype, device=dev)
+    before = cs_conv3x3.launches
+    conv_ms = graph_ms(lambda: cs_conv3x3(x, ext, *ks, zero, zero), 20)
+    cs_conv3x3.launches = before
+    nbytes = (qx.numel() + args[1].numel() + 4 * args[2].numel()
+              + ours.numel() * ours.element_size())
+    ops = 2 * b * 6 * n * n * 9 * cin * cout  # the selected group only
+    return {
+        "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": str(dtype).split(".")[-1],
+        "bitwise_equal": bool(torch.equal(ours, ref)),
+        "max_abs_err": float((ours.float() - ref.float()).abs().max()),
+        "library_bitwise_equal": bool(torch.equal(lib, ref)), "ok": bool(torch.equal(ours, ref)),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "gather_ms": gather_ms,
+        "conv_kernel_ms": conv_ms, **bound(nbytes, ops, torch.int8),
+    }
+
+
+def device_kernel_keys(fn):
+    """The names of the device kernels that one run of ``fn`` launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+
+
+def quant_phase(dtype_name, rng):
+    """``ForecastService(quantize=True)``: 14-day forecasts and an 8-member
+    ensemble of the flagship U-Net, beside the live service of the same
+    estimator, through the port's entry points."""
+    from dlwp_cs_tpu_torch import ForecastService
+
+    kernels = all_kernels()
+    est = flagship_estimator(dtype_name)
+    mean, std = est.stats["mean"], est.stats["std"]
+    const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
+    window = (rng.normal(size=(2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
+    t0 = 9668.5
+    live = ForecastService(est, constants=const)
+    svc = ForecastService(est, constants=const, quantize=True)
+    check(svc.quantized and svc.info()["quantized"] and not live.quantized, "quantized flags")
+
+    def forecast(s):
+        return s.forecast(window, t0, steps=STEPS).fields
+
+    def ensemble(s):
+        return s.forecast_ensemble(window, t0, steps=STEPS, members=ENS_MEMBERS,
+                                   amplitude=0.05, generator=torch.Generator().manual_seed(0))
+
+    for s in (svc, live):  # warm-up
+        forecast(s)
+        ensemble(s)
+    launches = {}
+    for what, fn in (("forecast", forecast), ("ensemble", ensemble)):
+        for k in kernels.values():
+            k.launches = 0
+        fn(svc)
+        launches[what] = {name: k.launches for name, k in kernels.items()}
+        want = want_launches({"cs_conv3x3_int8_base": 10}, STEPS)
+        check(launches[what] == want, f"quantized {what} launches {launches[what]}, want {want}")
+    fc_q, again, fc = forecast(svc), forecast(svc), forecast(live)
+    check(fc_q.shape == (1, 2 * STEPS, 6, 48, 48, 4) and bool(np.isfinite(fc_q).all()),
+          f"quantized forecast {fc_q.shape}, finite {np.isfinite(fc_q).all()}")
+    repeat = bool(np.array_equal(fc_q, again))
+    check(repeat, "two quantized forecasts differ")
+    err = np.abs(fc_q - fc) / std
+    ens_q, ens = ensemble(svc), ensemble(live)
+    check(bool(np.isfinite(ens_q.mean).all()), "non-finite quantized ensemble")
+    ens_err = np.abs(ens_q.mean - ens.mean) / std
+    # wall times in turns: live, quantized, quantized, live
+    walls = {"forecast": {"live": [], "quantized": []}, "ensemble": {"live": [], "quantized": []}}
+    for what, fn in (("forecast", forecast), ("ensemble", ensemble)):
+        for name, s in (("live", live), ("quantized", svc), ("quantized", svc), ("live", live)):
+            t = time.perf_counter()
+            fn(s)
+            walls[what][name].append((time.perf_counter() - t) * 1e3)
+    profiled_run_ms(lambda: svc.forecast(window, t0, steps=2))  # tracer warm-up
+    prof_ms, busy_ms, kernel_ms, n_kernels = profiled_run_ms(lambda: forecast(svc))
+    idle = None if busy_ms is None else 1.0 - busy_ms / prof_ms
+    if kernel_ms is not None:
+        check(kernel_ms["cs_conv3x3_int8_kernel"] > 0 and not kernel_ms["cs_conv3x3_tc_kernel"],
+              f"the quantized forecast's conv kernels (ms): {kernel_ms}")
+    # no 3x3 conv through cuDNN or #1: no device kernel of a convolution but ours
+    keys = device_kernel_keys(lambda: svc.forecast(window, t0, steps=2))
+    convs = [k for k in keys if any(s in k.lower() for s in ("conv", "cudnn", "fprop"))
+             and "cs_conv3x3_int8_kernel" not in k]
+    check(not convs, f"the quantized forecast ran other conv kernels: {convs}")
+    # the first two calls against the quantized model on the plain version
+    normed = (window[None] - mean) / std
+    two = svc.forecast(normed, t0, steps=2, normalized=True).fields
+    with plain_convs():
+        two_plain = svc.forecast(normed, t0, steps=2, normalized=True).fields
+    plain_equal = bool(np.array_equal(two, two_plain))
+    check(plain_equal, "the first two quantized calls differ from the plain version's: "
+          f"{float(np.abs(two - two_plain).max())}")
+    svc.close()
+    live.close()
+    return {
+        "dtype": dtype_name, "launches": launches, "bitwise_repeatable": repeat,
+        "first_two_calls_bitwise_equal_to_plain": plain_equal,
+        "vs_live_max_err_in_std": float(err.max()),
+        "vs_live_rms_err_in_std_per_variable": [float(v) for v in
+                                                np.sqrt((err ** 2).mean(axis=(0, 1, 2, 3, 4)))],
+        "vs_live_max_err_in_std_first_call": float(err[:, :2].max()),
+        "ensemble_mean_vs_live_max_err_in_std": float(ens_err.max()),
+        "forecast_ms": walls["forecast"], "ensemble_ms": walls["ensemble"],
+        "forecast_ms_median": {k: statistics.median(v) for k, v in walls["forecast"].items()},
+        "ensemble_ms_median": {k: statistics.median(v) for k, v in walls["ensemble"].items()},
+        "profiled_forecast_ms": prof_ms, "device_busy_ms": busy_ms, "kernel_device_ms": kernel_ms,
+        "device_kernels": n_kernels, "device_idle_share": idle,
+    }
+
+
+def quant_convlstm_phase(rng):
+    """``ConvLSTMConfig(conv_backend="int8")`` in bfloat16: a 14-day forecast
+    (4 launches of the int8 kernel a call), beside the ``xring`` model of the
+    same seeded weights."""
+    from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig, ForecastService
+    from dlwp_cs_tpu_torch.models import ConvLSTMConfig
+
+    kernels = all_kernels()
+    mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
+    std = np.asarray([300.0, 100.0, 150.0, 15.0], np.float32)
+    stats = {"mean": mean, "std": std, "insol_mean": 340.0, "insol_std": 420.0}
+    const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
+    window = (rng.normal(size=(2, 6, 48, 48, 4)) * std + mean).astype(np.float32)
+    out = {}
+    for backend in ("int8", "xring"):
+        cfg = ExperimentConfig(data=DataConfig(), model=ConvLSTMConfig(
+            compute_dtype="bfloat16", conv_backend=backend))
+        svc = ForecastService(DLWPEstimator(cfg, device="cuda", seed=1).load_state(stats),
+                              constants=const)
+        svc.forecast(window, 9668.5, steps=STEPS)  # warm-up
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        out[backend] = svc.forecast(window, 9668.5, steps=STEPS).fields
+        out[backend + "_ms"] = (time.perf_counter() - t) * 1e3
+        out[backend + "_launches"] = {name: k.launches for name, k in kernels.items()}
+        svc.close()
+    want = want_launches({"cs_conv3x3_int8_base": 4}, STEPS)
+    check(out["int8_launches"] == want, f"int8 ConvLSTM launches {out['int8_launches']}")
+    check(bool(np.isfinite(out["int8"]).all()), "non-finite quantized ConvLSTM forecast")
+    err = np.abs(out["int8"] - out["xring"]) / std
+    return {"launches": out["int8_launches"], "forecast_ms": out["int8_ms"],
+            "xring_forecast_ms": out["xring_ms"], "vs_xring_max_err_in_std": float(err.max()),
+            "vs_xring_max_err_in_std_first_call": float(err[:, :2].max())}
+
+
+# the lat-lon phase: a global 1.875 degree grid (96 x 192; both sides divide
+# by 4, the U-Net's two pools), the training batch of its Adam step, and the
+# tolerance of each card run against its CPU run of the same weights
+LATLON_GRID = (96, 192)
+LATLON_BATCH = 2
+LATLON_TOL = {"float32": 1e-4, "bfloat16": 2.0**-6}
+# the reference registry's docstring spec at C48 with 32 features
+SPEC_DOC = [("CubeSphereConv2D", (), {"features": 32}),
+            ("LeakyReLU", (), {"negative_slope": 0.1}),
+            ("AvgPool", (2,), {}),
+            ("CubeSphereConv2D", (), {"features": 4, "kernel_size": (1, 1)})]
+
+
+def latlon_phase(dtype_name):
+    """``LatLonUNet(UNetConfig())`` at full width on the lat-lon grid (a
+    forward and one Adam step through the port's train step),
+    ``CubeSphereConvLSTM(cell_cls=LatLonConvLSTMCell)`` over 4 steps, and a
+    ``SequentialSpec`` at C48 (a forward and a train step, #1/#4/#5
+    counted), each timed and held against its run on the CPU with the same
+    weights."""
+    from dlwp_cs_tpu_torch.models import (
+        CubeSphereConvLSTM,
+        DataConfig,
+        ExperimentConfig,
+        LatLonConvLSTMCell,
+        LatLonUNet,
+        SequentialSpec,
+        UNetConfig,
+    )
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.train.train_step import (
+        init_state,
+        make_loss_fn,
+        make_optimizer,
+        make_train_step,
+        model_apply,
+        params_of,
+    )
+
+    kernels = all_kernels()
+    dtype = getattr(torch, dtype_name)
+    tol = LATLON_TOL[dtype_name]
+    rng = np.random.default_rng(7)
+    tcfg = TrainConfig(optimizer="adam", learning_rate=1e-3, loss="mse")
+    results = {}
+
+    def held(name, build, inputs, train=False):
+        """Run the model that ``build(device)`` makes on ``inputs`` on the
+        card (after a warm-up; host wall, synchronised) and on the CPU; hold
+        the outputs, or with ``train`` (inputs and targets) one Adam step's
+        loss and gradient norm, together.  Returns the card run's launches."""
+        def run(device):
+            model = build(device)
+            args = [torch.from_numpy(a).to(device) for a in inputs]
+            if not train:
+                with torch.no_grad():
+                    return model(*args)
+            opt = make_optimizer(tcfg)
+            step = make_train_step(model_apply(model), opt, make_loss_fn(tcfg))
+            state = init_state(params_of(model), opt)
+            _, metrics = step(state, *args)
+            return torch.stack([metrics["loss"], metrics["grad_norm"]])
+
+        run("cuda")  # warm-up
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run("cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: v.launches for k, v in kernels.items() if v.launches}
+        ref = run("cpu")
+        out, ref = out.float().cpu(), ref.float()
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        bound_ = tol * (ref.abs() if train else scale)
+        check(bool(((out - ref).abs() <= bound_).all()) and bool(torch.isfinite(out).all()),
+              f"latlon {name} {dtype_name}: card vs CPU {err} (of {scale}, tol {tol})")
+        results[name] = {"ms": ms, "max_abs_err": err, "scale": scale, "tolerance": tol,
+                         "launches": launches}
+        return launches
+
+    h, w = LATLON_GRID
+    cfg = ExperimentConfig(data=DataConfig(), model=UNetConfig(compute_dtype=dtype_name))
+    ucfg, cin = cfg.resolved_model(), cfg.data.input_channels
+    x = rng.standard_normal((LATLON_BATCH, h, w, cin), dtype=np.float32)
+    y = rng.standard_normal((LATLON_BATCH, h, w, ucfg.output_channels), dtype=np.float32)
+
+    def unet(device):
+        return LatLonUNet(ucfg, cin, device=device, generator=torch.Generator().manual_seed(0))
+
+    held("unet_forward", unet, [x[:1]])
+    held("unet_adam_step", unet, [x, y], train=True)
+
+    xs = rng.standard_normal((1, 4, h, w, 7), dtype=np.float32)
+
+    def lstm(device):
+        layer = CubeSphereConvLSTM(7, 32, cell_cls=LatLonConvLSTMCell, return_sequences=True,
+                                   dtype=dtype, generator=torch.Generator().manual_seed(1))
+        return layer.to(device)
+
+    held("convlstm_4_steps", lstm, [xs])
+
+    spec = [(name, args, dict(kw, dtype=dtype) if name == "CubeSphereConv2D" else kw)
+            for name, args, kw in SPEC_DOC]
+    xc = rng.standard_normal((4, 6, 48, 48, cin), dtype=np.float32)
+    yc = rng.standard_normal((4, 6, 24, 24, 4), dtype=np.float32)
+
+    def sequential(device):
+        return SequentialSpec(spec, cin, device=device, generator=torch.Generator().manual_seed(2))
+
+    fwd = held("sequential_forward", sequential, [xc])
+    step = held("sequential_train_step", sequential, [xc, yc], train=True)
+    check(fwd == {"cs_conv3x3": 1} and step == {"cs_conv3x3": 1, "cs_conv3x3_dw": 1},
+          f"SequentialSpec launches: forward {fwd}, train step {step}")
+    return {"dtype": dtype_name, "grid": LATLON_GRID, **results}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -3221,6 +3572,63 @@ def main(argv=None) -> int:
         f"{data['phase_seconds']:.1f} s")
     print(recap[-1], flush=True)
 
+    # quantized serving (ops/quant.py): the int8 base conv at each flagship
+    # conv shape, then the U-Net served in int8 beside the live service, and
+    # the int8 ConvLSTM
+    t = time.perf_counter()
+    int8_cases = []
+    print("int8: n Cin Cout B dtype | bitwise (library bitwise) | kernel_ms plain_ms "
+          "int_mm_ms (gather_ms) #1_ms bound_ms")
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in QUANT_BATCHES:
+            for n, cin, cout in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index):
+                c = int8_conv_case(n, cin, cout, b, dtype, gen)
+                int8_cases.append(c)
+                print(f"int8 {n} {cin} {cout} {b} {c['dtype']} | {c['bitwise_equal']} "
+                      f"({c['library_bitwise_equal']}) | {c['ms']:.4f} {c['plain_ms']:.4f} "
+                      f"{c['library_ms']:.4f} ({c['gather_ms']:.4f}) {c['conv_kernel_ms']:.4f} "
+                      f"{c['bound_ms']:.5f} {c['bound_by']}", flush=True)
+    bad = [c for c in int8_cases if not c["ok"]]
+    check(not bad, f"the int8 kernel differs from its plain version: {bad}")
+    quant = {d: quant_phase(d, np.random.default_rng(8)) for d in ("bfloat16", "float32")}
+    quant_lstm = quant_convlstm_phase(np.random.default_rng(9))
+    quant_s = time.perf_counter() - t
+    for d, q in quant.items():
+        recap.append(
+            f"quant unet {d}: 14-day forecast {q['forecast_ms_median']['quantized']:.1f} ms "
+            f"median (live {q['forecast_ms_median']['live']:.1f}; runs {q['forecast_ms']}), "
+            f"{ENS_MEMBERS}-member ensemble {q['ensemble_ms_median']['quantized']:.1f} ms (live "
+            f"{q['ensemble_ms_median']['live']:.1f}); profiled {q['profiled_forecast_ms']:.1f} ms: "
+            f"busy {q['device_busy_ms']} ms (idle share {q['device_idle_share']}), kernels "
+            f"{q['kernel_device_ms']}; device kernels {q['device_kernels']}; int8 launches "
+            f"{q['launches']['forecast']['cs_conv3x3_int8_base']} a forecast, "
+            f"{q['launches']['ensemble']['cs_conv3x3_int8_base']} an ensemble; vs live max "
+            f"{q['vs_live_max_err_in_std']:.3g} std (first call "
+            f"{q['vs_live_max_err_in_std_first_call']:.3g}, rms per variable "
+            f"{['%.3g' % v for v in q['vs_live_rms_err_in_std_per_variable']]}), ensemble mean "
+            f"{q['ensemble_mean_vs_live_max_err_in_std']:.3g} std; first two calls bitwise equal "
+            f"to the plain version {q['first_two_calls_bitwise_equal_to_plain']}; bitwise "
+            f"repeatable {q['bitwise_repeatable']}")
+        print(recap[-1], flush=True)
+    recap.append(
+        f"quant convlstm bfloat16: 14-day forecast {quant_lstm['forecast_ms']:.1f} ms (xring "
+        f"{quant_lstm['xring_forecast_ms']:.1f}), int8 launches "
+        f"{quant_lstm['launches']['cs_conv3x3_int8_base']}; vs xring max "
+        f"{quant_lstm['vs_xring_max_err_in_std']:.3g} std (first call "
+        f"{quant_lstm['vs_xring_max_err_in_std_first_call']:.3g}); phase {quant_s:.1f} s")
+    print(recap[-1], flush=True)
+
+    # the lat-lon models and the registry, on the card against the CPU
+    t = time.perf_counter()
+    latlon = [latlon_phase(d) for d in ("bfloat16", "float32")]
+    latlon_s = time.perf_counter() - t
+    for r in latlon:
+        recap.append(f"latlon {r['dtype']} ({r['grid'][0]}x{r['grid'][1]}): " + "; ".join(
+            f"{k} {v['ms']:.1f} ms, vs CPU {v['max_abs_err']:.3g} of {v['scale']:.3g} "
+            f"(tol {v['tolerance']:.3g}), launches {v['launches']}"
+            for k, v in r.items() if isinstance(v, dict)) + f"; phase {latlon_s:.1f} s")
+        print(recap[-1], flush=True)
+
     with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
         sharded, exchange, group_s, remote, front = sharded_phase(np.random.default_rng(2),
                                                                   workdir)
@@ -3293,9 +3701,10 @@ def main(argv=None) -> int:
     print(f"mesh train group: {mesh_train_s:.1f} s from spawn to the last rank's exit",
           flush=True)
 
-    def line(name, source, replaces, launches, per_path, errs):
+    def line(name, source, replaces, launches, per_path, errs, peak=torch.bfloat16):
         """One kernel's entry: times summed over the convs of one model call
-        (forward) or one train step (backward) in bfloat16."""
+        (forward) or one train step (backward) in bfloat16; operations at the
+        tensor cores' ``peak`` rate."""
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(errs),
@@ -3303,7 +3712,7 @@ def main(argv=None) -> int:
             "plain_ms": sum(c["plain_ms"] for c in per_path),
             "bound_ms": sum(c["bound_ms"] for c in per_path),
             "bound_by": "bytes" if sum(c["bytes"] / HBM_BYTES_PER_S for c in per_path)
-            >= sum(c["ops"] / PEAK_OPS[torch.bfloat16] for c in per_path) else "operations",
+            >= sum(c["ops"] / PEAK_OPS[peak] for c in per_path) else "operations",
             "library_ms": None if any(c["library_ms"] is None for c in per_path)
             else sum(c["library_ms"] for c in per_path),
         }
@@ -3419,6 +3828,15 @@ def main(argv=None) -> int:
         rows = [c for c in probe_rows if c["probe"] == name]
         kernels.append(line(name, src_probes, replaces, tool_launches[name], rows,
                             [c["max_abs_err"] for c in rows]))
+    # the int8 base conv (no TPU counterpart): one quantized model call's 10
+    # convs at batch 1, bfloat16 out; launches are the bf16 quantized forecast's
+    q8 = {(c["n"], c["cin"], c["cout"]): c for c in int8_cases
+          if c["batch"] == 1 and c["dtype"] == "bfloat16"}
+    kernels.append(line("cs_conv3x3_int8_base", "dlwp_cs_tpu_torch/csrc/cs_conv3x3_int8.cu", "",
+                        quant["bfloat16"]["launches"]["forecast"]["cs_conv3x3_int8_base"],
+                        [q8[s] for s in FLAGSHIP_CONVS], [c["max_abs_err"] for c in int8_cases],
+                        peak=torch.int8))
+    kernels[-1]["replaces_note"] = "no TPU counterpart"
     # this slice's training under a mesh, bf16: launches per step and each
     # rank's median step time, per path that launches the kernel
     for entry in kernels:
@@ -3447,7 +3865,9 @@ def main(argv=None) -> int:
                    "probe_turn_cases": probes_turns, "probe_summary": probe_sum,
                    "export": exports, "http": web, "mesh_front_end": front, "mps": mps,
                    "mesh_train": mesh_train, "mesh_train_group_seconds": mesh_train_s,
-                   "data": data,
+                   "data": data, "int8_cases": int8_cases, "quant": list(quant.values()),
+                   "quant_convlstm": quant_lstm, "quant_seconds": quant_s,
+                   "latlon": latlon, "latlon_seconds": latlon_s,
                    "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))

@@ -13,9 +13,18 @@ from dlwp_cs_tpu_torch.models.convlstm import (
     CubeSphereConvLSTMNet,
     LatLonConvLSTMCell,
 )
+from dlwp_cs_tpu_torch.models.latlon_unet import LatLonConv2D, LatLonUNet
 from dlwp_cs_tpu_torch.models.layers import CubeSphereConv2D
+from dlwp_cs_tpu_torch.models.registry import (
+    SequentialSpec,
+    freeze_spec,
+    get_layer,
+    register_layer,
+)
 from dlwp_cs_tpu_torch.models.unet import CubeSphereUNet
 from dlwp_cs_tpu_torch.models.weights import load_jax_params
+
+register_layer("CubeSphereConvLSTM", CubeSphereConvLSTM, is_module=True)
 
 
 def build_model(model_config, in_channels: int, *, device=None,
@@ -41,9 +50,15 @@ __all__ = [
     "CubeSphereUNet",
     "DataConfig",
     "ExperimentConfig",
+    "LatLonConv2D",
     "LatLonConvLSTMCell",
+    "LatLonUNet",
+    "SequentialSpec",
     "TrainConfig",
     "UNetConfig",
     "build_model",
+    "freeze_spec",
+    "get_layer",
     "load_jax_params",
+    "register_layer",
 ]

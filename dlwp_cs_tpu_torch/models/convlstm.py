@@ -1,4 +1,4 @@
-"""Recurrent (ConvLSTM) model family on the cubed sphere.
+"""Recurrent (ConvLSTM) model family on the cubed sphere and the lat-lon grid.
 
 The counterpart of ``dlwp_cs_tpu.models.convlstm``: one gate convolution
 per step over ``cat([x, h])`` gives the four gates [i, f, g, o]; the gate
@@ -23,6 +23,7 @@ from torch import nn
 from dlwp_cs_tpu_torch.data.channels import unfold_time
 from dlwp_cs_tpu_torch.device import resolve_device
 from dlwp_cs_tpu_torch.models.config import ConvLSTMConfig
+from dlwp_cs_tpu_torch.models.latlon_unet import LatLonConv2D
 from dlwp_cs_tpu_torch.models.layers import CubeSphereConv2D
 
 __all__ = [
@@ -33,34 +34,25 @@ __all__ = [
 ]
 
 
-class CubeSphereConvLSTMCell(nn.Module):
-    """ConvLSTM cell whose gate convolution is a cubed-sphere conv over
-    ``in_channels + features`` channels.  ``dtype`` is the compute dtype
-    (``None``: the input's)."""
+class _ConvLSTMCellBase(nn.Module):
+    """The gate math shared by the cells; a subclass makes ``self.gates``,
+    the gate convolution over ``in_channels + features`` channels.
+    ``dtype`` is the compute dtype (``None``: the input's)."""
 
-    def __init__(self, in_channels: int, features: int,
-                 kernel_size: tuple[int, int] = (3, 3), *, forget_bias: float = 1.0,
-                 separate_polar_weights: bool = True, backend: str = "auto",
-                 dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None):
+    def __init__(self, features: int, forget_bias: float, dtype: torch.dtype | None):
         super().__init__()
         self.features = features
         self.forget_bias = forget_bias
         self.dtype = dtype
-        self.gates = CubeSphereConv2D(
-            in_channels + features, 4 * features, tuple(kernel_size),
-            separate_polar_weights=separate_polar_weights, backend=backend,
-            dtype=dtype, generator=generator,
-        )
 
     def jax_scopes(self) -> dict:
         """The reference's flax scope of the gate conv."""
         return {"gates": self.gates}
 
     def forward(self, carry, x):
-        """One step: ``carry = (h, c)``, ``x`` (B, 6, n, n, C).  Returns
-        ``((h_new, c_new), out)``: each carry in its own dtype, ``out`` (=
-        ``h_new``) in ``x``'s."""
+        """One step: ``carry = (h, c)``, ``x`` the step's spatial input.
+        Returns ``((h_new, c_new), out)``: each carry in its own dtype, ``out``
+        (= ``h_new``) in ``x``'s."""
         h, c = carry
         z = self.gates(torch.cat([x, h.to(x.dtype)], dim=-1))
         i, f, g, o = z.chunk(4, dim=-1)
@@ -78,32 +70,57 @@ class CubeSphereConvLSTMCell(nn.Module):
                 x_like.new_zeros(shape, dtype=torch.float32))
 
 
-class LatLonConvLSTMCell(nn.Module):
-    """The lat-lon ConvLSTM cell: not ported."""
+class CubeSphereConvLSTMCell(_ConvLSTMCellBase):
+    """ConvLSTM cell whose gate convolution is a cubed-sphere conv; steps
+    take ``(B, 6, n, n, C)``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the lat-lon ConvLSTM cell is not ported yet: ROADMAP.md queue 1, "
-            "item 15 (lat-lon models)"
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: tuple[int, int] = (3, 3), *, forget_bias: float = 1.0,
+                 separate_polar_weights: bool = True, backend: str = "auto",
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(features, forget_bias, dtype)
+        self.gates = CubeSphereConv2D(
+            in_channels + features, 4 * features, tuple(kernel_size),
+            separate_polar_weights=separate_polar_weights, backend=backend,
+            dtype=dtype, generator=generator,
         )
 
 
-class CubeSphereConvLSTM(nn.Module):
-    """ConvLSTM layer over a sequence ``(B, T, 6, n, n, C)``.
+class LatLonConvLSTMCell(_ConvLSTMCellBase):
+    """ConvLSTM cell on the lat-lon grid (periodic longitude, ``lat_mode``
+    latitude padding); steps take ``(B, H, W, C)``."""
 
-    Returns all hidden states ``(B, T, 6, n, n, F)`` with
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: tuple[int, int] = (3, 3), *, forget_bias: float = 1.0,
+                 lat_mode: str = "reflect", dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(features, forget_bias, dtype)
+        self.gates = LatLonConv2D(in_channels + features, 4 * features, tuple(kernel_size),
+                                  lat_mode=lat_mode, dtype=dtype, generator=generator)
+
+
+class CubeSphereConvLSTM(nn.Module):
+    """ConvLSTM layer over a sequence ``(B, T, *spatial, C)``: a
+    ``cell_cls`` cell (the cubed-sphere cell, or :class:`LatLonConvLSTMCell`)
+    built with ``cell_kwargs`` (a dict, or the ``(key, value)`` pairs
+    :func:`~dlwp_cs_tpu_torch.models.registry.freeze_spec` makes of one) and
+    any further keywords.
+
+    Returns all hidden states ``(B, T, *spatial, F)`` with
     ``return_sequences``, else the last; ``return_carry=True`` also returns
     the final ``(h, c)``, which as ``initial_carry`` continues the sequence.
     """
 
     def __init__(self, in_channels: int, features: int,
-                 kernel_size: tuple[int, int] = (3, 3), *, return_sequences: bool = False,
-                 dtype: torch.dtype | None = None,
-                 generator: torch.Generator | None = None, **cell_kwargs):
+                 kernel_size: tuple[int, int] = (3, 3), *,
+                 cell_cls=CubeSphereConvLSTMCell, cell_kwargs: dict | None = None,
+                 return_sequences: bool = False, dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None, **kwargs):
         super().__init__()
         self.return_sequences = return_sequences
-        self.cell = CubeSphereConvLSTMCell(in_channels, features, kernel_size, dtype=dtype,
-                                           generator=generator, **cell_kwargs)
+        self.cell = cell_cls(in_channels, features, kernel_size, dtype=dtype,
+                             generator=generator, **dict(cell_kwargs or ()), **kwargs)
 
     def jax_scopes(self) -> dict:
         """The reference's flax scope of the gate conv (under ``nn.scan``)."""

@@ -24,13 +24,16 @@ def _scopes_of(tree, prefix=""):
 
 
 def load_jax_params(model, params):
-    """Fill ``model`` (a :class:`CubeSphereUNet` or a
-    :class:`CubeSphereConvLSTMNet`) from a flax parameter tree.
+    """Fill ``model`` (any of the port's models with ``jax_scopes()``: a
+    :class:`CubeSphereUNet`, :class:`CubeSphereConvLSTMNet`,
+    :class:`LatLonUNet`, :class:`SequentialSpec` or
+    :class:`CubeSphereConvLSTM`, of cubed-sphere or lat-lon cells) from a
+    flax parameter tree.
 
     ``params`` is ``{"params": {...}}`` with numpy (or array-like) leaves:
-    the U-Net's flat scopes (``enc0_conv0/kernel_eq``) or the ConvLSTM's
-    nested ones (``convlstm0/cell/gates/kernel_eq``, ``head/...``), as
-    ``model.jax_scopes()`` names them.  Raises ``KeyError`` on a missing or
+    the U-Nets' flat scopes (``enc0_conv0/kernel_eq``, ``enc0_conv0/kernel``)
+    or the ConvLSTM's nested ones (``convlstm0/cell/gates/kernel_eq``,
+    ``head/...``), as ``model.jax_scopes()`` names them.  Raises ``KeyError`` on a missing or
     extra scope or parameter, and ``ValueError`` on a shape mismatch;
     nothing is copied unless the whole tree matches.  Returns ``model``.
     """

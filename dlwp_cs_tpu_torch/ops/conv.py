@@ -23,6 +23,10 @@ Backends:
   the face edges; the reference's lower bound for the halo's cost.
 * ``'xla'``: the reference-style path, ``cs_pad`` then one VALID conv per
   weight group (the name the configurations use).
+* ``'int8'``: a 3x3 stride-1 conv runs
+  :func:`~dlwp_cs_tpu_torch.ops.quant.cs_conv3x3_int8`, the quantized
+  inference path (int8 base convs on the hand-written s8 kernel, the ring
+  term and the bias unquantized).
 
 Under ``'auto'`` and ``'xring'``, a CUDA tensor whose shape a plan of
 the kernels its wrapper would launch refuses
@@ -37,7 +41,7 @@ the plans before anything launches; a launch that fails still raises.  CPU
 tensors keep their path: the plain versions fit every shape.
 
 Under every backend but ``'xla'``, other kernel sizes (the 1x1 head) take
-the generic path with the dual-base face select.  ``'int8'`` is not ported.
+the generic path with the dual-base face select.
 
 The spatially decomposed path (:mod:`dlwp_cs_tpu_torch.parallel`) installs
 two hooks around the model: a halo-exchange pad
@@ -67,6 +71,7 @@ from dlwp_cs_tpu_torch.ops.library import (
 )
 from dlwp_cs_tpu_torch.ops import padding as _padding
 from dlwp_cs_tpu_torch.ops.padding import cs_pad, use_pad_impl
+from dlwp_cs_tpu_torch.ops.quant import cs_conv3x3_int8
 from dlwp_cs_tpu_torch.ops.ring_kernel import _xring_forward, cs_conv3x3_xring, xring_fits
 from dlwp_cs_tpu_torch.ops.ringfix import (
     _same_conv,
@@ -84,13 +89,11 @@ __all__ = [
 
 _KERNEL_BACKENDS = ("auto", "pallas", "pallas_interpret")
 _XRING_BACKENDS = ("xring", "xring_interpret")
-_BACKENDS = _KERNEL_BACKENDS + _XRING_BACKENDS + ("ringfix", "same", "xla")
+_BACKENDS = _KERNEL_BACKENDS + _XRING_BACKENDS + ("ringfix", "int8", "same", "xla")
 # the backends that take ring-fix where a kernel's plan refuses (the
 # reference's 'auto'; its 'xring' has no fallback: ROADMAP.md's recorded
 # divergences); 'pallas' raises there, as the reference's does
 _RINGFIX_PAST_PLANS = ("auto",) + _XRING_BACKENDS
-# Formulations of the reference that the port has not taken over yet.
-_NOT_PORTED = {"int8": "queue 1, item 15 (ops/quant.py)"}
 
 _CONV3_IMPL: contextvars.ContextVar = contextvars.ContextVar("cs_conv3x3_impl", default=None)
 
@@ -200,11 +203,6 @@ def cs_conv(
             f"kernel group shapes differ: {tuple(kernel_eq.shape)} vs "
             f"{tuple(kernel_pole.shape)}"
         )
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"conv backend {backend!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[backend]}"
-        )
     if backend not in _BACKENDS:
         raise ValueError(f"unknown conv backend {backend!r}")
     kh, kw = kernel_eq.shape[0], kernel_eq.shape[1]
@@ -238,6 +236,11 @@ def cs_conv(
     if is_3x3s1 and whole_faces and backend == "ringfix":
         return cs_conv3x3_ringfix(x, kernel_eq, kernel_pole, bias_eq=bias_eq,
                                   bias_pole=bias_pole)
+    if is_3x3s1 and whole_faces and backend == "int8":
+        # the quantized inference path; other layers (the 1x1 head) and 3x3
+        # convs under an installed pad take the generic path below
+        return cs_conv3x3_int8(x, kernel_eq, kernel_pole, bias_eq=bias_eq,
+                               bias_pole=bias_pole)
     if is_3x3s1 and backend == "same":
         out = torch.cat(
             [_same_conv(x[:, :4], kernel_eq), _same_conv(x[:, 4:], kernel_pole)], dim=1

@@ -22,6 +22,7 @@ arguments), or a rank-0 front end (rank 0 submits, the others
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import queue
 import threading
@@ -36,6 +37,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from dlwp_cs_tpu_torch.estimator import DLWPEstimator
+from dlwp_cs_tpu_torch.models import build_model
 from dlwp_cs_tpu_torch.parallel.collectives import axis_size
 from dlwp_cs_tpu_torch.parallel.mesh import DATA_AXIS
 from dlwp_cs_tpu_torch.parallel.sharding import make_spatial_apply
@@ -375,8 +377,11 @@ class ForecastService(MicroBatcher):
     ``max_batch``, ``max_wait_ms``, ``max_queue``, ``request_timeout_s``:
     the micro-batcher (see :class:`MicroBatcher`).  ``max_steps`` /
     ``max_members``: server-side caps on client-supplied rollout length and
-    ensemble size (``ValueError``).  ``quantize`` is not ported yet and
-    raises ``NotImplementedError``.
+    ensemble size (``ValueError``).  ``quantize``: serve the same model
+    with ``conv_backend="int8"`` (:mod:`~dlwp_cs_tpu_torch.ops.quant`) on a
+    copy of the estimator's parameters, quantized at every call; inference
+    only, and the activation scale is per model call, so the requests of
+    one batch share it, as in the reference.
 
     ``mesh``: an optional ``DeviceMesh``
     (:func:`~dlwp_cs_tpu_torch.parallel.create_mesh`) on the estimator's
@@ -420,13 +425,13 @@ class ForecastService(MicroBatcher):
                  max_queue: int = 64, request_timeout_s: float | None = 120.0,
                  max_steps: int = 1464, max_members: int = 64,
                  quantize: bool = False, mesh=None):
-        if quantize:
-            raise NotImplementedError(
-                "quantize=True is not ported yet: ROADMAP.md queue 1, item 15 "
-                "(ops/quant.py)"
-            )
         if estimator.state is None or estimator.stats is None:
             raise RuntimeError("estimator has no state: load it first")
+        if quantize and mesh is not None:
+            raise ValueError(
+                "quantize=True is incompatible with mesh= (the sharded band "
+                "conv would silently override the int8 dispatch)"
+            )
         self.config = estimator.config
         dcfg = self.config.data
         if constants is None and constants_store is not None:
@@ -441,8 +446,15 @@ class ForecastService(MicroBatcher):
         stats = estimator.stats
         self._mean = np.asarray(stats["mean"], np.float32)
         self._std = np.asarray(stats["std"], np.float32)
-        self.quantized = False
+        self.quantized = bool(quantize)
         model = estimator.model
+        if quantize:
+            # the same model and parameters, the int8 conv dispatch
+            model = build_model(
+                dataclasses.replace(self.config.resolved_model(), conv_backend="int8"),
+                dcfg.input_channels, device=self.device, generator=torch.Generator(),
+            ).eval()
+            model.load_state_dict(estimator.model.state_dict())
         self.mesh = mesh
         self._data_div = 1
         self._leading = False  # rank 0 of a mesh, once it has submitted

@@ -26,10 +26,10 @@ __all__ = ["HBM_BYTES_PER_S", "PEAK_OPS", "TF32_OPS", "add_device_args", "bf16_e
 # and the fastest rate of float32-accurate work for the kernel's input type.
 # bf16: the tensor cores' 989 TFLOP/s.  float32: the tensor cores as 3xTF32,
 # three TF32 products (495 TFLOP/s each) per float32 product, which beats
-# the CUDA cores' 67 TFLOP/s
+# the CUDA cores' 67 TFLOP/s.  int8: the tensor cores' 1979 TOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_OPS = 495e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: TF32_OPS / 3}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: TF32_OPS / 3, torch.int8: 1979e12}
 
 
 def bound(nbytes, ops, dtype):

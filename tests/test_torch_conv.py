@@ -23,6 +23,8 @@ from dlwp_cs_tpu.ops.pallas_conv import cs_conv3x3_pallas, cs_conv3x3_pallas_blo
 from dlwp_cs_tpu_torch.ops.conv import cs_conv
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain, tile_plan
+from dlwp_cs_tpu_torch.ops.quant import cs_conv3x3_int8_plain, quantize_kernel, quantize_tensor
+from dlwp_cs_tpu_torch.ops.ringfix import ring_term
 
 F32_ATOL = 1e-5
 
@@ -116,13 +118,20 @@ def test_head_1x1_auto_matches_reference():
 
 @pytest.mark.parametrize("backend", ["int8", "xring", "ringfix"])
 def test_unported_backends_raise(backend):
-    """``int8`` is not ported and raises; ``xring`` and ``ringfix`` are
-    (``tests/test_torch_ring.py`` holds them against the reference) and
-    give the pad path's result."""
+    """Every backend is ported.  ``int8`` gives the plain composition: the
+    quantized base conv's plain version plus the ring term, bitwise
+    (``tests/test_torch_quant.py`` holds it against the reference);
+    ``xring`` and ``ringfix`` (``tests/test_torch_ring.py``) give the pad
+    path's result."""
     x, *w = _case(b=1, n=4, cin=2, cout=2)
     if backend == "int8":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend=backend)
+        xt, (k_eq, k_po) = torch.from_numpy(x), _torch(w[:2])
+        qx, sx = quantize_tensor(xt)
+        (qke, ske), (qkp, skp) = quantize_kernel(k_eq), quantize_kernel(k_po)
+        plain = cs_conv3x3_int8_plain(qx, torch.stack([qke, qkp]),
+                                      torch.stack([sx * ske, sx * skp]), torch.float32)
+        ours = cs_conv(xt, k_eq, k_po, backend=backend)
+        torch.testing.assert_close(ours, plain + ring_term(xt, k_eq, k_po), rtol=0, atol=0)
     else:
         ours = cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend=backend)
         ref = cs_conv(torch.from_numpy(x), *_torch(w[:2]), backend="xla")

@@ -257,5 +257,13 @@ def test_forecast_matches_reference_rollout():
 
 
 def test_latlon_cell_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        LatLonConvLSTMCell(3, 4)
+    """The lat-lon cell is ported (``tests/test_torch_latlon.py`` holds it
+    against the reference): it builds, and one step keeps the grid and
+    gives ``features`` channels, ``h`` in the cell dtype and ``c`` in
+    float32."""
+    cell = LatLonConvLSTMCell(3, 4, dtype=torch.bfloat16)
+    x = torch.from_numpy(_rand(2, 8, 16, 3, seed=9))
+    (h, c), out = cell(cell.initialize_carry(x), x)
+    assert tuple(h.shape) == tuple(c.shape) == tuple(out.shape) == (2, 8, 16, 4)
+    assert (h.dtype, c.dtype, out.dtype) == (torch.bfloat16, torch.float32, torch.float32)
+    assert tuple(cell.gates.kernel.shape) == (3, 3, 7, 16)

@@ -1436,3 +1436,97 @@ def test_apply_remap_on_card(cuda_device, tmp_path, kind):
     assert users.any() and not users.all()
     np.testing.assert_array_equal(np.isnan(nan_out[1, 2]), users)
     assert np.isnan(nan_out).sum() == users.sum()
+
+
+def _int8_case(b, n, cin, cout, device, seed=13):
+    rng = np.random.default_rng(seed)
+    qx = torch.from_numpy(rng.integers(-127, 128, size=(b, 6, n, n, cin)).astype(np.int8))
+    qk = torch.from_numpy(rng.integers(-127, 128, size=(2, 3, 3, cin, cout)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-6, 1e-3, size=(2, cout)).astype(np.float32))
+    return qx.to(device), qk.to(device), scale.to(device)
+
+
+# Cin 12 (the flagship's first conv: 4-byte staging), 16 and 192 (16-byte),
+# 33 (byte by byte); Cout 32 (128 x 32 tiles) and wider (64 x 64), one that
+# no tile divides; faces that no tile divides (n = 7, 12)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,cout", [
+    (1, 48, 12, 32), (2, 24, 16, 64), (1, 12, 33, 40), (1, 24, 192, 64), (3, 7, 33, 5),
+    (8, 12, 128, 128),
+])
+def test_int8_kernel_bitwise_equal_to_plain_on_card(cuda_device, dtype, b, n, cin, cout):
+    """The s8 tensor-core conv equals its plain version bit for bit (exact
+    integer sums, the same float32 product and rounding), on both weight
+    groups' faces."""
+    from dlwp_cs_tpu_torch.ops.quant import cs_conv3x3_int8_base, cs_conv3x3_int8_plain
+
+    tdt = getattr(torch, dtype)
+    qx, qk, scale = _int8_case(b, n, cin, cout, cuda_device)
+    before = cs_conv3x3_int8_base.launches
+    ours = cs_conv3x3_int8_base(qx, qk, scale, tdt)
+    torch.cuda.synchronize()
+    assert cs_conv3x3_int8_base.launches == before + 1 and ours.dtype == tdt
+    ref = cs_conv3x3_int8_plain(qx, qk, scale, tdt)
+    assert torch.equal(ours, ref), (ours.float() - ref.float()).abs().max()
+    # the host's plain version (float64 convs on the CPU) gives the same bits
+    assert torch.equal(ours.cpu(), cs_conv3x3_int8_plain(qx.cpu(), qk.cpu(), scale.cpu(), tdt))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_under_graph_capture_and_in_a_model(cuda_device):
+    """Captured in a CUDA graph, replays equal the eager call; a quantized
+    U-Net call on the card launches the kernel once per 3x3 conv, no other
+    conv kernel of the port, and equals its call on the plain version."""
+    from dlwp_cs_tpu_torch.ops import quant
+
+    qx, qk, scale = _int8_case(2, 24, 64, 64, cuda_device)
+    eager = quant.cs_conv3x3_int8_base(qx, qk, scale, torch.bfloat16)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        quant.cs_conv3x3_int8_base(qx, qk, scale, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = quant.cs_conv3x3_int8_base(qx, qk, scale, torch.bfloat16)
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+    cfg = UNetConfig(output_channels=4, filters=(8, 16), conv_backend="int8",
+                     compute_dtype="bfloat16")
+    model = CubeSphereUNet(cfg, 7, device=cuda_device,
+                           generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(14).normal(size=(2, 6, 16, 16, 7))
+                         .astype(np.float32)).to(cuda_device)
+    before, fused = quant.cs_conv3x3_int8_base.launches, cs_conv3x3.launches
+    with torch.no_grad():
+        ours = model(x)
+    torch.cuda.synchronize()
+    assert quant.cs_conv3x3_int8_base.launches == before + 6
+    assert cs_conv3x3.launches == fused
+    saved = quant.cs_conv3x3_int8_base
+    quant.cs_conv3x3_int8_base = quant.cs_conv3x3_int8_plain
+    try:
+        with torch.no_grad():
+            plain = model(x)
+    finally:
+        quant.cs_conv3x3_int8_base = saved
+    assert torch.equal(ours, plain)
+    assert bool(torch.isfinite(ours).all())
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_bad_arguments(cuda_device):
+    from dlwp_cs_tpu_torch.ops.quant import cs_conv3x3_int8_base
+
+    qx, qk, scale = _int8_case(1, 8, 4, 8, cuda_device)
+    with pytest.raises(ValueError, match="qk"):
+        cs_conv3x3_int8_base(qx, qk.float(), scale, torch.float32)
+    with pytest.raises(ValueError, match="scale"):
+        cs_conv3x3_int8_base(qx, qk, scale[:, :4], torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cs_conv3x3_int8_base(qx, qk, scale, torch.float16)

@@ -43,9 +43,10 @@ def test_importing_every_module_loads_no_jax():
               "ops.library", "serve.export", "serve.http", "tools.export_artifact",
               "parallel.scaling", "train.sequence", "remap", "remap.apply",
               "remap.native", "remap.weights", "data.era5", "data.cfsr", "data.grib2",
-              "data.tscache", "data.preprocessing"):
+              "data.tscache", "data.preprocessing", "ops.quant", "ops.latlon",
+              "models.latlon_unet", "models.registry", "models.torch_mirror"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
-    assert len(mods) >= 51
+    assert len(mods) >= 56
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -113,6 +114,20 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pre.data_to_series(4)
     assert pre.data_to_series(4, device="cpu").fields.shape == (2, 6, 4, 4, 1)
+    from dlwp_cs_tpu_torch.models import LatLonUNet, SequentialSpec
+    from dlwp_cs_tpu_torch.models.torch_mirror import (
+        TorchCubeSphereConv2D,
+        TorchCubeSphereUNet,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LatLonUNet(UNetConfig(filters=(4,)), 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SequentialSpec([("ReLU", (), {})], 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchCubeSphereConv2D(np.zeros((3, 3, 1, 1)), np.zeros((3, 3, 1, 1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchCubeSphereUNet(UNetConfig(filters=(4,)))
     est = DLWPEstimator(cfg, device="cpu")  # an explicit device is honoured
     assert est.device.type == "cpu"
     assert dlwp_cs_tpu_torch.DLWPEstimator is DLWPEstimator

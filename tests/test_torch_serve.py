@@ -132,11 +132,16 @@ def test_full_queue_raises_overloaded(served):
 
 
 def test_unported_options_raise(served):
-    """Only ``quantize`` (item 15) still raises; the mesh front end's calls
-    refuse a service without a mesh."""
+    """No option raises any more: ``quantize=True`` serves and reports
+    ``quantized`` (``tests/test_torch_quant.py`` holds it against the
+    reference); the mesh front end's calls refuse a service without a
+    mesh."""
     _, est, const, windows = served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ForecastService(est, constants=const, quantize=True)
+    quantized = ForecastService(est, constants=const, quantize=True)
+    assert quantized.quantized and quantized.info()["quantized"] is True
+    fc = quantized.forecast(windows[0], 0.0, steps=1)
+    assert fc.fields.shape == (1, 2, 6, N, N, 2) and np.isfinite(fc.fields).all()
+    quantized.close()
     with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is tests/test_torch_parallel.py's
         ForecastService(est, constants=const, mesh=object())
     svc = ForecastService(est, constants=const)
