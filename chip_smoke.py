@@ -169,6 +169,16 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    docstring spec at C48 (#1 in the forward, #1 and #5 in a train step),
    bf16 and f32, each timed and held against its CPU run of the same
    weights (f32 1e-4, bf16 2**-6 of the largest output);
+8f. the barotropic baseline: the Rossby-Haurwitz case 14 days (672 RK4
+   steps of 30 min) in f32 on the card at T42 (65 x 130) and T85 (130 x
+   260), the first day against the CPU's float64 run (1e-4 of the largest
+   |zeta|), the reference test's criteria at day 14, the wall time, steps/s
+   and one profiled day;
+8g. the utilities: ``utils.trace`` around a bf16 step (the trace names #1,
+   #4 and #5), ``Timer.time_fn`` of a model call, ``conv_roofline`` beside
+   ``tools/timing.py::bound`` at the U-Net's conv shapes, and each plot
+   drawn to a PNG under ``--out`` (or, without matplotlib, its
+   ``ImportError`` checked);
 9. spawn 4 ranks in a gloo group on the card (kernel libraries built
    before) and, in bfloat16 and float32, serve 14-day forecasts of the
    flagship U-Net (the same seeded weights on every rank): at batch 1
@@ -3251,6 +3261,162 @@ def latlon_phase(dtype_name):
     return {"dtype": dtype_name, "grid": LATLON_GRID, **results}
 
 
+# the barotropic baseline and the utilities
+
+
+def flagship_step_setup(dtype_name, rng):
+    """The flagship U-Net at the training batch on the card: ``(trainer,
+    state, x, y)`` with seeded weights and a seeded normalized batch."""
+    from dlwp_cs_tpu_torch.models import DataConfig, ExperimentConfig, build_model
+    from dlwp_cs_tpu_torch.models.config import TrainConfig
+    from dlwp_cs_tpu_torch.train import Trainer
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, optimizer="adam", learning_rate=1e-3, loss="mse")
+    cfg = ExperimentConfig(data=DataConfig(), model=model_config("unet", dtype_name), train=tcfg)
+    d = cfg.data
+    model = build_model(cfg.resolved_model(), d.input_channels, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, tcfg)
+    x = rng.standard_normal((TRAIN_BATCH, 6, 48, 48, d.input_channels), dtype=np.float32)
+    y = rng.standard_normal((TRAIN_BATCH, 6, 48, 48, cfg.resolved_model().output_channels),
+                            dtype=np.float32)
+    return trainer, trainer.init(x), torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+# the barotropic baseline: T42 and T85 on their default Gaussian grids, 14
+# days of 30-minute RK4 steps, a snapshot a day
+BARO_CASES = (42, 85)
+BARO_DT, BARO_STEPS, BARO_SAVE = 1800.0, 672, 48
+BARO_TOL = 1e-4  # the first day in f32 on the card vs f64 on the CPU, of the max |zeta|
+
+
+def barotropic_phase():
+    """``rossby_haurwitz_vorticity()`` integrated 14 days in float32 on the
+    card at T42 and T85: the first day against the same in float64 on the
+    CPU, the reference test's criteria over 14 days, the wall time and one
+    profiled day."""
+    from dlwp_cs_tpu_torch.barotropic import BarotropicModel, SphericalHarmonics
+
+    out = []
+    for lmax in BARO_CASES:
+        model = BarotropicModel(SphericalHarmonics(lmax, device="cuda"), dt=BARO_DT)
+        z0 = model.rossby_haurwitz_vorticity()
+        z0_card = torch.as_tensor(z0, dtype=torch.float32, device="cuda")
+        model.integrate(z0_card, 2, save_every=2)  # warm-up: tables, cuFFT plans
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snaps = model.integrate(z0_card, BARO_STEPS, save_every=BARO_SAVE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        host = BarotropicModel(SphericalHarmonics(lmax, device="cpu"), dt=BARO_DT)
+        day64 = host.integrate(z0, BARO_SAVE, save_every=BARO_SAVE)[0]
+        scale = float(day64.abs().max())
+        err = float((snaps[0].cpu().double() - day64).abs().max()) / scale
+        check(err <= BARO_TOL, f"T{lmax} day 1 f32 on the card vs f64: {err} of the max")
+        final = snaps[-1].cpu().double().numpy()
+        corr = float(np.corrcoef(final.ravel(), z0.ravel())[0, 1])
+        amp = float(np.abs(final).max() / np.abs(z0).max())
+        check(snaps.shape == (BARO_STEPS // BARO_SAVE, model.sht.nlat, model.sht.nlon)
+              and bool(torch.isfinite(snaps).all()) and amp < 5 and corr > 0.5,
+              f"T{lmax} 14 days: shape {tuple(snaps.shape)}, max |zeta| {amp} x the "
+              f"initial, correlation with t0 {corr}")
+        profiled_run_ms(lambda: model.integrate(z0_card, 2, save_every=2))  # tracer warm-up
+        prof_ms, busy_ms, _, n_kernels = profiled_run_ms(
+            lambda: model.integrate(z0_card, BARO_SAVE, save_every=BARO_SAVE))
+        out.append({
+            "lmax": lmax, "grid": [model.sht.nlat, model.sht.nlon], "steps": BARO_STEPS,
+            "dt_s": BARO_DT, "wall_s": wall_s, "steps_per_s": BARO_STEPS / wall_s,
+            "day1_vs_f64_rel_err": err, "tolerance": BARO_TOL,
+            "final_max_over_initial": amp, "final_corr_with_t0": corr,
+            "profiled_day_ms": prof_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / prof_ms,
+            "device_kernels_per_day": n_kernels,
+        })
+    return out
+
+
+def utils_phase(out_dir, rng):
+    """``utils.trace`` around one bf16 train step of the flagship U-Net (the
+    trace must name #1, #4 and #5), ``Timer.time_fn`` of a model call,
+    ``conv_roofline`` beside ``tools/timing.py::bound`` at the U-Net's conv
+    shapes, and each plot drawn to a PNG where matplotlib imports."""
+    from dlwp_cs_tpu_torch import plot
+    from dlwp_cs_tpu_torch.tools.timing import bound
+    from dlwp_cs_tpu_torch.utils import Timer, conv_roofline, trace
+
+    from dlwp_cs_tpu_torch.train import History
+
+    trainer, state, xb, yb = flagship_step_setup("bfloat16", rng)
+    state, m0 = trainer.train_step(state, xb, yb)  # warm-up
+    torch.cuda.synchronize()
+    with trace(os.path.join(out_dir, "trace")) as path:
+        state, m1 = trainer.train_step(state, xb, yb)
+        torch.cuda.synchronize()
+    losses = [float(m0["loss"]), float(m1["loss"])]
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    named = {k: any(k in name for name in names)
+             for k in ("cs_conv3x3_tc_kernel", "cs_conv3x3_dx_tc_kernel",
+                       "cs_conv3x3_dw_tc_kernel")}
+    check(all(named.values()), f"the trace of a bf16 step names {named}")
+    x1 = xb[:1]
+    with torch.no_grad():
+        call_s = Timer.time_fn(lambda: trainer.model(x1), iters=20, warmup=3)
+    roof = []
+    for n, cin, cout in sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index):
+        r = conv_roofline(batch=1, n=n, cin=cin, cout=cout, dtype_bytes=2)
+        # tools/timing.py counts #1's own reads: x, its ghost strips, both
+        # weight groups and biases, the output
+        nbytes = 2 * (6 * n * n * cin + 6 * 4 * (n + 2) * cin + 2 * 9 * cin * cout + 2 * cout
+                      + 6 * n * n * cout)
+        b = bound(nbytes, 2 * 6 * n * n * 9 * cin * cout, torch.bfloat16)
+        roof.append({"n": n, "cin": cin, "cout": cout, "roofline_ms": r["t_light_s"] * 1e3,
+                     "roofline_bound": r["bound"], "timing_bound_ms": b["bound_ms"],
+                     "timing_bound_by": b["bound_by"]})
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        matplotlib = None
+    pngs = []
+    if matplotlib is None:
+        try:
+            plot.plot_cube_faces(np.zeros((6, 4, 4)))
+        except ImportError as e:
+            check("matplotlib" in str(e), f"plot's ImportError does not name matplotlib: {e}")
+            plots = f"no matplotlib: {e}"
+        else:
+            raise RuntimeError("plot_cube_faces ran without matplotlib")
+    else:
+        import matplotlib.pyplot as plt
+
+        with torch.no_grad():
+            field = trainer.model(x1)[0, ..., 0].float()
+        lats, lons = np.linspace(-89.0, 89.0, 90), np.arange(0.0, 360.0, 2.0)
+        lead = np.arange(1, 29) * 12.0
+        figs = {
+            "cube_faces": lambda p: plot.plot_cube_faces(field, title="U-Net call", out_path=p),
+            "latlon_map": lambda p: plot.plot_latlon_map(
+                np.cos(np.radians(lats))[:, None] * np.sin(np.radians(lons))[None, :], lats,
+                lons, projection="mollweide", out_path=p),
+            "error_curves": lambda p: plot.plot_error_curves(
+                lead, {"model": np.sqrt(lead)}, out_path=p),
+            "history": lambda p: plot.plot_history(History(epochs=[
+                {"epoch": i, "train_loss": v} for i, v in enumerate(losses)]), out_path=p),
+            "rank_histogram": lambda p: plot.plot_rank_histogram(
+                rng.integers(5, 15, size=9), out_path=p),
+            "spread_error": lambda p: plot.plot_spread_error(
+                lead, np.sqrt(lead), 0.9 * np.sqrt(lead), members=8, out_path=p),
+        }
+        for name, draw in figs.items():
+            p = os.path.join(out_dir, f"plot_{name}.png")
+            plt.close(draw(p))
+            check(os.path.getsize(p) > 1000, f"{p} is empty")
+            pngs.append(p)
+        plots = f"{len(pngs)} PNGs"
+    return {"trace": os.path.basename(path), "trace_names": named,
+            "model_call_ms": call_s * 1e3, "roofline": roof, "plots": plots, "pngs": pngs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -3629,6 +3795,32 @@ def main(argv=None) -> int:
             for k, v in r.items() if isinstance(v, dict)) + f"; phase {latlon_s:.1f} s")
         print(recap[-1], flush=True)
 
+    # the barotropic baseline and the utilities (profiling, plots)
+    t = time.perf_counter()
+    baro = barotropic_phase()
+    baro_s = time.perf_counter() - t
+    for r in baro:
+        recap.append(
+            f"barotropic T{r['lmax']} ({r['grid'][0]}x{r['grid'][1]}, f32): {r['steps']} RK4 "
+            f"steps (14 days) in {r['wall_s']:.2f} s, {r['steps_per_s']:.1f} steps/s; day 1 vs "
+            f"f64 on the CPU {r['day1_vs_f64_rel_err']:.3g} of the max (tol {r['tolerance']:.0e}); "
+            f"day 14 max {r['final_max_over_initial']:.3g}x the initial, correlation with t0 "
+            f"{r['final_corr_with_t0']:.3f}; profiled day {r['profiled_day_ms']:.1f} ms: busy "
+            f"{r['device_busy_ms']} ms (idle share {r['device_idle_share']}), "
+            f"{r['device_kernels_per_day']} device kernels; phase {baro_s:.1f} s")
+        print(recap[-1], flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    t = time.perf_counter()
+    util = utils_phase(args.out, np.random.default_rng(12))
+    utils_s = time.perf_counter() - t
+    recap.append(
+        f"utils: trace {util['trace']} names {util['trace_names']}; Timer.time_fn of a bf16 "
+        f"model call {util['model_call_ms']:.3f} ms; conv_roofline vs tools/timing.py::bound "
+        f"(ms, batch 1, bf16) " + ", ".join(
+            f"({r['n']},{r['cin']},{r['cout']}) {r['roofline_ms']:.5f} {r['timing_bound_ms']:.5f}"
+            for r in util["roofline"]) + f"; plots: {util['plots']}; phase {utils_s:.1f} s")
+    print(recap[-1], flush=True)
+
     with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
         sharded, exchange, group_s, remote, front = sharded_phase(np.random.default_rng(2),
                                                                   workdir)
@@ -3868,6 +4060,8 @@ def main(argv=None) -> int:
                    "data": data, "int8_cases": int8_cases, "quant": list(quant.values()),
                    "quant_convlstm": quant_lstm, "quant_seconds": quant_s,
                    "latlon": latlon, "latlon_seconds": latlon_s,
+                   "barotropic": baro, "barotropic_seconds": baro_s,
+                   "utils": util, "utils_seconds": utils_s,
                    "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))

@@ -9,7 +9,9 @@ autoregressive rollout, ensembles, verification, spatially sharded serving
 and training (data-parallel and spatial steps, sequence training) and the
 kernel tools.  Serving is complete: the micro-batching forecast service
 (also under a device mesh, with a rank-0 front end), exported artifacts
-replayed as one CUDA graph per forecast, and the HTTP front end.
+replayed as one CUDA graph per forecast, and the HTTP front end.  Beside
+them: the barotropic baseline (``barotropic``), plots (``plot``) and
+profiling helpers (``utils``).
 Entry points run on the GPU unless the caller passes ``device="cpu"``.  This
 package imports neither JAX nor ``dlwp_cs_tpu``.
 """

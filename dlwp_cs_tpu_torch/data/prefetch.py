@@ -13,7 +13,10 @@ from the iterable and copies them to the device ``depth`` batches ahead:
 With ``sharding=mesh`` the thread cuts this rank's block out of every
 tensor before the copy, as ``parallel.shard_batch`` does (the batch axis
 over ``data``; with ``spatial=True`` also the face rows and columns of
-every ``(B, 6, n, n, C)`` tensor), so only the block reaches the device.
+every ``(B, 6, n, n, C)`` tensor), so only the block reaches the device;
+with a block descriptor (``parallel.batch_sharding(mesh)``, ...) it cuts
+every tensor by the descriptor's spec, as the reference's sharding is
+applied to every leaf.
 The cut reads the rank's mesh coordinates and issues no collective: the
 thread must not, while the consumer's steps issue theirs.
 
@@ -42,6 +45,14 @@ def _tree_map(fn, item):
     return fn(item)
 
 
+def _is_descriptor(sharding) -> bool:
+    if sharding is None:
+        return False
+    from dlwp_cs_tpu_torch.parallel.mesh import BlockSharding
+
+    return isinstance(sharding, BlockSharding)
+
+
 def _tensors(item):
     out = []
     _tree_map(lambda t: out.append(t) if isinstance(t, torch.Tensor) else None, item)
@@ -56,6 +67,9 @@ class PrefetchIterator:
     def __init__(self, iterable, *, depth: int = 2, device=None, sharding=None,
                  spatial: bool = False):
         self.device = resolve_device(device)
+        if spatial and _is_descriptor(sharding):
+            raise ValueError("spatial=True with a sharding descriptor: its spec says which "
+                             "dimensions to cut (batch_spatial_sharding cuts the face rows)")
         self.sharding, self.spatial = sharding, spatial
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -173,9 +187,11 @@ def prefetch_to_device(iterable, *, depth: int = 2, device=None, sharding=None,
     (:func:`~dlwp_cs_tpu_torch.parallel.create_mesh`), whose rank gets its
     block of every tensor (the batch over ``data``; with ``spatial``, face
     rows over ``spatial`` and columns over ``spatial_x`` of every ``(B, 6,
-    n, n, C)`` tensor), as ``parallel.shard_batch`` cuts them.  Without
-    ``spatial`` these are what ``Trainer(mesh=...)`` and the data-parallel
-    steps take; the spatial steps take the global batch.
+    n, n, C)`` tensor), as ``parallel.shard_batch`` cuts them, or a block
+    descriptor (``parallel.batch_sharding(mesh)``, ...), which cuts every
+    tensor by its spec.  Without ``spatial`` these are what
+    ``Trainer(mesh=...)`` and the data-parallel steps take; the spatial
+    steps take the global batch.
     """
     return PrefetchIterator(iterable, depth=depth, device=device, sharding=sharding,
                             spatial=spatial)

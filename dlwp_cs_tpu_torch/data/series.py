@@ -65,7 +65,7 @@ class SeriesDataset:
         ``(window (B, Tin, 6, n, n, C) raw normalized fields,
         targets (B, k, 6, n, n, Tout*C), t0_days (B,))``; insolation and
         constants are attached by the sequence loss at each rollout step
-        (``train/sequence.py``, not ported yet).
+        (``train/sequence.py``).
       seed: shuffle seed.
     """
 

@@ -12,7 +12,9 @@ Backends:
   :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.cs_conv3x3_fused`, forward and
   backward on the hand-written kernels on a CUDA tensor and on their plain
   versions on a CPU tensor (the reference's ``"fused"`` backward; its other
-  backward modes are TPU ablations of the same map and are not ported).
+  backward modes are TPU ablations of the same map: under
+  :func:`~dlwp_cs_tpu_torch.ops.hopper_conv.use_pallas_backward` every
+  mode runs this backward).
 * ``'xring'`` (and the reference's ``'xring_interpret'``): a 3x3 stride-1
   conv runs :func:`~dlwp_cs_tpu_torch.ops.ring_kernel.cs_conv3x3_xring`,
   two cuDNN SAME convs and the hand-written ring-fix kernel (zero biases

@@ -39,12 +39,20 @@ backward is the two backward kernels.  Its ``ext`` input is
 :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``, whose own backward
 (the scatter-free Eᵀ) folds ``d_ext`` into ``x``'s gradient.
 
+The reference's backward-mode selector (:func:`use_pallas_backward`,
+:func:`backward_mode`, :data:`BACKWARD_MODES`) is kept for its callers:
+every mode runs this backward.  The reference's five modes are TPU
+ablations of one linear map with the same gradients; the port's is its
+``"fused"`` mode (the reference's default is ``"split"``).
+
 Each kernel source is built and bound by
 :mod:`~dlwp_cs_tpu_torch.ops.cuda_build` at its first CUDA use.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import heapq
 import math
@@ -65,6 +73,8 @@ from dlwp_cs_tpu_torch.ops.cuda_build import (
 )
 
 __all__ = [
+    "BACKWARD_MODES",
+    "backward_mode",
     "cs_conv3x3",
     "cs_conv3x3_band",
     "cs_conv3x3_dw",
@@ -86,6 +96,7 @@ __all__ = [
     "tc_geom",
     "tc_plan",
     "tile_plan",
+    "use_pallas_backward",
 ]
 
 # Register tile of one thread and the block-size cap of the CUDA-core
@@ -878,6 +889,32 @@ cs_conv3x3_band = _Conv3x3Kernel("cs_conv3x3_band", _FWD_LIB)
 cs_conv3x3_tile = _Conv3x3Kernel("cs_conv3x3_tile", _FWD_LIB)
 cs_conv3x3_dx = _Conv3x3DxKernel("cs_conv3x3_dx", _BWD_LIB)
 cs_conv3x3_dw = _Conv3x3DwKernel("cs_conv3x3_dw", _BWD_LIB)
+
+
+BACKWARD_MODES = ("xla", "split", "packdw", "hybrid", "fused")
+_BWD_MODE: contextvars.ContextVar = contextvars.ContextVar("cs_conv3x3_fused_bwd",
+                                                           default="fused")
+
+
+@contextlib.contextmanager
+def use_pallas_backward(mode: str):
+    """The reference's backward-mode selector: within this context
+    :func:`backward_mode` is ``mode`` (one of :data:`BACKWARD_MODES`).
+    Every mode runs :func:`cs_conv3x3_fused`'s one backward, the dx and dw
+    kernels: the reference's modes compute the same gradients."""
+    if mode not in BACKWARD_MODES:
+        raise ValueError(f"unknown pallas backward mode {mode!r}")
+    token = _BWD_MODE.set(mode)
+    try:
+        yield
+    finally:
+        _BWD_MODE.reset(token)
+
+
+def backward_mode() -> str:
+    """The backward mode :func:`use_pallas_backward` set (``"fused"``
+    outside it)."""
+    return _BWD_MODE.get()
 
 
 class _FusedConv3x3(torch.autograd.Function):

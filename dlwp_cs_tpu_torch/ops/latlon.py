@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from dlwp_cs_tpu_torch.ops.ringfix import _cudnn_flags
+from dlwp_cs_tpu_torch.ops.ringfix import _full_f32
 
 __all__ = ["latlon_conv", "periodic_pad"]
 
@@ -65,13 +65,13 @@ def periodic_pad(x, width, lat_mode: str = "symmetric"):
 
 class _ValidConv(torch.autograd.Function):
     """VALID conv of NHWC ``x`` with the HWIO ``kernel`` at ``stride``,
-    output in ``x``'s dtype, under :func:`_cudnn_flags`."""
+    output in ``x``'s dtype, under :func:`_full_f32`."""
 
     @staticmethod
     def forward(ctx, x, kernel, stride):
         ctx.save_for_backward(x, kernel)
         ctx.stride = stride
-        with _cudnn_flags(x):
+        with _full_f32(x):
             out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), stride=stride)
         return out.permute(0, 2, 3, 1).contiguous()
 
@@ -80,7 +80,7 @@ class _ValidConv(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel = ctx.saved_tensors
         need = ctx.needs_input_grad
-        with _cudnn_flags(x, deterministic=True):
+        with _full_f32(x, deterministic=True):
             dx, dk, _ = torch.ops.aten.convolution_backward(
                 g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
                 kernel.permute(3, 2, 0, 1), None, [ctx.stride] * 2, [0, 0], [1, 1], False,

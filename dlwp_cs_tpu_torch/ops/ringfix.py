@@ -60,30 +60,33 @@ def add_group_bias(out, bias_eq, bias_pole):
     return out + bias.reshape(shape).to(out.dtype)
 
 
-# cuDNN's flags are process-global: one lock keeps concurrent callers (the
-# forecast service's worker, autograd's device threads) from restoring them
-# under each other's convolutions.
-_CUDNN_LOCK = threading.Lock()
+# cuDNN's and the matmuls' flags are process-global: one lock keeps
+# concurrent callers (the forecast service's worker, autograd's device
+# threads) from restoring them under each other's convolutions and
+# contractions.
+_FLAGS_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
-def _cudnn_flags(t, deterministic: bool = False):
-    """cuDNN convolutions launched in this block on the CUDA tensor ``t``
-    run in full float32 (for float32) and, with ``deterministic``, with
-    deterministic algorithms (the backward's weight gradient may otherwise
-    sum with atomics in an order that changes from run to run)."""
+def _full_f32(t, deterministic: bool = False):
+    """cuDNN convolutions and matmuls launched in this block on the CUDA
+    tensor ``t`` run in full float32 (for float32; TF32 rounding is a 1e-3
+    error) and, with ``deterministic``, the convolutions with deterministic
+    algorithms (the backward's weight gradient may otherwise sum with
+    atomics in an order that changes from run to run)."""
     if not t.is_cuda:
         yield
         return
-    cudnn = torch.backends.cudnn
-    with _CUDNN_LOCK:
-        saved = (cudnn.allow_tf32, cudnn.deterministic)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    with _FLAGS_LOCK:
+        saved = (cudnn.allow_tf32, cudnn.deterministic, matmul.allow_tf32)
         cudnn.allow_tf32 = saved[0] and t.dtype != torch.float32
         cudnn.deterministic = saved[1] or deterministic
+        matmul.allow_tf32 = saved[2] and t.dtype != torch.float32
         try:
             yield
         finally:
-            cudnn.allow_tf32, cudnn.deterministic = saved
+            cudnn.allow_tf32, cudnn.deterministic, matmul.allow_tf32 = saved
 
 
 def _nchw(xg):
@@ -103,7 +106,7 @@ def _same_conv_vjp(xg, kernel, g, need=(True, True)):
     cotangent ``g``, in the input's and the kernel's dtype (None where
     ``need`` says so)."""
     b = xg.shape[0]
-    with _cudnn_flags(xg, deterministic=True):
+    with _full_f32(xg, deterministic=True):
         dx, dk, _ = torch.ops.aten.convolution_backward(
             _nchw(g.to(xg.dtype)), _nchw(xg), kernel.to(xg.dtype).permute(3, 2, 0, 1),
             None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [need[0], need[1], False],
@@ -118,7 +121,7 @@ class _SameConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xg, kernel):
         ctx.save_for_backward(xg, kernel)
-        with _cudnn_flags(xg):
+        with _full_f32(xg):
             out = F.conv2d(_nchw(xg), kernel.to(xg.dtype).permute(3, 2, 0, 1), padding=1)
         return _faces(out, xg.shape[0])
 

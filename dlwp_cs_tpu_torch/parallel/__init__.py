@@ -10,10 +10,12 @@ the launch #11, ``band_conv="overlap"``, which move the band rows between
 the ranks of one host through buffers mapped by CUDA IPC:
 ``parallel.symmetric``).  So is training (``make_dp_train_step`` and its
 variants, ``make_spatial_train_step``, gradients through the halo exchange:
-``parallel.collectives``) and ``scaling.py``.  The GSPMD shardings are not:
-the port slices blocks explicitly (``shard_batch``), and
-``batch_sharding``, ``batch_spatial_sharding`` and ``replicated`` raise
-``NotImplementedError`` naming ``ROADMAP.md``.
+``parallel.collectives``) and ``scaling.py``.  The GSPMD shardings become
+explicit slicing (``shard_batch``): ``batch_sharding``,
+``batch_spatial_sharding``, ``stacked_batch_sharding`` and ``replicated``
+return a block descriptor (``parallel.mesh.BlockSharding``) that
+``shard_batch`` and ``prefetch_to_device(sharding=)`` take in place of a
+mesh.
 """
 
 from dlwp_cs_tpu_torch.parallel.halo import make_sharded_pad, sharded_cs_pad
@@ -22,7 +24,12 @@ from dlwp_cs_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SPATIAL_AXIS,
     SPATIAL_X_AXIS,
+    BlockSharding,
+    batch_sharding,
+    batch_spatial_sharding,
     create_mesh,
+    replicated,
+    stacked_batch_sharding,
 )
 from dlwp_cs_tpu_torch.parallel.multihost import (
     global_mesh,
@@ -43,19 +50,6 @@ from dlwp_cs_tpu_torch.parallel.sharding import (
 )
 
 
-def _not_ported(name: str, where: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md {where}")
-
-    fn.__name__ = fn.__qualname__ = name
-    return fn
-
-
-_SHARDINGS = "queue 1, item 17 (GSPMD shardings; the port slices blocks: shard_batch)"
-batch_sharding = _not_ported("batch_sharding", _SHARDINGS)
-batch_spatial_sharding = _not_ported("batch_spatial_sharding", _SHARDINGS)
-replicated = _not_ported("replicated", _SHARDINGS)
-
 __all__ = [
     "make_sharded_pad",
     "sharded_cs_pad",
@@ -64,10 +58,12 @@ __all__ = [
     "DATA_AXIS",
     "SPATIAL_AXIS",
     "SPATIAL_X_AXIS",
+    "BlockSharding",
     "batch_sharding",
     "batch_spatial_sharding",
     "create_mesh",
     "replicated",
+    "stacked_batch_sharding",
     "global_mesh",
     "host_batch_slice",
     "initialize_distributed",

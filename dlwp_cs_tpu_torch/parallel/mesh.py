@@ -11,12 +11,19 @@ The reference's shardings become explicit slicing: every rank holds the
 same global batch, :func:`local_block` cuts this rank's block out of it
 (batch over ``data``, face rows over ``spatial``, columns over
 ``spatial_x``: ``batch_spatial_sharding``) and :func:`gather_blocks` puts
-the blocks of all ranks back together on every rank.
+the blocks of all ranks back together on every rank.  The reference's
+sharding names (:func:`batch_sharding`, :func:`batch_spatial_sharding`,
+:func:`stacked_batch_sharding`, :func:`replicated`) return a
+:class:`BlockSharding`: the mesh and, per dimension, the mesh axis that
+cuts it (the reference's ``PartitionSpec``), which :func:`local_block`,
+``parallel.shard_batch`` and ``prefetch_to_device(sharding=)`` take in
+place of a mesh.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -29,9 +36,14 @@ __all__ = [
     "DATA_AXIS",
     "SPATIAL_AXIS",
     "SPATIAL_X_AXIS",
+    "BlockSharding",
+    "batch_sharding",
+    "batch_spatial_sharding",
     "create_mesh",
     "gather_blocks",
     "local_block",
+    "replicated",
+    "stacked_batch_sharding",
 ]
 
 DATA_AXIS = "data"
@@ -83,6 +95,46 @@ def create_mesh(data: int | None = None, spatial: int = 1, spatial_x: int = 1, *
                             mesh_dim_names=(DATA_AXIS, SPATIAL_AXIS))
 
 
+@dataclass(frozen=True)
+class BlockSharding:
+    """A rank's block layout: ``spec[d]`` names the mesh axis that dimension
+    ``d`` is split over (``None``: whole on every rank); dimensions past the
+    spec are whole.  The port's counterpart of a ``NamedSharding``: it
+    cuts blocks (:func:`local_block`), it places nothing."""
+
+    mesh: object
+    spec: tuple
+
+
+def batch_sharding(mesh, ndim: int = 5) -> BlockSharding:
+    """The leading batch dimension over ``data``; the rest whole."""
+    return BlockSharding(mesh, (DATA_AXIS,) + (None,) * (ndim - 1))
+
+
+def batch_spatial_sharding(mesh, ndim: int = 5) -> BlockSharding:
+    """The batch over ``data`` and the face rows (dimension 2 of ``(B, 6,
+    H, W, C)``) over ``spatial``, plus the columns over ``spatial_x`` when
+    the mesh has that dimension."""
+    spec = [None] * ndim
+    spec[0] = DATA_AXIS
+    if ndim >= 3:
+        spec[2] = SPATIAL_AXIS
+    if ndim >= 4 and SPATIAL_X_AXIS in mesh.mesh_dim_names:
+        spec[3] = SPATIAL_X_AXIS
+    return BlockSharding(mesh, tuple(spec))
+
+
+def stacked_batch_sharding(mesh, ndim: int = 6) -> BlockSharding:
+    """:func:`batch_sharding` of k-stacked batches ``(k, B, ...)``: the
+    leading (step) dimension whole, dimension 1 over ``data``."""
+    return BlockSharding(mesh, (None, DATA_AXIS) + (None,) * (ndim - 2))
+
+
+def replicated(mesh) -> BlockSharding:
+    """Every rank holds the whole tensor."""
+    return BlockSharding(mesh, ())
+
+
 def _cut(x, mesh, name, dim):
     size = axis_size(mesh, name)
     if x.shape[dim] % size:
@@ -99,7 +151,19 @@ def local_block(x, mesh, *, spatial: bool = True, rows_dim: int = 2):
     batch split over ``data`` and, with ``spatial``, face rows over
     ``spatial`` and columns over ``spatial_x``; contiguous.  ``rows_dim``:
     the face rows' dimension, the columns' the next (3 for a sequence
-    batch ``(B, T, 6, H, W, C)``)."""
+    batch ``(B, T, 6, H, W, C)``).
+
+    ``mesh`` may be a :class:`BlockSharding` instead, whose spec alone then
+    says which dimensions to cut (``spatial`` and ``rows_dim`` apply to a
+    mesh); a spec longer than ``x``'s dimensions raises ``ValueError``."""
+    if isinstance(mesh, BlockSharding):
+        if len(mesh.spec) > x.ndim:
+            raise ValueError(
+                f"a sharding spec of {len(mesh.spec)} dimensions for a tensor of {x.ndim}")
+        for dim, name in enumerate(mesh.spec):
+            if name is not None:
+                x = _cut(x, mesh.mesh, name, dim)
+        return x.contiguous()
     x = _cut(x, mesh, DATA_AXIS, 0)
     if spatial:
         x = _cut(_cut(x, mesh, SPATIAL_AXIS, rows_dim), mesh, SPATIAL_X_AXIS, rows_dim + 1)

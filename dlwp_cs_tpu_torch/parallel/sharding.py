@@ -51,6 +51,7 @@ from dlwp_cs_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SPATIAL_AXIS,
     SPATIAL_X_AXIS,
+    BlockSharding,
     gather_blocks,
     local_block,
 )
@@ -81,7 +82,12 @@ _KERNEL_CONVS = ("pallas", "pallas_interpret")
 def shard_batch(batch, mesh, *, spatial: bool = False):
     """This rank's block of each tensor of ``batch`` (a tensor or a tuple or
     list of them): the batch axis over ``data`` and, with ``spatial``, face
-    rows over ``spatial`` and columns over ``spatial_x``."""
+    rows over ``spatial`` and columns over ``spatial_x``.  ``mesh`` may be a
+    block descriptor (``batch_sharding(mesh)``, ...), whose spec then says
+    which dimensions to cut (``spatial`` must stay False)."""
+    if spatial and isinstance(mesh, BlockSharding):
+        raise ValueError("spatial=True with a sharding descriptor: its spec says which "
+                         "dimensions to cut (batch_spatial_sharding cuts the face rows)")
     if isinstance(batch, (tuple, list)):
         return type(batch)(shard_batch(t, mesh, spatial=spatial) for t in batch)
     return local_block(batch, mesh, spatial=spatial)

@@ -45,7 +45,7 @@ import torch
 from dlwp_cs_tpu_torch.device import resolve_device
 from dlwp_cs_tpu_torch.geometry.insolation import INSOLATION_PERIOD_DAYS
 from dlwp_cs_tpu_torch.ops.library import use_library_ops
-from dlwp_cs_tpu_torch.ops.ringfix import _cudnn_flags
+from dlwp_cs_tpu_torch.ops.ringfix import _full_f32
 from dlwp_cs_tpu_torch.rollout.estimator import Forecast, RolloutStep
 from dlwp_cs_tpu_torch.serve.service import MicroBatcher, _select_constants
 
@@ -342,7 +342,7 @@ class ExportedForecaster:
         t0 = torch.from_numpy(t0).to(self.device)
         # float32 cuDNN convs (the ConvLSTM's SAME convs) in full float32,
         # as the live path runs them; the choice is baked in at capture
-        with self._lock, torch.no_grad(), _cudnn_flags(window):
+        with self._lock, torch.no_grad(), _full_f32(window):
             if self.device.type != "cuda":
                 return _rollout(program, window, t0, steps).numpy()
             captured = self._graphs.get((steps, bucket))

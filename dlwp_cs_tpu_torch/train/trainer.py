@@ -353,18 +353,23 @@ class Trainer:
     def _feed(self, it, device):
         """``feed(x)``: a batch tensor of ``it`` as the step takes it on
         ``device``; with a mesh this rank's block, cut before the copy (an
-        iterator of blocks, ``prefetch_to_device(sharding=mesh)``, passes
-        as it is)."""
+        iterator of blocks, ``prefetch_to_device(sharding=mesh)`` or
+        ``sharding=batch_sharding(mesh)``, passes as it is)."""
         if self.mesh is None:
             return lambda x: _on(x, device)
+        from dlwp_cs_tpu_torch.parallel.mesh import DATA_AXIS, BlockSharding, local_block
+
         sharding = getattr(it, "sharding", None)
         if sharding is not None:
-            if sharding is not self.mesh or getattr(it, "spatial", False):
+            if isinstance(sharding, BlockSharding):  # batch blocks cut as the mesh cuts
+                ours = (sharding.mesh is self.mesh and sharding.spec[:1] == (DATA_AXIS,)
+                        and not any(sharding.spec[1:]))
+            else:
+                ours = sharding is self.mesh and not getattr(it, "spatial", False)
+            if not ours:
                 raise ValueError("the prefetcher's blocks are not this trainer's: give "
                                  "it sharding=<the trainer's mesh>, spatial=False")
             return lambda x: _on(x, device)
-        from dlwp_cs_tpu_torch.parallel.mesh import local_block
-
         return lambda x: local_block(torch.as_tensor(x), self.mesh, spatial=False).to(device)
 
 

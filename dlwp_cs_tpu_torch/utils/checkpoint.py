@@ -30,6 +30,7 @@ __all__ = [
     "latest_step",
     "save_json",
     "load_json",
+    "wait_for_checkpoints",
 ]
 
 _STATE = "state.pt"
@@ -99,6 +100,13 @@ def save_checkpoint(path, state, *, step: int, extras: dict | None = None,
         shutil.rmtree(old)
     os.replace(tmp, target)
     return target
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every checkpoint write is durable.  The reference's
+    saves may run in the background; :func:`save_checkpoint` here returns
+    only once its step directory is renamed into place, so there is
+    nothing to wait for and this returns at once."""
 
 
 def restore_checkpoint(path, target_state, *, step: int | None = None):

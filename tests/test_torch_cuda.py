@@ -1530,3 +1530,41 @@ def test_int8_kernel_rejects_bad_arguments(cuda_device):
         cs_conv3x3_int8_base(qx, qk, scale[:, :4], torch.float32)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cs_conv3x3_int8_base(qx, qk, scale, torch.float16)
+
+
+@pytest.mark.cuda
+def test_barotropic_day_on_card_matches_cpu_float64(cuda_device):
+    """One day (48 RK4 steps of 30 min) of the T42 Rossby-Haurwitz case in
+    float32 on the card against the same on the CPU in float64: within
+    1e-4 of the largest |zeta| (float32 rounding carried through 192
+    tendencies; the card's matmuls run in full float32)."""
+    from dlwp_cs_tpu_torch.barotropic import BarotropicModel, SphericalHarmonics
+
+    card = BarotropicModel(SphericalHarmonics(42, device=cuda_device))
+    host = BarotropicModel(SphericalHarmonics(42, device="cpu"))
+    z0 = card.rossby_haurwitz_vorticity()
+    ours = card.integrate(torch.as_tensor(z0, dtype=torch.float32), 48, save_every=24)
+    ref = host.integrate(z0, 48, save_every=24)
+    assert ours.device.type == "cuda" and ours.dtype == torch.float32
+    assert ref.dtype == torch.float64 and ours.shape == ref.shape == (2, 65, 130)
+    torch.testing.assert_close(ours.cpu().double(), ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_trace_names_the_kernels_on_card(cuda_device, tmp_path):
+    """``utils.trace`` around a fused conv's forward and backward writes a
+    trace whose device events name the forward, dx and dw kernels."""
+    import json
+
+    from dlwp_cs_tpu_torch.utils import trace
+
+    x, *w = (torch.from_numpy(a).to(cuda_device, torch.bfloat16).requires_grad_(True)
+             for a in _case(2, 24, 32, 32))
+    with trace(tmp_path) as path:
+        out = cs_conv(x, w[0], w[1], bias_eq=w[2], bias_pole=w[3])
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+    names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
+    for kernel in ("cs_conv3x3_tc_kernel", "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_tc_kernel"):
+        assert any(kernel in name for name in names), kernel

@@ -44,9 +44,11 @@ def test_importing_every_module_loads_no_jax():
               "parallel.scaling", "train.sequence", "remap", "remap.apply",
               "remap.native", "remap.weights", "data.era5", "data.cfsr", "data.grib2",
               "data.tscache", "data.preprocessing", "ops.quant", "ops.latlon",
-              "models.latlon_unet", "models.registry", "models.torch_mirror"):
+              "models.latlon_unet", "models.registry", "models.torch_mirror",
+              "barotropic", "barotropic.model", "barotropic.spharm", "plot", "plot.maps",
+              "utils.profiling"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
-    assert len(mods) >= 56
+    assert len(mods) >= 62
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -59,6 +61,19 @@ def test_importing_every_module_loads_no_jax():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=120, check=True,
     )
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_plot_and_utils_import_no_matplotlib():
+    """matplotlib is imported when a plot is drawn, not with the package."""
+    code = (
+        "import sys\n"
+        "import dlwp_cs_tpu_torch.plot, dlwp_cs_tpu_torch.utils, dlwp_cs_tpu_torch.barotropic\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'matplotlib'))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
@@ -128,6 +143,10 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
         TorchCubeSphereConv2D(np.zeros((3, 3, 1, 1)), np.zeros((3, 3, 1, 1)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TorchCubeSphereUNet(UNetConfig(filters=(4,)))
+    from dlwp_cs_tpu_torch.barotropic import SphericalHarmonics
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SphericalHarmonics(10)
     est = DLWPEstimator(cfg, device="cpu")  # an explicit device is honoured
     assert est.device.type == "cpu"
     assert dlwp_cs_tpu_torch.DLWPEstimator is DLWPEstimator

@@ -77,6 +77,7 @@ CTX_ERRORS = [  # (mesh, kwargs, exception, match); exception None: accepted
     ((1, 4, 1), dict(band_impl="rdma", band_conv="overlap"), None, None),
 ]
 XCHG_CASES = [(2, 1), (2, 2), (4, 1), (4, 2)]  # (S, width) of the band exchange, n = 16
+DESCRIPTOR_MESHES = [(2, 2, 1), (1, 2, 2), (4, 1, 1)]  # the sharding descriptors' meshes
 # the sharded ConvLSTM: (conv backend, mesh, band_conv); kernel #11's plain
 # version ("overlap") runs on row bands only
 LSTM_N = 16
@@ -270,6 +271,34 @@ def _rank_cases(params, lstm_params, ens_pert):
     out["bad_batch"] = _caught(lambda: local_block(x[:1], mesh((2, 2, 1))))
     grad = band.clone().requires_grad_(True)
     out["grad"] = _caught(lambda: sharded_cs_pad(grad, 1, mesh=m))
+    # the sharding descriptors (item 17e): shard_batch and prefetch_to_device
+    # cut by their spec what local_block cuts from the mesh
+    from dlwp_cs_tpu_torch.data import prefetch_to_device
+    from dlwp_cs_tpu_torch.parallel import (
+        batch_sharding,
+        batch_spatial_sharding,
+        replicated,
+        shard_batch,
+        stacked_batch_sharding,
+    )
+
+    xb = torch.from_numpy(_rand((4, 6, N, N, 3), 5))
+    stacked = torch.stack([xb, 2 * xb, 3 * xb])  # (k, B, 6, n, n, C)
+    for shape in DESCRIPTOR_MESHES:
+        dm = mesh(shape)
+        fed = list(prefetch_to_device(iter([(xb, 2 * xb)]), device="cpu",
+                                      sharding=batch_sharding(dm)))
+        out["descriptors", shape] = {
+            "spatial": (shard_batch(xb, batch_spatial_sharding(dm)), local_block(xb, dm)),
+            "batch": (shard_batch((xb,), batch_sharding(dm))[0],
+                      local_block(xb, dm, spatial=False)),
+            "prefetch": ([t for item in fed for t in item],
+                         [local_block(xb, dm, spatial=False),
+                          local_block(2 * xb, dm, spatial=False)]),
+            "stacked": (shard_batch(stacked, stacked_batch_sharding(dm)),
+                        torch.stack([local_block(t, dm, spatial=False) for t in stacked])),
+            "replicated": (shard_batch(xb, replicated(dm)), xb),
+        }
     me = float(dist.get_rank())
     t = torch.full((2,), me)
     out["collectives"] = (
@@ -826,17 +855,49 @@ def test_remote_copy_kernels_on_one_shard_and_cpu():
     assert not overlap_supported((2, 6, N // 4, N, 3), 4, torch.float64)
 
 
-def test_unported_parallel_names_raise():
-    """The GSPMD shardings stay replaced by explicit slicing and raise; the
-    training steps and the scaling harness are ported (their behaviour:
-    ``tests/test_torch_parallel_train.py``, ``tests/test_torch_train.py``)."""
+@pytest.mark.parametrize("ndim", [4, 5, 6])
+@pytest.mark.parametrize("spatial_x", [False, True], ids=["2d_mesh", "3d_mesh"])
+def test_sharding_descriptors_match_reference_specs(ndim, spatial_x):
+    """The reference's sharding names return descriptors whose per-dimension
+    specs equal its ``PartitionSpec``s (``spatial_x`` only on a mesh with
+    that dimension); the training steps and the scaling harness are ported
+    (their behaviour: ``tests/test_torch_parallel_train.py``,
+    ``tests/test_torch_train.py``)."""
+    import types
+
+    import jax
+    from jax.sharding import Mesh
+
+    from dlwp_cs_tpu.parallel import mesh as jmesh
     import dlwp_cs_tpu_torch.parallel as par
     from dlwp_cs_tpu_torch.parallel import scaling, sharding
     from dlwp_cs_tpu_torch.parallel.halo import use_band_exchange
+    from dlwp_cs_tpu_torch.train.trainer import Trainer
 
-    for name in ("batch_sharding", "batch_spatial_sharding", "replicated"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(par, name)()
+    names = ("data", "spatial", "spatial_x") if spatial_x else ("data", "spatial")
+    ref_mesh = Mesh(np.asarray(jax.devices()[:1]).reshape((1,) * len(names)), names)
+    ours_mesh = types.SimpleNamespace(mesh_dim_names=names, shape=(1,) * len(names))
+    for name, args in (("batch_sharding", (ndim,)), ("batch_spatial_sharding", (ndim,)),
+                       ("stacked_batch_sharding", (ndim,)), ("replicated", ())):
+        ours = getattr(par, name)(ours_mesh, *args)
+        ref = getattr(jmesh, name)(ref_mesh, *args)
+        assert isinstance(ours, par.BlockSharding) and ours.mesh is ours_mesh
+        assert ours.spec == tuple(ref.spec), name
+    # a trainer on the mesh takes batch blocks cut by batch_sharding as it
+    # takes blocks cut by the mesh, and refuses others
+    trainer = types.SimpleNamespace(mesh=ours_mesh)
+    x = torch.ones(2, 3)
+    for feeds in (par.batch_sharding(ours_mesh), ours_mesh):
+        feed = Trainer._feed(trainer, types.SimpleNamespace(sharding=feeds), "cpu")
+        assert feed(x) is x
+    for other in (par.batch_spatial_sharding(ours_mesh), par.replicated(ours_mesh),
+                  par.batch_sharding(types.SimpleNamespace(mesh_dim_names=names))):
+        with pytest.raises(ValueError, match="not this trainer's"):
+            Trainer._feed(trainer, types.SimpleNamespace(sharding=other), "cpu")
+    with pytest.raises(ValueError, match="spatial=True with a sharding descriptor"):
+        par.shard_batch(x, par.batch_sharding(ours_mesh), spatial=True)
+    with pytest.raises(ValueError, match="a sharding spec of 5 dimensions"):
+        par.shard_batch(x, par.batch_sharding(ours_mesh))
     for name in ("make_spatial_train_step", "make_dp_train_step", "make_dp_shardmap_train_step",
                  "make_dp_eval_step", "make_dp_shardmap_eval_step", "make_dp_scanned_train_step",
                  "make_dp_shardmap_scanned_train_step"):
@@ -849,6 +910,21 @@ def test_unported_parallel_names_raise():
     with pytest.raises(ValueError, match="unknown band exchange"):
         with use_band_exchange("nope"):
             pass
+
+
+@pytest.mark.parametrize("shape", DESCRIPTOR_MESHES)
+def test_sharding_descriptors_cut_as_the_mesh(group, shape):
+    """On every rank: ``shard_batch`` by ``batch_spatial_sharding`` equals
+    ``local_block(spatial=True)``, by ``batch_sharding`` and
+    ``prefetch_to_device(sharding=batch_sharding(mesh))`` the batch block,
+    ``stacked_batch_sharding`` cuts dimension 1, ``replicated`` nothing."""
+    for r in group:
+        for what, (ours, ref) in r["descriptors", shape].items():
+            ours, ref = (list(ours), list(ref)) if isinstance(ref, list) else ([ours], [ref])
+            assert len(ours) == len(ref), what
+            for o, e in zip(ours, ref):
+                torch.testing.assert_close(o, e, rtol=0, atol=0, msg=f"rank {r['rank']} {what}")
+                assert o.is_contiguous()
 
 
 def test_single_process_needs_no_group(monkeypatch):
