@@ -6,7 +6,8 @@ quantized to int8, run the lat-lon models and the registry, serve ensembles of
 the U-Net, exported artifacts as CUDA-graph replays and the HTTP front end,
 serve the U-Net spatially sharded over 4 ranks that share the GPU,
 through gloo and through CUDA IPC, with a rank-0 front end, and train it
-under data-parallel and spatial meshes of those 4 ranks.
+under data-parallel and spatial meshes of those 4 ranks, and chain the
+seven example workflows at full width.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -140,10 +141,12 @@ Run from the repository root on a machine with an NVIDIA Hopper card
 8c. the data pipeline (``remap/``, ``data/``): build the exact
    conservative weights ERA5 1 degree (181 x 360, poles included) <-> C48
    with the C++ generator (compiled with the kernels, above); make the
-   analytic sources of ``examples/01_build_dataset.py`` (z500, z1000,
+   analytic sources of ``dlwp_cs_tpu_torch/examples/01_build_dataset.py``
+   (``synthetic_sources``: z500, z1000,
    tau300-700, t2m and two constants) for 120 days at 6 h on that grid;
-   ``Preprocessor.data_to_series`` remaps them on the card, 256 times a
-   batch, twice (bitwise equal), held against ``RemapWeights.apply_numpy``
+   the example's ``build_store`` remaps them on the card
+   (``Preprocessor.data_to_series``, 256 times a batch, no kernel launch),
+   twice (bitwise equal): the store that 9b chains from, held against ``RemapWeights.apply_numpy``
    on the host (every time, the constants, the mean and std); one batch's
    remap timed with CUDA events beside the plain version's host time; the
    store written and opened as HDF5 where h5py imports, else
@@ -227,7 +230,32 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    times and gloo collectives; then one ``Trainer(mesh=data 4).fit``
    epoch (3 steps) on a seeded ``MemoryStore`` fed by
    ``prefetch_to_device(sharding=mesh)`` and one
-   ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands;
+   ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands; last,
+   9b's ``05_sequence_train --mesh 2x2`` on the head of 8c's store (the
+   group is started once for both);
+9b. the example workflows (``dlwp_cs_tpu_torch.examples``, the counterparts
+   of ``examples/01..07``) chained in this process at full width, every
+   launch count set to 0 before each step and read after: 01 is 8c's
+   ``build_store`` (the C48 store of 480 times, exact conservative
+   weights), its ``MemoryStore`` handed to each step (the line says
+   whether 8c could write and read it as ``predictors_cs.h5``); 02 trains the flagship U-Net in bfloat16 (2 epochs at batch 16: 10
+   forward, 9 dx and 10 dw launches a step, 10 forward a validation batch)
+   and the ConvLSTM (filters 32/32, its default conv backend, float32, 1
+   epoch: 4 forward, 3 dx and 4 dw launches a step) and saves the models;
+   03 forecasts 14 days from 4 inits (280 launches of #1 at batch 4); 04
+   scores them against persistence and climatology (RMSE, ACC; the plots,
+   or their ``ImportError`` naming matplotlib); 05 fine-tunes on sequences
+   of 3 (float32, filters 32/64/128, batch 8, 2 steps, the store's first 64
+   times) on one card and
+   under ``--mesh 2x2`` on 4 ranks sharing the card (run by 9a's group;
+   the band ring-fix conv: no kernel), its per-step losses within 1e-4 of
+   the one card's; 06
+   serves its self-test (3 concurrent HTTP requests of 28 calls) live and
+   from 07's artifact; 07 runs an 8-member 14-day ensemble (CRPS, RMSE of
+   the mean and spread at days 1, 3, 5 and 14) and the export round trip,
+   the exported forecast bitwise equal to the live one; each step's wall
+   seconds and launches, and the phase's seconds beside its 120 s budget
+   (printed, not checked);
 10. print whether ``nvidia-cuda-mps-control`` is on the PATH and the card
    count (the route for measuring #10 and #11; nothing is started), the
    #3/#13 tables, the ensemble, export, HTTP, front-end and mesh-training
@@ -246,6 +274,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import importlib
+import importlib.util
 import json
 from concurrent.futures import ThreadPoolExecutor
 import os
@@ -2058,35 +2089,6 @@ DATA_TRAIN_STEPS = 10
 DATA_TOL = 1e-5  # of each variable's largest |value|: float32 sums in another order
 
 
-def synthetic_sources(lats, lons, days, step_hours):
-    """The analytic lat-lon "reanalysis" of ``examples/01_build_dataset.py``
-    (travelling waves and a seasonal cycle: z500, z1000, tau300-700, t2m,
-    float64 ``(T, H, W)``) and its two constants, sampled at ``lats`` /
-    ``lons`` (radians); days since 2000-01-01."""
-    glat, glon = np.meshgrid(lats, lons, indexing="ij")
-    times = np.arange(0.0, days, step_hours / 24.0)
-    t = times[:, None, None]
-    x = np.cos(glat) * np.cos(glon)
-    y = np.cos(glat) * np.sin(glon)
-    z = np.sin(glat)
-    season = np.cos(2 * np.pi * t / 365.25)
-
-    def wave(k, c, amp):
-        return amp * np.cos(k * glon - c * 2 * np.pi * t) * np.cos(glat) ** 2
-
-    sources = {
-        "z500": 5500.0 + 100.0 * z[None] * season + wave(4, 0.35, 80.0),
-        "z1000": 100.0 + 40.0 * z[None] * season + wave(3, 0.30, 40.0),
-        "tau300-700": 7500.0 - 300.0 * np.abs(z)[None] + wave(5, 0.4, 60.0),
-        "t2m": 288.0 - 30.0 * z[None] ** 2 + 10.0 * z[None] * season + wave(6, 0.5, 2.0),
-    }
-    constants = {
-        "topography": np.maximum(0.0, 2000.0 * (x * y + 0.3 * z * z)),
-        "land_sea_mask": (x * y + 0.3 * z > 0).astype(np.float64),
-    }
-    return sources, constants, times
-
-
 class StoreHead:
     """The first ``t`` times of a store, its fields read lazily as an
     ``H5Store``'s are: the data phase trains 10 steps from the head of the
@@ -2106,20 +2108,17 @@ class StoreHead:
 
 def data_phase(workdir):
     """The data pipeline on the card: exact conservative ERA5 1 degree <->
-    C48 weights built here, the analytic sources remapped by the
-    ``Preprocessor`` into a 480-time store and held against the plain
+    C48 weights built here, the analytic sources remapped into a 480-time
+    store by ``examples/01_build_dataset.build_store`` (the store that the
+    examples phase chains from, built once) and held against the plain
     version, the store written and opened as HDF5 where h5py imports, the
     flagship bf16 U-Net trained 10 steps from it, and a 14-day forecast
-    remapped back to 181 x 360."""
+    remapped back to 181 x 360.  Returns the phase's readings and the
+    store, in memory."""
     from dlwp_cs_tpu_torch import DataConfig, DLWPEstimator, ExperimentConfig
-    from dlwp_cs_tpu_torch.data import MemoryStore, Preprocessor, open_store, write_store
+    from dlwp_cs_tpu_torch.data import MemoryStore, open_store, write_store
     from dlwp_cs_tpu_torch.models.config import TrainConfig
-    from dlwp_cs_tpu_torch.remap import (
-        apply_remap,
-        conservative_weights,
-        latlon_grid,
-        remap_cs_to_ll,
-    )
+    from dlwp_cs_tpu_torch.remap import apply_remap, conservative_weights, remap_cs_to_ll
     from dlwp_cs_tpu_torch.tools.timing import bound
 
     (h, w), n = DATA_GRID, 48
@@ -2135,18 +2134,26 @@ def data_phase(workdir):
                      "row_nnz_min_mean_max": [int(lengths.min()), float(lengths.mean()),
                                               int(lengths.max())]}
     ll2cs, cs2ll = weights["ll2cs"], weights["cs2ll"]
-    lats, lons = latlon_grid(h, w, cell_centered=False)  # the grid of the weights
+    ex01 = _examples()["01"]
     t = time.perf_counter()
-    sources, constants, times = synthetic_sources(lats, lons, DATA_DAYS, DATA_STEP_HOURS)
+    # the example's analytic sources on the grid of the weights (its poles
+    # included)
+    sources, constants, lats, lons, times = ex01.synthetic_sources(
+        h, w, DATA_DAYS, DATA_STEP_HOURS, cell_centered=False)
     out["sources_seconds"] = time.perf_counter() - t
-    pre = Preprocessor(sources, lats, lons, times)
+    kernels = all_kernels()
     runs = []
     for _ in range(2):
+        for k in kernels.values():
+            k.launches = 0
         t = time.perf_counter()
-        store = pre.data_to_series(n, weights=ll2cs, constant_sources=constants,
-                                   batch_size=DATA_BATCH, device="cuda")
+        # the weights come from the cache that the generation above filled
+        store = ex01.build_store(sources, constants, lats, lons, times, grid=n,
+                                 remap="conservative", cache_dir=workdir, device="cuda")
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t, store))
+        launches = {name: k.launches for name, k in kernels.items() if k.launches}
+        check(not launches, f"01's build_store launched {launches}")
     store = runs[0][1]
     out["preprocessor_seconds"] = [r[0] for r in runs]
     out["fields_shape"] = list(store.fields.shape)
@@ -2239,7 +2246,6 @@ def data_phase(workdir):
           f"store {store.variables} {store.constant_names} is not the flagship's")
     head = StoreHead(train_store, TRAIN_BATCH * DATA_TRAIN_STEPS + d.input_time_steps
                      + d.output_time_steps - 1)
-    kernels = all_kernels()
     est = DLWPEstimator(cfg, device="cuda", seed=0)
     for k in kernels.values():
         k.launches = 0
@@ -2285,7 +2291,7 @@ def data_phase(workdir):
           f"forecast remap vs plain: {out['remap_back_max_err_of_largest']}")
     if has_h5py:
         train_store.close()
-    return out
+    return out, store
 
 
 def exchange_ms(meshes):
@@ -2705,7 +2711,7 @@ def _digest(params):
     return h.hexdigest()
 
 
-def mesh_train_rank(dtype_names, seed):
+def mesh_train_rank(dtype_names, seed, ex_head):
     """One rank of the mesh-training phase (a gloo group of ``SHARDS`` ranks
     sharing the card), per dtype: for each path of ``MESH_TRAIN_PATHS``, one
     SGD step (learning rate ``MESH_SGD_LR``) on the global batch, its all-reduced
@@ -2714,9 +2720,12 @@ def mesh_train_rank(dtype_names, seed):
     steps with every launch count set to 0 before and read after, their
     losses and host times; then one ``Trainer(mesh=data 4).fit`` epoch on a
     seeded ``MemoryStore`` fed by ``prefetch_to_device(sharding=mesh)`` and
-    one ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands.
-    Returns errors, losses, times, launches, collectives and the digests of
-    the parameters (the parent compares the ranks')."""
+    one ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands;
+    last, the examples phase's ``05_sequence_train --mesh 2x2`` on
+    ``ex_head`` (:func:`examples_mesh_rank`: this group spares that phase
+    a group of its own).  Returns errors, losses, times, launches,
+    collectives and the digests of the parameters (the parent compares the
+    ranks')."""
     from dlwp_cs_tpu_torch.data import MemoryStore, SeriesDataset, prefetch_to_device
     from dlwp_cs_tpu_torch.geometry.cubed_sphere import CubedSphere
     from dlwp_cs_tpu_torch.models import DataConfig, build_model
@@ -2858,17 +2867,20 @@ def mesh_train_rank(dtype_names, seed):
             "loss": loss, "one_card_loss": one_card, "step_ms": (time.perf_counter() - t) * 1e3,
             "launches": {k: v.launches for k, v in kernels.items()},
             "collectives": collectives.calls - calls, "digest": _digest(state.params)}
+    out["examples 05 --mesh"] = examples_mesh_rank(ex_head, dict(EX_SEQ, device=None))
     return out
 
 
-def mesh_train_phase(workdir):
+def mesh_train_phase(workdir, ex_head):
     """Train the flagship U-Net under the meshes of ``MESH_TRAIN_PATHS`` on
-    ``SHARDS`` ranks sharing the card and check every rank's results."""
+    ``SHARDS`` ranks sharing the card and check every rank's results; the
+    ranks then run ``05_sequence_train --mesh 2x2`` on ``ex_head``, whose
+    per-rank results (checked by the examples phase) come back third."""
     from dlwp_cs_tpu_torch.parallel.launch import spawn_group
 
     dtype_names = ("bfloat16", "float32")
     t = time.perf_counter()
-    ranks = spawn_group(mesh_train_rank, SHARDS, dtype_names, 6,
+    ranks = spawn_group(mesh_train_rank, SHARDS, dtype_names, 6, ex_head,
                         workdir=os.path.join(workdir, "mesh_train"))
     group_s = time.perf_counter() - t
     names = list(all_kernels())
@@ -2934,7 +2946,7 @@ def mesh_train_phase(workdir):
             "collectives_per_rank": [q["collectives"] for q in seqs],
             "bitwise_equal_across_ranks": True,
         })
-    return paths, group_s
+    return paths, group_s, [r["examples 05 --mesh"] for r in ranks]
 
 
 # the quantized serving phase (ops/quant.py): the int8 base conv at each
@@ -3417,6 +3429,297 @@ def utils_phase(out_dir, rng):
             "model_call_ms": call_s * 1e3, "roofline": roof, "plots": plots, "pngs": pngs}
 
 
+# the examples phase: the seven example workflows (dlwp_cs_tpu_torch.examples)
+# chained at full width: the flagship C48 U-Net (filters 32/64/128, bf16
+# compute, f32 parameters) trained, forecast, scored, fine-tuned, served,
+# run as an ensemble and exported, from a store built on a 1 degree grid
+EX_EPOCHS = 2
+EX_SEQ = dict(sequence=3, batch=8, filters=(32, 64, 128), steps=2)  # f32, as the reference
+EX_SEQ_TIMES = 64  # 05 runs on the store's first 64 times: the ranks get a 14 MB store
+EX_MESH = (2, 2)  # data x spatial: 4 ranks sharing the card
+EX_MESH_TOL = 1e-4  # per-step loss, relative: tests/test_torch_parallel_train.py's f32
+EX_LEAD_DAYS = (1, 3, 5, 14)
+EX_PHASE_S = 120.0
+
+
+def _examples():
+    return {name[:2]: importlib.import_module(f"dlwp_cs_tpu_torch.examples.{name}")
+            for name in ("01_build_dataset", "02_train", "03_forecast", "04_evaluate",
+                         "05_sequence_train", "06_serve", "07_ensemble_export")}
+
+
+def examples_head(store):
+    """05's store: the first ``EX_SEQ_TIMES`` times of ``store`` (each mesh
+    rank gets its own copy)."""
+    return dataclasses.replace(store, fields=store.fields[:EX_SEQ_TIMES],
+                               times=store.times[:EX_SEQ_TIMES])
+
+
+def examples_mesh_rank(store, kwargs):
+    """One rank of ``05_sequence_train --mesh 2x2``, run by the mesh-train
+    group's ranks: the example's own rank function with the launch counts
+    set to 0 before and read after."""
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    losses = _examples()["05"].mesh_rank(store, *EX_MESH, kwargs)["losses"]
+    torch.cuda.synchronize()
+    return {"losses": losses, "seconds": time.perf_counter() - t,
+            "launches": {name: k.launches for name, k in kernels.items()}}
+
+
+def examples_phase(workdir, out_dir, store, data, mesh05):
+    """The examples' functions chained in one process on the card, each with
+    every launch count set to 0 before it and read after, from ``store``:
+    the C48 store that 01's ``build_store`` made in the data phase (exact
+    conservative weights; ``data``: that phase's readings).  02 trains the
+    bf16 U-Net and the f32 ConvLSTM, 03 forecasts 14 days from 4 inits, 04
+    scores them (the plots where matplotlib imports, else their
+    ImportError), 05 fine-tunes on one card, held against ``mesh05``: each
+    rank's result of ``--mesh 2x2`` in the mesh-train group (4 ranks
+    sharing the card, on the same head of the store), 06 serves the self-test live and from 07's
+    artifact, 07 runs the 8-member ensemble and the export round trip."""
+    from dlwp_cs_tpu_torch.data import SeriesDataset
+    from dlwp_cs_tpu_torch.estimator import DLWPEstimator
+    from dlwp_cs_tpu_torch.geometry import CubedSphere
+    from dlwp_cs_tpu_torch.serve import ForecastService
+
+    ex = _examples()
+    kernels = all_kernels()
+    names = list(kernels)
+    t_phase = time.perf_counter()
+    out, logs = {}, []
+
+    def log(*a):
+        logs.append(" ".join(str(v) for v in a))
+
+    def run(key, fn, want=None):
+        """``fn()`` with the counts set to 0 before and read after; its wall
+        seconds and launches under ``key``; ``want``: the exact launches
+        (kernels not named: 0)."""
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        out[key] = {"seconds": time.perf_counter() - t,
+                    "launches": {k: v for k, v in launches.items() if v}}
+        if want is not None:
+            full = {name: want.get(name, 0) for name in names}
+            check(launches == full, f"examples {key}: launches {out[key]['launches']}, "
+                  f"want {want}")
+        return result
+
+    out["store_route"] = (f"the data phase's store, {data['store_branch']}; its MemoryStore "
+                          "handed to each step in this process")
+    print(f"examples: store route {out['store_route']}", flush=True)
+
+    # 01: the data phase's first build_store run, launch counts zeroed before
+    # it and checked after (none)
+    out["01"] = {"seconds": data["preprocessor_seconds"][0], "launches": {}}
+    out["store_shape"] = list(store.fields.shape)
+
+    # 02: the flagship U-Net, bf16, then the ConvLSTM (its default conv backend)
+    lat, lon = CubedSphere(48).cell_latlon
+    val_frac = 0.15
+
+    def trained(key, cfg, per_step, per_call):
+        """``ex02.train`` of ``cfg`` and the model it saves; the launches
+        are ``per_step`` a train step and ``per_call`` a validation call."""
+        wd = os.path.join(workdir, key)
+        result = {}
+
+        def fit():
+            trainer, state, stats = ex["02"].train(store, cfg, workdir=wd, val_frac=val_frac,
+                                                   device="cuda", verbose=False)
+            result.update(trainer=trainer, state=state, stats=stats)
+            return ex["02"].save_model(os.path.join(wd, "model"), state, cfg, stats)
+
+        n_val = len(SeriesDataset(ex["02"].chronological_split(store, val_frac)[1], cfg.data,
+                                  lat=lat, lon=lon, batch_size=cfg.train.batch_size))
+        model_dir = run(key, fit)  # launches checked below, once the step count is known
+        trainer = result["trainer"]
+        steps, epochs = len(trainer.history.steps), len(trainer.history.epochs)
+        expect = {k: v * steps for k, v in per_step.items()}
+        expect["cs_conv3x3"] += per_call * epochs * n_val
+        got = out[key]["launches"]
+        check(got == {k: v for k, v in expect.items() if v},
+              f"examples {key}: launches {got}, want {expect}")
+        losses = [r["loss"] for r in trainer.history.steps]
+        check(steps > 0 and all(np.isfinite(losses)), f"examples {key}: losses {losses}")
+        step_ms = [r["step_s"] * 1e3 for r in trainer.history.steps]
+        out[key].update(steps=steps, epochs=epochs, val_batches_per_epoch=n_val,
+                        step_ms_median=statistics.median(step_ms),
+                        epoch_losses=[(r["train_loss"], r["val_loss"])
+                                      for r in trainer.history.epochs],
+                        model_dir=str(model_dir))
+        return model_dir
+
+    unet_cfg = ex["02"].experiment_config(store, filters=(32, 64, 128), batch=TRAIN_BATCH,
+                                          bf16=True, epochs=EX_EPOCHS)
+    model_dir = trained("02", unet_cfg, PER_STEP["unet"], PER_CALL["unet"]["cs_conv3x3"])
+    lstm_cfg = ex["02"].experiment_config(store, model="convlstm", filters=(32, 32),
+                                          batch=TRAIN_BATCH, epochs=1)
+    # under the default backend the ConvLSTM's 3x3 gate convs run the fused
+    # kernels: 4 forward, 4 dw and 3 dx a step (the first layer's first
+    # input is data with a zero state)
+    trained("02 convlstm", lstm_cfg, {"cs_conv3x3": 4, "cs_conv3x3_dw": 4, "cs_conv3x3_dx": 3},
+            4)
+
+    # 03: 14 days from the 4 last verifiable inits, one rollout at batch 4
+    est = DLWPEstimator.load(model_dir, device="cuda")
+    calls = int(round(14 * 24 / (est.config.data.step_hours * est.config.data.output_time_steps)))
+    fc = run("03", lambda: ex["03"].forecast_from_tail(est, store, days=14, inits=4),
+             {"cs_conv3x3": PER_CALL["unet"]["cs_conv3x3"] * calls})
+    check(fc["fields"].shape == (4, 2 * calls, 6, 48, 48, 4)
+          and bool(np.isfinite(fc["fields"]).all()), f"03 fields {fc['fields'].shape}")
+    out["03"]["fields_shape"] = list(fc["fields"].shape)
+
+    # 04: the scores; the plots where matplotlib imports
+    scores = run("04", lambda: ex["04"].score(fc["fields"], fc["lead_hours"],
+                                               fc["init_times"], store), {})
+    for k in ("rmse", "persistence", "climatology", "acc"):
+        check(bool(np.isfinite(scores[k]).all()), f"04 {k} not finite")
+    leads = list(scores["lead_hours"])
+    out["04"]["at_days"] = {
+        var: {d: {k: float(scores[k][leads.index(24.0 * d), vi])
+                  for k in ("rmse", "persistence", "climatology", "acc")}
+              for d in EX_LEAD_DAYS}
+        for vi, var in enumerate(store.variables)}
+    out["04"]["table_z500"] = ex["04"].format_table(scores, 0)
+    try:
+        ex["04"].plot_scores(scores, list(store.variables), 0, out_dir)
+        out["04"]["plots"] = "rmse_curves.png, forecast_map.png"
+    except ImportError as e:  # the card machine has no matplotlib
+        check(importlib.util.find_spec("matplotlib") is None and "matplotlib" in str(e),
+              f"04's plots raised {e!r}")
+        out["04"]["plots"] = f"no matplotlib: ImportError: {e}"
+
+    # 05: sequence fine-tuning (f32, as the reference) on one card, against
+    # the mesh-train group's 2 x 2 run on the same head of the store
+    head = examples_head(store)
+    per_app = PER_STEP["unet"]
+    seq, n_steps = EX_SEQ["sequence"], EX_SEQ["steps"]
+    one = run("05", lambda: ex["05"].sequence_train(head, device="cuda", log=log, **EX_SEQ),
+              {"cs_conv3x3": per_app["cs_conv3x3"] * seq * n_steps,
+               "cs_conv3x3_dw": per_app["cs_conv3x3_dw"] * seq * n_steps,
+               # every application after the first takes an input that
+               # carries a gradient: its first conv runs dx too
+               "cs_conv3x3_dx": (per_app["cs_conv3x3_dx"] * seq + seq - 1) * n_steps})
+    one_losses = one["losses"]
+    check(len(one_losses) == n_steps and all(np.isfinite(one_losses)),
+          f"05 losses {one_losses}")
+    out["05"]["losses"] = one_losses
+    errs = []
+    for rank, r in enumerate(mesh05):
+        check(not any(r["launches"].values()),
+              f"05 --mesh rank {rank} launched {r['launches']} (the band ring-fix conv)")
+        err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one_losses))
+        errs.append(err)
+        check(len(r["losses"]) == n_steps and err <= EX_MESH_TOL,
+              f"05 --mesh rank {rank}: losses {r['losses']} vs one card {one_losses}")
+    out["05 --mesh"] = {"seconds": max(r["seconds"] for r in mesh05), "launches": {},
+                        "losses_rank0": mesh05[0]["losses"], "rel_err_per_rank": errs,
+                        "tolerance": EX_MESH_TOL,
+                        "rank_seconds": [r["seconds"] for r in mesh05]}
+
+    # 06 live, 07, then 06 from 07's artifact
+    def selftest(make, steps):
+        svc = make()
+        try:
+            got = ex["06"].selftest(svc, store, steps=steps, log=log)
+        finally:
+            svc.close()
+        check(got["ok"] and len(got["results"]) == 3, "06 selftest failed")
+        for fields, lead, _ in got["results"].values():
+            check(fields.shape == (1, 2 * steps, 6, 48, 48, 4), f"06 fields {fields.shape}")
+        st = got["stats"]
+        return {"requests": st.requests, "batches": st.batches, "mean_batch": st.mean_batch,
+                "device_seconds": st.device_seconds}
+
+    live = run("06", lambda: selftest(lambda: ex["06"].live_service(est, store), STEPS))
+    check(out["06"]["launches"] == {"cs_conv3x3": PER_CALL["unet"]["cs_conv3x3"] * STEPS
+                                    * live["batches"]}, f"06 launches {out['06']['launches']}")
+    out["06"]["stats"] = live
+    svc = ForecastService(est, constants_store=store)
+    ens = run("07", lambda: ex["07"].ensemble_scores(svc, store, steps=STEPS, members=ENS_MEMBERS,
+                                                     seed=0, device="cuda", log=log),
+              {"cs_conv3x3": PER_CALL["unet"]["cs_conv3x3"] * STEPS})
+    check(bool(np.isfinite(ens["ensemble"].mean).all())
+          and all(bool(np.isfinite(ens[k]).all()) for k in ("crps", "rmse", "spread")),
+          "07 ensemble not finite")
+    lead = list(ens["lead_hours"])
+    out["07"]["at_days"] = {d: {k: float(ens[k][lead.index(24.0 * d)])
+                                for k in ("crps", "rmse", "spread")} for d in EX_LEAD_DAYS}
+    artifact = os.path.join(workdir, "rollout_artifact")
+    trip = run("07 export", lambda: ex["07"].export_round_trip(
+        est, svc, store, artifact, steps=STEPS, window=ens["window"], t0=ens["t0"], log=log))
+    svc.close()
+    check(trip["maxdiff"] == 0.0, f"07 exported vs live maxdiff {trip['maxdiff']} (want 0)")
+    check(set(out["07 export"]["launches"]) == {"cs_conv3x3"},
+          f"07 export launches {out['07 export']['launches']}")
+    out["07 export"].update(maxdiff=trip["maxdiff"], size_kib=trip["size_kib"])
+    art = run("06 --artifact", lambda: selftest(
+        lambda: ex["06"].artifact_service(artifact, device="cuda"), STEPS))
+    check(set(out["06 --artifact"]["launches"]) == {"cs_conv3x3"},
+          f"06 --artifact launches {out['06 --artifact']['launches']}")
+    out["06 --artifact"]["stats"] = art
+    # reported against its budget, not checked: the wall clock moves with the
+    # host, not with the port
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    out["log"] = logs
+    return out
+
+
+def examples_lines(r):
+    """The examples phase's summary lines."""
+    def launches(key):
+        return r[key]["launches"] or "none"
+
+    lines = [f"examples 01: {r['01']['seconds']:.1f} s (the data phase's build_store); store "
+             f"{r['store_shape']} ({r['store_route']}); launches {launches('01')}"]
+    for key, what in (("02", "unet bfloat16"), ("02 convlstm", "convlstm float32")):
+        e = r[key]
+        lines.append(f"examples {key} ({what}): {e['seconds']:.1f} s; {e['steps']} steps over "
+                     f"{e['epochs']} epochs ({e['val_batches_per_epoch']} validation batches an "
+                     f"epoch), step {e['step_ms_median']:.2f} ms median; epoch losses "
+                     f"{e['epoch_losses']}; launches {launches(key)}")
+    lines.append(f"examples 03: {r['03']['seconds']:.2f} s; fields {r['03']['fields_shape']}; "
+                 f"launches {launches('03')}")
+    z = r["04"]["at_days"]["z500"]
+    lines.append(f"examples 04: {r['04']['seconds']:.2f} s; z500 RMSE (persistence, "
+                 "climatology), ACC: " + "; ".join(
+                     f"day {d} {v['rmse']:.2f} ({v['persistence']:.2f}, {v['climatology']:.2f}), "
+                     f"{v['acc']:.3f}" for d, v in z.items())
+                 + f"; plots {r['04']['plots']}; launches {launches('04')}")
+    m = r["05 --mesh"]
+    lines.append(f"examples 05: one card {r['05']['seconds']:.1f} s, losses "
+                 f"{['%.6f' % v for v in r['05']['losses']]}, launches {launches('05')}; --mesh "
+                 f"{EX_MESH[0]}x{EX_MESH[1]} (the mesh-train group's 4 ranks sharing the card) "
+                 f"{m['seconds']:.1f} s in the ranks, "
+                 f"losses {['%.6f' % v for v in m['losses_rank0']]}, vs one card "
+                 f"{max(m['rel_err_per_rank']):.3g} relative (tol {m['tolerance']:.0e}), "
+                 f"launches none")
+    for key in ("06", "06 --artifact"):
+        st = r[key]["stats"]
+        lines.append(f"examples {key}: {r[key]['seconds']:.2f} s; requests {st['requests']}, "
+                     f"batches {st['batches']}, mean batch {st['mean_batch']:.2f}, device "
+                     f"{st['device_seconds']:.3f} s; launches {launches(key)}")
+    lines.append(f"examples 07: {r['07']['seconds']:.2f} s; {ENS_MEMBERS} members x {STEPS} "
+                 "calls; CRPS, RMSE of the mean, spread: " + "; ".join(
+                     f"day {d} {v['crps']:.3f}, {v['rmse']:.3f}, {v['spread']:.3f}"
+                     for d, v in r["07"]["at_days"].items()) + f"; launches {launches('07')}; "
+                 f"export round trip {r['07 export']['seconds']:.2f} s, exported vs live maxdiff "
+                 f"{r['07 export']['maxdiff']:.3g}, {r['07 export']['size_kib']:.0f} KiB, "
+                 f"launches {launches('07 export')}")
+    lines.append(f"examples phase: {r['phase_seconds']:.1f} s (budget {EX_PHASE_S:.0f}, "
+                 f"{'within' if r['phase_seconds'] <= EX_PHASE_S else 'OVER'}; 01's build "
+                 "timed in the data phase)")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -3716,7 +4019,7 @@ def main(argv=None) -> int:
     # card, then training and a forecast from the store it built
     with tempfile.TemporaryDirectory() as workdir:  # the weights and the store
         t = time.perf_counter()
-        data = data_phase(workdir)
+        data, ex_store = data_phase(workdir)  # ex_store: the examples chain from it
         data["phase_seconds"] = time.perf_counter() - t
     recap.append(
         f"data: ERA5 {data['grid'][0]}x{data['grid'][1]} <-> C{data['n']} exact conservative "
@@ -3865,7 +4168,7 @@ def main(argv=None) -> int:
 
     # training under a mesh, 4 ranks sharing the card
     with tempfile.TemporaryDirectory() as workdir:  # the group's FileStore
-        mesh_train, mesh_train_s = mesh_train_phase(workdir)
+        mesh_train, mesh_train_s, ex_mesh05 = mesh_train_phase(workdir, examples_head(ex_store))
     for r in mesh_train:
         if r["path"] == "fit":
             line_ = (f"mesh train fit {r['dtype']} (data 4, Trainer.fit, one epoch of "
@@ -3892,6 +4195,15 @@ def main(argv=None) -> int:
         print(line_, flush=True)
     print(f"mesh train group: {mesh_train_s:.1f} s from spawn to the last rank's exit",
           flush=True)
+
+    # the example workflows chained at full width from the data phase's
+    # store (train, forecast, scores, sequence fine-tuning, serving, ensemble
+    # and export)
+    with tempfile.TemporaryDirectory() as workdir:  # the models, the artifact
+        examples = examples_phase(workdir, args.out, ex_store, data, ex_mesh05)
+    for line_ in examples_lines(examples):
+        recap.append(line_)
+        print(line_, flush=True)
 
     def line(name, source, replaces, launches, per_path, errs, peak=torch.bfloat16):
         """One kernel's entry: times summed over the convs of one model call
@@ -4037,6 +4349,10 @@ def main(argv=None) -> int:
              "step_ms_median_per_rank": r["step_ms_median_per_rank"]}
             for r in mesh_train if r["dtype"] == "bfloat16"
             and entry["name"] in r.get("launches_per_step", {}) and "step_ms_median_per_rank" in r]
+    # the example workflows: each kernel's launches per example
+    for entry in kernels:
+        entry["examples"] = {key: r["launches"][entry["name"]] for key, r in examples.items()
+                             if isinstance(r, dict) and entry["name"] in r.get("launches", {})}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4061,7 +4377,7 @@ def main(argv=None) -> int:
                    "quant_convlstm": quant_lstm, "quant_seconds": quant_s,
                    "latlon": latlon, "latlon_seconds": latlon_s,
                    "barotropic": baro, "barotropic_seconds": baro_s,
-                   "utils": util, "utils_seconds": utils_s,
+                   "utils": util, "utils_seconds": utils_s, "examples": examples,
                    "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))

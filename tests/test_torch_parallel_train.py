@@ -22,6 +22,8 @@ and against the JAX package's own ``make_dp_shardmap_train_step`` and
 * spatial steps (mean and area-weighted): loss ``rel=1e-4``, parameters
   ``atol=1e-4``; three steps in a row: loss ``rel=1e-3``;
 * the sharded sequence step: loss ``rel=1e-5``, parameters ``atol=1e-4``;
+* the sequence example (``examples/05``) under ``--mesh 2x2``: its per-step
+  losses against its one-process run, ``rel=1e-5``;
 * the trainer: epoch losses ``rel=1e-4``, parameters ``atol=1e-5``;
 * one SGD step at learning rate 1 through each block kernel: parameters
   ``atol=1e-6`` (the single-device SGD tolerance of
@@ -35,6 +37,8 @@ Inputs are seeded numpy at n = 8 with filters (4, 8): the bands shrink 2 -> 1
 rows on 4 bands.  Every rank's parameters after every step are bitwise
 equal to rank 0's.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -62,6 +66,8 @@ SGD = [((4, 1, 1), None), ((1, 4, 1), dict(band_conv="pallas")),
        ((1, 4, 1), dict(band_conv="overlap")), ((1, 2, 2), dict(band_conv="pallas"))]
 SEQUENCE_MESHES = [(2, 2, 1), (1, 2, 2)]
 SEQ = 3
+# examples/05's arguments in the group: --sequence 2 --steps 3 --batch 4 --filters 4
+EXAMPLE05 = dict(sequence=2, steps=3, batch=4, filters=(4,), device="cpu")
 DATA = dict(grid_n=N, variables=("a", "b"), input_time_steps=2, output_time_steps=2,
             add_insolation=True, constants=("topo",))
 INSOL = dict(insol_mean=300.0, insol_std=400.0)
@@ -88,6 +94,14 @@ def _sequence_batch():
     t0 = np.asarray([1.0, 1.25, 50.5, 117.75], np.float32)
     consts = np.random.default_rng(9).normal(size=(6, N, N, 1)).astype(np.float32)
     return window, t0, targets, consts
+
+
+def _example_store():
+    """The sequence example's store: the analytic sources of examples/01 on a
+    C8 grid, 12 days at 6 h."""
+    ex01 = importlib.import_module("dlwp_cs_tpu_torch.examples.01_build_dataset")
+    return ex01.build_store(*ex01.synthetic_sources(16, 32, 12.0, 6.0), grid=N,
+                            remap="bilinear", device="cpu")
 
 
 def _trainer_data():
@@ -264,6 +278,13 @@ def _rank_cases(workdir):
             constants=consts, sequence=SEQ, **INSOL)
         state, m = step(init_state(params_of(seq_model), fast), window, t0, targets)
         record(("sequence", shape), state, m)
+    # the sequence example (examples/05) under --mesh 2x2, as each of its
+    # spawned ranks runs it, and in one process on the same store
+    ex05 = importlib.import_module("dlwp_cs_tpu_torch.examples.05_sequence_train")
+    store = _example_store()
+    out["example05", "mesh"] = ex05.mesh_rank(store, 2, 2, EXAMPLE05)["losses"]
+    out["example05", "one"] = ex05.sequence_train(store, log=lambda *a: None,
+                                                  **EXAMPLE05)["losses"]
 
     # Trainer(mesh=data 4): global batches, a workdir (rank 0 writes), then a
     # prefetcher of this rank's blocks; restore_or_init on every rank
@@ -644,6 +665,19 @@ def test_sharded_sequence_step_matches_reference(group, jax_sequence_step, shape
         assert value == pytest.approx(float(m["loss"]), rel=1e-5)
         _assert_params(params, ref, 1e-4, f"rank {r['rank']}")
     _assert_bitwise_across_ranks(group, ("sequence", shape))
+
+
+def test_example05_mesh_matches_one_process(group):
+    """``examples/05_sequence_train --mesh 2x2``: every rank's per-step
+    sequence losses against the one-process run of the example on the same
+    store, from the same seeded parameters over the same batches
+    (``rel=1e-5``, the sharded sequence step's tolerance)."""
+    one = group[0]["example05", "one"]
+    assert len(one) == EXAMPLE05["steps"] and all(np.isfinite(one))
+    for r in group:
+        assert r["example05", "one"] == one
+        np.testing.assert_allclose(r["example05", "mesh"], one, rtol=1e-5, atol=0,
+                                   err_msg=f"rank {r['rank']}")
 
 
 # ---- the trainer -----------------------------------------------------------
