@@ -189,8 +189,9 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    (1, 4) mesh with ``band_conv="pallas"`` (280 launches of #8 per rank),
    with ``band_impl="rdma", band_conv="pallas"`` (280 of #10 and 280 of
    #8: the band rows by remote copies into the neighbours' buffers, mapped
-   by CUDA IPC) and with ``band_conv="overlap"`` (280 of #11: the band conv
-   with the band-row exchange in the launch, nothing else), and on a (1,
+   by CUDA IPC, the waits for them held in the GPU's front end) and with
+   ``band_conv="overlap"`` (280 of #11: the band conv with the band-row
+   exchange around its two passes, nothing else), and on a (1,
    2, 2) mesh (280 of #9), and at batch 3 through
    ``ForecastService(mesh=create_mesh(data=2, spatial=2))`` (the band
    ring-fix conv, data-axis padding, no kernel), then its ensemble of 3
@@ -202,15 +203,19 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    paths, #11's included, which sums every output in #8's order, to 1e-6
    in float32 and 2**-6 of the value in bfloat16, the service to 1e-3 and
    2**-3), with the wall time of 4 ranks sharing one card and the gloo
-   collectives each rank issued; before them, on every rank, #10 and #11
+   collectives each rank issued; before them, on every rank, the exchange
+   probe (``tools/xchg_probe.py``: a round trip to both ring neighbours,
+   spinning in a kernel and as stream waits, in turns), then #10 and #11
    at each flagship conv shape on 4 bands, batch 1 and 8, both dtypes:
    #10 bitwise against the ``ppermute`` pair, #11 against its plain version
-   (and beside #8 on the exchanged strips), their device times per call
-   (time slices of the other ranks included), the plain versions' and
-   cuDNN's times and the bounds; and the host time of one ghost-strip
-   ``all_gather``, of one band and one tile conv with its exchange, of the
-   band rows by the ``ppermute`` pair and by #10, of a band conv with #10
-   and of a #11 conv; then a group of 2 ranks: #10 at the same rows;
+   and bitwise against #8 on the exchanged strips, their device times per
+   call in turns with their first designs (``*_v1``, one cooperative kernel
+   that spins, time slices of the other ranks included), the plain
+   versions' and cuDNN's times and the bounds; and the host time of one
+   ghost-strip ``all_gather``, of one band and one tile conv with its
+   exchange, of the band rows by the ``ppermute`` pair and by #10, of a
+   band conv with #10 and of a #11 conv; then a group of 2 ranks: the
+   probe, #10 and #11 at the same shapes on 2 bands;
 9a. spawn 4 ranks sharing the card again and train the flagship U-Net at
    global batch 16, in bfloat16 and float32, under ``MESH_TRAIN_PATHS``:
    ``data=4`` through the data-parallel step (#1, #4, #5 on each rank's
@@ -335,6 +340,7 @@ KERNEL_NAMES = ("cs_conv3x3_kernel", "cs_conv3x3_tc_kernel", "cs_conv3x3_dx_kern
 CUDA_CORE_BACKWARD = ("cs_conv3x3_dx_kernel", "cs_conv3x3_dw_kernel")
 CUDA_CORE_RING = ("cs_ring_fixes_kernel", "cs_xring_apply_kernel")
 SHARDS = 4  # ranks of the sharded phase: 4 row bands, or 2 x 2 tiles
+PROBE_ROUNDS = 200  # round trips of each way of tools/xchg_probe.py, per turn
 MESH_MEMBERS = 3  # the mesh ensemble's members: data = 2 pads one window
 # the sharded forecasts against the one-card one over 14 days, per point
 # |diff| <= rel * |ref| + abs in units of the field's std.  The service's
@@ -2377,10 +2383,11 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
     ``ppermute`` pair
     (equal), #11 against its plain version on the same seam strips and
     received rows (f32 1e-4; bf16 one ulp + 1e-4) and against #8 on the
-    exchanged strips; each kernel's device time per call (the 4 ranks
-    sharing the card wait out each other's time slices inside it), the
-    plain versions' times, one face-grouped cuDNN call on the padded band
-    and the bounds.  A collective call; launches here are not the main
+    exchanged strips; each kernel's device time per call, in turns with its
+    first design (``*_v1``, held against the same references: its time
+    includes the other ranks' time slices, which it waits out spinning),
+    the plain versions' times, one face-grouped cuDNN call on the padded
+    band and the bounds.  A collective call; launches here are not the main
     path's."""
     from dlwp_cs_tpu_torch.ops.hopper_conv import _padded_faces
     from dlwp_cs_tpu_torch.parallel.collectives import axis_index, axis_size
@@ -2391,8 +2398,13 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         _seam_ext,
         band_conv3x3_overlap,
         band_conv3x3_overlap_plain,
+        band_conv3x3_overlap_v1,
     )
-    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import (
+        band_exchange_plain,
+        band_exchange_rdma,
+        band_exchange_rdma_v1,
+    )
     from dlwp_cs_tpu_torch.tools.timing import (
         HBM_BYTES_PER_S, bf16_excess, bound, face_grouped, graph_ms)
 
@@ -2411,17 +2423,22 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         slab = b * 6 * n * cin * item
         # #10 on this conv's input (width 1)
         ours = band_exchange_rdma(x, 1, mesh=mesh)
+        old = band_exchange_rdma_v1(x, 1, mesh=mesh)
         ref = band_exchange_plain(x, 1, mesh=mesh)
         torch.cuda.synchronize()
         err10 = max(float((a.float() - r.float()).abs().max()) for a, r in zip(ours, ref))
         equal10 = all(torch.equal(a, r) for a, r in zip(ours, ref))
-        ms10 = rank_ms(lambda: band_exchange_rdma(x, 1, mesh=mesh), 20)
+        equal_v1 = all(torch.equal(a, r) for a, r in zip(old, ref))
+        ms10, v1_10, turns10 = _turns(lambda: band_exchange_rdma(x, 1, mesh=mesh),
+                                      lambda: band_exchange_rdma_v1(x, 1, mesh=mesh), 20,
+                                      timer=rank_ms)
         plain10 = host_ms(lambda: band_exchange_plain(x, 1, mesh=mesh), 5)
         t_bytes = 4 * slab / HBM_BYTES_PER_S * 1e3  # 2 boundary slabs read, 2 written
         xchg.append({
             "n": n, "cin": cin, "cout": cout, "batch": b, "rows": h,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err10, "equal": equal10,
-            "ok": equal10, "ms": ms10, "plain_ms": plain10, "library_ms": None,
+            "v1_equal": equal_v1, "ok": equal10 and equal_v1, "ms": ms10, "v1_ms": v1_10,
+            "turns_ms": turns10, "plain_ms": plain10, "library_ms": None,
             "bound_ms": t_bytes, "bound_by": "bytes", "bytes": 4 * slab, "ops": 0})
         if not convs:
             continue
@@ -2432,6 +2449,7 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         ref = band_conv3x3_overlap_plain(x, seam, wecols, below, above, *ks, *bs,
                                          first=first, last=last)
         ours = band_conv3x3_overlap.fused(x, seam, wecols, *ks, *bs, mesh=mesh)
+        old = band_conv3x3_overlap_v1.fused(x, seam, wecols, *ks, *bs, mesh=mesh)
         k8 = band_conv3x3(x, *ks, *bs, mesh=mesh)
         torch.cuda.synchronize()
         err = float((ours.float() - ref.float()).abs().max())
@@ -2442,8 +2460,10 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         ext = band_ext(*halo_pieces(x, 1, mesh=mesh))
         p, w = face_grouped(_padded_faces(x, ext), ks)
         bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
-        ms11 = rank_ms(lambda: band_conv3x3_overlap.fused(x, seam, wecols, *ks, *bs,
-                                                           mesh=mesh), 20)
+        ms11, v1_11, turns11 = _turns(
+            lambda: band_conv3x3_overlap.fused(x, seam, wecols, *ks, *bs, mesh=mesh),
+            lambda: band_conv3x3_overlap_v1.fused(x, seam, wecols, *ks, *bs, mesh=mesh), 20,
+            timer=rank_ms)
         plain11 = graph_ms(lambda: band_conv3x3_overlap_plain(
             x, seam, wecols, below, above, *ks, *bs, first=first, last=last), 3)
         library_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
@@ -2454,9 +2474,12 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         conv.append({
             "n": n, "cin": cin, "cout": cout, "batch": b, "rows": h,
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tolerance": tol,
-            "ok": ok, "vs_band_kernel_max_abs_err": float((ours.float() - k8.float()).abs().max()),
+            "ok": ok and bool(torch.equal(ours, k8)) and bool(torch.equal(old, k8)),
+            "vs_band_kernel_max_abs_err": float((ours.float() - k8.float()).abs().max()),
             "equal_to_band_kernel": bool(torch.equal(ours, k8)),
-            "ms": ms11, "plain_ms": plain11, "library_ms": library_ms,
+            "v1_equal_to_band_kernel": bool(torch.equal(old, k8)),
+            "ms": ms11, "v1_ms": v1_11, "turns_ms": turns11, "plain_ms": plain11,
+            "library_ms": library_ms,
             **bound(nbytes, ops, dtype)})
     return xchg, conv
 
@@ -2469,7 +2492,8 @@ def sharded_rank(dtype_names, windows, t0, const, pert):
     service at batch 3, its ensemble of ``MESH_MEMBERS`` members on
     ``data = 2`` (padded by one window) with the perturbations ``pert``, and
     its rank-0 front end (3 submits on rank 0 while the others follow());
-    before them kernels #10 and #11 at every flagship band shape.  Returns
+    before them the exchange probe and kernels #10 and #11 at every
+    flagship band shape.  Returns
     the fields, the launches of every kernel and the collectives per
     forecast, the wall times and the kernel cases."""
     import torch.distributed as dist
@@ -2483,7 +2507,10 @@ def sharded_rank(dtype_names, windows, t0, const, pert):
     meshes = {"band": create_mesh(data=1, spatial=SHARDS),
               "tile": create_mesh(data=1, spatial=2, spatial_x=2),
               "service": create_mesh(data=2, spatial=2)}
-    out = {"exchange": exchange_ms(meshes), "xchg": [], "overlap": []}
+    from dlwp_cs_tpu_torch.tools.xchg_probe import probe_rank
+
+    out = {"probe": probe_rank(PROBE_ROUNDS), "exchange": exchange_ms(meshes), "xchg": [],
+           "overlap": []}
     for b in (1, 8):
         for dtype in (torch.float32, torch.bfloat16):
             xchg, conv = remote_cases(meshes["band"], b, dtype)
@@ -2554,17 +2581,22 @@ def sharded_rank(dtype_names, windows, t0, const, pert):
 
 
 def pair_rank():
-    """One rank of a group of 2 sharing the card: kernel #10 at every
-    flagship conv input cut into 2 bands (the same rows as on 4), batch 1
-    and 8, both dtypes, against the ``ppermute`` pair, with its time."""
+    """One rank of a group of 2 sharing the card: the exchange probe, then
+    kernels #10 and #11 at every flagship conv input cut into 2 bands,
+    batch 1 and 8, both dtypes, against their references, with their
+    times."""
     from dlwp_cs_tpu_torch.parallel import create_mesh
+    from dlwp_cs_tpu_torch.tools.xchg_probe import probe_rank
 
+    probe = probe_rank(PROBE_ROUNDS)
     mesh = create_mesh(data=1, spatial=2)
-    out = []
+    xchg, conv = [], []
     for b in (1, 8):
         for dtype in (torch.float32, torch.bfloat16):
-            out += remote_cases(mesh, b, dtype, convs=False)[0]
-    return out
+            x, c = remote_cases(mesh, b, dtype)
+            xchg += x
+            conv += c
+    return {"probe": probe, "xchg": xchg, "overlap": conv}
 
 
 def sharded_phase(rng, workdir):
@@ -2668,10 +2700,17 @@ def sharded_phase(rng, workdir):
             "ensemble_wall_ms": [r["mesh_ensemble", dtype_name]["wall_ms"] for r in ranks],
             "tolerance_in_std": tol,
         })
+    from dlwp_cs_tpu_torch.tools.xchg_probe import summary
+
     remote = {"xchg4": [c for r in ranks for c in r["xchg"]],
               "overlap4": [c for r in ranks for c in r["overlap"]],
-              "xchg2": [c for r in pair for c in r]}
-    bad = [c for cases in remote.values() for c in cases if not c["ok"]]
+              "xchg2": [c for r in pair for c in r["xchg"]],
+              "overlap2": [c for r in pair for c in r["overlap"]],
+              "probe": {2: {"ranks": [r["probe"] for r in pair],
+                            **summary([r["probe"] for r in pair])},
+                        4: {"ranks": [r["probe"] for r in ranks],
+                            **summary([r["probe"] for r in ranks])}}}
+    bad = [c for key, cases in remote.items() if key != "probe" for c in cases if not c["ok"]]
     check(not bad, f"kernel #10 or #11 disagrees with its plain version: {bad}")
     # per rank, per shape: #10's case (input rows) and #11's, rank 0 first
     remote["per_rank"] = [{"xchg": r["xchg"], "overlap": r["overlap"]} for r in ranks]
@@ -4144,16 +4183,40 @@ def main(argv=None) -> int:
     recap.append(f"item 17d route: nvidia-cuda-mps-control {mps['nvidia_cuda_mps_control']}, "
                  f"{mps['device_count']} card(s)")
     print(recap[-1], flush=True)
-    print("remote: kernel ranks n rows Cin Cout B dtype | max_abs_err | kernel_ms plain_ms "
-          "library_ms bound_ms (rank 0; #11: max |#11 - #8|)")
-    for key, name, ranks_n in (("xchg2", "#10", 2), ("xchg4", "#10", 4), ("overlap4", "#11", 4)):
+    probe = remote["probe"]
+    recap.append(
+        "exchange probe (tools/xchg_probe.py, ranks sharing one card, ms per round trip to "
+        "both ring neighbours, the slowest rank's mean of two turns): " + "; ".join(
+            f"{k} ranks spin {probe[k]['spin_ms']:.4f}, stream wait {probe[k]['stream_ms']:.4f}"
+            for k in (2, 4)))
+    print(recap[-1], flush=True)
+    print("remote: kernel ranks n rows Cin Cout B dtype | max_abs_err | kernel_ms v1_ms "
+          "plain_ms library_ms bound_ms (rank 0; v1 in turns; #11: max |#11 - #8|)")
+    for key, name, ranks_n in (("xchg2", "#10", 2), ("xchg4", "#10", 4), ("overlap2", "#11", 2),
+                               ("overlap4", "#11", 4)):
         for c in remote[key][: len(remote[key]) // ranks_n]:  # rank 0's
             extra = (f" | vs #8 {c['vs_band_kernel_max_abs_err']:.3g}"
                      if "vs_band_kernel_max_abs_err" in c else "")
             lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
             print(f"{name} {ranks_n} {c['n']} {c['rows']} {c['cin']} {c['cout']} {c['batch']} "
-                  f"{c['dtype']} | {c['max_abs_err']:.3g} | {c['ms']:.4f} {c['plain_ms']:.4f} "
-                  f"{lib} {c['bound_ms']:.5f}{extra}", flush=True)
+                  f"{c['dtype']} | {c['max_abs_err']:.3g} | {c['ms']:.4f} {c['v1_ms']:.4f} "
+                  f"{c['plain_ms']:.4f} {lib} {c['bound_ms']:.5f}{extra}", flush=True)
+    for key, name, ranks_n in (("xchg2", "#10", 2), ("xchg4", "#10", 4), ("overlap2", "#11", 2),
+                               ("overlap4", "#11", 4)):
+        for b in (1, 8):
+            for dt in ("float32", "bfloat16"):
+                rows = [c for c in remote[key][: len(remote[key]) // ranks_n]
+                        if c["batch"] == b and c["dtype"] == dt]
+                per = {(c["n"], c["cin"], c["cout"]): c for c in rows}
+                call = [per[s_] for s_ in FLAGSHIP_CONVS]
+                recap.append(
+                    f"{name} on {ranks_n} ranks sharing one card, batch {b} {dt}, a model "
+                    f"call's 10 (rank 0): {sum(c['ms'] for c in call):.3f} ms, first design "
+                    f"(v1, in turns) {sum(c['v1_ms'] for c in call):.3f} ms; per call "
+                    f"{min(c['ms'] for c in rows):.4f}-{max(c['ms'] for c in rows):.4f} "
+                    f"(v1 {min(c['v1_ms'] for c in rows):.4f}-"
+                    f"{max(c['v1_ms'] for c in rows):.4f})")
+                print(recap[-1], flush=True)
     for r in sharded:
         print(f"sharded {r['path']} {r['dtype']} batch {r['batch']}: vs one card "
               f"{r['max_err_in_std']:.3g} std (tol {r['tolerance_in_std']}); 14-day "
@@ -4271,8 +4334,9 @@ def main(argv=None) -> int:
                             [blk[(kind,) + s] for s in FLAGSHIP_CONVS],
                             [c["max_abs_err"] for c in blocks if c["kernel"] == kind]))
     # #10 and #11: one model call's 10 convs on rank 0's band of 4, batch 1,
-    # bfloat16 (#10 moves each conv's input rows); times include the other
-    # ranks' time slices; launches per rank of the bf16 forecasts
+    # bfloat16 (#10 moves each conv's input rows), with the first design's
+    # time (in turns, the other ranks' time slices in it); launches per rank
+    # of the bf16 forecasts
     rank0 = remote["per_rank"][0]
     for key, name, src, replaces, path in (
         ("xchg", "band_exchange_rdma", "dlwp_cs_tpu_torch/csrc/cs_band_xchg.cu",
@@ -4282,10 +4346,10 @@ def main(argv=None) -> int:
     ):
         per_shape = {(c["n"], c["cin"], c["cout"]): c for c in rank0[key]
                      if c["batch"] == 1 and c["dtype"] == "bfloat16"}
-        errs = [c["max_abs_err"] for k in (("xchg2", "xchg4") if key == "xchg" else ("overlap4",))
-                for c in remote[k]]
+        errs = [c["max_abs_err"] for k in (key + "2", key + "4") for c in remote[k]]
         kernels.append(line(name, src, replaces, per_rank[path, "bfloat16"][name],
                             [per_shape[s] for s in FLAGSHIP_CONVS], errs))
+        kernels[-1]["v1_ms"] = sum(per_shape[s]["v1_ms"] for s in FLAGSHIP_CONVS)
     # the kernel tools' kernels; launches per run of the tools (TOOL_RUNS):
     # wrapper calls, those captured into a timing CUDA graph included, its
     # replays not.

@@ -1,12 +1,15 @@
 """The band 3x3 conv fused with the band-row exchange: kernel #11.
 
-The counterpart of ``dlwp_cs_tpu.parallel.overlap_band``.  One launch of
+The counterpart of ``dlwp_cs_tpu.parallel.overlap_band``.  One call of
 ``csrc/cs_band_overlap.cu`` per conv: the band conv of kernel #8 whose two
-ghost rows come from the ring neighbours by remote copies during the
-launch (the protocol of kernel #10, over the same
+ghost rows come from the ring neighbours by remote copies around its
+passes (the protocol of kernel #10, over the same
 :mod:`~dlwp_cs_tpu_torch.parallel.symmetric` buffers), not from an
 exchange before it.  Tiles that touch no ghost row compute while the rows
-are in flight; the tiles of rows 0 and h-1 wait for them.
+are in flight; the tiles of rows 0 and h-1 run after the stream's wait for
+them.  :data:`band_conv3x3_overlap_v1` is the first design, one
+cooperative kernel that spins on the arrivals between its passes, kept as a
+timing row.
 
 The seam material still comes from the host-side exchange
 (:func:`_seam_ext`: :func:`~dlwp_cs_tpu_torch.parallel.halo.halo_pieces`
@@ -48,6 +51,7 @@ from dlwp_cs_tpu_torch.parallel.rdma_halo import RemoteCopyKernel, band_exchange
 __all__ = [
     "band_conv3x3_overlap",
     "band_conv3x3_overlap_plain",
+    "band_conv3x3_overlap_v1",
     "make_overlap_conv3x3",
     "overlap_supported",
 ]
@@ -141,6 +145,8 @@ def band_conv3x3_overlap_plain(x, seam, wecols, below, above, k_eq, k_pole, b_eq
 
 _LIB = CudaLibrary("cs_band_overlap.cu", {
     "cs_band_overlap_launch": [I32, I32] + [VP] * 11 + [symmetric.I64] + [I32] * 12
+    + [symmetric.U64, symmetric.U64, VP, symmetric.U64, symmetric.I64, VP],
+    "cs_band_overlap_v1_launch": [I32, I32] + [VP] * 11 + [symmetric.I64] + [I32] * 12
     + [symmetric.U64, ctypes.POINTER(symmetric.U64), symmetric.I64, VP, I32, VP],
 }, "cs_band_overlap_error_string")
 
@@ -165,6 +171,10 @@ class _OverlapConv(torch.autograd.Function):
 
 
 class _BandOverlapKernel(RemoteCopyKernel):
+    def __init__(self, name, library, v1: bool = False):
+        super().__init__(name, library)
+        self.v1 = v1
+
     def __call__(self, x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_name: str = SPATIAL_AXIS):
         """Fused CS band conv, 3x3/stride-1, with the band-row exchange in
         the launch: this rank's band ``x`` ``(B, 6, h, n, Cin)`` -> ``(B,
@@ -220,24 +230,36 @@ class _BandOverlapKernel(RemoteCopyKernel):
             "b_pole": (b_pole, (cout,)),
         })
         dev = self._device(x)
-        ring = symmetric.ring_buffer(mesh, axis_name, x.device)
+        ring = symmetric.ring_buffer(mesh, axis_name, x.device, "v1" if self.v1 else "call")
         ring.reserve(b * 6 * n * cin * x.element_size(), self.library)
         # tc_plan's (h, cs, nw) and shared memory for x's dtype (the grid is
-        # sized by occupancy, not by tpb)
+        # one block a tile, or sized by occupancy in the first design)
         th, cs, nw, _, smem = fwd_plan_args(x.dtype, b, h, n, cin, cout, self._sm_count[dev])
         out = torch.empty((b, 6, h, n, cout), dtype=x.dtype, device=x.device)
-        me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
+        ptrs = tuple(t.data_ptr() for t in (x, seam, wecols, k_eq, k_pole, b_eq, b_pole, out))
+        if self.v1:
+            me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
+            self._launch(
+                "cs_band_overlap_v1_launch", dev, DTYPES[x.dtype], dev, *ptrs, me, right,
+                left, cap, b, h, n, cin, cout, th, cs, nw, smem, int(first), int(last),
+                _packed_corners(n), epoch, sent, timeout_ns, diag, coord, sizes=11,
+            )
+            return out
+        call = ring.next_call()
+        me, right, left, cap, epoch, consumed, ticket, value, lag = ring.launch_args(call)
         self._launch(
-            "cs_band_overlap_launch", dev, DTYPES[x.dtype], dev,
-            *(t.data_ptr() for t in (x, seam, wecols, k_eq, k_pole, b_eq, b_pole, out)),
-            me, right, left, cap, b, h, n, cin, cout, th, cs, nw, smem, int(first), int(last),
-            _packed_corners(n), epoch, sent, timeout_ns, diag, coord, sizes=11,
+            "cs_band_overlap_launch", dev, DTYPES[x.dtype], dev, *ptrs, me, right, left, cap,
+            b, h, n, cin, cout, th, cs, nw, smem, int(first), int(last), _packed_corners(n),
+            epoch, consumed, ticket, value, lag, sizes=12,
         )
+        ring.watch(call, 11, below=not first, above=not last)
         return out
 
 
 # kernel #11: ``band_conv3x3_overlap(x, k_eq, k_pole, b_eq, b_pole, *, mesh, axis_name)``
 band_conv3x3_overlap = _BandOverlapKernel("band_conv3x3_overlap", _LIB)
+# its first design (one cooperative kernel that spins), a timing row
+band_conv3x3_overlap_v1 = _BandOverlapKernel("band_conv3x3_overlap_v1", _LIB, v1=True)
 
 
 def overlap_supported(x_shape, n_shards: int, dtype) -> bool:

@@ -1,14 +1,18 @@
-"""The band-row halo exchange as one kernel of remote copies: kernel #10.
+"""The band-row halo exchange by remote copies: kernel #10.
 
 The counterpart of ``dlwp_cs_tpu.parallel.rdma_halo``: the two
 nearest-neighbour ``ppermute`` s of
 :func:`~dlwp_cs_tpu_torch.parallel.halo.halo_pieces` (``below``, the -1
 neighbour's top rows; ``above``, the +1 neighbour's bottom rows) as one
-launch of ``csrc/cs_band_xchg.cu``, which stores each rank's rows straight
+call of ``csrc/cs_band_xchg.cu``: a kernel stores each rank's rows straight
 into its neighbours' buffers (:mod:`~dlwp_cs_tpu_torch.parallel.symmetric`,
-mapped by CUDA IPC) behind a neighbour barrier: no host staging, no
-collective of the process group.  Selected with
-``use_band_exchange("rdma")`` (or ``sharded_model_ctx(band_impl="rdma")``).
+mapped by CUDA IPC), the arrivals are signalled and awaited by stream
+memory operations, and a second kernel copies the received rows out: no
+host staging, no collective of the process group, no thread waiting on
+another rank.  Selected with ``use_band_exchange("rdma")`` (or
+``sharded_model_ctx(band_impl="rdma")``).  :data:`band_exchange_rdma_v1`
+is the first design, one cooperative kernel that spins on the arrivals,
+kept as a timing row.
 
 :func:`band_exchange_plain` is the plain version, the two ``ppermute`` s,
 which CPU tensors take.
@@ -30,7 +34,7 @@ from dlwp_cs_tpu_torch.parallel import symmetric
 from dlwp_cs_tpu_torch.parallel.collectives import axis_size, ppermute
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
 
-__all__ = ["band_exchange_plain", "band_exchange_rdma"]
+__all__ = ["band_exchange_plain", "band_exchange_rdma", "band_exchange_rdma_v1"]
 
 
 def band_exchange_plain(x, width: int, *, mesh, axis_name: str = SPATIAL_AXIS):
@@ -56,6 +60,10 @@ class RemoteCopyKernel(KernelWrapper):
 
 
 class _BandExchangeKernel(RemoteCopyKernel):
+    def __init__(self, name, library, v1: bool = False):
+        super().__init__(name, library)
+        self.v1 = v1
+
     def __call__(self, x, width: int, *, mesh, axis_name: str = SPATIAL_AXIS):
         """``(below, above)`` of this rank's band ``x`` ``(B, 6, h, n, C)``:
         ``below`` the -1 neighbour's top ``width`` rows, ``above`` the +1
@@ -85,18 +93,26 @@ class _BandExchangeKernel(RemoteCopyKernel):
             raise ValueError(f"band_exchange_rdma runs on cuda or cpu, not {x.device}")
         x = x.contiguous()
         dev = self._device(x)
-        ring = symmetric.ring_buffer(mesh, axis_name, x.device)
+        ring = symmetric.ring_buffer(mesh, axis_name, x.device, "v1" if self.v1 else "call")
         ring.reserve(b * 6 * w * n * c * x.element_size(), self.library)
         below = torch.empty((b, 6, w, n, c), dtype=x.dtype, device=x.device)
         above = torch.empty_like(below)
-        me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
-        self._launch(
-            "cs_band_xchg_launch", dev, dev, x.data_ptr(), below.data_ptr(), above.data_ptr(),
-            me, right, left, cap, b, h, n, c, w, x.element_size(), epoch, sent, timeout_ns,
-            diag, coord, sizes=10,
-        )
+        ptrs = (x.data_ptr(), below.data_ptr(), above.data_ptr())
+        sizes = (b, h, n, c, w, x.element_size())
+        if self.v1:
+            me, right, left, cap, epoch, sent, timeout_ns, diag, coord = ring.ring()
+            self._launch("cs_band_xchg_v1_launch", dev, dev, *ptrs, me, right, left, cap,
+                         *sizes, epoch, sent, timeout_ns, diag, coord, sizes=10)
+            return below, above
+        call = ring.next_call()
+        me, right, left, cap, epoch, consumed, ticket, value, lag = ring.launch_args(call)
+        self._launch("cs_band_xchg_launch", dev, dev, *ptrs, me, right, left, cap, *sizes,
+                     epoch, consumed, ticket, value, lag, sizes=11)
+        ring.watch(call, 10)
         return below, above
 
 
 # kernel #10: ``band_exchange_rdma(x, width, *, mesh, axis_name)``
 band_exchange_rdma = _BandExchangeKernel("band_exchange_rdma", symmetric.LIB)
+# its first design (one cooperative kernel that spins), a timing row
+band_exchange_rdma_v1 = _BandExchangeKernel("band_exchange_rdma_v1", symmetric.LIB, v1=True)

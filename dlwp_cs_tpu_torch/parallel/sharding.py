@@ -103,7 +103,7 @@ def sharded_model_ctx(mesh, *, overlap: bool = True, band_impl: str = "ppermute"
     ``band_conv='ringfix'`` the band ring-fix conv, ``'pallas'`` (or
     ``'pallas_interpret'``) the band kernel #8 on the exchanged ghost
     strips, ``'overlap'`` (or ``'overlap_interpret'``) kernel #11, the band
-    conv with the band-row exchange in the launch.  ``band_impl``: the
+    conv with the band-row exchange around its passes.  ``band_impl``: the
     band-row transport of every exchange that moves band rows,
     ``'ppermute'`` (two collectives) or ``'rdma'`` (or ``'rdma_interpret'``;
     kernel #10's remote copies).  Kernels #10 and #11 map the ring

@@ -7,5 +7,7 @@ as ``python -m dlwp_cs_tpu_torch.tools.<name>`` on the card, or with
 (where they print no times).  :mod:`~dlwp_cs_tpu_torch.tools.timing` holds
 the timing they share with ``chip_smoke.py``;
 :mod:`~dlwp_cs_tpu_torch.tools.probes` the probe kernels' wrappers and plain
-versions.
+versions; :mod:`~dlwp_cs_tpu_torch.tools.xchg_probe` times a round trip of
+the band-row exchange's signals between ranks sharing the card, spinning
+in a kernel and as stream waits.
 """

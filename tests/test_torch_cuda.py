@@ -547,6 +547,79 @@ def test_band_exchange_times_out_when_a_rank_stays_away(cuda_device, tmp_path):
             assert "epoch 2" in msg, msg
 
 
+def _lagging_rank(epochs, lagger, lag_ns):
+    """One rank: ``epochs`` calls enqueued back to back, #10 (width 1 and 2)
+    and #11 in turns at flagship band shapes, both dtypes, the rank
+    ``lagger`` holding its stream ``lag_ns`` before it reads each call's
+    received rows (so its neighbours send the next epochs into its other
+    parity's slots meanwhile); then every output against the ``ppermute``
+    pair (#10) and against #8 and the plain version (#11)."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import create_mesh, symmetric
+    from dlwp_cs_tpu_torch.parallel.hopper_band import band_conv3x3
+    from dlwp_cs_tpu_torch.parallel.overlap_band import (
+        _seam_ext,
+        band_conv3x3_overlap,
+        band_conv3x3_overlap_plain,
+    )
+    from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain, band_exchange_rdma
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = create_mesh(data=1, spatial=world)
+    gen = torch.Generator(device="cuda").manual_seed(200 + rank)
+    symmetric.READ_LAG_NS = lag_ns if rank == lagger else 0
+    calls = []
+    for i in range(epochs):
+        n, cin, cout = FLAGSHIP_CONVS[i % len(FLAGSHIP_CONVS)]
+        dt = (torch.float32, torch.bfloat16)[(i // 2) % 2]
+        b = 1 + 7 * ((i // 4) % 2)
+        x = torch.randn((b, 6, n // world, n, cin), generator=gen, device="cuda").to(dt)
+        if i % 2 == 0:
+            w = 1 + (i // 2) % 2
+            calls.append(("xchg", x, w, band_exchange_rdma(x, w, mesh=mesh)))
+        else:
+            k = [(torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+                  / (9 * cin) ** 0.5).to(dt) for _ in range(2)]
+            bias = [(torch.randn((cout,), generator=gen, device="cuda") * 0.1).to(dt)
+                    for _ in range(2)]
+            calls.append(("overlap", x, k + bias, band_conv3x3_overlap(x, *k, *bias, mesh=mesh)))
+    symmetric.check_timeouts()
+    symmetric.READ_LAG_NS = 0
+    out = {"xchg_mismatches": 0, "overlap": []}
+    for kind, x, arg, got in calls:
+        if kind == "xchg":
+            want = band_exchange_plain(x, arg, mesh=mesh)
+            out["xchg_mismatches"] += not all(torch.equal(a, r) for a, r in zip(got, want))
+            continue
+        seam, wecols = _seam_ext(x, mesh=mesh)
+        below, above = band_exchange_plain(x, 1, mesh=mesh)
+        plain = band_conv3x3_overlap_plain(x, seam, wecols, below, above, *arg,
+                                           first=rank == 0, last=rank == world - 1)
+        k8 = band_conv3x3(x, *arg, mesh=mesh)
+        out["overlap"].append((str(x.dtype), got.cpu(), plain.cpu(), k8.cpu()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_band_exchange_slot_reuse_when_a_rank_lags(cuda_device, tmp_path, world):
+    """One rank holds its stream 3 ms before it reads each call's received
+    rows, for 24 calls of #10 and #11 in turns, while its neighbours run
+    ahead into its other parity's slots: every #10 output is bitwise equal to
+    the ``ppermute`` pair, every #11 output to #8 and within the plain
+    version's tolerance."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    results = spawn_group(_lagging_rank, world, 24, world - 1, 3_000_000, workdir=tmp_path)
+    for r in results:
+        assert r["xchg_mismatches"] == 0, r["xchg_mismatches"]
+        assert len(r["overlap"]) == 12
+        for dt, ours, plain, k8 in r["overlap"]:
+            _close(ours, plain, "float32" if "float32" in dt else "bfloat16")
+            assert torch.equal(ours, k8), (dt, (ours.float() - k8.float()).abs().max())
+
+
 # ---- the kernel tools' kernels: #3, #13 (tensor cores), #12, #14, #15, #16 ----
 
 # small faces (Cin not a multiple of 8: the scalar staging path; Cout not a
