@@ -7,7 +7,7 @@ the U-Net, exported artifacts as CUDA-graph replays and the HTTP front end,
 serve the U-Net spatially sharded over 4 ranks that share the GPU,
 through gloo and through CUDA IPC, with a rank-0 front end, and train it
 under data-parallel and spatial meshes of those 4 ranks, and chain the
-seven example workflows at full width.
+seven example workflows at full width, and run the five measurement tools.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -261,6 +261,27 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    the exported forecast bitwise equal to the live one; each step's wall
    seconds and launches, and the phase's seconds beside its 120 s budget
    (printed, not checked);
+9c. the measurement tools (``dlwp_cs_tpu_torch.tools``, the counterparts
+   of the reference's ``tools/capacity_bench``, ``trainer_wallclock``,
+   ``serve_bench``, ``ensemble_bench`` and ``scaling_bench``): first the
+   forward kernel with its weights streamed with each chunk (#1 under
+   ``fwd_plan(..., stream=True)``) at the three bfloat16 shapes of the capacity sweep
+   whose resident plan refuses ((12, 512 -> 512), (24, 768 -> 256), (24,
+   512 -> 256) at batch 8, and in float32) and at the flagship's conv
+   shapes (batch 1 and 16 in bfloat16, 1 in float32): against its plain
+   version, bitwise equal to the resident mode wherever that plans, timed
+   beside the resident mode, the plain version, cuDNN and the bound; then
+   each tool's ``main`` at full width with its repeats and steps cut
+   (``BENCH_RUNS``; every count set to 0 before each and read after) and
+   the trainer's store path on a ``MemoryStore``: every capacity
+   configuration keeps its 3x3 convs on #1/#4/#5 (``fallback == []``, a
+   step launching #1 once a conv, streamed exactly at the convs whose
+   resident plan refuses, as ``cs_conv3x3.stream_launches`` counts them a
+   step and over the run), the trainer 10/9/10 launches a step,
+   the 28-call rollouts 280 launches of #1 (auto) or of the int8 base
+   conv (int8, within ``QUANT_TOL_STD`` of auto), the folded ensembles'
+   member 0 bitwise equal to the batch-1 rollout, the scaling rows 1x1,
+   4x1 and 2x2 (4 ranks sharing the card, so marked);
 10. print whether ``nvidia-cuda-mps-control`` is on the PATH and the card
    count (the route for measuring #10 and #11; nothing is started), the
    #3/#13 tables, the ensemble, export, HTTP, front-end and mesh-training
@@ -278,6 +299,7 @@ off for cuDNN and matmuls throughout: every float32 result here is compared
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import importlib
@@ -357,11 +379,10 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def conv_case(n, cin, cout, b, dtype, gen):
+def conv_inputs(n, cin, cout, b, dtype, gen):
+    """``(x, ext, ks, bs)`` of one whole-face conv on the card, drawn from
+    ``gen``: weights scaled by ``(9 Cin)**-0.5``, biases by 0.1."""
     from dlwp_cs_tpu_torch.ops.halo import ext_strips
-    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain
-    from dlwp_cs_tpu_torch.ops.padding import cs_pad
-    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
 
     dev = torch.device("cuda")
     x = torch.randn((b, 6, n, n, cin), generator=gen, device=dev).to(dtype)
@@ -369,7 +390,15 @@ def conv_case(n, cin, cout, b, dtype, gen):
     ks = [(torch.randn((3, 3, cin, cout), generator=gen, device=dev) * scale).to(dtype)
           for _ in range(2)]
     bs = [(torch.randn((cout,), generator=gen, device=dev) * 0.1).to(dtype) for _ in range(2)]
-    ext = ext_strips(x)
+    return x, ext_strips(x), ks, bs
+
+
+def conv_case(n, cin, cout, b, dtype, gen):
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
+
+    x, ext, ks, bs = conv_inputs(n, cin, cout, b, dtype, gen)
     args = (x, ext, *ks, *bs)
     ours = cs_conv3x3(*args)
     ref = cs_conv3x3_plain(*args)
@@ -3759,6 +3788,267 @@ def examples_lines(r):
     return lines
 
 
+
+# the measurement tools' phase: the forward kernel with its weights streamed
+# with each chunk (#1 under fwd_plan(..., stream=True)) at the capacity
+# sweep's shapes whose resident plan refuses in bfloat16 and at the
+# flagship's conv shapes, then the five tools' mains (the reference's
+# tools/capacity_bench, trainer_wallclock, serve_bench, ensemble_bench and
+# scaling_bench) at full width with their repeats and steps cut
+STREAM_REFUSED = [(12, 512, 512), (24, 768, 256), (24, 512, 256)]  # (n, Cin, Cout), batch 8
+BENCH_RUNS = (("capacity_bench", ["--repeats", "2"]),
+              ("trainer_wallclock", ["--steps", "32", "--epochs", "3"]),
+              ("serve_bench", ["--repeats", "3", "--calls", "1"]),
+              ("ensemble_bench", ["--repeats", "3"]),
+              ("scaling_bench", ["--configs", "1x1,4x1,2x2", "--iters", "3"]))
+# the int8 rollout against the auto one of the same window, in standard
+# deviations of the fields: the quant phase measures 0.030-0.032 over 14
+# days on an H100; a wrong scale or a dropped ring term gives O(1)
+QUANT_TOL_STD = 0.1
+
+
+def forced_forward(x, ext, k_eq, k_pole, b_eq, b_pole, stream):
+    """#1 under the plan of the weight mode ``stream`` (streamed or
+    resident), whatever the paths would choose, launched through its entry
+    point as ``tools/tc_sweep.py`` launches a plan of its choosing; raises
+    ``ValueError`` where that mode has no plan."""
+    from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, fwd_plan
+
+    b, _, n, _, cin = x.shape
+    cout = k_eq.shape[-1]
+    dev = cs_conv3x3._device(x)
+    plan = fwd_plan(x.dtype, b, n, n, cin, cout, cs_conv3x3._sm_count[dev], stream=stream)
+    out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
+    cs_conv3x3._launch("cs_conv3x3_launch", dev, DTYPES[x.dtype], dev,
+                       *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
+                       b, n, n, cin, cout, *plan.args(), int(stream), sizes=11)
+    return out
+
+
+def streamed_case(n, cin, cout, b, dtype, gen):
+    """#1 with streamed weights at one shape (:func:`forced_forward`):
+    against its plain version, bitwise against the resident mode where
+    that plans (``resident_ms`` then its time) and against the wrapper's
+    own plan, and timed beside the plain version, the face-grouped cuDNN
+    call and the bound, as :func:`conv_case`."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain, fwd_plan
+    from dlwp_cs_tpu_torch.ops.padding import cs_pad
+    from dlwp_cs_tpu_torch.tools.timing import bf16_excess, bound, face_grouped, graph_ms
+
+    x, ext, ks, bs = conv_inputs(n, cin, cout, b, dtype, gen)
+    args = (x, ext, *ks, *bs)
+    before = cs_conv3x3.launches, cs_conv3x3.stream_launches.copy()
+    ours = forced_forward(*args, True)
+    ref = cs_conv3x3_plain(*args)
+    torch.cuda.synchronize()
+    err = float((ours.float() - ref.float()).abs().max())
+    ok = err <= 1e-4 if dtype == torch.float32 else bf16_excess(ours, ref) <= 1e-4
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    auto = fwd_plan(dtype, b, n, n, cin, cout, sms)
+    try:
+        resident = forced_forward(*args, False)
+    except ValueError:  # its plan refuses: the paths stream
+        resident = None
+        ok = ok and auto.geom.stream
+    else:
+        ok = ok and not auto.geom.stream
+    equal = None if resident is None else bool(torch.equal(resident, ours))
+    ok = (ok and equal is not False and bool(torch.equal(forced_forward(*args, True), ours))
+          and bool(torch.equal(cs_conv3x3(*args), ours)))
+    p, w = face_grouped(cs_pad(x, 1), ks)
+    bias = torch.cat([bs[0]] * 4 + [bs[1]] * 2)
+    ms = graph_ms(lambda: forced_forward(*args, True), 20)
+    resident_ms = None if resident is None else graph_ms(
+        lambda: forced_forward(*args, False), 20)
+    # comparison launches are not a path's
+    cs_conv3x3.launches, cs_conv3x3.stream_launches = before
+    nbytes = x.element_size() * (x.numel() + ext.numel() + 2 * ks[0].numel() + 2 * cout
+                                 + b * 6 * n * n * cout)
+    return {
+        "n": n, "cin": cin, "cout": cout, "batch": b, "dtype": str(dtype).split(".")[-1],
+        "max_abs_err": err, "tolerance": "1e-4 abs" if dtype == torch.float32
+        else "2**-7*|ref| + 1e-4", "ok": ok, "plan": list(fwd_plan(
+            dtype, b, n, n, cin, cout, sms, stream=True).args()),
+        "paths_stream": auto.geom.stream, "bitwise_equal_to_resident": equal,
+        "ms": ms, "resident_ms": resident_ms,
+        "plain_ms": graph_ms(lambda: cs_conv3x3_plain(*args), 3),
+        "library_ms": graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20),
+        **bound(nbytes, 2 * b * 6 * n * n * 9 * cin * cout, dtype),
+    }
+
+
+def bench_tools_phase(gen):
+    """#1's streamed weights (:func:`streamed_case`: the three refused
+    bfloat16 shapes at batch 8, and in float32; the flagship's 8 conv shapes
+    at batch 1 and 16 in bfloat16, at batch 1 in float32), then each tool's
+    ``main`` as ``python -m dlwp_cs_tpu_torch.tools.<name>`` runs it (every
+    count set to 0 before and read after), the trainer's store path on a
+    ``MemoryStore`` of the CLI's size (this machine has no h5py), and the
+    checks: no capacity configuration leaves the kernels and #1 launches
+    once a 3x3 conv, the folded ensemble's member 0 equals the batch-1
+    rollout, the int8 rollout stays within ``QUANT_TOL_STD`` of ``auto``,
+    and each tool launched its kernels."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, fwd_plan
+    from dlwp_cs_tpu_torch.tools import trainer_wallclock
+    from dlwp_cs_tpu_torch.tools.capacity_bench import unet_convs
+
+    kernels = all_kernels()
+    flagship = sorted(set(FLAGSHIP_CONVS), key=FLAGSHIP_CONVS.index)
+    shapes = ([(n, ci, co, 8, d) for d in (torch.bfloat16, torch.float32)
+               for n, ci, co in STREAM_REFUSED]
+              + [(n, ci, co, b, torch.bfloat16) for b in (1, TRAIN_BATCH)
+                 for n, ci, co in flagship]
+              + [(n, ci, co, 1, torch.float32) for n, ci, co in flagship])
+    streamed = [streamed_case(n, ci, co, b, d, gen) for n, ci, co, b, d in shapes]
+    bad = [c for c in streamed if not c["ok"]]
+    check(not bad, f"the streamed forward disagrees with its plain version or the resident "
+          f"mode, or the paths' plan streams where the resident one plans: {bad}")
+    refused = [c for c in streamed if c["dtype"] == "bfloat16" and c["batch"] == 8]
+    check(all(c["paths_stream"] for c in refused),
+          f"a refused bf16 shape has a resident plan: {refused}")
+
+    rows, launches, seconds, stream_launches = {}, {}, {}, {}
+    for name, argv in BENCH_RUNS:
+        print(f"$ python -m dlwp_cs_tpu_torch.tools.{name} {' '.join(argv)}", flush=True)
+        mod = importlib.import_module(f"dlwp_cs_tpu_torch.tools.{name}")
+        for k in kernels.values():
+            k.launches = 0
+        cs_conv3x3.stream_launches.clear()
+        t = time.perf_counter()
+        rows[name] = out = []
+        check(mod.main(argv, out) == 0, f"tools.{name} returned non-zero")
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {k: v.launches for k, v in kernels.items() if v.launches}
+        stream_launches[name] = cs_conv3x3.stream_launches.copy()
+    # the store path: SeriesDataset -> prefetch_to_device -> Trainer.fit
+    for k in kernels.values():
+        k.launches = 0
+    cs_conv3x3.stream_launches.clear()
+    t = time.perf_counter()
+    store = trainer_wallclock.synthetic_store(48, 32 * TRAIN_BATCH + 8)
+    rows["trainer_wallclock --store"] = [trainer_wallclock.wallclock(
+        steps=32, epochs=3, store=store, workers=6, device=torch.device("cuda"))]
+    seconds["trainer_wallclock --store"] = time.perf_counter() - t
+    launches["trainer_wallclock --store"] = {k: v.launches for k, v in kernels.items()
+                                             if v.launches}
+    stream_launches["trainer_wallclock --store"] = cs_conv3x3.stream_launches.copy()
+
+    cap = rows["capacity_bench"]
+    check(len(cap) == 6, f"capacity configurations measured: {[r['label'] for r in cap]}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    run_want = collections.Counter()  # streamed launches the capacity run should make
+    for r in cap:
+        lw = r["launches"]
+        check(r["fallback"] == [] and lw["cs_conv3x3"] == r["conv3x3"]
+              and lw["cs_conv3x3_dx"] == r["conv3x3"] - 1 and lw["cs_conv3x3_dw"] == r["conv3x3"],
+              f"capacity {r['label']}: fallback {r['fallback']}, launches a step {lw} for "
+              f"{r['conv3x3']} 3x3 convs")
+        # a step's streamed launches: one a conv whose resident plan refuses
+        want = collections.Counter(
+            (n, n, ci, co) for n, ci, co in unet_convs(r["n"], r["filters"], 12)
+            if fwd_plan(torch.bfloat16, r["batch"], n, n, ci, co, sms).geom.stream)
+        got = collections.Counter({(s["n"], s["n"], s["cin"], s["cout"]): s["launches"]
+                                   for s in r["streamed"]})
+        check(got == want, f"capacity {r['label']}: streamed launches a step {dict(got)}, "
+              f"want {dict(want)}")
+        run_want.update({k: v * r["steps_run"] for k, v in want.items()})
+    check({(n, ci, co) for n, _, ci, co in run_want} == set(STREAM_REFUSED),
+          f"the capacity sweep streams at {sorted(run_want)}, want {STREAM_REFUSED}")
+    check(stream_launches["capacity_bench"] == run_want,
+          f"streamed launches in the capacity run {dict(stream_launches['capacity_bench'])}, "
+          f"want {dict(run_want)}")
+    for key in ("trainer_wallclock", "trainer_wallclock --store"):
+        (r,) = rows[key]
+        check(all(np.isfinite(r["losses"])) and r["steady_ms"] > 0, f"{key}: {r}")
+        lw = launches[key]
+        n_steps = r["epochs"] * r["steps"]  # 10 forward, 9 dx and 10 dw launches a step
+        want = {"cs_conv3x3": 10 * n_steps, "cs_conv3x3_dx": 9 * n_steps,
+                "cs_conv3x3_dw": 10 * n_steps}
+        check(lw == want, f"{key} launches {lw}, want {want}")
+    steps = STEPS
+    for r in rows["serve_bench"]:
+        lw = r["launches"]
+        want = ({"cs_conv3x3": 10 * steps, "cs_conv3x3_int8_base": 0} if r["backend"] == "auto"
+                else {"cs_conv3x3": 0, "cs_conv3x3_int8_base": 10 * steps})
+        check(lw == want, f"serve {r['backend']} b={r['batch']} launches {lw}, want {want}")
+        if r["backend"] == "int8":
+            check(r["max_err_vs_auto_in_std"] <= QUANT_TOL_STD,
+                  f"int8 rollout b={r['batch']}: {r['max_err_vs_auto_in_std']} std from auto "
+                  f"> {QUANT_TOL_STD}")
+    for r in rows["ensemble_bench"][1:]:
+        check(r["member0_bitwise_equal_to_rollout"] and r["launches"]["cs_conv3x3"] == 10 * steps,
+              f"ensemble {r['what']}: member 0 bitwise {r['member0_bitwise_equal_to_rollout']}, "
+              f"launches {r['launches']}")
+    sc = rows["scaling_bench"]
+    check([tuple(r["mesh_shape"]) for r in sc] == [(1, 1), (4, 1), (2, 2)]
+          and all(r["step_seconds"] > 0 for r in sc)
+          and [r["ranks_share_one_card"] for r in sc] == [False, True, True],
+          f"scaling rows {sc}")
+    check(launches["scaling_bench"].get("cs_conv3x3", 0) > 0,
+          f"scaling 1x1 launches {launches['scaling_bench']}")
+    check(not any(stream_launches[k] for k in stream_launches if k != "capacity_bench"),
+          f"a tool other than the capacity sweep streamed: {stream_launches}")
+    return {"streamed": streamed, "rows": rows, "launches": launches, "seconds": seconds,
+            "stream_launches": {k: [{"n": s[0], "cin": s[2], "cout": s[3], "launches": c}
+                                    for s, c in sorted(v.items())]
+                                for k, v in stream_launches.items()},
+            "quant_tolerance_in_std": QUANT_TOL_STD}
+
+
+def bench_tools_lines(r):
+    """The phase's lines for the end of the output."""
+    def counts(entries):
+        return [(e["n"], e["cin"], e["cout"], e["launches"]) for e in entries]
+
+    lines = []
+    for c in r["streamed"]:
+        res = ("resident refuses" if c["resident_ms"] is None else
+               f"resident {c['resident_ms']:.4f} ms, bitwise {c['bitwise_equal_to_resident']}")
+        lines.append(f"#1 streamed {c['n']} {c['cin']} {c['cout']} b{c['batch']} {c['dtype']} "
+                     f"plan {c['plan']}: {c['ms']:.4f} ms ({res}); plain {c['plain_ms']:.4f}, "
+                     f"cuDNN {c['library_ms']:.4f}, bound {c['bound_ms']:.5f} "
+                     f"({c['bound_by']}); vs plain {c['max_abs_err']:.3g}")
+    for c in r["rows"]["capacity_bench"]:
+        lines.append(f"capacity {c['label']}: step {c['step_ms']:.2f} ms (spread "
+                     f"{c['spread_ms']:.2f}), {c['gridpoints_per_s'] / 1e6:.2f} M gp/s, "
+                     f"{c['tflops_per_s']:.2f} TFLOP/s, {c['pct_of_bf16_peak']:.2f} % of peak; "
+                     f"launches a step {c['launches']}, streamed {counts(c['streamed'])}, "
+                     f"steps run {c['steps_run']}; fallback {c['fallback']}")
+    lines.append("streamed launches (n, Cin, Cout, launches) in the capacity run: "
+                 f"{counts(r['stream_launches']['capacity_bench'])}")
+    for key in ("trainer_wallclock", "trainer_wallclock --store"):
+        (c,) = r["rows"][key]
+        lines.append(f"{key}: {c['steps']} steps an epoch, ms a step per epoch "
+                     f"{['%.2f' % v for v in c['per_step_ms']]}, steady {c['steady_ms']:.2f}; "
+                     f"mean dispatch {c['dispatch_ms']:.2f} ms, data wait "
+                     f"{c['data_wait_ms']:.3f} ms")
+    for c in r["rows"]["serve_bench"]:
+        err = ("" if c["max_err_vs_auto_in_std"] is None
+               else f", vs auto {c['max_err_vs_auto_in_std']:.3g} std")
+        lines.append(f"serve {c['backend']} b={c['batch']}: {c['rollout_ms']:.1f} ms a "
+                     f"{c['steps']}-call rollout, {c['forecasts_per_s']:.1f} forecasts/s"
+                     f"{err}")
+    for c in r["rows"]["ensemble_bench"]:
+        if "ms" in c:
+            lines.append(f"ensemble tool {c['what']}: {c['ms']:.1f} ms")
+        else:
+            lines.append(f"ensemble tool {c['what']}: folded {c['folded_ms']:.1f} ms, "
+                         f"sequential {c['sequential_ms']:.1f} ms, speedup "
+                         f"{c['speedup']:.2f}x; member 0 bitwise "
+                         f"{c['member0_bitwise_equal_to_rollout']}")
+    for c in r["rows"]["scaling_bench"]:
+        lines.append(f"scaling {c['mesh_shape']}: step {c['step_seconds'] * 1e3:.1f} ms, "
+                     f"{c['gridpoints_per_s'] / 1e6:.3f} M gp/s, per rank "
+                     f"{c['gridpoints_per_s_per_chip'] / 1e6:.3f} M, efficiency "
+                     f"{c['efficiency_vs_single']:.3f}; ranks share one card "
+                     f"{c['ranks_share_one_card']}")
+    lines.append("bench tools seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in r["seconds"].items()))
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_smoke_out"))
@@ -4268,6 +4558,15 @@ def main(argv=None) -> int:
         recap.append(line_)
         print(line_, flush=True)
 
+    # the measurement tools (dlwp_cs_tpu_torch.tools) and #1's streamed
+    # weights at the capacity sweep's wide shapes
+    t = time.perf_counter()
+    bench = bench_tools_phase(gen)
+    bench["phase_seconds"] = time.perf_counter() - t
+    for line_ in bench_tools_lines(bench):
+        recap.append(line_)
+        print(line_, flush=True)
+
     def line(name, source, replaces, launches, per_path, errs, peak=torch.bfloat16):
         """One kernel's entry: times summed over the convs of one model call
         (forward) or one train step (backward) in bfloat16; operations at the
@@ -4417,6 +4716,29 @@ def main(argv=None) -> int:
     for entry in kernels:
         entry["examples"] = {key: r["launches"][entry["name"]] for key, r in examples.items()
                              if isinstance(r, dict) and entry["name"] in r.get("launches", {})}
+    # the measurement tools: each kernel's launches per tool run; #1's
+    # streamed weights at the capacity sweep's refused bf16 shapes (batch 8)
+    # with their launches a capacity step
+    for entry in kernels:
+        entry["bench_tools"] = {key: lw[entry["name"]] for key, lw in bench["launches"].items()
+                                if entry["name"] in lw}
+    def shape_launches(entries, c):
+        """The launches of ``entries`` (``[{"n", "cin", "cout", "launches"}]``)
+        at the shape of ``c``."""
+        return sum(e["launches"] for e in entries
+                   if (e["n"], e["cin"], e["cout"]) == (c["n"], c["cin"], c["cout"]))
+
+    # the streamed launches as cs_conv3x3.stream_launches counted them: in
+    # the counted step of each capacity configuration, and in the whole run
+    kernels[0]["streamed"] = [
+        {k: c[k] for k in ("n", "cin", "cout", "batch", "plan", "max_abs_err", "ms",
+                           "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        | {"launches_per_capacity_step": {
+            r["label"]: shape_launches(r["streamed"], c)
+            for r in bench["rows"]["capacity_bench"] if shape_launches(r["streamed"], c)},
+           "launches_in_capacity_run": shape_launches(
+               bench["stream_launches"]["capacity_bench"], c)}
+        for c in bench["streamed"] if c["dtype"] == "bfloat16" and c["batch"] == 8]
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4442,7 +4764,7 @@ def main(argv=None) -> int:
                    "latlon": latlon, "latlon_seconds": latlon_s,
                    "barotropic": baro, "barotropic_seconds": baro_s,
                    "utils": util, "utils_seconds": utils_s, "examples": examples,
-                   "kernels": kernels},
+                   "bench_tools": bench, "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))
     print(json.dumps({"kernels": kernels}))

@@ -53,12 +53,14 @@
 // The W/E ghost columns sit at positions 1..H of their W+2 strips, so H <= W.
 // A 1-D grid of nslices * (P_eq + P_pole) blocks, each walking tpb (batch
 // item, face of its group, row tile) items of one (face group, Cout slice)
-// (GridWalk), the tap loop tc_conv.  The CUDA-core timing row: grid (row
-// tiles * Cout slices, 6, B), one block per (row tile, face, batch item,
-// Cout slice), the tap loop conv_tile.  Both loops live in
-// cs_conv3x3_tile.cuh, shared with the band conv fused with the band-row
-// exchange (cs_band_overlap.cu, #11); this file adds their ghost cells
-// (ext).
+// (GridWalk), the tap loop tc_conv; where a slice's weights and two stages
+// do not fit the shared memory (the bfloat16 forward from Cin = 512), the
+// weights ride in the stages with each chunk (wstream = 1).  The
+// CUDA-core timing row: grid (row tiles * Cout slices, 6, B), one block per
+// (row tile, face, batch item, Cout slice), the tap loop conv_tile.  Both
+// loops live in cs_conv3x3_tile.cuh, shared with the band conv fused with
+// the band-row exchange (cs_band_overlap.cu, #11); this file adds their
+// ghost cells (ext).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,7 +141,9 @@ struct FwdEpi {
   }
 };
 
-template <typename T, int NW, int KC>
+// WS: the weights streamed with each chunk (a separate instance, so that
+// the resident one carries none of the streamed mode's selects)
+template <typename T, int NW, int KC, bool WS>
 __global__ void __launch_bounds__(TC_MAX_THREADS) cs_conv3x3_tc_kernel(
     const T* __restrict__ x, const T* __restrict__ ext, const T* __restrict__ keq,
     const T* __restrict__ kpo, const T* __restrict__ beq, const T* __restrict__ bpo,
@@ -149,7 +153,7 @@ __global__ void __launch_bounds__(TC_MAX_THREADS) cs_conv3x3_tc_kernel(
                                    g.kch};
   const FwdEpi<T> epi{out, beq, bpo, g.rows, g.cols, g.nch};
   GridWalk walk(g, batch);
-  tc_conv<T, NW, KC, false>(g, src, walk, epi, keq, kpo, tc_smem);
+  tc_conv<T, NW, KC, false, WS>(g, src, walk, epi, keq, kpo, tc_smem);
 }
 
 // Lets a kernel take up to the card's opt-in shared memory per block (the
@@ -186,21 +190,32 @@ cudaError_t launch_cc(const void* x, const void* ext, const void* keq, const voi
   return cudaGetLastError();
 }
 
-template <typename T, int NW, int KC>
-cudaError_t launch_tc_nw(const TcGeom& g, int batch, size_t smem, int device,
+template <typename T, int NW, int KC, bool WS>
+cudaError_t launch_tc_ws(const TcGeom& g, int batch, size_t smem, int device,
                          cudaStream_t stream, const T* x, const T* ext, const T* keq,
                          const T* kpo, const T* beq, const T* bpo, T* out) {
   if (smem > 48 * 1024) {
-    cudaError_t err = allow_large_smem<cs_conv3x3_tc_kernel<T, NW, KC>>(device);
+    cudaError_t err = allow_large_smem<cs_conv3x3_tc_kernel<T, NW, KC, WS>>(device);
     if (err != cudaSuccess) return err;
   }
   const long long p0 = (4LL * batch * g.ntr + g.tpb - 1) / g.tpb;
   const long long p1 = (2LL * batch * g.ntr + g.tpb - 1) / g.tpb;
   const long long blocks = g.nslices * (p0 + p1);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cs_conv3x3_tc_kernel<T, NW, KC><<<(unsigned)blocks, g.threads, smem, stream>>>(
+  cs_conv3x3_tc_kernel<T, NW, KC, WS><<<(unsigned)blocks, g.threads, smem, stream>>>(
       x, ext, keq, kpo, beq, bpo, out, g, batch);
   return cudaGetLastError();
+}
+
+template <typename T, int NW, int KC>
+cudaError_t launch_tc_nw(const TcGeom& g, int batch, size_t smem, int device,
+                         cudaStream_t stream, const T* x, const T* ext, const T* keq,
+                         const T* kpo, const T* beq, const T* bpo, T* out) {
+  return g.wstream
+             ? launch_tc_ws<T, NW, KC, true>(g, batch, smem, device, stream, x, ext, keq, kpo,
+                                             beq, bpo, out)
+             : launch_tc_ws<T, NW, KC, false>(g, batch, smem, device, stream, x, ext, keq, kpo,
+                                              beq, bpo, out);
 }
 
 // float32 takes at most 4 n8 tiles per warp (make_tc_geom)
@@ -243,21 +258,23 @@ extern "C" {
 // with the W/E ghosts at positions 1..rows, so rows <= cols: whole faces
 // (rows = cols = n, #1) or a shard's band or tile (#8, #9).  The
 // tensor-core kernel with tc_plan's h (output rows per tile), cs (output
-// channels per slice), nw (n8 tiles per warp) and tpb (tiles per block);
-// smem must be the shared memory those give (the plan's own count, checked
-// here).  Returns a cudaError_t (0 = success).
+// channels per slice), nw (n8 tiles per warp) and tpb (tiles per block),
+// the weights of a block's slice resident (wstream = 0) or streamed with
+// each staged chunk (wstream = 1, tc_plan's streamed plans); smem must be
+// the shared memory those give (the plan's own count, checked here).
+// Returns a cudaError_t (0 = success).
 int cs_conv3x3_launch(int dtype, int device, const void* x, const void* ext,
                       const void* keq, const void* kpo, const void* beq,
                       const void* bpo, void* out, int batch, int rows, int cols,
                       int cin, int cout, int h, int cs, int nw, int tpb, int smem,
-                      void* stream) {
+                      int wstream, void* stream) {
   if (device < 0 || device >= 64 || batch < 1 || batch > 65535 || rows > cols ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (wstream != 0 && wstream != 1))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f32 = dtype == 0;
   TcGeom g;
-  if (!make_tc_geom(g, rows, cols, cin, cout, h, cs, nw, tpb, false, f32) ||
+  if (!make_tc_geom(g, rows, cols, cin, cout, h, cs, nw, tpb, false, f32, wstream == 1) ||
       tc_smem_bytes(g) != (size_t)smem)
     return cudaErrorInvalidValue;
   // x and ext are read-only here, so 8-byte copies (through L1) may serve

@@ -71,6 +71,15 @@
 //     same (face group, slice), so staged weights serve more than one tile;
 //     they are staged again only where a walk changes group or slice
 //     (#11's walk);
+//   * streamed weights (wstream; tc_conv's WS, an instance of its own; the
+//     forward only, where a slice's resident weights and two stages do not
+//     fit: bfloat16 from Cin = 512 at 8 channels a slice, whose rows pad 8
+//     channels to 24): each stage carries its chunk's weights (9 taps x kc
+//     units x cs) beside its input chunk, by the same copies, and the tap
+//     loop reads them there.
+//     The K order and every product are those of the resident mode, so
+//     the two give bitwise equal outputs; the weights are then staged
+//     once per chunk of every tile instead of once per block;
 //   * the same routine runs the dx kernel in both types (cs_conv3x3_bwd.cu):
 //     a correlation of dout, zero-extended by 2, with the flipped,
 //     transposed taps over the (n+2)^2 frame; only the staging sources,
@@ -294,17 +303,20 @@ struct TcGeom {
   int kps;         // pitch of one staged cell: kc + TC_PAD units
   int stage;       // units of one stage: (h + 2) * wp * kps
   int wpitch;      // weight row pitch in units (see tc_stage_weights)
-  int wsize;       // units of the resident weights
+  int wstream;     // weights streamed with each chunk (1) or resident (0)
+  int wstage;      // units of one stage's weights (streamed), or of all of them
+  int wsize;       // units of the weights: resident, or two stages of them
   int tpb;         // tiles per block of a whole-grid walk
   int vec;         // staged cells by 16-byte (1) or 8-byte (2) async copies
   int wvec;        // bfloat16 forward weights by 16-byte async copies
 };
 
 // Fills g; false on sizes the routine cannot take.  dx: the weight layout
-// of the dx kernel; f32: float32 elements.  The host plan
-// (ops/hopper_conv.py::tc_plan) computes the same numbers.
+// of the dx kernel; f32: float32 elements; stream: the weights streamed
+// with each chunk.  The host plan (ops/hopper_conv.py::tc_plan) computes
+// the same numbers.
 inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h, int cs,
-                         int nw, int tpb, bool dx, bool f32 = false) {
+                         int nw, int tpb, bool dx, bool f32 = false, bool stream = false) {
   if (rows < 1 || cols < 1 || kch < 1 || nch < 1 || h < 1 || h > rows || tpb < 1) return false;
   if (cs != 8 && cs != 16 && cs != 32 && cs != 64) return false;
   if (nw != 1 && nw != 2 && nw != 4 && nw != 8) return false;
@@ -330,20 +342,24 @@ inline bool make_tc_geom(TcGeom& g, int rows, int cols, int kch, int nch, int h,
   g.wp = cols + 2;
   g.kps = g.kc + TC_PAD;
   g.stage = (h + 2) * g.wp * g.kps;
+  g.wstream = stream;
+  const int klen = stream ? g.kc : g.kp;  // units of K a tap holds in shared memory
   if (dx || f32) {
-    g.wpitch = 9 * g.kp + TC_PAD;  // [n][tap * kp + k]: an odd multiple of 16 bytes
-    g.wsize = cs * g.wpitch;
+    g.wpitch = 9 * klen + TC_PAD;  // [n][tap * klen + k]: an odd multiple of 16 bytes
+    g.wstage = cs * g.wpitch;
   } else {
-    g.wpitch = cs + ((cs / 8) % 2 == 0 ? 8 : 16);  // [tap * kp + k][n]: likewise
-    g.wsize = 9 * g.kp * g.wpitch;
+    g.wpitch = cs + ((cs / 8) % 2 == 0 ? 8 : 16);  // [tap * klen + k][n]: likewise
+    g.wstage = 9 * klen * g.wpitch;
   }
+  g.wsize = stream ? 2 * g.wstage : g.wstage;
   g.tpb = tpb;
   g.vec = 0;
   g.wvec = 0;
   return true;
 }
 
-// the weights, two stages and, in float32, the lo halves of one stage
+// the weights (resident, or two stages of them), two stages and, in
+// float32, the lo halves of one stage
 inline size_t tc_smem_bytes(const TcGeom& g) {
   return 2 * ((size_t)g.wsize + (g.unit == 2 ? 3 : 2) * (size_t)g.stage);
 }
@@ -579,51 +595,54 @@ __device__ __forceinline__ void tc_stage_chunk(bf16* S, const Src& src, const Tc
   }
 }
 
-// The resident weights of tile t's (face group, slice), zero past kch and
-// nch, in 16-bit units.  k is HWIO (3, 3, Cin, Cout) of the group.
-//   bfloat16 forward: Ws[tap * kp + ci][c] = k[tap][ci][n0 + c]
+// The weights of tile t's (face group, slice) for the K units kb ..
+// kb + kl of every tap (kb = 0, kl = kp: all of them, resident; kb = k kc,
+// kl = kc: chunk k's, streamed), zero past kch and nch, in 16-bit units.
+// k is HWIO (3, 3, Cin, Cout) of the group.  With K unit kb + q:
+//   bfloat16 forward: Ws[tap * kl + q][c] = k[tap][kb + q][n0 + c]
 //                     (B as k x n, n contiguous: straight copies of rows of k)
-//   dx:               Ws[c][tap * kp + co] = k[8 - tap][n0 + c][co]
+//   dx:               Ws[c][tap * kl + q] = k[8 - tap][n0 + c][kb + q]
 //                     (B as n x k, k contiguous: straight copies of rows of k)
-//   float32 forward:  Ws[c][(tap * kp + 2 ci) / 2] = k[tap][ci][n0 + c], as f32
-//                     (B as n x k: transposed once here, by 4-byte copies)
-//   float32 dx:       Ws[c][(tap * kp + 2 co) / 2] = k[8 - tap][n0 + c][co], as f32
+//   float32 forward:  Ws[c][(tap * kl + 2 q) / 2] = k[tap][(kb + 2 q) / 2][n0 + c], as f32
+//                     (B as n x k: transposed here, by 4-byte copies)
+//   float32 dx:       Ws[c][(tap * kl + 2 q) / 2] = k[8 - tap][n0 + c][(kb + 2 q) / 2], as f32
 //                     (B as n x k, k contiguous: straight copies of rows of k)
 // with, for dx, kch = Cout (K) and nch = Cin (N).
 template <bool DX, typename T>
 __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__ k,
-                                                 const TcTile& t, const TcGeom& g) {
+                                                 const TcTile& t, const TcGeom& g, int kb,
+                                                 int kl) {
   if constexpr (DX && std::is_same<T, float>::value) {
     float* Wf = reinterpret_cast<float*>(Ws);
-    const int kpe = g.kp / 2, wpe = g.wpitch / 2;  // in floats
-    const int rows = g.cs * 9;                    // (c, tap)
-    if (g.wvec) {                                 // Cout a multiple of 4, aligned
+    const int kpe = kl / 2, kbe = kb / 2, wpe = g.wpitch / 2;  // in floats
+    const int rows = g.cs * 9;                                // (c, tap)
+    if (g.wvec) {                                             // Cout a multiple of 4, aligned
       const int gpr = kpe / 4;
       for (int u = threadIdx.x; u < rows * gpr; u += g.threads) {
-        const int row = u / gpr, co = (u - row * gpr) * 4;
+        const int row = u / gpr, q = (u - row * gpr) * 4;
         const int c = row / 9, tap = row - c * 9;
-        const int ci = t.n0 + c;
+        const int ci = t.n0 + c, co = kbe + q;
         const bool ok = ci < g.nch && co < g.kch;
         const float* p = k + ((long long)(8 - tap) * g.nch + ci) * g.kch + co;
-        cp_async16(Wf + c * wpe + tap * kpe + co, ok ? p : k, ok ? 16 : 0);
+        cp_async16(Wf + c * wpe + tap * kpe + q, ok ? p : k, ok ? 16 : 0);
       }
     } else {
       for (int u = threadIdx.x; u < rows * kpe; u += g.threads) {
-        const int row = u / kpe, co = u - row * kpe;
+        const int row = u / kpe, q = u - row * kpe;
         const int c = row / 9, tap = row - c * 9;
-        const int ci = t.n0 + c;
+        const int ci = t.n0 + c, co = kbe + q;
         const bool ok = ci < g.nch && co < g.kch;
         const float* p = k + ((long long)(8 - tap) * g.nch + ci) * g.kch + co;
-        cp_async4(Wf + c * wpe + tap * kpe + co, ok ? p : k, ok ? 4 : 0);
+        cp_async4(Wf + c * wpe + tap * kpe + q, ok ? p : k, ok ? 4 : 0);
       }
     }
   } else if constexpr (std::is_same<T, float>::value) {
     float* Wf = reinterpret_cast<float*>(Ws);
-    const int kpe = g.kp / 2, wpe = g.wpitch / 2;  // in floats
-    const int rows = 9 * kpe;                     // (tap, ci), consecutive threads on c
+    const int kpe = kl / 2, kbe = kb / 2, wpe = g.wpitch / 2;  // in floats
+    const int rows = 9 * kpe;  // (tap, ci), consecutive threads on c
     for (int u = threadIdx.x; u < rows * g.cs; u += g.threads) {
       const int row = u / g.cs, c = u - row * g.cs;
-      const int tap = row / kpe, ci = row - tap * kpe;
+      const int tap = row / kpe, ci = kbe + row - tap * kpe;
       const bool ok = ci < g.kch && t.n0 + c < g.nch;
       const float* p = k + ((long long)tap * g.kch + ci) * g.nch + t.n0 + c;
       cp_async4(Wf + c * wpe + row, ok ? p : k, ok ? 4 : 0);
@@ -631,12 +650,12 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__
   } else if (!DX) {
     const bf16 zero = __float2bfloat16_rn(0.f);
     // rows (tap, ci) of cs channels from n0; k row (tap, ci) has nch channels
-    const int rows = 9 * g.kp;
+    const int rows = 9 * kl;
     if (g.wvec) {
       const int gpr = g.cs / 8;
       for (int u = threadIdx.x; u < rows * gpr; u += g.threads) {
         const int row = u / gpr, c = (u - row * gpr) * 8;
-        const int tap = row / g.kp, ci = row - tap * g.kp;
+        const int tap = row / kl, ci = kb + row - tap * kl;
         const bool ok = ci < g.kch && t.n0 + c < g.nch;
         const bf16* p = k + ((long long)tap * g.kch + ci) * g.nch + t.n0 + c;
         cp_async16(Ws + row * g.wpitch + c, ok ? p : k, ok ? 16 : 0);
@@ -644,7 +663,7 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__
     } else {
       for (int u = threadIdx.x; u < rows * g.cs; u += g.threads) {
         const int row = u / g.cs, c = u - row * g.cs;
-        const int tap = row / g.kp, ci = row - tap * g.kp;
+        const int tap = row / kl, ci = kb + row - tap * kl;
         Ws[row * g.wpitch + c] = (ci < g.kch && t.n0 + c < g.nch)
                                      ? k[((long long)tap * g.kch + ci) * g.nch + t.n0 + c]
                                      : zero;
@@ -652,25 +671,25 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__
     }
   } else {
     const bf16 zero = __float2bfloat16_rn(0.f);
-    // rows c of the slice, 9 taps of kp reduced channels each; k row
+    // rows c of the slice, 9 taps of kl reduced channels each; k row
     // (tap, ci) has kch (= Cout) channels
     const int rows = g.cs * 9;
     if (g.wvec) {
-      const int gpr = g.kp / 8;
+      const int gpr = kl / 8;
       for (int u = threadIdx.x; u < rows * gpr; u += g.threads) {
-        const int row = u / gpr, co = (u - row * gpr) * 8;
+        const int row = u / gpr, q = (u - row * gpr) * 8;
         const int c = row / 9, tap = row - c * 9;
-        const int ci = t.n0 + c;
+        const int ci = t.n0 + c, co = kb + q;
         const bool ok = ci < g.nch && co < g.kch;
         const bf16* p = k + ((long long)(8 - tap) * g.nch + ci) * g.kch + co;
-        cp_async16(Ws + c * g.wpitch + tap * g.kp + co, ok ? p : k, ok ? 16 : 0);
+        cp_async16(Ws + c * g.wpitch + tap * kl + q, ok ? p : k, ok ? 16 : 0);
       }
     } else {
-      for (int u = threadIdx.x; u < rows * g.kp; u += g.threads) {
-        const int row = u / g.kp, co = u - row * g.kp;
+      for (int u = threadIdx.x; u < rows * kl; u += g.threads) {
+        const int row = u / kl, q = u - row * kl;
         const int c = row / 9, tap = row - c * 9;
-        const int ci = t.n0 + c;
-        Ws[c * g.wpitch + tap * g.kp + co] =
+        const int ci = t.n0 + c, co = kb + q;
+        Ws[c * g.wpitch + tap * kl + q] =
             (ci < g.nch && co < g.kch) ? k[((long long)(8 - tap) * g.nch + ci) * g.kch + co]
                                         : zero;
       }
@@ -686,13 +705,14 @@ __device__ __forceinline__ void tc_stage_weights(bf16* Ws, const T* __restrict__
 // of output row i, column j of the tile, channels n and n + 1 (n even;
 // either may be past nch).  Every thread of the block must call it; it
 // synchronises the block.  keq / kpo: the weight groups (faces 0-3, 4-5).
-template <typename T, int NW, int KC, bool DX, typename Src, typename Walk, typename Epi>
+template <typename T, int NW, int KC, bool DX, bool WS = false, typename Src, typename Walk,
+          typename Epi>
 __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& walk,
                                         const Epi& epi, const T* __restrict__ keq,
                                         const T* __restrict__ kpo, unsigned char* smem_raw) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr bool BT = DX || F32;  // weights as n x k rows
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // resident, or two stages of weights
   bf16* St = Ws + g.wsize;  // two stages
   bf16* Lo = St + 2 * g.stage;  // float32: the lo halves of the stage in use
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -700,9 +720,16 @@ __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& w
   const int gid = lane >> 2, tig = lane & 3;
   const int nbase = wn_i * NW * 8;  // this warp's first channel in the slice
 
+  // chunk kk of tile tt into stage b: its input cells and, streamed, its weights
+  auto stage = [&](int b, const TcTile& tt, int kk) {
+    tc_stage_chunk<T>(St + b * g.stage, src, tt, kk, g);
+    if constexpr (WS)
+      tc_stage_weights<DX>(Ws + b * g.wstage, tt.f < 4 ? keq : kpo, tt, g, kk * g.kc, g.kc);
+  };
   TcTile t, tn;
   if (!walk.next(t)) return;
   bool has_next = walk.next(tn);
+  bool staged = false;  // streamed: t's first chunk sits in stage buf
   int key = -1, k = 0, buf = 0;
   float acc[2][NW][4];
   int a_cell[2];
@@ -710,20 +737,24 @@ __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& w
   for (;;) {
     cp_async_wait_all();
     __syncthreads();  // stage buf has landed; the other stage is consumed
-    if (k == 0 && t.key != key) {  // weights of another group or slice (uniform)
+    // the first tile; streamed, a tile whose first chunk the last did not
+    // stage; resident, the weights of another group or slice (uniform)
+    if (k == 0 && (WS ? !staged : t.key != key)) {
       walk.before(t);
-      tc_stage_weights<DX>(Ws, t.f < 4 ? keq : kpo, t, g);
-      tc_stage_chunk<T>(St + buf * g.stage, src, t, 0, g);
+      if constexpr (!WS) tc_stage_weights<DX>(Ws, t.f < 4 ? keq : kpo, t, g, 0, g.kp);
+      stage(buf, t, 0);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
       key = t.key;
     }
+    if constexpr (WS) staged = false;
     if (k + 1 < g.nchunks) {
-      tc_stage_chunk<T>(St + (buf ^ 1) * g.stage, src, t, k + 1, g);
-    } else if (has_next && tn.key == key) {
+      stage(buf ^ 1, t, k + 1);
+    } else if (has_next && (WS || tn.key == key)) {
       walk.before(tn);
-      tc_stage_chunk<T>(St + (buf ^ 1) * g.stage, src, tn, 0, g);
+      stage(buf ^ 1, tn, 0);
+      if constexpr (WS) staged = true;
     }
     cp_async_commit();
     if constexpr (F32) {
@@ -752,13 +783,16 @@ __device__ __forceinline__ void tc_conv(const TcGeom& g, const Src& src, Walk& w
     // float32: a_row[mt] + lo_off holds the lo halves of a_row[mt]
     const int lo_off = Lo - (St + buf * g.stage);
     const int row_step = g.wp * KPS;  // one staged row
-    // B fragments: this lane's row of tap 0, unit k * KC, and the steps to
-    // the next tap, the next 16 units, the next n8 pair
+    // B fragments: this lane's row of tap 0, unit k * KC (streamed: the
+    // stage's unit 0), and the steps to the next tap, the next 16 units,
+    // the next n8 pair
+    const bf16* W = WS ? Ws + buf * g.wstage : Ws;
+    const int kofs = WS ? 0 : k * KC, klen = WS ? KC : g.kp;
     const bf16* wk =
-        BT ? Ws + (nbase + ((lane >> 4) << 3) + (lane & 7)) * g.wpitch + k * KC +
+        BT ? W + (nbase + ((lane >> 4) << 3) + (lane & 7)) * g.wpitch + kofs +
                  ((lane >> 3) & 1) * 8
-           : Ws + (k * KC + (lane & 15)) * g.wpitch + nbase + (lane >> 4) * 8;
-    const int tap_step = BT ? g.kp : g.kp * g.wpitch;
+           : W + (kofs + (lane & 15)) * g.wpitch + nbase + (lane >> 4) * 8;
+    const int tap_step = BT ? klen : klen * g.wpitch;
     const int kk_step = BT ? 16 : 16 * g.wpitch;
     const int pair_step = BT ? 16 * g.wpitch : 16;
 #pragma unroll

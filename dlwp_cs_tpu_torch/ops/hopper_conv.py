@@ -17,8 +17,10 @@ header says what bounds it and how:
 All three run on the tensor cores in both dtypes, float32 as 3xTF32.  The
 forward and dx kernels are an implicit GEMM on ``mma.sync``
 (``csrc/cs_conv3x3_tile.cuh::tc_conv``) with the tiles, slices and walks of
-:func:`tc_plan`; the dw kernel is an implicit GEMM over the pixels of a
-face group (:func:`dw_tc_plan`).  The CUDA-core instances they replaced
+:func:`tc_plan`, the forward's weights resident in shared memory or, where
+they do not fit (the bfloat16 forward from Cin = 512), streamed with each
+staged chunk (bitwise equal); the dw kernel is an implicit GEMM over the
+pixels of a face group (:func:`dw_tc_plan`).  The CUDA-core instances they replaced
 stay as timing rows (``ops/conv_variants.py``, planned by :func:`tile_plan`
 and :func:`dw_plan`); no path of the port selects them.
 
@@ -51,6 +53,7 @@ Each kernel source is built and bound by
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import functools
@@ -91,6 +94,7 @@ __all__ = [
     "dw_tc_plan",
     "dx_plan_args",
     "fused_fits",
+    "fwd_plan",
     "fwd_plan_args",
     "tc_blocks",
     "tc_geom",
@@ -287,6 +291,7 @@ class TcGeom(NamedTuple):
     kc: int  # reduced channels per staged chunk
     kp: int  # reduced channels, whole chunks
     smem: int  # bytes of shared memory per block
+    stream: bool = False  # the weights streamed with each chunk, else resident
 
 
 def _tc_warps_m(h: int, cols: int) -> int:
@@ -295,11 +300,12 @@ def _tc_warps_m(h: int, cols: int) -> int:
 
 
 def tc_geom(rows: int, cols: int, kch: int, nch: int, h: int, cs: int, nw: int,
-            dx: bool = False, esize: int = 2) -> TcGeom:
+            dx: bool = False, esize: int = 2, stream: bool = False) -> TcGeom:
     """The tensor-core kernel's geometry for a tile of ``h`` rows of a
     ``rows x cols`` block (the dx kernel: of the ``(n+2)^2`` frame), ``kch``
     reduced and ``nch`` output channels of ``esize`` bytes (2: bfloat16, 4:
-    float32), slices of ``cs`` channels and ``nw`` n8 tiles per warp;
+    float32), slices of ``cs`` channels and ``nw`` n8 tiles per warp, the
+    weights resident or (``stream``) carried by each stage with its chunk;
     raises ``ValueError`` where the kernel does not take them (as
     ``make_tc_geom`` returns false).  ``kc``, ``kp`` and the staged sizes
     count 16-bit units: a float32 value takes two."""
@@ -318,13 +324,16 @@ def tc_geom(rows: int, cols: int, kch: int, nch: int, h: int, cs: int, nw: int,
     kc = 16 if units <= 16 else 32
     kp = -(-units // kc) * kc
     stage = (h + 2) * (cols + 2) * (kc + _TC_PAD)
+    klen = kc if stream else kp  # units of K a tap holds in shared memory
     if dx or esize == 4:
-        wsize = cs * (9 * kp + _TC_PAD)
+        wsize = cs * (9 * klen + _TC_PAD)
     else:
-        wsize = 9 * kp * (cs + (8 if (cs // 8) % 2 == 0 else 16))
-    # the weights, two stages and, in float32, the lo halves of one stage
+        wsize = 9 * klen * (cs + (8 if (cs // 8) % 2 == 0 else 16))
+    # the weights (resident, or two stages of a chunk's), two stages and,
+    # in float32, the lo halves of one stage
     return TcGeom(h, cs, nw, wn, wm, threads, -(-nch // cs), -(-rows // h), kc, kp,
-                  2 * (wsize + (3 if esize == 4 else 2) * stage))
+                  2 * ((2 if stream else 1) * wsize + (3 if esize == 4 else 2) * stage),
+                  stream)
 
 
 class TcPlan(NamedTuple):
@@ -360,7 +369,7 @@ def _tc_launch(g: TcGeom, b: int, sm_count: int, tpb: int | None = None) -> TcPl
     return TcPlan(g, tpb, tiles, _tc_grid(g, b, tpb))
 
 
-def _tc_wide(rows, cols, kch, nch, widest, dx, esize, score):
+def _tc_wide(rows, cols, kch, nch, widest, dx, esize, score, stream=False):
     """The training-batch regime's geometry: warps own 32 pixels x 32
     channels (fewer on slices under 32), a tile holds as many whole rows as
     8 warps take (or half as many), and the slice ``cs`` (8 to ``widest``)
@@ -374,7 +383,7 @@ def _tc_wide(rows, cols, kch, nch, widest, dx, esize, score):
         hmax = max(1, min(rows, wm * 32 // cols))
         for h in sorted({hmax, max(1, hmax // 2)}):
             try:
-                g = tc_geom(rows, cols, kch, nch, h, cs, nw, dx, esize)
+                g = tc_geom(rows, cols, kch, nch, h, cs, nw, dx, esize, stream)
             except ValueError:
                 continue
             if g.smem <= _SMEM_LIMIT - 1024:  # room for a launch's static shared memory
@@ -382,7 +391,7 @@ def _tc_wide(rows, cols, kch, nch, widest, dx, esize, score):
     return max(wide, key=score) if wide else None
 
 
-def _tc_small_geom(rows, cols, kch, nch, h, cs, warps, dx, esize):
+def _tc_small_geom(rows, cols, kch, nch, h, cs, warps, dx, esize, stream=False):
     """The batch-1 regime's geometry of ``h``-row tiles and ``cs``-channel
     slices: warps split N where M has fewer than ``warps`` of them; raises
     ``ValueError`` past the shared memory with the narrowest slice."""
@@ -390,7 +399,7 @@ def _tc_small_geom(rows, cols, kch, nch, h, cs, warps, dx, esize):
     wn = 1
     while wm * wn < warps and cs // (8 * wn) > 1 and 64 * wm * wn <= _TC_MAX_THREADS:
         wn *= 2
-    g = tc_geom(rows, cols, kch, nch, h, cs, cs // (8 * wn), dx, esize)
+    g = tc_geom(rows, cols, kch, nch, h, cs, cs // (8 * wn), dx, esize, stream)
     if cs == 8 and g.smem > _SMEM_LIMIT - 1024:
         raise ValueError(
             f"the tensor-core conv cannot hold the weights of K={kch} channels x 8 in "
@@ -399,12 +408,21 @@ def _tc_small_geom(rows, cols, kch, nch, h, cs, warps, dx, esize):
 
 
 def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
-            dx: bool = False, esize: int = 2) -> TcPlan:
+            dx: bool = False, esize: int = 2, stream: bool | None = None) -> TcPlan:
     """The tensor-core kernel's plan for ``b * 6`` faces of a ``rows x
     cols`` block (the forward: the block's rows; the dx kernel: the
     ``(n+2)^2`` frame, ``dx=True``), ``kch`` reduced channels (K = 9 kch)
     and ``nch`` output channels of ``esize`` bytes (float32, ``esize=4``:
     :func:`_tc_plan_f32`, :func:`_tc_plan_dx_f32`).
+
+    ``stream`` (the forward only): ``None`` plans the weights resident
+    and, only where no such plan fits, streamed with each staged chunk
+    (two stages of 9 taps x ``kc`` x ``cs``: the bfloat16 forward from Cin
+    = 512, whose 8-channel slice pads its weight rows to 24 channels);
+    ``True`` plans them streamed and ``False`` resident, whatever fits.
+    The two modes sum each output in the same K order, so their outputs
+    are bitwise equal; a streamed plan is chosen by the same regimes and
+    scores as a resident one.
 
     Where the faces give enough tiles (training batches; n = 96), the plan
     of :func:`_tc_wide` whose slice maximises :func:`_tc_score`.  Otherwise
@@ -420,20 +438,31 @@ def tc_plan(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
     if cols > _TC_MAX_THREADS:
         raise ValueError(
             f"the tensor-core conv takes rows of at most {_TC_MAX_THREADS} pixels, not {cols}")
+    if dx and stream:
+        raise ValueError("the dx kernel keeps its weights resident")
+    if stream is None and not dx:
+        try:
+            return tc_plan(b, rows, cols, kch, nch, sm_count, dx, esize, False)
+        except ValueError:
+            stream = True  # no resident plan fits
+    stream = bool(stream)
     if esize == 4:
-        plan = _tc_plan_dx_f32 if dx else _tc_plan_f32
-        return plan(b, rows, cols, kch, nch, sm_count)
+        if dx:
+            return _tc_plan_dx_f32(b, rows, cols, kch, nch, sm_count)
+        return _tc_plan_f32(b, rows, cols, kch, nch, sm_count, stream)
     widest = min(64, max(8, 1 << (nch - 1).bit_length()))
-    g = _tc_wide(rows, cols, kch, nch, widest, dx, esize, lambda g: _tc_score(g, cols, nch))
+    g = _tc_wide(rows, cols, kch, nch, widest, dx, esize, lambda g: _tc_score(g, cols, nch),
+                 stream)
     if g is not None and b * 6 * g.ntr * g.nslices >= sm_count:
         return _tc_launch(g, b, sm_count)
-    return _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize)
+    return _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize, stream)
 
 
-def _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize) -> TcPlan:
+def _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize,
+                   stream=False) -> TcPlan:
     """:func:`tc_plan`'s batch-1 regime (see there)."""
     def geom(h, cs):
-        return _tc_small_geom(rows, cols, kch, nch, h, cs, 4, dx, esize)
+        return _tc_small_geom(rows, cols, kch, nch, h, cs, 4, dx, esize, stream)
 
     cs, h = widest, max(1, min(rows, _TC_TILE_PX // cols))
     while cs > 8 and geom(h, cs).smem > _TC_SOFT_SMEM:
@@ -454,7 +483,8 @@ def _tc_small_plan(b, rows, cols, kch, nch, sm_count, widest, dx, esize) -> TcPl
     return _tc_launch(g, b, sm_count)
 
 
-def _tc_plan_f32(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int) -> TcPlan:
+def _tc_plan_f32(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int,
+                 stream: bool = False) -> TcPlan:
     """:func:`tc_plan` for the float32 forward (3xTF32).  It does six times
     the bfloat16 kernel's tensor-core work per staged value, so fuller
     blocks pay (fitted on ``tools/tc_sweep.py --dtype float32`` on an
@@ -463,15 +493,15 @@ def _tc_plan_f32(b: int, rows: int, cols: int, kch: int, nch: int, sm_count: int
     and 16-channel slices whatever their shared memory (unless the tiles
     then need a second wave of resident blocks), up to 8 warps, row tiles
     split evenly until the tiles fill 90 % of the SMs, and one tile a
-    block."""
+    block.  ``stream``: the weights streamed with each chunk."""
     widest = min(32, max(8, 1 << (nch - 1).bit_length()))
     g = _tc_wide(rows, cols, kch, nch, widest, False, 4,
-                 lambda g: _tc_score(g, cols, nch) * g.cs)
+                 lambda g: _tc_score(g, cols, nch) * g.cs, stream)
     if g is not None and b * 6 * g.ntr * g.nslices >= sm_count:
         return _tc_launch(g, b, sm_count)
 
     def geom(h, cs):
-        return _tc_small_geom(rows, cols, kch, nch, h, cs, 8, False, 4)
+        return _tc_small_geom(rows, cols, kch, nch, h, cs, 8, False, 4, stream)
 
     def small(soft):
         """The batch-1 geometry, its slices narrowed to ``soft`` bytes first."""
@@ -735,7 +765,8 @@ def dw_tc_blocks(plan: DwTcPlan, b: int, n: int, cin: int, cout: int):
 
 
 _FWD_LIB = CudaLibrary("cs_conv3x3.cu", {
-    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 10 + [VP],
+    # the plan's (h, cs, nw, tpb, smem) and its weight mode (1: streamed)
+    "cs_conv3x3_launch": [I32, I32] + [VP] * 7 + [I32] * 11 + [VP],
     # the CUDA-core kernel in either dtype (ops/conv_variants.py's timing row)
     "cs_conv3x3_cc_launch": [I32, I32] + [VP] * 7 + [I32] * 7 + [VP],
 }, "cs_conv3x3_error_string")
@@ -751,11 +782,17 @@ _BWD_LIB = CudaLibrary("cs_conv3x3_bwd.cu", {
 }, "cs_conv3x3_bwd_error_string")
 
 
-def fwd_plan_args(x_dtype, b, rows, cols, cin, cout, sm_count):
-    """``(h, cs, nw, tpb, smem)`` of ``cs_conv3x3_launch``: the tensor-core
-    kernel's (:func:`tc_plan`) for elements of ``x_dtype``."""
+def fwd_plan(x_dtype, b, rows, cols, cin, cout, sm_count, stream=None) -> TcPlan:
+    """The forward kernel's plan (:func:`tc_plan`, ``stream`` as there)
+    for elements of ``x_dtype``."""
     esize = torch.finfo(x_dtype).bits // 8
-    return tc_plan(b, rows, cols, cin, cout, sm_count, esize=esize).args()
+    return tc_plan(b, rows, cols, cin, cout, sm_count, esize=esize, stream=stream)
+
+
+def fwd_plan_args(x_dtype, b, rows, cols, cin, cout, sm_count):
+    """``(h, cs, nw, tpb, smem)`` of ``cs_conv3x3_launch``: the plan that
+    :func:`fwd_plan` chooses for the paths."""
+    return fwd_plan(x_dtype, b, rows, cols, cin, cout, sm_count).args()
 
 
 def dx_plan_args(dtype, b, n, cin, cout, sm_count):
@@ -780,13 +817,20 @@ def dw_launch_args(dtype, b, n, cin, cout, sm_count, cudacore=False):
 
 
 class _Conv3x3Kernel(KernelWrapper):
+    def __init__(self, name, library):
+        super().__init__(name, library)
+        # the launches whose plan streams the weights, by (rows, cols, Cin,
+        # Cout), counted beside ``launches``
+        self.stream_launches: collections.Counter = collections.Counter()
+
     def __call__(self, x, ext, k_eq, k_pole, b_eq, b_pole):
         """Fused CS conv of ``x`` (B, 6, H, W, Cin), whole faces (H = W = n,
         ``ext`` :func:`~dlwp_cs_tpu_torch.ops.halo.ext_strips` of ``x``) or a
         shard's block (H <= W) with its exchanged ghost strips ``ext`` (B, 6,
         4, W+2, Cin); HWIO kernels (3, 3, Cin, Cout) and biases (Cout,), all
         of ``x``'s dtype.  Returns (B, 6, H, W, Cout); see
-        :func:`cs_conv3x3_plain`."""
+        :func:`cs_conv3x3_plain`.  The weights stay resident unless no such
+        plan fits (:func:`tc_plan`)."""
         if x.device.type == "cpu":
             return cs_conv3x3_plain(x, ext, k_eq, k_pole, b_eq, b_pole)
         check_faces(self.name, x)
@@ -806,13 +850,16 @@ class _Conv3x3Kernel(KernelWrapper):
             "b_pole": (b_pole, (cout,)),
         })
         dev = self._device(x)
-        plan = fwd_plan_args(x.dtype, b, rows, cols, cin, cout, self._sm_count[dev])
+        plan = fwd_plan(x.dtype, b, rows, cols, cin, cout, self._sm_count[dev])
         out = torch.empty((b, 6, rows, cols, cout), dtype=x.dtype, device=x.device)
         self._launch(
             "cs_conv3x3_launch", dev, DTYPES[x.dtype], dev,
             *(t.data_ptr() for t in (x, ext, k_eq, k_pole, b_eq, b_pole, out)),
-            b, rows, cols, cin, cout, *plan, sizes=10,
+            b, rows, cols, cin, cout, *plan.args(), int(plan.geom.stream), sizes=11,
         )
+        if plan.geom.stream:
+            with self._lock:
+                self.stream_launches[(rows, cols, cin, cout)] += 1
         return out
 
 

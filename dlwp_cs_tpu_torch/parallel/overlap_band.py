@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from dlwp_cs_tpu_torch.geometry.cubed_sphere import EDGE_E, EDGE_W
 from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES, I32, VP, CudaLibrary, check_cuda_args
-from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, fwd_plan_args
+from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3_plain, fwd_plan
 from dlwp_cs_tpu_torch.ops.padding import padding_plan
 from dlwp_cs_tpu_torch.parallel import symmetric
 from dlwp_cs_tpu_torch.parallel.collectives import axis_index, axis_size
@@ -233,8 +233,11 @@ class _BandOverlapKernel(RemoteCopyKernel):
         ring = symmetric.ring_buffer(mesh, axis_name, x.device, "v1" if self.v1 else "call")
         ring.reserve(b * 6 * n * cin * x.element_size(), self.library)
         # tc_plan's (h, cs, nw) and shared memory for x's dtype (the grid is
-        # one block a tile, or sized by occupancy in the first design)
-        th, cs, nw, _, smem = fwd_plan_args(x.dtype, b, h, n, cin, cout, self._sm_count[dev])
+        # one block a tile, or sized by occupancy in the first design); its
+        # walk keeps the weights resident, so a shape whose resident plan
+        # does not fit raises here
+        th, cs, nw, _, smem = fwd_plan(x.dtype, b, h, n, cin, cout, self._sm_count[dev],
+                                       stream=False).args()
         out = torch.empty((b, 6, h, n, cout), dtype=x.dtype, device=x.device)
         ptrs = tuple(t.data_ptr() for t in (x, seam, wecols, k_eq, k_pole, b_eq, b_pole, out))
         if self.v1:

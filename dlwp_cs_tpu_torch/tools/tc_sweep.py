@@ -133,7 +133,7 @@ def run(batches=(16, 1), dx_batch=16, reps=10, dtype=torch.bfloat16, kinds=("fwd
 
             def launch(plan, ptrs=ptrs, b=b, n=n, cin=cin, cout=cout):
                 hc.cs_conv3x3._launch("cs_conv3x3_launch", dev.index or 0, code, dev.index or 0,
-                                      *ptrs, b, n, n, cin, cout, *plan, sizes=10)
+                                      *ptrs, b, n, n, cin, cout, *plan, 0, sizes=11)
 
             rows = _sweep(launch, lambda y=y, ref=ref: close(y, ref),
                           candidates(b, n, n, cin, cout, False, sms, esize), reps)

@@ -10,17 +10,23 @@ CPU time as if it were the card's.  Beside it: the least time the H100
 could take for a call (:func:`bound`), the bfloat16 check every kernel is
 held to against its plain version (:func:`bf16_excess`) and the layout of
 the one cuDNN call that computes the cubed-sphere conv (:func:`face_grouped`).
+The measurement tools time whole steps and rollouts on the host clock
+(:func:`wall_ms`) and name the card beside every time (:func:`card`).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import statistics
+import subprocess
+import time
 
 import torch
 
 __all__ = ["HBM_BYTES_PER_S", "PEAK_OPS", "TF32_OPS", "add_device_args", "bf16_excess",
-           "bound", "check_close", "cold_ms", "device_ms", "face_grouped", "graph_ms", "tool_device"]
+           "bound", "card", "check_close", "cold_ms", "device_ms", "face_grouped", "graph_ms",
+           "tool_device", "wall_ms"]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM bytes/s
 # and the fastest rate of float32-accurate work for the kernel's input type.
@@ -121,6 +127,42 @@ def cold_ms(fn, reps, flush_bytes=1 << 28):
 def device_ms(fn, reps, device):
     """:func:`graph_ms` of ``fn`` on a CUDA ``device``; ``None`` on the CPU."""
     return None if torch.device(device).type == "cpu" else graph_ms(fn, reps)
+
+
+def wall_ms(fn, calls, repeats, device):
+    """``(median, spread)`` in milliseconds per call of ``fn``: the host
+    clock around ``calls`` calls that end in ``torch.cuda.synchronize()``,
+    over ``repeats`` runs after one untimed call (the median run and the
+    slowest less the fastest, both divided by ``calls``).  ``(None,
+    None)`` on the CPU, after the one call: a tool never reports a CPU time
+    as the card's."""
+    fn()
+    if torch.device(device).type == "cpu":
+        return None, None
+    torch.cuda.synchronize(device)
+    runs = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+        runs.append((time.perf_counter() - t) * 1e3 / calls)
+    return statistics.median(runs), max(runs) - min(runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _nvidia_smi_card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def card(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them; on the CPU ``"cpu (no
+    times)"``."""
+    return "cpu (no times)" if torch.device(device).type == "cpu" else _nvidia_smi_card()
 
 
 def add_device_args(ap: argparse.ArgumentParser):

@@ -111,6 +111,71 @@ def _close(ours, ref, dtype):
         assert bool((diff <= ref.float().abs() * 2.0**-7 + 1e-4).all()), diff.max()
 
 
+# the forward with its weights streamed with each chunk: the capacity
+# sweep's three bfloat16 shapes whose resident plan does not fit (and, in
+# float32, (24, 768 -> 256) likewise), at the sweep's batch and at batch 1,
+# and the flagship U-Net's 8 conv shapes forced there at batch 1 and 16
+STREAMED = [(8, 12, 512, 512), (8, 24, 768, 256), (8, 24, 512, 256), (1, 12, 512, 512)]
+FLAGSHIP_CONVS = [(48, 12, 32), (48, 32, 32), (24, 32, 64), (24, 64, 64), (12, 64, 128),
+                  (12, 128, 128), (24, 192, 64), (48, 96, 32)]
+
+
+def _forced_forward(x, e, w, stream):
+    """#1 under the plan of the weight mode ``stream`` (streamed or
+    resident), whatever the paths would choose, launched through the entry
+    point as ``tools/tc_sweep.py`` launches a plan of its choosing; raises
+    ``ValueError`` where that mode has no plan."""
+    from dlwp_cs_tpu_torch.ops.cuda_build import DTYPES
+    from dlwp_cs_tpu_torch.ops.hopper_conv import fwd_plan
+
+    b, _, n, _, cin = x.shape
+    cout = w[0].shape[-1]
+    dev = cs_conv3x3._device(x)
+    plan = fwd_plan(x.dtype, b, n, n, cin, cout, cs_conv3x3._sm_count[dev], stream=stream)
+    out = torch.empty((b, 6, n, n, cout), dtype=x.dtype, device=x.device)
+    cs_conv3x3._launch("cs_conv3x3_launch", dev, DTYPES[x.dtype], dev,
+                       *(t.data_ptr() for t in (x, e, *w, out)), b, n, n, cin, cout,
+                       *plan.args(), int(stream), sizes=11)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,cin,cout", STREAMED + [(b,) + s for b in (1, 16)
+                                                       for s in FLAGSHIP_CONVS])
+def test_streamed_forward_matches_plain_and_resident_on_card(cuda_device, dtype, b, n, cin,
+                                                             cout):
+    """The streamed mode (``fwd_plan(stream=True)``) against the plain
+    version, and bitwise equal to the resident mode wherever that plans
+    (the same K order, the same products); the wrapper's plan streams
+    exactly where the resident one refuses, and only then adds to
+    ``stream_launches``."""
+    from dlwp_cs_tpu_torch.ops.hopper_conv import fwd_plan
+
+    tdt = getattr(torch, dtype)
+    x, k_eq, k_po, b_eq, b_po = (torch.from_numpy(a).to(cuda_device, tdt)
+                                 for a in _case(b, n, cin, cout))
+    w = (k_eq / cin**0.5, k_po / cin**0.5, b_eq, b_po)
+    e = ext_strips(x)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ours = _forced_forward(x, e, w, True)
+    torch.cuda.synchronize()
+    _close(ours, cs_conv3x3_plain(x, e, *w), dtype)
+    assert torch.equal(_forced_forward(x, e, w, True), ours)  # repeatable
+    before = cs_conv3x3.stream_launches[(n, n, cin, cout)]
+    paths = cs_conv3x3(x, e, *w)
+    streamed = cs_conv3x3.stream_launches[(n, n, cin, cout)] - before
+    try:
+        fwd_plan(tdt, b, n, n, cin, cout, sms, stream=False)
+    except ValueError:
+        assert fwd_plan(tdt, b, n, n, cin, cout, sms).geom.stream and streamed == 1
+        assert torch.equal(paths, ours)
+        return
+    assert not fwd_plan(tdt, b, n, n, cin, cout, sms).geom.stream and streamed == 0
+    assert torch.equal(paths, ours)
+    assert torch.equal(_forced_forward(x, e, w, False), ours)
+
+
 # the forward test's shapes, and the flagship U-Net's at its training batch
 BWD_SHAPES = [
     (2, 48, 12, 32), (1, 24, 192, 64), (2, 12, 128, 128), (1, 16, 5, 7), (1, 10, 3, 9),

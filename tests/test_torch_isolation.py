@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax():
               "data.tscache", "data.preprocessing", "ops.quant", "ops.latlon",
               "models.latlon_unet", "models.registry", "models.torch_mirror",
               "barotropic", "barotropic.model", "barotropic.spharm", "plot", "plot.maps",
-              "utils.profiling"):
+              "utils.profiling", "tools.capacity_bench", "tools.trainer_wallclock",
+              "tools.serve_bench", "tools.ensemble_bench", "tools.scaling_bench"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
     assert len(mods) >= 62
     code = (

@@ -186,7 +186,11 @@ def test_plan_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="rows of at most 256"):
         tc_plan(1, 4, 300, 8, 8, SMS)
     with pytest.raises(ValueError, match="cannot hold the weights"):
-        tc_plan(1, 48, 48, 1536, 32, SMS)
+        tc_plan(1, 48, 48, 1536, 32, SMS, stream=False)  # resident weights
+    # the forward then streams them with each chunk; the dx kernel does not
+    assert tc_plan(1, 48, 48, 1536, 32, SMS).geom.stream
+    with pytest.raises(ValueError, match="resident"):
+        tc_plan(1, 48, 48, 1536, 32, SMS, dx=True, stream=True)
     with pytest.raises(ValueError):
         tc_geom(8, 8, 8, 8, 1, 24, 1)  # slices of 8, 16, 32 or 64 channels
     with pytest.raises(ValueError):
