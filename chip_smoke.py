@@ -19,8 +19,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    source, all at once: the fused cubed-sphere conv, its backward (the dx
    and dw kernels), the xring conv's ring-fix kernels (the fixes and the
    fused select + apply), the band-row exchange and the band conv fused
-   with it, the conv on the tensor cores (kn2row, im2col), the probes and
-   the int8 base conv;
+   with it, the conv on the tensor cores (kn2row, im2col), the probes,
+   the int8 base conv and the device collectives (send, reduce, unpack);
 3. at each conv shape of the flagship C48 U-Net (and one n=96 shape with
    many row tiles), at batch 1, 8 and 16, in float32 (3xTF32) and bfloat16,
    both on the tensor cores: hold the forward kernel against its plain torch
@@ -202,20 +202,30 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    against the one-card forecast in units of the field's std (the kernel
    paths, #11's included, which sums every output in #8's order, to 1e-6
    in float32 and 2**-6 of the value in bfloat16, the service to 1e-3 and
-   2**-3), with the wall time of 4 ranks sharing one card and the gloo
-   collectives each rank issued; before them, on every rank, the exchange
-   probe (``tools/xchg_probe.py``: a round trip to both ring neighbours,
-   spinning in a kernel and as stream waits, in turns), then #10 and #11
-   at each flagship conv shape on 4 bands, batch 1 and 8, both dtypes:
-   #10 bitwise against the ``ppermute`` pair, #11 against its plain version
+   2**-3), with the wall time of 4 ranks sharing one card and the
+   collectives each rank issued, every one on the card (``host_calls ==
+   0``; the send, reduce and unpack kernels of ``csrc/cs_collectives.cu``
+   launched; the front end's broadcasts of host inputs counted apart);
+   before them, on every rank, the exchange probe (``tools/xchg_probe.py``:
+   a round trip to both ring neighbours, spinning in a kernel and as
+   stream waits, in turns), the collectives phase (every ``ppermute``,
+   ``all_gather`` and ``psum`` one model call issues on 4 bands and on
+   2 x 2 tiles in both dtypes, and the data-axis gradient bucket, each
+   through the device transport bitwise against the plain version over
+   gloo on fresh inputs, timed with CUDA events around 20 back-to-back
+   calls in turns with the plain version), then #10 and #11 at each
+   flagship conv shape on 4 bands, batch 1 and 8, both dtypes: #10
+   bitwise against the ``ppermute`` pair, #11 against its plain version
    and bitwise against #8 on the exchanged strips, their device times per
-   call in turns with their first designs (``*_v1``, one cooperative kernel
-   that spins, time slices of the other ranks included), the plain
-   versions' and cuDNN's times and the bounds; and the host time of one
-   ghost-strip ``all_gather``, of one band and one tile conv with its
-   exchange, of the band rows by the ``ppermute`` pair and by #10, of a
-   band conv with #10 and of a #11 conv; then a group of 2 ranks: the
-   probe, #10 and #11 at the same shapes on 2 bands;
+   call (at batch 1 in turns with their first designs, ``*_v1``, one
+   cooperative kernel that spins, time slices of the other ranks
+   included; at batch 8 the first designs held against the same
+   references, untimed), the plain versions' and cuDNN's times and the
+   bounds; and the host time of one ghost-strip ``all_gather``, of one
+   band and one tile conv with its exchange, of the band rows by the
+   ``ppermute`` pair and by #10, of a band conv with #10 and of a #11
+   conv; then a group of 2 ranks: the probe, #10 and #11 at the same
+   shapes on 2 bands at batch 1, and the collectives phase on 2 bands;
 9a. spawn 4 ranks sharing the card again and train the flagship U-Net at
    global batch 16, in bfloat16 and float32, under ``MESH_TRAIN_PATHS``:
    ``data=4`` through the data-parallel step (#1, #4, #5 on each rank's
@@ -228,11 +238,12 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    parameters' change over 2**20) against the one-card
    ``Trainer.train_step``'s on the same batch within 1e-4 (float32) and
    2**-6 (bfloat16) of each tensor's largest entry, every parameter
-   moved, the parameters bitwise equal on every rank; then 5 Adam steps
+   moved, the parameters bitwise equal on every rank; then 4 Adam steps
    (launch counts set to 0 before, read after: 10 of #1, 9 of #4, 10 of
    #5 a step under ``data=4``, 10 of the block kernel a step on bands and
    tiles), a falling loss, bitwise equal parameters, each rank's step
-   times and gloo collectives; then one ``Trainer(mesh=data 4).fit``
+   times and collectives (every one on the card); then one
+   ``Trainer(mesh=data 4).fit``
    epoch (3 steps) on a seeded ``MemoryStore`` fed by
    ``prefetch_to_device(sharding=mesh)`` and one
    ``make_sharded_sequence_train_step`` step (sequence 2) on 4 bands; last,
@@ -281,13 +292,14 @@ Run from the repository root on a machine with an NVIDIA Hopper card
    the 28-call rollouts 280 launches of #1 (auto) or of the int8 base
    conv (int8, within ``QUANT_TOL_STD`` of auto), the folded ensembles'
    member 0 bitwise equal to the batch-1 rollout, the scaling rows 1x1,
-   4x1 and 2x2 (4 ranks sharing the card, so marked);
+   4x1 and 2x2 (4 ranks sharing the card, so marked; every collective of
+   theirs on the card);
 10. print whether ``nvidia-cuda-mps-control`` is on the PATH and the card
    count (the route for measuring #10 and #11; nothing is started), the
    #3/#13 tables, the ensemble, export, HTTP, front-end and mesh-training
    lines again, the kernel line (JSON, with each kernel's launches per
    step and the ranks' step times under the mesh-training paths), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+   {...}}``; before them, the seconds each phase took.
 
 Any failed check raises, in any rank, so the script exits non-zero and
 prints no result.
@@ -949,17 +961,22 @@ def probe_summary(rows):
     return out
 
 
-def _turns(new, old, reps, timer=None):
+def _turns(new, old, reps, timer=None, with_old=True, old_reps=None):
     """``(new_ms, old_ms, runs)``: the two kernels timed in turns, old, new,
     new, old (``timer``, by default CUDA-graph replays, ``reps`` calls
-    each), each the mean of its two runs."""
+    each, ``old_reps`` for ``old`` where given), each the mean of its two
+    runs.  Without ``with_old`` only the two runs of ``new`` (``old_ms``
+    None)."""
     from dlwp_cs_tpu_torch.tools.timing import graph_ms
 
     timer = timer or graph_ms
-    o1 = timer(old, reps)
+    if not with_old:
+        n1, n2 = timer(new, reps), timer(new, reps)
+        return (n1 + n2) / 2, None, [n1, n2]
+    o1 = timer(old, old_reps or reps)
     n1 = timer(new, reps)
     n2 = timer(new, reps)
-    o2 = timer(old, reps)
+    o2 = timer(old, old_reps or reps)
     return (n1 + n2) / 2, (o1 + o2) / 2, [o1, n1, n2, o2]
 
 
@@ -1454,6 +1471,30 @@ def all_kernels():
                                 cs_conv3x3_int8_base, *tools)}
 
 
+def collective_kernels():
+    """The device collectives' three kernel wrappers (send, reduce,
+    unpack), by name."""
+    from dlwp_cs_tpu_torch.parallel.device_collectives import KERNELS
+
+    return dict(KERNELS)
+
+
+def collective_counts():
+    """This process's collectives so far: ``(calls, device_calls,
+    host_calls)``."""
+    from dlwp_cs_tpu_torch.parallel import collectives
+
+    return collectives.calls, collectives.device_calls, collectives.host_calls
+
+
+def collective_delta(before):
+    """The collectives issued since :func:`collective_counts` gave
+    ``before``: all, on the device, staged through the host."""
+    now = collective_counts()
+    return dict(zip(("calls", "device_calls", "host_calls"),
+                    (a - b for a, b in zip(now, before))))
+
+
 def model_config(kind, dtype_name):
     """The full-width model of ``kind``: the flagship U-Net (its kernel
     path) or the ConvLSTM (``ConvLSTMConfig()`` defaults, backend xring)."""
@@ -1819,15 +1860,14 @@ def export_phase(kind, dtype_name, buckets, rng, workdir):
             t = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t) * 1e3)
-        for _ in range(2):
-            with use_library_ops():
-                t = time.perf_counter()
-                svc.forecast(w, tt, steps=STEPS)
-                op_ms.append((time.perf_counter() - t) * 1e3)
+        with use_library_ops():
             t = time.perf_counter()
             svc.forecast(w, tt, steps=STEPS)
-            live_ms.append((time.perf_counter() - t) * 1e3)
-        for _ in range(4):
+            op_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        svc.forecast(w, tt, steps=STEPS)
+        live_ms.append((time.perf_counter() - t) * 1e3)
+        for _ in range(2):
             t = time.perf_counter()
             exp.forecast(w, tt)
             exp_ms.append((time.perf_counter() - t) * 1e3)
@@ -2406,18 +2446,19 @@ def host_ms(fn, reps):
     return (time.perf_counter() - t) * 1e3 / reps
 
 
-def remote_cases(mesh, b, dtype, convs: bool = True):
+def remote_cases(mesh, b, dtype, convs: bool = True, v1_turns: bool = True):
     """Kernels #10 and (with ``convs``) #11 on this rank's band at each
     flagship conv shape (batch ``b``): #10 on the conv's input against the
     ``ppermute`` pair
     (equal), #11 against its plain version on the same seam strips and
     received rows (f32 1e-4; bf16 one ulp + 1e-4) and against #8 on the
-    exchanged strips; each kernel's device time per call, in turns with its
-    first design (``*_v1``, held against the same references: its time
-    includes the other ranks' time slices, which it waits out spinning),
-    the plain versions' times, one face-grouped cuDNN call on the padded
-    band and the bounds.  A collective call; launches here are not the main
-    path's."""
+    exchanged strips; each kernel's device time per call, with
+    ``v1_turns`` in turns with its first design (``*_v1``, held against
+    the same references at every shape: its time includes the other ranks'
+    time slices, which it waits out spinning; without, ``v1_ms`` is None
+    and the kernel's own time is two runs), the plain versions' times, one
+    face-grouped cuDNN call on the padded band and the bounds.  A
+    collective call; launches here are not the main path's."""
     from dlwp_cs_tpu_torch.ops.hopper_conv import _padded_faces
     from dlwp_cs_tpu_torch.parallel.collectives import axis_index, axis_size
     from dlwp_cs_tpu_torch.parallel.halo import halo_pieces
@@ -2460,7 +2501,7 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         equal_v1 = all(torch.equal(a, r) for a, r in zip(old, ref))
         ms10, v1_10, turns10 = _turns(lambda: band_exchange_rdma(x, 1, mesh=mesh),
                                       lambda: band_exchange_rdma_v1(x, 1, mesh=mesh), 20,
-                                      timer=rank_ms)
+                                      timer=rank_ms, with_old=v1_turns)
         plain10 = host_ms(lambda: band_exchange_plain(x, 1, mesh=mesh), 5)
         t_bytes = 4 * slab / HBM_BYTES_PER_S * 1e3  # 2 boundary slabs read, 2 written
         xchg.append({
@@ -2492,7 +2533,7 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
         ms11, v1_11, turns11 = _turns(
             lambda: band_conv3x3_overlap.fused(x, seam, wecols, *ks, *bs, mesh=mesh),
             lambda: band_conv3x3_overlap_v1.fused(x, seam, wecols, *ks, *bs, mesh=mesh), 20,
-            timer=rank_ms)
+            timer=rank_ms, with_old=v1_turns)
         plain11 = graph_ms(lambda: band_conv3x3_overlap_plain(
             x, seam, wecols, below, above, *ks, *bs, first=first, last=last), 3)
         library_ms = graph_ms(lambda: F.conv2d(p, w, bias, groups=6), 20)
@@ -2513,6 +2554,114 @@ def remote_cases(mesh, b, dtype, convs: bool = True):
     return xchg, conv
 
 
+COLLECTIVE_REPS = 20  # back-to-back device calls a timing run, four runs in turns
+PLAIN_REPS = 5  # the gloo plain version's calls a run (1-25 ms each)
+
+
+def captured_collectives(run):
+    """The device collectives ``run()`` issues, as ``{key: [op, group,
+    shape, dtype, args, count]}`` in the order first met: what a sharded
+    model call hands the transport."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import device_collectives as dc
+
+    seen, saved = {}, {op: getattr(dc, op) for op in ("psum", "all_gather", "ppermute")}
+
+    def wrap(op):
+        def inner(x, group, *args):
+            key = (op, tuple(dist.get_process_group_ranks(group)), tuple(x.shape), x.dtype,
+                   args)
+            seen.setdefault(key, [op, group, tuple(x.shape), x.dtype, args, 0])[-1] += 1
+            return saved[op](x, group, *args)
+        return inner
+
+    for op in saved:
+        setattr(dc, op, wrap(op))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for op, fn in saved.items():
+            setattr(dc, op, fn)
+    return seen
+
+
+def collective_cases(captured, where, seed):
+    """Each captured collective on fresh seeded inputs (each rank its own):
+    the device transport against the plain version over gloo (bitwise),
+    each timed with CUDA events around ``COLLECTIVE_REPS`` back-to-back
+    calls, in turns with the plain version (plain, device, device, plain),
+    beside the bound: the bytes its kernels read and write over the HBM
+    rate.  A collective call of every rank of the groups."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import device_collectives as dc
+    from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + dist.get_rank())
+    out = []
+    for key, (op, group, shape, dtype, args, count) in captured.items():
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        S = dist.get_world_size(group)
+        launches0 = {k: w.launches for k, w in dc.KERNELS.items()}
+        ours = getattr(dc, op)(x, group, *args)
+        launched = {k: w.launches - launches0[k] for k, w in dc.KERNELS.items()}
+        ref = getattr(dc, op + "_plain")(x, group, *args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(ours, ref))
+        ms, plain_ms, turns = _turns(lambda: getattr(dc, op)(x, group, *args),
+                                     lambda: getattr(dc, op + "_plain")(x, group, *args),
+                                     COLLECTIVE_REPS, timer=rank_ms, old_reps=PLAIN_REPS)
+        slab = x.numel() * x.element_size()
+        me = dist.get_rank(group)
+        if op == "ppermute":
+            pairs = dict(args[0])
+            sends = int(me in pairs and pairs[me] != me)
+            reads = int(me in {d for _, d in args[0]})
+        else:
+            sends, reads = S - 1, S
+        # the send's read of x and stores, the unpack's or reduce's reads and
+        # its output
+        nbytes = slab * (sends > 0) + slab * sends + slab * reads + ours.numel() * ours.element_size()
+        out.append({
+            "where": where, "op": op, "ranks": S, "shape": list(shape),
+            "dtype": str(dtype).split(".")[-1], "args": repr(args), "per_model_call": count,
+            "equal": equal, "ok": equal, "max_abs_err": float((ours.float() - ref.float()).abs().max())
+            if ours.numel() else 0.0,
+            "launches_per_call": launched, "ms": ms, "plain_ms": plain_ms, "turns_ms": turns,
+            "bytes": nbytes, "ops": 0, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None})
+    return out
+
+
+def collectives_phase_rank(meshes, model, dtype_names):
+    """The collectives phase on this rank: the collectives one sharded
+    model call issues through each mesh of ``meshes`` (``{name: mesh}``;
+    ``make_spatial_apply`` with #8 / #9), in each dtype, and the data-axis
+    gradient bucket of ``model`` (a float32 vector of its parameters and the
+    loss, as ``parallel.sharding.psum_bucket`` sums it), held against the
+    plain version and timed (:func:`collective_cases`)."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.models import DataConfig
+    from dlwp_cs_tpu_torch.parallel import make_spatial_apply
+
+    d = DataConfig()
+    cases = []
+    for dtype_name in dtype_names:
+        net = model(dtype_name)
+        x = torch.randn((1, 6, 48, 48, d.input_channels),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+        for name, mesh in meshes.items():
+            fn = make_spatial_apply(net, mesh, band_conv="pallas")
+            cases += collective_cases(captured_collectives(lambda: fn(x)), name, 50)
+    bucket = sum(p.numel() for p in model(dtype_names[0]).parameters()) + 1
+    cases += collective_cases(
+        {"bucket": ["psum", dist.group.WORLD, (bucket,), torch.float32, (), 1]}, "bucket", 60)
+    return cases
+
+
 def sharded_rank(dtype_names, windows, t0, const, pert):
     """One rank of the sharded serve phase (a spawned process of a gloo
     group of ``SHARDS`` ranks sharing the card): per dtype, a 14-day forecast
@@ -2521,30 +2670,52 @@ def sharded_rank(dtype_names, windows, t0, const, pert):
     service at batch 3, its ensemble of ``MESH_MEMBERS`` members on
     ``data = 2`` (padded by one window) with the perturbations ``pert``, and
     its rank-0 front end (3 submits on rank 0 while the others follow());
-    before them the exchange probe and kernels #10 and #11 at every
-    flagship band shape.  Returns
-    the fields, the launches of every kernel and the collectives per
-    forecast, the wall times and the kernel cases."""
+    before them the exchange probe, kernels #10 and #11 at every flagship
+    band shape and the collectives phase (:func:`collectives_phase_rank`
+    on the band and tile meshes and the data-axis bucket).  Returns the
+    fields, the launches of every kernel and the collectives per forecast
+    (on the device, through the host), the wall times and the kernel
+    cases."""
     import torch.distributed as dist
 
     from dlwp_cs_tpu_torch import ForecastService, TimeSeriesEstimator
-    from dlwp_cs_tpu_torch.parallel import collectives, create_mesh, make_spatial_apply
+    from dlwp_cs_tpu_torch.parallel import create_mesh, make_spatial_apply
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = all_kernels()
+    coll = collective_kernels()
     meshes = {"band": create_mesh(data=1, spatial=SHARDS),
               "tile": create_mesh(data=1, spatial=2, spatial_x=2),
               "service": create_mesh(data=2, spatial=2)}
     from dlwp_cs_tpu_torch.tools.xchg_probe import probe_rank
 
+    models = {}
+
+    def model(dtype_name):
+        if dtype_name not in models:
+            models[dtype_name] = flagship_estimator(dtype_name).model
+        return models[dtype_name]
+
+    seconds, t_step = {}, time.perf_counter()
+
+    def lap(name):  # this rank's seconds per part of the phase
+        nonlocal t_step
+        now = time.perf_counter()
+        seconds[name], t_step = now - t_step, now
+
     out = {"probe": probe_rank(PROBE_ROUNDS), "exchange": exchange_ms(meshes), "xchg": [],
-           "overlap": []}
+           "overlap": [], "seconds": seconds}
+    lap("probe, exchange")
+    out["collectives"] = collectives_phase_rank({k: meshes[k] for k in ("band", "tile")},
+                                                model, dtype_names)
+    lap("collectives")
     for b in (1, 8):
         for dtype in (torch.float32, torch.bfloat16):
-            xchg, conv = remote_cases(meshes["band"], b, dtype)
+            xchg, conv = remote_cases(meshes["band"], b, dtype, v1_turns=b == 1)
             out["xchg"] += xchg
             out["overlap"] += conv
+    lap("#10, #11")
     for dtype_name in dtype_names:
         est = flagship_estimator(dtype_name)
         lat, lon = est.cs.cell_latlon
@@ -2557,43 +2728,47 @@ def sharded_rank(dtype_names, windows, t0, const, pert):
                 device=est.device)
             normed = (windows[:1] - mean) / std
             ts.predict(normed, t0[:1], steps=2)  # warm-up
-            for k in kernels.values():
+            for k in (*kernels.values(), *coll.values()):
                 k.launches = 0
-            calls = collectives.calls
+            calls = collective_counts()
             t = time.perf_counter()
             fields = ts.predict(normed, t0[:1], steps=STEPS).fields.cpu().numpy()
             wall = (time.perf_counter() - t) * 1e3
             out[kind, dtype_name] = {
-                "fields": fields, "wall_ms": wall, "collectives": collectives.calls - calls,
-                "launches": {name: k.launches for name, k in kernels.items()}}
+                "fields": fields, "wall_ms": wall, "collectives": collective_delta(calls),
+                "launches": {name: k.launches for name, k in kernels.items()},
+                "collective_launches": {name: k.launches for name, k in coll.items()}}
         # the front end's 3 submits fill its batch of 3 (padded to 4 over
         # data, as the collective call's 3 windows are): no wait for peers
         svc = ForecastService(est, constants=const, mesh=meshes["service"], max_batch=3,
                               max_wait_ms=1000.0)
         svc.forecast(windows[:3], t0[:3], steps=1)  # warm-up
         padded = svc.stats.padded_mesh
-        for k in kernels.values():
+        for k in (*kernels.values(), *coll.values()):
             k.launches = 0
-        calls = collectives.calls
+        calls = collective_counts()
         t = time.perf_counter()
         fc = svc.forecast(windows[:3], t0[:3], steps=STEPS)
         wall = (time.perf_counter() - t) * 1e3
         out["service", dtype_name] = {
-            "fields": fc.fields, "wall_ms": wall, "collectives": collectives.calls - calls,
+            "fields": fc.fields, "wall_ms": wall, "collectives": collective_delta(calls),
             "padded_mesh": svc.stats.padded_mesh - padded,
-            "launches": {name: k.launches for name, k in kernels.items()}}
+            "launches": {name: k.launches for name, k in kernels.items()},
+            "collective_launches": {name: k.launches for name, k in coll.items()}}
         # an ensemble under data = 2: one window, MESH_MEMBERS members,
         # padded by one window; the perturbations handed in
         padded = svc.stats.padded_mesh
+        calls = collective_counts()
         t = time.perf_counter()
         ens = svc.forecast_ensemble(windows[0], t0[0], steps=STEPS, members=MESH_MEMBERS,
                                     perturbations=pert, keep_members=True)
         out["mesh_ensemble", dtype_name] = {
             "members": ens.members, "mean": ens.mean, "spread": ens.spread,
             "wall_ms": (time.perf_counter() - t) * 1e3,
-            "padded_mesh": svc.stats.padded_mesh - padded}
+            "padded_mesh": svc.stats.padded_mesh - padded, "collectives": collective_delta(calls)}
         # the rank-0 front end: rank 0 submits 3 requests, the others follow
-        batches = svc.stats.batches
+        batches, broadcasts = svc.stats.batches, svc.stats.host_broadcasts
+        calls = collective_counts()
         t = time.perf_counter()
         if dist.get_rank() == 0:
             futs = [svc.submit(windows[i], t0[i], steps=STEPS) for i in range(3)]
@@ -2605,27 +2780,38 @@ def sharded_rank(dtype_names, windows, t0, const, pert):
             front = {"runs": svc.follow(), "errors": [repr(e) for e in svc.follow_errors]}
             svc.close()
         front["dispatches"] = svc.stats.batches - batches
+        front["collectives"] = collective_delta(calls)
+        front["host_broadcasts"] = svc.stats.host_broadcasts - broadcasts
         out["front", dtype_name] = front
+        lap(f"forecasts {dtype_name}")
     return out
 
 
-def pair_rank():
+def pair_rank(dtype_names):
     """One rank of a group of 2 sharing the card: the exchange probe, then
     kernels #10 and #11 at every flagship conv input cut into 2 bands,
-    batch 1 and 8, both dtypes, against their references, with their
-    times."""
+    batch 1, both dtypes, against their references, with their times (the
+    first designs in turns); then the collectives phase on 2 bands and the
+    data-axis bucket."""
     from dlwp_cs_tpu_torch.parallel import create_mesh
     from dlwp_cs_tpu_torch.tools.xchg_probe import probe_rank
 
     probe = probe_rank(PROBE_ROUNDS)
     mesh = create_mesh(data=1, spatial=2)
     xchg, conv = [], []
-    for b in (1, 8):
-        for dtype in (torch.float32, torch.bfloat16):
-            x, c = remote_cases(mesh, b, dtype)
-            xchg += x
-            conv += c
-    return {"probe": probe, "xchg": xchg, "overlap": conv}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, c = remote_cases(mesh, 1, dtype)
+        xchg += x
+        conv += c
+    models = {}
+
+    def model(dtype_name):
+        if dtype_name not in models:
+            models[dtype_name] = flagship_estimator(dtype_name).model
+        return models[dtype_name]
+
+    return {"probe": probe, "xchg": xchg, "overlap": conv,
+            "collectives": collectives_phase_rank({"band": mesh}, model, dtype_names)}
 
 
 def sharded_phase(rng, workdir):
@@ -2634,6 +2820,7 @@ def sharded_phase(rng, workdir):
     from dlwp_cs_tpu_torch import ForecastService
     from dlwp_cs_tpu_torch.parallel.launch import spawn_group
 
+    t_phase = time.perf_counter()
     dtype_names = ("bfloat16", "float32")
     const = rng.normal(size=(6, 48, 48, 2)).astype(np.float32)
     mean = np.asarray([5500.0, 1000.0, 3500.0, 280.0], np.float32)
@@ -2654,12 +2841,15 @@ def sharded_phase(rng, workdir):
         one_card["ensemble", dtype_name] = svc.forecast_ensemble(
             windows[0], t0[0], steps=STEPS, members=MESH_MEMBERS, perturbations=pert,
             keep_members=True).members
+    one_card_s = time.perf_counter() - t_phase
     t = time.perf_counter()
     ranks = spawn_group(sharded_rank, SHARDS, dtype_names, windows, t0, const, pert,
                         workdir=os.path.join(workdir, "four"))
     group_s = time.perf_counter() - t
-    pair = spawn_group(pair_rank, 2, workdir=os.path.join(workdir, "two"))
+    pair = spawn_group(pair_rank, 2, dtype_names, workdir=os.path.join(workdir, "two"))
     exchange = [r["exchange"] for r in ranks]
+    seconds = {"one card": one_card_s, "group": group_s,
+               "rank 0": ranks[0]["seconds"], "pair": time.perf_counter() - t - group_s}
     kernels = all_kernels()
     # kernel launches per model call of each path
     want = {"band": {"cs_conv3x3_band": 10}, "tile": {"cs_conv3x3_tile": 10}, "service": {},
@@ -2687,11 +2877,20 @@ def sharded_phase(rng, workdir):
                 walls.append(got["wall_ms"])
                 if not per_call:
                     check(got["padded_mesh"] == 1, f"padded_mesh {got['padded_mesh']}")
+                # every collective of the forecast on the card, none staged
+                # through the host; the send, reduce and unpack kernels launched
+                co = got["collectives"]
+                check(co["host_calls"] == 0 and co["device_calls"] > 0
+                      and all(v > 0 for v in got["collective_launches"].values()),
+                      f"rank {rank} {kind} {dtype_name}: collectives {co}, launches "
+                      f"{got['collective_launches']}")
             check(max(excess) <= tol, f"{kind} {dtype_name}: sharded vs one-card "
                   f"|diff| exceeds {rel}*|ref| by {max(excess)} std > {tol}")
             results.append({
                 "path": kind, "dtype": dtype_name, "batch": 1 if per_call else 3,
                 "launches_per_rank": ranks[0][kind, dtype_name]["launches"],
+                "collective_launches_per_rank": [r[kind, dtype_name]["collective_launches"]
+                                                 for r in ranks],
                 "collectives_per_rank": [r[kind, dtype_name]["collectives"] for r in ranks],
                 "max_err_in_std": max(errs), "tolerance_in_std": f"{rel:.3g}*|ref| + {tol:.3g}",
                 "wall_ms_per_rank": walls,
@@ -2708,6 +2907,15 @@ def sharded_phase(rng, workdir):
         check(ens_err <= tol, f"mesh ensemble {dtype_name}: {ens_err} std from one card")
         check(all(r["mesh_ensemble", dtype_name]["padded_mesh"] == 1 for r in ranks),
               "the mesh ensemble padded other than one window")
+        # the service's collectives on the card; the front end's broadcasts
+        # of host inputs (serve/service.py) on gloo, counted apart
+        for what in ("mesh_ensemble", "front"):
+            cos = [r[what, dtype_name]["collectives"] for r in ranks]
+            check(all(co["host_calls"] == 0 and co["device_calls"] > 0 for co in cos),
+                  f"{what} {dtype_name}: collectives {cos}")
+        check(all(r["front", dtype_name]["host_broadcasts"] > 0 for r in ranks),
+              f"front end {dtype_name}: host broadcasts "
+              f"{[r['front', dtype_name]['host_broadcasts'] for r in ranks]}")
         lead = ranks[0]["front", dtype_name]
         check(lead["dispatches"] == 1, f"3 submits on rank 0 took {lead['dispatches']} "
               "dispatches")
@@ -2728,6 +2936,11 @@ def sharded_phase(rng, workdir):
             "ensemble_vs_one_card_max_err_in_std": ens_err,
             "ensemble_wall_ms": [r["mesh_ensemble", dtype_name]["wall_ms"] for r in ranks],
             "tolerance_in_std": tol,
+            "ensemble_collectives_per_rank": [r["mesh_ensemble", dtype_name]["collectives"]
+                                              for r in ranks],
+            "front_collectives_per_rank": [r["front", dtype_name]["collectives"] for r in ranks],
+            "front_host_broadcasts_per_rank": [r["front", dtype_name]["host_broadcasts"]
+                                               for r in ranks],
         })
     from dlwp_cs_tpu_torch.tools.xchg_probe import summary
 
@@ -2743,7 +2956,14 @@ def sharded_phase(rng, workdir):
     check(not bad, f"kernel #10 or #11 disagrees with its plain version: {bad}")
     # per rank, per shape: #10's case (input rows) and #11's, rank 0 first
     remote["per_rank"] = [{"xchg": r["xchg"], "overlap": r["overlap"]} for r in ranks]
-    return results, exchange, group_s, remote, front
+    # the collectives phase: every case bitwise equal to the plain version
+    # on every rank of 4 and of 2
+    coll = {4: [r["collectives"] for r in ranks], 2: [r["collectives"] for r in pair]}
+    bad = [c for cases in coll.values() for rank in cases for c in rank if not c["ok"]]
+    check(not bad, f"a device collective differs from its plain version: {bad}")
+    check(all(rank for cases in coll.values() for rank in cases), "no collective captured")
+    remote["phase_seconds"] = seconds
+    return results, exchange, group_s, remote, front, coll
 
 
 # training under a mesh, 4 ranks sharing the card: (name, mesh (data,
@@ -2759,7 +2979,7 @@ MESH_TRAIN_PATHS = [
     ("tile", (1, 2, 2), dict(band_conv="pallas"), "mse", {"cs_conv3x3_tile": 10}),
     ("weighted", (2, 2, 1), dict(band_conv="pallas"), "area", {"cs_conv3x3_band": 10}),
 ]
-MESH_TRAIN_ADAM = 5  # Adam steps a path
+MESH_TRAIN_ADAM = 4  # Adam steps a path
 MESH_FIT_BATCHES = 3  # the Trainer.fit epoch on data = 4
 MESH_SEQ_BATCH = 4  # the sharded sequence step's global batch (sequence = 2)
 # the all-reduced SGD gradients against the one-card step's, per tensor,
@@ -2800,7 +3020,6 @@ def mesh_train_rank(dtype_names, seed, ex_head):
     from dlwp_cs_tpu_torch.models.config import TrainConfig
     from dlwp_cs_tpu_torch.ops.losses import AreaWeightedLoss, mse
     from dlwp_cs_tpu_torch.parallel import (
-        collectives,
         create_mesh,
         make_dp_train_step,
         make_spatial_train_step,
@@ -2818,6 +3037,7 @@ def mesh_train_rank(dtype_names, seed, ex_head):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = all_kernels()
+    coll = collective_kernels()
     meshes = {}
 
     def mesh(shape):  # every rank creates the meshes in the same order
@@ -2826,9 +3046,12 @@ def mesh_train_rank(dtype_names, seed, ex_head):
         return meshes[shape]
 
     def reset():
-        for k in kernels.values():
+        for k in (*kernels.values(), *coll.values()):
             k.launches = 0
-        return collectives.calls
+        return collective_counts()
+
+    def coll_launches(per=1):
+        return {k: v.launches / per for k, v in coll.items()}
 
     d = DataConfig()
     cs = CubedSphere(d.grid_n)
@@ -2895,7 +3118,9 @@ def mesh_train_rank(dtype_names, seed, ex_head):
                                      for k, p0 in state0.params.items()),
                 "losses": losses, "step_ms": times,
                 "launches": {k: v.launches for k, v in kernels.items()},
-                "collectives_per_step": (collectives.calls - calls) / MESH_TRAIN_ADAM,
+                "collective_launches_per_step": coll_launches(MESH_TRAIN_ADAM),
+                "collectives_per_step": {k: v / MESH_TRAIN_ADAM
+                                         for k, v in collective_delta(calls).items()},
                 "digest_sgd": _digest(sgd.params), "digest": _digest(state.params),
             }
         # one Trainer.fit epoch on data = 4, each rank fed its blocks
@@ -2915,7 +3140,8 @@ def mesh_train_rank(dtype_names, seed, ex_head):
             "seconds": time.perf_counter() - t, "steps": state.step,
             "losses": [r["loss"] for r in trainer.history.steps],
             "launches": {k: v.launches for k, v in kernels.items()},
-            "collectives": collectives.calls - calls, "digest": _digest(state.params)}
+            "collective_launches": coll_launches(), "collectives": collective_delta(calls),
+            "digest": _digest(state.params)}
         # one sharded sequence step (sequence 2) on 4 bands: the band
         # ring-fix conv, no kernel; its loss beside the one-card sequence loss
         kw = dict(lat=lat, lon=lon, constants=const, insol_mean=300.0, insol_std=400.0,
@@ -2934,7 +3160,8 @@ def mesh_train_rank(dtype_names, seed, ex_head):
         out["sequence", dtype_name] = {
             "loss": loss, "one_card_loss": one_card, "step_ms": (time.perf_counter() - t) * 1e3,
             "launches": {k: v.launches for k, v in kernels.items()},
-            "collectives": collectives.calls - calls, "digest": _digest(state.params)}
+            "collective_launches": coll_launches(), "collectives": collective_delta(calls),
+            "digest": _digest(state.params)}
     out["examples 05 --mesh"] = examples_mesh_rank(ex_head, dict(EX_SEQ, device=None))
     return out
 
@@ -2972,6 +3199,11 @@ def mesh_train_phase(workdir, ex_head):
             for key in ("digest_sgd", "digest"):
                 check(len({row[key] for row in rows}) == 1,
                       f"mesh train {name} {dtype_name}: parameters differ across ranks ({key})")
+            for rank, row in enumerate(rows):
+                co = row["collectives_per_step"]
+                check(co["host_calls"] == 0 and co["device_calls"] > 0
+                      and row["collective_launches_per_step"]["collective_send"] > 0,
+                      f"mesh train {name} {dtype_name} rank {rank}: collectives a step {co}")
             paths.append({
                 "path": name, "mesh": shape, "options": opts, "dtype": dtype_name,
                 "launches_per_step": {k: v // MESH_TRAIN_ADAM for k, v in want.items() if v},
@@ -2980,6 +3212,8 @@ def mesh_train_phase(workdir, ex_head):
                 "step_ms_per_rank": [row["step_ms"] for row in rows],
                 "step_ms_median_per_rank": [statistics.median(row["step_ms"]) for row in rows],
                 "collectives_per_step": [row["collectives_per_step"] for row in rows],
+                "collective_launches_per_step": [row["collective_launches_per_step"]
+                                                 for row in rows],
                 "bitwise_equal_across_ranks": True,
             })
         fits = [r["fit", dtype_name] for r in ranks]
@@ -2992,6 +3226,11 @@ def mesh_train_phase(workdir, ex_head):
                   f"{f['launches']}, want {want}")
         check(len({f["digest"] for f in fits}) == 1, f"fit {dtype_name}: parameters differ "
               "across ranks")
+        for what, rows in (("fit", fits), ("sequence", [r["sequence", dtype_name]
+                                                         for r in ranks])):
+            cos = [q["collectives"] for q in rows]
+            check(all(co["host_calls"] == 0 and co["device_calls"] > 0 for co in cos),
+                  f"mesh train {what} {dtype_name}: collectives {cos}")
         seqs = [r["sequence", dtype_name] for r in ranks]
         check(all(np.isfinite(q["loss"]) and q["loss"] == seqs[0]["loss"] for q in seqs),
               f"sequence {dtype_name}: losses {[q['loss'] for q in seqs]}")
@@ -3004,6 +3243,7 @@ def mesh_train_phase(workdir, ex_head):
             "seconds_per_rank": [f["seconds"] for f in fits], "losses_rank0": fits[0]["losses"],
             "launches_per_step": {k: v // MESH_FIT_BATCHES for k, v in want.items() if v},
             "collectives_per_rank": [f["collectives"] for f in fits],
+            "collective_launches_per_rank": [f["collective_launches"] for f in fits],
             "bitwise_equal_across_ranks": True,
         })
         paths.append({
@@ -3012,6 +3252,7 @@ def mesh_train_phase(workdir, ex_head):
             "one_card_loss": seqs[0]["one_card_loss"],
             "step_ms_per_rank": [q["step_ms"] for q in seqs],
             "collectives_per_rank": [q["collectives"] for q in seqs],
+            "collective_launches_per_rank": [q["collective_launches"] for q in seqs],
             "bitwise_equal_across_ranks": True,
         })
     return paths, group_s, [r["examples 05 --mesh"] for r in ranks]
@@ -3530,11 +3771,13 @@ def examples_mesh_rank(store, kwargs):
     kernels = all_kernels()
     for k in kernels.values():
         k.launches = 0
+    calls = collective_counts()
     t = time.perf_counter()
     losses = _examples()["05"].mesh_rank(store, *EX_MESH, kwargs)["losses"]
     torch.cuda.synchronize()
     return {"losses": losses, "seconds": time.perf_counter() - t,
-            "launches": {name: k.launches for name, k in kernels.items()}}
+            "launches": {name: k.launches for name, k in kernels.items()},
+            "collectives": collective_delta(calls)}
 
 
 def examples_phase(workdir, out_dir, store, data, mesh05):
@@ -3684,6 +3927,9 @@ def examples_phase(workdir, out_dir, store, data, mesh05):
     for rank, r in enumerate(mesh05):
         check(not any(r["launches"].values()),
               f"05 --mesh rank {rank} launched {r['launches']} (the band ring-fix conv)")
+        co = r["collectives"]
+        check(co["host_calls"] == 0 and co["device_calls"] > 0,
+              f"05 --mesh rank {rank}: collectives {co}")
         err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one_losses))
         errs.append(err)
         check(len(r["losses"]) == n_steps and err <= EX_MESH_TOL,
@@ -3691,7 +3937,8 @@ def examples_phase(workdir, out_dir, store, data, mesh05):
     out["05 --mesh"] = {"seconds": max(r["seconds"] for r in mesh05), "launches": {},
                         "losses_rank0": mesh05[0]["losses"], "rel_err_per_rank": errs,
                         "tolerance": EX_MESH_TOL,
-                        "rank_seconds": [r["seconds"] for r in mesh05]}
+                        "rank_seconds": [r["seconds"] for r in mesh05],
+                        "collectives_per_rank": [r["collectives"] for r in mesh05]}
 
     # 06 live, 07, then 06 from 07's artifact
     def selftest(make, steps):
@@ -3769,7 +4016,8 @@ def examples_lines(r):
                  f"{m['seconds']:.1f} s in the ranks, "
                  f"losses {['%.6f' % v for v in m['losses_rank0']]}, vs one card "
                  f"{max(m['rel_err_per_rank']):.3g} relative (tol {m['tolerance']:.0e}), "
-                 f"launches none")
+                 f"launches none; collectives rank 0 device {m['collectives_per_rank'][0]['device_calls']}"
+                 f", host {m['collectives_per_rank'][0]['host_calls']}")
     for key in ("06", "06 --artifact"):
         st = r[key]["stats"]
         lines.append(f"examples {key}: {r[key]['seconds']:.2f} s; requests {st['requests']}, "
@@ -3798,9 +4046,9 @@ def examples_lines(r):
 STREAM_REFUSED = [(12, 512, 512), (24, 768, 256), (24, 512, 256)]  # (n, Cin, Cout), batch 8
 BENCH_RUNS = (("capacity_bench", ["--repeats", "2"]),
               ("trainer_wallclock", ["--steps", "32", "--epochs", "3"]),
-              ("serve_bench", ["--repeats", "3", "--calls", "1"]),
-              ("ensemble_bench", ["--repeats", "3"]),
-              ("scaling_bench", ["--configs", "1x1,4x1,2x2", "--iters", "3"]))
+              ("serve_bench", ["--repeats", "2", "--calls", "1"]),
+              ("ensemble_bench", ["--repeats", "2"]),
+              ("scaling_bench", ["--configs", "1x1,4x1,2x2", "--iters", "2"]))
 # the int8 rollout against the auto one of the same window, in standard
 # deviations of the fields: the quant phase measures 0.030-0.032 over 14
 # days on an H100; a wrong scale or a dropped ring term gives O(1)
@@ -3988,6 +4236,8 @@ def bench_tools_phase(gen):
           f"scaling rows {sc}")
     check(launches["scaling_bench"].get("cs_conv3x3", 0) > 0,
           f"scaling 1x1 launches {launches['scaling_bench']}")
+    check(all(r["host_collectives"] == 0 and r["device_collectives"] > 0 for r in sc[1:]),
+          f"scaling rows' collectives {[(r['device_collectives'], r['host_collectives']) for r in sc]}")
     check(not any(stream_launches[k] for k in stream_launches if k != "capacity_bench"),
           f"a tool other than the capacity sweep streamed: {stream_launches}")
     return {"streamed": streamed, "rows": rows, "launches": launches, "seconds": seconds,
@@ -4043,7 +4293,8 @@ def bench_tools_lines(r):
                      f"{c['gridpoints_per_s'] / 1e6:.3f} M gp/s, per rank "
                      f"{c['gridpoints_per_s_per_chip'] / 1e6:.3f} M, efficiency "
                      f"{c['efficiency_vs_single']:.3f}; ranks share one card "
-                     f"{c['ranks_share_one_card']}")
+                     f"{c['ranks_share_one_card']}; collectives on the device "
+                     f"{c['device_collectives']}, host_calls {c['host_collectives']}")
     lines.append("bench tools seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in r["seconds"].items()))
     return lines
@@ -4069,10 +4320,17 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t_main, stamps = time.perf_counter(), []
+
+    def stamp(name):
+        """Close the phase ``name``: the seconds since the last stamp."""
+        now = time.perf_counter() - t_main
+        stamps.append((name, now - sum(v for _, v in stamps)))
 
     from dlwp_cs_tpu_torch.remap import build_csremap
 
-    libraries = list({id(k.library): k.library for k in all_kernels().values()}.values())
+    libraries = list({id(k.library): k.library for k in (
+        *all_kernels().values(), *collective_kernels().values())}.values())
     t = time.perf_counter()
     # one nvcc per source, and the remap weight generator, all at once
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
@@ -4083,6 +4341,7 @@ def main(argv=None) -> int:
                               if "registers" in ln or "Function properties" in ln]
             for lib in libraries}
     print(f"build: {build_s:.2f} s; {regs}", flush=True)
+    stamp("build")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -4100,6 +4359,7 @@ def main(argv=None) -> int:
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
 
+    stamp("conv")
     bwd = []
     print("backward: kernel n Cin Cout B dtype | max_abs_err (tol) | "
           "kernel_ms plain_ms library_ms bound_ms")
@@ -4114,6 +4374,7 @@ def main(argv=None) -> int:
     bad = [c for c in bwd if not c["ok"]]
     check(not bad, f"backward kernel disagrees with its plain version: {bad}")
 
+    stamp("backward")
     tc = tc_cases(gen)
     bad = [c for c in tc if not c["ok"]]
     check(not bad, f"a tensor-core kernel or its CUDA-core instance disagrees with its plain "
@@ -4125,6 +4386,7 @@ def main(argv=None) -> int:
         print(f"{name}: {r['ms']:.4f} / {r['cudacore_ms']:.4f} / {r['library_ms']:.4f} / "
               f"{r['bound_ms']:.5f}", flush=True)
 
+    stamp("tc")
     ring = []
     print("ring: kernel n Cin D B dtype | max_abs_err (tol) | kernel_ms cudacore_ms plain_ms "
           "bound_ms | xring conv, fused conv kernel, cuDNN ms")
@@ -4148,6 +4410,7 @@ def main(argv=None) -> int:
     for name, r in ring_sum.items():
         print(f"{name}: {r['ms']:.4f} / {r['cudacore_ms']:.4f} / {r['plain_ms']:.4f} / "
               f"{r['bound_ms']:.5f}", flush=True)
+    stamp("ring")
     refused = refused_shape_phase(gen)
     print(f"F4: {refused['flagship_routes']} flagship shapes on their kernels; "
           f"{refused['shape']} float32 with a gradient -> {refused['route']}: a step launched "
@@ -4160,6 +4423,7 @@ def main(argv=None) -> int:
               f"{r['replays_bitwise_equal']}, vs plain {r['max_abs_err']:.3g}, counts zero "
               f"{r['counts_zero']}", flush=True)
 
+    stamp("F4, F5")
     # the kernel tools: their entry points (this slice's main path), then
     # each of their kernels against its plain version, timed
     tool_launches, tools_s, tool_rows = tools_main_path()
@@ -4235,6 +4499,7 @@ def main(argv=None) -> int:
     bad = [c for c in mma + ring_dx + stores + store_checks + probes_turns if not c["ok"]]
     check(not bad, f"a kernel of the tools disagrees with its plain version: {bad}")
 
+    stamp("tools")
     blocks = []
     print("block: kernel n rows x cols Cin Cout B dtype | max_abs_err (tol) | kernel_ms "
           "plain_ms library_ms bound_ms")
@@ -4251,6 +4516,7 @@ def main(argv=None) -> int:
     bad = [c for c in blocks if not c["ok"]]
     check(not bad, f"band or tile kernel disagrees with its plain version: {bad}")
 
+    stamp("blocks")
     # one generator per model, drawn in the same order for each: serve
     # bf16, f32, then train bf16, f32 (the U-Net's draws are PR 2's)
     serve, train, ensembles = {}, {}, {}
@@ -4310,6 +4576,7 @@ def main(argv=None) -> int:
                   f"{r['grad_check']['tolerance']:.3g}), "
                   f"bitwise repeatable {r['grads_bitwise_repeatable']}", flush=True)
 
+    stamp("serve, ensemble, train")
     # exported artifacts (serve/export.py) replayed as one CUDA graph per
     # forecast, beside the live service in the same run
     exports = []
@@ -4335,6 +4602,7 @@ def main(argv=None) -> int:
                     f"{r['bitwise_equal_to_live']} ({r['max_err_in_std']:.3g} std, tol "
                     f"{r['tolerance_in_std']:.3g})")
                 print(recap[-1], flush=True)
+    stamp("export")
     web = http_phase(np.random.default_rng(5))
     recap.append(
         f"http: 8 concurrent /forecast in {web['forecast_dispatches']} dispatch ({web['burst_ms']:.1f}"
@@ -4344,6 +4612,7 @@ def main(argv=None) -> int:
         f"median (runs {['%.1f' % t for t in web['round_trip_ms']]})")
     print(recap[-1], flush=True)
 
+    stamp("http")
     # the data pipeline: weights built here, the Preprocessor's remap on the
     # card, then training and a forecast from the store it built
     with tempfile.TemporaryDirectory() as workdir:  # the weights and the store
@@ -4370,6 +4639,7 @@ def main(argv=None) -> int:
         f"{data['phase_seconds']:.1f} s")
     print(recap[-1], flush=True)
 
+    stamp("data")
     # quantized serving (ops/quant.py): the int8 base conv at each flagship
     # conv shape, then the U-Net served in int8 beside the live service, and
     # the int8 ConvLSTM
@@ -4416,6 +4686,7 @@ def main(argv=None) -> int:
         f"{quant_lstm['vs_xring_max_err_in_std_first_call']:.3g}); phase {quant_s:.1f} s")
     print(recap[-1], flush=True)
 
+    stamp("quant")
     # the lat-lon models and the registry, on the card against the CPU
     t = time.perf_counter()
     latlon = [latlon_phase(d) for d in ("bfloat16", "float32")]
@@ -4427,6 +4698,7 @@ def main(argv=None) -> int:
             for k, v in r.items() if isinstance(v, dict)) + f"; phase {latlon_s:.1f} s")
         print(recap[-1], flush=True)
 
+    stamp("latlon")
     # the barotropic baseline and the utilities (profiling, plots)
     t = time.perf_counter()
     baro = barotropic_phase()
@@ -4453,9 +4725,10 @@ def main(argv=None) -> int:
             for r in util["roofline"]) + f"; plots: {util['plots']}; phase {utils_s:.1f} s")
     print(recap[-1], flush=True)
 
+    stamp("barotropic, utils")
     with tempfile.TemporaryDirectory() as workdir:  # the groups' FileStores
-        sharded, exchange, group_s, remote, front = sharded_phase(np.random.default_rng(2),
-                                                                  workdir)
+        sharded, exchange, group_s, remote, front, coll = sharded_phase(
+            np.random.default_rng(2), workdir)
     for r in front:
         recap.append(
             f"mesh front end {r['dtype']} (4 ranks sharing one card, data 2 x spatial 2): 3 "
@@ -4466,6 +4739,7 @@ def main(argv=None) -> int:
             f"card {r['ensemble_vs_one_card_max_err_in_std']:.3g} std (tol "
             f"{r['tolerance_in_std']:.3g})")
         print(recap[-1], flush=True)
+    stamp("sharded, collectives")
     # the route by which the band-exchange kernels (#10, #11) can be
     # measured: CUDA MPS on this machine (look only)
     mps = {"nvidia_cuda_mps_control": shutil.which("nvidia-cuda-mps-control"),
@@ -4488,8 +4762,9 @@ def main(argv=None) -> int:
             extra = (f" | vs #8 {c['vs_band_kernel_max_abs_err']:.3g}"
                      if "vs_band_kernel_max_abs_err" in c else "")
             lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+            v1 = "-" if c["v1_ms"] is None else f"{c['v1_ms']:.4f}"
             print(f"{name} {ranks_n} {c['n']} {c['rows']} {c['cin']} {c['cout']} {c['batch']} "
-                  f"{c['dtype']} | {c['max_abs_err']:.3g} | {c['ms']:.4f} {c['v1_ms']:.4f} "
+                  f"{c['dtype']} | {c['max_abs_err']:.3g} | {c['ms']:.4f} {v1} "
                   f"{c['plain_ms']:.4f} {lib} {c['bound_ms']:.5f}{extra}", flush=True)
     for key, name, ranks_n in (("xchg2", "#10", 2), ("xchg4", "#10", 4), ("overlap2", "#11", 2),
                                ("overlap4", "#11", 4)):
@@ -4497,28 +4772,57 @@ def main(argv=None) -> int:
             for dt in ("float32", "bfloat16"):
                 rows = [c for c in remote[key][: len(remote[key]) // ranks_n]
                         if c["batch"] == b and c["dtype"] == dt]
+                if not rows:  # 2 ranks: batch 1 only
+                    continue
                 per = {(c["n"], c["cin"], c["cout"]): c for c in rows}
                 call = [per[s_] for s_ in FLAGSHIP_CONVS]
+                v1 = ("" if b != 1 else
+                      f", first design (v1, in turns) {sum(c['v1_ms'] for c in call):.3f} ms "
+                      f"(per call {min(c['v1_ms'] for c in rows):.4f}-"
+                      f"{max(c['v1_ms'] for c in rows):.4f})")
                 recap.append(
                     f"{name} on {ranks_n} ranks sharing one card, batch {b} {dt}, a model "
-                    f"call's 10 (rank 0): {sum(c['ms'] for c in call):.3f} ms, first design "
-                    f"(v1, in turns) {sum(c['v1_ms'] for c in call):.3f} ms; per call "
-                    f"{min(c['ms'] for c in rows):.4f}-{max(c['ms'] for c in rows):.4f} "
-                    f"(v1 {min(c['v1_ms'] for c in rows):.4f}-"
-                    f"{max(c['v1_ms'] for c in rows):.4f})")
+                    f"call's 10 (rank 0): {sum(c['ms'] for c in call):.3f} ms; per call "
+                    f"{min(c['ms'] for c in rows):.4f}-{max(c['ms'] for c in rows):.4f}{v1}")
                 print(recap[-1], flush=True)
     for r in sharded:
         print(f"sharded {r['path']} {r['dtype']} batch {r['batch']}: vs one card "
               f"{r['max_err_in_std']:.3g} std (tol {r['tolerance_in_std']}); 14-day "
               f"forecast {max(r['wall_ms_per_rank']):.1f} ms wall, 4 ranks sharing one card "
-              f"over gloo + CUDA IPC; launches per rank {r['launches_per_rank']}; gloo "
-              f"collectives per rank {r['collectives_per_rank']}", flush=True)
+              f"over CUDA IPC; launches per rank {r['launches_per_rank']}; collectives per "
+              f"rank on the device {[c['device_calls'] for c in r['collectives_per_rank']]}, "
+              f"host_calls {[c['host_calls'] for c in r['collectives_per_rank']]}; collective "
+              f"kernel launches rank 0 {r['collective_launches_per_rank'][0]}", flush=True)
+    print("collectives: ranks where op shape dtype (per model call) | bitwise | device_ms "
+          "plain_ms bound_ms (rank 0; CUDA events around 20 calls, in turns with gloo)")
+    for world in (2, 4):
+        for c in coll[world][0]:
+            print(f"collective {world} {c['where']} {c['op']} {c['shape']} {c['dtype']} "
+                  f"({c['per_model_call']}) | {c['equal']} | {c['ms']:.4f} {c['plain_ms']:.4f} "
+                  f"{c['bound_ms']:.6f}", flush=True)
+        for where in sorted({c["where"] for c in coll[world][0]}):
+            for dt in ("bfloat16", "float32"):
+                rows = [c for c in coll[world][0] if c["where"] == where and c["dtype"] == dt]
+                if not rows:
+                    continue
+                n = sum(c["per_model_call"] for c in rows)
+                recap.append(
+                    f"collectives on {world} ranks sharing one card, {where} {dt} (rank 0): "
+                    f"{n} a model call in {sum(c['ms'] * c['per_model_call'] for c in rows):.3f}"
+                    f" ms on the device (gloo {sum(c['plain_ms'] * c['per_model_call'] for c in rows):.3f}"
+                    f" ms); per call {min(c['ms'] for c in rows):.4f}-"
+                    f"{max(c['ms'] for c in rows):.4f} ms (gloo {min(c['plain_ms'] for c in rows):.3f}"
+                    f"-{max(c['plain_ms'] for c in rows):.3f}); bitwise equal to the plain "
+                    f"version on every rank")
+                print(recap[-1], flush=True)
+    print(f"sharded phase seconds: {remote['phase_seconds']}", flush=True)
     print(f"sharded group: {group_s:.1f} s from spawn to the last rank's exit; per rank, "
           f"ms per all_gather of one ghost strip, per band and per tile conv with its "
           f"exchange, per band-row exchange (ppermute pair, #10), per band conv with #10 "
           f"and per #11 conv (4 ranks sharing one card over gloo + CUDA IPC): {exchange}",
           flush=True)
 
+    stamp("sharded lines")
     # training under a mesh, 4 ranks sharing the card
     with tempfile.TemporaryDirectory() as workdir:  # the group's FileStore
         mesh_train, mesh_train_s, ex_mesh05 = mesh_train_phase(workdir, examples_head(ex_store))
@@ -4528,27 +4832,34 @@ def main(argv=None) -> int:
                      f"{r['steps']} steps from a MemoryStore through prefetch_to_device("
                      f"sharding=mesh)): losses {['%.4f' % v for v in r['losses_rank0']]}; "
                      f"seconds per rank {['%.2f' % v for v in r['seconds_per_rank']]}; launches "
-                     f"per step {r['launches_per_step']}; gloo collectives per rank "
-                     f"{r['collectives_per_rank']}; bitwise equal across ranks")
+                     f"per step {r['launches_per_step']}; collectives per rank (device, "
+                     f"host_calls) {[(c['device_calls'], c['host_calls']) for c in r['collectives_per_rank']]}"
+                     f"; bitwise equal across ranks")
         elif r["path"] == "sequence":
             line_ = (f"mesh train sequence {r['dtype']} (data 1 x spatial 4, sequence 2, "
                      f"batch {r['batch']}, the band ring-fix conv): loss {r['loss']:.5f} (one "
                      f"card {r['one_card_loss']:.5f}); step ms per rank "
-                     f"{['%.1f' % v for v in r['step_ms_per_rank']]}; gloo collectives per "
-                     f"rank {r['collectives_per_rank']}; bitwise equal across ranks")
+                     f"{['%.1f' % v for v in r['step_ms_per_rank']]}; collectives per rank "
+                     f"(device, host_calls) "
+                     f"{[(c['device_calls'], c['host_calls']) for c in r['collectives_per_rank']]}"
+                     f"; bitwise equal across ranks")
         else:
             line_ = (f"mesh train {r['path']} {r['dtype']} mesh {r['mesh']}: SGD gradients vs "
                      f"one card {max(r['grad_rel_err_per_rank']):.3g} of each tensor's max "
                      f"(tol {r['grad_tolerance']:.3g}); Adam losses "
                      f"{r['losses_rank0'][0]:.5f} -> {r['losses_rank0'][-1]:.5f}; step ms "
                      f"median per rank {['%.1f' % v for v in r['step_ms_median_per_rank']]}; "
-                     f"launches per step {r['launches_per_step']}; gloo collectives per step "
-                     f"{r['collectives_per_step'][0]:.0f}; bitwise equal across ranks")
+                     f"launches per step {r['launches_per_step']}; collectives a step rank 0 "
+                     f"device {r['collectives_per_step'][0]['device_calls']:.0f}, host_calls "
+                     f"{r['collectives_per_step'][0]['host_calls']:.0f}, collective kernel "
+                     f"launches {r['collective_launches_per_step'][0]}; bitwise equal across "
+                     f"ranks")
         recap.append(line_)
         print(line_, flush=True)
     print(f"mesh train group: {mesh_train_s:.1f} s from spawn to the last rank's exit",
           flush=True)
 
+    stamp("mesh train")
     # the example workflows chained at full width from the data phase's
     # store (train, forecast, scores, sequence fine-tuning, serving, ensemble
     # and export)
@@ -4558,6 +4869,7 @@ def main(argv=None) -> int:
         recap.append(line_)
         print(line_, flush=True)
 
+    stamp("examples")
     # the measurement tools (dlwp_cs_tpu_torch.tools) and #1's streamed
     # weights at the capacity sweep's wide shapes
     t = time.perf_counter()
@@ -4567,6 +4879,10 @@ def main(argv=None) -> int:
         recap.append(line_)
         print(line_, flush=True)
 
+    stamp("bench tools")
+    recap.append("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in stamps)
+                 + f"; total {time.perf_counter() - t_main:.1f}")
+    print(recap[-1], flush=True)
     def line(name, source, replaces, launches, per_path, errs, peak=torch.bfloat16):
         """One kernel's entry: times summed over the convs of one model call
         (forward) or one train step (backward) in bfloat16; operations at the
@@ -4649,6 +4965,41 @@ def main(argv=None) -> int:
         kernels.append(line(name, src, replaces, per_rank[path, "bfloat16"][name],
                             [per_shape[s] for s in FLAGSHIP_CONVS], errs))
         kernels[-1]["v1_ms"] = sum(per_shape[s]["v1_ms"] for s in FLAGSHIP_CONVS)
+    # the device collectives (no TPU counterpart: XLA's collectives): the
+    # collectives one bf16 model call on 4 bands issues, on rank 0 of 4
+    # sharing the card, each timed whole (its stream waits included) and
+    # counted once per call in its model call; launches per rank of the bf16
+    # #8 band forecast and per mesh-train step
+    band4 = [c for c in coll[4][0] if c["where"] == "band" and c["dtype"] == "bfloat16"]
+    band2 = [c for c in coll[2][0] if c["where"] == "band" and c["dtype"] == "bfloat16"]
+    per_rank_coll = {(r["path"], r["dtype"]): r["collective_launches_per_rank"][0]
+                     for r in sharded}
+    for name, op_of, replaces in (
+        ("collective_send", None, "dlwp_cs_tpu/parallel/halo.py:177"),
+        ("collective_reduce", ("psum",), "dlwp_cs_tpu/parallel/halo.py:204"),
+        ("collective_unpack", ("all_gather", "ppermute"), "dlwp_cs_tpu/parallel/halo.py:211"),
+    ):
+        def used(c):
+            return c["launches_per_call"][name] > 0 and (op_of is None or c["op"] in op_of)
+
+        def weighted(cases):
+            return [dict(c, ms=c["ms"] * c["per_model_call"],
+                         plain_ms=c["plain_ms"] * c["per_model_call"],
+                         bound_ms=c["bound_ms"] * c["per_model_call"],
+                         bytes=c["bytes"] * c["per_model_call"]) for c in cases if used(c)]
+
+        kernels.append(line(name, "dlwp_cs_tpu_torch/csrc/cs_collectives.cu", replaces,
+                            per_rank_coll["band", "bfloat16"][name], weighted(band4),
+                            [c["max_abs_err"] for w in coll.values() for c in w[0]]))
+        kernels[-1]["replaces_note"] = ("no TPU kernel: XLA's collectives (lax.ppermute, "
+                                        "all_gather, psum under shard_map)")
+        kernels[-1]["library_note"] = "no single call: NCCL refuses ranks sharing one card"
+        kernels[-1]["two_ranks_ms"] = sum(c["ms"] for c in weighted(band2))
+        kernels[-1]["launches_per_forecast"] = {
+            f"{path} {dt}": lw[name] for (path, dt), lw in per_rank_coll.items()}
+        kernels[-1]["mesh_train_launches_per_step"] = {
+            f"{r['path']} {r['dtype']}": r["collective_launches_per_step"][0][name]
+            for r in mesh_train if "collective_launches_per_step" in r}
     # the kernel tools' kernels; launches per run of the tools (TOOL_RUNS):
     # wrapper calls, those captured into a timing CUDA graph included, its
     # replays not.
@@ -4748,6 +5099,7 @@ def main(argv=None) -> int:
                    "ensemble": list(ensembles.values()),
                    "sharded": sharded, "sharded_exchange_ms": exchange,
                    "sharded_group_seconds": group_s, "remote_cases": remote,
+                   "collective_cases": {str(k): v for k, v in coll.items()},
                    "tool_launches": tool_launches, "tools_seconds": tools_s,
                    "tool_rows": tool_rows, "mma_cases": mma,
                    "kernel_only_cases": only, "dx_ring_cases": ring_dx,
@@ -4764,7 +5116,7 @@ def main(argv=None) -> int:
                    "latlon": latlon, "latlon_seconds": latlon_s,
                    "barotropic": baro, "barotropic_seconds": baro_s,
                    "utils": util, "utils_seconds": utils_s, "examples": examples,
-                   "bench_tools": bench, "kernels": kernels},
+                   "bench_tools": bench, "phase_seconds": dict(stamps), "kernels": kernels},
                   f, indent=1)
     print("\n".join(recap))
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,17 @@ with tensors of one shape.  A dimension of size 1, or a name the mesh does
 not carry (a 1-D mesh has no ``spatial_x``), issues no collective: the
 function is then the identity on the one shard, as in the reference.
 
-Transport: :func:`ppermute` is a tiled :func:`all_gather` followed by a
-select, on every backend.  Gloo (ranks sharing one card, or the CPU) and
-NCCL both take it, and it moves ``S`` blocks where point-to-point sends
-would move one; the halo strips it carries are thin, and point-to-point
-transport is later work.
+Transport (:mod:`~dlwp_cs_tpu_torch.parallel.device_collectives`): a CPU
+tensor takes the plain version over gloo (one ``all_gather``, then the
+select, the ``cat`` or ``stack``, or the sum in rank order); a CUDA tensor
+on a group whose CUDA backend is gloo (every ``spawn_group``: ranks that
+may share one card) never leaves the card: the hand-written send, reduce
+and unpack kernels move it through CUDA IPC buffers between the ranks of
+one host, ``ppermute`` point to point; a CUDA tensor on an NCCL group takes
+``dist``'s own collectives.  A ``psum`` sums in rank order in the tensor's
+dtype on the first two, so every rank gets the same bits.  :data:`calls`
+counts every collective, :data:`device_calls` those that ran on the device
+and :data:`host_calls` those staged through the host.
 
 Gradients.  Each collective is a ``torch.autograd.Function`` whose backward
 is its transpose over the joint state of all shards: ``ppermute`` the
@@ -45,21 +51,27 @@ import math
 import torch
 import torch.distributed as dist
 
+from dlwp_cs_tpu_torch.parallel import device_collectives as dc
+
 __all__ = [
     "all_gather",
     "axis_index",
     "axis_size",
     "calls",
+    "device_calls",
+    "host_calls",
     "grad",
     "ppermute",
     "psum",
     "recording",
 ]
 
-# collectives of the process group issued by this process (all_gather and
-# all_reduce, backward passes included; a ppermute is an all_gather): a plain
-# count for measurements
+# collectives issued by this process (backward passes included), a plain
+# count for measurements: all of them, those on the device (the kernels, or
+# an NCCL group's), and those staged through the host (gloo)
 calls = 0
+device_calls = 0
+host_calls = 0
 
 
 def axis_size(mesh, name: str) -> int:
@@ -75,38 +87,49 @@ def axis_index(mesh, name: str) -> int:
 
 # ---- the transport, no autograd --------------------------------------------
 
-def _gather(x, mesh, name, axis, tiled):
-    global calls
+def _route(x, group) -> str:
+    global calls, device_calls, host_calls
+    way = dc.route(x, group)
     calls += 1
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, name))]
-    dist.all_gather(parts, x, group=mesh.get_group(name))
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
+    if way == "host":
+        host_calls += 1
+    else:
+        device_calls += 1
+    return way
+
+
+def _gather(x, mesh, name, axis, tiled):
+    group = mesh.get_group(name)
+    if _route(x, group) == "device":
+        return dc.all_gather(x, group, axis, tiled)
+    return dc.all_gather_plain(x, group, axis, tiled)
+
+
+def _psum(x, group):
+    way = _route(x, group)
+    if way == "device":
+        return dc.psum(x, group)
+    return dc.psum_plain(x, group) if way == "host" else dc.psum_dist(x, group)
 
 
 def _reduce(x, mesh, names):
-    """Sum over the shards of each named dimension of size > 1 (a clone):
-    one all-reduce of the whole group where those dimensions span it, else
-    one a dimension."""
-    global calls
-    x = x.clone()
+    """Sum over the shards of each named dimension of size > 1 (a new
+    tensor): one sum over the whole group where those dimensions span it,
+    else one a dimension."""
     live = [name for name in names if axis_size(mesh, name) > 1]
     sizes = [axis_size(mesh, name) for name in live]
     if len(live) > 1 and math.prod(sizes) == dist.get_world_size():
-        calls += 1
-        dist.all_reduce(x)
-        return x
+        return _psum(x, dist.group.WORLD)
     for name in live:
-        calls += 1
-        dist.all_reduce(x, group=mesh.get_group(name))
+        x = _psum(x, mesh.get_group(name))
     return x
 
 
 def _permute(x, mesh, name, perm):
-    source = {dst: src for src, dst in perm}
-    me = axis_index(mesh, name)
-    gathered = _gather(x, mesh, name, 0, False)
-    return gathered[source[me]] if me in source else torch.zeros_like(x)
+    group = mesh.get_group(name)
+    if _route(x, group) == "device":
+        return dc.ppermute(x, group, perm)
+    return dc.ppermute_plain(x, group, perm)
 
 
 # ---- the recording of a differentiated forward -----------------------------

@@ -46,7 +46,8 @@ from dlwp_cs_tpu_torch.parallel.halo import halo_pieces, use_band_exchange
 from dlwp_cs_tpu_torch.parallel.hopper_band import ringfix_backward
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
 from dlwp_cs_tpu_torch.parallel.overlap import sharded_ringfix_conv3x3
-from dlwp_cs_tpu_torch.parallel.rdma_halo import RemoteCopyKernel, band_exchange_plain
+from dlwp_cs_tpu_torch.parallel.rdma_halo import band_exchange_plain
+from dlwp_cs_tpu_torch.parallel.symmetric import RemoteCopyKernel
 
 __all__ = [
     "band_conv3x3_overlap",

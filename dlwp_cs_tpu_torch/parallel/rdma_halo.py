@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from dlwp_cs_tpu_torch.ops.cuda_build import KernelWrapper
 from dlwp_cs_tpu_torch.parallel import symmetric
 from dlwp_cs_tpu_torch.parallel.collectives import axis_size, ppermute
 from dlwp_cs_tpu_torch.parallel.mesh import SPATIAL_AXIS
+from dlwp_cs_tpu_torch.parallel.symmetric import RemoteCopyKernel
 
 __all__ = ["band_exchange_plain", "band_exchange_rdma", "band_exchange_rdma_v1"]
 
@@ -45,18 +45,6 @@ def band_exchange_plain(x, width: int, *, mesh, axis_name: str = SPATIAL_AXIS):
     below = ppermute(x[:, :, h - w :], mesh, axis_name, [(i, (i + 1) % S) for i in range(S)])
     above = ppermute(x[:, :, :w], mesh, axis_name, [(i, (i - 1) % S) for i in range(S)])
     return below, above
-
-
-class RemoteCopyKernel(KernelWrapper):
-    """A kernel wrapper whose launch joins the ring of the band-row
-    exchange: after a wait of an earlier call ran out, it raises that
-    timeout in place of launching."""
-
-    def _launch(self, fn_name, dev, *args, sizes: int = 6):
-        err = symmetric.timeout_error()
-        if err is not None:
-            raise err
-        super()._launch(fn_name, dev, *args, sizes=sizes)
 
 
 class _BandExchangeKernel(RemoteCopyKernel):

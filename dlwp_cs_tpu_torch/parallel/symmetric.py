@@ -53,6 +53,15 @@ raises too where a neighbour gave up: naming the rank, the epoch and the
 counter.  The first design's kernels (``*_v1``, timing rows on buffers of
 their own) spin on the counters inside the kernel and bound their waits
 there.
+
+The named-axis collectives (``parallel/device_collectives.py``) take a
+:class:`GroupBuffer` of the group instead (:func:`group_buffer`): one slot
+per source rank in each parity, every peer of the group mapped, an arrival
+counter per source and a consumed counter per destination
+(``csrc/cs_collectives.cu`` has the layout).  It follows the same rules:
+its handles travel in the same ``all_gather``, :meth:`GroupBuffer.reserve`
+is collective and grows to the largest slab met so far, the watchdog bounds
+every call, and :func:`check_timeouts` and :func:`release_all` cover it.
 """
 
 from __future__ import annotations
@@ -67,14 +76,18 @@ import time
 import torch
 import torch.distributed as dist
 
-from dlwp_cs_tpu_torch.ops.cuda_build import I32, VP, CudaLibrary
+from dlwp_cs_tpu_torch.ops.cuda_build import I32, VP, CudaLibrary, KernelWrapper
 
 __all__ = [
     "SPIN_TIMEOUT_S",
     "Call",
+    "GroupBuffer",
+    "GroupCall",
+    "RemoteCopyKernel",
     "RingBuffer",
     "Watchdog",
     "check_timeouts",
+    "group_buffer",
     "live_buffers",
     "release_all",
     "ring_buffer",
@@ -172,6 +185,8 @@ def timeout_error():
     if not _DIAG or _DIAG[0][0][0] == 0:
         return None
     _, rank, epoch, counter, seen, want, timeout_ns, kernel = _DIAG[0][0]
+    if kernel in _COLLECTIVES:
+        return _collective_error(rank, epoch, counter, seen, want, timeout_ns, kernel)
     name = _COUNTERS[counter] if counter < len(_COUNTERS) else str(counter)
     head = (f"band-row exchange timed out in kernel #{kernel} on the rank at coordinate "
             f"{rank}: epoch {epoch}, ")
@@ -184,6 +199,31 @@ def timeout_error():
         head + f"after {timeout_ns / 1e9:g} s waiting on {name} (counter {counter}) at "
         f"{seen}, want >= {want}; a neighbour did not reach this call, whose outputs are "
         "garbage")
+
+
+# the group buffers' records: the kernel field names the collective, the
+# counter field the counter by kind and coordinate (kind * 100 + coordinate)
+_COLLECTIVES = {20: "ppermute", 21: "all_gather", 22: "psum"}
+ARRIVED_CODE, CONSUMED_CODE, GAVE_UP_CODE = 100, 200, 300
+
+
+def _collective_error(rank, epoch, counter, seen, want, timeout_ns, kernel):
+    kind, coord = divmod(counter, 100)
+    op = _COLLECTIVES[kernel]
+    head = f"collective {op} timed out on rank {rank}: epoch {epoch}, "
+    if kind * 100 == GAVE_UP_CODE:
+        return RuntimeError(
+            head + f"where the wait of the rank at coordinate {coord} of the group ran out "
+            f"(its give-up counter GAVE_UP[{coord}], counter {counter}, at {seen}); a rank of "
+            "the group did not reach this call, whose outputs are garbage")
+    what = {ARRIVED_CODE: f"the arrival of the slab of the rank at coordinate {coord} "
+                          f"(ARRIVED[{coord}])",
+            CONSUMED_CODE: f"the read of my slab by the rank at coordinate {coord} "
+                           f"(CONSUMED[{coord}])"}[kind * 100]
+    return RuntimeError(
+        head + f"after {timeout_ns / 1e9:g} s waiting on {what}, counter {counter}, at "
+        f"{seen}, want >= {want}; a rank of the group did not reach this call, whose "
+        "outputs are garbage")
 
 
 @dataclasses.dataclass
@@ -308,6 +348,94 @@ def _memops_ok(device: int):
             "kernels' waits are cuStreamWaitValue64")
 
 
+def _exchange(group, size: int, handle: bytes):
+    """Every rank's (IPC handle, host name) in ``group``, in coordinate
+    order: one ``all_gather`` of a uint8 tensor (gloo)."""
+    host = socket.gethostname().encode()[:_HOST]
+    mine = torch.zeros(_HANDLE + _HOST, dtype=torch.uint8)
+    mine[:_HANDLE] = torch.frombuffer(bytearray(handle), dtype=torch.uint8)
+    mine[_HANDLE : _HANDLE + len(host)] = torch.frombuffer(bytearray(host), dtype=torch.uint8)
+    parts = [torch.empty_like(mine) for _ in range(size)]
+    dist.all_gather(parts, mine, group=group)
+    return [(bytes(p[:_HANDLE].tolist()), bytes(p[_HANDLE:].tolist()).rstrip(b"\0"))
+            for p in parts]
+
+
+def _open_peer(device: int, peer, coord: int, rank: int, what: str, who: str) -> int:
+    """Map the buffer of the peer at ``coord`` (global ``rank``) from its
+    (handle, host): its address here.  Raises with the reason where the
+    peer runs on another host or CUDA refuses the handle."""
+    handle, host = peer
+    here = socket.gethostname().encode()[:_HOST]
+    if host != here:
+        raise RuntimeError(
+            f"{what}: the {who} at coordinate {coord} (rank {rank}) runs on host "
+            f"{host.decode()!r}, not {here.decode()!r}; CUDA IPC maps buffers between "
+            "processes of one host only"
+        )
+    lib = LIB.build()
+    p = VP()
+    err = lib.cs_sym_open(device, handle, ctypes.byref(p))
+    if err != 0:
+        raise RuntimeError(
+            f"{what}: cudaIpcOpenMemHandle refused the buffer of the {who} at coordinate "
+            f"{coord} (rank {rank}): {lib.cs_band_xchg_error_string(err).decode()} ({err}); "
+            "the ranks must share a host, and the card's compute mode must allow several "
+            "processes"
+        )
+    return p.value
+
+
+def _free(buf):
+    """Close ``buf``'s mappings of its peers' buffers and free its own,
+    collectively: after every rank's work has finished (a barrier), and the
+    frees after every rank has closed its mappings (a second one)."""
+    lib = LIB.build()
+    try:
+        torch.cuda.synchronize(buf.device)
+        lost = False
+    except RuntimeError:  # the context is gone: nothing to close or free
+        lost = True
+    WATCHDOG.forget(buf)
+    dist.barrier(group=buf.group)
+    for p in buf._opened:
+        if not lost:
+            _check(lib.cs_sym_close(buf.device, p), "cudaIpcCloseMemHandle")
+    buf._opened = []
+    dist.barrier(group=buf.group)
+    if not lost:
+        _check(lib.cs_sym_free(buf.device, buf.me), "cudaFree of a symmetric buffer")
+    buf.me = None
+    buf.cap = 0
+
+
+def _grow(buf, slab_bytes: int, library: CudaLibrary, memops: bool = True):
+    """The common part of a buffer's ``reserve``: load ``library`` (behind
+    a barrier), and where ``slab_bytes`` outgrows the slots, free the old
+    buffer and allocate one whose slots hold a power of two from 64 KB.
+    Returns the new buffer's IPC handle, or None where nothing grew."""
+    if library._lib is None:
+        library.build()
+        dist.barrier(group=buf.group)
+    if slab_bytes <= buf.cap:
+        return None
+    cap = max(_MIN_SLOT, 1 << (int(slab_bytes) - 1).bit_length())
+    lib = LIB.build()
+    if memops:
+        _memops_ok(buf.device)
+    if buf._ticket is None:
+        buf._ticket = _host_words(1)
+    if buf.me is not None:
+        buf._release()
+    ptr, handle = VP(), ctypes.create_string_buffer(_HANDLE)
+    size = buf.buffer_bytes(cap)
+    _check(lib.cs_sym_alloc(buf.device, size, ctypes.byref(ptr), handle),
+           f"cudaMalloc/cudaIpcGetMemHandle of {size} bytes")
+    buf.me, buf.cap = ptr.value, cap
+    buf._reset_calls()
+    return handle.raw
+
+
 class RingBuffer:
     """This rank's buffer for the ring of one mesh dimension, and its two
     neighbours' buffers mapped here.  Made by :func:`ring_buffer`; ``kind``
@@ -337,17 +465,6 @@ class RingBuffer:
         self.flushed = 0  # the last epoch check_timeouts waited to be consumed
         self.gave_up_seen = 0  # the last neighbour give-up already raised
 
-    def _exchange(self, handle: bytes):
-        """Every rank's (handle, host name), in coordinate order."""
-        host = socket.gethostname().encode()[:_HOST]
-        mine = torch.zeros(_HANDLE + _HOST, dtype=torch.uint8)
-        mine[:_HANDLE] = torch.frombuffer(bytearray(handle), dtype=torch.uint8)
-        mine[_HANDLE : _HANDLE + len(host)] = torch.frombuffer(bytearray(host), dtype=torch.uint8)
-        parts = [torch.empty_like(mine) for _ in range(self.size)]
-        dist.all_gather(parts, mine, group=self.group)
-        return [(bytes(p[:_HANDLE].tolist()), bytes(p[_HANDLE:].tolist()).rstrip(b"\0"))
-                for p in parts]
-
     @staticmethod
     def buffer_bytes(cap: int) -> int:
         """Bytes of a buffer whose slots hold ``cap`` each: the counters and
@@ -369,49 +486,15 @@ class RingBuffer:
         happens: every rank of the dimension calls it with the same size
         and library.  A library is loaded behind a barrier, so that no rank
         is still compiling while its neighbours' calls wait for it."""
-        if library._lib is None:
-            library.build()
-            dist.barrier(group=self.group)
-        if slot_bytes <= self.cap:
+        handle = _grow(self, slot_bytes, library, memops=self.kind != "v1")
+        if handle is None:
             return
-        cap = max(_MIN_SLOT, 1 << (int(slot_bytes) - 1).bit_length())
-        lib = LIB.build()
-        if self.kind != "v1":
-            _memops_ok(self.device)
-        if self._ticket is None:
-            self._ticket = _host_words(1)
-        if self.me is not None:
-            self._release()
-        ptr, handle = VP(), ctypes.create_string_buffer(_HANDLE)
-        size = self.buffer_bytes(cap)
-        _check(lib.cs_sym_alloc(self.device, size, ctypes.byref(ptr), handle),
-               f"cudaMalloc/cudaIpcGetMemHandle of {size} bytes")
-        self.me, self.cap, self.sent = ptr.value, cap, U64(0)
-        self._reset_calls()
-        peers = self._exchange(handle.raw)
-        here = socket.gethostname().encode()[:_HOST]
+        self.sent = U64(0)
+        peers = _exchange(self.group, self.size, handle)
         right, left = (self.coord + 1) % self.size, (self.coord - 1) % self.size
-        mapped = {}
-        for c in {right, left}:
-            handle_c, host = peers[c]
-            if host != here:
-                raise RuntimeError(
-                    f"band-row exchange: the neighbour at coordinate {c} (rank "
-                    f"{self.ranks[c]}) runs on host {host.decode()!r}, not {here.decode()!r}; "
-                    "CUDA IPC maps buffers between processes of one host only"
-                )
-            p = VP()
-            err = lib.cs_sym_open(self.device, handle_c, ctypes.byref(p))
-            if err != 0:
-                raise RuntimeError(
-                    f"band-row exchange: cudaIpcOpenMemHandle refused the buffer of the "
-                    f"neighbour at coordinate {c} (rank {self.ranks[c]}): "
-                    f"{lib.cs_band_xchg_error_string(err).decode()} ({err}); the ranks "
-                    "must share a host, and the card's compute mode must allow several "
-                    "processes"
-                )
-            mapped[c] = p.value
-            self._opened.append(p.value)
+        mapped = {c: _open_peer(self.device, peers[c], c, self.ranks[c], "band-row exchange",
+                                "neighbour") for c in {right, left}}
+        self._opened += list(mapped.values())
         self.right, self.left = mapped[right], mapped[left]
 
     def next_call(self) -> Call:
@@ -523,34 +606,246 @@ class RingBuffer:
                         int(SPIN_TIMEOUT_S * 1e9), self.last_kernel)
 
     def _release(self):
-        """Close the peers' mappings and free mine, collectively: after
-        every rank's work has finished (a barrier), and the frees after
-        every rank has closed its mappings (a second one)."""
+        _free(self)
+        self.right = self.left = None
+
+
+MAX_GROUP = 16  # ranks of a group buffer (cs_collectives.cu::MAX_PEERS)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupCall:
+    """One collective on a :class:`GroupBuffer`: its epoch and ticket, the
+    coordinates it stores into (``dests``) with the consumed epoch it waits
+    for at each (0: none), and the coordinates it reads from the slots
+    (``sources``; never this rank's own)."""
+
+    epoch: int
+    ticket: int
+    dests: tuple
+    consumed: tuple
+    sources: tuple
+
+    @property
+    def parity(self) -> int:
+        return self.epoch % 2
+
+
+class GroupBuffer:
+    """This rank's buffer for the collectives of one process group, and
+    every peer's buffer mapped here: ``csrc/cs_collectives.cu``'s layout,
+    counters ``ARRIVED[s]`` (line ``s``), ``CONSUMED[d]`` (line ``S + d``)
+    and ``GAVE_UP[s]`` (line ``2S + s``), then the slots ``[parity][source]``.
+    Made by :func:`group_buffer`."""
+
+    kind = "group"
+
+    def __init__(self, group, device: torch.device):
+        self.group = group
+        self.ranks = dist.get_process_group_ranks(group)
+        self.size = len(self.ranks)
+        if self.size > MAX_GROUP:
+            raise ValueError(f"device collectives: a group of {self.size} ranks; the kernels "
+                             f"take at most {MAX_GROUP}")
+        self.coord = self.ranks.index(dist.get_rank())
+        self.device = device.index if device.index is not None else torch.cuda.current_device()
+        self.cap = 0  # bytes of each slot
+        self.epoch = 0  # calls so far; never reset
+        self.me = None
+        self.peers: list = [None] * self.size  # every buffer's base here (mine at coord)
+        self._opened: list[int] = []
+        self._ticket = None
+        self.tickets = 0
+        self.last_kernel = 20
+        self._reset_calls()
+
+    def _reset_calls(self):
+        S = self.size
+        self.last_use = [[0] * S, [0] * S]  # [parity][dest]: last epoch stored there
+        self.last_sent = [0] * S  # per dest: the last epoch stored into its slots
+        self.flushed = [0] * S  # per dest: the last epoch check_timeouts waited for
+        self.gave_up_seen = [0] * S
+
+    # -- the layout --
+
+    @staticmethod
+    def header_bytes(size: int) -> int:
+        """The counters: three lines a rank, rounded up to 1 KB."""
+        return -(-3 * size * _LINE // 1024) * 1024
+
+    def buffer_bytes(self, cap: int) -> int:
+        return self.header_bytes(self.size) + 2 * self.size * cap
+
+    def arrived(self, c: int) -> int:
+        return c
+
+    def consumed_line(self, c: int) -> int:
+        return self.size + c
+
+    def gave_up(self, c: int) -> int:
+        return 2 * self.size + c
+
+    @staticmethod
+    def slot_offset(parity: int, source: int, cap: int, size: int) -> int:
+        return GroupBuffer.header_bytes(size) + (parity * size + source) * cap
+
+    def code(self, line: int) -> int:
+        """A counter line as the timeout record names it."""
+        kind, c = divmod(line, self.size)
+        return (ARRIVED_CODE, CONSUMED_CODE, GAVE_UP_CODE)[kind] + c
+
+    def reserve(self, slab_bytes: int, library: CudaLibrary):
+        """Grow the slots to hold ``slab_bytes`` each and load
+        ``library``: collective where either happens (every rank of the
+        group calls it with the same size).  Maps every peer's buffer."""
+        handle = _grow(self, slab_bytes, library)
+        if handle is None:
+            return
+        peers = _exchange(self.group, self.size, handle)
+        self.peers = [self.me if c == self.coord else
+                      _open_peer(self.device, peers[c], c, self.ranks[c], "device collectives",
+                                 "rank") for c in range(self.size)]
+        self._opened += [p for c, p in enumerate(self.peers) if c != self.coord]
+
+    # -- one call --
+
+    def next_call(self, dests, sources) -> GroupCall:
+        """Number the next call, which stores this rank's slab into the
+        slots of ``dests`` and reads those of ``sources`` (coordinates, this
+        rank's own left out)."""
+        self.epoch += 1
+        self.tickets += 1
+        e, p = self.epoch, self.epoch % 2
+        dests = tuple(d for d in dests if d != self.coord)
+        consumed = tuple(self.last_use[p][d] for d in dests)
+        for d in dests:
+            self.last_use[p][d] = self.last_sent[d] = e
+        return GroupCall(e, self.tickets, dests, consumed,
+                         tuple(s for s in sources if s != self.coord))
+
+    def address(self, coord: int, line: int) -> int:
+        """The counter ``line`` in the buffer of the rank at ``coord``."""
+        return self.peers[coord] + line * _LINE
+
+    def slot(self, coord: int, parity: int, source: int) -> int:
+        """Slot ``[parity][source]`` in the buffer of the rank at ``coord``."""
+        return self.peers[coord] + self.slot_offset(parity, source, self.cap, self.size)
+
+    def ticket(self) -> int:
+        return self._ticket[1]
+
+    def watch(self, call: GroupCall, kernel: int):
+        """Bound ``call``'s waits once it is enqueued: the consumed epochs
+        of its destinations and the arrivals of its sources."""
+        self.last_kernel = kernel
+        targets = [(self.consumed_line(d), w) for d, w in zip(call.dests, call.consumed) if w]
+        targets += [(self.arrived(s), call.epoch) for s in call.sources]
+        WATCHDOG.add(self, call.ticket, call.epoch, kernel, targets, SPIN_TIMEOUT_S)
+
+    # -- the watchdog's side --
+
+    def passed(self) -> int:
+        return self._ticket[0][0] if self._ticket is not None else 0
+
+    def counters(self) -> list:
+        n = 3 * self.size
+        out = (ctypes.c_ulonglong * (n * _LINE // 8))()
+        _check(LIB.build().cs_sym_side_read(self.device, self.me, ctypes.addressof(out),
+                                            ctypes.sizeof(out)), "reading a group's counters")
+        return [out[c * _LINE // 8] for c in range(n)]
+
+    def _side_write(self, addr: int, value: int):
+        _check(LIB.build().cs_sym_side_write(self.device, addr, value),
+               "releasing a device collective's wait")
+
+    def give_up(self, entry: _Entry, pending) -> bool:
+        """``entry``'s waits ran out: record the first unmet one, tell every
+        peer, release every pending call.  False when every wait is met
+        after all."""
+        seen = self.counters()
+        unmet = [(c, want) for c, want in entry.targets if seen[c] < want]
+        if not unmet:
+            return False
+        c, want = unmet[0]
+        _record(self.ranks[self.coord], entry.epoch, self.code(c), seen[c], want,
+                int(entry.bound * 1e9), entry.kernel)
+        for p in range(self.size):
+            if p != self.coord:
+                self._side_write(self.address(p, self.gave_up(self.coord)), entry.epoch)
+        self.release(pending, seen)
+        return True
+
+    def release(self, pending, seen=None):
+        """Write every awaited value of the ``pending`` calls that my
+        counters have not reached, from the side stream."""
+        seen = self.counters() if seen is None else seen
+        want: dict = {}
+        for entry in pending:
+            for c, w in entry.targets:
+                want[c] = max(want.get(c, 0), w)
+        for c, w in sorted(want.items()):
+            if seen[c] < w:
+                self._side_write(self.me + c * _LINE, w)
+
+    # -- check_timeouts' side --
+
+    def flush(self):
+        """Enqueue, on the current stream, a wait until every destination
+        has read the last slab this rank stored into its slots (bounded as
+        a call)."""
+        if self.me is None:
+            return
+        waits = [(self.consumed_line(d), e) for d, e in enumerate(self.last_sent)
+                 if e > self.flushed[d]]
+        if not waits:
+            return
+        self.flushed = list(self.last_sent)
         lib = LIB.build()
-        try:
-            torch.cuda.synchronize(self.device)
-            lost = False
-        except RuntimeError:  # the context is gone: nothing to close or free
-            lost = True
-        WATCHDOG.forget(self)
-        dist.barrier(group=self.group)
-        for p in self._opened:
-            if not lost:
-                _check(lib.cs_sym_close(self.device, p), "cudaIpcCloseMemHandle")
-        self._opened = []
-        dist.barrier(group=self.group)
-        if not lost:
-            _check(lib.cs_sym_free(self.device, self.me), "cudaFree of the ring buffer")
-        self.me = self.right = self.left = None
-        self.cap = 0
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        self.tickets += 1
+        for line, e in waits:
+            _check(lib.cs_sym_wait(self.me + line * _LINE, e, stream), "cuStreamWaitValue64")
+        _check(lib.cs_sym_write(self._ticket[1], self.tickets, stream), "cuStreamWriteValue64")
+        WATCHDOG.add(self, self.tickets, max(e for _, e in waits), self.last_kernel, waits,
+                     SPIN_TIMEOUT_S)
+
+    def check_neighbours(self):
+        """Record a peer's give-up not raised yet (after the device has
+        finished)."""
+        if self.me is None:
+            return
+        seen = self.counters()
+        for s in range(self.size):
+            got = seen[self.gave_up(s)]
+            if got > self.gave_up_seen[s]:
+                self.gave_up_seen[s] = got
+                _record(self.ranks[self.coord], got, GAVE_UP_CODE + s, got, got,
+                        int(SPIN_TIMEOUT_S * 1e9), self.last_kernel)
+
+    def _release(self):
+        _free(self)
+        self.peers = [None] * self.size
+
+
+class RemoteCopyKernel(KernelWrapper):
+    """A kernel wrapper whose launch joins the protocol of these buffers:
+    after a wait of an earlier call ran out, it raises that timeout in
+    place of launching."""
+
+    def _launch(self, fn_name, dev, *args, sizes: int = 6):
+        err = timeout_error()
+        if err is not None:
+            raise err
+        super()._launch(fn_name, dev, *args, sizes=sizes)
 
 
 def check_timeouts():
-    """Raise :func:`timeout_error` when an exchange wait of this process,
-    or of a ring neighbour, ran out, once the device has finished the work
-    given to it and both neighbours have consumed this rank's last rows."""
+    """Raise :func:`timeout_error` when an exchange or collective wait of
+    this process, or of a peer, ran out, once the device has finished the
+    work given to it and the peers have consumed this rank's last slabs."""
     with _LOCK:
-        rings = [b for b in _BUFFERS.values() if b.me is not None and b.kind == "call"]
+        rings = [b for b in _BUFFERS.values()
+                 if b.me is not None and b.kind in ("call", "group")]
     if not rings and not _DIAG:
         return
     for ring in rings:
@@ -577,9 +872,23 @@ def ring_buffer(mesh, axis_name: str, device, kind: str = "call") -> RingBuffer:
         return _BUFFERS[key]
 
 
+def group_buffer(group, device) -> GroupBuffer:
+    """This rank's :class:`GroupBuffer` for the process ``group`` on
+    ``device`` (made on first use; collective then only through the first
+    :meth:`~GroupBuffer.reserve`).  Groups of the same ranks share it."""
+    dev = torch.device(device)
+    key = (tuple(dist.get_process_group_ranks(group)),
+           dev.index if dev.index is not None else torch.cuda.current_device(), "group")
+    with _LOCK:
+        if key not in _BUFFERS:
+            _BUFFERS[key] = GroupBuffer(group, dev)
+        return _BUFFERS[key]
+
+
 def release_all():
-    """Close and free every ring buffer of this process: a collective call
-    of every rank that made one, at the end of the process group."""
+    """Close and free every ring and group buffer of this process: a
+    collective call of every rank that made one, at the end of the process
+    group (in the order of their ranks, the same on every rank)."""
     with _LOCK:
         buffers = sorted(_BUFFERS.items())
         _BUFFERS.clear()

@@ -71,6 +71,9 @@ class ServiceStats:
     padded_members: int = 0
     # mesh data-axis padding: members repeated to fill the data dimension
     padded_mesh: int = 0
+    # the mesh front end's broadcasts of a dispatch's host inputs (header,
+    # windows, init times, amplitude) over the group's gloo, sent or received
+    host_broadcasts: int = 0
     device_seconds: float = 0.0
 
     @property
@@ -550,26 +553,30 @@ class ForecastService(MicroBatcher):
         return np.ascontiguousarray(np.broadcast_to(
             np.asarray(amplitude, np.float32), (self.config.data.n_variables,)))
 
+    def _broadcast(self, t):
+        """One host input of a dispatch from rank 0 (gloo), counted."""
+        dist.broadcast(t, src=self._root)
+        self.stats.host_broadcasts += 1
+
     def _send_header(self, kind: int, windows=None, t0=None, params=None, requests=0):
         p = params or {}
         header = torch.tensor(
             [kind, p.get("steps", 0), 0 if windows is None else windows.shape[0], requests,
              p.get("members", 0), p.get("seed", 0), p.get("antithetic", False),
              p.get("keep_members", False), p.get("normalized", False)], dtype=torch.int64)
-        dist.broadcast(header, src=self._root)
+        self._broadcast(header)
         if kind == _STOP:
             return
         if kind == _ENSEMBLE:
-            dist.broadcast(torch.from_numpy(p["amplitude"]), src=self._root)
-        dist.broadcast(torch.from_numpy(np.ascontiguousarray(windows, np.float32)),
-                       src=self._root)
-        dist.broadcast(torch.from_numpy(np.ascontiguousarray(t0, np.float64)), src=self._root)
+            self._broadcast(torch.from_numpy(p["amplitude"]))
+        self._broadcast(torch.from_numpy(np.ascontiguousarray(windows, np.float32)))
+        self._broadcast(torch.from_numpy(np.ascontiguousarray(t0, np.float64)))
 
     def _recv_header(self):
         """A follower's side of :meth:`_send_header`: ``None`` for the stop
         header, else ``(ens, windows, t0, params, requests)``."""
         header = torch.empty(9, dtype=torch.int64)
-        dist.broadcast(header, src=self._root)
+        self._broadcast(header)
         (kind, steps, batch, requests, members, seed, antithetic, keep,
          normalized) = header.tolist()
         if kind == _STOP:
@@ -577,13 +584,13 @@ class ForecastService(MicroBatcher):
         params = {"steps": steps, "normalized": bool(normalized)}
         if kind == _ENSEMBLE:
             amplitude = torch.empty(self.config.data.n_variables, dtype=torch.float32)
-            dist.broadcast(amplitude, src=self._root)
+            self._broadcast(amplitude)
             params.update(members=members, amplitude=amplitude.numpy(), seed=seed,
                           antithetic=bool(antithetic), keep_members=bool(keep))
         windows = torch.empty((batch,) + self._window_shape(), dtype=torch.float32)
         t0 = torch.empty(batch, dtype=torch.float64)
-        dist.broadcast(windows, src=self._root)
-        dist.broadcast(t0, src=self._root)
+        self._broadcast(windows)
+        self._broadcast(t0)
         return kind == _ENSEMBLE, windows.numpy(), t0.numpy(), params, requests
 
     def follow(self) -> int:

@@ -13,7 +13,10 @@ group per rank count, rank 0's numbers), and ``1x1`` runs in the calling
 process, alone on the card, as the baseline of every efficiency.  Ranks
 that share one card take turns on it, so their lines carry
 ``"ranks_share_one_card": true``: their efficiency measures time slicing,
-not scaling.  On the CPU every time is ``None``.
+not scaling.  Each line also carries the collectives rank 0's steps issued
+on the device and through the host (``device_collectives``,
+``host_collectives``; on the card every collective of a multi-rank row runs
+on the device).  On the CPU every time is ``None``.
 
     python -m dlwp_cs_tpu_torch.tools.scaling_bench [--configs 1x1,2x1,4x1,8x1,2x4]
     python -m dlwp_cs_tpu_torch.tools.scaling_bench --device cpu --small --configs 1x1
@@ -30,6 +33,7 @@ import tempfile
 import torch
 
 from dlwp_cs_tpu_torch.models import CubeSphereUNet, DataConfig, UNetConfig
+from dlwp_cs_tpu_torch.parallel import collectives
 from dlwp_cs_tpu_torch.parallel.launch import spawn_group
 from dlwp_cs_tpu_torch.parallel.scaling import ScalingResult, measure_scaling
 from dlwp_cs_tpu_torch.tools.timing import add_device_args, card, tool_device
@@ -51,18 +55,26 @@ def parse_configs(text: str):
 
 def scaling_rank(grid, filters, batch_per_device, configs, iters, device):
     """:func:`measure_scaling` of the U-Net at C``grid`` over ``configs``
-    on this rank (``device``: ``None`` for the GPU, or ``"cpu"``); its
-    results as dicts."""
+    on this rank (``device``: ``None`` for the GPU, or ``"cpu"``), one
+    configuration at a time; its results as dicts, each with the
+    collectives its steps issued on the device and through the host
+    (``device_collectives``, ``host_collectives``)."""
     dcfg = DataConfig(grid_n=grid)
     model = CubeSphereUNet(UNetConfig(output_channels=dcfg.output_channels,
                                       filters=tuple(filters)),
                            dcfg.input_channels, device=device,
                            generator=torch.Generator().manual_seed(0))
-    results = measure_scaling(model, n_grid=grid, in_channels=dcfg.input_channels,
-                              out_channels=dcfg.output_channels,
-                              batch_per_device=batch_per_device,
-                              mesh_configs=tuple(configs), iters=iters, device=device)
-    return [dataclasses.asdict(r) for r in results]
+    rows = []
+    for config in configs:
+        before = collectives.device_calls, collectives.host_calls
+        results = measure_scaling(model, n_grid=grid, in_channels=dcfg.input_channels,
+                                  out_channels=dcfg.output_channels,
+                                  batch_per_device=batch_per_device,
+                                  mesh_configs=(tuple(config),), iters=iters, device=device)
+        rows += [dict(dataclasses.asdict(r),
+                      device_collectives=collectives.device_calls - before[0],
+                      host_collectives=collectives.host_calls - before[1]) for r in results]
+    return rows
 
 
 def _group_rank(*args):
@@ -75,8 +87,9 @@ def _group_rank(*args):
 def sweep(configs, *, grid, filters, batch_per_device, iters, device):
     """Every configuration of ``configs``: ``1x1`` in this process, each
     rank count above one in a group of its own; the efficiency against
-    the ``1x1`` row where there is one.  Returns ``ScalingResult`` s in the
-    order of ``configs``."""
+    the ``1x1`` row where there is one.  Returns ``(ScalingResult,
+    counts)`` pairs in the order of ``configs``: ``counts`` the rank's
+    ``device_collectives`` and ``host_collectives`` of that row."""
     dev_arg = "cpu" if device.type == "cpu" else None
     found = {}
     if (1, 1) in configs:
@@ -97,10 +110,11 @@ def sweep(configs, *, grid, filters, batch_per_device, iters, device):
         if c not in found:
             continue
         r = dict(found[c], mesh_shape=tuple(found[c]["mesh_shape"]))
+        counts = {k: r.pop(k) for k in ("device_collectives", "host_collectives")}
         if base is not None:
             r["efficiency_vs_single"] = (r["gridpoints_per_s_per_chip"]
                                          / base["gridpoints_per_s_per_chip"])
-        out.append(ScalingResult(**r))
+        out.append((ScalingResult(**r), counts))
     return out
 
 
@@ -124,8 +138,8 @@ def main(argv=None, rows=None) -> int:
           file=sys.stderr)
     results = sweep(parse_configs(args.configs), grid=grid, filters=filters,
                     batch_per_device=args.batch_per_device, iters=args.iters, device=device)
-    for r in results:
-        line = dataclasses.asdict(r)
+    for r, counts in results:
+        line = dict(dataclasses.asdict(r), **counts)
         if device.type == "cpu":
             line.update(dict.fromkeys(TIMES))
         line["ranks_share_one_card"] = device.type == "cuda" and r.n_devices > cards

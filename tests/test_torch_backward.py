@@ -40,6 +40,10 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
     cs_conv3x3_fused,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 
 def _case(b, n, cin, cout, seed):
     rng = np.random.default_rng(seed)
@@ -79,10 +83,11 @@ def test_ext_strips_backward_is_the_transpose():
 @pytest.mark.parametrize("n,cin,cout", [(8, 3, 4), (16, 5, 3), (12, 16, 8)])
 def test_dx_and_dw_plain_match_reference_kernels(n, cin, cout):
     x, (ke, kp), _, g = _case(2, n, cin, cout, seed=n + cin)
-    ref_dx = np.asarray(_dx_via_kernel(
+    # the reference kernels in interpret mode, each compiled once
+    ref_dx = np.asarray(jax.jit(_dx_via_kernel, static_argnums=(0, 1, 5))(
         x.shape, jnp.float32, jnp.asarray(ke), jnp.asarray(kp), jnp.asarray(g), True))
     xj = jnp.asarray(x)
-    _, *ref_w = _backward_all(
+    _, *ref_w = jax.jit(_backward_all, static_argnums=(5,))(
         xj, j_ext_strips(xj), jnp.asarray(ke), jnp.asarray(kp), jnp.asarray(g), True)
     dx, d_ext = cs_conv3x3_dx_plain(torch.from_numpy(g), torch.from_numpy(ke),
                                     torch.from_numpy(kp))
@@ -118,7 +123,7 @@ def _jax_grads(x, ks, bs, g, dtype, mode):
         out = cs_conv3x3_pallas(*a, True, mode)
         return jnp.sum(out.astype(jnp.float32) * cot.astype(jnp.float32))
 
-    grads = jax.grad(loss, argnums=tuple(range(5)))(*args)
+    grads = jax.jit(jax.grad(loss, argnums=tuple(range(5))))(*args)  # compiled once
     return [np.asarray(gr.astype(jnp.float32)) for gr in grads]
 
 

@@ -28,6 +28,10 @@ from dlwp_cs_tpu.barotropic import BarotropicModel as JModel
 from dlwp_cs_tpu.barotropic import SphericalHarmonics as JSHT
 from dlwp_cs_tpu_torch.barotropic import BarotropicModel, SphericalHarmonics
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 LMAXES = (21, 10)
 
 

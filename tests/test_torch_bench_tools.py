@@ -49,6 +49,10 @@ from dlwp_cs_tpu_torch.tools import (
     trainer_wallclock,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 SMS = 132
 SMEM = 232448 - 1024
@@ -79,9 +83,12 @@ def test_unet_train_flops_equals_the_reference(batch):
         ("hires+wide C96 (64,128,256,256) b8", 96, (64, 128, 256, 256), 8)]
 
 
-def test_unet_convs_are_the_models_3x3_convs():
-    from dlwp_cs_tpu_torch.models import CubeSphereUNet, UNetConfig
+def test_unet_convs_are_the_models_3x3_convs(monkeypatch):
+    from dlwp_cs_tpu_torch.models import CubeSphereUNet, UNetConfig, layers
 
+    # only the shapes are read: skip the truncated-normal draws, which take
+    # seconds a model at these widths
+    monkeypatch.setattr(layers, "lecun_normal_", lambda t, generator=None: t)
     for _, n, filters, _, _ in capacity_bench.CONFIGS + capacity_bench.SMALL_CONFIGS:
         model = CubeSphereUNet(UNetConfig(output_channels=8, filters=filters), 12,
                                device="meta")

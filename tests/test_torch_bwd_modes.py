@@ -31,6 +31,10 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
     use_pallas_backward,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 SHAPE = (2, 8, 4, 8)  # B, n, Cin, Cout
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 NAMES = ("x", "k_eq", "k_pole", "b_eq", "b_pole")

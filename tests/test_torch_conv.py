@@ -26,6 +26,10 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import cs_conv3x3, cs_conv3x3_plain, tile
 from dlwp_cs_tpu_torch.ops.quant import cs_conv3x3_int8_plain, quantize_kernel, quantize_tensor
 from dlwp_cs_tpu_torch.ops.ringfix import ring_term
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 F32_ATOL = 1e-5
 
 

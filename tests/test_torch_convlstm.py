@@ -52,6 +52,10 @@ from dlwp_cs_tpu_torch.models import (
 from dlwp_cs_tpu_torch.ops.ring_kernel import xring_fused_apply
 from dlwp_cs_tpu_torch.train import model_apply, value_and_grad
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 DATA = dict(grid_n=N, variables=("z500", "t2m"), constants=("topography",))
 STATS = {"mean": [5400.0, 280.0], "std": [300.0, 20.0],

@@ -559,7 +559,9 @@ def test_band_exchange_kernels_on_ranks_sharing_the_card(cuda_device, tmp_path, 
     results = spawn_group(_exchanges_and_overlap_convs, world, XCHG_CALLS, workdir=tmp_path)
     for r in results:
         assert r["launches"] == XCHG_CALLS and r["mismatches"] == 0, r["mismatches"]
-        assert r["live_before"] == (1, 1 if world == 2 else 2), r["live_before"]
+        # the ring buffer of #10/#11 (one or two neighbours mapped) and the
+        # group buffer of the collectives (every peer mapped)
+        assert r["live_before"] == (2, (1 if world == 2 else 2) + world - 1), r["live_before"]
         assert r["live_after"] == (0, 0), r["live_after"]
         assert len(r["overlap"]) == (40 if world == 4 else 0)
         for case, launched, ours, plain, k8 in r["overlap"]:
@@ -1706,3 +1708,188 @@ def test_trace_names_the_kernels_on_card(cuda_device, tmp_path):
     names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
     for kernel in ("cs_conv3x3_tc_kernel", "cs_conv3x3_dx_tc_kernel", "cs_conv3x3_dw_tc_kernel"):
         assert any(kernel in name for name in names), kernel
+
+
+# ---- the named-axis collectives on the card (device_collectives) ----------
+
+# (op, shape, axis, tiled): a band's ghost-row strip, the seam strips, a
+# tile's columns, a data=4 gradient bucket, odd sizes (the scalar paths)
+COLLECTIVE_CASES = [
+    ("ppermute", (1, 6, 1, 48, 32), None, None),
+    ("ppermute", (8, 6, 3, 12, 64), None, None),
+    ("ppermute", (1, 6, 12, 1, 12), None, None),
+    ("ppermute", (3, 5), None, None),
+    ("all_gather", (1, 6, 4, 1, 50, 32), 0, True),
+    ("all_gather", (1, 6, 6, 24, 64), 3, True),
+    ("all_gather", (1, 6, 6, 24, 64), 3, False),
+    ("all_gather", (2, 3, 5), 0, False),
+    ("psum", (1, 6, 4, 1, 50, 32), None, None),
+    ("psum", (411_213,), None, None),
+    ("psum", (1, 6, 4, 2, 14, 12), None, None),
+    ("psum", (7,), None, None),
+]
+
+
+def _collective_perms(world):
+    """Every ``ppermute`` permutation the halo code issues on ``world``
+    shards, and one that names only some receivers."""
+    return [[(i, (i + 1) % world) for i in range(world)],
+            [(i, (i - 1) % world) for i in range(world)],
+            [(0, world - 1), (world - 1, 0)]]
+
+
+def _device_collectives(cases, reps):
+    """One rank: every case of ``cases`` in both dtypes through the device
+    transport and the plain version over gloo on the same inputs (each rank
+    its own seeded draw), ``reps`` back-to-back calls each; the outputs, the
+    launches, the routes and the buffers before and after ``release_all``."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import device_collectives as dc
+    from dlwp_cs_tpu_torch.parallel import symmetric
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = dist.group.WORLD
+    gen = torch.Generator(device="cuda").manual_seed(300 + rank)
+    out = {"route": dc.route(torch.zeros(1, device="cuda"), group), "mismatches": [],
+           "zeros_ok": True}
+    for w in dc.KERNELS.values():
+        w.launches = 0
+    calls = 0
+    for op, shape, axis, tiled in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            if op == "ppermute":
+                runs = [(lambda p=p: dc.ppermute(x, group, p),
+                         lambda p=p: dc.ppermute_plain(x, group, p), p)
+                        for p in _collective_perms(world)]
+            elif op == "all_gather":
+                runs = [(lambda: dc.all_gather(x, group, axis, tiled),
+                         lambda: dc.all_gather_plain(x, group, axis, tiled), None)]
+            else:
+                runs = [(lambda: dc.psum(x, group), lambda: dc.psum_plain(x, group), None)]
+            for ours, plain, perm in runs:
+                got = [ours() for _ in range(reps)]
+                calls += reps
+                want = plain()
+                if not all(torch.equal(g, want) for g in got):
+                    out["mismatches"].append((op, shape, str(dt), perm))
+                if perm is not None and rank not in {d for _, d in perm}:
+                    out["zeros_ok"] &= bool((got[0] == 0).all())
+    torch.cuda.synchronize()
+    symmetric.check_timeouts()
+    out["calls"] = calls
+    out["launches"] = {k: w.launches for k, w in dc.KERNELS.items()}
+    out["live_before"] = symmetric.live_buffers()
+    symmetric.release_all()
+    out["live_after"] = symmetric.live_buffers()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_device_collectives_equal_their_plain_versions_on_card(cuda_device, tmp_path, world):
+    """``ppermute`` (3 permutations), ``all_gather`` (tiled and stacked,
+    axes 0 and 3) and ``psum`` through the send, reduce and unpack kernels,
+    on 2 and 4 ranks sharing the card, in both dtypes, 5 back-to-back calls
+    a case: each output bitwise equal to the plain version over gloo (the
+    psum's rank-order sum included); the receivers no pair names get zeros;
+    one group buffer mapped to every peer, freed at the end."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    results = spawn_group(_device_collectives, world, COLLECTIVE_CASES, 5, workdir=tmp_path)
+    for r in results:
+        assert r["route"] == "device"
+        assert r["mismatches"] == [], r["mismatches"]
+        assert r["zeros_ok"]
+        assert r["launches"]["collective_reduce"] == 2 * 5 * 4  # 4 psum cases, 2 dtypes
+        assert r["launches"]["collective_unpack"] > 0 and r["launches"]["collective_send"] > 0
+        assert r["live_before"] == (1, world - 1), r["live_before"]
+        assert r["live_after"] == (0, 0), r["live_after"]
+
+
+def _collective_stays_away():
+    """Every rank sums once; then all but the last sum again, with a 2 s
+    bound on each wait: the others' error messages, from the end of the
+    block of work and from the next call."""
+    import torch.distributed as dist
+
+    from dlwp_cs_tpu_torch.parallel import device_collectives as dc
+    from dlwp_cs_tpu_torch.parallel import symmetric
+
+    symmetric.SPIN_TIMEOUT_S = 2.0
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.ones((4, 1000), device="cuda")
+    dc.psum(x, dist.group.WORLD)
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank == world - 1:
+        return None
+    msgs = []
+    for _ in range(2):
+        try:
+            dc.psum(x, dist.group.WORLD)
+            symmetric.check_timeouts()
+            msgs.append("no error")
+        except RuntimeError as e:
+            msgs.append(str(e))
+    return msgs
+
+
+@pytest.mark.cuda
+def test_device_collective_times_out_when_a_rank_stays_away(cuda_device, tmp_path):
+    """Three of 4 ranks call ``psum`` without the fourth: each raises an
+    error naming its rank, the epoch and the counter it waited on, and
+    raises it again at its next call; the group then ends."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    results = spawn_group(_collective_stays_away, 4, workdir=tmp_path)
+    assert results[-1] is None
+    for rank, msgs in enumerate(results[:-1]):
+        for msg in msgs:
+            assert "collective psum timed out" in msg and f"rank {rank}" in msg, msg
+            assert "epoch 2" in msg and "counter" in msg, msg
+
+
+def _sharded_forward_counts():
+    """One rank of 4 sharing the card: a small U-Net (n = 16) through row
+    bands and 2 x 2 tiles with kernels #8 / #9, and through #10 + #8 and
+    #11: the collectives each forward issued on the device and through the
+    host, and the outputs."""
+    from dlwp_cs_tpu_torch.parallel import collectives, create_mesh, make_spatial_apply
+
+    model = CubeSphereUNet(UNetConfig(output_channels=2, filters=(8, 16)), 3, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_train_batch()[0][:1]).cuda()
+    out = {}
+    for name, shape, opts in (("band", (1, 4, 1), dict(band_conv="pallas")),
+                              ("tile", (1, 2, 2), dict(band_conv="pallas")),
+                              ("rdma", (1, 4, 1), dict(band_impl="rdma", band_conv="pallas")),
+                              ("overlap", (1, 4, 1), dict(band_conv="overlap"))):
+        mesh = create_mesh(data=shape[0], spatial=shape[1], spatial_x=shape[2])
+        fn = make_spatial_apply(model, mesh, **opts)
+        before = (collectives.device_calls, collectives.host_calls)
+        with torch.no_grad():
+            y = fn(x)
+        out[name] = (collectives.device_calls - before[0], collectives.host_calls - before[1],
+                     y.cpu())
+    return out
+
+
+@pytest.mark.cuda
+def test_sharded_forward_stages_no_collective_through_the_host(cuda_device, tmp_path):
+    """4 ranks sharing the card run a U-Net forward on bands and tiles
+    (#8, #9, #10 + #8, #11): every collective runs on the device
+    (``host_calls == 0``), and each rank's output equals the one-card
+    forward bitwise."""
+    from dlwp_cs_tpu_torch.parallel.launch import spawn_group
+
+    results = spawn_group(_sharded_forward_counts, 4, workdir=tmp_path)
+    model = CubeSphereUNet(UNetConfig(output_channels=2, filters=(8, 16)), 3, device=cuda_device,
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = model(torch.from_numpy(_train_batch()[0][:1]).to(cuda_device)).cpu()
+    for r in results:
+        for name, (device_calls, host_calls, y) in r.items():
+            assert host_calls == 0 and device_calls > 0, (name, device_calls, host_calls)
+            assert torch.equal(y, ref), (name, (y - ref).abs().max())

@@ -45,6 +45,10 @@ import numpy as np
 import pytest
 import torch
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 BUILD = ["--grid", "8", "--nlat", "32", "--nlon", "64", "--days", "12", "--remap", "bilinear"]
 TRAIN = ["--epochs", "1", "--batch", "4", "--filters", "4", "--workers", "0"]

@@ -57,6 +57,10 @@ from dlwp_cs_tpu_torch.serve import (
 )
 from dlwp_cs_tpu_torch.serve import export as export_mod
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 N = 8
 STEPS = 3

@@ -55,6 +55,10 @@ from dlwp_cs_tpu_torch.ops.ring_kernel import (
     xring_fits,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 SMS = 132
 DTYPES = [torch.float32, torch.bfloat16]
 # (n, Cin, Cout) of the flagship U-Net's 3x3 convs and the n = 96 shape of
@@ -212,9 +216,9 @@ def test_cs_conv_takes_ringfix_where_the_dw_plan_refuses(monkeypatch):
         return j_cs_conv(a[0], a[1], a[2], bias_eq=a[3], bias_pole=a[4])
 
     jargs = [jnp.asarray(a) for a in args]
-    ref = j_out(*jargs)
-    ref_grads = jax.grad(lambda *a: jnp.vdot(j_out(*a), jnp.asarray(g)),
-                         argnums=(0, 1, 2, 3, 4))(*jargs)
+    ref = jax.jit(j_out)(*jargs)  # compiled once, not op by op
+    ref_grads = jax.jit(jax.grad(lambda *a: jnp.vdot(j_out(*a), jnp.asarray(g)),
+                                 argnums=(0, 1, 2, 3, 4)))(*jargs)
     for ours, r in zip((out, *grads), (ref, *ref_grads)):
         r = np.asarray(r)
         np.testing.assert_allclose(ours.detach().numpy(), r, rtol=0,

@@ -23,6 +23,10 @@ from dlwp_cs_tpu_torch.geometry.insolation import (
     insolation_np,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 
 def test_edge_table_matches_reference():
     ours = [[(l.face, l.edge, l.reverse) for l in row] for row in tgeo.edge_table()]

@@ -17,6 +17,10 @@ from dlwp_cs_tpu.ops.padding import cs_pad as j_cs_pad
 from dlwp_cs_tpu_torch.ops.halo import ext_strips
 from dlwp_cs_tpu_torch.ops.padding import cs_pad
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 

@@ -16,6 +16,10 @@ import torch
 
 import dlwp_cs_tpu_torch
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "dlwp_cs_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dlwp_cs_tpu")
@@ -47,7 +51,8 @@ def test_importing_every_module_loads_no_jax():
               "models.latlon_unet", "models.registry", "models.torch_mirror",
               "barotropic", "barotropic.model", "barotropic.spharm", "plot", "plot.maps",
               "utils.profiling", "tools.capacity_bench", "tools.trainer_wallclock",
-              "tools.serve_bench", "tools.ensemble_bench", "tools.scaling_bench"):
+              "tools.serve_bench", "tools.ensemble_bench", "tools.scaling_bench",
+              "parallel.device_collectives"):
         assert f"dlwp_cs_tpu_torch.{m}" in mods
     assert len(mods) >= 62
     code = (

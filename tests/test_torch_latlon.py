@@ -33,6 +33,10 @@ from dlwp_cs_tpu_torch.models import (
 from dlwp_cs_tpu_torch.ops import latlon
 from tests.test_torch_quant import _flax_params, _np
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 
 def _rand(*shape, seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)

@@ -20,6 +20,10 @@ from dlwp_cs_tpu_torch.models import torch_mirror
 from dlwp_cs_tpu_torch.models.unet import CubeSphereUNet
 from tests.test_torch_quant import _flax_params, _np
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 
 

@@ -29,6 +29,10 @@ import torch
 
 from dlwp_cs_tpu_torch.parallel.launch import spawn_group
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 F32_TOL = 3e-5
 BF16_REL = 2.0**-6
@@ -86,6 +90,13 @@ LSTM_CASES = [(backend, shape, band_conv) for backend in ("xring", "ringfix")
                                    ((2, 2, 1), ("ringfix", "pallas", "overlap")),
                                    ((1, 2, 2), ("ringfix", "pallas")))
               for band_conv in convs]
+
+
+# the plain collectives against lax: each rank's input shape and seed, the
+# gathers' (axis, tiled), a ppermute naming two receivers of the four
+COLL_SHAPE, COLL_SEED = (2, 6, 3, 4, 5), 90
+COLL_GATHERS = [(0, True), (3, True), (0, False), (3, False)]
+COLL_PERM = [(0, 2), (2, 1)]
 
 
 def _rand(shape, seed, scale=1.0):
@@ -149,6 +160,7 @@ def _rank_cases(params, lstm_params, ens_pert):
     from dlwp_cs_tpu_torch.parallel.sharding import sharded_model_ctx
     from dlwp_cs_tpu_torch.serve import ForecastService
 
+    torch.set_num_threads(1)  # 4 ranks share the host's cores
     meshes = {}
 
     def mesh(shape):  # every rank creates the meshes in the same order
@@ -306,6 +318,18 @@ def _rank_cases(params, lstm_params, ens_pert):
         psum(t, mesh((1, 2, 2)), ("spatial", "spatial_x")).numpy(),
         ppermute(t, m, "spatial", [(0, 3), (3, 0)]).numpy(),
     )
+    # the plain transport (a CPU tensor's) on seeded draws, one per rank:
+    # psum in rank order, tiled and stacked gathers, a ppermute that leaves
+    # two receivers unnamed, a psum over (spatial, spatial_x)
+    plain = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xs = torch.from_numpy(_rand(COLL_SHAPE, COLL_SEED + dist.get_rank())).to(dt)
+        plain["psum", dt] = psum(xs, m, "spatial")
+        plain["psum_joint", dt] = psum(xs, mesh((1, 2, 2)), ("spatial", "spatial_x"))
+        for axis, tiled in COLL_GATHERS:
+            plain["gather", axis, tiled, dt] = all_gather(xs, m, "spatial", axis=axis, tiled=tiled)
+        plain["ppermute", dt] = ppermute(xs, m, "spatial", COLL_PERM)
+    out["collectives_plain"] = {k: v.float().numpy() for k, v in plain.items()}
     return out
 
 
@@ -749,6 +773,76 @@ def test_collectives_follow_jax_semantics(group):
         np.testing.assert_array_equal(summed, [6.0, 6.0])
         want = {0: 3.0, 3: 0.0}.get(r["rank"], 0.0)
         np.testing.assert_array_equal(swapped, [want, want])
+
+
+def _jax_collective(fn, dtype, mesh_shape, spec_axes):
+    """Each rank's result of ``fn`` (a ``lax`` collective on one rank's
+    block) under ``shard_map`` over the ranks' seeded draws, stacked along
+    a leading axis split over ``spec_axes``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from dlwp_cs_tpu.parallel import create_mesh
+
+    xs = np.stack([_rand(COLL_SHAPE, COLL_SEED + r) for r in range(4)])
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    spec = P(spec_axes)
+    mapped = jax.jit(jax.shard_map(lambda xb: fn(xb[0])[None], mesh=create_mesh(*mesh_shape),
+                                   in_specs=spec, out_specs=spec, check_vma=False))
+    return np.asarray(mapped(jnp.asarray(xs, jdt)).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_psum_sums_in_rank_order(group, dtype):
+    """The plain ``psum`` (a CPU tensor's transport) is ``((x0 + x1) + x2)
+    + x3`` in the tensor's dtype, bitwise, on every rank, over 4 bands and
+    over (spatial, spatial_x) of the 2x2 mesh; against ``lax.psum`` under
+    ``shard_map`` within one rounding of each add (f32 1e-6, bf16 2**-6 of
+    the largest sum)."""
+    from jax import lax
+
+    xs = [torch.from_numpy(_rand(COLL_SHAPE, COLL_SEED + r)).to(dtype) for r in range(4)]
+    chain = ((xs[0] + xs[1]) + xs[2]) + xs[3]
+    refs = {"psum": _jax_collective(lambda x: lax.psum(x, "spatial"), dtype, (1, 4), "spatial"),
+            "psum_joint": _jax_collective(lambda x: lax.psum(x, ("spatial", "spatial_x")),
+                                          dtype, (1, 2, 2), ("spatial", "spatial_x"))}
+    tol = 1e-6 if dtype == torch.float32 else 2.0**-6
+    for r in group:
+        for key, ref in refs.items():
+            got = r["collectives_plain"][key, dtype]
+            np.testing.assert_array_equal(got, chain.float().numpy())
+            np.testing.assert_allclose(got, ref[r["rank"]], rtol=0,
+                                       atol=tol * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("axis,tiled", COLL_GATHERS)
+def test_plain_all_gather_matches_lax(group, dtype, axis, tiled):
+    """The plain tiled and stacked ``all_gather`` along axes 0 and 3 equal
+    ``lax.all_gather`` under ``shard_map``."""
+    from jax import lax
+
+    ref = _jax_collective(lambda x: lax.all_gather(x, "spatial", axis=axis, tiled=tiled), dtype,
+                          (1, 4), "spatial")
+    for r in group:
+        np.testing.assert_array_equal(r["collectives_plain"]["gather", axis, tiled, dtype],
+                                      ref[r["rank"]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_ppermute_gives_zeros_to_unnamed_receivers(group, dtype):
+    """A ``ppermute`` whose pairs name two of the four receivers equals
+    ``lax.ppermute``: the two others get zeros."""
+    from jax import lax
+
+    ref = _jax_collective(lambda x: lax.ppermute(x, "spatial", COLL_PERM), dtype, (1, 4),
+                          "spatial")
+    receivers = {dst for _, dst in COLL_PERM}
+    for r in group:
+        got = r["collectives_plain"]["ppermute", dtype]
+        np.testing.assert_array_equal(got, ref[r["rank"]])
+        assert (r["rank"] in receivers) or not got.any()
 
 
 # ---- in one process, no group ----------------------------------------------

@@ -46,6 +46,10 @@ import torch
 
 from dlwp_cs_tpu_torch.parallel.launch import spawn_group
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 B = 4  # the global batch
 MODEL = dict(output_channels=2, filters=(4, 8))

@@ -47,6 +47,10 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
     tile_plan,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 SMS = 132
 SMEM = 232448
 _SMEM_TWO_BLOCKS = 233472 // 2 - 1024  # two blocks an SM, 1 KB each reserved

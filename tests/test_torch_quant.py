@@ -48,6 +48,10 @@ from dlwp_cs_tpu_torch.ops import quant
 from dlwp_cs_tpu_torch.ops.conv import cs_conv
 from dlwp_cs_tpu_torch.serve import ForecastService
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 MODEL_TOL = 5e-3
 DATA = dict(grid_n=N, variables=("z500", "t2m"), constants=("topography",))

@@ -27,6 +27,10 @@ from dlwp_cs_tpu_torch.models import (
 from dlwp_cs_tpu_torch.models import registry
 from tests.test_torch_quant import _flax_params, _np
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 # the reference module's docstring spec
 DOC_SPEC = [

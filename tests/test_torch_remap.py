@@ -49,6 +49,10 @@ from dlwp_cs_tpu_torch.remap import (
 from dlwp_cs_tpu_torch.remap import native as tnative
 from dlwp_cs_tpu_torch.remap import weights as tweights
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 REPO_TOOL = tnative._SOURCE.parent
 
 pytestmark = pytest.mark.skipif(shutil.which(os.environ.get("CXX", "g++")) is None,

@@ -43,6 +43,10 @@ from dlwp_cs_tpu_torch.ops.ring_kernel import (
 )
 from dlwp_cs_tpu_torch.ops.ringfix import ring_term
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2.0**-6)}
 

@@ -31,6 +31,10 @@ from dlwp_cs_tpu_torch.models import (
 from dlwp_cs_tpu_torch.rollout import TimeSeriesEstimator, make_rollout_fn
 from tests.test_golden_rollout import GOLDEN_MEAN, GOLDEN_PROBES, GOLDEN_STD
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 
 

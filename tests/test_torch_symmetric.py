@@ -23,6 +23,10 @@ from dlwp_cs_tpu_torch.parallel.symmetric import (
     Watchdog,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 
 class _FakeLib:
     """The entry points ``reserve`` calls, recording the sizes; host words

@@ -69,6 +69,10 @@ from dlwp_cs_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 MODEL = dict(output_channels=2, filters=(4, 8))
 
@@ -415,7 +419,6 @@ def test_sequence_loss_and_step_match_reference():
     jtree = jax.tree.map(jnp.asarray, tree)
     with torch.no_grad():
         value = float(loss(params_of(model), *args))
-    np.testing.assert_allclose(value, float(jax.jit(jloss)(jtree, *jargs)), rtol=1e-5)
     with pytest.raises(ValueError, match="sequence=3"):
         loss(params_of(model), args[0], args[1], args[2][:, :2])
     jopt = j_make_optimizer(JTrainConfig(learning_rate=1e-2))
@@ -424,8 +427,10 @@ def test_sequence_loss_and_step_match_reference():
     state = init_state(params_of(model), opt)
     jstep = j_make_sequence_train_step(jloss, jopt)
     step = make_sequence_train_step(loss, opt)
-    for _ in range(2):
+    for i in range(2):
         jstate, jm = jstep(jstate, *jargs)
+        if i == 0:  # the reference's loss at the initial parameters (one compile: the step's)
+            np.testing.assert_allclose(value, float(jm["loss"]), rtol=1e-5)
         state, m = step(state, *args)
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-5)

@@ -24,6 +24,10 @@ from dlwp_cs_tpu_torch.models import CubeSphereUNet, UNetConfig, load_jax_params
 from dlwp_cs_tpu_torch.models.layers import CubeSphereConv2D
 from dlwp_cs_tpu_torch.ops import pooling
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 
 def _x(b=2, n=8, c=3, seed=0):
     return np.random.default_rng(seed).normal(size=(b, 6, n, n, c)).astype(np.float32)

@@ -19,6 +19,10 @@ from dlwp_cs_tpu_torch import utils
 from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS
 from dlwp_cs_tpu_torch.utils import misc, profiling
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 
 def test_utils_exports_the_reference_names():
     import dlwp_cs_tpu.utils as jutils

@@ -66,6 +66,10 @@ from dlwp_cs_tpu_torch.ops.hopper_conv import (
 )
 from dlwp_cs_tpu_torch.tools import probes
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
 N, B = 8, 2
 CHANNELS = [(8, 8), (12, 16)]

@@ -30,6 +30,10 @@ from dlwp_cs_tpu_torch.verify.oracle import our_lonlat
 from dlwp_cs_tpu_torch.verify.relabel import D4_ELEMENTS
 from tests.test_oracle import SCRAMBLE, _fake_golden, _smooth_field
 
+# the suite runs its files in worker processes that share the host's cores:
+# one intra-op thread each keeps them off each other's
+torch.set_num_threads(1)
+
 N = 8
 
 
