@@ -3952,7 +3952,7 @@ def examples_phase(workdir, out_dir, store, data, mesh05):
             check(fields.shape == (1, 2 * steps, 6, 48, 48, 4), f"06 fields {fields.shape}")
         st = got["stats"]
         return {"requests": st.requests, "batches": st.batches, "mean_batch": st.mean_batch,
-                "device_seconds": st.device_seconds}
+                "dispatch_seconds": st.dispatch_seconds}
 
     live = run("06", lambda: selftest(lambda: ex["06"].live_service(est, store), STEPS))
     check(out["06"]["launches"] == {"cs_conv3x3": PER_CALL["unet"]["cs_conv3x3"] * STEPS
@@ -4021,8 +4021,8 @@ def examples_lines(r):
     for key in ("06", "06 --artifact"):
         st = r[key]["stats"]
         lines.append(f"examples {key}: {r[key]['seconds']:.2f} s; requests {st['requests']}, "
-                     f"batches {st['batches']}, mean batch {st['mean_batch']:.2f}, device "
-                     f"{st['device_seconds']:.3f} s; launches {launches(key)}")
+                     f"batches {st['batches']}, mean batch {st['mean_batch']:.2f}, dispatch "
+                     f"{st['dispatch_seconds']:.3f} s; launches {launches(key)}")
     lines.append(f"examples 07: {r['07']['seconds']:.2f} s; {ENS_MEMBERS} members x {STEPS} "
                  "calls; CRPS, RMSE of the mean, spread: " + "; ".join(
                      f"day {d} {v['crps']:.3f}, {v['rmse']:.3f}, {v['spread']:.3f}"

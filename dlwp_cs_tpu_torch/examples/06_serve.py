@@ -90,7 +90,7 @@ def selftest(svc, store, *, steps: int, log=print) -> dict:
         )
     log(
         f"[serve] stats: requests={st.requests} batches={st.batches} "
-        f"mean_batch={st.mean_batch:.2f} device_s={st.device_seconds:.2f}"
+        f"mean_batch={st.mean_batch:.2f} dispatch_s={st.dispatch_seconds:.2f}"
     )
     log("selftest ok" if ok else "selftest FAILED")
     return {"results": results, "windows": windows, "t0": t0, "stats": st, "ok": ok}

@@ -31,6 +31,7 @@ from dlwp_cs_tpu_torch.device import resolve_device
 from dlwp_cs_tpu_torch.geometry.insolation import INSOLATION_PERIOD_DAYS
 from dlwp_cs_tpu_torch.models.config import DataConfig
 from dlwp_cs_tpu_torch.rollout.estimator import make_rollout_fn
+from dlwp_cs_tpu_torch.utils.profiling import span
 
 __all__ = [
     "EnsembleForecast",
@@ -323,11 +324,12 @@ class EnsembleForecaster:
         cfg = (steps, members, keep_members)
         cached = self.__dict__.get("_cached")
         if cached is None or cached[0] != cfg:
-            fn = make_ensemble_rollout(
-                self.model, self.data_cfg, lat=self.lat, lon=self.lon,
-                constants=self.constants, insol_mean=self.insol_mean,
-                insol_std=self.insol_std, steps=steps, members=members,
-                keep_members=keep_members, device=self.device)
+            with span("rollout.build"):
+                fn = make_ensemble_rollout(
+                    self.model, self.data_cfg, lat=self.lat, lon=self.lon,
+                    constants=self.constants, insol_mean=self.insol_mean,
+                    insol_std=self.insol_std, steps=steps, members=members,
+                    keep_members=keep_members, device=self.device)
             self.__dict__["_cached"] = cached = (cfg, fn)
         if perturbations is None:
             if generator is None:
@@ -338,5 +340,6 @@ class EnsembleForecaster:
         # TimeSeriesEstimator.predict
         t0_red = np.mod(np.asarray(t0_days, np.float64),
                         INSOLATION_PERIOD_DAYS).astype(np.float32)
-        fc = cached[1](window, t0_red, perturbations, amplitude)
+        with span("rollout.enqueue"):
+            fc = cached[1](window, t0_red, perturbations, amplitude)
         return fc._replace(init_times=t0_days, variables=tuple(self.data_cfg.variables))

@@ -9,6 +9,10 @@ The model's parameters live in the module, so the rollout takes no
 ``params`` argument.  The model is any callable with the module's contract:
 the sharded forward of :func:`~dlwp_cs_tpu_torch.parallel.make_spatial_apply`
 takes its place as the reference's ``apply_fn`` does.
+
+Spans (:func:`~dlwp_cs_tpu_torch.utils.profiling.span`): ``rollout.build``
+where a predictor builds its rollout, ``rollout.enqueue`` around the
+rollout's call and ``rollout.call`` around each model call it enqueues.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from dlwp_cs_tpu_torch.data.channels import (
 from dlwp_cs_tpu_torch.device import resolve_device
 from dlwp_cs_tpu_torch.geometry.insolation import INSOLATION_PERIOD_DAYS
 from dlwp_cs_tpu_torch.models.config import DataConfig
+from dlwp_cs_tpu_torch.utils.profiling import span
 
 __all__ = ["Forecast", "RolloutStep", "TimeSeriesEstimator", "make_rollout_fn"]
 
@@ -133,7 +138,8 @@ def make_rollout_fn(
         t = torch.remainder(t, INSOLATION_PERIOD_DAYS)
         outs = []
         for _ in range(steps):
-            window, out_window, t = step(window, t)
+            with span("rollout.call"):
+                window, out_window, t = step(window, t)
             outs.append(out_window)
         fields = torch.cat(outs, dim=1)  # (B, steps*T_out, 6, n, n, C)
         lead = (torch.arange(steps * step.t_out, device=dev) + 1) * data_cfg.step_hours
@@ -160,24 +166,26 @@ class TimeSeriesEstimator:
         cache = self.__dict__.setdefault("_rollout_cache", {})
         fn = cache.get(steps)
         if fn is None:
-            fn = make_rollout_fn(
-                self.model,
-                self.data_cfg,
-                lat=self.lat,
-                lon=self.lon,
-                constants=self.constants,
-                insol_mean=self.insol_mean,
-                insol_std=self.insol_std,
-                steps=steps,
-                device=self.device,
-            )
+            with span("rollout.build"):
+                fn = make_rollout_fn(
+                    self.model,
+                    self.data_cfg,
+                    lat=self.lat,
+                    lon=self.lon,
+                    constants=self.constants,
+                    insol_mean=self.insol_mean,
+                    insol_std=self.insol_std,
+                    steps=steps,
+                    device=self.device,
+                )
             cache[steps] = fn
         # float64 host-side periodic reduction before the float32 clock;
         # the Forecast keeps the original init times
         t0_red = np.mod(
             np.asarray(t0_days, np.float64), INSOLATION_PERIOD_DAYS
         ).astype(np.float32)
-        fc = fn(window, t0_red)
+        with span("rollout.enqueue"):
+            fc = fn(window, t0_red)
         return fc._replace(
             init_times=t0_days, variables=tuple(self.data_cfg.variables)
         )

@@ -411,7 +411,7 @@ class ExportedForecastService(MicroBatcher):
         fc = self._exp.forecast(window, t0_days, steps=steps,
                                 normalized=normalized)
         with self._lock:
-            self.stats.device_seconds += time.perf_counter() - t0_wall
+            self.stats.dispatch_seconds += time.perf_counter() - t0_wall
         return fc
 
     def info(self) -> dict:

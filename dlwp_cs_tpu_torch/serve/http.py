@@ -110,7 +110,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "mean_batch": st.mean_batch,
                 "padded_members": st.padded_members,
                 "padded_mesh": st.padded_mesh,
-                "device_seconds": st.device_seconds,
+                "dispatch_seconds": st.dispatch_seconds,
             }
             return self._reply_json(200, payload)
         return self._reply_json(404, {"error": f"unknown path {self.path}"})

@@ -11,6 +11,15 @@ Request contract: a RAW (physical-units) input window ``(T_in, 6, n, n,
 C_var)`` plus its init time; the service normalizes, rolls out and returns
 denormalized numpy fields.
 
+A request is a tree of spans (:func:`~dlwp_cs_tpu_torch.utils.profiling.span`,
+recorded inside :func:`~dlwp_cs_tpu_torch.utils.profiling.record_spans`):
+the root ``service.ensemble`` or ``service.forecast``, then
+``service.prepare`` (check and normalise the window), ``rollout.build``
+(when a rollout is built), ``rollout.enqueue`` (every model call, one
+``rollout.call`` each, enqueued on the device), ``service.wait`` (the host
+blocked until the device has finished), ``service.copy_back`` and
+``service.denormalise``.
+
 Under a device mesh (``mesh=``) the model runs spatially decomposed
 (:func:`~dlwp_cs_tpu_torch.parallel.make_spatial_apply`), one process per
 rank, in one of two modes (:class:`ForecastService`): collective calls
@@ -43,6 +52,7 @@ from dlwp_cs_tpu_torch.parallel.mesh import DATA_AXIS
 from dlwp_cs_tpu_torch.parallel.sharding import make_spatial_apply
 from dlwp_cs_tpu_torch.rollout.ensemble import EnsembleForecast, EnsembleForecaster
 from dlwp_cs_tpu_torch.rollout.estimator import Forecast, TimeSeriesEstimator
+from dlwp_cs_tpu_torch.utils.profiling import span
 
 __all__ = [
     "ForecastService",
@@ -74,7 +84,9 @@ class ServiceStats:
     # the mesh front end's broadcasts of a dispatch's host inputs (header,
     # windows, init times, amplitude) over the group's gloo, sent or received
     host_broadcasts: int = 0
-    device_seconds: float = 0.0
+    # host wall seconds of the dispatches, from the rollout's call to the
+    # end of the copy back (the device's work and the host's around it)
+    dispatch_seconds: float = 0.0
 
     @property
     def mean_batch(self) -> float:
@@ -749,82 +761,104 @@ class ForecastService(MicroBatcher):
                        amplitude=0.05, generator=None, antithetic: bool = True,
                        keep_members: bool = False, normalized: bool = False,
                        perturbations=None) -> EnsembleForecast:
-        window, t0 = self._prepare(window, t0_days, normalized)
-        b = window.shape[0]
-        # mesh data-axis divisibility: the rollout batch is b * members, so
-        # pad b to the smallest b' with (b' * members) % data_div == 0
-        unit = self._data_div // math.gcd(int(members), self._data_div)
-        pad = (-b) % unit
-        if pad:
-            window = np.concatenate([window, np.repeat(window[-1:], pad, axis=0)], axis=0)
-            t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
-            if perturbations is not None:
-                perturbations = torch.as_tensor(perturbations)
-                perturbations = torch.cat(
-                    [perturbations, perturbations[-1:].expand(pad, *perturbations.shape[1:])])
-        e = self._est
-        # a forecaster per call: building its rollout only moves the grid
-        # and the constants to the device
-        ens = EnsembleForecaster(
-            model=e.model, data_cfg=e.data_cfg, lat=e.lat, lon=e.lon,
-            constants=e.constants, insol_mean=e.insol_mean,
-            insol_std=e.insol_std, device=e.device,
-        )
-        t0_wall = time.perf_counter()
-        fc = ens.predict(
-            window, t0, steps=steps, members=members, generator=generator,
-            amplitude=amplitude, antithetic=antithetic, keep_members=keep_members,
-            perturbations=perturbations,
-        )
-        mean = fc.mean[:b].cpu().numpy()  # waits for the device
-        spread = fc.spread[:b].cpu().numpy()
-        mem = None if fc.members is None else fc.members[:b].cpu().numpy()
-        with self._lock:
-            self.stats.device_seconds += time.perf_counter() - t0_wall
-            self.stats.padded_mesh += pad
-        if not normalized:
-            mean = mean * self._std + self._mean
-            spread = spread * self._std  # a spread is scaled, not shifted
-            if mem is not None:
-                mem = mem * self._std + self._mean
-        return fc._replace(mean=mean, spread=spread, members=mem,
-                           lead_hours=fc.lead_hours.cpu().numpy(),
-                           init_times=np.asarray(fc.init_times)[:b])
+        with span("service.ensemble", batch=_batch_of(window), members=int(members),
+                  steps=int(steps)):
+            window, t0 = self._prepare(window, t0_days, normalized)
+            b = window.shape[0]
+            # mesh data-axis divisibility: the rollout batch is b * members, so
+            # pad b to the smallest b' with (b' * members) % data_div == 0
+            unit = self._data_div // math.gcd(int(members), self._data_div)
+            pad = (-b) % unit
+            if pad:
+                window = np.concatenate([window, np.repeat(window[-1:], pad, axis=0)], axis=0)
+                t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
+                if perturbations is not None:
+                    perturbations = torch.as_tensor(perturbations)
+                    perturbations = torch.cat(
+                        [perturbations, perturbations[-1:].expand(pad, *perturbations.shape[1:])])
+            e = self._est
+            # a forecaster per call: building its rollout only moves the grid
+            # and the constants to the device
+            ens = EnsembleForecaster(
+                model=e.model, data_cfg=e.data_cfg, lat=e.lat, lon=e.lon,
+                constants=e.constants, insol_mean=e.insol_mean,
+                insol_std=e.insol_std, device=e.device,
+            )
+            t0_wall = time.perf_counter()
+            fc = ens.predict(
+                window, t0, steps=steps, members=members, generator=generator,
+                amplitude=amplitude, antithetic=antithetic, keep_members=keep_members,
+                perturbations=perturbations,
+            )
+            self._wait()
+            with span("service.copy_back"):
+                mean = fc.mean[:b].cpu().numpy()
+                spread = fc.spread[:b].cpu().numpy()
+                mem = None if fc.members is None else fc.members[:b].cpu().numpy()
+                lead_hours = fc.lead_hours.cpu().numpy()
+            with self._lock:
+                self.stats.dispatch_seconds += time.perf_counter() - t0_wall
+                self.stats.padded_mesh += pad
+            if not normalized:
+                with span("service.denormalise"):
+                    mean = mean * self._std + self._mean
+                    spread = spread * self._std  # a spread is scaled, not shifted
+                    if mem is not None:
+                        mem = mem * self._std + self._mean
+            return fc._replace(mean=mean, spread=spread, members=mem, lead_hours=lead_hours,
+                               init_times=np.asarray(fc.init_times)[:b])
+
+    def _wait(self):
+        """Block until the device has run what the service enqueued: the
+        ``service.wait`` span, before the copies back."""
+        with span("service.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
 
     def _prepare(self, window, t0_days, normalized: bool):
         """The checked, normalized window batch and its float64 init times
         (a scalar ``t0_days`` broadcast over the batch)."""
-        window = self._check_window(window)
-        if not normalized:
-            window = (window - self._mean) / self._std
-        t0 = np.atleast_1d(np.asarray(t0_days, np.float64))
-        if t0.shape[0] == 1 and window.shape[0] > 1:
-            t0 = np.repeat(t0, window.shape[0])
-        if t0.shape[0] != window.shape[0]:
-            raise ValueError(
-                f"t0_days batch {t0.shape[0]} != window batch "
-                f"{window.shape[0]}"
-            )
-        return window, t0
+        with span("service.prepare"):
+            window = self._check_window(window)
+            if not normalized:
+                window = (window - self._mean) / self._std
+            t0 = np.atleast_1d(np.asarray(t0_days, np.float64))
+            if t0.shape[0] == 1 and window.shape[0] > 1:
+                t0 = np.repeat(t0, window.shape[0])
+            if t0.shape[0] != window.shape[0]:
+                raise ValueError(
+                    f"t0_days batch {t0.shape[0]} != window batch "
+                    f"{window.shape[0]}"
+                )
+            return window, t0
 
     def _forecast_batch(self, window, t0_days, *, steps: int,
                         normalized: bool = False) -> Forecast:
-        window, t0 = self._prepare(window, t0_days, normalized)
-        b = window.shape[0]
-        pad = (-b) % self._data_div  # mesh data-axis divisibility
-        if pad:
-            window = np.concatenate([window, np.repeat(window[-1:], pad, axis=0)], axis=0)
-            t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
-        t0_wall = time.perf_counter()
-        fc = self._est.predict(window, t0, steps=steps)
-        fields = fc.fields[:b].cpu().numpy()  # waits for the device
-        with self._lock:
-            self.stats.device_seconds += time.perf_counter() - t0_wall
-            self.stats.padded_mesh += pad
-        if not normalized:
-            fields = fields * self._std + self._mean
-        return fc._replace(
-            fields=fields,
-            lead_hours=fc.lead_hours.cpu().numpy(),
-            init_times=np.asarray(fc.init_times)[:b],
-        )
+        with span("service.forecast", batch=_batch_of(window), steps=int(steps)):
+            window, t0 = self._prepare(window, t0_days, normalized)
+            b = window.shape[0]
+            pad = (-b) % self._data_div  # mesh data-axis divisibility
+            if pad:
+                window = np.concatenate([window, np.repeat(window[-1:], pad, axis=0)], axis=0)
+                t0 = np.concatenate([t0, np.repeat(t0[-1:], pad)])
+            t0_wall = time.perf_counter()
+            fc = self._est.predict(window, t0, steps=steps)
+            self._wait()
+            with span("service.copy_back"):
+                fields = fc.fields[:b].cpu().numpy()
+                lead_hours = fc.lead_hours.cpu().numpy()
+            with self._lock:
+                self.stats.dispatch_seconds += time.perf_counter() - t0_wall
+                self.stats.padded_mesh += pad
+            if not normalized:
+                with span("service.denormalise"):
+                    fields = fields * self._std + self._mean
+            return fc._replace(fields=fields, lead_hours=lead_hours,
+                               init_times=np.asarray(fc.init_times)[:b])
+
+
+def _batch_of(window) -> int:
+    """The window batch of a request, read from its shape alone (1 for an
+    unbatched ``(T_in, 6, n, n, C)`` window)."""
+    shape = np.shape(window)
+    return shape[0] if len(shape) == 6 else 1

@@ -1,25 +1,36 @@
-"""Profiling helpers: ``torch.profiler`` traces and roofline accounting.
+"""Profiling helpers: ``torch.profiler`` traces, the program's spans and
+roofline accounting.
 
 The counterpart of ``dlwp_cs_tpu.utils.profiling``: a Chrome/Perfetto
 trace around training or rollout steps (:func:`trace`), a wall clock
 (:class:`Timer`) and the speed-of-light estimate of one cubed-sphere conv
 (:func:`conv_roofline`), whose default peaks are the H100's of
 ``tools/timing.py`` (the one copy of those constants).
+
+The port's own addition is its span recorder: :func:`span` marks a piece
+of host work at a layer boundary (the service, the rollout), and
+:func:`record_spans` collects the spans made while it is open, on the
+wall clock that ``torch.profiler`` stamps its events with, so that a span
+and the device trace of the same seconds line up.  Recording is off by
+default; :func:`span` then costs one test and returns :data:`NO_SPAN`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from dlwp_cs_tpu_torch.tools.timing import HBM_BYTES_PER_S, PEAK_OPS
 
-__all__ = ["trace", "Timer", "conv_roofline"]
+__all__ = ["trace", "Timer", "conv_roofline", "Span", "span", "record_spans", "NO_SPAN"]
 
 
 @contextlib.contextmanager
@@ -43,6 +54,119 @@ def trace(logdir):
     with torch.profiler.profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(str(path))
+
+
+class Span(NamedTuple):
+    """One recorded span.  ``start_ns`` / ``end_ns``: ns since the epoch, the
+    clock of ``torch.profiler``'s events; ``thread``: the thread's ident;
+    ``id``: unique within its recording (each counts from 1);
+    ``parent``: the enclosing span's ``id`` on the same thread (``None`` for
+    a root); ``request``: the root's ``id``, shared by every span of one
+    request; ``attrs``: the keywords given to :func:`span`."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: int | None
+    request: int
+    attrs: dict
+
+
+class _NoSpan:
+    """The context :func:`span` returns while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Recording:
+    """The state of one :func:`record_spans`: finished spans as raw tuples
+    on the monotonic clock, the id counter and each thread's open spans."""
+
+    def __init__(self):
+        self.done: list[tuple] = []  # list.append is atomic: threads share it
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+
+_recording: _Recording | None = None
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "attrs", "start", "id", "parent", "request")
+
+    def __init__(self, rec: _Recording, name: str, attrs: dict):
+        self.rec, self.name, self.attrs = rec, name, attrs
+
+    def __enter__(self):
+        local = self.rec.local
+        stack = local.__dict__.setdefault("stack", [])
+        self.id = next(self.rec.ids)
+        if stack:
+            self.parent, self.request = stack[-1].id, stack[-1].request
+        else:
+            self.parent, self.request = None, self.id
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.rec.local.stack.pop()
+        self.rec.done.append((self.name, self.start, end, threading.get_ident(), self.id,
+                              self.parent, self.request, self.attrs))
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager that records ``name`` over the enclosed code while
+    :func:`record_spans` is open, as a child of the thread's innermost open
+    span.  Otherwise it returns :data:`NO_SPAN`: no clock is read.
+
+    Usage::
+
+        with span("service.prepare"):
+            window = (window - mean) / std
+    """
+    rec = _recording
+    if rec is None:
+        return NO_SPAN
+    return _OpenSpan(rec, name, attrs)
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Record the spans of every thread while open; yields a list that
+    holds them as :class:`Span` once the block ends (spans still open then
+    are left out).  Spans are timed on the monotonic clock and moved onto
+    the wall clock (``time.time_ns``, the clock ``torch.profiler`` stamps
+    its events with) by one anchor read when recording starts.  One
+    recording at a time."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("spans are already being recorded")
+    rec, out = _Recording(), []
+    m0 = time.perf_counter_ns()
+    wall = time.time_ns()
+    m1 = time.perf_counter_ns()
+    offset = wall - (m0 + m1) // 2
+    _recording = rec
+    try:
+        yield out
+    finally:
+        _recording = None
+        out.extend(Span(name, a + offset, b + offset, *rest)
+                   for name, a, b, *rest in rec.done[:])
 
 
 def _cuda_devices(out, found: set):

@@ -94,7 +94,7 @@ def test_health_and_info(server):
     assert info["constants"] == ["topography"]
     assert info["quantized"] is False
     assert set(info["stats"]) == {"requests", "batches", "mean_batch", "padded_members",
-                                  "padded_mesh", "device_seconds"}
+                                  "padded_mesh", "dispatch_seconds"}
     conn.request("GET", "/nope")
     assert conn.getresponse().status == 404
     conn.close()
